@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where a frame of the torch port's rollout spends its time, on the card.
 
-Rolls the golden dam-break (262,144 particles, R = 47) and the bench
-headline (1,048,576 particles, R = 75) forward 10 frames, then profiles the
-rollout of the next frames. Each phase's device time is that of the
-kernels launched inside the stepper's own profiler ranges
-(``stepper.FRAME_PHASES``: frame build, density kernel, rows pack, each
-fused substep, unpack + metrics); against the host clock of the rollout
-without the profiler, the device time of the whole trace gives the device's
-idle share. Also prints what a range costs the host when no profiler runs,
+Rolls the golden dam-break (262,144 particles, R = 47), the bench
+headline (1,048,576 particles, R = 75) and BASELINE config 3 (524,176
+particles, R = 47, XSPH 0.3, artificial viscosity 0.5) in faithful and in
+corrected mode forward 10 frames, then profiles the rollout of the next
+frames. Each phase's device time is that of the kernels launched inside the
+stepper's own profiler ranges (``stepper.FRAME_PHASES``: frame build,
+density kernel, rows pack, each fused substep, unpack + metrics;
+``stepper.CORRECTED_PHASES`` in corrected mode: each substep's frame build,
+density, pack, forces kernel and integrate + unsort, then the metrics);
+against the host clock of the rollout without the profiler, the device time
+of the whole trace gives the device's idle share. Also prints what a range costs the host when no profiler runs,
 and the candidate slots the kernels walk. A torch.profiler table of the
 rollout's kernels goes to a file. Run from the root of a checkout on a
 machine with a CUDA card:
@@ -31,7 +34,7 @@ from torch.autograd import DeviceType
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from sphfluidsimulation_torch import GOLDEN_CONFIG  # noqa: E402
+from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig  # noqa: E402
 from sphfluidsimulation_torch.bench import scaled_config  # noqa: E402
 from sphfluidsimulation_torch.ops import sph_kernels as sk  # noqa: E402
 from sphfluidsimulation_torch.ops.frame import build_frame  # noqa: E402
@@ -40,20 +43,20 @@ from sphfluidsimulation_torch.utils.profiling import (  # noqa: E402
     gpu_identity, span)
 
 
-def phase_device_ms(prof, frames: int) -> tuple[dict, dict, float]:
-    """Device ms per frame of each phase of the stepper
-    (``stepper.FRAME_PHASES``): the device time of every kernel, memset or
-    copy whose launch call ran inside one of the phase's profiler ranges;
-    the number of ranges of each; and the device ms per frame of every
-    kernel in the trace.
+def phase_device_ms(prof, frames: int, phases: tuple[str, ...]
+                    ) -> tuple[dict, dict, float]:
+    """Device ms per frame of each of the stepper's ``phases``: the device
+    time of every kernel, memset or copy whose launch call ran inside one of
+    the phase's profiler ranges; the number of ranges of each; and the
+    device ms per frame of every kernel in the trace.
 
     A launch is matched to its device work by the CUDA correlation id. The
     profiler links device work only to the torch op that launched it, so
     the kernels launched through ctypes are placed by the host time of
     their launch call instead."""
-    names = set(stepper.FRAME_PHASES)
-    ms = dict.fromkeys(stepper.FRAME_PHASES, 0.0)
-    calls = dict.fromkeys(stepper.FRAME_PHASES, 0)
+    names = set(phases)
+    ms = dict.fromkeys(phases, 0.0)
+    calls = dict.fromkeys(phases, 0)
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in events
@@ -116,14 +119,23 @@ def main() -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     print(f"span with no profiler: {span_cost_us():.3f} us of host time per "
-          f"range; a frame opens {len(stepper.FRAME_PHASES) + 4}")
-    for label, cfg in (("262k", GOLDEN_CONFIG),
-                       ("1m", scaled_config(1 << 20))):
-        state, _ = stepper.make_rollout(cfg, 10, device=dev)(
+          f"range; a faithful frame opens {len(stepper.FRAME_PHASES) + 4}, "
+          f"a corrected one {2 + 5 * (len(stepper.CORRECTED_PHASES) - 1) + 1}")
+    c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+                   artificial_viscosity=0.5)
+    for label, cfg, faithful in (("262k", GOLDEN_CONFIG, True),
+                                 ("1m", scaled_config(1 << 20), True),
+                                 ("config3", c3, True),
+                                 ("config3-corrected", c3, False)):
+        phases = stepper.FRAME_PHASES if faithful else \
+            stepper.CORRECTED_PHASES
+        state, _ = stepper.make_rollout(cfg, 10, faithful=faithful,
+                                        device=dev)(
             stepper.initial_state(cfg, dev))
 
         # host clock of the rollout: the frame time users see
-        roll = stepper.make_rollout(cfg, args.frames, device=dev)
+        roll = stepper.make_rollout(cfg, args.frames, faithful=faithful,
+                                    device=dev)
         roll(state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -136,7 +148,7 @@ def main() -> None:
             roll(state)
             torch.cuda.synchronize()
             prof_ms = (time.perf_counter() - t0) * 1e3 / args.frames
-        ms, calls, dev_ms = phase_device_ms(prof, args.frames)
+        ms, calls, dev_ms = phase_device_ms(prof, args.frames, phases)
         in_ranges = sum(ms.values())
         print(f"[{label}] N={cfg.n_particles} R={cfg.bucket_resolution}, "
               f"frames 10-{9 + args.frames}, device ms per frame [{ident}]:")
@@ -150,11 +162,12 @@ def main() -> None:
               f"under the profiler); device idle share "
               f"{1 - dev_ms / host_ms:.4f}")
         slots = walk_slots(cfg, state)
-        k2_ns = ms["fused_substep"] / cfg.substeps * 1e6
-        print(f"  walk: {slots:.1f} candidate slots per particle; K2 "
-              f"{k2_ns / (slots * cfg.n_particles):.4f} ns per slot, K1 "
-              f"{ms['density'] * 1e6 / (slots * cfg.n_particles):.4f} ns "
-              f"per slot")
+        force = "fused_substep" if faithful else "forces"
+        k_ns = ms[force] / cfg.substeps * 1e6
+        k1_ns = ms["density"] * 1e6 / (1 if faithful else 1 + cfg.substeps)
+        print(f"  walk: {slots:.1f} candidate slots per particle; "
+              f"{force} {k_ns / (slots * cfg.n_particles):.4f} ns per slot, "
+              f"K1 {k1_ns / (slots * cfg.n_particles):.4f} ns per slot")
 
         table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=30)

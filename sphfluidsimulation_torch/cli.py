@@ -1,0 +1,193 @@
+"""Command-line runner.
+
+Counterpart of ``sphfluidsimulation_tpu/cli.py`` (``run`` :65-147, ``bench``
+:305-311, the flags :18-62): ``python -m sphfluidsimulation_torch run`` with
+one flag per reference inspector field (SphFluidSimulation.cs:34-53), plus
+checkpoint/resume and a metrics JSONL. ``--device`` names the torch device;
+it defaults to the card, and a run asked for on a card that is not there
+stops with exit code 2 instead of running on the CPU.
+
+BASELINE config 3 (512k water-column collapse with XSPH and artificial
+viscosity), in faithful and corrected mode:
+
+    python -m sphfluidsimulation_torch run --particles 524288 --preset 2 \\
+        --xsph 0.3 --alpha-visc 0.5 [--corrected]
+
+What needs code the port does not have yet exits with code 2 and names its
+ROADMAP.md item: ``export`` and ``--export-dir``/``--animate``/``--viewer``
+(render, queue A item 10), ``sweep`` (scene batching, item 11) and
+``--shards > 1`` (slab decomposition, item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+_RENDER = "render is not ported yet: ROADMAP.md queue A item 10"
+_BATCH = "scene batching is not ported yet: ROADMAP.md queue A item 11"
+_SLAB = "the slab decomposition is not ported yet: ROADMAP.md queue A item 11"
+
+
+def _add_config_flags(p: argparse.ArgumentParser) -> None:
+    # one flag per reference inspector field (SphFluidSimulation.cs:34-53)
+    p.add_argument("--preset", type=int, default=1,
+                   help="spawn kernel index: 0 dam, 1 centered column, "
+                        "2 corner column (scene default 1)")
+    p.add_argument("--particles", type=int, default=262144)
+    p.add_argument("--bucket-resolution", type=int, default=47)
+    p.add_argument("--dam-fill-rate", type=float, default=0.8)
+    p.add_argument("--viscosity", type=float, default=0.01)
+    p.add_argument("--rest-density", type=float, default=1.5)
+    p.add_argument("--gas-constant", type=float, default=150.0)
+    p.add_argument("--stiffness", type=float, default=5000.0)
+    p.add_argument("--damping", type=float, default=10.0)
+    p.add_argument("--particle-radius", type=float, default=0.01)
+    p.add_argument("--low-speed", type=float, default=0.0)
+    p.add_argument("--high-speed", type=float, default=0.5)
+    p.add_argument("--frame-dt", type=float, default=1.0 / 60.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--neighbor", choices=["sorted", "brute"],
+                   default="sorted",
+                   help="'sorted': the CUDA kernels on the card (plain "
+                        "torch on the CPU); 'brute': the O(N²) oracle")
+    p.add_argument("--corrected", action="store_true",
+                   help="rebuild bucket+density every substep instead of "
+                        "the reference's once-per-frame reuse")
+    p.add_argument("--xsph", type=float, default=0.0,
+                   help="XSPH advection-smoothing epsilon (0 disables)")
+    p.add_argument("--alpha-visc", type=float, default=0.0,
+                   help="Monaghan artificial-viscosity alpha (0 disables)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the card)")
+
+
+def _config_from_args(a) -> "SimConfig":
+    from .config import SimConfig
+    return SimConfig(
+        preset=a.preset, particle_number=a.particles,
+        bucket_resolution=a.bucket_resolution, dam_fill_rate=a.dam_fill_rate,
+        viscosity=a.viscosity, rest_density=a.rest_density,
+        gas_constant=a.gas_constant, stiffness_coefficient=a.stiffness,
+        damping_coefficient=a.damping, particle_radius=a.particle_radius,
+        low_speed=a.low_speed, high_speed=a.high_speed, frame_dt=a.frame_dt,
+        seed=a.seed, xsph=a.xsph, artificial_viscosity=a.alpha_visc,
+    ).validate()
+
+
+def _unavailable(msg: str) -> int:
+    print(msg, file=sys.stderr)
+    return 2
+
+
+def _device(name: str):
+    """The torch device ``name``, or None (with a message) when it names a
+    card that is not there."""
+    import torch
+
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print(f"--device {name}: no CUDA device is available (use "
+              "--device cpu to run the plain versions on the CPU)",
+              file=sys.stderr)
+        return None
+    return dev
+
+
+def cmd_run(a) -> int:
+    from .models.scene import Scene
+    from .utils.checkpoint import load_checkpoint, save_checkpoint
+    from .utils.metrics import MetricsLogger
+
+    if a.shards > 1:
+        return _unavailable(f"--shards {a.shards}: {_SLAB}")
+    render = [flag for flag, on in (
+        ("--export-dir", a.export_dir), ("--animate", a.animate),
+        ("--viewer", a.viewer)) if on]
+    if render:
+        return _unavailable(f"{', '.join(render)}: {_RENDER}")
+    dev = _device(a.device)
+    if dev is None:
+        return 2
+    if a.resume:
+        state, cfg, meta = load_checkpoint(a.resume, dev)
+        scene = Scene(cfg, neighbor=a.neighbor, faithful=not a.corrected,
+                      device=dev)
+        scene.state = state
+        scene.frame = meta.get("frame", 0)
+        print(f"resumed frame {scene.frame} from {a.resume}")
+    else:
+        scene = Scene(_config_from_args(a), neighbor=a.neighbor,
+                      faithful=not a.corrected, device=dev)
+
+    log = MetricsLogger(a.metrics, n_particles=scene.cfg.n_particles,
+                        substeps=scene.cfg.substeps)
+    for _ in range(a.frames):
+        scene.step()
+        rec = log.log(scene.frame, scene.last_metrics)
+        if a.verbose:
+            print(json.dumps(rec))
+        if a.checkpoint and a.checkpoint_every and \
+                scene.frame % a.checkpoint_every == 0:
+            save_checkpoint(a.checkpoint, scene.state, scene.cfg,
+                            frame=scene.frame)
+
+    if a.checkpoint:
+        save_checkpoint(a.checkpoint, scene.state, scene.cfg,
+                        frame=scene.frame)
+        print(f"checkpoint → {a.checkpoint}")
+    last = log.history[-1] if log.history else {}
+    print(json.dumps({"frames": scene.frame, **last}))
+    return 0
+
+
+def cmd_bench(a) -> int:
+    from .bench import run_bench
+    if _device("cuda") is None:
+        return 2
+    result = run_bench(n_particles=a.particles, frames=a.frames,
+                       warmup_frames=a.warmup)
+    print(json.dumps(result))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    # the JAX package's other commands, whatever arguments they carry
+    unported = {"export": _RENDER, "sweep": _BATCH}
+    if argv and argv[0] in unported:
+        return _unavailable(f"{argv[0]}: {unported[argv[0]]}")
+    parser = argparse.ArgumentParser(
+        prog="sphfluidsimulation_torch",
+        description="SPH fluid simulation, PyTorch + CUDA")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("run", help="advance a scene")
+    _add_config_flags(p)
+    p.add_argument("--frames", type=int, default=60)
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help=".npz path (readable by both packages)")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", type=str, default=None)
+    p.add_argument("--metrics", type=str, default=None,
+                   help="JSONL metrics path")
+    p.add_argument("--export-dir", type=str, default=None, help=_RENDER)
+    p.add_argument("--animate", type=str, default=None, help=_RENDER)
+    p.add_argument("--viewer", type=str, default=None, help=_RENDER)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--shards", type=int, default=1, help=_SLAB)
+    p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("bench", help="measure throughput on the card")
+    p.add_argument("--particles", type=int, default=1048576)
+    p.add_argument("--frames", type=int, default=20)
+    p.add_argument("--warmup", type=int, default=5)
+    p.set_defaults(fn=cmd_bench)
+
+    a = parser.parse_args(argv)
+    return a.fn(a)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,6 +9,13 @@
 // scalar dot(damp, v) quirk, gravity, the NaN trap, semi-implicit Euler and
 // the [0, 1] clamp. The NaN-trap count rides lane 7 of the rows.
 //
+// With kExt (xsph or alpha_visc nonzero) the walk also sums the XSPH and
+// Monaghan artificial-viscosity terms, folded in as the JAX tail does
+// (:1440-1450): the artificial viscosity joins the force, and the XSPH
+// correction dv moves the position only, after the NaN trap, so a trapped
+// particle still moves by dt * dv (stepper.py:57-59). The instance without
+// extensions is the faithful K2.
+//
 // Rows are f32[N, 8] = (x, y, z, vx, vy, vz, rho, nan_count): two float4
 // loads per particle. rho is the frame-start density for i and for j.
 // Candidates are read from the state as it was before the substep and the
@@ -16,14 +23,16 @@
 //
 // What bounds it on the H100: the same gather walk as K1 with 32 bytes per
 // candidate and ~45 flops, an IEEE sqrt and two IEEE divisions per pair
-// (no fast math: h - |r| cancels at the support edge, pallas_sph.py:1213).
-// Loads are served by L1/L2 because a warp's particles share window cells;
-// the divisions and the sqrt set the issue rate.
+// (no fast math: h - |r| cancels at the support edge, pallas_sph.py:1213);
+// the extensions add ~30 flops and two divisions. Loads are served by L1/L2
+// because a warp's particles share window cells; the divisions and the sqrt
+// set the issue rate.
 //
 // What the design does about it: one thread per sorted particle, separate
-// pressure and viscosity accumulators in registers as in ops/brute.py, the
-// walk cut at the voxel capacity, and every gate a branch, so the inf
-// velocities of exploding scenes reach only real candidates.
+// accumulators in registers as in ops/brute.py, the pair terms shared with
+// K3 (sph_common.cuh::add_pair), the walk cut at the voxel capacity, and
+// every gate a branch, so the inf velocities of exploding scenes reach only
+// real candidates.
 #include "sph_common.cuh"
 
 namespace {
@@ -37,6 +46,7 @@ __device__ __forceinline__ float clamp01(float x) {
   return x < 0.f ? 0.f : (x > 1.f ? 1.f : x);
 }
 
+template <bool kExt>
 __global__ void __launch_bounds__(sph::kBlock)
 fused_substep_kernel(const float4* __restrict__ rows,
                      const int* __restrict__ start,
@@ -47,50 +57,32 @@ fused_substep_kernel(const float4* __restrict__ rows,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const sph::Scalars s = sph::load_scalars(scal);
-  const float4 a = rows[2 * i];
-  const float4 b = rows[2 * i + 1];
-  const float px = a.x, py = a.y, pz = a.z;
-  const float vx = a.w, vy = b.x, vz = b.y;
-  const float rho = b.z;
-  const int cx = sph::fresh_coord(px, r);
-  const int cy = sph::fresh_coord(py, r);
-  const int cz = sph::fresh_coord(pz, r);
-  const float press_i = s.gas_k * (rho - s.rho0);
-
-  float fpx = 0.f, fpy = 0.f, fpz = 0.f;
-  float fvx = 0.f, fvy = 0.f, fvz = 0.f;
-  sph::for_each_candidate(cx, cy, cz, r, cap, start, raw, occ, [&](int j) {
-    if (j == i) return;                          // VelPos.compute:82
-    const float4 ja = __ldg(rows + 2 * j);
-    const float4 jb = __ldg(rows + 2 * j + 1);
-    const float rho_j = jb.z;
-    if (!(rho_j > sph::kEps)) return;            // VelPos.compute:91
-    const float dx = px - ja.x, dy = py - ja.y, dz = pz - ja.z;
-    const float r2 = dx * dx + dy * dy + dz * dz;
-    const float abs_r = sqrtf(r2);
-    const float diff_r = s.h - abs_r;
-    const bool ok = diff_r > sph::kEps && abs_r > sph::kEps;
-    const float g = ok ? s.c_grad * (diff_r * diff_r * diff_r) / abs_r : 0.f;
-    const float gwv = abs_r < s.h ? s.c_grad * diff_r : 0.f;
-    const float press_j = s.gas_k * (rho_j - s.rho0);
-    const float pc = (press_i + press_j) / (2.f * rho_j);
-    fpx += pc * (g * dx);
-    fpy += pc * (g * dy);
-    fpz += pc * (g * dz);
-    const float vc = gwv / rho_j;
-    fvx += vc * (ja.w - vx);
-    fvy += vc * (jb.x - vy);
-    fvz += vc * (jb.y - vz);
-  });
+  const sph::Particle p = sph::load_particle(rows, i);
+  const float px = p.px, py = p.py, pz = p.pz;
+  const float vx = p.vx, vy = p.vy, vz = p.vz;
+  const float rho = p.rho;
+  const sph::PairSums acc =
+      sph::pair_sums<kExt>(s, p, i, r, cap, rows, start, raw, occ);
 
   // final scaling, guarded by rho_i > eps (VelPos.compute:101-105)
   const bool i_ok = rho > sph::kEps;
   const float safe = i_ok ? rho : 1.f;
   const float sp = s.mass * s.mass / safe;
   const float sv = s.visc * s.mass * s.mass / safe;
-  const float ffx = (i_ok ? fpx * sp : fpx) + (i_ok ? fvx * sv : fvx);
-  const float ffy = (i_ok ? fpy * sp : fpy) + (i_ok ? fvy * sv : fvy);
-  const float ffz = (i_ok ? fpz * sp : fpz) + (i_ok ? fvz * sv : fvz);
+  float ffx = (i_ok ? acc.px * sp : acc.px) + (i_ok ? acc.vx * sv : acc.vx);
+  float ffy = (i_ok ? acc.py * sp : acc.py) + (i_ok ? acc.vy * sv : acc.vy);
+  float ffz = (i_ok ? acc.pz * sp : acc.pz) + (i_ok ? acc.vz * sv : acc.vz);
+  float dvx = 0.f, dvy = 0.f, dvz = 0.f;
+  if constexpr (kExt) {
+    const float xs = s.xsph * s.mass;
+    dvx = xs * acc.xx;
+    dvy = xs * acc.xy;
+    dvz = xs * acc.xz;
+    const float av = s.alpha_visc * s.mass * s.mass;
+    ffx = ffx + av * acc.ax;
+    ffy = ffy + av * acc.ay;
+    ffz = ffz + av * acc.az;
+  }
 
   // wall penalty (VelPos.compute:107-137): the damping term is the SCALAR
   // dot(damp, v) subtracted from all components
@@ -114,20 +106,30 @@ fused_substep_kernel(const float4* __restrict__ rows,
   const float nvx = nan_hit ? 0.f : vx + ax * s.dt;
   const float nvy = nan_hit ? 0.f : vy + ay * s.dt;
   const float nvz = nan_hit ? 0.f : vz + az * s.dt;
-  out[2 * i] = make_float4(clamp01(px + s.dt * nvx), clamp01(py + s.dt * nvy),
-                           clamp01(pz + s.dt * nvz), nvx);
-  out[2 * i + 1] = make_float4(nvy, nvz, rho, b.w + (nan_hit ? 1.f : 0.f));
+  if constexpr (kExt) {
+    out[2 * i] = make_float4(clamp01(px + s.dt * (nvx + dvx)),
+                             clamp01(py + s.dt * (nvy + dvy)),
+                             clamp01(pz + s.dt * (nvz + dvz)), nvx);
+  } else {
+    out[2 * i] = make_float4(clamp01(px + s.dt * nvx),
+                             clamp01(py + s.dt * nvy),
+                             clamp01(pz + s.dt * nvz), nvx);
+  }
+  out[2 * i + 1] = make_float4(nvy, nvz, rho, p.aux + (nan_hit ? 1.f : 0.f));
 }
 
 }  // namespace
 
+// ext != 0 selects the instance with the extension sums.
 extern "C" int sph_fused_substep(const float* rows, const int* start,
                                  const int* raw, const uint8_t* occ,
                                  const float* scal, float* out, int n, int r,
-                                 int cap, void* stream) {
+                                 int cap, int ext, void* stream) {
   if (n > 0) {
     const int blocks = (n + sph::kBlock - 1) / sph::kBlock;
-    fused_substep_kernel<<<blocks, sph::kBlock, 0, (cudaStream_t)stream>>>(
+    auto kernel = ext ? fused_substep_kernel<true>
+                      : fused_substep_kernel<false>;
+    kernel<<<blocks, sph::kBlock, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const float4*>(rows), start, raw, occ, scal,
         reinterpret_cast<float4*>(out), n, r, cap);
   }

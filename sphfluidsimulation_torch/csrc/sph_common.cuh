@@ -1,6 +1,7 @@
 // Shared device code of the sorted-frame SPH kernels (density.cu,
-// fused_substep.cu): the scalar block, the fresh-cell computation and the
-// reference's 27-cell candidate walk over the anchor-sorted particle array.
+// fused_substep.cu, forces.cu): the scalar block, the fresh-cell computation,
+// the reference's 27-cell candidate walk over the anchor-sorted particle
+// array, and the force-side pair terms that K2 and K3 both sum.
 //
 // Layout (ops/frame.py): particles are sorted by anchor cell (the flat id of
 // the clamped 3D cell); start[c] .. start[c+1] is cell c's run; occ[j] says
@@ -17,16 +18,31 @@ namespace sph {
 constexpr float kEps = 1e-6f;   // VelPos.compute:5
 constexpr int kBlock = 128;
 
-// Scalar block written by ops/sph_kernels.py::scal_block.
+// Scalar block written by ops/sph_kernels.py::scal_block (N_SCAL lanes, in
+// this order; the two must change together).
 struct Scalars {
   float h, h2, c_poly6, c_grad, mass, gas_k, rho0, visc, stiff, damping,
-      grav_y, dt;
+      grav_y, dt, xsph, alpha_visc, cs;
 };
 
 __device__ __forceinline__ Scalars load_scalars(const float* __restrict__ s) {
-  return Scalars{__ldg(s + 0), __ldg(s + 1), __ldg(s + 2),  __ldg(s + 3),
-                 __ldg(s + 4), __ldg(s + 5), __ldg(s + 6),  __ldg(s + 7),
-                 __ldg(s + 8), __ldg(s + 9), __ldg(s + 10), __ldg(s + 11)};
+  return Scalars{__ldg(s + 0),  __ldg(s + 1),  __ldg(s + 2),  __ldg(s + 3),
+                 __ldg(s + 4),  __ldg(s + 5),  __ldg(s + 6),  __ldg(s + 7),
+                 __ldg(s + 8),  __ldg(s + 9),  __ldg(s + 10), __ldg(s + 11),
+                 __ldg(s + 12), __ldg(s + 13), __ldg(s + 14)};
+}
+
+// One particle of the rows state f32[N, 8] = (x, y, z, vx, vy, vz, rho,
+// nan_count): two float4 loads.
+struct Particle {
+  float px, py, pz, vx, vy, vz, rho, aux;
+};
+
+__device__ __forceinline__ Particle load_particle(
+    const float4* __restrict__ rows, int i) {
+  const float4 a = __ldg(rows + 2 * i);
+  const float4 b = __ldg(rows + 2 * i + 1);
+  return Particle{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
 // Fresh cell coordinate trunc(p * (R-1)) (VelPos.compute:58). The float to
@@ -82,6 +98,91 @@ __device__ __forceinline__ void for_each_candidate(
       }
     }
   }
+}
+
+// Raw force-side pair sums of one particle: pressure, viscosity, and the
+// XSPH and Monaghan artificial-viscosity sums (zero without extensions).
+struct PairSums {
+  float px = 0.f, py = 0.f, pz = 0.f;   // (p_i + p_j) / (2 rho_j) gradW r
+  float vx = 0.f, vy = 0.f, vz = 0.f;   // lapW (v_j - v_i) / rho_j
+  float xx = 0.f, xy = 0.f, xz = 0.f;   // 2 / (rho_i + rho_j) W (v_j - v_i)
+  float ax = 0.f, ay = 0.f, az = 0.f;   // PI gradW r
+};
+
+// Adds the pair terms of candidate j to particle p's sums
+// (VelPos.compute:64-99; the extension sums of pallas_sph.py:1255-1283).
+// The rho_j > eps guard (VelPos.compute:91) gates pressure and viscosity
+// only: the JAX kernel keeps such j in the XSPH and artificial-viscosity
+// sums, each of which guards its own denominator. Without extensions this
+// is the code of the faithful K2: a j with rho_j <= eps contributes nothing.
+// No gate multiplies: every select is a branch, so an inf on a
+// non-contributing term never turns into 0 * inf.
+template <bool kExt>
+__device__ __forceinline__ void add_pair(const Scalars& s, const Particle& p,
+                                         float press_i, const Particle& q,
+                                         PairSums& acc) {
+  const bool rho_ok = q.rho > kEps;
+  if (!kExt && !rho_ok) return;
+  const float dx = p.px - q.px, dy = p.py - q.py, dz = p.pz - q.pz;
+  const float r2 = dx * dx + dy * dy + dz * dz;
+  const float abs_r = sqrtf(r2);
+  const float diff_r = s.h - abs_r;
+  const bool ok = diff_r > kEps && abs_r > kEps;
+  const float g = ok ? s.c_grad * (diff_r * diff_r * diff_r) / abs_r : 0.f;
+  if (rho_ok) {
+    const float gwv = abs_r < s.h ? s.c_grad * diff_r : 0.f;
+    const float press_j = s.gas_k * (q.rho - s.rho0);
+    const float pc = (press_i + press_j) / (2.f * q.rho);
+    acc.px += pc * (g * dx);
+    acc.py += pc * (g * dy);
+    acc.pz += pc * (g * dz);
+    const float vc = gwv / q.rho;
+    acc.vx += vc * (q.vx - p.vx);
+    acc.vy += vc * (q.vy - p.vy);
+    acc.vz += vc * (q.vz - p.vz);
+  }
+  if constexpr (kExt) {
+    // XSPH: 2 / (rho_i + rho_j) W_poly6 (v_j - v_i); eps and mass are
+    // folded in after the walk
+    const float d2 = s.h2 - r2;
+    const float w6 = d2 > 0.f ? s.c_poly6 * d2 * d2 * d2 : 0.f;
+    const float denom = p.rho + q.rho;
+    const float xc = denom > kEps ? 2.f / denom * w6 : 0.f;
+    acc.xx += xc * (q.vx - p.vx);
+    acc.xy += xc * (q.vy - p.vy);
+    acc.xz += xc * (q.vz - p.vz);
+    // Monaghan PI for approaching pairs; alpha and m^2 are folded in after
+    // the walk, cs = sqrt(gas_k)
+    const float vr = (p.vx - q.vx) * dx + (p.vy - q.vy) * dy
+                     + (p.vz - q.vz) * dz;
+    const float rho_bar = 0.5f * (p.rho + q.rho);
+    const float mu = s.h * vr / (r2 + 0.01f * s.h2);
+    const bool pi_ok = vr < 0.f && rho_bar > kEps;
+    const float ac = (pi_ok ? -s.cs * mu / rho_bar : 0.f) * g;
+    acc.ax += ac * dx;
+    acc.ay += ac * dy;
+    acc.az += ac * dz;
+  }
+}
+
+// Particle i's pair sums over its candidates, j == i skipped
+// (VelPos.compute:82). Candidates are read from `rows`, the state before
+// the substep.
+template <bool kExt>
+__device__ __forceinline__ PairSums pair_sums(
+    const Scalars& s, const Particle& p, int i, int r, int cap,
+    const float4* __restrict__ rows, const int* __restrict__ start,
+    const int* __restrict__ raw, const uint8_t* __restrict__ occ) {
+  const int cx = fresh_coord(p.px, r);
+  const int cy = fresh_coord(p.py, r);
+  const int cz = fresh_coord(p.pz, r);
+  const float press_i = s.gas_k * (p.rho - s.rho0);
+  PairSums acc;
+  for_each_candidate(cx, cy, cz, r, cap, start, raw, occ, [&](int j) {
+    if (j == i) return;
+    add_pair<kExt>(s, p, press_i, load_particle(rows, j), acc);
+  });
+  return acc;
 }
 
 }  // namespace sph

@@ -6,7 +6,10 @@ role of the reference's ``SphFluidSimulation`` MonoBehaviour
 state (``Start``, :82-94) and advances frames (``Update``, :96-108).
 
 The default backend is ``"sorted"`` (the JAX package defaults to
-``"slotted"``, which is not ported yet: ROADMAP.md queue A item 8).
+``"slotted"``, which is not ported yet: ROADMAP.md queue A item 8);
+``"brute"`` is the O(N²) oracle. ``faithful=False`` selects the corrected
+mode, and the config's ``xsph`` and ``artificial_viscosity`` reach every
+backend through the frame step.
 """
 
 from __future__ import annotations

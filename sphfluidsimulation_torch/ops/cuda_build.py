@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels.
 
 No JAX counterpart (``sphfluidsimulation_tpu/native/build.py`` builds the
-host-side C++ frame codec, not a kernel). The sources under ``csrc/`` are
-compiled with nvcc into one shared library with a plain C interface, loaded
-with ctypes. The build happens at first use, on the machine with the card,
-into ``build/`` at the root of the checkout; the file name carries a hash of
-the sources and flags, so an edit rebuilds and an unchanged tree reuses it.
+host-side C++ frame codec, not a kernel). Each kernel source under ``csrc/``
+is compiled with nvcc into a shared library of its own with a plain C
+interface, loaded with ctypes; the nvcc processes run side by side. The
+build happens at first use, on the machine with the card, into ``build/`` at
+the root of the checkout; each file name carries a hash of its source, the
+shared header and the flags, so an edit rebuilds and an unchanged tree
+reuses it.
 """
 
 from __future__ import annotations
@@ -16,24 +18,31 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("sph_common.cuh", "density.cu", "fused_substep.cu")
+HEADER = "sph_common.cuh"
 # IEEE sqrt and division are required: no -use_fast_math
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (name, argtypes): pointers and the stream as c_void_p, ints as c_int
-_SIGNATURES = (
-    ("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
-    ("sph_fused_substep", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
-)
+# source → its C functions (name, argtypes): pointers and the stream as
+# c_void_p, ints as c_int
+KERNELS = {
+    "density.cu": (("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _P)),),
+    "fused_substep.cu": (("sph_fused_substep", (_P, _P, _P, _P, _P, _P, _I,
+                                                 _I, _I, _I, _P)),),
+    "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _P)),),
+}
 
-_lib: ctypes.CDLL | None = None
+_lib: types.SimpleNamespace | None = None
 
 
 def nvcc_path() -> str:
@@ -51,28 +60,29 @@ def nvcc_path() -> str:
                        "are built from source on the machine with the card")
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (HEADER, source):
         digest.update(name.encode())
         digest.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libsph_kernels_{digest.hexdigest()[:16]}.so"
+    stem = source.removesuffix(".cu")
+    return BUILD_DIR / f"libsph_{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
+def _build_one(source: str) -> Path:
+    """Compile one kernel source unless its library exists.
 
     Writes to a temporary name and renames, so a concurrent build never
     loads a half-written file.
     """
-    out = library_path()
+    out = library_path(source)
     if out.exists():
         return out
+    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES if s.endswith(".cu"))]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -86,14 +96,26 @@ def build() -> Path:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The bound kernel library (built on first call)."""
+def build() -> list[Path]:
+    """The kernel libraries, one per source in ``KERNELS`` order; the
+    missing ones are compiled side by side, one nvcc each."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return list(pool.map(_build_one, KERNELS))
+
+
+def load() -> types.SimpleNamespace:
+    """The bound kernel functions, one attribute per C function (built on
+    first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES:
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = lib
+        fns = {"libraries": []}
+        for path, sigs in zip(build(), KERNELS.values()):
+            lib = ctypes.CDLL(str(path))
+            fns["libraries"].append(lib)
+            for name, argtypes in sigs:
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+        _lib = types.SimpleNamespace(**fns)
     return _lib

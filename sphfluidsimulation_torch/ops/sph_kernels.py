@@ -1,23 +1,31 @@
-"""Density and fused-substep passes over the sorted frame: CUDA kernels and
-their plain PyTorch versions.
+"""Density, force and fused-substep passes over the sorted frame: CUDA
+kernels and their plain PyTorch versions.
 
 Counterpart of ``sphfluidsimulation_tpu/ops/pallas_sph.py``: ``density_pass``
-(:1682, Pallas kernel ``_sph_kernel`` with ``force=False``), ``fused_substep``
-(:1835, ``_sph_kernel`` with the fused integrate tail :1404-1489),
-``pack_rows`` and ``unpack_rows``.
+(:1682, Pallas kernel ``_sph_kernel`` with ``force=False``; K1),
+``forces_pallas`` (:1702, ``force=True, fused=False``, with the host-side
+scaling and constant fold of :1737-1770; K3, here ``forces_pass``),
+``fused_substep`` (:1835, ``_sph_kernel`` with the fused integrate tail
+:1404-1489; K2), ``pack_rows`` and ``unpack_rows``. The XSPH and artificial
+viscosity coefficients (``xsph``, ``alpha_visc``) turn on the extension sums
+inside K2 and K3 (pallas_sph.py:1255-1283).
 
-Both passes evaluate, for each sorted particle i, the pairs (i, j) of the
+Every pass evaluates, for each sorted particle i, the pairs (i, j) of the
 reference's 27-cell walk (Density.compute:42-54, VelPos.compute:67-82): j is
 in the bucket (``frame.occ``) and j's RAW frame-start cell, decoded, lies
 within Chebyshev distance 1 of i's fresh cell ``trunc(pos_i·(R−1))``. The
-density includes the self pair; the substep skips j == i (VelPos.compute:82).
+density includes the self pair; the force passes skip j == i
+(VelPos.compute:82), extension sums included, as the JAX kernel does. The
+ρⱼ > ε guard (VelPos.compute:91) drops j from the pressure and viscosity
+sums only; the extension sums keep it, each guarding its own denominator.
 Every gate is a select, so ±inf/NaN values of non-candidates never leak in.
 
 Routing: a CPU tensor goes to the plain version; a CUDA tensor launches the
-hand-written kernel (``csrc/density.cu``, ``csrc/fused_substep.cu``) or
-raises. The kernels walk ``start[]`` cell by cell, each cell clamped to its
-first ``capacity`` slots (only those can be ``occ``), so their candidate set
-is exact: the sorted tier has no truncation certificate.
+hand-written kernel (``csrc/density.cu``, ``csrc/forces.cu``,
+``csrc/fused_substep.cu``) or raises. The kernels walk ``start[]`` cell by
+cell, each cell clamped to its first ``capacity`` slots (only those can be
+``occ``), so their candidate set is exact: the sorted tier has no truncation
+certificate.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from . import cuda_build, sph_math
 from .frame import SortedFrame
 
 N_FIELDS = 8             # rows lanes: x, y, z, vx, vy, vz, rho, nan_count
+N_SUMS = 12              # K3 lanes: press 3, visc 3, xsph 3, avisc 3
+N_SCAL = 15              # scal_block lanes (sph_common.cuh::Scalars)
 _C_POLY6 = 315.0 / (64.0 * math.pi)
 _C_GRAD = 45.0 / math.pi
 # candidate entries per chunk of the plain versions' dense gather
@@ -41,7 +51,9 @@ _CHUNK_PAIRS = 1 << 21
 
 # Kernel launches per wrapper; a run resets them and reads them back to show
 # which kernels its main path went through.
-launch_counts = {"density": 0, "fused_substep": 0}
+# "fused_substep" counts K2 without extensions, "fused_substep_ext" with.
+launch_counts = {"density": 0, "fused_substep": 0, "fused_substep_ext": 0,
+                 "forces": 0}
 
 
 def reset_launch_counts() -> None:
@@ -70,11 +82,19 @@ def unpack_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
     return rows[:, 0:3], rows[:, 3:6], rows[:, 6], rows[:, 7].to(torch.int32)
 
 
-def scal_block(phys: PhysParams) -> torch.Tensor:
-    """The kernels' scalar block f32[12] on the parameters' device:
+def uses_extensions(xsph: float, alpha_visc: float) -> bool:
+    """Whether the force passes sum the XSPH / artificial-viscosity terms."""
+    return xsph != 0.0 or alpha_visc != 0.0
+
+
+def scal_block(phys: PhysParams, xsph: float = 0.0,
+               alpha_visc: float = 0.0) -> torch.Tensor:
+    """The kernels' scalar block f32[N_SCAL] on the parameters' device:
     h, h², c₆ = 315/(64π)/h⁹, c_g = 45/π/h⁶, mass, k, ρ₀, μ, stiffness,
-    damping, gravity_y, dt. The plain versions use the same constants (in
-    the parameters' dtype, so a float64 evaluation is a reference)."""
+    damping, gravity_y, dt, xsph, alpha_visc, c_s = √k. The plain versions
+    use the same constants (in the parameters' dtype, so a float64
+    evaluation is a reference). Built without a host-to-device copy, so the
+    frame loop never waits for the card."""
     h = phys.h
     h2 = h * h
     h6 = h2 * h2 * h2
@@ -82,7 +102,9 @@ def scal_block(phys: PhysParams) -> torch.Tensor:
     return torch.stack([h, h2, _C_POLY6 / h9, _C_GRAD / h6, phys.mass,
                         phys.gas_constant, phys.rest_density, phys.viscosity,
                         phys.stiffness, phys.damping, phys.gravity_y,
-                        phys.dt])
+                        phys.dt, torch.full_like(h, xsph),
+                        torch.full_like(h, alpha_visc),
+                        torch.sqrt(phys.gas_constant)])
 
 
 # --------------------------------------------------------- plain versions --
@@ -179,44 +201,52 @@ def density_plain(frame: SortedFrame, pos_s: torch.Tensor,
     return phys.mass * w_sum
 
 
-def pair_forces_plain(frame: SortedFrame, pos_s: torch.Tensor,
-                      vel_s: torch.Tensor, rho_s: torch.Tensor,
-                      phys: PhysParams, r: int, capacity: int | None,
-                      magnitude: bool = False) -> torch.Tensor:
-    """Pressure + viscosity force per sorted particle, f32[N, 3], after the
-    guarded m²/ρᵢ scaling (VelPos.compute:64-105; the formulas of
-    ``ops/brute.py::fluid_forces_bruteforce``). ``rho_s`` is the frame-start
-    density; positions and velocities are fresh.
+def forces_plain(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
+                 r: int, capacity: int | None, ext: bool = False,
+                 magnitude: bool = False) -> torch.Tensor:
+    """K3's plain version: the raw force-side pair sums per sorted particle,
+    f[N, 12] = (press 3, visc 3, xsph 3, avisc 3), from the rows state
+    (``rho`` the frame-start density, positions and velocities fresh).
+
+    press = Σ (pᵢ + pⱼ)/(2ρⱼ) ∇W rᵢⱼ and visc = Σ ∇²W (vⱼ − vᵢ)/ρⱼ over
+    candidates with ρⱼ > ε (VelPos.compute:64-99; the formulas of
+    ``ops/brute.py::fluid_forces_bruteforce``). With ``ext``, xsph = Σ
+    2/(ρᵢ + ρⱼ) W (vⱼ − vᵢ) and avisc = Σ Π ∇W rᵢⱼ over all candidates
+    (pallas_sph.py:1255-1283, ``ops/extensions.py``); without, those lanes
+    are 0. :func:`fold_forces` applies the scaling.
 
     With ``magnitude`` each pair term is replaced by the scale its float32
     rounding works at, and the sums add those: a difference that may cancel
-    (pᵢ + pⱼ, h − |r|, vⱼ − vᵢ) enters by the sizes of its operands. The
-    result bounds the rounding of a float32 evaluation, up to a count of
-    roundings (``substep_accuracy``)."""
-    n = pos_s.shape[0]
+    (pᵢ + pⱼ, h − |r|, h² − |r|², vⱼ − vᵢ, the Π numerator v·r) enters by
+    the sizes of its operands. The result bounds the rounding of a float32
+    evaluation, up to a count of roundings (``substep_accuracy``)."""
+    pos_s, vel_s, rho_s = rows[:, 0:3], rows[:, 3:6], rows[:, 6]
+    n = rows.shape[0]
     h = phys.h
     h2 = h * h
     h6 = h2 * h2 * h2                              # as in scal_block
+    c9 = _C_POLY6 / (h6 * h2 * h)
+    cs = torch.sqrt(phys.gas_constant)
     press = sph_math.eos_pressure(rho_s, phys.gas_constant, phys.rest_density)
     rho_ok = rho_s > EPSILON                       # per-j guard (:91)
     safe = torch.where(rho_ok, rho_s, 1.0)
     width = _window_width(frame, capacity)
-    rows = max(1, _CHUNK_PAIRS // (27 * width))
-    f_press = torch.empty_like(pos_s)
-    f_vis = torch.empty_like(pos_s)
-    for i0 in range(0, n, rows):
-        p = pos_s[i0:i0 + rows]
-        ids = torch.arange(i0, i0 + p.shape[0], device=pos_s.device)
+    chunk = max(1, _CHUNK_PAIRS // (27 * width))
+    out = rows.new_zeros((n, N_SUMS))
+    for i0 in range(0, n, chunk):
+        p = pos_s[i0:i0 + chunk]
+        ids = torch.arange(i0, i0 + p.shape[0], device=rows.device)
         j, member = _candidates(frame, fresh_cell(p, r), r, width)
-        m = member & (j != ids[:, None]) & rho_ok[j]          # skip j == i
+        cand = member & (j != ids[:, None])                   # skip j == i
+        m = cand & rho_ok[j]
         d = p[:, None, :] - pos_s[j]                          # pos_i − pos_j
         r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
             + d[..., 2] * d[..., 2]
         abs_r = torch.sqrt(r2)
         g = sph_math.grad_w_press_over_r(abs_r, h, h6)
         gwv = sph_math.grad_w_vis_r(abs_r, h, h6)
-        p_i, p_j = press[i0:i0 + rows, None], press[j]
-        v_i, v_j = vel_s[i0:i0 + rows, None, :], vel_s[j]
+        p_i, p_j = press[i0:i0 + chunk, None], press[j]
+        v_i, v_j = vel_s[i0:i0 + chunk, None, :], vel_s[j]
         if magnitude:
             hr = h - abs_r
             g = torch.where(g != 0, g + 3 * _C_GRAD / h6 * h * hr * hr / abs_r,
@@ -225,34 +255,84 @@ def pair_forces_plain(frame: SortedFrame, pos_s: torch.Tensor,
             p_i, p_j, d = p_i.abs(), p_j.abs(), d.abs()
             v_i, v_j = -v_i.abs(), v_j.abs()          # dv = |v_j| + |v_i|
         pc = (p_i + p_j) / (2.0 * safe[j])
-        t_press = pc[..., None] * (g[..., None] * d)
         vc = gwv / safe[j]
         dv = v_j - v_i                                        # v_j − v_i
-        t_vis = vc[..., None] * dv
-        f_press[i0:i0 + rows] = _tree_sum(torch.where(m[..., None], t_press,
-                                                      0.0))
-        f_vis[i0:i0 + rows] = _tree_sum(torch.where(m[..., None], t_vis,
-                                                    0.0))
-    # final scaling, guarded by ρᵢ > ε (VelPos.compute:101-105): when the
-    # guard fails the raw sums pass through unscaled, as in the reference
-    i_ok = rho_ok[:, None]
-    s_i = safe[:, None]
+        terms = [torch.where(m[..., None], pc[..., None] * (g[..., None] * d),
+                             0.0),
+                 torch.where(m[..., None], vc[..., None] * dv, 0.0)]
+        if ext:
+            rho_i, rho_j = rho_s[i0:i0 + chunk, None], rho_s[j]
+            d2 = h2 - r2
+            w6 = torch.where(d2 > 0, c9 * d2 * d2 * d2, 0.0)
+            if magnitude:
+                w6 = torch.where(d2 > 0, w6 + 3 * c9 * d2 * d2 * (h2 + r2),
+                                 0.0)
+            denom = rho_i + rho_j
+            x_ok = denom > EPSILON
+            xc = torch.where(x_ok, 2.0 / torch.where(x_ok, denom, 1.0) * w6,
+                             0.0)
+            # no gate on xc: 0·inf = NaN as in the JAX kernel
+            terms.append(torch.where(cand[..., None], xc[..., None] * dv,
+                                     0.0))
+            dvel = -dv                                        # v_i − v_j
+            vr = (dvel[..., 0] * d[..., 0] + dvel[..., 1] * d[..., 1]) \
+                + dvel[..., 2] * d[..., 2]
+            rho_bar = 0.5 * (rho_i + rho_j)
+            mu = h * vr / (r2 + 0.01 * h2)
+            pi_ok = (vr < 0) & (rho_bar > EPSILON)
+            pi = torch.where(pi_ok, -cs * mu / torch.where(pi_ok, rho_bar, 1.0),
+                             0.0)
+            terms.append(torch.where(cand[..., None],
+                                     (pi * g)[..., None] * d, 0.0))
+        sums = _tree_sum(torch.cat(terms, -1))
+        out[i0:i0 + chunk, :sums.shape[1]] = sums
+    return out
+
+
+def fold_forces(sums: torch.Tensor, rho_s: torch.Tensor, phys: PhysParams,
+                xsph: float = 0.0, alpha_visc: float = 0.0,
+                fused_tail: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Raw sums f[N, 12] → (force f[N, 3], XSPH correction dv f[N, 3] or
+    None): the m²/ρᵢ scaling guarded by ρᵢ > ε (when it fails the raw sums
+    pass through, VelPos.compute:101-105) and the extension constants.
+
+    Each extension term is folded only when its own coefficient is nonzero,
+    as ``forces_pallas`` does (pallas_sph.py:1760-1768): dv is None for
+    xsph = 0, and no artificial-viscosity force is added for alpha_visc = 0,
+    so a non-finite sum of a term that is off never reaches the result.
+    ``fused_tail`` folds both whenever either coefficient is nonzero, as
+    the JAX fused tail does (:1440-1450); K2 and its plain version follow
+    it."""
+    i_ok = (rho_s > EPSILON)[:, None]
+    s_i = torch.where(i_ok, rho_s[:, None], 1.0)
     m_ = phys.mass
-    f_press = torch.where(i_ok, f_press * (m_ * m_ / s_i), f_press)
-    f_vis = torch.where(i_ok, f_vis * (phys.viscosity * m_ * m_ / s_i), f_vis)
-    return f_press + f_vis
+    f_press = torch.where(i_ok, sums[:, 0:3] * (m_ * m_ / s_i), sums[:, 0:3])
+    f_vis = torch.where(i_ok, sums[:, 3:6] * (phys.viscosity * m_ * m_ / s_i),
+                        sums[:, 3:6])
+    f = f_press + f_vis
+    if not uses_extensions(xsph, alpha_visc):
+        return f, None
+    dv = (xsph * m_) * sums[:, 6:9] if fused_tail or xsph != 0.0 else None
+    if fused_tail or alpha_visc != 0.0:
+        f = f + (alpha_visc * m_ * m_) * sums[:, 9:12]
+    return f, dv
 
 
 def fused_substep_plain(frame: SortedFrame, rows: torch.Tensor,
-                        phys: PhysParams, r: int,
-                        capacity: int | None) -> torch.Tensor:
+                        phys: PhysParams, r: int, capacity: int | None,
+                        xsph: float = 0.0,
+                        alpha_visc: float = 0.0) -> torch.Tensor:
     """One substep over the rows state: pair forces, then the integrate
     tail of ``sim.stepper.integrate_substep`` (VelPos.compute:49-157)."""
     from ..sim.stepper import integrate_substep
 
-    pos, vel, rho = rows[:, 0:3], rows[:, 3:6], rows[:, 6]
-    f = pair_forces_plain(frame, pos, vel, rho, phys, r, capacity)
-    pos_n, vel_n, nan_mask = integrate_substep(pos, vel, f, phys)
+    sums = forces_plain(frame, rows, phys, r, capacity,
+                        uses_extensions(xsph, alpha_visc))
+    rho = rows[:, 6]
+    f, dv = fold_forces(sums, rho, phys, xsph, alpha_visc, fused_tail=True)
+    pos_n, vel_n, nan_mask = integrate_substep(rows[:, 0:3], rows[:, 3:6], f,
+                                               phys, dv)
     return pack_rows(pos_n, vel_n, rho, rows[:, 7] + nan_mask.to(rows.dtype))
 
 
@@ -264,20 +344,56 @@ SUBSTEP_ERR_FACTOR = 4.0
 SUBSTEP_ROUNDINGS = 256.0
 
 
-class SubstepAccuracy(NamedTuple):
+class Accuracy(NamedTuple):
     ok: bool              # every check below holds
     same_nan: bool        # NaN pattern equal to p32's
-    same_aux: bool        # ρ and NaN-count lanes equal to p32's
-    n_over: int           # position/velocity lanes over their bound
+    same_aux: bool        # ρ and NaN-count lanes equal to p32's (substep)
+    n_over: int           # checked lanes over their bound
     roundings: float      # max (|k − p64| − 4·|p32 − p64|) / (u·σ)
-    err_pos: float        # max |k − p64| over positions
-    err_vel: float        # max |k − p64| over velocities
-    err_plain_vel: float  # max |p32 − p64| over velocities
+    err: float            # max |k − p64| over the checked lanes
+    err_plain: float      # max |p32 − p64| over the checked lanes
+
+
+def _hold(out: torch.Tensor, p32: torch.Tensor, p64: torch.Tensor,
+          sigma: torch.Tensor, same_aux: bool = True) -> Accuracy:
+    """|out − p64| ≤ 4·|p32 − p64| + 256·u·σ in every lane where p32 and p64
+    are not NaN, and the NaN pattern of ``out`` equal to p32's."""
+    def err(x: torch.Tensor) -> torch.Tensor:
+        x = x.double()
+        return torch.where(x == p64, 0.0, (x - p64).abs())   # inf == inf
+
+    nan_p = torch.isnan(p32)
+    same_nan = bool((torch.isnan(out) == nan_p).all())
+    fin = ~(nan_p | torch.isnan(p64))
+    e_k = torch.where(fin, err(out), 0.0)
+    e_p = torch.where(fin, err(p32), 0.0)
+    over = e_k > SUBSTEP_ERR_FACTOR * e_p + SUBSTEP_ROUNDINGS * _U32 * sigma
+    need = (e_k - SUBSTEP_ERR_FACTOR * e_p) / (_U32 * sigma)
+    need = torch.where(torch.isnan(need), 0.0, need)     # inf − inf, 0 / 0
+    n_over = int(over.sum())
+    return Accuracy(
+        ok=same_nan and same_aux and n_over == 0, same_nan=same_nan,
+        same_aux=same_aux, n_over=n_over, roundings=float(need.max()),
+        err=float(e_k.max()), err_plain=float(e_p.max()))
+
+
+def _reference(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
+               r: int, capacity: int | None, xsph: float, alpha_visc: float):
+    """(rows64, phys64, force scale F, dv scale DV or None): the float64
+    inputs and the rounding scales of the folded force and XSPH outputs."""
+    rows64 = rows.double()
+    ph = PhysParams(*(t.double() for t in phys))
+    mag = forces_plain(frame, rows64, ph, r, capacity,
+                       uses_extensions(xsph, alpha_visc), magnitude=True)
+    f_mag, dv_mag = fold_forces(mag, rows64[:, 6], ph, abs(xsph),
+                                abs(alpha_visc))
+    return rows64, ph, f_mag, dv_mag
 
 
 def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
                      out: torch.Tensor, phys: PhysParams, r: int,
-                     capacity: int | None) -> SubstepAccuracy:
+                     capacity: int | None, xsph: float = 0.0,
+                     alpha_visc: float = 0.0) -> Accuracy:
     """Holds ``out``, one substep of ``rows`` computed elsewhere (the CUDA
     kernel), to the accuracy of the plain version, particle by particle.
 
@@ -291,19 +407,20 @@ def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
 
     with u = 2⁻²⁴ and σ the scale that lane's float32 rounding works at:
     σ_v = |v| + |v'| + dt/m·(F + W) + dt·|g| for a velocity, with F the
-    pair sums' rounding scale (``pair_forces_plain(magnitude=True)``) and
-    W the wall force's; σ_x = |x| + |x'| + dt·σ_v for a position (primes:
+    folded pair sums' rounding scale (``forces_plain(magnitude=True)``,
+    extensions included) and W the wall force's; σ_x = |x| + |x'| +
+    dt·(σ_v + D) for a position, with D the XSPH correction's scale (primes:
     p64's result). 256 roundings cover a walk-order sum over hundreds of
     pairs; a dropped or wrong term shows at the scale of the term itself.
     The NaN pattern and the ρ and NaN-count lanes must equal p32's.
     """
-    p32 = fused_substep_plain(frame, rows, phys, r, capacity)
-    rows64 = rows.double()
-    ph = PhysParams(*(t.double() for t in phys))
-    p64 = fused_substep_plain(frame, rows64, ph, r, capacity)
-    pos, vel, rho = rows64[:, 0:3], rows64[:, 3:6], rows64[:, 6]
-    terms = pair_forces_plain(frame, pos, vel, rho, ph, r, capacity,
-                              magnitude=True)
+    p32 = fused_substep_plain(frame, rows, phys, r, capacity, xsph,
+                              alpha_visc)
+    rows64, ph, f_mag, dv_mag = _reference(frame, rows, phys, r, capacity,
+                                           xsph, alpha_visc)
+    p64 = fused_substep_plain(frame, rows64, ph, r, capacity, xsph,
+                              alpha_visc)
+    pos, vel = rows64[:, 0:3], rows64[:, 3:6]
     # the wall force's rounding scale: its depth h − x or 1 − x − h
     # cancels, and so may depth·stiffness − Σ damping·v
     near = ((pos < ph.h) | (pos > 1.0 - ph.h)).any(-1, keepdim=True)
@@ -313,29 +430,37 @@ def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
     zero = torch.zeros_like(ph.gravity_y)
     g = torch.stack([zero, ph.gravity_y, zero]).abs()
     sig_v = vel.abs() + p64[:, 3:6].abs() \
-        + ph.dt / ph.mass * (terms + wall) + ph.dt * g
+        + ph.dt / ph.mass * (f_mag + wall) + ph.dt * g
     sig_x = pos.abs() + p64[:, 0:3].abs() + ph.dt * sig_v
-    sigma = torch.cat([sig_x, sig_v], 1)
-
-    def err(x: torch.Tensor) -> torch.Tensor:
-        x, ref = x[:, :6].double(), p64[:, :6]
-        return torch.where(x == ref, 0.0, (x - ref).abs())   # inf == inf
-
-    nan_p = torch.isnan(p32)
-    same_nan = bool((torch.isnan(out) == nan_p).all())
+    if dv_mag is not None:
+        sig_x = sig_x + ph.dt * dv_mag
     same_aux = bool((out[:, 6:8] == p32[:, 6:8]).all())
-    fin = ~(nan_p[:, :6] | torch.isnan(p64[:, :6]))
-    e_k = torch.where(fin, err(out), 0.0)
-    e_p = torch.where(fin, err(p32), 0.0)
-    over = e_k > SUBSTEP_ERR_FACTOR * e_p + SUBSTEP_ROUNDINGS * _U32 * sigma
-    need = (e_k - SUBSTEP_ERR_FACTOR * e_p) / (_U32 * sigma)
-    need = torch.where(torch.isnan(need), 0.0, need)     # inf − inf, 0 / 0
-    n_over = int(over.sum())
-    return SubstepAccuracy(
-        ok=same_nan and same_aux and n_over == 0, same_nan=same_nan,
-        same_aux=same_aux, n_over=n_over, roundings=float(need.max()),
-        err_pos=float(e_k[:, :3].max()), err_vel=float(e_k[:, 3:].max()),
-        err_plain_vel=float(e_p[:, 3:].max()))
+    return _hold(out[:, :6], p32[:, :6], p64[:, :6],
+                 torch.cat([sig_x, sig_v], 1), same_aux)
+
+
+def forces_accuracy(frame: SortedFrame, rows: torch.Tensor, f: torch.Tensor,
+                    dv: torch.Tensor | None, phys: PhysParams, r: int,
+                    capacity: int | None, xsph: float = 0.0,
+                    alpha_visc: float = 0.0) -> Accuracy:
+    """Holds (``f``, ``dv``), the folded force and XSPH correction computed
+    elsewhere (K3 + :func:`fold_forces`), to the plain version particle by
+    particle, under the rule of :func:`substep_accuracy`: σ is the folded
+    magnitude sum of each output lane. ``dv`` None stands for zeros; its
+    lanes are checked whenever ``xsph`` is nonzero."""
+    sums32 = forces_plain(frame, rows, phys, r, capacity,
+                          uses_extensions(xsph, alpha_visc))
+    p32 = fold_forces(sums32, rows[:, 6], phys, xsph, alpha_visc)
+    rows64, ph, f_mag, dv_mag = _reference(frame, rows, phys, r, capacity,
+                                           xsph, alpha_visc)
+    sums64 = forces_plain(frame, rows64, ph, r, capacity,
+                          uses_extensions(xsph, alpha_visc))
+    p64 = fold_forces(sums64, rows64[:, 6], ph, xsph, alpha_visc)
+    if dv_mag is None:
+        return _hold(f, p32[0], p64[0], f_mag)
+    dv = torch.zeros_like(f) if dv is None else dv
+    return _hold(torch.cat([f, dv], 1), torch.cat(p32, 1),
+                 torch.cat(p64, 1), torch.cat([f_mag, dv_mag], 1))
 
 
 # ------------------------------------------------------------ CUDA route --
@@ -379,7 +504,7 @@ def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
     _check("pos_s", pos_s, torch.float32, (n, 3), dev)
     _check_frame(frame, n, r, dev)
     scal = scal_block(phys)
-    _check("phys", scal, torch.float32, (12,), dev)
+    _check("phys", scal, torch.float32, (N_SCAL,), dev)
     rho = torch.empty(n, dtype=torch.float32, device=dev)
     lib = cuda_build.load()
     err = lib.sph_density(
@@ -391,25 +516,50 @@ def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
     return rho
 
 
-def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
-                       phys: PhysParams, r: int,
-                       capacity: int | None) -> torch.Tensor:
-    """K2 (``csrc/fused_substep.cu``) on the card. Reads the state as it was
-    before the substep and writes a new rows tensor."""
+def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
+                r: int, capacity: int | None,
+                ext: bool = False) -> torch.Tensor:
+    """K3 (``csrc/forces.cu``) on the card: raw sums f32[N, 12] from the
+    rows state; ``ext`` selects the instance with the extension sums."""
     n = rows.shape[0]
     dev = rows.device
     _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
     _check_frame(frame, n, r, dev)
     scal = scal_block(phys)
-    _check("phys", scal, torch.float32, (12,), dev)
+    _check("phys", scal, torch.float32, (N_SCAL,), dev)
+    out = torch.empty((n, N_SUMS), dtype=torch.float32, device=dev)
+    lib = cuda_build.load()
+    err = lib.sph_forces(
+        _ptr(rows), _ptr(frame.start), _ptr(frame.raw), _ptr(frame.occ),
+        _ptr(scal), _ptr(out), n, r, _cap_arg(capacity), int(ext),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on_error("forces", err)
+    launch_counts["forces"] += 1
+    return out
+
+
+def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
+                       phys: PhysParams, r: int, capacity: int | None,
+                       xsph: float = 0.0,
+                       alpha_visc: float = 0.0) -> torch.Tensor:
+    """K2 (``csrc/fused_substep.cu``) on the card. Reads the state as it was
+    before the substep and writes a new rows tensor. Nonzero coefficients
+    select the instance with the extension sums."""
+    n = rows.shape[0]
+    dev = rows.device
+    _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
+    _check_frame(frame, n, r, dev)
+    scal = scal_block(phys, xsph, alpha_visc)
+    _check("phys", scal, torch.float32, (N_SCAL,), dev)
+    ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
     lib = cuda_build.load()
     err = lib.sph_fused_substep(
         _ptr(rows), _ptr(frame.start), _ptr(frame.raw), _ptr(frame.occ),
-        _ptr(scal), _ptr(out), n, r, _cap_arg(capacity),
+        _ptr(scal), _ptr(out), n, r, _cap_arg(capacity), int(ext),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error("fused_substep", err)
-    launch_counts["fused_substep"] += 1
+    launch_counts["fused_substep_ext" if ext else "fused_substep"] += 1
     return out
 
 
@@ -426,11 +576,32 @@ def density_pass(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
     return density_plain(frame, pos_s, phys, r, capacity)
 
 
-def fused_substep(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
-                  r: int, capacity: int | None) -> torch.Tensor:
-    """One whole integration substep over the rows state (pair forces, m²/ρ
-    scaling, wall penalty, gravity, NaN trap, semi-implicit Euler, clamp):
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
+def forces_pass(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
+                r: int, capacity: int | None, xsph: float = 0.0,
+                alpha_visc: float = 0.0
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(force f[N, 3], XSPH correction dv f[N, 3] or None) per sorted
+    particle (``forces_pallas``): the raw sums from the CUDA kernel K3 for a
+    CUDA tensor or from the plain version for a CPU one, then
+    :func:`fold_forces`. Integration is the caller's
+    (``sim.stepper.integrate_substep``)."""
+    ext = uses_extensions(xsph, alpha_visc)
     if rows.is_cuda:
-        return fused_substep_cuda(frame, rows, phys, r, capacity)
-    return fused_substep_plain(frame, rows, phys, r, capacity)
+        sums = forces_cuda(frame, rows, phys, r, capacity, ext)
+    else:
+        sums = forces_plain(frame, rows, phys, r, capacity, ext)
+    return fold_forces(sums, rows[:, 6], phys, xsph, alpha_visc)
+
+
+def fused_substep(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
+                  r: int, capacity: int | None, xsph: float = 0.0,
+                  alpha_visc: float = 0.0) -> torch.Tensor:
+    """One whole integration substep over the rows state (pair forces, m²/ρ
+    scaling, extension sums, wall penalty, gravity, NaN trap, semi-implicit
+    Euler, clamp): the CUDA kernel K2 for a CUDA tensor, the plain version
+    for a CPU one."""
+    if rows.is_cuda:
+        return fused_substep_cuda(frame, rows, phys, r, capacity, xsph,
+                                  alpha_visc)
+    return fused_substep_plain(frame, rows, phys, r, capacity, xsph,
+                               alpha_visc)

@@ -65,6 +65,12 @@ def grad_w_press_over_r(abs_r, h, h6):
     return torch.where(valid, mag, 0.0)
 
 
+def grad_w_press(r_vec, h, h6):
+    """Vector form of the pressure gradient (the brute oracle's)."""
+    abs_r = torch.linalg.vector_norm(r_vec, dim=-1)
+    return grad_w_press_over_r(abs_r, h, h6)[..., None] * r_vec
+
+
 def grad_w_vis_r(abs_r, h, h6):
     """Viscosity Laplacian kernel: 45/π / h⁶ · (h−|r|) for |r| < h.
 
@@ -72,6 +78,11 @@ def grad_w_vis_r(abs_r, h, h6):
     """
     c = 45.0 / _PI
     return torch.where(abs_r < h, (c / h6) * (h - abs_r), 0.0)
+
+
+def grad_w_vis(r_vec, h, h6):
+    """Vector-displacement wrapper of :func:`grad_w_vis_r`."""
+    return grad_w_vis_r(torch.linalg.vector_norm(r_vec, dim=-1), h, h6)
 
 
 def eos_pressure(rho, gas_constant, rest_density):

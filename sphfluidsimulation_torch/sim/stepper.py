@@ -1,33 +1,49 @@
-"""Frame stepper and rollout engine — the sorted-frame tier.
+"""Frame stepper and rollout engine — the sorted-frame tier and the brute
+oracle.
 
 Counterpart of ``sphfluidsimulation_tpu/sim/stepper.py``: ``integrate_substep``
-(:40-60), ``_metrics`` (:63-75), the faithful branch of ``_make_pallas_step``
-(:339-391), ``_make_pallas_rollout`` (:405-516), ``make_param_step``,
-``make_frame_step``, ``make_rollout`` and ``initial_state``.
+(:40-60), ``_metrics`` (:63-75), the brute branch of ``make_param_step``
+(:87-207), ``_make_pallas_step`` in both modes (:269-393),
+``_make_pallas_rollout`` (:405-516), ``make_frame_step``, ``make_rollout``
+(:569-634) and ``initial_state``.
 
-Each frame reproduces the reference pipeline in faithful mode
-(SphFluidSimulation.cs:96-108): the neighbour structure and the density are
-computed ONCE from the frame-start positions and reused by all five
-substeps, while each substep reads fresh positions and velocities:
+Each frame reproduces the reference pipeline (SphFluidSimulation.cs:96-108).
+In faithful mode the neighbour structure and the density are computed ONCE
+from the frame-start positions and reused by all five substeps, while each
+substep reads fresh positions and velocities:
 
     build_frame (sort by anchor cell) → density (K1) → pack rows
     → 5 × fused substep (K2) → metrics
 
-The only backend is ``neighbor="sorted"``, the counterpart of the JAX
-``"pallas"`` tier. The kernels walk ``start[]`` cell by cell with no static
-window and no per-line cap, so their candidate set is exactly the
-reference's: ``StepMetrics.exact_cert`` is identically 0 here. In the JAX
-pallas tier the same field counts intervals cut by the kernel's static DMA
-window or line cap and rows that drifted more than one cell within the frame
-(its drift/clip certificate); a zero there means "equal to this tier's
-candidate set". ``overflow`` counts particles dropped by the voxel capacity,
-as in JAX.
+``faithful=False`` is the physically corrected mode: every substep rebuilds
+the frame and the density from the current state, runs the force kernel
+(K3) and integrates on the host (``integrate_substep``), keeping the state in
+the caller's order between substeps:
 
-The frame loop never waits for the device (no ``.item()``, ``.cpu()`` or
-data-dependent shapes on the CUDA path); metrics stay on the device. Each
-phase runs inside a profiler range named in ``FRAME_PHASES``
-(``utils.profiling.span``: free when no profiler runs), which
-``scripts/torch_frame_breakdown.py`` reads.
+    5 × (build_frame → density (K1) → pack rows → forces (K3)
+         → integrate_substep → unsort)
+
+plus one frame-start build and density for the overflow and density
+metrics. ``cfg.xsph`` and ``cfg.artificial_viscosity`` turn on the extension
+sums in K2 and K3 (and the XSPH correction of the position update).
+
+Backends: ``neighbor="sorted"``, the counterpart of the JAX ``"pallas"``
+tier, and ``neighbor="brute"``, the O(N²) oracle (``ops/brute.py``,
+``ops/extensions.py``), which is the oracle on the card, where there is no
+JAX. The sorted kernels walk ``start[]`` cell by cell with no static window
+and no per-line cap, so their candidate set is exactly the reference's:
+``StepMetrics.exact_cert`` is identically 0 here. In the JAX pallas tier the
+same field counts intervals cut by the kernel's static DMA window or line
+cap and rows that drifted more than one cell within the frame (its
+drift/clip certificate); a zero there means "equal to this tier's candidate
+set". ``overflow`` counts particles dropped by the voxel capacity, as in
+JAX.
+
+The sorted frame loop never waits for the device (no ``.item()``, ``.cpu()``
+or data-dependent shapes on the CUDA path); metrics stay on the device. Each
+phase runs inside a profiler range named in ``FRAME_PHASES`` or
+``CORRECTED_PHASES`` (``utils.profiling.span``: free when no profiler runs),
+which ``scripts/torch_frame_breakdown.py`` reads.
 """
 
 from __future__ import annotations
@@ -37,7 +53,7 @@ from typing import Callable
 import torch
 
 from ..config import SimConfig
-from ..ops import sph_kernels, sph_math
+from ..ops import brute, extensions, grid, sph_kernels, sph_math
 from ..ops.frame import SortedFrame, build_frame
 from ..params import PhysParams
 from ..state import ParticleState, StepMetrics, make_state
@@ -47,15 +63,17 @@ StepFn = Callable[[ParticleState], tuple[ParticleState, StepMetrics]]
 ParamStepFn = Callable[[ParticleState, PhysParams],
                        tuple[ParticleState, StepMetrics]]
 
-NEIGHBORS = ("sorted",)
-# the profiler ranges of one frame, in order; fused_substep opens once per
-# substep
+NEIGHBORS = ("sorted", "brute")
+# the profiler ranges of one sorted frame, in order: faithful mode
+# (fused_substep opens once per substep) and corrected mode (the ranges
+# from build_frame to integrate+unsort open once per substep, after one
+# frame-start build_frame and density)
 FRAME_PHASES = ("build_frame", "density", "pack_rows", "fused_substep",
                 "unpack+metrics")
-# JAX backends and modes not ported yet, with the ROADMAP.md item that
-# ports them
+CORRECTED_PHASES = ("build_frame", "density", "pack_rows", "forces",
+                    "integrate+unsort", "metrics")
+# JAX backends not ported yet, with the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "brute": "queue A item 3 (oracle slice: ops/brute.py)",
     "slotted": "queue A item 8 (exact tiers: ops/cellops.py)",
     "gather": "queue A item 8 (exact tiers: ops/cellops.py)",
     "sites": "queue A item 9 (sites tier: ops/sites.py)",
@@ -63,29 +81,25 @@ _NOT_PORTED = {
 }
 
 
-def _check_supported(cfg: SimConfig, neighbor: str, faithful: bool) -> None:
+def _check_supported(neighbor: str) -> None:
     if neighbor in _NOT_PORTED:
         raise NotImplementedError(
             f"neighbor={neighbor!r} is not ported to torch yet: ROADMAP.md "
-            f"{_NOT_PORTED[neighbor]}; use neighbor='sorted'")
+            f"{_NOT_PORTED[neighbor]}; use neighbor='sorted' or 'brute'")
     if neighbor not in NEIGHBORS:
         raise ValueError(f"unknown neighbor backend {neighbor!r}")
-    if not faithful:
-        raise NotImplementedError(
-            "faithful=False (per-substep rebuild) needs the unfused force "
-            "kernel K3: ROADMAP.md queue A item 5 / queue B K3")
-    if cfg.xsph != 0.0 or cfg.artificial_viscosity != 0.0:
-        raise NotImplementedError(
-            "xsph / artificial_viscosity are not ported yet: ROADMAP.md "
-            "queue A item 7 (extensions)")
 
 
 def integrate_substep(pos: torch.Tensor, vel: torch.Tensor,
-                      f_fluid: torch.Tensor, p: PhysParams
+                      f_fluid: torch.Tensor, p: PhysParams,
+                      xsph_dv: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Wall penalty + gravity + NaN guard + semi-implicit Euler + clamp.
 
-    Transcribes VelPos.compute:107-157. Returns (pos', vel', nan_mask).
+    Transcribes VelPos.compute:107-157. ``xsph_dv`` (optional) is the XSPH
+    advection-velocity correction, applied to the position update only,
+    after the NaN trap: a trapped particle still moves by dt·dv.
+    Returns (pos', vel', nan_mask).
     """
     f_wall = sph_math.wall_force(pos, vel, p.h, p.stiffness, p.damping,
                                  p.mass)
@@ -97,7 +111,8 @@ def integrate_substep(pos: torch.Tensor, vel: torch.Tensor,
     # velocity of any particle whose acceleration went NaN.
     nan_mask = torch.isnan(a).any(dim=-1)
     vel_new = torch.where(nan_mask[..., None], 0.0, vel + a * p.dt)
-    pos_new = torch.clamp(pos + p.dt * vel_new, 0.0, 1.0)  # VelPos:153-154
+    adv = vel_new if xsph_dv is None else vel_new + xsph_dv
+    pos_new = torch.clamp(pos + p.dt * adv, 0.0, 1.0)  # VelPos:153-154
     return pos_new, vel_new, nan_mask
 
 
@@ -125,7 +140,9 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
         rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
     for _ in range(cfg.substeps):
         with span("fused_substep"):
-            rows = sph_kernels.fused_substep(frame, rows, phys, r, cap)
+            rows = sph_kernels.fused_substep(frame, rows, phys, r, cap,
+                                             cfg.xsph,
+                                             cfg.artificial_viscosity)
     with span("unpack+metrics"):
         pos_s, vel_s, _, nan_hits = sph_kernels.unpack_rows(rows)
         # matches grid.overflow_count: rank-overflow + out-of-range drops
@@ -140,16 +157,8 @@ def _unsort(order: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
-                    faithful: bool = True) -> ParamStepFn:
-    """Build the per-frame step ``(state, phys) → (state, metrics)``.
-
-    ``cfg`` contributes only structure (particle count, bucket resolution,
-    voxel capacity, substep count); the physics scalars come from ``phys``.
-    State comes in and goes out in the caller's particle order.
-    """
-    cfg = cfg.validate()
-    _check_supported(cfg, neighbor, faithful)
+def _sorted_step(cfg: SimConfig) -> ParamStepFn:
+    """Faithful frame step on the sorted tier; state in caller order."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
 
     def step(state: ParticleState, phys: PhysParams
@@ -167,6 +176,123 @@ def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
     return step
 
 
+def _corrected_step(cfg: SimConfig) -> ParamStepFn:
+    """Corrected frame step on the sorted tier (``_make_pallas_step``,
+    faithful=False, stepper.py:289-337): every substep rebuilds the frame
+    and the density, runs K3 and integrates, with the state in the caller's
+    order between substeps. ``build_frame`` gets no ``gid``, so capacity
+    ranks key to the caller's index. ``rho`` and ``overflow`` come from an
+    extra frame-start build and density, as in JAX: a frame launches K1
+    1 + substeps times and K3 substeps times."""
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+
+    def step(state: ParticleState, phys: PhysParams
+             ) -> tuple[ParticleState, StepMetrics]:
+        pos, vel = state.pos, state.vel
+        with span("build_frame"):
+            frame0, (pos0_s,) = build_frame(pos, r, cap, extras=(pos,))
+        with span("density"):
+            rho0_s = sph_kernels.density_pass(frame0, pos0_s, phys, r, cap)
+        nan_hits = torch.zeros_like(state.nan_count)
+        for _ in range(cfg.substeps):
+            with span("build_frame"):
+                frame, (pos_s, vel_s) = build_frame(pos, r, cap,
+                                                    extras=(pos, vel))
+            with span("density"):
+                rho_s = sph_kernels.density_pass(frame, pos_s, phys, r, cap)
+            with span("pack_rows"):
+                rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
+            with span("forces"):
+                f, dv = sph_kernels.forces_pass(frame, rows, phys, r, cap,
+                                                xsph, alpha)
+            with span("integrate+unsort"):
+                pos_s, vel_s, nan_mask = integrate_substep(pos_s, vel_s, f,
+                                                           phys, dv)
+                pos = _unsort(frame.order, pos_s)
+                vel = _unsort(frame.order, vel_s)
+                nan_hits = nan_hits + _unsort(frame.order,
+                                              nan_mask.to(torch.int32))
+        with span("metrics"):
+            ovf = (~frame0.occ).sum().to(torch.int32)
+            m = _metrics(vel, _unsort(frame0.order, rho0_s), nan_hits, ovf,
+                         phys)
+        return ParticleState(pos=pos, vel=vel,
+                             nan_count=state.nan_count + nan_hits), m
+
+    return step
+
+
+def _brute_step(cfg: SimConfig, faithful: bool) -> ParamStepFn:
+    """Frame step on the O(N²) oracle (the brute branch of JAX
+    ``make_param_step``, stepper.py:87-207): bucket and density from the
+    frame start (every substep when not ``faithful``), all-pairs forces,
+    the extension oracles over the brute window, which keeps the self pair
+    (JAX ``_brute_pair_mask``)."""
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+
+    def frame_aux(pos, phys):
+        bucket, _ = grid.build_bucket(pos, r, cap)
+        rho = brute.density_bruteforce(pos, bucket.cell_id, bucket.in_table,
+                                       phys, r)
+        return bucket, rho
+
+    def forces(pos, vel, rho, bucket, phys):
+        f = brute.fluid_forces_bruteforce(pos, vel, rho, bucket.cell_id,
+                                          bucket.in_table, phys, r)
+        if not sph_kernels.uses_extensions(xsph, alpha):
+            return f, None
+        pair_mask = brute.window_mask(sph_math.cell_index(pos, r),
+                                      bucket.cell_id, bucket.in_table, r)
+        if alpha != 0.0:
+            f = f + extensions.artificial_viscosity_bruteforce(
+                pos, vel, rho, pair_mask, phys, alpha)
+        dv = (extensions.xsph_bruteforce(pos, vel, rho, pair_mask, phys, xsph)
+              if xsph != 0.0 else None)
+        return f, dv
+
+    def step(state: ParticleState, phys: PhysParams
+             ) -> tuple[ParticleState, StepMetrics]:
+        pos, vel = state.pos, state.vel
+        bucket, rho0 = frame_aux(pos, phys)
+        ovf = grid.overflow_count(bucket)
+        bucket_s, rho = bucket, rho0
+        nan_hits = torch.zeros_like(state.nan_count)
+        for _ in range(cfg.substeps):
+            if not faithful:
+                bucket_s, rho = frame_aux(pos, phys)
+            f, dv = forces(pos, vel, rho, bucket_s, phys)
+            pos, vel, nan_mask = integrate_substep(pos, vel, f, phys, dv)
+            nan_hits = nan_hits + nan_mask.to(torch.int32)
+        return (ParticleState(pos=pos, vel=vel,
+                              nan_count=state.nan_count + nan_hits),
+                _metrics(vel, rho0, nan_hits, ovf, phys))
+
+    return step
+
+
+def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
+                    faithful: bool = True) -> ParamStepFn:
+    """Build the per-frame step ``(state, phys) → (state, metrics)``.
+
+    ``cfg`` contributes the structure (particle count, bucket resolution,
+    voxel capacity, substep count) and the extension coefficients; the
+    physics scalars come from ``phys``. State comes in and goes out in the
+    caller's particle order.
+
+    neighbor: 'sorted' (the CUDA kernels on the card) or 'brute' (O(N²)
+              oracle).
+    faithful: reuse the frame-start bucket + density across all substeps
+              (reference semantics); False rebuilds them every substep.
+    """
+    cfg = cfg.validate()
+    _check_supported(neighbor)
+    if neighbor == "brute":
+        return _brute_step(cfg, faithful)
+    return _sorted_step(cfg) if faithful else _corrected_step(cfg)
+
+
 def make_frame_step(cfg: SimConfig, *, neighbor: str = "sorted",
                     faithful: bool = True,
                     device: torch.device | str = "cpu") -> StepFn:
@@ -176,20 +302,40 @@ def make_frame_step(cfg: SimConfig, *, neighbor: str = "sorted",
     return lambda state: param_step(state, phys)
 
 
+def _stack(ms: list[StepMetrics]) -> StepMetrics | None:
+    return StepMetrics(*(torch.stack(x) for x in zip(*ms))) if ms else None
+
+
 def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
                  faithful: bool = True,
                  device: torch.device | str = "cpu"):
     """Build ``state → (state, metrics)`` over ``n_frames`` frames, with
     ``metrics`` a ``StepMetrics`` of per-frame tensors ``[n_frames]``.
 
-    State stays in SORTED order across frames: the rollout carries the
-    particle-id column ``pid`` and passes it to the sort as the tie-break,
-    so capacity ranks stay keyed to original ids and the result is bit-equal
-    to stepping frame by frame; it unsorts once at the end
-    (``_make_pallas_rollout``, stepper.py:405-516 of the JAX package).
+    Faithful sorted rollouts keep the state in SORTED order across frames:
+    the rollout carries the particle-id column ``pid`` and passes it to the
+    sort as the tie-break, so capacity ranks stay keyed to original ids and
+    the result is bit-equal to stepping frame by frame; it unsorts once at
+    the end (``_make_pallas_rollout``, stepper.py:405-516 of the JAX
+    package). Every other rollout loops over the frame step
+    (stepper.py:610-634).
     """
     cfg = cfg.validate()
-    _check_supported(cfg, neighbor, faithful)
+    _check_supported(neighbor)
+    if neighbor != "sorted" or not faithful:
+        step = make_frame_step(cfg, neighbor=neighbor, faithful=faithful,
+                               device=device)
+
+        def loop(state: ParticleState
+                 ) -> tuple[ParticleState, StepMetrics]:
+            ms = []
+            for _ in range(n_frames):
+                state, m = step(state)
+                ms.append(m)
+            return state, _stack(ms)
+
+        return loop
+
     r, cap, n = cfg.bucket_resolution, cfg.voxel_capacity, cfg.n_particles
     phys = PhysParams.from_config(cfg, device)
 
@@ -208,9 +354,7 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
             ms.append(m)
         final = ParticleState(pos=_unsort(pid, pos), vel=_unsort(pid, vel),
                               nan_count=_unsort(pid, nan_count))
-        metrics = StepMetrics(*(torch.stack(x) for x in zip(*ms))) \
-            if ms else None
-        return final, metrics
+        return final, _stack(ms)
 
     return rollout
 

@@ -1,1 +1,2 @@
-"""Profiling helpers."""
+"""Runtime utilities: profiling, checkpoint/resume, metrics logging and
+state diagnostics."""

@@ -5,8 +5,8 @@ Counterpart of ``sphfluidsimulation_tpu/utils/profiling.py::device_sync``.
 PyTorch returns before the card finishes, so host-clock timing must end in
 ``device_sync``; a kernel's own time comes from CUDA events
 (:class:`CudaTimer`), a phase's from the profiler ranges that :func:`span`
-opens. The JAX module's ``trace`` and ``ThroughputTimer`` serve the CLI,
-which is not ported yet.
+opens. The JAX module's ``trace`` and ``ThroughputTimer`` have no
+counterpart: the port's CLI times frames through ``utils.metrics``.
 """
 
 from __future__ import annotations

@@ -13,6 +13,11 @@ from sphfluidsimulation_torch.params import PhysParams as TPhys
 from sphfluidsimulation_torch.state import (make_state, state_from_numpy,
                                             state_to_numpy)
 
+# one intra-op thread: the suite runs in several worker processes on
+# shared cores, where each worker's spinning OpenMP threads slowed the
+# port's many small CPU ops about fivefold
+torch.set_num_threads(1)
+
 # CALM as in tests/test_pallas.py:18-20
 _CALM = dict(particle_number=1024, bucket_resolution=11, preset=0,
              gas_constant=20.0, rest_density=1.7, viscosity=0.05,

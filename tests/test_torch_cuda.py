@@ -24,6 +24,7 @@ _GOLDENISH = dict(particle_number=1024, bucket_resolution=11)
 CONFIGS = {"calm": _CALM, "goldenish": _GOLDENISH,
            "tiny": dict(particle_number=4096, bucket_resolution=17)}
 CAP = 32
+XSPH, ALPHA = 0.3, 0.4
 
 
 @pytest.fixture
@@ -34,8 +35,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _card_inputs(name, device, frames=0):
-    cfg = SimConfig(**CONFIGS[name])
+def _card_inputs(name, device, frames=0, **ext):
+    cfg = SimConfig(**CONFIGS[name], **ext)
     st = initial_state(cfg, device)
     if frames:
         st, _ = make_rollout(cfg, frames, device=device)(st)
@@ -78,6 +79,47 @@ def test_substep_rule_rejects_kernel_without_viscosity(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["calm", "goldenish"])
+def test_fused_substep_ext_kernel_matches_plain_on_card(cuda_device, name):
+    tf, ps, vs, tp, r = _card_inputs(name, cuda_device, frames=2, xsph=XSPH,
+                                     artificial_viscosity=ALPHA)
+    rows = sk.pack_rows(ps, vs, sk.density_plain(tf, ps, tp, r, CAP))
+    before = dict(sk.launch_counts)
+    got = sk.fused_substep(tf, rows, tp, r, CAP, XSPH, ALPHA)
+    assert sk.launch_counts["fused_substep_ext"] == \
+        before["fused_substep_ext"] + 1
+    assert sk.launch_counts["fused_substep"] == before["fused_substep"]
+    acc = sk.substep_accuracy(tf, rows, got, tp, r, CAP, XSPH, ALPHA)
+    assert acc.ok, acc
+    bad = sk.fused_substep_cuda(tf, rows, tp, r, CAP, XSPH, 0.0)
+    assert not sk.substep_accuracy(tf, rows, bad, tp, r, CAP, XSPH,
+                                   ALPHA).ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["calm", "goldenish"])
+def test_forces_kernel_matches_plain_on_card(cuda_device, name):
+    tf, ps, vs, tp, r = _card_inputs(name, cuda_device, frames=2, xsph=XSPH,
+                                     artificial_viscosity=ALPHA)
+    rows = sk.pack_rows(ps, vs, sk.density_plain(tf, ps, tp, r, CAP))
+    before = sk.launch_counts["forces"]
+    f, dv = sk.forces_pass(tf, rows, tp, r, CAP, XSPH, ALPHA)
+    assert sk.launch_counts["forces"] == before + 1
+    assert sk.forces_accuracy(tf, rows, f, dv, tp, r, CAP, XSPH, ALPHA).ok
+    # the instance without extensions: the last six lanes are zero
+    plain = sk.forces_cuda(tf, rows, tp, r, CAP, ext=False)
+    assert not plain[:, 6:].any()
+    f_p, dv_p = sk.fold_forces(plain, rows[:, 6], tp)
+    assert dv_p is None
+    assert sk.forces_accuracy(tf, rows, f_p, None, tp, r, CAP).ok
+    # the planted control: the XSPH coefficient folded in as 0
+    sums = sk.forces_cuda(tf, rows, tp, r, CAP, ext=True)
+    f0, dv0 = sk.fold_forces(sums, rows[:, 6], tp, 0.0, ALPHA)
+    assert not sk.forces_accuracy(tf, rows, f0, dv0, tp, r, CAP, XSPH,
+                                  ALPHA).ok
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_rejects_bad_layout(cuda_device):
     tf, ps, vs, tp, r = _card_inputs("calm", cuda_device)
     rows = sk.pack_rows(ps, vs, sk.density_cuda(tf, ps, tp, r, CAP))
@@ -85,6 +127,8 @@ def test_kernel_wrapper_rejects_bad_layout(cuda_device):
         sk.fused_substep(tf, rows[:, :7], tp, r, CAP)
     with pytest.raises(ValueError):
         sk.density_pass(tf, ps.double(), tp, r, CAP)
+    with pytest.raises(ValueError):
+        sk.forces_pass(tf, rows[:, :7], tp, r, CAP)
 
 
 @pytest.mark.cuda
@@ -96,7 +140,8 @@ def test_rollout_on_card_tracks_cpu(cuda_device):
     sk.reset_launch_counts()
     gpu, m = make_rollout(cfg, 5, device=cuda_device)(
         initial_state(cfg, cuda_device))
-    assert sk.launch_counts == {"density": 5, "fused_substep": 25}
+    assert sk.launch_counts == {"density": 5, "fused_substep": 25,
+                                "fused_substep_ext": 0, "forces": 0}
     cpu, mc = make_rollout(cfg, 5)(initial_state(cfg))
     torch.testing.assert_close(gpu.pos.cpu(), cpu.pos, rtol=0, atol=5e-4)
     assert torch.equal(m.overflow.cpu(), mc.overflow)
@@ -104,12 +149,17 @@ def test_rollout_on_card_tracks_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_rollout_never_waits_for_the_card(cuda_device):
+@pytest.mark.parametrize("faithful", [True, False])
+def test_rollout_never_waits_for_the_card(cuda_device, faithful):
     # the frame loop keeps metrics on the device: no .item(), .cpu() or
-    # data-dependent shapes; torch raises on any synchronising call
+    # data-dependent shapes; torch raises on any synchronising call. The
+    # corrected mode with both extensions too: its per-substep frame build,
+    # K3 and host integration need no sync either
     cfg = SimConfig(**CONFIGS["tiny"])
+    if not faithful:
+        cfg = cfg.replace(xsph=XSPH, artificial_viscosity=ALPHA)
     state = initial_state(cfg, cuda_device)
-    roll = make_rollout(cfg, 3, device=cuda_device)
+    roll = make_rollout(cfg, 3, faithful=faithful, device=cuda_device)
     roll(state)                                # builds the kernels
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

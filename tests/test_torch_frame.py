@@ -11,6 +11,11 @@ from sphfluidsimulation_tpu.models.presets import init_positions as jinit
 from sphfluidsimulation_tpu.config import SimConfig as JConfig
 from sphfluidsimulation_torch.ops.frame import build_frame
 
+# one intra-op thread: the suite runs in several worker processes on
+# shared cores, where each worker's spinning OpenMP threads slowed the
+# port's many small CPU ops about fivefold
+torch.set_num_threads(1)
+
 FIELDS = ("order", "cid", "raw", "occ", "start")
 
 

@@ -18,11 +18,19 @@ MODULES = [
     "sphfluidsimulation_torch.ops.frame",
     "sphfluidsimulation_torch.ops.sph_kernels",
     "sphfluidsimulation_torch.ops.cuda_build",
+    "sphfluidsimulation_torch.ops.grid",
+    "sphfluidsimulation_torch.ops.brute",
+    "sphfluidsimulation_torch.ops.extensions",
     "sphfluidsimulation_torch.models.presets",
     "sphfluidsimulation_torch.models.scene",
     "sphfluidsimulation_torch.sim.stepper",
     "sphfluidsimulation_torch.utils.profiling",
+    "sphfluidsimulation_torch.utils.metrics",
+    "sphfluidsimulation_torch.utils.checkpoint",
+    "sphfluidsimulation_torch.utils.diagnostics",
     "sphfluidsimulation_torch.bench",
+    "sphfluidsimulation_torch.cli",
+    "sphfluidsimulation_torch.__main__",
 ]
 
 

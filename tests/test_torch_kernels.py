@@ -25,6 +25,11 @@ from sphfluidsimulation_torch.ops.frame import build_frame
 from sphfluidsimulation_torch.params import PhysParams
 from sphfluidsimulation_torch.sim.stepper import initial_state, make_rollout
 
+# one intra-op thread: the suite runs in several worker processes on
+# shared cores, where each worker's spinning OpenMP threads slowed the
+# port's many small CPU ops about fivefold
+torch.set_num_threads(1)
+
 # tests/test_pallas.py:18-21
 _CALM = dict(particle_number=1024, bucket_resolution=11, preset=0,
              gas_constant=20.0, rest_density=1.7, viscosity=0.05,
@@ -118,7 +123,9 @@ def test_inf_velocities_match_brute():
         out[order] = a
         return out.numpy()
 
-    f_p = unsort(sk.pair_forces_plain(tf, ps, vs, rs, tp, r, CAP))
+    f_p, dv = sk.forces_pass(tf, sk.pack_rows(ps, vs, rs), tp, r, CAP)
+    assert dv is None
+    f_p = unsort(f_p)
     np.testing.assert_array_equal(np.isnan(f_p), np.isnan(f_b))
     np.testing.assert_array_equal(np.isposinf(f_p), np.isposinf(f_b))
     np.testing.assert_array_equal(np.isneginf(f_p), np.isneginf(f_b))
@@ -173,7 +180,10 @@ def test_cpu_tensors_route_to_plain_versions():
     torch.testing.assert_close(
         sk.fused_substep(tf, rows, tp, r, CAP),
         sk.fused_substep_plain(tf, rows, tp, r, CAP), rtol=0, atol=0)
-    assert sk.launch_counts == {"density": 0, "fused_substep": 0}
+    f, dv = sk.forces_pass(tf, rows, tp, r, CAP, 0.3, 0.4)
+    sums = sk.forces_plain(tf, rows, tp, r, CAP, ext=True)
+    assert torch.equal(f, sk.fold_forces(sums, rho, tp, 0.3, 0.4)[0])
+    assert sk.launch_counts == dict.fromkeys(sk.launch_counts, 0)
 
 
 def test_cuda_build_flags_and_cache_key():
@@ -181,11 +191,16 @@ def test_cuda_build_flags_and_cache_key():
     flags = " ".join(cuda_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast-math" not in flags and "fast_math" not in flags
-    path = cuda_build.library_path()
-    assert path.parent == cuda_build.BUILD_DIR
-    assert path == cuda_build.library_path()     # keyed by content only
-    for s in cuda_build.SOURCES:
+    paths = [cuda_build.library_path(s) for s in cuda_build.KERNELS]
+    assert len(set(paths)) == len(paths) == 3     # one library per source
+    for s, path in zip(cuda_build.KERNELS, paths):
+        assert path.parent == cuda_build.BUILD_DIR
+        assert path == cuda_build.library_path(s)  # keyed by content only
+    for s in (cuda_build.HEADER, *cuda_build.KERNELS):
         assert (cuda_build.CSRC / s).is_file()
+    # the K3 and K2 bindings take the extension switch before the stream
+    sigs = {n: a for v in cuda_build.KERNELS.values() for n, a in v}
+    assert len(sigs["sph_forces"]) == len(sigs["sph_fused_substep"]) == 11
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -13,6 +13,11 @@ from sphfluidsimulation_torch.config import SimConfig
 from sphfluidsimulation_torch.models.presets import init_positions
 from sphfluidsimulation_torch.ops import noise, sph_math
 
+# one intra-op thread: the suite runs in several worker processes on
+# shared cores, where each worker's spinning OpenMP threads slowed the
+# port's many small CPU ops about fivefold
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("preset", [0, 1, 2])
 def test_presets_bit_equal_to_jax(preset):

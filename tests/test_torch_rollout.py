@@ -20,6 +20,11 @@ from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                   make_frame_step,
                                                   make_rollout)
 
+# one intra-op thread: the suite runs in several worker processes on
+# shared cores, where each worker's spinning OpenMP threads slowed the
+# port's many small CPU ops about fivefold
+torch.set_num_threads(1)
+
 DATA = os.path.join(os.path.dirname(__file__), "data",
                     "golden_dambreak_1k.npz")
 _CALM = dict(particle_number=1024, bucket_resolution=11, preset=0,
@@ -93,25 +98,52 @@ def test_scene_steps():
     assert scene.frame == 0
 
 
-@pytest.mark.parametrize("neighbor",
-                         ["brute", "slotted", "gather", "sites", "pallas"])
+@pytest.mark.parametrize("neighbor", ["slotted", "gather", "sites", "pallas"])
 def test_unported_backends_raise(neighbor):
     cfg = SimConfig(**_CALM)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_frame_step(cfg, neighbor=neighbor)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_rollout(cfg, 2, neighbor=neighbor)
-
-
-def test_unported_modes_raise():
-    cfg = SimConfig(**_CALM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_frame_step(cfg, faithful=False)
-    for kw in (dict(xsph=0.1), dict(artificial_viscosity=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_rollout(cfg.replace(**kw), 1)
     with pytest.raises(ValueError):
         make_frame_step(cfg, neighbor="nope")
+
+
+def test_brute_rollout_equals_brute_stepping_and_tracks_jax_brute():
+    # the port's oracle: its rollout loops over its frame step, and it
+    # tracks the JAX brute oracle on CALM (5 frames, the atol of
+    # test_calm_rollout_tracks_brute)
+    jc, tc = JConfig(**_CALM), SimConfig(**_CALM)
+    bstep = jax.jit(jstep(jc, neighbor="brute"))
+    sb = jinit(jc)
+    for _ in range(5):
+        sb, mb = bstep(sb)
+    st = initial_state(tc)
+    final, m = make_rollout(tc, 5, neighbor="brute")(st)
+    step = make_frame_step(tc, neighbor="brute")
+    for _ in range(5):
+        st, ms = step(st)
+    for a, b in zip(final, st):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(final.pos.numpy(), np.asarray(sb.pos),
+                               rtol=0, atol=5e-4)
+    assert m.overflow.shape == (5,) and int(m.overflow[-1]) == \
+        int(mb.overflow)
+
+
+@pytest.mark.parametrize("kw", [dict(xsph=0.3), dict(artificial_viscosity=0.5),
+                                dict(xsph=0.3, artificial_viscosity=0.5)])
+def test_extensions_run_in_both_modes_and_change_the_trajectory(kw):
+    # each coefficient alone and both together, faithful and corrected:
+    # the frame runs, stays in the cube, and differs from the plain run
+    cfg = SimConfig(**_CALM)
+    st = initial_state(cfg)
+    for faithful in (True, False):
+        plain, _ = make_rollout(cfg, 2, faithful=faithful)(st)
+        ext, m = make_rollout(cfg.replace(**kw), 2, faithful=faithful)(st)
+        assert bool(((ext.pos >= 0) & (ext.pos <= 1)).all())
+        assert m.exact_cert.tolist() == [0, 0]
+        assert float((ext.pos - plain.pos).abs().max()) > 1e-7
 
 
 def test_scaled_config_occupancy():
