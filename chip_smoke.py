@@ -18,24 +18,41 @@ every phase passed; each prints its seconds):
    R = 47, and 1,048,576 particles, R = 75); K1, K2 with the extension sums,
    K3 forces, and K3 + ``integrate_substep`` at BASELINE config 3 (524,288
    requested = 524,176 active particles, R = 47, preset 2, XSPH 0.3,
-   artificial viscosity 0.5);
+   artificial viscosity 0.5); the compact-lane kernel K5: density and the
+   fused substep at both sizes, forces at 262k, density and the fused
+   substep with extensions at config 3, the substep and forces on rows two
+   substeps into the frame, where rows drift, with the drift count equal to
+   the plain version's;
 4. main paths, each after a one-frame warm-up, with the launch counters
    reset just before and read just after it: the faithful 10-frame
    ``make_rollout`` at both sizes (1 + 5 launches a frame, no extension
    instance), then config 3 faithful (K1 + 5 K2-ext a frame) and config 3
-   corrected (6 K1 + 5 K3 a frame); positions must be finite and in [0, 1]
-   and ``exact_cert`` 0; then the compares again on the frame-10 states,
-   with planted controls that must fail their rule: K2 with viscosity
-   zeroed, K2-ext with the artificial viscosity zeroed, K3 with XSPH zeroed;
+   corrected (6 K1 + 5 K3 a frame); then the compact route
+   (``tune=SortedTuning(compact=True)``): faithful at both sizes (1 K5
+   density + 5 K5 substeps a frame), config 3 faithful (1 + 5 K5-ext) and
+   262k corrected (6 K5 density + 5 K5 forces); positions must be in
+   [0, 1], and finite with ``exact_cert`` 0 on the K1-K3 route (on K5's
+   the certificate is the drift count, printed beside the rate, and where
+   it is not 0 a drifted row may end non-finite, as its plain version
+   does; the count is printed); then the compares again on the
+   frame-10 states, with planted controls that must fail their rule: K2
+   with viscosity zeroed, K2-ext with the artificial viscosity zeroed, K3
+   with XSPH zeroed, K5 with viscosity zeroed;
 5. reference: the 1,024-particle golden dam-break (tests/data) on the card,
    frame-1 max error < 1e-5 and frame-5 RMSE < 1e-3; and a 1,024-particle
    calm scene with XSPH 0.3 and artificial viscosity 0.4, whose sorted tier
    tracks the port's own brute oracle within 1e-5 over 3 frames in both
    modes (the machine with the card has no JAX);
 6. the CLI in-process: ``run`` at config 3 for 3 frames, faithful and
-   ``--corrected``, through the kernels;
+   ``--corrected``, through the kernels, and faithful with
+   ``SPH_PALLAS_COMPACT=1`` through K5;
 7. timing: each kernel and its plain version (CUDA events) at the shapes of
-   its path.
+   its path, K5 beside K1/K2/K3 at the same states (the fused substeps on
+   rows two substeps into the frame, the rest at the frame start); each
+   kernel's bound,
+   the larger of its bytes over the card's memory rate and its FP32
+   operations, counted from the member pairs of this run's inputs, over the
+   FP32 rate.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -62,6 +79,55 @@ DENSITY_RTOL = 1e-5
 # the sorted tier against the port's brute oracle on the calm 1k scene
 ORACLE_ATOL = 1e-5
 XSPH, ALPHA = 0.3, 0.5          # BASELINE config 3 (README.md)
+
+# The bound of a kernel: the larger of its bytes over the memory rate and
+# its FP32 operations over the FP32 rate outside the tensor cores (NVIDIA
+# H100 SXM, dense, from NVIDIA's H100 datasheet).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations per member pair, counted from sph_common.cuh: add_density
+# 13; add_pair 39 (3 differences, |r|² 5, √ 1, h − |r| 1, ∇W 4, ∇²W 1,
+# p_j 2, pressure coefficient 3, two 3-vector multiply-adds 18, 1/ρ_j 1);
+# the extension terms 35 more. A multiply-add counts 2, a square root or
+# a division 1 (they cost more: this is a lower bound).
+OPS_PER_PAIR = {"density": 13, "forces": 39, "fused": 39}
+OPS_PER_PAIR_EXT = 35
+# per-row operations outside the pair loop: ρ·m; the fused tail 50 (+15
+# for the extension fold); the forces' fold is a separate torch pass
+OPS_PER_ROW = {"density": 1, "forces": 0, "fused": 50}
+OPS_PER_ROW_EXT = 15
+# bytes per row read and written once: density reads pos f32[3], raw i32,
+# occ u8 and writes ρ f32; the force modes read the rows f32[8] and write
+# rows f32[8] (fused) or sums f32[12] (forces); K5 also reads cid i32
+ROW_BYTES = {"density": 12 + 4 + 1 + 4, "fused": 32 + 4 + 1 + 32,
+             "forces": 32 + 4 + 1 + 48}
+# every kernel of the port: (kind, source, the TPU kernel it replaces)
+KERNELS = {
+    "density": ("density", "density.cu", "pallas_sph.py:961"),
+    "fused_substep": ("fused", "fused_substep.cu", "pallas_sph.py:961"),
+    "fused_substep_ext": ("fused", "fused_substep.cu", "pallas_sph.py:961"),
+    "forces": ("forces", "forces.cu", "pallas_sph.py:961"),
+    "compact_density": ("density", "compact.cu", "pallas_compact.py:237"),
+    "compact_substep": ("fused", "compact.cu", "pallas_compact.py:237"),
+    "compact_substep_ext": ("fused", "compact.cu", "pallas_compact.py:237"),
+    "compact_forces": ("forces", "compact.cu", "pallas_compact.py:237"),
+}
+
+
+def bound(name: str, n: int, r: int, pairs: int,
+          ext: bool) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    kernel ``name``'s work on n rows at resolution r with ``pairs`` member
+    pairs (self pairs excluded for the force modes), with or without the
+    extension sums."""
+    kind = KERNELS[name][0]
+    nbytes = n * (ROW_BYTES[kind] + (4 if name.startswith("compact") else 0))
+    nbytes += 4 * (r ** 3 + 1) + 4 * 15           # start[], the scalars
+    ops = pairs * (OPS_PER_PAIR[kind] + (OPS_PER_PAIR_EXT if ext else 0))
+    ops += n * (OPS_PER_ROW[kind] + (OPS_PER_ROW_EXT if ext else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
 
 
 def fail(msg: str) -> None:
@@ -95,7 +161,9 @@ def main() -> None:
 
     from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig, cli
     from sphfluidsimulation_torch.bench import scaled_config
-    from sphfluidsimulation_torch.ops import cuda_build, sph_kernels as sk
+    from sphfluidsimulation_torch.ops import compact, cuda_build
+    from sphfluidsimulation_torch.ops import sph_kernels as sk
+    from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning
     from sphfluidsimulation_torch.ops.frame import build_frame
     from sphfluidsimulation_torch.params import PhysParams
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
@@ -119,6 +187,7 @@ def main() -> None:
     sizes = {"262k": GOLDEN_CONFIG, "1m": scaled_config(1 << 20)}
     c3 = SimConfig(particle_number=524288, preset=2, xsph=XSPH,
                    artificial_viscosity=ALPHA)
+    k5 = SortedTuning(compact=True)
     errs = dict.fromkeys(sk.launch_counts, 0.0)
 
     def frame_inputs(cfg, state):
@@ -150,20 +219,79 @@ def main() -> None:
         if acc.ok:
             fail(f"the check passes {what} at {label}")
 
+    def hold_density(rho_k, rho_p, name, label):
+        torch.cuda.synchronize()
+        d = (rho_k - rho_p).abs()
+        tol = DENSITY_RTOL * rho_p.abs() + 1e-6 * rho_p.abs().max()
+        e_d = float(d.max())
+        if not bool(torch.isfinite(rho_k).all()) or bool((d > tol).any()):
+            fail(f"{name} kernel disagrees at {label}: max |err| {e_d}")
+        errs[name] = max(errs[name], e_d)
+        print(f"compare {label}: {name} max|k-p| {e_d:.3e} (max rho "
+              f"{float(rho_p.max()):.4g})", flush=True)
+
     def compare_density(frame, pos_s, phys, r, cap, label):
         """K1 against its plain version; returns both densities."""
         rho_k = sk.density_cuda(frame, pos_s, phys, r, cap)
         rho_p = sk.density_plain(frame, pos_s, phys, r, cap)
-        torch.cuda.synchronize()
-        d = (rho_k - rho_p).abs()
-        bound = DENSITY_RTOL * rho_p.abs() + 1e-6 * rho_p.abs().max()
-        e_d = float(d.max())
-        if not bool(torch.isfinite(rho_k).all()) or bool((d > bound).any()):
-            fail(f"density kernel disagrees at {label}: max |err| {e_d}")
-        errs["density"] = max(errs["density"], e_d)
-        print(f"compare {label}: density max|k-p| {e_d:.3e} (max rho "
-              f"{float(rho_p.max()):.4g})", flush=True)
+        hold_density(rho_k, rho_p, "density", label)
         return rho_k, rho_p
+
+    def same_cert(ck, cp, what, label):
+        if int(ck) != int(cp):
+            fail(f"{what} at {label}: drift count {int(ck)}, plain version "
+                 f"{int(cp)}")
+        return int(ck)
+
+    def compare_k5(cfg, state, label, forces=False, planted=False):
+        """K5 against its plain versions: density on the frame, then the
+        fused substep (and the forces) on rows two plain substeps into the
+        frame, whose fresh cells may have left their tile's band."""
+        frame, pos_s, vel_s, phys, r, _ = frame_inputs(cfg, state)
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        ext = sk.uses_extensions(xs, al)
+        rho_k, ck = compact.density_compact_cuda(frame, pos_s, phys, r)
+        rho_p, cp = compact.density_compact_plain(frame, pos_s, phys, r)
+        hold_density(rho_k, rho_p, "compact_density", label)
+        same_cert(ck, cp, "K5 density", label)
+        rows = sk.pack_rows(pos_s, vel_s, rho_p)
+        for _ in range(2):
+            rows, _ = compact.compact_substep_plain(frame, rows, phys, r, xs,
+                                                    al)
+        name = "compact_substep_ext" if ext else "compact_substep"
+        out_k, ck = compact.compact_substep_cuda(frame, rows, phys, r, xs, al)
+        out_p, cp = compact.compact_substep_plain(frame, rows, phys, r, xs,
+                                                  al)
+        line = must_pass(sk.substep_accuracy(
+            frame, rows, out_k, phys, r, None, xs, al,
+            sums_fn=compact.compact_sums_plain), f"K5 {name}", label)
+        drift = same_cert(ck, cp, f"K5 {name}", label)
+        e_s = max_err(out_k, out_p)
+        errs[name] = max(errs[name], e_s)
+        print(f"compare {label}: {name} on substep 3 max|k-p| {e_s:.3e}, "
+              f"{line}; drift count {drift} (plain {int(cp)})", flush=True)
+        if forces:
+            s_k, ck = compact.forces_compact_cuda(frame, rows, phys, r)
+            s_p, cp = compact.forces_compact_plain(frame, rows, phys, r)
+            f_k = sk.fold_forces(s_k, rows[:, 6], phys)[0]
+            f_p = sk.fold_forces(s_p, rows[:, 6], phys)[0]
+            line = must_pass(sk.forces_accuracy(
+                frame, rows, f_k, None, phys, r, None,
+                sums_fn=compact.compact_sums_plain), "K5 forces", label)
+            drift = same_cert(ck, cp, "K5 forces", label)
+            e_f = max_err(f_k, f_p)
+            errs["compact_forces"] = max(errs["compact_forces"], e_f)
+            print(f"compare {label}: compact_forces max|k-p| {e_f:.3e}, "
+                  f"{line}; drift count {drift}", flush=True)
+        if planted:
+            no_visc = phys._replace(
+                viscosity=torch.zeros_like(phys.viscosity))
+            bad, _ = compact.compact_substep_cuda(frame, rows, no_visc, r,
+                                                  xs, al)
+            must_fail(sk.substep_accuracy(
+                frame, rows, bad, phys, r, None, xs, al,
+                sums_fn=compact.compact_sums_plain),
+                "the K5 substep with viscosity 0", label)
 
     def compare(cfg, state, label, planted=False):
         """K1 and K2 against their plain versions (the faithful path)."""
@@ -240,12 +368,17 @@ def main() -> None:
             compare(cfg, states[k], f"{k} frame 0")
         c3_state = initial_state(c3, dev)
         compare_ext(c3, c3_state, "config 3 frame 0")
+    with Phase("compare K5 frame 0"):
+        for k, cfg in sizes.items():
+            compare_k5(cfg, states[k], f"{k} frame 0", forces=k == "262k")
+        compare_k5(c3, c3_state, "config 3 frame 0")
+    states0 = dict(states)
 
     # ---- 4. main paths, each after a one-frame warm-up (the first launch
     # of each torch kernel loads its module; that is set-up time)
     launches_total = dict.fromkeys(sk.launch_counts, 0)
 
-    def run_path(label, rolls, inputs, want, cfgs):
+    def run_path(label, rolls, inputs, want, cfgs, exact=True):
         torch.cuda.synchronize()
         sk.reset_launch_counts()
         results = {}
@@ -263,17 +396,26 @@ def main() -> None:
         for k, (final, m, dt) in results.items():
             cfg = cfgs[k]
             pos = final.pos
-            if not bool(torch.isfinite(pos).all()):
-                fail(f"{k}: non-finite positions")
-            if not bool(((pos >= 0) & (pos <= 1)).all()):
+            cert = int(m.exact_cert.sum())
+            # a row past its tile's band loses candidates on the compact
+            # route (the JAX semantics, counted by exact_cert): on the
+            # golden EOS its acceleration can then be -inf where the full
+            # set gives NaN, the NaN trap does not fire, and v = inf - inf
+            # is NaN. Only there may a position be non-finite.
+            bad = int((~torch.isfinite(pos)).any(1).sum())
+            if bad and (exact or cert == 0):
+                fail(f"{k}: {bad} rows with non-finite positions")
+            fin = torch.isfinite(pos)
+            if not bool(((pos[fin] >= 0) & (pos[fin] <= 1)).all()):
                 fail(f"{k}: positions outside [0, 1]")
-            if int(m.exact_cert.sum()) != 0:
-                fail(f"{k}: exact_cert {int(m.exact_cert.sum())}")
+            if exact and cert != 0:
+                fail(f"{k}: exact_cert {cert}")
             rate = cfg.n_particles * cfg.substeps * FRAMES / dt
             print(f"rollout {k}: N={cfg.n_particles} "
                   f"R={cfg.bucket_resolution} {FRAMES} frames in {dt:.4f} s "
                   f"= {rate:.6g} particle-substeps/s; exact_cert "
-                  f"{int(m.exact_cert.sum())}; overflow per frame "
+                  f"{cert} {m.exact_cert.tolist()}; non-finite position "
+                  f"rows {bad}; overflow per frame "
                   f"{m.overflow.tolist()}; nan_events "
                   f"{int(m.nan_events.sum())}; max_speed per frame "
                   f"{[float(f'{x:.4g}') for x in m.max_speed.tolist()]} "
@@ -302,12 +444,44 @@ def main() -> None:
             c3_states.update(run_path(f"the {k} path", {k: roll},
                                       {k: c3_state}, want, {k: c3}))
 
+    # the compact route (K5)
+    with Phase("compact rollouts 262k, 1m"):
+        for k, cfg in sizes.items():
+            make_rollout(cfg, 1, tune=k5, device=dev)(states0[k])
+        rolls = {k: make_rollout(c, FRAMES, tune=k5, device=dev)
+                 for k, c in sizes.items()}
+        k5_states = run_path(
+            "the compact faithful path", rolls, states0,
+            dict(zero, compact_density=FRAMES * len(sizes),
+                 compact_substep=FRAMES * len(sizes) * 5), sizes,
+            exact=False)
+    k5_paths = {"config 3 faithful, compact": (c3, True, dict(
+                    zero, compact_density=FRAMES,
+                    compact_substep_ext=FRAMES * 5)),
+                "262k corrected, compact": (sizes["262k"], False, dict(
+                    zero, compact_density=FRAMES * 6,
+                    compact_forces=FRAMES * 5))}
+    for k, (cfg, faithful, want) in k5_paths.items():
+        with Phase(f"rollout {k}"):
+            st0 = c3_state if cfg is c3 else states0["262k"]
+            make_rollout(cfg, 1, faithful=faithful, tune=k5, device=dev)(st0)
+            roll = make_rollout(cfg, FRAMES, faithful=faithful, tune=k5,
+                                device=dev)
+            k5_states.update(run_path(f"the {k} path", {k: roll}, {k: st0},
+                                      want, {k: cfg}, exact=False))
+
     # ---- 4b. compare again after 10 frames, with the planted controls
     with Phase(f"compare frame {FRAMES}"):
         for k, cfg in sizes.items():
             compare(cfg, states[k], f"{k} frame {FRAMES}", planted=True)
         compare_ext(c3, c3_states["config 3 faithful"],
                     f"config 3 frame {FRAMES}", planted=True)
+    with Phase(f"compare K5 frame {FRAMES}"):
+        for k, cfg in sizes.items():
+            compare_k5(cfg, k5_states[k], f"{k} frame {FRAMES}",
+                       forces=k == "262k", planted=k == "262k")
+        compare_k5(c3, k5_states["config 3 faithful, compact"],
+                   f"config 3 frame {FRAMES}")
 
     # ---- 5. references on the card
     with Phase("references"):
@@ -349,19 +523,24 @@ def main() -> None:
         argv = ["run", "--device", "cuda", "--particles", "524288",
                 "--preset", "2", "--xsph", str(XSPH), "--alpha-visc",
                 str(ALPHA), "--frames", "3"]
-        for extra, want in (
-                ([], dict(zero, density=3, fused_substep_ext=15)),
-                (["--corrected"], dict(zero, density=18, forces=15))):
+        for extra, env, want in (
+                ([], "0", dict(zero, density=3, fused_substep_ext=15)),
+                (["--corrected"], "0", dict(zero, density=18, forces=15)),
+                ([], "1", dict(zero, compact_density=3,
+                               compact_substep_ext=15))):
+            os.environ["SPH_PALLAS_COMPACT"] = env
             sk.reset_launch_counts()
             rc = cli.main(argv + extra)
             launches = dict(sk.launch_counts)
-            print(f"cli {' '.join(argv + extra)}: exit {rc}, launches "
-                  f"{launches}", flush=True)
+            print(f"cli SPH_PALLAS_COMPACT={env} {' '.join(argv + extra)}: "
+                  f"exit {rc}, launches {launches}", flush=True)
             if rc != 0 or launches != want:
-                fail(f"the CLI run {extra} exits {rc} with launches "
-                     f"{launches}, expected 0 and {want}")
+                fail(f"the CLI run {extra} (SPH_PALLAS_COMPACT={env}) exits "
+                     f"{rc} with launches {launches}, expected 0 and {want}")
+        del os.environ["SPH_PALLAS_COMPACT"]
 
-    # ---- 7. timing, kernel vs plain, at each path's frame-10 state
+    # ---- 7. timing, kernel vs plain vs bound, at each path's frame-10
+    # state of the K1-K3 route; K5 at the same states
     def time_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -370,63 +549,117 @@ def main() -> None:
                 fn()
         return t.ms / reps
 
-    times = {}
-    with Phase("timing"):
-        for k, cfg in sizes.items():
-            frame, pos_s, vel_s, phys, r, cap = frame_inputs(cfg, states[k])
-            rho = sk.density_cuda(frame, pos_s, phys, r, cap)
-            rows = sk.pack_rows(pos_s, vel_s, rho)
-            times[k] = {
-                "density": (
-                    time_ms(lambda: sk.density_cuda(frame, pos_s, phys, r,
-                                                    cap), 20),
-                    time_ms(lambda: sk.density_plain(frame, pos_s, phys, r,
-                                                     cap), 2)),
-                "fused_substep": (
-                    time_ms(lambda: sk.fused_substep_cuda(frame, rows, phys,
-                                                          r, cap), 20),
-                    time_ms(lambda: sk.fused_substep_plain(frame, rows, phys,
-                                                           r, cap), 2)),
-            }
-        frame, pos_s, vel_s, phys, r, cap = frame_inputs(
-            c3, c3_states["config 3 faithful"])
-        rows = sk.pack_rows(pos_s, vel_s,
-                            sk.density_cuda(frame, pos_s, phys, r, cap))
-        times["c3"] = {
-            "fused_substep_ext": (
-                time_ms(lambda: sk.fused_substep_cuda(
-                    frame, rows, phys, r, cap, XSPH, ALPHA), 20),
-                time_ms(lambda: sk.fused_substep_plain(
-                    frame, rows, phys, r, cap, XSPH, ALPHA), 2)),
-            "forces": (
-                time_ms(lambda: sk.forces_cuda(frame, rows, phys, r, cap,
-                                               ext=True), 20),
-                time_ms(lambda: sk.forces_plain(frame, rows, phys, r, cap,
-                                                ext=True), 2)),
-        }
-        for k, kernels in times.items():
-            for name, (km, pm) in kernels.items():
-                print(f"time {k} {name}: kernel {km:.4f} ms, plain "
-                      f"{pm:.4f} ms [{ident}]", flush=True)
+    times = {}      # name → {shape: (ms, plain ms, bound ms, bound by)}
 
-    src = "sphfluidsimulation_torch/csrc"
-    replaces = "sphfluidsimulation_tpu/ops/pallas_sph.py:961"
-    sources = {"density": "density.cu", "fused_substep": "fused_substep.cu",
-               "fused_substep_ext": "fused_substep.cu",
-               "forces": "forces.cu"}
+    def timed(name, shape, n, r, pairs, ext, fn, plain):
+        km, pm = time_ms(fn, 20), time_ms(plain, 1)
+        b_ms, b_by = bound(name, n, r, pairs, ext)
+        times.setdefault(name, {})[shape] = (km, pm, b_ms, b_by)
+        print(f"time {shape} {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}, {pairs} member pairs) = "
+              f"{100 * b_ms / km:.2f}% of the bound [{ident}]", flush=True)
+
+    with Phase("timing"):
+        shapes = {"262k": (sizes["262k"], states["262k"]),
+                  "1m": (sizes["1m"], states["1m"]),
+                  "c3": (c3, c3_states["config 3 faithful"])}
+        for shape, (cfg, st) in shapes.items():
+            frame, pos_s, vel_s, phys, r, cap = frame_inputs(cfg, st)
+            n = pos_s.shape[0]
+            xs, al = cfg.xsph, cfg.artificial_viscosity
+            ext = sk.uses_extensions(xs, al)
+            rows = sk.pack_rows(pos_s, vel_s,
+                                sk.density_cuda(frame, pos_s, phys, r, cap))
+            # the fused substeps run on rows two substeps into the frame:
+            # K5's tile spans widen within a frame (a row that steps into
+            # the next z-plane stretches its tile's span over R² cells),
+            # so frame-start rows understate it; the density and the
+            # forces of the corrected mode always see frame-start rows
+            mid = rows
+            for _ in range(2):
+                mid = sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al)
+            tot, own = sk.member_pairs(frame, pos_s, r, cap)
+            m_tot, m_own = sk.member_pairs(frame, mid[:, 0:3], r, cap)
+            ctot, _ = compact.member_pairs(frame, pos_s, r, fresh=False)
+            ftot, fown = compact.member_pairs(frame, pos_s, r, fresh=True)
+            k_tot, k_own = compact.member_pairs(frame, mid[:, 0:3], r,
+                                                fresh=True)
+            print(f"member pairs {shape}: frame start, window route {tot} "
+                  f"({own} self, {tot / n:.2f} a particle), K5 density "
+                  f"{ctot}, K5 forces {ftot} ({fown} self); substep 3, "
+                  f"window route {m_tot} ({m_own} self), K5 {k_tot} "
+                  f"({k_own} self)", flush=True)
+            for when, p in (("frame start", pos_s), ("substep 3", mid)):
+                spans, _ = compact.fresh_spans(compact.stale_spans(frame),
+                                               p[:, 0:3], r)
+                a, b = compact.tile_segments(spans, frame.start, r)
+                print(f"K5 union {shape} {when}: "
+                      f"{float((b - a).sum(1).double().mean()):.1f} slots "
+                      f"a tile, on average; each of its rows walks them",
+                      flush=True)
+            if not ext:
+                timed("density", shape, n, r, tot, False,
+                      lambda: sk.density_cuda(frame, pos_s, phys, r, cap),
+                      lambda: sk.density_plain(frame, pos_s, phys, r, cap))
+                timed("compact_density", shape, n, r, ctot, False,
+                      lambda: compact.density_compact_cuda(frame, pos_s,
+                                                           phys, r),
+                      lambda: compact.density_compact_plain(frame, pos_s,
+                                                            phys, r))
+            fused, k5_fused = (("fused_substep_ext", "compact_substep_ext")
+                               if ext else
+                               ("fused_substep", "compact_substep"))
+            timed(fused, shape, n, r, m_tot - m_own, ext,
+                  lambda: sk.fused_substep_cuda(frame, mid, phys, r, cap,
+                                                xs, al),
+                  lambda: sk.fused_substep_plain(frame, mid, phys, r, cap,
+                                                 xs, al))
+            timed(k5_fused, shape, n, r, k_tot - k_own, ext,
+                  lambda: compact.compact_substep_cuda(frame, mid, phys, r,
+                                                       xs, al),
+                  lambda: compact.compact_substep_plain(frame, mid, phys, r,
+                                                        xs, al))
+            if ext:
+                timed("forces", shape, n, r, tot - own, True,
+                      lambda: sk.forces_cuda(frame, rows, phys, r, cap,
+                                             ext=True),
+                      lambda: sk.forces_plain(frame, rows, phys, r, cap,
+                                              ext=True))
+            if shape == "262k":
+                # K5's forces instance has no extensions: K3's beside it
+                timed("forces", "262k_no_ext", n, r, tot - own, False,
+                      lambda: sk.forces_cuda(frame, rows, phys, r, cap),
+                      lambda: sk.forces_plain(frame, rows, phys, r, cap))
+                timed("compact_forces", shape, n, r, ftot - fown, False,
+                      lambda: compact.forces_compact_cuda(frame, rows, phys,
+                                                          r),
+                      lambda: compact.forces_compact_plain(frame, rows,
+                                                           phys, r))
+
+    # the main shape of each kernel's path first; the others as ms_<shape>
+    main_shape = {"density": "262k", "fused_substep": "262k",
+                  "fused_substep_ext": "c3", "forces": "c3",
+                  "compact_density": "262k", "compact_substep": "262k",
+                  "compact_substep_ext": "c3", "compact_forces": "262k"}
+    shape_text = {"262k": "262144 particles, R = 47",
+                  "1m": "1048576 particles, R = 75",
+                  "c3": "config 3: 524176 particles, R = 47, XSPH 0.3, "
+                        "alpha 0.5"}
     record = {"kernels": []}
-    for name, file in sources.items():
-        rec = {"name": name, "route": "cuda", "source": f"{src}/{file}",
-               "replaces": replaces, "launches": launches_total[name],
-               "max_abs_err": errs[name]}
-        if name in times["262k"]:
-            rec.update(ms=times["262k"][name][0],
-                       plain_ms=times["262k"][name][1],
-                       ms_1m=times["1m"][name][0],
-                       plain_ms_1m=times["1m"][name][1])
-        else:
-            rec.update(ms=times["c3"][name][0], plain_ms=times["c3"][name][1],
-                       shape="config 3: 524176 particles, R = 47")
+    for name, (_, file, replaces) in KERNELS.items():
+        main = main_shape[name]
+        ms, pm, b_ms, b_by = times[name][main]
+        rec = {"name": name, "route": "cuda",
+               "source": f"sphfluidsimulation_torch/csrc/{file}",
+               "replaces": f"sphfluidsimulation_tpu/ops/{replaces}",
+               "launches": launches_total[name], "max_abs_err": errs[name],
+               "ms": ms, "plain_ms": pm, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None, "shape": shape_text[main]}
+        for other, (ms, pm, b_ms, b_by) in times[name].items():
+            if other != main:
+                rec.update({f"ms_{other}": ms, f"plain_ms_{other}": pm,
+                            f"bound_ms_{other}": b_ms,
+                            f"bound_by_{other}": b_by})
         record["kernels"].append(rec)
     print(json.dumps(record), flush=True)
     print(ident, flush=True)

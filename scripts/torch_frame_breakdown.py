@@ -5,20 +5,25 @@ Rolls the golden dam-break (262,144 particles, R = 47), the bench
 headline (1,048,576 particles, R = 75) and BASELINE config 3 (524,176
 particles, R = 47, XSPH 0.3, artificial viscosity 0.5) in faithful and in
 corrected mode forward 10 frames, then profiles the rollout of the next
-frames. Each phase's device time is that of the kernels launched inside the
-stepper's own profiler ranges (``stepper.FRAME_PHASES``: frame build,
-density kernel, rows pack, each fused substep, unpack + metrics;
-``stepper.CORRECTED_PHASES`` in corrected mode: each substep's frame build,
-density, pack, forces kernel and integrate + unsort, then the metrics);
-against the host clock of the rollout without the profiler, the device time
-of the whole trace gives the device's idle share. Also prints what a range costs the host when no profiler runs,
-and the candidate slots the kernels walk. A torch.profiler table of the
+frames; each cell on the window route (K1-K3) and on the compact-lane
+route (K5, ``SortedTuning(compact=True)``; config 3 corrected keeps K3 for
+its forces there, as the extensions are on). Each phase's device time is
+that of the kernels launched inside the stepper's own profiler ranges
+(``stepper.FRAME_PHASES``: frame build, density kernel, rows pack, each
+fused substep, unpack + metrics; ``stepper.CORRECTED_PHASES`` in corrected
+mode: each substep's frame build, density, pack, forces kernel and
+integrate + unsort, then the metrics); against the host clock of the
+rollout without the profiler, the device time of the whole trace gives the
+device's idle share. Also prints what a range costs the host when no
+profiler runs, and the candidate slots the kernels walk: per particle for
+K1-K3, per row of the tile's union for K5. A torch.profiler table of the
 rollout's kernels goes to a file. Run from the root of a checkout on a
 machine with a CUDA card:
 
     python3 scripts/torch_frame_breakdown.py [--frames 3] [--out build/profile]
+        [--route window|compact|both]
 
-Writes the profiler tables to ``<out>/breakdown_<size>.txt``.
+Writes the profiler tables to ``<out>/breakdown_<cell>.txt``.
 """
 
 from __future__ import annotations
@@ -36,8 +41,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig  # noqa: E402
 from sphfluidsimulation_torch.bench import scaled_config  # noqa: E402
+from sphfluidsimulation_torch.ops import compact  # noqa: E402
 from sphfluidsimulation_torch.ops import sph_kernels as sk  # noqa: E402
 from sphfluidsimulation_torch.ops.frame import build_frame  # noqa: E402
+from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning  # noqa: E402
 from sphfluidsimulation_torch.sim import stepper  # noqa: E402
 from sphfluidsimulation_torch.utils.profiling import (  # noqa: E402
     gpu_identity, span)
@@ -106,10 +113,28 @@ def walk_slots(cfg, state) -> float:
     return float(slots.mean())
 
 
+def tile_slots(cfg, state) -> tuple[float, float]:
+    """(slots, occupied slots) that K5 evaluates per row at this state: the
+    length of each tile's segment union over the frame-start spans, which
+    every row of the tile walks, averaged over the rows."""
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    frame, (pos,) = build_frame(state.pos, r, cap, extras=(state.pos,))
+    a, b = compact.tile_segments(compact.stale_spans(frame), frame.start, r)
+    occ = torch.cat([frame.occ.new_zeros(1), frame.occ]).cumsum(0)
+    slots = (b - a).sum(1).to(torch.float64)
+    filled = (occ[b.long()] - occ[a.long()]).sum(1).to(torch.float64)
+    rows = torch.full_like(slots, compact.CROWS)
+    rows[-1] = cfg.n_particles - compact.CROWS * (rows.shape[0] - 1)
+    return (float((slots * rows).sum() / rows.sum()),
+            float((filled * rows).sum() / rows.sum()))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--route", choices=["window", "compact", "both"],
+                    default="both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -123,19 +148,28 @@ def main() -> None:
           f"a corrected one {2 + 5 * (len(stepper.CORRECTED_PHASES) - 1) + 1}")
     c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
                    artificial_viscosity=0.5)
-    for label, cfg, faithful in (("262k", GOLDEN_CONFIG, True),
-                                 ("1m", scaled_config(1 << 20), True),
-                                 ("config3", c3, True),
-                                 ("config3-corrected", c3, False)):
+    routes = {"window": SortedTuning(compact=False),
+              "compact": SortedTuning(compact=True)}
+    if args.route != "both":
+        routes = {args.route: routes[args.route]}
+    cells = [(f"{cell}{'' if route == 'window' else '-compact'}", cfg,
+              faithful, tune)
+             for route, tune in routes.items()
+             for cell, cfg, faithful in (
+                 ("262k", GOLDEN_CONFIG, True),
+                 ("1m", scaled_config(1 << 20), True),
+                 ("config3", c3, True),
+                 ("config3-corrected", c3, False))]
+    for label, cfg, faithful, tune in cells:
         phases = stepper.FRAME_PHASES if faithful else \
             stepper.CORRECTED_PHASES
-        state, _ = stepper.make_rollout(cfg, 10, faithful=faithful,
-                                        device=dev)(
+        state, m10 = stepper.make_rollout(cfg, 10, faithful=faithful,
+                                          tune=tune, device=dev)(
             stepper.initial_state(cfg, dev))
 
         # host clock of the rollout: the frame time users see
         roll = stepper.make_rollout(cfg, args.frames, faithful=faithful,
-                                    device=dev)
+                                    tune=tune, device=dev)
         roll(state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -161,13 +195,24 @@ def main() -> None:
               f"{host_ms:.4f} ms/frame on the host clock ({prof_ms:.4f} "
               f"under the profiler); device idle share "
               f"{1 - dev_ms / host_ms:.4f}")
-        slots = walk_slots(cfg, state)
+        # the slots each kernel walks per particle: K1-K3 their 27 cells,
+        # K5 its tile's union (the corrected forces with extensions stay K3)
+        force_slots = dens_slots = walk_slots(cfg, state)
+        if tune.compact:
+            dens_slots, filled = tile_slots(cfg, state)
+            if faithful or not sk.uses_extensions(
+                    cfg.xsph, cfg.artificial_viscosity):
+                force_slots = dens_slots
+            print(f"  K5 union: {dens_slots:.1f} slots per row, "
+                  f"{filled:.1f} of them occupied; exact_cert frames 0-9 "
+                  f"{m10.exact_cert.tolist()}")
         force = "fused_substep" if faithful else "forces"
         k_ns = ms[force] / cfg.substeps * 1e6
         k1_ns = ms["density"] * 1e6 / (1 if faithful else 1 + cfg.substeps)
-        print(f"  walk: {slots:.1f} candidate slots per particle; "
-              f"{force} {k_ns / (slots * cfg.n_particles):.4f} ns per slot, "
-              f"K1 {k1_ns / (slots * cfg.n_particles):.4f} ns per slot")
+        print(f"  walk: {force_slots:.1f} candidate slots per particle; "
+              f"{force} {k_ns / (force_slots * cfg.n_particles):.4f} ns per "
+              f"slot, density {k1_ns / (dens_slots * cfg.n_particles):.4f} "
+              f"ns per slot")
 
         table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=30)

@@ -18,6 +18,7 @@ import time
 import torch
 
 from .config import SimConfig
+from .ops.sph_kernels import SortedTuning, default_tuning
 from .sim.stepper import initial_state, make_rollout
 from .utils.profiling import device_sync, gpu_identity
 
@@ -32,19 +33,23 @@ def scaled_config(n_particles: int) -> SimConfig:
 
 
 def run_bench(n_particles: int = 1 << 20, frames: int = 20,
-              warmup_frames: int = 5) -> dict:
+              warmup_frames: int = 5,
+              tune: SortedTuning | None = None) -> dict:
+    """``tune`` selects the route (None reads ``SPH_PALLAS_COMPACT``)."""
     if not torch.cuda.is_available():
         raise RuntimeError("run_bench measures the card; no CUDA device")
     device = torch.device("cuda")
+    tune = default_tuning() if tune is None else tune
     cfg = scaled_config(n_particles)
     state = initial_state(cfg, device)
 
     t0 = time.perf_counter()
-    state, _ = make_rollout(cfg, warmup_frames, device=device)(state)
+    state, _ = make_rollout(cfg, warmup_frames, tune=tune,
+                            device=device)(state)
     device_sync()
     compile_s = time.perf_counter() - t0
 
-    roll = make_rollout(cfg, frames, device=device)
+    roll = make_rollout(cfg, frames, tune=tune, device=device)
     device_sync()
     t0 = time.perf_counter()
     final, m = roll(state)
@@ -65,7 +70,7 @@ def run_bench(n_particles: int = 1 << 20, frames: int = 20,
         # the kernel build happens at first use, inside the warm-up
         "compile_plus_warmup_s": round(compile_s, 1),
         "neighbor": "sorted",
-        "pallas_tuning": None,
+        "pallas_tuning": tune._asdict(),
         "scan_unroll": False,
         "site_capacity": None,
         "site_bands": None,

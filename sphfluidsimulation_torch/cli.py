@@ -13,6 +13,10 @@ viscosity), in faithful and corrected mode:
     python -m sphfluidsimulation_torch run --particles 524288 --preset 2 \\
         --xsph 0.3 --alpha-visc 0.5 [--corrected]
 
+``run`` and ``bench`` take the route from ``SPH_PALLAS_COMPACT``, as the JAX
+CLI's users set it: ``SPH_PALLAS_COMPACT=1`` selects the compact-lane
+kernel K5 (``ops/compact.py``).
+
 What needs code the port does not have yet exits with code 2 and names its
 ROADMAP.md item: ``export`` and ``--export-dir``/``--animate``/``--viewer``
 (render, queue A item 10), ``sweep`` (scene batching, item 11) and
@@ -97,6 +101,7 @@ def _device(name: str):
 
 def cmd_run(a) -> int:
     from .models.scene import Scene
+    from .ops.sph_kernels import default_tuning
     from .utils.checkpoint import load_checkpoint, save_checkpoint
     from .utils.metrics import MetricsLogger
 
@@ -113,13 +118,14 @@ def cmd_run(a) -> int:
     if a.resume:
         state, cfg, meta = load_checkpoint(a.resume, dev)
         scene = Scene(cfg, neighbor=a.neighbor, faithful=not a.corrected,
-                      device=dev)
+                      tune=default_tuning(), device=dev)
         scene.state = state
         scene.frame = meta.get("frame", 0)
         print(f"resumed frame {scene.frame} from {a.resume}")
     else:
         scene = Scene(_config_from_args(a), neighbor=a.neighbor,
-                      faithful=not a.corrected, device=dev)
+                      faithful=not a.corrected, tune=default_tuning(),
+                      device=dev)
 
     log = MetricsLogger(a.metrics, n_particles=scene.cfg.n_particles,
                         substeps=scene.cfg.substeps)
@@ -144,10 +150,11 @@ def cmd_run(a) -> int:
 
 def cmd_bench(a) -> int:
     from .bench import run_bench
+    from .ops.sph_kernels import default_tuning
     if _device("cuda") is None:
         return 2
     result = run_bench(n_particles=a.particles, frames=a.frames,
-                       warmup_frames=a.warmup)
+                       warmup_frames=a.warmup, tune=default_tuning())
     print(json.dumps(result))
     return 0
 

@@ -36,12 +36,8 @@ density_kernel(const float* __restrict__ pos, const int* __restrict__ start,
   const int cz = sph::fresh_coord(pz, r);
   float acc = 0.f;
   sph::for_each_candidate(cx, cy, cz, r, cap, start, raw, occ, [&](int j) {
-    const float dx = px - __ldg(pos + 3 * j);
-    const float dy = py - __ldg(pos + 3 * j + 1);
-    const float dz = pz - __ldg(pos + 3 * j + 2);
-    const float r2 = dx * dx + dy * dy + dz * dz;
-    const float d = s.h2 - r2;
-    if (d > 0.f) acc += s.c_poly6 * d * d * d;
+    sph::add_density(s, px, py, pz, __ldg(pos + 3 * j), __ldg(pos + 3 * j + 1),
+                     __ldg(pos + 3 * j + 2), acc);
   });
   rho[i] = s.mass * acc;
 }

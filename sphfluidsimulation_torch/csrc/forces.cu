@@ -42,9 +42,7 @@ forces_kernel(const float4* __restrict__ rows, const int* __restrict__ start,
   const sph::Particle p = sph::load_particle(rows, i);
   const sph::PairSums a =
       sph::pair_sums<kExt>(s, p, i, r, cap, rows, start, raw, occ);
-  out[3 * i] = make_float4(a.px, a.py, a.pz, a.vx);
-  out[3 * i + 1] = make_float4(a.vy, a.vz, a.xx, a.xy);
-  out[3 * i + 2] = make_float4(a.xz, a.ax, a.ay, a.az);
+  sph::store_sums(out, i, a);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 // Shared device code of the sorted-frame SPH kernels (density.cu,
-// fused_substep.cu, forces.cu): the scalar block, the fresh-cell computation,
-// the reference's 27-cell candidate walk over the anchor-sorted particle
-// array, and the force-side pair terms that K2 and K3 both sum.
+// fused_substep.cu, forces.cu, compact.cu): the scalar block, the fresh-cell
+// computation, the reference's 27-cell candidate walk over the anchor-sorted
+// particle array, the density and force-side pair terms that K1/K2/K3 and
+// K5 all sum, and the fused integrate tail of K2 and K5.
 //
 // Layout (ops/frame.py): particles are sorted by anchor cell (the flat id of
 // the clamped 3D cell); start[c] .. start[c+1] is cell c's run; occ[j] says
@@ -100,6 +101,18 @@ __device__ __forceinline__ void for_each_candidate(
   }
 }
 
+// Adds candidate (qx, qy, qz)'s poly6 weight to the density sum of the
+// particle at (px, py, pz) (Density.compute:42-54); the mass is applied after
+// the walk.
+__device__ __forceinline__ void add_density(const Scalars& s, float px,
+                                            float py, float pz, float qx,
+                                            float qy, float qz, float& acc) {
+  const float dx = px - qx, dy = py - qy, dz = pz - qz;
+  const float r2 = dx * dx + dy * dy + dz * dz;
+  const float d = s.h2 - r2;
+  if (d > 0.f) acc += s.c_poly6 * d * d * d;
+}
+
 // Raw force-side pair sums of one particle: pressure, viscosity, and the
 // XSPH and Monaghan artificial-viscosity sums (zero without extensions).
 struct PairSums {
@@ -183,6 +196,95 @@ __device__ __forceinline__ PairSums pair_sums(
     add_pair<kExt>(s, p, press_i, load_particle(rows, j), acc);
   });
   return acc;
+}
+
+// Stores particle i's raw sums in the f32[N, 12] layout of K3: (press 3,
+// visc 3, xsph 3, avisc 3), three float4 stores.
+__device__ __forceinline__ void store_sums(float4* __restrict__ out, int i,
+                                           const PairSums& a) {
+  out[3 * i] = make_float4(a.px, a.py, a.pz, a.vx);
+  out[3 * i + 1] = make_float4(a.vy, a.vz, a.xx, a.xy);
+  out[3 * i + 2] = make_float4(a.xz, a.ax, a.ay, a.az);
+}
+
+__device__ __forceinline__ float wall_depth(float p, float h) {
+  return p < h ? h - p : (p > 1.f - h ? 1.f - p - h : 0.f);
+}
+
+// clamp to [0, 1] that keeps NaN, as torch.clamp and jnp.clip do
+__device__ __forceinline__ float clamp01(float x) {
+  return x < 0.f ? 0.f : (x > 1.f ? 1.f : x);
+}
+
+// The fused tail of one substep for particle i (pallas_sph.py:1404-1489,
+// VelPos.compute:101-157), from its pair sums: the guarded m^2/rho_i scaling
+// (raw sums pass through when rho_i <= eps), with kExt the XSPH and
+// artificial-viscosity fold of the JAX tail (:1440-1450), the wall penalty
+// with the scalar dot(damp, v) quirk, gravity, the NaN trap, semi-implicit
+// Euler and the [0, 1] clamp; writes the new rows entry, the NaN-trap count
+// in lane 7. The XSPH correction dv moves the position only, after the NaN
+// trap, so a trapped particle still moves by dt * dv (stepper.py:57-59).
+template <bool kExt>
+__device__ __forceinline__ void fused_tail(const Scalars& s,
+                                           const Particle& p,
+                                           const PairSums& acc,
+                                           float4* __restrict__ out, int i) {
+  const float px = p.px, py = p.py, pz = p.pz;
+  const float vx = p.vx, vy = p.vy, vz = p.vz;
+  const float rho = p.rho;
+
+  // final scaling, guarded by rho_i > eps (VelPos.compute:101-105)
+  const bool i_ok = rho > kEps;
+  const float safe = i_ok ? rho : 1.f;
+  const float sp = s.mass * s.mass / safe;
+  const float sv = s.visc * s.mass * s.mass / safe;
+  float ffx = (i_ok ? acc.px * sp : acc.px) + (i_ok ? acc.vx * sv : acc.vx);
+  float ffy = (i_ok ? acc.py * sp : acc.py) + (i_ok ? acc.vy * sv : acc.vy);
+  float ffz = (i_ok ? acc.pz * sp : acc.pz) + (i_ok ? acc.vz * sv : acc.vz);
+  float dvx = 0.f, dvy = 0.f, dvz = 0.f;
+  if constexpr (kExt) {
+    const float xs = s.xsph * s.mass;
+    dvx = xs * acc.xx;
+    dvy = xs * acc.xy;
+    dvz = xs * acc.xz;
+    const float av = s.alpha_visc * s.mass * s.mass;
+    ffx = ffx + av * acc.ax;
+    ffy = ffy + av * acc.ay;
+    ffz = ffz + av * acc.az;
+  }
+
+  // wall penalty (VelPos.compute:107-137): the damping term is the SCALAR
+  // dot(damp, v) subtracted from all components
+  const float rwx = wall_depth(px, s.h);
+  const float rwy = wall_depth(py, s.h);
+  const float rwz = wall_depth(pz, s.h);
+  const float damp_dot = ((rwx != 0.f ? s.damping : 0.f) * vx
+                          + (rwy != 0.f ? s.damping : 0.f) * vy)
+                         + (rwz != 0.f ? s.damping : 0.f) * vz;
+  const bool active = fmaxf(fabsf(rwx), fmaxf(fabsf(rwy), fabsf(rwz))) > 0.f;
+  const float fwx = active ? (rwx * s.stiff - damp_dot) * s.mass : 0.f;
+  const float fwy = active ? (rwy * s.stiff - damp_dot) * s.mass : 0.f;
+  const float fwz = active ? (rwz * s.stiff - damp_dot) * s.mass : 0.f;
+
+  // a = g + f/m; the NaN trap zeroes acceleration AND velocity
+  // (VelPos.compute:139-147); semi-implicit Euler + clamp (:150-154)
+  const float ax = (ffx + fwx) / s.mass;
+  const float ay = s.grav_y + (ffy + fwy) / s.mass;
+  const float az = (ffz + fwz) / s.mass;
+  const bool nan_hit = isnan(ax) || isnan(ay) || isnan(az);
+  const float nvx = nan_hit ? 0.f : vx + ax * s.dt;
+  const float nvy = nan_hit ? 0.f : vy + ay * s.dt;
+  const float nvz = nan_hit ? 0.f : vz + az * s.dt;
+  if constexpr (kExt) {
+    out[2 * i] = make_float4(clamp01(px + s.dt * (nvx + dvx)),
+                             clamp01(py + s.dt * (nvy + dvy)),
+                             clamp01(pz + s.dt * (nvz + dvz)), nvx);
+  } else {
+    out[2 * i] = make_float4(clamp01(px + s.dt * nvx),
+                             clamp01(py + s.dt * nvy),
+                             clamp01(pz + s.dt * nvz), nvx);
+  }
+  out[2 * i + 1] = make_float4(nvy, nvz, rho, p.aux + (nan_hit ? 1.f : 0.f));
 }
 
 }  // namespace sph

@@ -8,8 +8,10 @@ state (``Start``, :82-94) and advances frames (``Update``, :96-108).
 The default backend is ``"sorted"`` (the JAX package defaults to
 ``"slotted"``, which is not ported yet: ROADMAP.md queue A item 8);
 ``"brute"`` is the O(N²) oracle. ``faithful=False`` selects the corrected
-mode, and the config's ``xsph`` and ``artificial_viscosity`` reach every
-backend through the frame step.
+mode, ``tune=SortedTuning(compact=True)`` the compact-lane route (K5), and
+the config's ``xsph`` and ``artificial_viscosity`` reach every backend
+through the frame step. The scene runs on the card unless ``device`` names
+the CPU; without a card it raises.
 """
 
 from __future__ import annotations
@@ -19,19 +21,22 @@ from typing import Iterator
 import torch
 
 from ..config import SimConfig
-from ..sim.stepper import initial_state, make_frame_step
+from ..ops.sph_kernels import SortedTuning
+from ..sim.stepper import initial_state, make_frame_step, resolve_device
 from ..state import ParticleState, StepMetrics
 
 
 class Scene:
     def __init__(self, cfg: SimConfig | None = None, *,
                  neighbor: str = "sorted", faithful: bool = True,
-                 device: torch.device | str = "cpu"):
+                 tune: SortedTuning | None = None,
+                 device: torch.device | str | None = None):
         self.cfg = (cfg or SimConfig()).validate()
         self.neighbor = neighbor
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._step = make_frame_step(self.cfg, neighbor=neighbor,
-                                     faithful=faithful, device=self.device)
+                                     faithful=faithful, tune=tune,
+                                     device=self.device)
         self.state: ParticleState = initial_state(self.cfg, self.device)
         self.last_metrics: StepMetrics | None = None
         self.frame = 0

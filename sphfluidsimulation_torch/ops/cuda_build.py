@@ -40,6 +40,8 @@ KERNELS = {
                                                  _I, _I, _I, _P)),),
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _P)),),
+    "compact.cu": (("sph_compact", (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _P)),),
 }
 
 _lib: types.SimpleNamespace | None = None

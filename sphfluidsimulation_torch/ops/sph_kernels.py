@@ -32,7 +32,8 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+import os
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -51,14 +52,41 @@ _CHUNK_PAIRS = 1 << 21
 
 # Kernel launches per wrapper; a run resets them and reads them back to show
 # which kernels its main path went through.
-# "fused_substep" counts K2 without extensions, "fused_substep_ext" with.
+# "fused_substep" counts K2 without extensions, "fused_substep_ext" with; the
+# "compact_*" entries count the K5 instances (ops/compact.py).
 launch_counts = {"density": 0, "fused_substep": 0, "fused_substep_ext": 0,
-                 "forces": 0}
+                 "forces": 0, "compact_density": 0, "compact_substep": 0,
+                 "compact_substep_ext": 0, "compact_forces": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+class SortedTuning(NamedTuple):
+    """Route of the sorted tier; the counterpart of the JAX ``PallasTuning``
+    (pallas_sph.py:73-204), of which only the route switch is ported.
+
+    compact: the compact-lane route, K5 (``ops/compact.py``), for density,
+             the fused substep and the forces without extensions; False is
+             the per-particle window walk of K1, K2 and K3.
+
+    The Mosaic layout knobs have no counterpart (ROADMAP.md queue B,
+    "Knobs"); ``bf16`` candidates wait for the semantic knobs."""
+
+    compact: bool = False
+
+    @classmethod
+    def from_env(cls) -> "SortedTuning":
+        """``SPH_PALLAS_COMPACT=1`` selects the compact route, as in
+        ``PallasTuning.from_env`` (pallas_sph.py:223)."""
+        return cls(compact=os.environ.get("SPH_PALLAS_COMPACT", "0") == "1")
+
+
+def default_tuning() -> SortedTuning:
+    """Call-time default: the environment is read when used, not at import."""
+    return SortedTuning.from_env()
 
 
 # ---------------------------------------------------------------- layout --
@@ -146,18 +174,24 @@ def _candidates(frame: SortedFrame, c: torch.Tensor, r: int, width: int
     j = torch.where(valid, j, 0).reshape(c.shape[0], -1)
     valid = valid.reshape(c.shape[0], -1)
 
-    # membership: j in the bucket, its raw cell within 1 of c on each axis
+    return j, member_gate(frame, j, valid, c, r)
+
+
+def member_gate(frame: SortedFrame, j: torch.Tensor, valid: torch.Tensor,
+                c: torch.Tensor, r: int) -> torch.Tensor:
+    """The membership gate of candidates ``j`` i64[m, K] (``valid`` marks
+    the real slots) for rows whose fresh cells are ``c`` i32[m, 3]: j in the
+    bucket and its raw cell within 1 of the row's cell on each axis."""
     raw = frame.raw[j]
     rr = r * r
     cz = torch.div(raw, rr, rounding_mode="floor")
     rem = raw - cz * rr
     cy = torch.div(rem, r, rounding_mode="floor")
     cx = rem - cy * r
-    member = (valid & frame.occ[j]
-              & ((cx - c[:, None, 0]).abs() <= 1)
-              & ((cy - c[:, None, 1]).abs() <= 1)
-              & ((cz - c[:, None, 2]).abs() <= 1))
-    return j, member
+    return (valid & frame.occ[j]
+            & ((cx - c[:, None, 0]).abs() <= 1)
+            & ((cy - c[:, None, 1]).abs() <= 1)
+            & ((cz - c[:, None, 2]).abs() <= 1))
 
 
 def _tree_sum(x: torch.Tensor) -> torch.Tensor:
@@ -184,21 +218,46 @@ def density_plain(frame: SortedFrame, pos_s: torch.Tensor,
     """ρᵢ = m·Σⱼ W_poly6(|xᵢ−xⱼ|²) over the window pairs, self included
     (Density.compute:32-60)."""
     n = pos_s.shape[0]
-    sc = scal_block(phys)
-    h2, c9 = sc[1], sc[2]
     width = _window_width(frame, capacity)
     rows = max(1, _CHUNK_PAIRS // (27 * width))
     w_sum = torch.empty(n, dtype=pos_s.dtype, device=pos_s.device)
     for i0 in range(0, n, rows):
-        p = pos_s[i0:i0 + rows]
-        j, member = _candidates(frame, fresh_cell(p, r), r, width)
-        d = p[:, None, :] - pos_s[j]
-        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
-            + d[..., 2] * d[..., 2]
-        diff = h2 - r2
-        w = torch.where(diff > 0, c9 * diff * diff * diff, 0.0)
-        w_sum[i0:i0 + rows] = _tree_sum(torch.where(member, w, 0.0))
+        ids = torch.arange(i0, min(i0 + rows, n), device=pos_s.device)
+        j, member = _candidates(frame, fresh_cell(pos_s[ids], r), r, width)
+        w_sum[i0:i0 + rows] = density_sums_plain(pos_s, phys, ids, j, member)
     return phys.mass * w_sum
+
+
+def member_pairs(frame: SortedFrame, pos_s: torch.Tensor, r: int,
+                 capacity: int | None) -> tuple[int, int]:
+    """(member pairs, self pairs) of the window route at these positions:
+    the pairs (i, j) that the plain versions' gate keeps, the self pair
+    included, and how many of them are j == i. The density sums all of
+    them, the force passes all but the self pairs. Waits for the card."""
+    n = pos_s.shape[0]
+    width = _window_width(frame, capacity)
+    rows = max(1, _CHUNK_PAIRS // (27 * width))
+    total = own = 0
+    for i0 in range(0, n, rows):
+        ids = torch.arange(i0, min(i0 + rows, n), device=pos_s.device)
+        j, member = _candidates(frame, fresh_cell(pos_s[ids], r), r, width)
+        total += int(member.sum())
+        own += int((member & (j == ids[:, None])).sum())
+    return total, own
+
+
+def density_sums_plain(pos_s: torch.Tensor, phys: PhysParams,
+                       ids: torch.Tensor, j: torch.Tensor,
+                       member: torch.Tensor) -> torch.Tensor:
+    """Σⱼ W_poly6(|xᵢ−xⱼ|²) of rows ``ids`` i64[m] over the candidates ``j``
+    i64[m, K] that ``member`` keeps, summed in the fixed tree order."""
+    sc = scal_block(phys)
+    h2, c9 = sc[1], sc[2]
+    d = pos_s[ids][:, None, :] - pos_s[j]
+    r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    diff = h2 - r2
+    w = torch.where(diff > 0, c9 * diff * diff * diff, 0.0)
+    return _tree_sum(torch.where(member, w, 0.0))
 
 
 def forces_plain(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
@@ -220,73 +279,79 @@ def forces_plain(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
     (pᵢ + pⱼ, h − |r|, h² − |r|², vⱼ − vᵢ, the Π numerator v·r) enters by
     the sizes of its operands. The result bounds the rounding of a float32
     evaluation, up to a count of roundings (``substep_accuracy``)."""
-    pos_s, vel_s, rho_s = rows[:, 0:3], rows[:, 3:6], rows[:, 6]
     n = rows.shape[0]
+    width = _window_width(frame, capacity)
+    chunk = max(1, _CHUNK_PAIRS // (27 * width))
+    out = rows.new_zeros((n, N_SUMS))
+    for i0 in range(0, n, chunk):
+        ids = torch.arange(i0, min(i0 + chunk, n), device=rows.device)
+        j, member = _candidates(frame, fresh_cell(rows[ids, 0:3], r), r,
+                                width)
+        sums = force_sums_plain(rows, phys, ids, j, member, ext, magnitude)
+        out[i0:i0 + chunk, :sums.shape[1]] = sums
+    return out
+
+
+def force_sums_plain(rows: torch.Tensor, phys: PhysParams, ids: torch.Tensor,
+                     j: torch.Tensor, member: torch.Tensor, ext: bool,
+                     magnitude: bool) -> torch.Tensor:
+    """The force-side pair sums of :func:`forces_plain` for rows ``ids``
+    i64[m] over the candidates ``j`` i64[m, K] that ``member`` keeps, j == i
+    skipped, summed in the fixed tree order: f[m, 6], or f[m, 12] with
+    ``ext``."""
+    pos_s, vel_s, rho_s = rows[:, 0:3], rows[:, 3:6], rows[:, 6]
     h = phys.h
     h2 = h * h
     h6 = h2 * h2 * h2                              # as in scal_block
     c9 = _C_POLY6 / (h6 * h2 * h)
     cs = torch.sqrt(phys.gas_constant)
-    press = sph_math.eos_pressure(rho_s, phys.gas_constant, phys.rest_density)
-    rho_ok = rho_s > EPSILON                       # per-j guard (:91)
-    safe = torch.where(rho_ok, rho_s, 1.0)
-    width = _window_width(frame, capacity)
-    chunk = max(1, _CHUNK_PAIRS // (27 * width))
-    out = rows.new_zeros((n, N_SUMS))
-    for i0 in range(0, n, chunk):
-        p = pos_s[i0:i0 + chunk]
-        ids = torch.arange(i0, i0 + p.shape[0], device=rows.device)
-        j, member = _candidates(frame, fresh_cell(p, r), r, width)
-        cand = member & (j != ids[:, None])                   # skip j == i
-        m = cand & rho_ok[j]
-        d = p[:, None, :] - pos_s[j]                          # pos_i − pos_j
-        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
-            + d[..., 2] * d[..., 2]
-        abs_r = torch.sqrt(r2)
-        g = sph_math.grad_w_press_over_r(abs_r, h, h6)
-        gwv = sph_math.grad_w_vis_r(abs_r, h, h6)
-        p_i, p_j = press[i0:i0 + chunk, None], press[j]
-        v_i, v_j = vel_s[i0:i0 + chunk, None, :], vel_s[j]
+    rho_i, rho_j = rho_s[ids, None], rho_s[j]
+    rho_ok = rho_j > EPSILON                       # per-j guard (:91)
+    safe_j = torch.where(rho_ok, rho_j, 1.0)
+    cand = member & (j != ids[:, None])                       # skip j == i
+    m = cand & rho_ok
+    d = pos_s[ids, None, :] - pos_s[j]                        # pos_i − pos_j
+    r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    abs_r = torch.sqrt(r2)
+    g = sph_math.grad_w_press_over_r(abs_r, h, h6)
+    gwv = sph_math.grad_w_vis_r(abs_r, h, h6)
+    p_i = sph_math.eos_pressure(rho_i, phys.gas_constant, phys.rest_density)
+    p_j = sph_math.eos_pressure(rho_j, phys.gas_constant, phys.rest_density)
+    v_i, v_j = vel_s[ids, None, :], vel_s[j]
+    if magnitude:
+        hr = h - abs_r
+        g = torch.where(g != 0, g + 3 * _C_GRAD / h6 * h * hr * hr / abs_r,
+                        0.0)
+        gwv = torch.where(abs_r < h, gwv + _C_GRAD / h6 * h, 0.0)
+        p_i, p_j, d = p_i.abs(), p_j.abs(), d.abs()
+        v_i, v_j = -v_i.abs(), v_j.abs()              # dv = |v_j| + |v_i|
+    pc = (p_i + p_j) / (2.0 * safe_j)
+    vc = gwv / safe_j
+    dv = v_j - v_i                                            # v_j − v_i
+    terms = [torch.where(m[..., None], pc[..., None] * (g[..., None] * d),
+                         0.0),
+             torch.where(m[..., None], vc[..., None] * dv, 0.0)]
+    if ext:
+        d2 = h2 - r2
+        w6 = torch.where(d2 > 0, c9 * d2 * d2 * d2, 0.0)
         if magnitude:
-            hr = h - abs_r
-            g = torch.where(g != 0, g + 3 * _C_GRAD / h6 * h * hr * hr / abs_r,
-                            0.0)
-            gwv = torch.where(abs_r < h, gwv + _C_GRAD / h6 * h, 0.0)
-            p_i, p_j, d = p_i.abs(), p_j.abs(), d.abs()
-            v_i, v_j = -v_i.abs(), v_j.abs()          # dv = |v_j| + |v_i|
-        pc = (p_i + p_j) / (2.0 * safe[j])
-        vc = gwv / safe[j]
-        dv = v_j - v_i                                        # v_j − v_i
-        terms = [torch.where(m[..., None], pc[..., None] * (g[..., None] * d),
-                             0.0),
-                 torch.where(m[..., None], vc[..., None] * dv, 0.0)]
-        if ext:
-            rho_i, rho_j = rho_s[i0:i0 + chunk, None], rho_s[j]
-            d2 = h2 - r2
-            w6 = torch.where(d2 > 0, c9 * d2 * d2 * d2, 0.0)
-            if magnitude:
-                w6 = torch.where(d2 > 0, w6 + 3 * c9 * d2 * d2 * (h2 + r2),
-                                 0.0)
-            denom = rho_i + rho_j
-            x_ok = denom > EPSILON
-            xc = torch.where(x_ok, 2.0 / torch.where(x_ok, denom, 1.0) * w6,
-                             0.0)
-            # no gate on xc: 0·inf = NaN as in the JAX kernel
-            terms.append(torch.where(cand[..., None], xc[..., None] * dv,
-                                     0.0))
-            dvel = -dv                                        # v_i − v_j
-            vr = (dvel[..., 0] * d[..., 0] + dvel[..., 1] * d[..., 1]) \
-                + dvel[..., 2] * d[..., 2]
-            rho_bar = 0.5 * (rho_i + rho_j)
-            mu = h * vr / (r2 + 0.01 * h2)
-            pi_ok = (vr < 0) & (rho_bar > EPSILON)
-            pi = torch.where(pi_ok, -cs * mu / torch.where(pi_ok, rho_bar, 1.0),
-                             0.0)
-            terms.append(torch.where(cand[..., None],
-                                     (pi * g)[..., None] * d, 0.0))
-        sums = _tree_sum(torch.cat(terms, -1))
-        out[i0:i0 + chunk, :sums.shape[1]] = sums
-    return out
+            w6 = torch.where(d2 > 0, w6 + 3 * c9 * d2 * d2 * (h2 + r2), 0.0)
+        denom = rho_i + rho_j
+        x_ok = denom > EPSILON
+        xc = torch.where(x_ok, 2.0 / torch.where(x_ok, denom, 1.0) * w6, 0.0)
+        # no gate on xc: 0·inf = NaN as in the JAX kernel
+        terms.append(torch.where(cand[..., None], xc[..., None] * dv, 0.0))
+        dvel = -dv                                            # v_i − v_j
+        vr = (dvel[..., 0] * d[..., 0] + dvel[..., 1] * d[..., 1]) \
+            + dvel[..., 2] * d[..., 2]
+        rho_bar = 0.5 * (rho_i + rho_j)
+        mu = h * vr / (r2 + 0.01 * h2)
+        pi_ok = (vr < 0) & (rho_bar > EPSILON)
+        pi = torch.where(pi_ok, -cs * mu / torch.where(pi_ok, rho_bar, 1.0),
+                         0.0)
+        terms.append(torch.where(cand[..., None], (pi * g)[..., None] * d,
+                                 0.0))
+    return _tree_sum(torch.cat(terms, -1))
 
 
 def fold_forces(sums: torch.Tensor, rho_s: torch.Tensor, phys: PhysParams,
@@ -319,16 +384,23 @@ def fold_forces(sums: torch.Tensor, rho_s: torch.Tensor, phys: PhysParams,
     return f, dv
 
 
+# a plain version of the raw pair sums, forces_plain's signature: (frame,
+# rows, phys, r, capacity, ext, magnitude) → f[N, 12]
+SumsFn = Callable[..., torch.Tensor]
+
+
 def fused_substep_plain(frame: SortedFrame, rows: torch.Tensor,
                         phys: PhysParams, r: int, capacity: int | None,
-                        xsph: float = 0.0,
-                        alpha_visc: float = 0.0) -> torch.Tensor:
+                        xsph: float = 0.0, alpha_visc: float = 0.0,
+                        sums_fn: SumsFn = forces_plain) -> torch.Tensor:
     """One substep over the rows state: pair forces, then the integrate
-    tail of ``sim.stepper.integrate_substep`` (VelPos.compute:49-157)."""
+    tail of ``sim.stepper.integrate_substep`` (VelPos.compute:49-157).
+    ``sums_fn`` gives the pair sums: the window walk of K2, or the tile
+    candidates of K5 (``compact.compact_sums_plain``)."""
     from ..sim.stepper import integrate_substep
 
-    sums = forces_plain(frame, rows, phys, r, capacity,
-                        uses_extensions(xsph, alpha_visc))
+    sums = sums_fn(frame, rows, phys, r, capacity,
+                   uses_extensions(xsph, alpha_visc))
     rho = rows[:, 6]
     f, dv = fold_forces(sums, rho, phys, xsph, alpha_visc, fused_tail=True)
     pos_n, vel_n, nan_mask = integrate_substep(rows[:, 0:3], rows[:, 3:6], f,
@@ -378,13 +450,14 @@ def _hold(out: torch.Tensor, p32: torch.Tensor, p64: torch.Tensor,
 
 
 def _reference(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
-               r: int, capacity: int | None, xsph: float, alpha_visc: float):
+               r: int, capacity: int | None, xsph: float, alpha_visc: float,
+               sums_fn: SumsFn):
     """(rows64, phys64, force scale F, dv scale DV or None): the float64
     inputs and the rounding scales of the folded force and XSPH outputs."""
     rows64 = rows.double()
     ph = PhysParams(*(t.double() for t in phys))
-    mag = forces_plain(frame, rows64, ph, r, capacity,
-                       uses_extensions(xsph, alpha_visc), magnitude=True)
+    mag = sums_fn(frame, rows64, ph, r, capacity,
+                  uses_extensions(xsph, alpha_visc), magnitude=True)
     f_mag, dv_mag = fold_forces(mag, rows64[:, 6], ph, abs(xsph),
                                 abs(alpha_visc))
     return rows64, ph, f_mag, dv_mag
@@ -393,9 +466,12 @@ def _reference(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
 def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
                      out: torch.Tensor, phys: PhysParams, r: int,
                      capacity: int | None, xsph: float = 0.0,
-                     alpha_visc: float = 0.0) -> Accuracy:
+                     alpha_visc: float = 0.0,
+                     sums_fn: SumsFn = forces_plain) -> Accuracy:
     """Holds ``out``, one substep of ``rows`` computed elsewhere (the CUDA
     kernel), to the accuracy of the plain version, particle by particle.
+    ``sums_fn`` names the plain version's pair sums (K2's by default; K5's
+    is ``compact.compact_sums_plain``).
 
     The golden EOS explodes (FIDELITY.md Part D): force sums cancel terms
     many orders above their result, so no fixed tolerance against the
@@ -415,11 +491,11 @@ def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
     The NaN pattern and the ρ and NaN-count lanes must equal p32's.
     """
     p32 = fused_substep_plain(frame, rows, phys, r, capacity, xsph,
-                              alpha_visc)
+                              alpha_visc, sums_fn)
     rows64, ph, f_mag, dv_mag = _reference(frame, rows, phys, r, capacity,
-                                           xsph, alpha_visc)
+                                           xsph, alpha_visc, sums_fn)
     p64 = fused_substep_plain(frame, rows64, ph, r, capacity, xsph,
-                              alpha_visc)
+                              alpha_visc, sums_fn)
     pos, vel = rows64[:, 0:3], rows64[:, 3:6]
     # the wall force's rounding scale: its depth h − x or 1 − x − h
     # cancels, and so may depth·stiffness − Σ damping·v
@@ -442,19 +518,20 @@ def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
 def forces_accuracy(frame: SortedFrame, rows: torch.Tensor, f: torch.Tensor,
                     dv: torch.Tensor | None, phys: PhysParams, r: int,
                     capacity: int | None, xsph: float = 0.0,
-                    alpha_visc: float = 0.0) -> Accuracy:
+                    alpha_visc: float = 0.0,
+                    sums_fn: SumsFn = forces_plain) -> Accuracy:
     """Holds (``f``, ``dv``), the folded force and XSPH correction computed
-    elsewhere (K3 + :func:`fold_forces`), to the plain version particle by
-    particle, under the rule of :func:`substep_accuracy`: σ is the folded
-    magnitude sum of each output lane. ``dv`` None stands for zeros; its
-    lanes are checked whenever ``xsph`` is nonzero."""
-    sums32 = forces_plain(frame, rows, phys, r, capacity,
-                          uses_extensions(xsph, alpha_visc))
+    elsewhere (K3 or K5 + :func:`fold_forces`), to the plain version
+    ``sums_fn`` particle by particle, under the rule of
+    :func:`substep_accuracy`: σ is the folded magnitude sum of each output
+    lane. ``dv`` None stands for zeros; its lanes are checked whenever
+    ``xsph`` is nonzero."""
+    ext = uses_extensions(xsph, alpha_visc)
+    sums32 = sums_fn(frame, rows, phys, r, capacity, ext)
     p32 = fold_forces(sums32, rows[:, 6], phys, xsph, alpha_visc)
     rows64, ph, f_mag, dv_mag = _reference(frame, rows, phys, r, capacity,
-                                           xsph, alpha_visc)
-    sums64 = forces_plain(frame, rows64, ph, r, capacity,
-                          uses_extensions(xsph, alpha_visc))
+                                           xsph, alpha_visc, sums_fn)
+    sums64 = sums_fn(frame, rows64, ph, r, capacity, ext)
     p64 = fold_forces(sums64, rows64[:, 6], ph, xsph, alpha_visc)
     if dv_mag is None:
         return _hold(f, p32[0], p64[0], f_mag)

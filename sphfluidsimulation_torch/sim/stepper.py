@@ -27,17 +27,24 @@ plus one frame-start build and density for the overflow and density
 metrics. ``cfg.xsph`` and ``cfg.artificial_viscosity`` turn on the extension
 sums in K2 and K3 (and the XSPH correction of the position update).
 
+``tune=SortedTuning(compact=True)`` (the JAX ``pallas_tune``; by default
+read from ``SPH_PALLAS_COMPACT``) takes the compact-lane route, K5
+(``ops/compact.py``), for the density, the fused substep and the corrected
+mode's forces without extensions; with extensions the corrected forces stay
+on K3, as in JAX (pallas_sph.py:1720).
+
 Backends: ``neighbor="sorted"``, the counterpart of the JAX ``"pallas"``
 tier, and ``neighbor="brute"``, the O(N²) oracle (``ops/brute.py``,
 ``ops/extensions.py``), which is the oracle on the card, where there is no
-JAX. The sorted kernels walk ``start[]`` cell by cell with no static window
-and no per-line cap, so their candidate set is exactly the reference's:
-``StepMetrics.exact_cert`` is identically 0 here. In the JAX pallas tier the
-same field counts intervals cut by the kernel's static DMA window or line
-cap and rows that drifted more than one cell within the frame (its
-drift/clip certificate); a zero there means "equal to this tier's candidate
-set". ``overflow`` counts particles dropped by the voxel capacity, as in
-JAX.
+JAX. K1-K3 walk ``start[]`` cell by cell with no static window and no
+per-line cap, so their candidate set is exactly the reference's and
+certifies nothing. ``StepMetrics.exact_cert`` sums the certificates of the
+passes as JAX does (stepper.py:312, 390, 479): identically 0 on the K1-K3
+route, and on the K5 route the rows of each substep whose fresh cell
+drifted past their tile's band (``compact.fresh_spans``). In the JAX pallas
+tier the same field also counts intervals cut by the kernel's static DMA
+window or line cap, which the port has no counterpart of. ``overflow``
+counts particles dropped by the voxel capacity, as in JAX.
 
 The sorted frame loop never waits for the device (no ``.item()``, ``.cpu()``
 or data-dependent shapes on the CUDA path); metrics stay on the device. Each
@@ -53,8 +60,9 @@ from typing import Callable
 import torch
 
 from ..config import SimConfig
-from ..ops import brute, extensions, grid, sph_kernels, sph_math
+from ..ops import brute, compact, extensions, grid, sph_kernels, sph_math
 from ..ops.frame import SortedFrame, build_frame
+from ..ops.sph_kernels import SortedTuning, default_tuning
 from ..params import PhysParams
 from ..state import ParticleState, StepMetrics, make_state
 from ..utils.profiling import span
@@ -79,6 +87,17 @@ _NOT_PORTED = {
     "sites": "queue A item 9 (sites tier: ops/sites.py)",
     "pallas": "queue A item 5 (its port is neighbor='sorted')",
 }
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The entry points' device: None is the card. Without a card a CUDA
+    device raises: the port never carries on on the CPU unasked."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the caller "
+            "asks for the CPU with device='cpu'")
+    return dev
 
 
 def _check_supported(neighbor: str) -> None:
@@ -117,37 +136,62 @@ def integrate_substep(pos: torch.Tensor, vel: torch.Tensor,
 
 
 def _metrics(vel: torch.Tensor, rho: torch.Tensor, nan_events: torch.Tensor,
-             overflow: torch.Tensor, p: PhysParams) -> StepMetrics:
+             overflow: torch.Tensor, p: PhysParams,
+             exact_cert: torch.Tensor | None = None) -> StepMetrics:
     speed2 = (vel * vel).sum(dim=-1)
+    if exact_cert is None:
+        exact_cert = torch.zeros((), dtype=torch.int32, device=vel.device)
     return StepMetrics(
         max_speed=torch.sqrt(speed2.max()),
         mean_density=rho.mean(),
         kinetic_energy=0.5 * p.mass * speed2.sum(),
         nan_events=nan_events.sum().to(torch.int32),
         overflow=overflow,
-        exact_cert=torch.zeros((), dtype=torch.int32, device=vel.device),
+        exact_cert=exact_cert,
     )
 
 
+def _add_cert(cert: torch.Tensor | None, c: torch.Tensor) -> torch.Tensor:
+    return c if cert is None else cert + c
+
+
+def _density(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
+             cfg: SimConfig, tune: SortedTuning) -> torch.Tensor:
+    """ρ: K5 on the compact route, else K1. K5's density certificate is 0
+    by construction (its spans are the stale ones), so it is not summed."""
+    r = cfg.bucket_resolution
+    if tune.compact:
+        return compact.density_compact(frame, pos_s, phys, r)[0]
+    return sph_kernels.density_pass(frame, pos_s, phys, r, cfg.voxel_capacity)
+
+
 def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
-                  vel_s: torch.Tensor, phys: PhysParams, cfg: SimConfig):
-    """One frame in sorted space: density once, then the fused substeps.
-    Returns (pos_s, vel_s, nan_hits_s, metrics)."""
+                  vel_s: torch.Tensor, phys: PhysParams, cfg: SimConfig,
+                  tune: SortedTuning):
+    """One frame in sorted space: density once, then the fused substeps
+    (K2, or K5 on the compact route). Returns (pos_s, vel_s, nan_hits_s,
+    metrics)."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    xsph, alpha = cfg.xsph, cfg.artificial_viscosity
     with span("density"):
-        rho_s = sph_kernels.density_pass(frame, pos_s, phys, r, cap)
+        rho_s = _density(frame, pos_s, phys, cfg, tune)
+    cert = None
     with span("pack_rows"):
         rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
     for _ in range(cfg.substeps):
         with span("fused_substep"):
-            rows = sph_kernels.fused_substep(frame, rows, phys, r, cap,
-                                             cfg.xsph,
-                                             cfg.artificial_viscosity)
+            if tune.compact:
+                rows, c = compact.compact_substep(frame, rows, phys, r, xsph,
+                                                  alpha)
+                cert = _add_cert(cert, c)
+            else:
+                rows = sph_kernels.fused_substep(frame, rows, phys, r, cap,
+                                                 xsph, alpha)
     with span("unpack+metrics"):
         pos_s, vel_s, _, nan_hits = sph_kernels.unpack_rows(rows)
         # matches grid.overflow_count: rank-overflow + out-of-range drops
         ovf = (~frame.occ).sum().to(torch.int32)
-        m = _metrics(vel_s, rho_s, nan_hits, ovf, phys)
+        m = _metrics(vel_s, rho_s, nan_hits, ovf, phys, cert)
     return pos_s, vel_s, nan_hits, m
 
 
@@ -157,7 +201,7 @@ def _unsort(order: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _sorted_step(cfg: SimConfig) -> ParamStepFn:
+def _sorted_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
     """Faithful frame step on the sorted tier; state in caller order."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
 
@@ -167,7 +211,7 @@ def _sorted_step(cfg: SimConfig) -> ParamStepFn:
             frame, (pos_s, vel_s) = build_frame(
                 state.pos, r, cap, extras=(state.pos, state.vel))
         pos_s, vel_s, nan_hits, m = _sorted_frame(frame, pos_s, vel_s, phys,
-                                                  cfg)
+                                                  cfg, tune)
         new_state = ParticleState(
             pos=_unsort(frame.order, pos_s), vel=_unsort(frame.order, vel_s),
             nan_count=state.nan_count + _unsort(frame.order, nan_hits))
@@ -176,16 +220,19 @@ def _sorted_step(cfg: SimConfig) -> ParamStepFn:
     return step
 
 
-def _corrected_step(cfg: SimConfig) -> ParamStepFn:
+def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
     """Corrected frame step on the sorted tier (``_make_pallas_step``,
     faithful=False, stepper.py:289-337): every substep rebuilds the frame
-    and the density, runs K3 and integrates, with the state in the caller's
-    order between substeps. ``build_frame`` gets no ``gid``, so capacity
-    ranks key to the caller's index. ``rho`` and ``overflow`` come from an
-    extra frame-start build and density, as in JAX: a frame launches K1
-    1 + substeps times and K3 substeps times."""
+    and the density, runs the forces and integrates, with the state in the
+    caller's order between substeps. ``build_frame`` gets no ``gid``, so
+    capacity ranks key to the caller's index. ``rho`` and ``overflow`` come
+    from an extra frame-start build and density, as in JAX: a frame launches
+    the density kernel 1 + substeps times and the forces kernel substeps
+    times. On the compact route density and, without extensions, the forces
+    are K5; the certificate sums the forces' drift counts."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+    k5_forces = tune.compact and not sph_kernels.uses_extensions(xsph, alpha)
 
     def step(state: ParticleState, phys: PhysParams
              ) -> tuple[ParticleState, StepMetrics]:
@@ -193,19 +240,24 @@ def _corrected_step(cfg: SimConfig) -> ParamStepFn:
         with span("build_frame"):
             frame0, (pos0_s,) = build_frame(pos, r, cap, extras=(pos,))
         with span("density"):
-            rho0_s = sph_kernels.density_pass(frame0, pos0_s, phys, r, cap)
+            rho0_s = _density(frame0, pos0_s, phys, cfg, tune)
         nan_hits = torch.zeros_like(state.nan_count)
+        cert = None
         for _ in range(cfg.substeps):
             with span("build_frame"):
                 frame, (pos_s, vel_s) = build_frame(pos, r, cap,
                                                     extras=(pos, vel))
             with span("density"):
-                rho_s = sph_kernels.density_pass(frame, pos_s, phys, r, cap)
+                rho_s = _density(frame, pos_s, phys, cfg, tune)
             with span("pack_rows"):
                 rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
             with span("forces"):
-                f, dv = sph_kernels.forces_pass(frame, rows, phys, r, cap,
-                                                xsph, alpha)
+                if k5_forces:
+                    f, c = compact.forces_compact(frame, rows, phys, r)
+                    dv, cert = None, _add_cert(cert, c)
+                else:
+                    f, dv = sph_kernels.forces_pass(frame, rows, phys, r, cap,
+                                                    xsph, alpha)
             with span("integrate+unsort"):
                 pos_s, vel_s, nan_mask = integrate_substep(pos_s, vel_s, f,
                                                            phys, dv)
@@ -216,7 +268,7 @@ def _corrected_step(cfg: SimConfig) -> ParamStepFn:
         with span("metrics"):
             ovf = (~frame0.occ).sum().to(torch.int32)
             m = _metrics(vel, _unsort(frame0.order, rho0_s), nan_hits, ovf,
-                         phys)
+                         phys, cert)
         return ParticleState(pos=pos, vel=vel,
                              nan_count=state.nan_count + nan_hits), m
 
@@ -273,31 +325,39 @@ def _brute_step(cfg: SimConfig, faithful: bool) -> ParamStepFn:
 
 
 def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
-                    faithful: bool = True) -> ParamStepFn:
+                    faithful: bool = True,
+                    tune: SortedTuning | None = None) -> ParamStepFn:
     """Build the per-frame step ``(state, phys) → (state, metrics)``.
 
     ``cfg`` contributes the structure (particle count, bucket resolution,
     voxel capacity, substep count) and the extension coefficients; the
     physics scalars come from ``phys``. State comes in and goes out in the
-    caller's particle order.
+    caller's particle order; it runs on the device its tensors are on.
 
     neighbor: 'sorted' (the CUDA kernels on the card) or 'brute' (O(N²)
               oracle).
     faithful: reuse the frame-start bucket + density across all substeps
               (reference semantics); False rebuilds them every substep.
+    tune:     the sorted tier's route (``SortedTuning``; None reads
+              ``SPH_PALLAS_COMPACT``), the JAX ``pallas_tune``.
     """
     cfg = cfg.validate()
     _check_supported(neighbor)
     if neighbor == "brute":
         return _brute_step(cfg, faithful)
-    return _sorted_step(cfg) if faithful else _corrected_step(cfg)
+    tune = default_tuning() if tune is None else tune
+    return _sorted_step(cfg, tune) if faithful else _corrected_step(cfg, tune)
 
 
 def make_frame_step(cfg: SimConfig, *, neighbor: str = "sorted",
                     faithful: bool = True,
-                    device: torch.device | str = "cpu") -> StepFn:
-    """Single-scene step with the config's own physics on ``device``."""
-    param_step = make_param_step(cfg, neighbor=neighbor, faithful=faithful)
+                    tune: SortedTuning | None = None,
+                    device: torch.device | str | None = None) -> StepFn:
+    """Single-scene step with the config's own physics on ``device`` (None:
+    the card; without one it raises)."""
+    device = resolve_device(device)
+    param_step = make_param_step(cfg, neighbor=neighbor, faithful=faithful,
+                                 tune=tune)
     phys = PhysParams.from_config(cfg, device)
     return lambda state: param_step(state, phys)
 
@@ -307,10 +367,12 @@ def _stack(ms: list[StepMetrics]) -> StepMetrics | None:
 
 
 def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
-                 faithful: bool = True,
-                 device: torch.device | str = "cpu"):
+                 faithful: bool = True, tune: SortedTuning | None = None,
+                 device: torch.device | str | None = None):
     """Build ``state → (state, metrics)`` over ``n_frames`` frames, with
-    ``metrics`` a ``StepMetrics`` of per-frame tensors ``[n_frames]``.
+    ``metrics`` a ``StepMetrics`` of per-frame tensors ``[n_frames]``, on
+    ``device`` (None: the card; without one it raises). ``tune`` selects the
+    route as in :func:`make_param_step`.
 
     Faithful sorted rollouts keep the state in SORTED order across frames:
     the rollout carries the particle-id column ``pid`` and passes it to the
@@ -322,9 +384,11 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
     """
     cfg = cfg.validate()
     _check_supported(neighbor)
+    device = resolve_device(device)
+    tune = default_tuning() if tune is None else tune
     if neighbor != "sorted" or not faithful:
         step = make_frame_step(cfg, neighbor=neighbor, faithful=faithful,
-                               device=device)
+                               tune=tune, device=device)
 
         def loop(state: ParticleState
                  ) -> tuple[ParticleState, StepMetrics]:
@@ -349,7 +413,8 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
                 frame, (pos, vel, nan_count) = build_frame(
                     pos, r, cap, extras=(pos, vel, nan_count), gid=pid)
             pid = frame.order
-            pos, vel, nan_hits, m = _sorted_frame(frame, pos, vel, phys, cfg)
+            pos, vel, nan_hits, m = _sorted_frame(frame, pos, vel, phys, cfg,
+                                                  tune)
             nan_count = nan_count + nan_hits
             ms.append(m)
         final = ParticleState(pos=_unsort(pid, pos), vel=_unsort(pid, vel),
@@ -360,8 +425,9 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
 
 
 def initial_state(cfg: SimConfig,
-                  device: torch.device | str = "cpu") -> ParticleState:
+                  device: torch.device | str | None = None) -> ParticleState:
     """Spawn per the config preset with zero velocities
-    (SphFluidSimulation.cs:157-190)."""
+    (SphFluidSimulation.cs:157-190), on ``device`` (None: the card; without
+    one it raises)."""
     from ..models.presets import init_positions
-    return make_state(init_positions(cfg, device))
+    return make_state(init_positions(cfg, resolve_device(device)))

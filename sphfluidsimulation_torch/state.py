@@ -71,6 +71,6 @@ class StepMetrics(NamedTuple):
     kinetic_energy: torch.Tensor  # f32[]
     nan_events: torch.Tensor      # i32[] — total NaN traps this frame
     overflow: torch.Tensor        # i32[] — particles dropped by voxel capacity
-    exact_cert: torch.Tensor      # i32[] — under-covered candidate windows;
-                                  # identically 0 on the sorted tier (see
-                                  # sim/stepper.py)
+    exact_cert: torch.Tensor      # i32[] — under-covered candidate windows:
+                                  # identically 0 on the K1-K3 route, the
+                                  # drift count on K5's (sim/stepper.py)

@@ -147,8 +147,8 @@ def test_brute_step_with_extensions_matches_jax(faithful):
     sb, mb = jax.jit(jstep(JConfig(**kw), neighbor="brute",
                            faithful=faithful))(jstate(JConfig(**kw)))
     cfg = SimConfig(**kw)
-    st, m = make_frame_step(cfg, neighbor="brute", faithful=faithful)(
-        initial_state(cfg))
+    st, m = make_frame_step(cfg, neighbor="brute", faithful=faithful,
+                            device="cpu")(initial_state(cfg, "cpu"))
     np.testing.assert_allclose(st.pos.numpy(), np.asarray(sb.pos), rtol=0,
                                atol=1e-5)
     assert int(m.overflow) == int(mb.overflow)

@@ -34,7 +34,8 @@ _CALM_FLAGS = ["--particles", "1024", "--bucket-resolution", "11",
 
 def _state_after(frames=2):
     cfg = SimConfig(**_CALM, xsph=0.3)
-    st, _ = make_rollout(cfg, frames)(initial_state(cfg))
+    st, _ = make_rollout(cfg, frames, device="cpu")(
+        initial_state(cfg, "cpu"))
     st = st._replace(nan_count=torch.arange(cfg.n_particles,
                                             dtype=torch.int32) % 3)
     return cfg, st
@@ -71,7 +72,7 @@ def test_checkpoint_rejects_the_orbax_format(tmp_path):
 
 def _one_frame_metrics():
     cfg, _ = _state_after(0)
-    _, m = make_rollout(cfg, 1)(initial_state(cfg))
+    _, m = make_rollout(cfg, 1, device="cpu")(initial_state(cfg, "cpu"))
     return type(m)(*(x[0] for x in m))
 
 

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from sphfluidsimulation_torch.config import SimConfig
-from sphfluidsimulation_torch.ops import sph_kernels as sk
+from sphfluidsimulation_torch.ops import compact, sph_kernels as sk
 from sphfluidsimulation_torch.ops.frame import build_frame
+from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning
 from sphfluidsimulation_torch.params import PhysParams
 from sphfluidsimulation_torch.sim.stepper import initial_state, make_rollout
 
@@ -25,6 +26,7 @@ CONFIGS = {"calm": _CALM, "goldenish": _GOLDENISH,
            "tiny": dict(particle_number=4096, bucket_resolution=17)}
 CAP = 32
 XSPH, ALPHA = 0.3, 0.4
+COMPACT = SortedTuning(compact=True)
 
 
 @pytest.fixture
@@ -140,9 +142,9 @@ def test_rollout_on_card_tracks_cpu(cuda_device):
     sk.reset_launch_counts()
     gpu, m = make_rollout(cfg, 5, device=cuda_device)(
         initial_state(cfg, cuda_device))
-    assert sk.launch_counts == {"density": 5, "fused_substep": 25,
-                                "fused_substep_ext": 0, "forces": 0}
-    cpu, mc = make_rollout(cfg, 5)(initial_state(cfg))
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    density=5, fused_substep=25)
+    cpu, mc = make_rollout(cfg, 5, device="cpu")(initial_state(cfg, "cpu"))
     torch.testing.assert_close(gpu.pos.cpu(), cpu.pos, rtol=0, atol=5e-4)
     assert torch.equal(m.overflow.cpu(), mc.overflow)
     assert int(m.exact_cert.sum()) == 0
@@ -174,10 +176,75 @@ def test_rollout_never_waits_for_the_card(cuda_device, faithful):
 def test_scene_and_bench_on_card(cuda_device):
     from sphfluidsimulation_torch import Scene
     from sphfluidsimulation_torch.bench import run_bench
-    scene = Scene(SimConfig(**_CALM), device=cuda_device)
+    scene = Scene(SimConfig(**_CALM))                  # the card by default
     st = scene.step(2)
     assert st.pos.is_cuda and scene.frame == 2
     assert bool(torch.isfinite(st.pos).all())
-    out = run_bench(4096, frames=2, warmup_frames=1)
+    out = run_bench(4096, frames=2, warmup_frames=1,
+                    tune=SortedTuning(compact=False))
     assert out["value"] > 0 and out["exact_cert_total"] == 0
     assert out["device_name"] == torch.cuda.get_device_name(0)
+    assert out["pallas_tuning"] == {"compact": False}
+    sk.reset_launch_counts()
+    out = run_bench(4096, frames=2, warmup_frames=1, tune=COMPACT)
+    assert out["pallas_tuning"] == {"compact": True} and out["value"] > 0
+    assert sk.launch_counts["compact_substep"] == 3 * 5
+    assert sk.launch_counts["fused_substep"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["goldenish", "tiny"])
+def test_compact_kernel_matches_plain_on_card(cuda_device, name):
+    # each K5 instance against its plain version, on rows moved 2.5 cells
+    # up in z after the frame build, so that some leave their tile's band:
+    # the drift count equals the plain version's
+    tf, ps, vs, tp, r = _card_inputs(name, cuda_device, frames=2)
+    before = dict(sk.launch_counts)
+    rho, c = compact.density_compact(tf, ps, tp, r)
+    rho_p, c_p = compact.density_compact_plain(tf, ps, tp, r)
+    torch.testing.assert_close(rho, rho_p, rtol=1e-5, atol=1e-6)
+    assert int(c) == int(c_p) == 0
+    rows = sk.pack_rows(ps, vs, rho_p)
+    rows[100:111, 2] += 2.5 / (r - 1)
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        out, c = compact.compact_substep(tf, rows, tp, r, xs, al)
+        _, c_p = compact.compact_substep_plain(tf, rows, tp, r, xs, al)
+        assert int(c) == int(c_p)
+        acc = sk.substep_accuracy(tf, rows, out, tp, r, None, xs, al,
+                                  sums_fn=compact.compact_sums_plain)
+        assert acc.ok, acc
+    f, c = compact.forces_compact(tf, rows, tp, r)
+    assert int(c) == int(c_p)
+    assert sk.forces_accuracy(tf, rows, f, None, tp, r, None,
+                              sums_fn=compact.compact_sums_plain).ok
+    # the planted control: the substep without viscosity fails the rule
+    no_visc = tp._replace(viscosity=torch.zeros_like(tp.viscosity))
+    bad, _ = compact.compact_substep_cuda(tf, rows, no_visc, r)
+    assert not sk.substep_accuracy(tf, rows, bad, tp, r, None,
+                                   sums_fn=compact.compact_sums_plain).ok
+    for k in ("compact_density", "compact_substep", "compact_substep_ext",
+              "compact_forces"):
+        assert sk.launch_counts[k] > before[k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faithful", [True, False])
+def test_compact_rollout_never_waits_for_the_card(cuda_device, faithful):
+    # the compact route keeps its drift counts on the device too
+    cfg = SimConfig(**CONFIGS["tiny"])
+    state = initial_state(cfg, cuda_device)
+    roll = make_rollout(cfg, 3, faithful=faithful, tune=COMPACT,
+                        device=cuda_device)
+    sk.reset_launch_counts()
+    roll(state)                                # builds the kernels
+    torch.cuda.synchronize()
+    want = (dict(compact_density=3, compact_substep=15) if faithful else
+            dict(compact_density=18, compact_forces=15))
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    **want)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        final, m = roll(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert final.pos.is_cuda and m.exact_cert.is_cuda

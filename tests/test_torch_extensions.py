@@ -95,7 +95,7 @@ def test_faithful_extensions_track_jax_brute():
     # one frame, atol 1e-5: the bound of tests/test_extensions.py:92
     sb, (mb,) = _jax_frames(_EXT, 1, neighbor="brute")
     cfg = SimConfig(**_EXT)
-    st, m = make_frame_step(cfg)(initial_state(cfg))
+    st, m = make_frame_step(cfg, device="cpu")(initial_state(cfg, "cpu"))
     np.testing.assert_allclose(st.pos.numpy(), np.asarray(sb.pos), rtol=0,
                                atol=1e-5)
     assert float(m.mean_density) == pytest.approx(float(mb.mean_density),
@@ -107,7 +107,8 @@ def test_corrected_mode_matches_jax_slotted():
     # tests/test_pallas.py:141-158: 3 frames, atol 2e-6, mean density 1e-5
     ss, ms = _jax_frames(_CALM, 3, neighbor="slotted", faithful=False)
     cfg = SimConfig(**_CALM)
-    final, m = make_rollout(cfg, 3, faithful=False)(initial_state(cfg))
+    final, m = make_rollout(cfg, 3, faithful=False, device="cpu")(
+        initial_state(cfg, "cpu"))
     np.testing.assert_allclose(final.pos.numpy(), np.asarray(ss.pos),
                                rtol=0, atol=2e-6)
     assert float(m.mean_density[-1]) == pytest.approx(
@@ -122,7 +123,8 @@ def test_corrected_extensions_track_jax_brute():
     is the corrected-mode bound of tests/test_pallas.py:155-156."""
     sb, mb = _jax_frames(_EXT, 3, neighbor="brute", faithful=False)
     cfg = SimConfig(**_EXT)
-    final, m = make_rollout(cfg, 3, faithful=False)(initial_state(cfg))
+    final, m = make_rollout(cfg, 3, faithful=False, device="cpu")(
+        initial_state(cfg, "cpu"))
     np.testing.assert_allclose(final.pos.numpy(), np.asarray(sb.pos),
                                rtol=0, atol=2e-6)
     np.testing.assert_allclose(final.vel.numpy(), np.asarray(sb.vel),
@@ -136,9 +138,10 @@ def test_sorted_tracks_the_port_brute_with_extensions(faithful):
     # the on-card oracle check of chip_smoke.py, here on the CPU: 1k calm
     # with both extensions, 3 frames, within 1e-5 of the port's own brute
     cfg = SimConfig(**_EXT)
-    st = initial_state(cfg)
-    a, ma = make_rollout(cfg, 3, faithful=faithful)(st)
-    b, mb = make_rollout(cfg, 3, neighbor="brute", faithful=faithful)(st)
+    st = initial_state(cfg, "cpu")
+    a, ma = make_rollout(cfg, 3, faithful=faithful, device="cpu")(st)
+    b, mb = make_rollout(cfg, 3, neighbor="brute", faithful=faithful,
+                         device="cpu")(st)
     torch.testing.assert_close(a.pos, b.pos, rtol=0, atol=1e-5)
     assert torch.equal(ma.overflow, mb.overflow)
     assert float(ma.mean_density[0]) == pytest.approx(
@@ -154,7 +157,8 @@ def test_corrected_frame_builds_once_more_than_its_substeps(monkeypatch):
     real = stepper.build_frame
     monkeypatch.setattr(stepper, "build_frame",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    st, m = make_frame_step(cfg, faithful=False)(initial_state(cfg))
+    st, m = make_frame_step(cfg, faithful=False, device="cpu")(
+        initial_state(cfg, "cpu"))
     assert len(calls) == 1 + cfg.substeps
     assert int(m.exact_cert) == 0 and m.overflow.dtype == torch.int32
     assert bool(((st.pos >= 0) & (st.pos <= 1)).all())

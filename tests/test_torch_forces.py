@@ -83,7 +83,7 @@ def test_zero_density_candidates_keep_their_extension_terms():
     cfg = SimConfig(**_CALM)
     tp = PhysParams.from_config(cfg)
     r = cfg.bucket_resolution
-    st = initial_state(cfg)
+    st = initial_state(cfg, "cpu")
     tf, (ps,) = build_frame(st.pos, r, CAP, extras=(st.pos,))
     rho = sk.density_plain(tf, ps, tp, r, CAP)
     planted = torch.zeros_like(rho, dtype=torch.bool)
@@ -143,7 +143,7 @@ def test_forces_accuracy_rule_accepts_plain_and_rejects_no_xsph(name):
     kw = dict(_CALM if name == "calm" else _GOLDENISH, xsph=XSPH,
               artificial_viscosity=ALPHA)
     cfg = SimConfig(**kw)
-    st, _ = make_rollout(cfg, 2)(initial_state(cfg))
+    st, _ = make_rollout(cfg, 2, device="cpu")(initial_state(cfg, "cpu"))
     tp = PhysParams.from_config(cfg)
     r = cfg.bucket_resolution
     tf, (ps, vs) = build_frame(st.pos, r, CAP, extras=(st.pos, st.vel))
@@ -162,7 +162,7 @@ def test_substep_rule_with_extensions_rejects_no_artificial_viscosity():
     # with alpha_visc zeroed (chip_smoke.py's planted control)
     kw = dict(_CALM, xsph=XSPH, artificial_viscosity=ALPHA)
     cfg = SimConfig(**kw)
-    st, _ = make_rollout(cfg, 2)(initial_state(cfg))
+    st, _ = make_rollout(cfg, 2, device="cpu")(initial_state(cfg, "cpu"))
     tp = PhysParams.from_config(cfg)
     r = cfg.bucket_resolution
     tf, (ps, vs) = build_frame(st.pos, r, CAP, extras=(st.pos, st.vel))
@@ -185,7 +185,7 @@ def test_fold_matches_fused_substep_and_traps_still_move_by_xsph():
     cfg = SimConfig(**_CALM)
     tp = PhysParams.from_config(cfg)
     r = cfg.bucket_resolution
-    st = initial_state(cfg)
+    st = initial_state(cfg, "cpu")
     tf, (ps,) = build_frame(st.pos, r, CAP, extras=(st.pos,))
     vel = 0.2 * torch.randn(ps.shape, generator=torch.Generator()
                             .manual_seed(1))

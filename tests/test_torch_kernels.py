@@ -168,7 +168,7 @@ def test_pack_rows_matches_jax_layout():
 
 def test_cpu_tensors_route_to_plain_versions():
     cfg = SimConfig(**_CALM)
-    st = initial_state(cfg)
+    st = initial_state(cfg, "cpu")
     tp = PhysParams.from_config(cfg)
     r = cfg.bucket_resolution
     tf, (ps, vs) = build_frame(st.pos, r, CAP, extras=(st.pos, st.vel))
@@ -192,7 +192,7 @@ def test_cuda_build_flags_and_cache_key():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast-math" not in flags and "fast_math" not in flags
     paths = [cuda_build.library_path(s) for s in cuda_build.KERNELS]
-    assert len(set(paths)) == len(paths) == 3     # one library per source
+    assert len(set(paths)) == len(paths) == 4     # one library per source
     for s, path in zip(cuda_build.KERNELS, paths):
         assert path.parent == cuda_build.BUILD_DIR
         assert path == cuda_build.library_path(s)  # keyed by content only
@@ -208,7 +208,7 @@ def test_substep_accuracy_rule_accepts_plain_and_rejects_no_viscosity(name):
     # the rule held by chip_smoke.py against the CUDA kernel: it passes the
     # plain float32 version, and fails a substep that drops viscosity
     cfg = SimConfig(**CONFIGS[name])
-    st, _ = make_rollout(cfg, 2)(initial_state(cfg))
+    st, _ = make_rollout(cfg, 2, device="cpu")(initial_state(cfg, "cpu"))
     tp = PhysParams.from_config(cfg)
     r = cfg.bucket_resolution
     tf, (ps, vs) = build_frame(st.pos, r, CAP, extras=(st.pos, st.vel))

@@ -35,8 +35,8 @@ _CALM = dict(particle_number=1024, bucket_resolution=11, preset=0,
 def test_golden_1k_trajectory():
     # bounds of tests/test_golden.py:63-66 (the pallas tier's)
     cfg = SimConfig(particle_number=1024, bucket_resolution=11, preset=1)
-    s1, _ = make_rollout(cfg, 1)(initial_state(cfg))
-    s5, m = make_rollout(cfg, 4)(s1)
+    s1, _ = make_rollout(cfg, 1, device="cpu")(initial_state(cfg, "cpu"))
+    s5, m = make_rollout(cfg, 4, device="cpu")(s1)
     with np.load(DATA) as z:
         g1, g5 = z["pos_1"], z["pos_5"]
     assert np.abs(s1.pos.numpy() - g1).max() < 1e-5
@@ -52,7 +52,7 @@ def test_calm_rollout_tracks_brute():
     for _ in range(5):
         sb, mb = bstep(sb)
         ovf.append(int(mb.overflow))
-    final, m = make_rollout(tc, 5)(initial_state(tc))
+    final, m = make_rollout(tc, 5, device="cpu")(initial_state(tc, "cpu"))
     np.testing.assert_allclose(final.pos.numpy(), np.asarray(sb.pos),
                                rtol=0, atol=5e-4)
     assert m.exact_cert.tolist() == [0] * 5
@@ -62,9 +62,9 @@ def test_calm_rollout_tracks_brute():
 
 def test_sorted_rollout_bit_equal_to_per_frame_stepping():
     cfg = SimConfig(**_CALM)
-    st = initial_state(cfg)
-    final, _ = make_rollout(cfg, 3)(st)
-    step = make_frame_step(cfg)
+    st = initial_state(cfg, "cpu")
+    final, _ = make_rollout(cfg, 3, device="cpu")(st)
+    step = make_frame_step(cfg, device="cpu")
     s = st
     for _ in range(3):
         s, _ = step(s)
@@ -82,14 +82,14 @@ def test_capacity_none_never_drops_and_matches_brute():
     kw = dict(_CALM, voxel_capacity=None)
     jc, tc = JConfig(**kw), SimConfig(**kw)
     sb, mb = jax.jit(jstep(jc, neighbor="brute"))(jinit(jc))
-    st, m = make_frame_step(tc)(initial_state(tc))
+    st, m = make_frame_step(tc, device="cpu")(initial_state(tc, "cpu"))
     assert int(m.overflow) == 0 and int(mb.overflow) == 0
     np.testing.assert_allclose(st.pos.numpy(), np.asarray(sb.pos),
                                rtol=0, atol=1e-6)
 
 
 def test_scene_steps():
-    scene = Scene(SimConfig(**_CALM))
+    scene = Scene(SimConfig(**_CALM), device="cpu")
     st = scene.step(2)
     assert scene.frame == 2 and st.pos.shape == (1024, 3)
     assert bool(torch.isfinite(st.pos).all())
@@ -102,11 +102,11 @@ def test_scene_steps():
 def test_unported_backends_raise(neighbor):
     cfg = SimConfig(**_CALM)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_frame_step(cfg, neighbor=neighbor)
+        make_frame_step(cfg, neighbor=neighbor, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_rollout(cfg, 2, neighbor=neighbor)
+        make_rollout(cfg, 2, neighbor=neighbor, device="cpu")
     with pytest.raises(ValueError):
-        make_frame_step(cfg, neighbor="nope")
+        make_frame_step(cfg, neighbor="nope", device="cpu")
 
 
 def test_brute_rollout_equals_brute_stepping_and_tracks_jax_brute():
@@ -118,9 +118,9 @@ def test_brute_rollout_equals_brute_stepping_and_tracks_jax_brute():
     sb = jinit(jc)
     for _ in range(5):
         sb, mb = bstep(sb)
-    st = initial_state(tc)
-    final, m = make_rollout(tc, 5, neighbor="brute")(st)
-    step = make_frame_step(tc, neighbor="brute")
+    st = initial_state(tc, "cpu")
+    final, m = make_rollout(tc, 5, neighbor="brute", device="cpu")(st)
+    step = make_frame_step(tc, neighbor="brute", device="cpu")
     for _ in range(5):
         st, ms = step(st)
     for a, b in zip(final, st):
@@ -137,10 +137,11 @@ def test_extensions_run_in_both_modes_and_change_the_trajectory(kw):
     # each coefficient alone and both together, faithful and corrected:
     # the frame runs, stays in the cube, and differs from the plain run
     cfg = SimConfig(**_CALM)
-    st = initial_state(cfg)
+    st = initial_state(cfg, "cpu")
     for faithful in (True, False):
-        plain, _ = make_rollout(cfg, 2, faithful=faithful)(st)
-        ext, m = make_rollout(cfg.replace(**kw), 2, faithful=faithful)(st)
+        plain, _ = make_rollout(cfg, 2, faithful=faithful, device="cpu")(st)
+        ext, m = make_rollout(cfg.replace(**kw), 2, faithful=faithful,
+                              device="cpu")(st)
         assert bool(((ext.pos >= 0) & (ext.pos <= 1)).all())
         assert m.exact_cert.tolist() == [0, 0]
         assert float((ext.pos - plain.pos).abs().max()) > 1e-7
@@ -158,13 +159,29 @@ def test_run_bench_needs_the_card(monkeypatch):
         run_bench(1024, frames=1, warmup_frames=1)
 
 
+@pytest.mark.parametrize("entry", ["make_rollout", "make_frame_step",
+                                   "initial_state", "Scene"])
+def test_entry_points_need_the_card(monkeypatch, entry):
+    # the port runs on the card unless the caller asks for the CPU: with no
+    # card, the default device raises instead of carrying on on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SimConfig(**_CALM)
+    call = {"make_rollout": lambda: make_rollout(cfg, 1),
+            "make_frame_step": lambda: make_frame_step(cfg),
+            "initial_state": lambda: initial_state(cfg),
+            "Scene": lambda: Scene(cfg)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        call()
+    assert initial_state(cfg, "cpu").pos.device.type == "cpu"
+
+
 def test_rollout_opens_its_profiler_ranges():
     # scripts/torch_frame_breakdown.py reads each phase's device time from
     # these ranges, so they must wrap the path make_rollout really runs
     from sphfluidsimulation_torch.sim.stepper import FRAME_PHASES
     cfg = SimConfig(**_CALM)
-    roll = make_rollout(cfg, 2)
-    st = initial_state(cfg)
+    roll = make_rollout(cfg, 2, device="cpu")
+    st = initial_state(cfg, "cpu")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         final, _ = roll(st)
