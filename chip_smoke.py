@@ -46,13 +46,14 @@ every phase passed; each prints its seconds):
 6. the CLI in-process: ``run`` at config 3 for 3 frames, faithful and
    ``--corrected``, through the kernels, and faithful with
    ``SPH_PALLAS_COMPACT=1`` through K5;
-7. timing: each kernel and its plain version (CUDA events) at the shapes of
-   its path, K5 beside K1/K2/K3 at the same states (the fused substeps on
-   rows two substeps into the frame, the rest at the frame start); each
-   kernel's bound,
-   the larger of its bytes over the card's memory rate and its FP32
-   operations, counted from the member pairs of this run's inputs, over the
-   FP32 rate.
+7. timing: each kernel's launch (its scalar block and K2's and K3's pj
+   built beforehand) and its plain version, with CUDA events, the card kept
+   busy while the host queues the launches, so the times are device times,
+   at the shapes of its path, K5 beside K1/K2/K3 at the same states (the
+   fused substeps on rows two substeps into the frame, the rest at the
+   frame start); each kernel's bound, the larger of its bytes over the
+   card's memory rate and its FP32 operations, counted from the member
+   pairs of this run's inputs, over the FP32 rate.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -78,6 +79,9 @@ DENSITY_RTOL = 1e-5
 # (sph_kernels.substep_accuracy / forces_accuracy state the rule and why).
 # the sorted tier against the port's brute oracle on the calm 1k scene
 ORACLE_ATOL = 1e-5
+# the card spins this many cycles (about 25 ms) before each timed block,
+# while the host queues it, so that kernel times are device times
+LEAD_CYCLES = 50_000_000
 XSPH, ALPHA = 0.3, 0.5          # BASELINE config 3 (README.md)
 
 # The bound of a kernel: the larger of its bytes over the memory rate and
@@ -98,7 +102,8 @@ OPS_PER_ROW = {"density": 1, "forces": 0, "fused": 50}
 OPS_PER_ROW_EXT = 15
 # bytes per row read and written once: density reads pos f32[3], raw i32,
 # occ u8 and writes ρ f32; the force modes read the rows f32[8] and write
-# rows f32[8] (fused) or sums f32[12] (forces); K5 also reads cid i32
+# rows f32[8] (fused) or sums f32[12] (forces); K2 and K3 also read pj
+# f32[2], K5 reads cid i32 instead
 ROW_BYTES = {"density": 12 + 4 + 1 + 4, "fused": 32 + 4 + 1 + 32,
              "forces": 32 + 4 + 1 + 48}
 # every kernel of the port: (kind, source, the TPU kernel it replaces)
@@ -121,7 +126,8 @@ def bound(name: str, n: int, r: int, pairs: int,
     pairs (self pairs excluded for the force modes), with or without the
     extension sums."""
     kind = KERNELS[name][0]
-    nbytes = n * (ROW_BYTES[kind] + (4 if name.startswith("compact") else 0))
+    nbytes = n * (ROW_BYTES[kind] + (4 if name.startswith("compact") else
+                                     8 if kind != "density" else 0))
     nbytes += 4 * (r ** 3 + 1) + 4 * 15           # start[], the scalars
     ops = pairs * (OPS_PER_PAIR[kind] + (OPS_PER_PAIR_EXT if ext else 0))
     ops += n * (OPS_PER_ROW[kind] + (OPS_PER_ROW_EXT if ext else 0))
@@ -544,7 +550,7 @@ def main() -> None:
     def time_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
-        with CudaTimer() as t:
+        with CudaTimer(LEAD_CYCLES) as t:
             for _ in range(reps):
                 fn()
         return t.ms / reps
@@ -578,6 +584,11 @@ def main() -> None:
             mid = rows
             for _ in range(2):
                 mid = sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al)
+            # each launch's inputs, built before its timing: the scalar
+            # blocks and K2's and K3's pj (pj is of the frame-start ρ, which
+            # mid keeps)
+            scal, scal_f = sk.scal_block(phys), sk.scal_block(phys, xs, al)
+            pj = sk.pj_cols(rows[:, 6], phys)
             tot, own = sk.member_pairs(frame, pos_s, r, cap)
             m_tot, m_own = sk.member_pairs(frame, mid[:, 0:3], r, cap)
             ctot, _ = compact.member_pairs(frame, pos_s, r, fresh=False)
@@ -599,11 +610,12 @@ def main() -> None:
                       flush=True)
             if not ext:
                 timed("density", shape, n, r, tot, False,
-                      lambda: sk.density_cuda(frame, pos_s, phys, r, cap),
+                      lambda: sk.density_cuda(frame, pos_s, phys, r, cap,
+                                              scal),
                       lambda: sk.density_plain(frame, pos_s, phys, r, cap))
                 timed("compact_density", shape, n, r, ctot, False,
                       lambda: compact.density_compact_cuda(frame, pos_s,
-                                                           phys, r),
+                                                           phys, r, scal),
                       lambda: compact.density_compact_plain(frame, pos_s,
                                                             phys, r))
             fused, k5_fused = (("fused_substep_ext", "compact_substep_ext")
@@ -611,28 +623,29 @@ def main() -> None:
                                ("fused_substep", "compact_substep"))
             timed(fused, shape, n, r, m_tot - m_own, ext,
                   lambda: sk.fused_substep_cuda(frame, mid, phys, r, cap,
-                                                xs, al),
+                                                xs, al, pj, scal_f),
                   lambda: sk.fused_substep_plain(frame, mid, phys, r, cap,
                                                  xs, al))
             timed(k5_fused, shape, n, r, k_tot - k_own, ext,
                   lambda: compact.compact_substep_cuda(frame, mid, phys, r,
-                                                       xs, al),
+                                                       xs, al, scal_f),
                   lambda: compact.compact_substep_plain(frame, mid, phys, r,
                                                         xs, al))
             if ext:
                 timed("forces", shape, n, r, tot - own, True,
                       lambda: sk.forces_cuda(frame, rows, phys, r, cap,
-                                             ext=True),
+                                             True, pj, scal),
                       lambda: sk.forces_plain(frame, rows, phys, r, cap,
                                               ext=True))
             if shape == "262k":
                 # K5's forces instance has no extensions: K3's beside it
                 timed("forces", "262k_no_ext", n, r, tot - own, False,
-                      lambda: sk.forces_cuda(frame, rows, phys, r, cap),
+                      lambda: sk.forces_cuda(frame, rows, phys, r, cap,
+                                             False, pj, scal),
                       lambda: sk.forces_plain(frame, rows, phys, r, cap))
                 timed("compact_forces", shape, n, r, ftot - fown, False,
                       lambda: compact.forces_compact_cuda(frame, rows, phys,
-                                                          r),
+                                                          r, scal),
                       lambda: compact.forces_compact_plain(frame, rows,
                                                            phys, r))
 

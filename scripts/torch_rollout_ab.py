@@ -8,9 +8,16 @@ BASELINE config 3 (524,176 particles, XSPH 0.3, artificial viscosity 0.5)
 faithful and corrected. Each rollout runs 10 frames after a one-frame
 warm-up, five times; the host clock between device syncs gives the median,
 min and max particle-substeps/s. Then the median of 7 CUDA-event timings
-(20 launches each) of K2 at the 262k frame-10 state. Prints one line,
-with the card's name and power limit. To compare the parent commit with
-the working tree in one call, from the root of a checkout:
+(20 launches each, behind a spin of the card so that they are device
+times) of each kernel on the frame-start rows of its path's frame-10
+state: K2 and K3 without extensions at 262k and 1M, K1 and the K5 substep
+at 262k, K2-ext at config 3, K3 at config 3 corrected. The kernels are
+launched through their C entry points with every input built beforehand,
+so each time is the kernel's alone, on either tree (a tree whose K2 and K3
+entry points take pj, the j-side columns, gets them from its own
+``pj_cols``). Prints one line, with the card's name and power limit. To
+compare the parent commit with the working tree in one call, from the
+root of a checkout:
 
     git archive HEAD | (mkdir -p build/parent && tar -x -C build/parent)
     for root in build/parent . . build/parent; do
@@ -19,6 +26,7 @@ the working tree in one call, from the root of a checkout:
 
 from __future__ import annotations
 
+import ctypes
 import pathlib
 import statistics
 import sys
@@ -32,7 +40,8 @@ def main() -> None:
 
     from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig
     from sphfluidsimulation_torch.bench import scaled_config
-    from sphfluidsimulation_torch.ops import cuda_build, sph_kernels as sk
+    from sphfluidsimulation_torch.ops import (compact, cuda_build,
+                                              sph_kernels as sk)
     from sphfluidsimulation_torch.ops.frame import build_frame
     from sphfluidsimulation_torch.params import PhysParams
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
@@ -64,25 +73,77 @@ def main() -> None:
         out.append(f"{label} rate median {statistics.median(rates):.6g} "
                    f"(min {min(rates):.6g}, max {max(rates):.6g})")
 
-    cfg = GOLDEN_CONFIG
-    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
-    st, _ = make_rollout(cfg, 10, device=dev)(initial_state(cfg, dev))
-    frame, (pos_s, vel_s) = build_frame(st.pos, r, cap,
-                                        extras=(st.pos, st.vel))
-    phys = PhysParams.from_config(cfg, dev)
-    rows = sk.pack_rows(pos_s, vel_s,
-                        sk.density_cuda(frame, pos_s, phys, r, cap))
-    ms = []
-    for _ in range(7):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            sk.fused_substep_cuda(frame, rows, phys, r, cap)
-        end.record()
-        end.synchronize()
-        ms.append(start.elapsed_time(end) / 20)
-    out.append(f"K2 262k frame 10 median {statistics.median(ms):.4f} ms")
+    def kernel_ms(fn):
+        """Median ms of fn, a launch through a C entry point (0 on success)."""
+        if fn() != 0:
+            sys.exit("a kernel launch failed")
+        ms = []
+        for _ in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            # keep the card busy while the host queues the launches, so
+            # that the time is the card's alone
+            torch.cuda._sleep(50_000_000)
+            start.record()
+            for _ in range(20):
+                fn()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end) / 20)
+        return statistics.median(ms)
+
+    lib = cuda_build.load()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    sigs = {n: a for v in cuda_build.KERNELS.values() for n, a in v}
+    takes_pj = len(sigs["sph_forces"]) == 12
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    # each kernel on frame-start rows of its path's frame-10 state
+    for label, cfg, faithful in (("262k", GOLDEN_CONFIG, True),
+                                 ("1m", scaled_config(1 << 20), True),
+                                 ("c3", c3, True),
+                                 ("c3-corrected", c3, False)):
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        st, _ = make_rollout(cfg, 10, faithful=faithful, device=dev)(
+            initial_state(cfg, dev))
+        frame, (pos_s, vel_s) = build_frame(st.pos, r, cap,
+                                            extras=(st.pos, st.vel))
+        phys = PhysParams.from_config(cfg, dev)
+        rows = sk.pack_rows(pos_s, vel_s,
+                            sk.density_cuda(frame, pos_s, phys, r, cap))
+        n = rows.shape[0]
+        ext = sk.uses_extensions(xs, al)
+        scal, scal_f = sk.scal_block(phys), sk.scal_block(phys, xs, al)
+        head = ((ptr(rows), ptr(sk.pj_cols(rows[:, 6], phys))) if takes_pj
+                else (ptr(rows),))
+        tail = (ptr(frame.start), ptr(frame.raw), ptr(frame.occ))
+        new_rows = torch.empty_like(rows)
+        sums = torch.empty((n, 12), dtype=torch.float32, device=dev)
+        if faithful:
+            name = "K2-ext" if ext else "K2"
+            ms = kernel_ms(lambda: lib.sph_fused_substep(
+                *head, *tail, ptr(scal_f), ptr(new_rows), n, r, cap,
+                int(ext), stream))
+            out.append(f"{name} {label} frame 10 median {ms:.4f} ms")
+        if not faithful or not ext:
+            ms = kernel_ms(lambda: lib.sph_forces(
+                *head, *tail, ptr(scal), ptr(sums), n, r, cap, int(ext),
+                stream))
+            out.append(f"K3{'' if ext else ' no-ext'} {label} frame 10 "
+                       f"median {ms:.4f} ms")
+        if label == "262k":
+            rho = torch.empty(n, dtype=torch.float32, device=dev)
+            ms = kernel_ms(lambda: lib.sph_density(
+                ptr(pos_s), *tail, ptr(scal), ptr(rho), n, r, cap, stream))
+            out.append(f"K1 {label} frame 10 median {ms:.4f} ms")
+            cert = torch.zeros((), dtype=torch.int32, device=dev)
+            ms = kernel_ms(lambda: lib.sph_compact(
+                compact._FUSED, 0, ptr(rows), ptr(frame.cid), *tail,
+                ptr(scal), ptr(new_rows), ptr(cert), n, r, stream))
+            out.append(f"K5 substep {label} frame 10 median {ms:.4f} ms")
     print(f"{sys.argv[1]} | {' | '.join(out)} | "
           f"{gpu_identity().splitlines()[0]}", flush=True)
 

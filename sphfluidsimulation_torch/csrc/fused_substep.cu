@@ -17,58 +17,55 @@
 // particle still moves by dt * dv (stepper.py:57-59). The instance without
 // extensions is the faithful K2.
 //
-// Rows are f32[N, 8] = (x, y, z, vx, vy, vz, rho, nan_count): two float4
-// loads per particle. rho is the frame-start density for i and for j.
-// Candidates are read from the state as it was before the substep and the
-// result goes to a separate buffer (an in-place update would race).
+// Rows are f32[N, 8] = (x, y, z, vx, vy, vz, rho, nan_count); pj is f32[N, 2]
+// = (press_j, [rho_j > eps] / rho_j) of the frame-start density, which is
+// rho for i and for j in all five substeps (sph_kernels.pj_cols, once a
+// frame). Candidates are read from the state as it was before the substep
+// and the result goes to a separate buffer (an in-place update would race).
 //
-// What bounds it on the H100: the same gather walk as K1 with 32 bytes per
-// candidate and ~45 flops, an IEEE sqrt and two IEEE divisions per pair
-// (no fast math: h - |r| cancels at the support edge, pallas_sph.py:1213);
-// the extensions add ~30 flops and two divisions. Loads are served by L1/L2
-// because a warp's particles share window cells; the divisions and the sqrt
-// set the issue rate.
+// What bounds it on the H100: the gather walk, about 100 candidate slots
+// per row at the golden occupancy (257 at config 3), each a chain of loads
+// (occ, raw, two float4 of rows, pj) served by L1, at well under one issued
+// instruction per cycle per scheduler, and the per-pair arithmetic. The
+// IEEE divisions of the per-pair terms (three, six with the extensions)
+// were the part of that arithmetic the walk could shed.
 //
-// What the design does about it: one thread per sorted particle, separate
-// accumulators in registers as in ops/brute.py, the pair terms shared with
-// K3 (sph_common.cuh::add_pair), the walk cut at the voxel capacity, and
-// every gate a branch, so the inf velocities of exploding scenes reach only
-// real candidates.
-#include "sph_common.cuh"
+// What the design does about it (window_walk.cuh): the pair function
+// add_pair_pj has no IEEE division without the extensions (press_j and
+// 1/rho_j precomputed, 1/|r| from rsqrt; one correctly rounded reciprocal
+// for 2/(rho_i + rho_j) and 1/rho_bar, one for the Monaghan mu) and gates by
+// whole-term selects, so two calls overlap; each row walks its window as
+// ranges of consecutive slots, two slots a step without the extensions.
+// Staging a tile's window union in shared memory was measured slower on
+// the H100 at every shape (it costs occupancy; PERF.md), so the walk reads
+// global memory through L1.
+#include "window_walk.cuh"
 
 namespace {
 
 template <bool kExt>
 __global__ void __launch_bounds__(sph::kBlock)
-fused_substep_kernel(const float4* __restrict__ rows,
-                     const int* __restrict__ start,
-                     const int* __restrict__ raw,
-                     const uint8_t* __restrict__ occ,
-                     const float* __restrict__ scal,
-                     float4* __restrict__ out, int n, int r, int cap) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const sph::Scalars s = sph::load_scalars(scal);
-  const sph::Particle p = sph::load_particle(rows, i);
-  const sph::PairSums acc =
-      sph::pair_sums<kExt>(s, p, i, r, cap, rows, start, raw, occ);
-  sph::fused_tail<kExt>(s, p, acc, out, i);
+fused_substep_kernel(sph::WalkArgs a, float4* __restrict__ out) {
+  sph::walk_row<kExt>(
+      a, [&](const sph::Scalars& s, const sph::Particle& p, int i,
+             const sph::PairSums& acc) {
+        sph::fused_tail<kExt>(s, p, acc, out, i);
+      });
 }
 
 }  // namespace
 
 // ext != 0 selects the instance with the extension sums.
-extern "C" int sph_fused_substep(const float* rows, const int* start,
-                                 const int* raw, const uint8_t* occ,
-                                 const float* scal, float* out, int n, int r,
-                                 int cap, int ext, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + sph::kBlock - 1) / sph::kBlock;
-    auto kernel = ext ? fused_substep_kernel<true>
-                      : fused_substep_kernel<false>;
-    kernel<<<blocks, sph::kBlock, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(rows), start, raw, occ, scal,
-        reinterpret_cast<float4*>(out), n, r, cap);
-  }
-  return (int)cudaGetLastError();
+extern "C" int sph_fused_substep(const float* rows, const float* pj,
+                                 const int* start, const int* raw,
+                                 const uint8_t* occ, const float* scal,
+                                 float* out, int n, int r, int cap, int ext,
+                                 void* stream) {
+  const sph::WalkArgs a{reinterpret_cast<const float4*>(rows),
+                        reinterpret_cast<const float2*>(pj),
+                        start, raw, occ, scal, n, r, cap};
+  return sph::launch_walk(ext ? fused_substep_kernel<true>
+                              : fused_substep_kernel<false>,
+                          a, reinterpret_cast<float4*>(out),
+                          (cudaStream_t)stream);
 }

@@ -1,8 +1,9 @@
 // Shared device code of the sorted-frame SPH kernels (density.cu,
 // fused_substep.cu, forces.cu, compact.cu): the scalar block, the fresh-cell
 // computation, the reference's 27-cell candidate walk over the anchor-sorted
-// particle array, the density and force-side pair terms that K1/K2/K3 and
-// K5 all sum, and the fused integrate tail of K2 and K5.
+// particle array (K1's), the density and force-side pair terms that K1 and
+// K5 sum, and the fused integrate tail of K2 and K5. K2's and K3's walks and
+// pair function are in window_walk.cuh.
 //
 // Layout (ops/frame.py): particles are sorted by anchor cell (the flat id of
 // the clamped 3D cell); start[c] .. start[c+1] is cell c's run; occ[j] says
@@ -126,8 +127,9 @@ struct PairSums {
 // (VelPos.compute:64-99; the extension sums of pallas_sph.py:1255-1283).
 // The rho_j > eps guard (VelPos.compute:91) gates pressure and viscosity
 // only: the JAX kernel keeps such j in the XSPH and artificial-viscosity
-// sums, each of which guards its own denominator. Without extensions this
-// is the code of the faithful K2: a j with rho_j <= eps contributes nothing.
+// sums, each of which guards its own denominator. Without extensions a j
+// with rho_j <= eps contributes nothing. K5's pair function; K2's and K3's
+// is window_walk.cuh::add_pair_pj, the same terms without per-pair divisions.
 // No gate multiplies: every select is a branch, so an inf on a
 // non-contributing term never turns into 0 * inf.
 template <bool kExt>
@@ -176,26 +178,6 @@ __device__ __forceinline__ void add_pair(const Scalars& s, const Particle& p,
     acc.ay += ac * dy;
     acc.az += ac * dz;
   }
-}
-
-// Particle i's pair sums over its candidates, j == i skipped
-// (VelPos.compute:82). Candidates are read from `rows`, the state before
-// the substep.
-template <bool kExt>
-__device__ __forceinline__ PairSums pair_sums(
-    const Scalars& s, const Particle& p, int i, int r, int cap,
-    const float4* __restrict__ rows, const int* __restrict__ start,
-    const int* __restrict__ raw, const uint8_t* __restrict__ occ) {
-  const int cx = fresh_coord(p.px, r);
-  const int cy = fresh_coord(p.py, r);
-  const int cz = fresh_coord(p.pz, r);
-  const float press_i = s.gas_k * (p.rho - s.rho0);
-  PairSums acc;
-  for_each_candidate(cx, cy, cz, r, cap, start, raw, occ, [&](int j) {
-    if (j == i) return;
-    add_pair<kExt>(s, p, press_i, load_particle(rows, j), acc);
-  });
-  return acc;
 }
 
 // Stores particle i's raw sums in the f32[N, 12] layout of K3: (press 3,

@@ -275,42 +275,53 @@ def _launch(mode: int, ext: bool, inp: torch.Tensor, frame: SortedFrame,
 
 
 def density_compact_cuda(frame: SortedFrame, pos_s: torch.Tensor,
-                         phys: PhysParams, r: int
+                         phys: PhysParams, r: int,
+                         scal: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5 density (``csrc/compact.cu``) on the card."""
+    """K5 density (``csrc/compact.cu``) on the card. ``scal`` is
+    ``scal_block(phys)`` (built here when None)."""
     n = pos_s.shape[0]
     _check("pos_s", pos_s, torch.float32, (n, 3), pos_s.device)
     rho = torch.empty(n, dtype=torch.float32, device=pos_s.device)
-    cert = _launch(_DENSITY, False, pos_s, frame, scal_block(phys), rho, r)
+    if scal is None:
+        scal = scal_block(phys)
+    cert = _launch(_DENSITY, False, pos_s, frame, scal, rho, r)
     launch_counts["compact_density"] += 1
     return rho, cert
 
 
 def compact_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
                          phys: PhysParams, r: int, xsph: float = 0.0,
-                         alpha_visc: float = 0.0
+                         alpha_visc: float = 0.0,
+                         scal: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 fused substep on the card; nonzero coefficients select the
-    instance with the extension sums."""
+    instance with the extension sums. ``scal`` is ``scal_block`` of
+    ``phys`` and the coefficients (built here when None)."""
     n = rows.shape[0]
     _check("rows", rows, torch.float32, (n, N_FIELDS), rows.device)
     ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
-    cert = _launch(_FUSED, ext, rows, frame,
-                   scal_block(phys, xsph, alpha_visc), out, r)
+    if scal is None:
+        scal = scal_block(phys, xsph, alpha_visc)
+    cert = _launch(_FUSED, ext, rows, frame, scal, out, r)
     launch_counts["compact_substep_ext" if ext else "compact_substep"] += 1
     return out, cert
 
 
 def forces_compact_cuda(frame: SortedFrame, rows: torch.Tensor,
-                        phys: PhysParams, r: int
+                        phys: PhysParams, r: int,
+                        scal: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 forces without extensions on the card: (raw sums f32[N, 12] in
-    K3's layout, cert)."""
+    K3's layout, cert). ``scal`` is ``scal_block(phys)`` (built here when
+    None)."""
     n = rows.shape[0]
     _check("rows", rows, torch.float32, (n, N_FIELDS), rows.device)
     sums = torch.empty((n, N_SUMS), dtype=torch.float32, device=rows.device)
-    cert = _launch(_FORCES, False, rows, frame, scal_block(phys), sums, r)
+    if scal is None:
+        scal = scal_block(phys)
+    cert = _launch(_FORCES, False, rows, frame, scal, sums, r)
     launch_counts["compact_forces"] += 1
     return sums, cert
 

@@ -6,7 +6,7 @@ is compiled with nvcc into a shared library of its own with a plain C
 interface, loaded with ctypes; the nvcc processes run side by side. The
 build happens at first use, on the machine with the card, into ``build/`` at
 the root of the checkout; each file name carries a hash of its source, the
-shared header and the flags, so an edit rebuilds and an unchanged tree
+shared headers and the flags, so an edit rebuilds and an unchanged tree
 reuses it.
 """
 
@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-HEADER = "sph_common.cuh"
+HEADERS = ("sph_common.cuh", "window_walk.cuh")
 # IEEE sqrt and division are required: no -use_fast_math
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -36,10 +36,10 @@ _I = ctypes.c_int
 KERNELS = {
     "density.cu": (("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _P)),),
-    "fused_substep.cu": (("sph_fused_substep", (_P, _P, _P, _P, _P, _P, _I,
-                                                 _I, _I, _I, _P)),),
-    "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _P)),),
+    "fused_substep.cu": (("sph_fused_substep", (_P, _P, _P, _P, _P, _P, _P,
+                                                 _I, _I, _I, _I, _P)),),
+    "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _P)),),
     "compact.cu": (("sph_compact", (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _P)),),
 }
@@ -64,7 +64,7 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in (HEADER, source):
+    for name in (*HEADERS, source):
         digest.update(name.encode())
         digest.update((CSRC / name).read_bytes())
     stem = source.removesuffix(".cu")

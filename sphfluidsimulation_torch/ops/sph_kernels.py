@@ -25,7 +25,8 @@ hand-written kernel (``csrc/density.cu``, ``csrc/forces.cu``,
 ``csrc/fused_substep.cu``) or raises. The kernels walk ``start[]`` cell by
 cell, each cell clamped to its first ``capacity`` slots (only those can be
 ``occ``), so their candidate set is exact: the sorted tier has no truncation
-certificate.
+certificate. K2 and K3 (``csrc/window_walk.cuh``) read the j-side
+pressure and guarded 1/ρ from :func:`pj_cols`.
 """
 
 from __future__ import annotations
@@ -133,6 +134,18 @@ def scal_block(phys: PhysParams, xsph: float = 0.0,
                         phys.dt, torch.full_like(h, xsph),
                         torch.full_like(h, alpha_visc),
                         torch.sqrt(phys.gas_constant)])
+
+
+def pj_cols(rho: torch.Tensor, phys: PhysParams) -> torch.Tensor:
+    """K2's and K3's j-side columns f32[N, 2]: press_j = k·(ρ − ρ₀) and the
+    guarded reciprocal [ρ > ε]/ρ, the formulas of ``pallas_sph._pj_cols``
+    (:813-821). The stepper computes them beside ``pack_rows``: once a frame
+    in faithful mode, where ρ is the frame-start density of all five
+    substeps, and once a substep in corrected mode."""
+    press = phys.gas_constant * (rho - phys.rest_density)
+    ok = rho > EPSILON
+    inv = torch.where(ok, 1.0, 0.0) / torch.where(ok, rho, 1.0)
+    return torch.stack([press, inv], 1)
 
 
 # --------------------------------------------------------- plain versions --
@@ -574,13 +587,17 @@ def _raise_on_error(name: str, err: int) -> None:
 
 
 def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
-                 r: int, capacity: int | None) -> torch.Tensor:
-    """K1 (``csrc/density.cu``) on the card."""
+                 r: int, capacity: int | None,
+                 scal: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 (``csrc/density.cu``) on the card. ``scal`` is
+    :func:`scal_block` of ``phys`` (built here when None); K1 reads none of
+    its coefficient lanes, so K2's block serves too."""
     n = pos_s.shape[0]
     dev = pos_s.device
     _check("pos_s", pos_s, torch.float32, (n, 3), dev)
     _check_frame(frame, n, r, dev)
-    scal = scal_block(phys)
+    if scal is None:
+        scal = scal_block(phys)
     _check("phys", scal, torch.float32, (N_SCAL,), dev)
     rho = torch.empty(n, dtype=torch.float32, device=dev)
     lib = cuda_build.load()
@@ -593,49 +610,61 @@ def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
     return rho
 
 
-def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
-                r: int, capacity: int | None,
-                ext: bool = False) -> torch.Tensor:
-    """K3 (``csrc/forces.cu``) on the card: raw sums f32[N, 12] from the
-    rows state; ``ext`` selects the instance with the extension sums."""
+def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
+                 pj: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
+                 r: int, capacity: int | None, ext: bool) -> None:
+    """Checks the inputs of K2 or K3 and launches it into ``out``."""
     n = rows.shape[0]
     dev = rows.device
     _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
     _check_frame(frame, n, r, dev)
-    scal = scal_block(phys)
     _check("phys", scal, torch.float32, (N_SCAL,), dev)
-    out = torch.empty((n, N_SUMS), dtype=torch.float32, device=dev)
-    lib = cuda_build.load()
-    err = lib.sph_forces(
-        _ptr(rows), _ptr(frame.start), _ptr(frame.raw), _ptr(frame.occ),
-        _ptr(scal), _ptr(out), n, r, _cap_arg(capacity), int(ext),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on_error("forces", err)
+    _check("pj", pj, torch.float32, (n, 2), dev)
+    err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
+             _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
+             _cap_arg(capacity), int(ext),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on_error(name, err)
+
+
+def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
+                r: int, capacity: int | None, ext: bool = False,
+                pj: torch.Tensor | None = None,
+                scal: torch.Tensor | None = None) -> torch.Tensor:
+    """K3 (``csrc/forces.cu``) on the card: raw sums f32[N, 12] from the
+    rows state; ``ext`` selects the instance with the extension sums.
+    ``pj`` is :func:`pj_cols` of the rows' ρ and ``scal``
+    :func:`scal_block` of ``phys``; each is built here when None."""
+    if pj is None:
+        pj = pj_cols(rows[:, 6], phys)
+    if scal is None:
+        scal = scal_block(phys)
+    out = torch.empty((rows.shape[0], N_SUMS), dtype=torch.float32,
+                      device=rows.device)
+    _walk_launch(cuda_build.load().sph_forces, "forces", frame, rows, pj,
+                 scal, out, r, capacity, ext)
     launch_counts["forces"] += 1
     return out
 
 
 def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
                        phys: PhysParams, r: int, capacity: int | None,
-                       xsph: float = 0.0,
-                       alpha_visc: float = 0.0) -> torch.Tensor:
+                       xsph: float = 0.0, alpha_visc: float = 0.0,
+                       pj: torch.Tensor | None = None,
+                       scal: torch.Tensor | None = None) -> torch.Tensor:
     """K2 (``csrc/fused_substep.cu``) on the card. Reads the state as it was
     before the substep and writes a new rows tensor. Nonzero coefficients
-    select the instance with the extension sums."""
-    n = rows.shape[0]
-    dev = rows.device
-    _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
-    _check_frame(frame, n, r, dev)
-    scal = scal_block(phys, xsph, alpha_visc)
-    _check("phys", scal, torch.float32, (N_SCAL,), dev)
+    select the instance with the extension sums. ``pj`` is :func:`pj_cols`
+    of the rows' ρ and ``scal`` :func:`scal_block` of ``phys`` and the
+    coefficients; each is built here when None."""
+    if pj is None:
+        pj = pj_cols(rows[:, 6], phys)
+    if scal is None:
+        scal = scal_block(phys, xsph, alpha_visc)
     ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
-    lib = cuda_build.load()
-    err = lib.sph_fused_substep(
-        _ptr(rows), _ptr(frame.start), _ptr(frame.raw), _ptr(frame.occ),
-        _ptr(scal), _ptr(out), n, r, _cap_arg(capacity), int(ext),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on_error("fused_substep", err)
+    _walk_launch(cuda_build.load().sph_fused_substep, "fused_substep", frame,
+                 rows, pj, scal, out, r, capacity, ext)
     launch_counts["fused_substep_ext" if ext else "fused_substep"] += 1
     return out
 
@@ -643,28 +672,32 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
 # --------------------------------------------------------------- routing --
 
 def density_pass(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
-                 r: int, capacity: int | None) -> torch.Tensor:
+                 r: int, capacity: int | None,
+                 scal: torch.Tensor | None = None) -> torch.Tensor:
     """ρ per sorted particle: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. ``capacity`` is the config's voxel capacity
     (None: uncapped); it bounds the walk, the result does not depend on it
-    beyond what ``frame.occ`` already says."""
+    beyond what ``frame.occ`` already says. ``scal`` (as in
+    :func:`density_cuda`) is read by the kernel only."""
     if pos_s.is_cuda:
-        return density_cuda(frame, pos_s, phys, r, capacity)
+        return density_cuda(frame, pos_s, phys, r, capacity, scal)
     return density_plain(frame, pos_s, phys, r, capacity)
 
 
 def forces_pass(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                 r: int, capacity: int | None, xsph: float = 0.0,
-                alpha_visc: float = 0.0
+                alpha_visc: float = 0.0, pj: torch.Tensor | None = None,
+                scal: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(force f[N, 3], XSPH correction dv f[N, 3] or None) per sorted
     particle (``forces_pallas``): the raw sums from the CUDA kernel K3 for a
     CUDA tensor or from the plain version for a CPU one, then
     :func:`fold_forces`. Integration is the caller's
-    (``sim.stepper.integrate_substep``)."""
+    (``sim.stepper.integrate_substep``). ``pj`` and ``scal`` (as in
+    :func:`forces_cuda`) are read by the kernel only."""
     ext = uses_extensions(xsph, alpha_visc)
     if rows.is_cuda:
-        sums = forces_cuda(frame, rows, phys, r, capacity, ext)
+        sums = forces_cuda(frame, rows, phys, r, capacity, ext, pj, scal)
     else:
         sums = forces_plain(frame, rows, phys, r, capacity, ext)
     return fold_forces(sums, rows[:, 6], phys, xsph, alpha_visc)
@@ -672,13 +705,15 @@ def forces_pass(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
 
 def fused_substep(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                   r: int, capacity: int | None, xsph: float = 0.0,
-                  alpha_visc: float = 0.0) -> torch.Tensor:
+                  alpha_visc: float = 0.0, pj: torch.Tensor | None = None,
+                  scal: torch.Tensor | None = None) -> torch.Tensor:
     """One whole integration substep over the rows state (pair forces, m²/ρ
     scaling, extension sums, wall penalty, gravity, NaN trap, semi-implicit
     Euler, clamp): the CUDA kernel K2 for a CUDA tensor, the plain version
-    for a CPU one."""
+    for a CPU one. ``pj`` and ``scal`` (as in :func:`fused_substep_cuda`)
+    are read by the kernel only."""
     if rows.is_cuda:
         return fused_substep_cuda(frame, rows, phys, r, capacity, xsph,
-                                  alpha_visc)
+                                  alpha_visc, pj, scal)
     return fused_substep_plain(frame, rows, phys, r, capacity, xsph,
                                alpha_visc)

@@ -12,7 +12,7 @@ In faithful mode the neighbour structure and the density are computed ONCE
 from the frame-start positions and reused by all five substeps, while each
 substep reads fresh positions and velocities:
 
-    build_frame (sort by anchor cell) → density (K1) → pack rows
+    build_frame (sort by anchor cell) → density (K1) → pack rows and pj
     → 5 × fused substep (K2) → metrics
 
 ``faithful=False`` is the physically corrected mode: every substep rebuilds
@@ -20,12 +20,15 @@ the frame and the density from the current state, runs the force kernel
 (K3) and integrates on the host (``integrate_substep``), keeping the state in
 the caller's order between substeps:
 
-    5 × (build_frame → density (K1) → pack rows → forces (K3)
+    5 × (build_frame → density (K1) → pack rows and pj → forces (K3)
          → integrate_substep → unsort)
 
 plus one frame-start build and density for the overflow and density
 metrics. ``cfg.xsph`` and ``cfg.artificial_viscosity`` turn on the extension
 sums in K2 and K3 (and the XSPH correction of the position update).
+K2 and K3 read pj (the j-side pressure and guarded 1/ρ), built once a
+frame (corrected mode: every substep); the kernels' scalar block is built
+once a frame.
 
 ``tune=SortedTuning(compact=True)`` (the JAX ``pallas_tune``; by default
 read from ``SPH_PALLAS_COMPACT``) takes the compact-lane route, K5
@@ -156,13 +159,16 @@ def _add_cert(cert: torch.Tensor | None, c: torch.Tensor) -> torch.Tensor:
 
 
 def _density(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
-             cfg: SimConfig, tune: SortedTuning) -> torch.Tensor:
-    """ρ: K5 on the compact route, else K1. K5's density certificate is 0
-    by construction (its spans are the stale ones), so it is not summed."""
+             cfg: SimConfig, tune: SortedTuning,
+             scal: torch.Tensor | None = None) -> torch.Tensor:
+    """ρ: K5 on the compact route, else K1 (with the frame's scalar block
+    ``scal``). K5's density certificate is 0 by construction (its spans are
+    the stale ones), so it is not summed."""
     r = cfg.bucket_resolution
     if tune.compact:
         return compact.density_compact(frame, pos_s, phys, r)[0]
-    return sph_kernels.density_pass(frame, pos_s, phys, r, cfg.voxel_capacity)
+    return sph_kernels.density_pass(frame, pos_s, phys, r, cfg.voxel_capacity,
+                                    scal)
 
 
 def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
@@ -173,11 +179,16 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
     metrics)."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+    # the scalar block of K1 and K2, once a frame
+    scal = None if tune.compact else sph_kernels.scal_block(phys, xsph, alpha)
     with span("density"):
-        rho_s = _density(frame, pos_s, phys, cfg, tune)
+        rho_s = _density(frame, pos_s, phys, cfg, tune, scal)
     cert = None
     with span("pack_rows"):
         rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
+        # K2's j-side columns, once a frame: rho is the frame-start density
+        # of every substep
+        pj = None if tune.compact else sph_kernels.pj_cols(rho_s, phys)
     for _ in range(cfg.substeps):
         with span("fused_substep"):
             if tune.compact:
@@ -186,7 +197,7 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
                 cert = _add_cert(cert, c)
             else:
                 rows = sph_kernels.fused_substep(frame, rows, phys, r, cap,
-                                                 xsph, alpha)
+                                                 xsph, alpha, pj, scal)
     with span("unpack+metrics"):
         pos_s, vel_s, _, nan_hits = sph_kernels.unpack_rows(rows)
         # matches grid.overflow_count: rank-overflow + out-of-range drops
@@ -237,10 +248,12 @@ def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
     def step(state: ParticleState, phys: PhysParams
              ) -> tuple[ParticleState, StepMetrics]:
         pos, vel = state.pos, state.vel
+        # the scalar block of K1 and K3, once a frame
+        scal = None if tune.compact else sph_kernels.scal_block(phys)
         with span("build_frame"):
             frame0, (pos0_s,) = build_frame(pos, r, cap, extras=(pos,))
         with span("density"):
-            rho0_s = _density(frame0, pos0_s, phys, cfg, tune)
+            rho0_s = _density(frame0, pos0_s, phys, cfg, tune, scal)
         nan_hits = torch.zeros_like(state.nan_count)
         cert = None
         for _ in range(cfg.substeps):
@@ -248,16 +261,17 @@ def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
                 frame, (pos_s, vel_s) = build_frame(pos, r, cap,
                                                     extras=(pos, vel))
             with span("density"):
-                rho_s = _density(frame, pos_s, phys, cfg, tune)
+                rho_s = _density(frame, pos_s, phys, cfg, tune, scal)
             with span("pack_rows"):
                 rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
+                pj = None if k5_forces else sph_kernels.pj_cols(rho_s, phys)
             with span("forces"):
                 if k5_forces:
                     f, c = compact.forces_compact(frame, rows, phys, r)
                     dv, cert = None, _add_cert(cert, c)
                 else:
                     f, dv = sph_kernels.forces_pass(frame, rows, phys, r, cap,
-                                                    xsph, alpha)
+                                                    xsph, alpha, pj, scal)
             with span("integrate+unsort"):
                 pos_s, vel_s, nan_mask = integrate_substep(pos_s, vel_s, f,
                                                            phys, dv)

@@ -48,15 +48,22 @@ class CudaTimer:
     """Times the work queued inside the block with CUDA events.
 
     ``ms`` is the elapsed device time of the whole block, read after the
-    block exits (the exit synchronises on the end event).
+    block exits (the exit synchronises on the end event). ``lead_cycles``
+    > 0 first keeps the card busy that many clock cycles, before the start
+    event, so that the host queues the block while the card waits: the
+    time is then the card's alone, with no gap where a kernel is shorter
+    than the host's launch work.
     """
 
-    def __init__(self):
+    def __init__(self, lead_cycles: int = 0):
         self._start = torch.cuda.Event(enable_timing=True)
         self._end = torch.cuda.Event(enable_timing=True)
+        self._lead = lead_cycles
         self.ms: float | None = None
 
     def __enter__(self):
+        if self._lead:
+            torch.cuda._sleep(self._lead)
         self._start.record()
         return self
 

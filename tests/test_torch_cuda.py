@@ -122,6 +122,38 @@ def test_forces_kernel_matches_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["goldenish", "tiny"])
+def test_window_walk_matches_plain_with_drifted_rows_on_card(cuda_device,
+                                                             name):
+    # both instances of K2 and of K3 on rows moved 1.5 cells up in z, so
+    # that some leave their frame-start cell, each held to the rule; pj and
+    # the scalar block passed in give the same bits as built in the wrapper,
+    # and K1 reads K2's scalar block as its own (the stepper shares it)
+    tf, ps, vs, tp, r = _card_inputs(name, cuda_device, frames=2)
+    rho = sk.density_cuda(tf, ps, tp, r, CAP)
+    assert torch.equal(sk.density_cuda(tf, ps, tp, r, CAP,
+                                       sk.scal_block(tp, XSPH, ALPHA)), rho)
+    rows = sk.pack_rows(ps, vs, sk.density_plain(tf, ps, tp, r, CAP))
+    rows[100:111, 2] = (rows[100:111, 2] + 1.5 / (r - 1)).clamp(max=1.0)
+    pj = sk.pj_cols(rows[:, 6], tp)
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        out = sk.fused_substep_cuda(tf, rows, tp, r, CAP, xs, al)
+        acc = sk.substep_accuracy(tf, rows, out, tp, r, CAP, xs, al)
+        assert acc.ok, acc
+        again = sk.fused_substep_cuda(tf, rows, tp, r, CAP, xs, al, pj,
+                                      sk.scal_block(tp, xs, al))
+        assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+        ext = sk.uses_extensions(xs, al)
+        sums = sk.forces_cuda(tf, rows, tp, r, CAP, ext)
+        f, dv = sk.fold_forces(sums, rows[:, 6], tp, xs, al)
+        acc = sk.forces_accuracy(tf, rows, f, dv, tp, r, CAP, xs, al)
+        assert acc.ok, acc
+        again = sk.forces_cuda(tf, rows, tp, r, CAP, ext, pj,
+                               sk.scal_block(tp))
+        assert torch.equal(again.view(torch.int32), sums.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_rejects_bad_layout(cuda_device):
     tf, ps, vs, tp, r = _card_inputs("calm", cuda_device)
     rows = sk.pack_rows(ps, vs, sk.density_cuda(tf, ps, tp, r, CAP))

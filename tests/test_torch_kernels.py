@@ -196,11 +196,12 @@ def test_cuda_build_flags_and_cache_key():
     for s, path in zip(cuda_build.KERNELS, paths):
         assert path.parent == cuda_build.BUILD_DIR
         assert path == cuda_build.library_path(s)  # keyed by content only
-    for s in (cuda_build.HEADER, *cuda_build.KERNELS):
+    for s in (*cuda_build.HEADERS, *cuda_build.KERNELS):
         assert (cuda_build.CSRC / s).is_file()
-    # the K3 and K2 bindings take the extension switch before the stream
+    # the K3 and K2 bindings take pj after the rows and the extension
+    # switch before the stream
     sigs = {n: a for v in cuda_build.KERNELS.values() for n, a in v}
-    assert len(sigs["sph_forces"]) == len(sigs["sph_fused_substep"]) == 11
+    assert len(sigs["sph_forces"]) == len(sigs["sph_fused_substep"]) == 12
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
