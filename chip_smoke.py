@@ -22,7 +22,7 @@ every phase passed; each prints its seconds):
    fused substep at both sizes, forces at 262k, density and the fused
    substep with extensions at config 3, the substep and forces on rows two
    substeps into the frame, where rows drift, with the drift count equal to
-   the plain version's;
+   the plain version's; every kernel with the frame's voxel capacity;
 4. main paths, each after a one-frame warm-up, with the launch counters
    reset just before and read just after it: the faithful 10-frame
    ``make_rollout`` at both sizes (1 + 5 launches a frame, no extension
@@ -46,14 +46,16 @@ every phase passed; each prints its seconds):
 6. the CLI in-process: ``run`` at config 3 for 3 frames, faithful and
    ``--corrected``, through the kernels, and faithful with
    ``SPH_PALLAS_COMPACT=1`` through K5;
-7. timing: each kernel's launch (its scalar block and K2's and K3's pj
+7. timing: each kernel's launch (its scalar block and the force modes' pj
    built beforehand) and its plain version, with CUDA events, the card kept
    busy while the host queues the launches, so the times are device times,
    at the shapes of its path, K5 beside K1/K2/K3 at the same states (the
    fused substeps on rows two substeps into the frame, the rest at the
    frame start); each kernel's bound, the larger of its bytes over the
    card's memory rate and its FP32 operations, counted from the member
-   pairs of this run's inputs, over the FP32 rate.
+   pairs of this run's inputs, over the FP32 rate; and K5's stream, the
+   slots a tile that it reads (each union cell cut at the capacity), beside
+   the length of the uncut union.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -89,21 +91,34 @@ XSPH, ALPHA = 0.3, 0.5          # BASELINE config 3 (README.md)
 # H100 SXM, dense, from NVIDIA's H100 datasheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# FP32 operations per member pair, counted from sph_common.cuh: add_density
-# 13; add_pair 39 (3 differences, |r|² 5, √ 1, h − |r| 1, ∇W 4, ∇²W 1,
-# p_j 2, pressure coefficient 3, two 3-vector multiply-adds 18, 1/ρ_j 1);
-# the extension terms 35 more. A multiply-add counts 2, a square root or
-# a division 1 (they cost more: this is a lower bound).
-OPS_PER_PAIR = {"density": 13, "forces": 39, "fused": 39}
-OPS_PER_PAIR_EXT = 35
+# FP32 operations per member pair: the fewest that the pair terms of
+# sph_kernels.forces_plain need. A multiply-add counts 2, a square root or
+# a division 1 (they cost more: this is a lower bound). p_j and 1/ρ_j are
+# inputs (pj, one value a particle, built by pj_cols before the launch); a
+# constant factor of a whole sum (c_poly6, c_grad, ½, 2, h, c_s) is
+# applied once a row, and a reciprocal two terms share is taken once.
+# - density 12: 3 differences, |r|² 5, h² − |r|² 1, d² 1, sum += d²·d 2;
+# - force pair 32: 3 differences, |r|² 5, √ 1, e = h − |r| 1, ∇W e³/|r| 3,
+#   pressure coefficient (p_i + p_j)/ρ_j 2 and its product with ∇W 1, the
+#   pressure sum 6, the viscosity coefficient e/ρ_j 1, v_j − v_i 3, the
+#   viscosity sum 6;
+# - the extension terms 27 more: h² − |r|² 1, its cube 2, ρ_i + ρ_j 1 and
+#   its reciprocal 1 (2/(ρ_i + ρ_j) = 1/ρ̄), the XSPH coefficient 1 and sum
+#   6, v·r 5, μ 2 (|r|² + 0.01 h² and a division), Π∇W 2, the Monaghan sum
+#   6.
+# The kernels' add_pair_pj does more (the constants, 1/|r| by rsqrt).
+OPS_PER_PAIR = {"density": 12, "forces": 32, "fused": 32}
+OPS_PER_PAIR_EXT = 27
 # per-row operations outside the pair loop: ρ·m; the fused tail 50 (+15
-# for the extension fold); the forces' fold is a separate torch pass
-OPS_PER_ROW = {"density": 1, "forces": 0, "fused": 50}
-OPS_PER_ROW_EXT = 15
+# for the extension fold), into whose scales the constants fold; the
+# forces write the raw sums, so they apply the constants to them (6, +6
+# with the extension sums), and their fold is a separate torch pass
+OPS_PER_ROW = {"density": 1, "forces": 6, "fused": 50}
+OPS_PER_ROW_EXT = {"density": 0, "forces": 6, "fused": 15}
 # bytes per row read and written once: density reads pos f32[3], raw i32,
 # occ u8 and writes ρ f32; the force modes read the rows f32[8] and write
-# rows f32[8] (fused) or sums f32[12] (forces); K2 and K3 also read pj
-# f32[2], K5 reads cid i32 instead
+# rows f32[8] (fused) or sums f32[12] (forces); the force modes of K2, K3
+# and K5 also read pj f32[2], and K5 reads cid i32
 ROW_BYTES = {"density": 12 + 4 + 1 + 4, "fused": 32 + 4 + 1 + 32,
              "forces": 32 + 4 + 1 + 48}
 # every kernel of the port: (kind, source, the TPU kernel it replaces)
@@ -126,11 +141,11 @@ def bound(name: str, n: int, r: int, pairs: int,
     pairs (self pairs excluded for the force modes), with or without the
     extension sums."""
     kind = KERNELS[name][0]
-    nbytes = n * (ROW_BYTES[kind] + (4 if name.startswith("compact") else
-                                     8 if kind != "density" else 0))
+    nbytes = n * (ROW_BYTES[kind] + (4 if name.startswith("compact") else 0)
+                  + (8 if kind != "density" else 0))
     nbytes += 4 * (r ** 3 + 1) + 4 * 15           # start[], the scalars
     ops = pairs * (OPS_PER_PAIR[kind] + (OPS_PER_PAIR_EXT if ext else 0))
-    ops += n * (OPS_PER_ROW[kind] + (OPS_PER_ROW_EXT if ext else 0))
+    ops += n * (OPS_PER_ROW[kind] + (OPS_PER_ROW_EXT[kind] if ext else 0))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
@@ -253,10 +268,10 @@ def main() -> None:
         """K5 against its plain versions: density on the frame, then the
         fused substep (and the forces) on rows two plain substeps into the
         frame, whose fresh cells may have left their tile's band."""
-        frame, pos_s, vel_s, phys, r, _ = frame_inputs(cfg, state)
+        frame, pos_s, vel_s, phys, r, cap = frame_inputs(cfg, state)
         xs, al = cfg.xsph, cfg.artificial_viscosity
         ext = sk.uses_extensions(xs, al)
-        rho_k, ck = compact.density_compact_cuda(frame, pos_s, phys, r)
+        rho_k, ck = compact.density_compact_cuda(frame, pos_s, phys, r, cap)
         rho_p, cp = compact.density_compact_plain(frame, pos_s, phys, r)
         hold_density(rho_k, rho_p, "compact_density", label)
         same_cert(ck, cp, "K5 density", label)
@@ -265,7 +280,8 @@ def main() -> None:
             rows, _ = compact.compact_substep_plain(frame, rows, phys, r, xs,
                                                     al)
         name = "compact_substep_ext" if ext else "compact_substep"
-        out_k, ck = compact.compact_substep_cuda(frame, rows, phys, r, xs, al)
+        out_k, ck = compact.compact_substep_cuda(frame, rows, phys, r, cap,
+                                                 xs, al)
         out_p, cp = compact.compact_substep_plain(frame, rows, phys, r, xs,
                                                   al)
         line = must_pass(sk.substep_accuracy(
@@ -277,7 +293,7 @@ def main() -> None:
         print(f"compare {label}: {name} on substep 3 max|k-p| {e_s:.3e}, "
               f"{line}; drift count {drift} (plain {int(cp)})", flush=True)
         if forces:
-            s_k, ck = compact.forces_compact_cuda(frame, rows, phys, r)
+            s_k, ck = compact.forces_compact_cuda(frame, rows, phys, r, cap)
             s_p, cp = compact.forces_compact_plain(frame, rows, phys, r)
             f_k = sk.fold_forces(s_k, rows[:, 6], phys)[0]
             f_p = sk.fold_forces(s_p, rows[:, 6], phys)[0]
@@ -293,7 +309,7 @@ def main() -> None:
             no_visc = phys._replace(
                 viscosity=torch.zeros_like(phys.viscosity))
             bad, _ = compact.compact_substep_cuda(frame, rows, no_visc, r,
-                                                  xs, al)
+                                                  cap, xs, al)
             must_fail(sk.substep_accuracy(
                 frame, rows, bad, phys, r, None, xs, al,
                 sums_fn=compact.compact_sums_plain),
@@ -585,8 +601,8 @@ def main() -> None:
             for _ in range(2):
                 mid = sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al)
             # each launch's inputs, built before its timing: the scalar
-            # blocks and K2's and K3's pj (pj is of the frame-start ρ, which
-            # mid keeps)
+            # blocks and the force modes' pj (pj is of the frame-start ρ,
+            # which mid keeps)
             scal, scal_f = sk.scal_block(phys), sk.scal_block(phys, xs, al)
             pj = sk.pj_cols(rows[:, 6], phys)
             tot, own = sk.member_pairs(frame, pos_s, r, cap)
@@ -603,11 +619,15 @@ def main() -> None:
             for when, p in (("frame start", pos_s), ("substep 3", mid)):
                 spans, _ = compact.fresh_spans(compact.stale_spans(frame),
                                                p[:, 0:3], r)
-                a, b = compact.tile_segments(spans, frame.start, r)
-                print(f"K5 union {shape} {when}: "
-                      f"{float((b - a).sum(1).double().mean()):.1f} slots "
-                      f"a tile, on average; each of its rows walks them",
-                      flush=True)
+                union, streamed = (float(compact.stream_slots(
+                    spans, frame.start, r, c).double().mean())
+                    for c in (None, cap))
+                ca, cb = compact.tile_cells(spans, r)
+                cells = float((cb - ca).sum(1).double().mean())
+                print(f"K5 stream {shape} {when}: {streamed:.1f} slots a "
+                      f"tile streamed (each union cell cut at the capacity "
+                      f"{cap}), of a union of {union:.1f} slots in "
+                      f"{cells:.1f} cells a tile, on average", flush=True)
             if not ext:
                 timed("density", shape, n, r, tot, False,
                       lambda: sk.density_cuda(frame, pos_s, phys, r, cap,
@@ -615,7 +635,8 @@ def main() -> None:
                       lambda: sk.density_plain(frame, pos_s, phys, r, cap))
                 timed("compact_density", shape, n, r, ctot, False,
                       lambda: compact.density_compact_cuda(frame, pos_s,
-                                                           phys, r, scal),
+                                                           phys, r, cap,
+                                                           scal),
                       lambda: compact.density_compact_plain(frame, pos_s,
                                                             phys, r))
             fused, k5_fused = (("fused_substep_ext", "compact_substep_ext")
@@ -628,7 +649,8 @@ def main() -> None:
                                                  xs, al))
             timed(k5_fused, shape, n, r, k_tot - k_own, ext,
                   lambda: compact.compact_substep_cuda(frame, mid, phys, r,
-                                                       xs, al, scal_f),
+                                                       cap, xs, al, pj,
+                                                       scal_f),
                   lambda: compact.compact_substep_plain(frame, mid, phys, r,
                                                         xs, al))
             if ext:
@@ -645,7 +667,7 @@ def main() -> None:
                       lambda: sk.forces_plain(frame, rows, phys, r, cap))
                 timed("compact_forces", shape, n, r, ftot - fown, False,
                       lambda: compact.forces_compact_cuda(frame, rows, phys,
-                                                          r, scal),
+                                                          r, cap, pj, scal),
                       lambda: compact.forces_compact_plain(frame, rows,
                                                            phys, r))
 

@@ -16,7 +16,7 @@ integrate + unsort, then the metrics); against the host clock of the
 rollout without the profiler, the device time of the whole trace gives the
 device's idle share. Also prints what a range costs the host when no
 profiler runs, and the candidate slots the kernels walk: per particle for
-K1-K3, per row of the tile's union for K5. A torch.profiler table of the
+K1-K3, per row of the tile's stream for K5. A torch.profiler table of the
 rollout's kernels goes to a file. Run from the root of a checkout on a
 machine with a CUDA card:
 
@@ -113,20 +113,24 @@ def walk_slots(cfg, state) -> float:
     return float(slots.mean())
 
 
-def tile_slots(cfg, state) -> tuple[float, float]:
-    """(slots, occupied slots) that K5 evaluates per row at this state: the
-    length of each tile's segment union over the frame-start spans, which
-    every row of the tile walks, averaged over the rows."""
+def tile_slots(cfg, state) -> tuple[float, float, float]:
+    """(union slots, streamed slots, occupied slots) of K5 per row at this
+    state, over the frame-start spans: the length of each tile's segment
+    union, the part of it the kernel streams (each union cell cut at the
+    capacity), and its occupied slots, which every row of the tile
+    evaluates once the box filter passes them; averaged over the rows."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     frame, (pos,) = build_frame(state.pos, r, cap, extras=(state.pos,))
-    a, b = compact.tile_segments(compact.stale_spans(frame), frame.start, r)
+    spans = compact.stale_spans(frame)
+    a, b = compact.tile_segments(spans, frame.start, r)
     occ = torch.cat([frame.occ.new_zeros(1), frame.occ]).cumsum(0)
     slots = (b - a).sum(1).to(torch.float64)
+    streamed = compact.stream_slots(spans, frame.start, r, cap).double()
     filled = (occ[b.long()] - occ[a.long()]).sum(1).to(torch.float64)
     rows = torch.full_like(slots, compact.CROWS)
     rows[-1] = cfg.n_particles - compact.CROWS * (rows.shape[0] - 1)
-    return (float((slots * rows).sum() / rows.sum()),
-            float((filled * rows).sum() / rows.sum()))
+    return tuple(float((x * rows).sum() / rows.sum())
+                 for x in (slots, streamed, filled))
 
 
 def main() -> None:
@@ -196,14 +200,15 @@ def main() -> None:
               f"under the profiler); device idle share "
               f"{1 - dev_ms / host_ms:.4f}")
         # the slots each kernel walks per particle: K1-K3 their 27 cells,
-        # K5 its tile's union (the corrected forces with extensions stay K3)
+        # K5 its tile's stream (the corrected forces with extensions stay K3)
         force_slots = dens_slots = walk_slots(cfg, state)
         if tune.compact:
-            dens_slots, filled = tile_slots(cfg, state)
+            union, dens_slots, filled = tile_slots(cfg, state)
             if faithful or not sk.uses_extensions(
                     cfg.xsph, cfg.artificial_viscosity):
                 force_slots = dens_slots
-            print(f"  K5 union: {dens_slots:.1f} slots per row, "
+            print(f"  K5 stream: {dens_slots:.1f} slots per row (each union "
+                  f"cell cut at the capacity) of a union of {union:.1f}, "
                   f"{filled:.1f} of them occupied; exact_cert frames 0-9 "
                   f"{m10.exact_cert.tolist()}")
         force = "fused_substep" if faithful else "forces"

@@ -2,20 +2,24 @@
 """Rollout rates of the torch port in one source tree, for A/B comparisons
 of two commits on one card.
 
-Builds the kernels of the tree at ROOT and times its K1-K3 route: the
-faithful rollout at 262,144 particles (R = 47) and 1,048,576 (R = 75), and
+Builds the kernels of the tree at ROOT and times both routes. Rates: the
+faithful rollout at 262,144 particles (R = 47) and 1,048,576 (R = 75) and
 BASELINE config 3 (524,176 particles, XSPH 0.3, artificial viscosity 0.5)
-faithful and corrected. Each rollout runs 10 frames after a one-frame
-warm-up, five times; the host clock between device syncs gives the median,
-min and max particle-substeps/s. Then the median of 7 CUDA-event timings
-(20 launches each, behind a spin of the card so that they are device
-times) of each kernel on the frame-start rows of its path's frame-10
-state: K2 and K3 without extensions at 262k and 1M, K1 and the K5 substep
-at 262k, K2-ext at config 3, K3 at config 3 corrected. The kernels are
-launched through their C entry points with every input built beforehand,
-so each time is the kernel's alone, on either tree (a tree whose K2 and K3
-entry points take pj, the j-side columns, gets them from its own
-``pj_cols``). Prints one line, with the card's name and power limit. To
+faithful and corrected on the window route (K1-K3), and the same four on
+the compact route (K5; its corrected cell at 262k, where K5 takes the
+forces). Each rollout runs 10 frames after a one-frame warm-up, five times;
+the host clock between device syncs gives the median, min and max
+particle-substeps/s. Then the median of 7 CUDA-event timings (20 launches
+each, behind a spin of the card so that they are device times) of each
+kernel on its path's frame-10 state of the window route: K1 at every
+shape; K2 and K3 without extensions at 262k and 1M; K2-ext at config 3; K3
+at config 3 corrected; K5 density at 262k, 1M and config 3; the K5
+substep at 262k and 1M and K5-ext at config 3 on rows two substeps into
+the frame (and the K5 substep at 262k on frame-start rows); K5 forces at
+262k. The kernels are launched through their C entry points with every
+input built beforehand, so each time is the kernel's alone, on either tree
+(a tree whose entry points take pj, the j-side columns, or K5's capacity
+gets them). Prints one line, with the card's name and power limit. To
 compare the parent commit with the working tree in one call, from the
 root of a checkout:
 
@@ -54,14 +58,21 @@ def main() -> None:
     dev = torch.device("cuda")
     c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
                    artificial_viscosity=0.5)
+    k5 = sk.SortedTuning(compact=True)
+    window = sk.SortedTuning(compact=False)
     out = []
-    for label, cfg, faithful in (("262k", GOLDEN_CONFIG, True),
-                                 ("1m", scaled_config(1 << 20), True),
-                                 ("c3", c3, True),
-                                 ("c3-corrected", c3, False)):
-        st, _ = make_rollout(cfg, 1, faithful=faithful, device=dev)(
-            initial_state(cfg, dev))
-        roll = make_rollout(cfg, 10, faithful=faithful, device=dev)
+    for label, cfg, faithful, tune in (
+            ("262k", GOLDEN_CONFIG, True, window),
+            ("1m", scaled_config(1 << 20), True, window),
+            ("c3", c3, True, window),
+            ("c3-corrected", c3, False, window),
+            ("K5 262k", GOLDEN_CONFIG, True, k5),
+            ("K5 1m", scaled_config(1 << 20), True, k5),
+            ("K5 c3", c3, True, k5),
+            ("K5 262k-corrected", GOLDEN_CONFIG, False, k5)):
+        st, _ = make_rollout(cfg, 1, faithful=faithful, tune=tune,
+                             device=dev)(initial_state(cfg, dev))
+        roll = make_rollout(cfg, 10, faithful=faithful, tune=tune, device=dev)
         rates = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -96,11 +107,12 @@ def main() -> None:
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     sigs = {n: a for v in cuda_build.KERNELS.values() for n, a in v}
     takes_pj = len(sigs["sph_forces"]) == 12
+    k5_takes_pj = len(sigs["sph_compact"]) == 15
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
 
-    # each kernel on frame-start rows of its path's frame-10 state
+    # each kernel on its path's frame-10 state
     for label, cfg, faithful in (("262k", GOLDEN_CONFIG, True),
                                  ("1m", scaled_config(1 << 20), True),
                                  ("c3", c3, True),
@@ -114,20 +126,48 @@ def main() -> None:
         phys = PhysParams.from_config(cfg, dev)
         rows = sk.pack_rows(pos_s, vel_s,
                             sk.density_cuda(frame, pos_s, phys, r, cap))
+        # rows two substeps into the frame, where K5's tile spans widen
+        mid = rows
+        for _ in range(2):
+            mid = sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al)
         n = rows.shape[0]
         ext = sk.uses_extensions(xs, al)
         scal, scal_f = sk.scal_block(phys), sk.scal_block(phys, xs, al)
-        head = ((ptr(rows), ptr(sk.pj_cols(rows[:, 6], phys))) if takes_pj
-                else (ptr(rows),))
+        pj = sk.pj_cols(rows[:, 6], phys)
+        head = (ptr(rows), ptr(pj)) if takes_pj else (ptr(rows),)
         tail = (ptr(frame.start), ptr(frame.raw), ptr(frame.occ))
         new_rows = torch.empty_like(rows)
         sums = torch.empty((n, 12), dtype=torch.float32, device=dev)
+        rho = torch.empty(n, dtype=torch.float32, device=dev)
+        cert = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def k5_launch(mode, inp, sc, dst, use_ext=False):
+            if k5_takes_pj:
+                return lib.sph_compact(
+                    mode, int(use_ext), ptr(inp),
+                    None if mode == compact._DENSITY else ptr(pj),
+                    ptr(frame.cid), *tail, ptr(sc), ptr(dst), ptr(cert), n,
+                    r, -1 if cap is None else cap, stream)
+            return lib.sph_compact(mode, int(use_ext), ptr(inp),
+                                   ptr(frame.cid), *tail, ptr(sc), ptr(dst),
+                                   ptr(cert), n, r, stream)
+
+        ms = kernel_ms(lambda: lib.sph_density(
+            ptr(pos_s), *tail, ptr(scal), ptr(rho), n, r, cap, stream))
+        out.append(f"K1 {label} frame 10 median {ms:.4f} ms")
         if faithful:
             name = "K2-ext" if ext else "K2"
             ms = kernel_ms(lambda: lib.sph_fused_substep(
                 *head, *tail, ptr(scal_f), ptr(new_rows), n, r, cap,
                 int(ext), stream))
             out.append(f"{name} {label} frame 10 median {ms:.4f} ms")
+            ms = kernel_ms(lambda: k5_launch(compact._DENSITY, pos_s, scal,
+                                             rho))
+            out.append(f"K5 density {label} frame 10 median {ms:.4f} ms")
+            ms = kernel_ms(lambda: k5_launch(compact._FUSED, mid, scal_f,
+                                             new_rows, ext))
+            out.append(f"K5 substep{'-ext' if ext else ''} {label} frame 10 "
+                       f"substep 3 median {ms:.4f} ms")
         if not faithful or not ext:
             ms = kernel_ms(lambda: lib.sph_forces(
                 *head, *tail, ptr(scal), ptr(sums), n, r, cap, int(ext),
@@ -135,15 +175,12 @@ def main() -> None:
             out.append(f"K3{'' if ext else ' no-ext'} {label} frame 10 "
                        f"median {ms:.4f} ms")
         if label == "262k":
-            rho = torch.empty(n, dtype=torch.float32, device=dev)
-            ms = kernel_ms(lambda: lib.sph_density(
-                ptr(pos_s), *tail, ptr(scal), ptr(rho), n, r, cap, stream))
-            out.append(f"K1 {label} frame 10 median {ms:.4f} ms")
-            cert = torch.zeros((), dtype=torch.int32, device=dev)
-            ms = kernel_ms(lambda: lib.sph_compact(
-                compact._FUSED, 0, ptr(rows), ptr(frame.cid), *tail,
-                ptr(scal), ptr(new_rows), ptr(cert), n, r, stream))
+            ms = kernel_ms(lambda: k5_launch(compact._FUSED, rows, scal,
+                                             new_rows))
             out.append(f"K5 substep {label} frame 10 median {ms:.4f} ms")
+            ms = kernel_ms(lambda: k5_launch(compact._FORCES, rows, scal,
+                                             sums))
+            out.append(f"K5 forces {label} frame 10 median {ms:.4f} ms")
     print(f"{sys.argv[1]} | {' | '.join(out)} | "
           f"{gpu_identity().splitlines()[0]}", flush=True)
 

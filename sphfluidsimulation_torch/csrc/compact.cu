@@ -7,38 +7,49 @@
 //   density  rho_i = m * sum_j W_poly6, self included, over the tile's stale
 //            segments (pos f32[N, 3] -> rho f32[N]);
 //   forces   the raw pair sums of K3 without extensions, j == i skipped
-//            (rows f32[N, 8] -> f32[N, 12], lanes 6-11 zero);
-//   fused    one whole substep, the tail of K2 (rows -> rows), with kExt the
-//            XSPH and artificial-viscosity sums.
+//            (rows f32[N, 8] + pj f32[N, 2] -> f32[N, 12], lanes 6-11 zero);
+//   fused    one whole substep, the tail of K2 (rows + pj -> rows), with kExt
+//            the XSPH and artificial-viscosity sums.
 // The tile's cell span is the min/max of its rows' anchor cells (density)
 // or of their fresh cells clipped to the grid, clamped to that stale span
 // +- one cell plane; rows outside the band are the drift count, added to
 // *cert (ops/compact.py::fresh_spans computes the same). Each (dz, dy) line
-// gives the segment [start[lo + off - 1], start[hi + off + 2]), the nine
-// deduplicated so that their union holds each slot once. Every row
-// evaluates every slot of the union under the exact gate of K1-K3: occupied,
-// raw cell within Chebyshev 1 of the row's fresh cell, and j != i for the
-// force modes. The pair terms are sph_common.cuh's add_density and add_pair,
-// and the fused tail is fused_tail, so K5 cannot drift from K1-K3. A row
-// sums its candidates in ascending sorted order, as K1-K3 do.
+// gives the cells [lo + off - 1, hi + off + 2), the nine deduplicated so
+// that their union holds each cell once (ops/compact.py::tile_cells). Every
+// row evaluates every candidate of the union under the exact gate of K1-K3:
+// occupied, raw cell within Chebyshev 1 of the row's fresh cell, and j != i
+// for the force modes. The pair terms are sph_common.cuh's add_density and
+// add_pair_pj, and the fused tail is fused_tail, so K5 cannot drift from
+// K1-K3. A row sums its candidates in ascending sorted order, as K1-K3 do.
 //
-// What bounds it on the H100: every row evaluates the whole union, about
-// 356 slots at the golden occupancy against K2's ~103 candidates per row,
-// so it does about three times K2's pair operations (an IEEE sqrt and two
-// IEEE divisions per force pair); its device-memory traffic is one read of
-// each candidate per warp instead of one per thread, served by L1/L2 either
-// way.
+// What bounds it on the H100: every row evaluates every candidate the tile
+// keeps, a few times its own member pairs where the tile's rows share their
+// cells, and far more where they spread over many (a tile's span widens
+// within a frame as rows cross cell planes: at 262k, two substeps into
+// frame 10, the union of a tenth of the tiles spans some 6,700 cells), so it
+// does several times K2's pair operations; before those, the warp must find
+// the candidates among the union's slots. Wall piles hold runs far longer
+// than the capacity, all of whose slots past it are unoccupied: at the
+// start of frame 10 at 262k a tile's union holds about 15,000 slots, of
+// which about 300 are occupied.
 //
-// What the design does about it: lanes 0-8 load their line's two start[]
-// entries; a warp prefix max applies the dedup and a prefix sum gives the
-// segment offsets. The warp then streams the union 32 slots at a time with
-// coalesced loads of occ and raw, keeps (__ballot_sync + __popc) the slots
-// that are occupied and whose raw cell lies within 1 of the tile's
-// fresh-cell bounding box, and writes them densely to shared memory with
-// their two float4s; each lane then walks that dense list with its own
-// gate. Wall piles make segments far longer than the capacity; the ballot
-// keeps their unoccupied slots out of the pair math. No capacity cut, no TMA
-// or cp.async: a simple kernel that is right first.
+// What the design does about it: the warp streams only each union cell's
+// capacity-cut prefix, the only slots that can be occupied, in slot order,
+// so empty cells cost nothing. The union is nine disjoint slot segments
+// (the lines deduplicated at cell level by a warp prefix max); lane l reads
+// slot base + l with coalesced loads of occ and raw. A slot that is
+// unoccupied and past its cell's capacity stops the round there (a ballot
+// finds the first), and the next round starts at the next cell's first
+// slot, so the rest of a pile is never read. A second ballot keeps the
+// occupied slots whose raw cell lies within 1 of the tile's fresh-cell
+// bounding box and writes them densely to shared memory (48-byte slots,
+// 1.5 KB a warp); each lane walks that list with its own gate as a branch,
+// so the warp skips whole a candidate near none of its rows (a warp vote,
+// or whole-term selects, there measured slower: PERF.md). The force pair is
+// add_pair_pj, with no IEEE division; its own guards are selects, so no
+// 0 * inf reaches a sum. Enumerating the union's cells 32 at a time with a
+// prefix sum of their capped lengths, the other way to the same stream,
+// measured slower: most cells of a wide union are empty.
 #include <climits>
 
 #include "sph_common.cuh"
@@ -47,28 +58,23 @@ namespace {
 
 constexpr int kWarps = 4;            // tiles per block
 constexpr int kLines = 9;            // (dz, dy) candidate lines per tile
+constexpr int kMaxR = 1024;          // raw cells pack 10 bits a coordinate
 constexpr unsigned kAll = 0xffffffffu;
 enum Mode { kDensity = 0, kForces = 1, kFused = 2 };
 
 // One compacted candidate: its rows entry (a.xyz only in density mode), its
-// sorted index and its decoded raw cell.
+// pj entry (force modes), its sorted index and its decoded raw cell packed
+// as x | y << 10 | z << 20.
 struct Slot {
   float4 a, b;
-  int j, x, y, z;
+  float2 pj;
+  int j, cell;
 };
 
 __device__ __forceinline__ int warp_scan_max(int v, int lane) {
   for (int d = 1; d < 32; d <<= 1) {
     const int t = __shfl_up_sync(kAll, v, d);
     if (lane >= d) v = max(v, t);
-  }
-  return v;
-}
-
-__device__ __forceinline__ int warp_scan_sum(int v, int lane) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const int t = __shfl_up_sync(kAll, v, d);
-    if (lane >= d) v += t;
   }
   return v;
 }
@@ -81,15 +87,21 @@ __device__ __forceinline__ int warp_max(bool live, int v) {
   return __reduce_max_sync(kAll, live ? v : INT_MIN);
 }
 
+// c within Chebyshev 1 of (cx, cy, cz) on each axis, c packed as in Slot
+__device__ __forceinline__ bool cell_near(int c, int cx, int cy, int cz) {
+  return (unsigned)((c & 1023) - cx + 1) <= 2u
+         && (unsigned)(((c >> 10) & 1023) - cy + 1) <= 2u
+         && (unsigned)((c >> 20) - cz + 1) <= 2u;
+}
+
 template <int kMode, bool kExt>
 __global__ void __launch_bounds__(kWarps * 32)
-compact_kernel(const float* __restrict__ in, const int* __restrict__ cid,
-               const int* __restrict__ start, const int* __restrict__ raw,
-               const uint8_t* __restrict__ occ,
+compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
+               const int* __restrict__ cid, const int* __restrict__ start,
+               const int* __restrict__ raw, const uint8_t* __restrict__ occ,
                const float* __restrict__ scal, float* __restrict__ out,
-               int* __restrict__ cert, int n, int r) {
+               int* __restrict__ cert, int n, int r, int cap) {
   __shared__ Slot slots[kWarps][32];
-  __shared__ int seg[kWarps][3][kLines];   // a, first offset, end offset
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tile = blockIdx.x * kWarps + warp;
   if (tile * 32 >= n) return;              // the whole warp leaves
@@ -130,85 +142,95 @@ compact_kernel(const float* __restrict__ in, const int* __restrict__ cid,
              s_cells - 1);
   }
 
-  // the nine line segments, deduplicated: b'_k is the running max of
-  // max(a, b) over lines 0..k, a'_k = max(a_k, b'_{k-1})
-  int a = 0, b = 0;
+  // the nine lines' cells [ca, cb), deduplicated: cb'_k is the running max
+  // of max(ca, cb) over lines 0..k, ca'_k = max(ca_k, cb'_{k-1}); start[] is
+  // monotone, so their slots [start[ca'], start[cb']) are disjoint and
+  // ascending, and their union is that of the nine lines' slots
+  int ca = 0, cb = 0;
   if (lane < kLines) {
     const int off = (lane / 3 - 1) * r * r + (lane % 3 - 1) * r;
-    a = __ldg(start + min(max(lo + off - 1, 0), s_cells));
-    b = __ldg(start + min(max(hi + off + 2, 0), s_cells));
+    ca = min(max(lo + off - 1, 0), s_cells);
+    cb = min(max(hi + off + 2, 0), s_cells);
   }
-  const int b_run = warp_scan_max(max(a, b), lane);
-  const int prev = __shfl_up_sync(kAll, b_run, 1);
-  a = max(a, lane == 0 ? 0 : prev);
-  const int len = lane < kLines ? b_run - a : 0;
-  const int end = warp_scan_sum(len, lane);
-  const int total = __shfl_sync(kAll, end, kLines - 1);
+  const int cb_run = warp_scan_max(max(ca, cb), lane);
+  const int prev = __shfl_up_sync(kAll, cb_run, 1);
+  ca = max(ca, lane == 0 ? 0 : prev);
+  int seg_a = 0, seg_b = 0;
   if (lane < kLines) {
-    seg[warp][0][lane] = a;
-    seg[warp][1][lane] = end - len;
-    seg[warp][2][lane] = end;
+    seg_a = __ldg(start + ca);
+    seg_b = __ldg(start + cb_run);
   }
   // the ballot's filter: within 1 of the tile's fresh-cell bounding box
   const int x0 = warp_min(live, cx) - 1, x1 = warp_max(live, cx) + 1;
   const int y0 = warp_min(live, cy) - 1, y1 = warp_max(live, cy) + 1;
   const int z0 = warp_min(live, cz) - 1, z1 = warp_max(live, cz) + 1;
-  __syncwarp();
 
   const float press_i = s.gas_k * (p.rho - s.rho0);
   sph::PairSums acc;
   float dens = 0.f;
-  for (int base = 0; base < total; base += 32) {
-    const int q = base + lane;
-    bool keep = false;
-    int j = 0, x = 0, y = 0, z = 0;
-    if (q < total) {
-      int k = 0;
-      while (seg[warp][2][k] <= q) ++k;
-      j = seg[warp][0][k] + (q - seg[warp][1][k]);
-      if (__ldg(occ + j)) {                // occupied: raw is in the grid
-        const int rj = __ldg(raw + j);
-        z = rj / (r * r);
-        const int rem = rj - z * r * r;
-        y = rem / r;
-        x = rem - y * r;
-        keep = x >= x0 && x <= x1 && y >= y0 && y <= y1 && z >= z0 &&
-               z <= z1;
-      }
-    }
-    const unsigned mask = __ballot_sync(kAll, keep);
-    if (keep) {
-      Slot& e = slots[warp][__popc(mask & ((1u << lane) - 1u))];
-      if constexpr (kMode == kDensity) {
-        e.a = make_float4(__ldg(in + 3 * j), __ldg(in + 3 * j + 1),
-                          __ldg(in + 3 * j + 2), 0.f);
-      } else {
-        e.a = __ldg(rows4 + 2 * j);
-        e.b = __ldg(rows4 + 2 * j + 1);
-      }
-      e.j = j;
-      e.x = x;
-      e.y = y;
-      e.z = z;
-    }
-    __syncwarp();
-    const int count = __popc(mask);
-    if (live) {
-      for (int t = 0; t < count; ++t) {
-        const Slot& e = slots[warp][t];
-        if (abs(e.x - cx) > 1 || abs(e.y - cy) > 1 || abs(e.z - cz) > 1)
-          continue;
-        if constexpr (kMode == kDensity) {
-          sph::add_density(s, p.px, p.py, p.pz, e.a.x, e.a.y, e.a.z, dens);
-        } else {
-          if (e.j == i) continue;          // VelPos.compute:82
-          const sph::Particle qj{e.a.x, e.a.y, e.a.z, e.a.w,
-                                 e.b.x, e.b.y, e.b.z, e.b.w};
-          sph::add_pair<kExt>(s, p, press_i, qj, acc);
+  for (int k = 0; k < kLines; ++k) {
+    int base = __shfl_sync(kAll, seg_a, k);
+    const int seg_end = __shfl_sync(kAll, seg_b, k);
+    while (base < seg_end) {
+      // lane l reads slot base + l: occupied, or past its cell's capacity
+      // (then the round stops there and the next starts at the next cell)
+      const int j = base + lane;
+      bool keep = false, over = false;
+      int packed = 0, skip_to = 0;
+      if (j < seg_end) {
+        if (__ldg(occ + j)) {               // occupied: raw is in the grid
+          const int rj = __ldg(raw + j);
+          const int z = rj / (r * r);
+          const int rem = rj - z * r * r;
+          const int y = rem / r;
+          const int x = rem - y * r;
+          keep = x >= x0 && x <= x1 && y >= y0 && y <= y1 && z >= z0 &&
+                 z <= z1;
+          packed = x | y << 10 | z << 20;
+        } else if (cap >= 0) {
+          const int cj = __ldg(cid + j);
+          over = j - __ldg(start + cj) >= cap;
+          skip_to = __ldg(start + cj + 1);
         }
       }
+      const unsigned overs = __ballot_sync(kAll, over);
+      const int stop = overs ? __ffs(overs) - 1 : 32;
+      base = overs ? __shfl_sync(kAll, skip_to, stop) : base + 32;
+      const unsigned mask = __ballot_sync(kAll, keep && lane < stop);
+      if (keep && lane < stop) {
+        Slot& e = slots[warp][__popc(mask & ((1u << lane) - 1u))];
+        if constexpr (kMode == kDensity) {
+          e.a = make_float4(__ldg(in + 3 * j), __ldg(in + 3 * j + 1),
+                            __ldg(in + 3 * j + 2), 0.f);
+        } else {
+          e.a = __ldg(rows4 + 2 * j);
+          e.b = __ldg(rows4 + 2 * j + 1);
+          e.pj = __ldg(pj + j);
+        }
+        e.j = j;
+        e.cell = packed;
+      }
+      __syncwarp();
+      // each row's own gate, a branch: where the tile's rows spread over
+      // many cells, most of what the box keeps is near none of them, and
+      // the warp then skips the candidate whole
+      const int count = __popc(mask);
+      if (live) {
+        for (int t = 0; t < count; ++t) {
+          const Slot& e = slots[warp][t];
+          if (!cell_near(e.cell, cx, cy, cz)) continue;
+          if constexpr (kMode == kDensity) {
+            sph::add_density(s, p.px, p.py, p.pz, e.a.x, e.a.y, e.a.z, true,
+                             dens);
+          } else {
+            if (e.j == i) continue;        // VelPos.compute:82
+            sph::add_pair_pj<kExt>(s, p, press_i, e.a, e.b, e.pj.x, e.pj.y,
+                                   true, acc);
+          }
+        }
+      }
+      __syncwarp();                        // the slots are rewritten next
     }
-    __syncwarp();                          // the slots are rewritten next
   }
 
   if (!live) return;
@@ -223,15 +245,18 @@ compact_kernel(const float* __restrict__ in, const int* __restrict__ cid,
 
 }  // namespace
 
-// mode: 0 density (in = pos f32[N, 3], out = rho f32[N]), 1 forces without
-// extensions (in = rows f32[N, 8], out = f32[N, 12]), 2 fused substep (in =
-// rows, out = rows; ext != 0 adds the extension sums). *cert (zeroed by the
-// caller) receives the drift count of the force modes.
-extern "C" int sph_compact(int mode, int ext, const float* in, const int* cid,
-                           const int* start, const int* raw,
+// mode: 0 density (in = pos f32[N, 3], out = rho f32[N]; pj unused, may be
+// null), 1 forces without extensions (in = rows f32[N, 8], pj f32[N, 2], out
+// = f32[N, 12]), 2 fused substep (in = rows, pj, out = rows; ext != 0 adds
+// the extension sums). *cert (zeroed by the caller) receives the drift count
+// of the force modes. cap is the voxel capacity of the frame (< 0: uncut);
+// r is at most 1024.
+extern "C" int sph_compact(int mode, int ext, const float* in, const float* pj,
+                           const int* cid, const int* start, const int* raw,
                            const uint8_t* occ, const float* scal, float* out,
-                           int* cert, int n, int r, void* stream) {
-  if (mode < kDensity || mode > kFused || (ext && mode != kFused))
+                           int* cert, int n, int r, int cap, void* stream) {
+  if (mode < kDensity || mode > kFused || (ext && mode != kFused) ||
+      r > kMaxR || (mode != kDensity && pj == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int tiles = (n + 31) / 32;
@@ -241,7 +266,8 @@ extern "C" int sph_compact(int mode, int ext, const float* in, const int* cid,
                   : ext ? compact_kernel<kFused, true>
                         : compact_kernel<kFused, false>;
     kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-        in, cid, start, raw, occ, scal, out, cert, n, r);
+        in, reinterpret_cast<const float2*>(pj), cid, start, raw, occ, scal,
+        out, cert, n, r, cap);
   }
   return (int)cudaGetLastError();
 }

@@ -7,18 +7,23 @@
 // over the reference's 27-cell window (Density.compute:32-60), self included.
 //
 // What bounds it on the H100: the neighbour walk is a gather. Each thread
-// reads, per candidate, 12 bytes of position plus the raw id and occupancy
-// bytes, about 135 candidates per particle at the golden occupancy, and does
-// ~12 flops with each. Device memory sees each particle once (consecutive
-// threads hold consecutive sorted particles, which share their window
-// cells), so the limit is L1/L2 load throughput and latency, not HBM.
+// reads, per candidate slot, the occupancy byte, the raw id and 12 bytes of
+// position, about 100-140 slots per particle at the golden occupancy, and
+// does 13 flops with each member. Device memory sees each particle once
+// (consecutive threads hold consecutive sorted particles, which share their
+// window cells), so the limit is the issue of that load chain from L1 and
+// its latency, not HBM or the arithmetic.
 //
-// What the design does about it: one thread per sorted particle, so a warp
-// walks nearly the same 27 runs and its loads coalesce into few cache lines;
-// the walk is cut at the voxel capacity, which bounds the work of wall piles
-// at 27 * capacity candidates; gating is a branch (a select), so no
-// multiply by a 0/1 mask ever meets an inf.
-#include "sph_common.cuh"
+// What the design does about it: the range walk of K2 and K3
+// (window_walk.cuh), with the self pair kept: one thread per sorted
+// particle, so a warp walks nearly the same runs and its loads coalesce into
+// few cache lines; each (z, y) line a loop of its own, so the lanes stay in
+// step; a line's cells as ranges of consecutive slots, cut at the voxel
+// capacity (which bounds wall piles at 27 * capacity slots); one slot a
+// step, gated by a whole-term select, so the step has no branch (two slots
+// a step, as K2 takes them, measured slower for K1's 13-operation pair:
+// PERF.md).
+#include "window_walk.cuh"
 
 namespace {
 
@@ -30,15 +35,17 @@ density_kernel(const float* __restrict__ pos, const int* __restrict__ start,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const sph::Scalars s = sph::load_scalars(scal);
-  const float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
-  const int cx = sph::fresh_coord(px, r);
-  const int cy = sph::fresh_coord(py, r);
-  const int cz = sph::fresh_coord(pz, r);
+  const float px = __ldg(pos + 3 * i), py = __ldg(pos + 3 * i + 1),
+              pz = __ldg(pos + 3 * i + 2);
   float acc = 0.f;
-  sph::for_each_candidate(cx, cy, cz, r, cap, start, raw, occ, [&](int j) {
-    sph::add_density(s, px, py, pz, __ldg(pos + 3 * j), __ldg(pos + 3 * j + 1),
-                     __ldg(pos + 3 * j + 2), acc);
-  });
+  sph::range_walk<1, false>(
+      sph::fresh_coord(px, r), sph::fresh_coord(py, r),
+      sph::fresh_coord(pz, r), i, r, cap, start, raw, occ,
+      [&](int q, bool use) {
+        sph::add_density(s, px, py, pz, __ldg(pos + 3 * q),
+                         __ldg(pos + 3 * q + 1), __ldg(pos + 3 * q + 2), use,
+                         acc);
+      });
   rho[i] = s.mass * acc;
 }
 

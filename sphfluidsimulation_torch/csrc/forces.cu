@@ -21,10 +21,11 @@
 // per candidate slot, about 257 slots a row at config 3) and its per-pair
 // arithmetic; the 48-byte store per particle is small beside the walk.
 //
-// What the design does about it: K2's pair function and window walk
-// (window_walk.cuh): no IEEE division in the pair terms without the
-// extensions, whole-term selects, ranges of consecutive slots. The two
-// kernels share every line of the walk, so they cannot drift apart.
+// What the design does about it: K2's pair function (sph_common.cuh's
+// add_pair_pj) and window walk (window_walk.cuh): no IEEE division in the
+// pair terms without the extensions, whole-term selects, ranges of
+// consecutive slots. The two kernels share every line of the walk, so they
+// cannot drift apart.
 #include "window_walk.cuh"
 
 namespace {

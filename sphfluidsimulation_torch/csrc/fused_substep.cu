@@ -30,13 +30,14 @@
 // IEEE divisions of the per-pair terms (three, six with the extensions)
 // were the part of that arithmetic the walk could shed.
 //
-// What the design does about it (window_walk.cuh): the pair function
-// add_pair_pj has no IEEE division without the extensions (press_j and
-// 1/rho_j precomputed, 1/|r| from rsqrt; one correctly rounded reciprocal
-// for 2/(rho_i + rho_j) and 1/rho_bar, one for the Monaghan mu) and gates by
-// whole-term selects, so two calls overlap; each row walks its window as
-// ranges of consecutive slots, two slots a step without the extensions.
-// Staging a tile's window union in shared memory was measured slower on
+// What the design does about it: the pair function add_pair_pj
+// (sph_common.cuh, shared with K3 and K5) has no IEEE division without the
+// extensions (press_j and 1/rho_j precomputed, 1/|r| from rsqrt; one
+// correctly rounded reciprocal for 2/(rho_i + rho_j) and 1/rho_bar, one for
+// the Monaghan mu) and gates by whole-term selects, so two calls overlap;
+// each row walks its window as ranges of consecutive slots (window_walk.cuh's
+// range walk, shared with K1 and K3), two slots a step without the
+// extensions. Staging a tile's window union in shared memory was measured slower on
 // the H100 at every shape (it costs occupancy; PERF.md), so the walk reads
 // global memory through L1.
 #include "window_walk.cuh"

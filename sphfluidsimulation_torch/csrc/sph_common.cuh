@@ -1,15 +1,16 @@
 // Shared device code of the sorted-frame SPH kernels (density.cu,
 // fused_substep.cu, forces.cu, compact.cu): the scalar block, the fresh-cell
-// computation, the reference's 27-cell candidate walk over the anchor-sorted
-// particle array (K1's), the density and force-side pair terms that K1 and
-// K5 sum, and the fused integrate tail of K2 and K5. K2's and K3's walks and
-// pair function are in window_walk.cuh.
+// computation, the pair terms that every walk sums (add_density for K1 and
+// K5's density, add_pair_pj for K2, K3 and K5's force modes) and the fused
+// integrate tail of K2 and K5. The window walk of K1-K3 is window_walk.cuh;
+// K5's tile stream is in compact.cu.
 //
 // Layout (ops/frame.py): particles are sorted by anchor cell (the flat id of
 // the clamped 3D cell); start[c] .. start[c+1] is cell c's run; occ[j] says
 // j is in the reference bucket (raw id in range, rank in its run below the
-// voxel capacity); raw[j] is the reference's unchecked flat id, which equals
-// the anchor id for every in-cube position.
+// voxel capacity, so no slot past a run's first `capacity` slots is ever
+// occupied); raw[j] is the reference's unchecked flat id, which equals the
+// anchor id for every in-cube position.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,51 +68,17 @@ __device__ __forceinline__ bool raw_near(int raw, int cx, int cy, int cz,
   return abs(x - cx) <= 1 && abs(y - cy) <= 1 && abs(z - cz) <= 1;
 }
 
-// Calls visit(j) for every j of the reference candidate set of a particle
-// whose fresh cell is (cx, cy, cz): the anchor cells of the 3x3x3 window
-// that lie in the grid, z outer, y middle, x inner, each run in sorted
-// order and cut to its first `cap` slots (cap < 0: uncapped; slots past the
-// capacity are never occupied, so the cut is exact). The membership gate is
-// the JAX kernels' (pallas_sph.py:1145-1164): j occupied and its RAW cell
-// within distance 1. A j whose raw id equals the walked cell passes without
-// decoding; only aliased out-of-cube spawns reach the decode.
-template <typename Visit>
-__device__ __forceinline__ void for_each_candidate(
-    int cx, int cy, int cz, int r, int cap, const int* __restrict__ start,
-    const int* __restrict__ raw, const uint8_t* __restrict__ occ,
-    Visit&& visit) {
-  const int x0 = max(cx - 1, 0), x1 = min(cx + 1, r - 1);
-  const int y0 = max(cy - 1, 0), y1 = min(cy + 1, r - 1);
-  const int z0 = max(cz - 1, 0), z1 = min(cz + 1, r - 1);
-  for (int z = z0; z <= z1; ++z) {
-    for (int y = y0; y <= y1; ++y) {
-      const int line = (z * r + y) * r;
-      for (int x = x0; x <= x1; ++x) {
-        const int cell = line + x;
-        const int s = __ldg(start + cell);
-        int e = __ldg(start + cell + 1);
-        if (cap >= 0) e = min(e, s + cap);
-        for (int j = s; j < e; ++j) {
-          if (!__ldg(occ + j)) continue;
-          const int rj = __ldg(raw + j);
-          if (rj != cell && !raw_near(rj, cx, cy, cz, r)) continue;
-          visit(j);
-        }
-      }
-    }
-  }
-}
-
 // Adds candidate (qx, qy, qz)'s poly6 weight to the density sum of the
-// particle at (px, py, pz) (Density.compute:42-54); the mass is applied after
-// the walk.
+// particle at (px, py, pz) when `use` (Density.compute:42-54), as a
+// whole-term select; the mass is applied after the walk.
 __device__ __forceinline__ void add_density(const Scalars& s, float px,
                                             float py, float pz, float qx,
-                                            float qy, float qz, float& acc) {
+                                            float qy, float qz, bool use,
+                                            float& acc) {
   const float dx = px - qx, dy = py - qy, dz = pz - qz;
   const float r2 = dx * dx + dy * dy + dz * dz;
   const float d = s.h2 - r2;
-  if (d > 0.f) acc += s.c_poly6 * d * d * d;
+  acc = use && d > 0.f ? acc + s.c_poly6 * d * d * d : acc;
 }
 
 // Raw force-side pair sums of one particle: pressure, viscosity, and the
@@ -123,60 +90,64 @@ struct PairSums {
   float ax = 0.f, ay = 0.f, az = 0.f;   // PI gradW r
 };
 
-// Adds the pair terms of candidate j to particle p's sums
-// (VelPos.compute:64-99; the extension sums of pallas_sph.py:1255-1283).
-// The rho_j > eps guard (VelPos.compute:91) gates pressure and viscosity
-// only: the JAX kernel keeps such j in the XSPH and artificial-viscosity
-// sums, each of which guards its own denominator. Without extensions a j
-// with rho_j <= eps contributes nothing. K5's pair function; K2's and K3's
-// is window_walk.cuh::add_pair_pj, the same terms without per-pair divisions.
-// No gate multiplies: every select is a branch, so an inf on a
-// non-contributing term never turns into 0 * inf.
+// Adds the pair terms of candidate q = (qa, qb) to particle p's sums
+// (VelPos.compute:64-99; the extension sums of pallas_sph.py:1255-1283),
+// with no IEEE division: press_j and the guarded reciprocal inv_j =
+// [rho_j > eps] / rho_j come precomputed (the formulas of
+// sph_kernels.pj_cols and pallas_sph.py::_pj_cols), 1/|r| is rsqrt under the
+// `valid` select and the pressure coefficient is (p_i + p_j) * 0.5 * inv_j,
+// as in the JAX kernel (pallas_sph.py:1213-1233). |r| stays an IEEE sqrt,
+// because h - |r| cancels at the support edge. The extension terms use one
+// correctly rounded reciprocal of rho_i + rho_j, which gives both 2 / (rho_i
+// + rho_j) and 1 / rho_bar (rho_bar = (rho_i + rho_j) / 2 exactly), and one
+// of r^2 + 0.01 h^2.
+//
+// Every gate is a whole-term select, as in the JAX kernel, never a product
+// with a 0/1 mask: `use` (the pair is a candidate, j != i) keeps or drops
+// all the terms, the rho_j > eps guard (on rho_j itself) the pressure and
+// viscosity terms only. With no branch, the compiler can overlap two calls.
 template <bool kExt>
-__device__ __forceinline__ void add_pair(const Scalars& s, const Particle& p,
-                                         float press_i, const Particle& q,
-                                         PairSums& acc) {
-  const bool rho_ok = q.rho > kEps;
-  if (!kExt && !rho_ok) return;
-  const float dx = p.px - q.px, dy = p.py - q.py, dz = p.pz - q.pz;
+__device__ __forceinline__ void add_pair_pj(const Scalars& s,
+                                            const Particle& p, float press_i,
+                                            float4 qa, float4 qb,
+                                            float press_j, float inv_j,
+                                            bool use, PairSums& acc) {
+  // qa = (x, y, z, vx), qb = (vy, vz, rho, -)
+  const bool pv = use && qb.z > kEps;
+  const float dx = p.px - qa.x, dy = p.py - qa.y, dz = p.pz - qa.z;
   const float r2 = dx * dx + dy * dy + dz * dz;
   const float abs_r = sqrtf(r2);
   const float diff_r = s.h - abs_r;
   const bool ok = diff_r > kEps && abs_r > kEps;
-  const float g = ok ? s.c_grad * (diff_r * diff_r * diff_r) / abs_r : 0.f;
-  if (rho_ok) {
-    const float gwv = abs_r < s.h ? s.c_grad * diff_r : 0.f;
-    const float press_j = s.gas_k * (q.rho - s.rho0);
-    const float pc = (press_i + press_j) / (2.f * q.rho);
-    acc.px += pc * (g * dx);
-    acc.py += pc * (g * dy);
-    acc.pz += pc * (g * dz);
-    const float vc = gwv / q.rho;
-    acc.vx += vc * (q.vx - p.vx);
-    acc.vy += vc * (q.vy - p.vy);
-    acc.vz += vc * (q.vz - p.vz);
-  }
+  const float g =
+      ok ? s.c_grad * (diff_r * diff_r * diff_r) * rsqrtf(fmaxf(r2, 1e-30f))
+         : 0.f;
+  const float dvx = qa.w - p.vx, dvy = qb.x - p.vy, dvz = qb.y - p.vz;
+  const float gwv = abs_r < s.h ? s.c_grad * diff_r : 0.f;
+  const float pc = (press_i + press_j) * 0.5f * inv_j;
+  const float vc = gwv * inv_j;
+  acc.px = pv ? acc.px + pc * (g * dx) : acc.px;
+  acc.py = pv ? acc.py + pc * (g * dy) : acc.py;
+  acc.pz = pv ? acc.pz + pc * (g * dz) : acc.pz;
+  acc.vx = pv ? acc.vx + vc * dvx : acc.vx;
+  acc.vy = pv ? acc.vy + vc * dvy : acc.vy;
+  acc.vz = pv ? acc.vz + vc * dvz : acc.vz;
   if constexpr (kExt) {
-    // XSPH: 2 / (rho_i + rho_j) W_poly6 (v_j - v_i); eps and mass are
-    // folded in after the walk
     const float d2 = s.h2 - r2;
     const float w6 = d2 > 0.f ? s.c_poly6 * d2 * d2 * d2 : 0.f;
-    const float denom = p.rho + q.rho;
-    const float xc = denom > kEps ? 2.f / denom * w6 : 0.f;
-    acc.xx += xc * (q.vx - p.vx);
-    acc.xy += xc * (q.vy - p.vy);
-    acc.xz += xc * (q.vz - p.vz);
-    // Monaghan PI for approaching pairs; alpha and m^2 are folded in after
-    // the walk, cs = sqrt(gas_k)
-    const float vr = (p.vx - q.vx) * dx + (p.vy - q.vy) * dy
-                     + (p.vz - q.vz) * dz;
-    const float rho_bar = 0.5f * (p.rho + q.rho);
-    const float mu = s.h * vr / (r2 + 0.01f * s.h2);
-    const bool pi_ok = vr < 0.f && rho_bar > kEps;
-    const float ac = (pi_ok ? -s.cs * mu / rho_bar : 0.f) * g;
-    acc.ax += ac * dx;
-    acc.ay += ac * dy;
-    acc.az += ac * dz;
+    const float denom = p.rho + qb.z;
+    const float two_over = 2.f * __frcp_rn(denom);   // 2 / denom = 1 / rho_bar
+    const float xc = denom > kEps ? two_over * w6 : 0.f;
+    acc.xx = use ? acc.xx + xc * dvx : acc.xx;
+    acc.xy = use ? acc.xy + xc * dvy : acc.xy;
+    acc.xz = use ? acc.xz + xc * dvz : acc.xz;
+    const float vr = -(dvx * dx) - dvy * dy - dvz * dz;
+    const float mu = s.h * vr * __frcp_rn(r2 + 0.01f * s.h2);
+    const bool pi_ok = vr < 0.f && 0.5f * denom > kEps;
+    const float ac = (pi_ok ? -s.cs * mu * two_over : 0.f) * g;
+    acc.ax = use ? acc.ax + ac * dx : acc.ax;
+    acc.ay = use ? acc.ay + ac * dy : acc.ay;
+    acc.az = use ? acc.az + ac * dz : acc.az;
   }
 }
 

@@ -21,6 +21,12 @@ under the gate of the other kernels: j occupied, j's raw cell within
 Chebyshev 1 of the row's unclipped fresh cell, and j ≠ i for the forces.
 The gate makes the candidate set that of K1/K2/K3 for every row inside
 the band; a drifted row may miss candidates, which the certificate counts.
+The kernel reads the union's slots in order but only each cell's first
+``capacity`` of them, the only ones that can be occupied: a round of 32
+slots stops at the first slot past its cell's capacity and the next round
+starts at the next cell (:func:`stream_slots` counts the slots it reads).
+The plain versions gather the occupied slots of the union directly, so
+their result does not depend on the capacity argument.
 The JAX kernel keeps the self pair in its force sums; the port drops it,
 as JAX's other kernels and the reference (VelPos.compute:82) do, which
 changes nothing for finite rows.
@@ -48,11 +54,11 @@ import torch
 from ..params import PhysParams
 from . import cuda_build, sph_math
 from .frame import SortedFrame
-from .sph_kernels import (N_FIELDS, N_SCAL, N_SUMS, _CHUNK_PAIRS, _check,
-                          _ptr, _raise_on_error, density_sums_plain,
+from .sph_kernels import (N_FIELDS, N_SCAL, N_SUMS, _CHUNK_PAIRS, _cap_arg,
+                          _check, _ptr, _raise_on_error, density_sums_plain,
                           fold_forces, force_sums_plain, fresh_cell,
                           fused_substep_plain, launch_counts, member_gate,
-                          scal_block, uses_extensions)
+                          pj_cols, scal_block, uses_extensions)
 
 CROWS = 32               # rows per tile: one warp
 N_LINES = 9              # (dz, dy) ∈ [−1, 1]² candidate lines per tile
@@ -109,25 +115,47 @@ def fresh_spans(stale: torch.Tensor, pos_s: torch.Tensor, r: int
     return spans, drift
 
 
-def tile_segments(spans: torch.Tensor, start: torch.Tensor, r: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The nine disjoint line segments of each tile, (a, b) i32[T, 9]:
-    sorted ranges [a, b) in (dz, dy) order, dz outer."""
+def tile_cells(spans: torch.Tensor, r: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nine disjoint line cell ranges of each tile, (ca, cb) i32[T, 9]:
+    cells [ca, cb) in (dz, dy) order, dz outer, cells clipped to [0, R³]."""
     s_cells = r * r * r
     offs = torch.tensor([dz * r * r + dy * r for dz in (-1, 0, 1)
                          for dy in (-1, 0, 1)], dtype=torch.int32,
                         device=spans.device)
-    qa = (spans[:, 0:1] + offs - 1).clamp(0, s_cells)
-    qb = (spans[:, 1:2] + offs + 2).clamp(0, s_cells)
-    a, b = start[qa.long()], start[qb.long()]
+    ca = (spans[:, 0:1] + offs - 1).clamp(0, s_cells)
+    cb = (spans[:, 1:2] + offs + 2).clamp(0, s_cells)
     # offsets increase strictly with (dz, dy), so one running bound makes
-    # the segments disjoint and keeps their union
-    prev = torch.zeros_like(a[:, 0])
+    # the ranges disjoint and keeps their union
+    prev = torch.zeros_like(ca[:, 0])
     for k in range(N_LINES):
-        a[:, k] = torch.maximum(a[:, k], prev)
-        b[:, k] = torch.maximum(b[:, k], a[:, k])
-        prev = b[:, k]
-    return a, b
+        ca[:, k] = torch.maximum(ca[:, k], prev)
+        cb[:, k] = torch.maximum(cb[:, k], ca[:, k])
+        prev = cb[:, k]
+    return ca, cb
+
+
+def tile_segments(spans: torch.Tensor, start: torch.Tensor, r: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nine disjoint line segments of each tile, (a, b) i32[T, 9]:
+    sorted ranges [a, b) in (dz, dy) order, the slots of
+    :func:`tile_cells` (``start`` is monotone, so deduplicating cells
+    deduplicates their slots)."""
+    ca, cb = tile_cells(spans, r)
+    return start[ca.long()], start[cb.long()]
+
+
+def stream_slots(spans: torch.Tensor, start: torch.Tensor, r: int,
+                 capacity: int | None) -> torch.Tensor:
+    """Slots i64[T] the kernel streams for each tile: every union cell's
+    run cut at ``capacity`` (None: uncut, the length of the segments)."""
+    ca, cb = tile_cells(spans, r)
+    runs = start[1:] - start[:-1]
+    if capacity is not None:
+        runs = runs.clamp(max=capacity)
+    cum = torch.cat([runs.new_zeros(1, dtype=torch.long),
+                     runs.cumsum(0, dtype=torch.long)])
+    return (cum[cb.long()] - cum[ca.long()]).sum(1)
 
 
 # ------------------------------------------------------ plain versions --
@@ -254,109 +282,138 @@ def forces_compact_plain(frame: SortedFrame, rows: torch.Tensor,
 
 # ---------------------------------------------------------- CUDA route --
 
-def _launch(mode: int, ext: bool, inp: torch.Tensor, frame: SortedFrame,
-            scal: torch.Tensor, out: torch.Tensor, r: int) -> torch.Tensor:
+_MAX_R = 1024            # the kernel packs a raw cell in 10 bits an axis
+
+
+def _launch(mode: int, ext: bool, inp: torch.Tensor, pj: torch.Tensor | None,
+            frame: SortedFrame, scal: torch.Tensor, out: torch.Tensor, r: int,
+            capacity: int | None) -> torch.Tensor:
     """Launches the K5 instance ``mode``; returns the drift count i32[]
     (accumulated by the kernel for the force modes, 0 for density)."""
     n = inp.shape[0]
     dev = inp.device
+    if r > _MAX_R:
+        raise ValueError(f"K5 takes R <= {_MAX_R}; got {r}")
     _check("frame.cid", frame.cid, torch.int32, (n,), dev)
     _check("frame.start", frame.start, torch.int32, (r * r * r + 1,), dev)
     _check("frame.raw", frame.raw, torch.int32, (n,), dev)
     _check("frame.occ", frame.occ, torch.bool, (n,), dev)
     _check("phys", scal, torch.float32, (N_SCAL,), dev)
+    if pj is not None:
+        _check("pj", pj, torch.float32, (n, 2), dev)
     cert = torch.zeros((), dtype=torch.int32, device=dev)
     err = cuda_build.load().sph_compact(
-        mode, int(ext), _ptr(inp), _ptr(frame.cid), _ptr(frame.start),
-        _ptr(frame.raw), _ptr(frame.occ), _ptr(scal), _ptr(out), _ptr(cert),
-        n, r, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        mode, int(ext), _ptr(inp), None if pj is None else _ptr(pj),
+        _ptr(frame.cid), _ptr(frame.start), _ptr(frame.raw), _ptr(frame.occ),
+        _ptr(scal), _ptr(out), _ptr(cert), n, r, _cap_arg(capacity),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error("compact", err)
     return cert
 
 
 def density_compact_cuda(frame: SortedFrame, pos_s: torch.Tensor,
-                         phys: PhysParams, r: int,
+                         phys: PhysParams, r: int, capacity: int | None,
                          scal: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5 density (``csrc/compact.cu``) on the card. ``scal`` is
-    ``scal_block(phys)`` (built here when None)."""
+    """K5 density (``csrc/compact.cu``) on the card. ``capacity`` is the
+    frame's voxel capacity (None: each union cell streamed uncut);
+    ``scal`` is ``scal_block(phys)`` (built here when None)."""
     n = pos_s.shape[0]
     _check("pos_s", pos_s, torch.float32, (n, 3), pos_s.device)
     rho = torch.empty(n, dtype=torch.float32, device=pos_s.device)
     if scal is None:
         scal = scal_block(phys)
-    cert = _launch(_DENSITY, False, pos_s, frame, scal, rho, r)
+    cert = _launch(_DENSITY, False, pos_s, None, frame, scal, rho, r,
+                   capacity)
     launch_counts["compact_density"] += 1
     return rho, cert
 
 
 def compact_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
-                         phys: PhysParams, r: int, xsph: float = 0.0,
-                         alpha_visc: float = 0.0,
+                         phys: PhysParams, r: int, capacity: int | None,
+                         xsph: float = 0.0, alpha_visc: float = 0.0,
+                         pj: torch.Tensor | None = None,
                          scal: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 fused substep on the card; nonzero coefficients select the
-    instance with the extension sums. ``scal`` is ``scal_block`` of
-    ``phys`` and the coefficients (built here when None)."""
+    instance with the extension sums. ``capacity`` as in
+    :func:`density_compact_cuda`; ``pj`` is ``pj_cols`` of the rows' ρ and
+    ``scal`` is ``scal_block`` of ``phys`` and the coefficients (each built
+    here when None)."""
     n = rows.shape[0]
     _check("rows", rows, torch.float32, (n, N_FIELDS), rows.device)
     ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
+    if pj is None:
+        pj = pj_cols(rows[:, 6], phys)
     if scal is None:
         scal = scal_block(phys, xsph, alpha_visc)
-    cert = _launch(_FUSED, ext, rows, frame, scal, out, r)
+    cert = _launch(_FUSED, ext, rows, pj, frame, scal, out, r, capacity)
     launch_counts["compact_substep_ext" if ext else "compact_substep"] += 1
     return out, cert
 
 
 def forces_compact_cuda(frame: SortedFrame, rows: torch.Tensor,
-                        phys: PhysParams, r: int,
+                        phys: PhysParams, r: int, capacity: int | None,
+                        pj: torch.Tensor | None = None,
                         scal: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 forces without extensions on the card: (raw sums f32[N, 12] in
-    K3's layout, cert). ``scal`` is ``scal_block(phys)`` (built here when
-    None)."""
+    K3's layout, cert). ``capacity``, ``pj`` and ``scal`` as in
+    :func:`compact_substep_cuda`."""
     n = rows.shape[0]
     _check("rows", rows, torch.float32, (n, N_FIELDS), rows.device)
     sums = torch.empty((n, N_SUMS), dtype=torch.float32, device=rows.device)
+    if pj is None:
+        pj = pj_cols(rows[:, 6], phys)
     if scal is None:
         scal = scal_block(phys)
-    cert = _launch(_FORCES, False, rows, frame, scal, sums, r)
+    cert = _launch(_FORCES, False, rows, pj, frame, scal, sums, r, capacity)
     launch_counts["compact_forces"] += 1
     return sums, cert
 
 
 # ------------------------------------------------------------- routing --
+# ``capacity``, ``pj`` and ``scal`` are read by the kernels only: the plain
+# versions do not depend on them.
 
 def density_compact(frame: SortedFrame, pos_s: torch.Tensor,
-                    phys: PhysParams, r: int
+                    phys: PhysParams, r: int, capacity: int | None,
+                    scal: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(ρ, cert) per sorted particle: K5 for a CUDA tensor, the plain
     version for a CPU one. The certificate is 0."""
     if pos_s.is_cuda:
-        return density_compact_cuda(frame, pos_s, phys, r)
+        return density_compact_cuda(frame, pos_s, phys, r, capacity, scal)
     return density_compact_plain(frame, pos_s, phys, r)
 
 
 def compact_substep(frame: SortedFrame, rows: torch.Tensor,
-                    phys: PhysParams, r: int, xsph: float = 0.0,
-                    alpha_visc: float = 0.0
+                    phys: PhysParams, r: int, capacity: int | None,
+                    xsph: float = 0.0, alpha_visc: float = 0.0,
+                    pj: torch.Tensor | None = None,
+                    scal: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(rows', drift count): one whole substep over the rows state, K5 for
     a CUDA tensor, the plain version for a CPU one."""
     if rows.is_cuda:
-        return compact_substep_cuda(frame, rows, phys, r, xsph, alpha_visc)
+        return compact_substep_cuda(frame, rows, phys, r, capacity, xsph,
+                                    alpha_visc, pj, scal)
     return compact_substep_plain(frame, rows, phys, r, xsph, alpha_visc)
 
 
 def forces_compact(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
-                   r: int) -> tuple[torch.Tensor, torch.Tensor]:
+                   r: int, capacity: int | None,
+                   pj: torch.Tensor | None = None,
+                   scal: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(force f[N, 3], drift count) without extensions: the raw sums from
     K5 for a CUDA tensor or from the plain version for a CPU one, then
     ``fold_forces``. With extensions the stepper takes K3, as JAX's
     ``forces_pallas`` does (pallas_sph.py:1720)."""
     if rows.is_cuda:
-        sums, cert = forces_compact_cuda(frame, rows, phys, r)
+        sums, cert = forces_compact_cuda(frame, rows, phys, r, capacity, pj,
+                                         scal)
     else:
         sums, cert = forces_compact_plain(frame, rows, phys, r)
     return fold_forces(sums, rows[:, 6], phys)[0], cert

@@ -41,7 +41,7 @@ KERNELS = {
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _P)),),
     "compact.cu": (("sph_compact", (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _P)),),
+                                     _P, _I, _I, _I, _P)),),
 }
 
 _lib: types.SimpleNamespace | None = None

@@ -26,9 +26,9 @@ the caller's order between substeps:
 plus one frame-start build and density for the overflow and density
 metrics. ``cfg.xsph`` and ``cfg.artificial_viscosity`` turn on the extension
 sums in K2 and K3 (and the XSPH correction of the position update).
-K2 and K3 read pj (the j-side pressure and guarded 1/ρ), built once a
-frame (corrected mode: every substep); the kernels' scalar block is built
-once a frame.
+K2, K3 and K5's force modes read pj (the j-side pressure and guarded
+1/ρ), built once a frame (corrected mode: every substep); the kernels'
+scalar block is built once a frame.
 
 ``tune=SortedTuning(compact=True)`` (the JAX ``pallas_tune``; by default
 read from ``SPH_PALLAS_COMPACT``) takes the compact-lane route, K5
@@ -161,14 +161,13 @@ def _add_cert(cert: torch.Tensor | None, c: torch.Tensor) -> torch.Tensor:
 def _density(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
              cfg: SimConfig, tune: SortedTuning,
              scal: torch.Tensor | None = None) -> torch.Tensor:
-    """ρ: K5 on the compact route, else K1 (with the frame's scalar block
-    ``scal``). K5's density certificate is 0 by construction (its spans are
-    the stale ones), so it is not summed."""
-    r = cfg.bucket_resolution
+    """ρ: K5 on the compact route, else K1 (each with the frame's capacity
+    and scalar block ``scal``). K5's density certificate is 0 by
+    construction (its spans are the stale ones), so it is not summed."""
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     if tune.compact:
-        return compact.density_compact(frame, pos_s, phys, r)[0]
-    return sph_kernels.density_pass(frame, pos_s, phys, r, cfg.voxel_capacity,
-                                    scal)
+        return compact.density_compact(frame, pos_s, phys, r, cap, scal)[0]
+    return sph_kernels.density_pass(frame, pos_s, phys, r, cap, scal)
 
 
 def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
@@ -179,21 +178,21 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
     metrics)."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     xsph, alpha = cfg.xsph, cfg.artificial_viscosity
-    # the scalar block of K1 and K2, once a frame
-    scal = None if tune.compact else sph_kernels.scal_block(phys, xsph, alpha)
+    # the scalar block of the frame's kernels, once a frame
+    scal = sph_kernels.scal_block(phys, xsph, alpha)
     with span("density"):
         rho_s = _density(frame, pos_s, phys, cfg, tune, scal)
     cert = None
     with span("pack_rows"):
         rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
-        # K2's j-side columns, once a frame: rho is the frame-start density
-        # of every substep
-        pj = None if tune.compact else sph_kernels.pj_cols(rho_s, phys)
+        # the substeps' j-side columns, once a frame: rho is the
+        # frame-start density of every substep
+        pj = sph_kernels.pj_cols(rho_s, phys)
     for _ in range(cfg.substeps):
         with span("fused_substep"):
             if tune.compact:
-                rows, c = compact.compact_substep(frame, rows, phys, r, xsph,
-                                                  alpha)
+                rows, c = compact.compact_substep(frame, rows, phys, r, cap,
+                                                  xsph, alpha, pj, scal)
                 cert = _add_cert(cert, c)
             else:
                 rows = sph_kernels.fused_substep(frame, rows, phys, r, cap,
@@ -248,8 +247,8 @@ def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
     def step(state: ParticleState, phys: PhysParams
              ) -> tuple[ParticleState, StepMetrics]:
         pos, vel = state.pos, state.vel
-        # the scalar block of K1 and K3, once a frame
-        scal = None if tune.compact else sph_kernels.scal_block(phys)
+        # the scalar block of the frame's kernels, once a frame
+        scal = sph_kernels.scal_block(phys)
         with span("build_frame"):
             frame0, (pos0_s,) = build_frame(pos, r, cap, extras=(pos,))
         with span("density"):
@@ -264,10 +263,11 @@ def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
                 rho_s = _density(frame, pos_s, phys, cfg, tune, scal)
             with span("pack_rows"):
                 rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
-                pj = None if k5_forces else sph_kernels.pj_cols(rho_s, phys)
+                pj = sph_kernels.pj_cols(rho_s, phys)
             with span("forces"):
                 if k5_forces:
-                    f, c = compact.forces_compact(frame, rows, phys, r)
+                    f, c = compact.forces_compact(frame, rows, phys, r, cap,
+                                                  pj, scal)
                     dv, cert = None, _add_cert(cert, c)
                 else:
                     f, dv = sph_kernels.forces_pass(frame, rows, phys, r, cap,

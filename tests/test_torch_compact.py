@@ -2,9 +2,17 @@
 v7 compact kernels (``pallas_compact.py``, Pallas in interpret mode, as the
 JAX tests run it) and against the port's own window route (K1/K2/K3).
 
+A line-for-line Python mirror of the kernel's tile stream (cell-level line
+dedup, the slot segments, each round stopped at the first slot past its
+cell's capacity) must process, for every tile, exactly each union cell's
+capacity-cut prefix, in ascending order, and so every occupied slot of the
+``tile_segments`` union.
+
 On the CPU each K5 wrapper runs its plain version; the CUDA kernel is held
 against that plain version on the card by tests/test_torch_cuda.py.
 """
+
+import functools
 
 import numpy as np
 import jax
@@ -122,6 +130,91 @@ def test_tile_segments_hold_each_line_slot_once():
         assert got == sorted(want)              # once each, in sorted order
 
 
+# ---------------------------------------------------- the kernel's stream --
+
+def _k5_stream(start, cid, occ, lo, hi, r, cap):
+    """compact.cu's stream for one tile with span [lo, hi], line for line:
+    (the slots its lanes process, in order; the union's cells). ``cap`` < 0
+    streams each cell uncut."""
+    s_cells = r ** 3
+    segs, union, cb_run = [], [], 0
+    for k in range(9):                  # lanes 0-8: the cell-level dedup
+        off = (k // 3 - 1) * r * r + (k % 3 - 1) * r
+        a = min(max(lo + off - 1, 0), s_cells)
+        b = min(max(hi + off + 2, 0), s_cells)
+        a, cb_run = max(a, cb_run), max(cb_run, a, b)
+        segs.append((start[a], start[cb_run]))
+        union += range(a, cb_run)
+    out = []
+    for base, seg_end in segs:
+        while base < seg_end:           # one round: lanes 0-31
+            stop, skip_to = 32, base + 32
+            for lane in range(32):      # the first lane past its capacity
+                j = base + lane
+                if (j < seg_end and not occ[j] and cap >= 0
+                        and j - start[cid[j]] >= cap):
+                    stop, skip_to = lane, start[cid[j] + 1]
+                    break
+            out += [j for j in range(base, base + stop) if j < seg_end]
+            base = skip_to
+    return out, union
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_scene(scene, cap):
+    """(frame, sorted positions, R): ``calm@3`` and ``goldenish@3`` after
+    three faithful frames, ``goldenish@0`` the canonical spawn (raw ids of
+    out-of-cube rows alias), the frame built with capacity ``cap``."""
+    name, frames = scene.split("@")
+    cfg = SimConfig(**CONFIGS[name])
+    st = initial_state(cfg, "cpu")
+    if int(frames):
+        st, _ = make_rollout(cfg, int(frames), device="cpu")(st)
+    r = cfg.bucket_resolution
+    tf, (ps,) = build_frame(st.pos, r, cap, extras=(st.pos,))
+    return tf, ps, r
+
+
+@pytest.mark.parametrize("spans_of", ["stale", "fresh"])
+@pytest.mark.parametrize("cap", [4, CAP, None])
+@pytest.mark.parametrize("scene", ["calm@3", "goldenish@3", "goldenish@0"])
+def test_kernel_stream_reads_each_tiles_occupied_union_slots(scene, cap,
+                                                             spans_of):
+    tf, ps, r = _stream_scene(scene, cap)
+    spans = compact.stale_spans(tf)
+    if spans_of == "fresh":             # rows drifted past their band
+        moved = ps.clone()
+        moved[DRIFTED, 2] += 2.5 / (r - 1)
+        spans, drift = compact.fresh_spans(spans, moved, r)
+        assert int(drift) > 0
+    a, b = compact.tile_segments(spans, tf.start, r)
+    counts = compact.stream_slots(spans, tf.start, r, cap)
+    start, cid, occ = tf.start.tolist(), tf.cid.tolist(), tf.occ.tolist()
+    kcap = -1 if cap is None else cap
+    shorter = 0
+    for t, (lo, hi) in enumerate(spans.tolist()):
+        seg = [j for k in range(9) for j in range(a[t, k], b[t, k])]
+        got, union = _k5_stream(start, cid, occ, lo, hi, r, kcap)
+        uncut, _ = _k5_stream(start, cid, occ, lo, hi, r, -1)
+        assert uncut == seg                 # the uncut stream is the union
+        # each union cell's capacity-cut prefix, in order, and nothing else
+        prefixes = [j for c in union
+                    for j in range(start[c], start[c + 1]
+                                   if kcap < 0 else
+                                   min(start[c + 1], start[c] + kcap))]
+        assert got == prefixes
+        assert [j for j in got if occ[j]] == [j for j in seg if occ[j]]
+        assert len(got) == int(counts[t])
+        overflows = kcap >= 0 and any(start[c + 1] - start[c] > kcap
+                                      for c in union)
+        assert (len(got) < len(uncut)) == overflows
+        shorter += overflows
+    # a cell holding more rows than the capacity shortens its tile's stream
+    if cap is not None and bool((tf.start[1:] - tf.start[:-1] > cap).any()):
+        assert shorter > 0
+    assert cap != 4 or scene == "calm@3" or shorter > 0
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_density_matches_jax_density_compact(name):
     jp, tp = _phys(name)
@@ -130,7 +223,8 @@ def test_density_matches_jax_density_compact(name):
     jf, tf, pos_s = _frames(pos, r)
     want, wcert = pallas_compact.density_compact(jf, jnp.asarray(pos_s), jp,
                                                  r, n, JTUNE)
-    got, cert = compact.density_compact(tf, torch.from_numpy(pos_s), tp, r)
+    got, cert = compact.density_compact(tf, torch.from_numpy(pos_s), tp, r,
+                                        CAP)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=0)
     assert int(cert) == int(wcert) == 0
@@ -158,7 +252,7 @@ def test_substep_matches_jax_compact_substep(xsph, alpha):
     out, wcert = pallas_compact.compact_substep(
         jf, jrows, jp, r, n, xsph=xsph, alpha_visc=alpha, tune=JTUNE)
     want = np.asarray(out).reshape(-1, sk.N_FIELDS)[:n]
-    got, cert = compact.compact_substep(tf, trows, tp, r, xsph, alpha)
+    got, cert = compact.compact_substep(tf, trows, tp, r, CAP, xsph, alpha)
     got = got.numpy()
     np.testing.assert_allclose(got[:, 0:3], want[:, 0:3], rtol=0, atol=1e-6)
     np.testing.assert_allclose(got[:, 3:6], want[:, 3:6], rtol=0, atol=1e-6)
@@ -173,7 +267,7 @@ def test_forces_match_jax_forces_compact():
         jf, jnp.asarray(rows[:, 0:3]), jnp.asarray(rows[:, 3:6]),
         jnp.asarray(rows[:, 6]), jp, r, n, tune=JTUNE)
     assert dv is None
-    got, cert = compact.forces_compact(tf, trows, tp, r)
+    got, cert = compact.forces_compact(tf, trows, tp, r, CAP)
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy() / np.abs(want).max(),
                                want / np.abs(want).max(), rtol=0, atol=1e-6)
@@ -271,17 +365,51 @@ def test_cli_and_scene_take_the_compact_route(monkeypatch, tmp_path):
     assert len(calls) == 2 * cfg.substeps
 
 
+@pytest.mark.parametrize("faithful", [True, False])
+def test_stepper_passes_capacity_pj_and_scalars_to_k5(monkeypatch, faithful):
+    # each K5 call of a compact frame gets the config's capacity, the
+    # frame's scalar block and (force modes) the rows' pj
+    import inspect
+    seen = []
+
+    def spy(name):
+        real = getattr(compact, name)
+
+        def call(*args, **kw):
+            seen.append((name, inspect.signature(real).bind(*args, **kw)))
+            return real(*args, **kw)
+        monkeypatch.setattr(compact, name, call)
+
+    for name in ("density_compact", "compact_substep", "forces_compact"):
+        spy(name)
+    cfg = SimConfig(**_CALM, voxel_capacity=24)
+    make_rollout(cfg, 1, faithful=faithful, tune=COMPACT, device="cpu")(
+        initial_state(cfg, "cpu"))
+    want = (["density_compact"] + ["compact_substep"] * cfg.substeps
+            if faithful else
+            ["density_compact"] + ["density_compact", "forces_compact"]
+            * cfg.substeps)
+    assert [n for n, _ in seen] == want
+    for name, b in seen:
+        assert b.arguments["capacity"] == 24, name
+        assert b.arguments["scal"] is not None, name
+        if name != "density_compact":
+            rows = b.arguments["rows"]
+            assert torch.equal(b.arguments["pj"],
+                               sk.pj_cols(rows[:, 6], b.arguments["phys"]))
+
+
 def test_cpu_tensors_route_to_the_plain_versions():
     _, tp, _, tf, _, trows, n, r = _drifted_rows()
     sk.reset_launch_counts()
     pos_s = trows[:, 0:3]
     cert = compact.fresh_spans(compact.stale_spans(tf), pos_s, r)[1]
     for got, want in (
-            (compact.density_compact(tf, pos_s, tp, r),
+            (compact.density_compact(tf, pos_s, tp, r, CAP),
              compact.density_compact_plain(tf, pos_s, tp, r)),
-            (compact.compact_substep(tf, trows, tp, r, 0.3, 0.4),
+            (compact.compact_substep(tf, trows, tp, r, CAP, 0.3, 0.4),
              compact.compact_substep_plain(tf, trows, tp, r, 0.3, 0.4)),
-            (compact.forces_compact(tf, trows, tp, r),
+            (compact.forces_compact(tf, trows, tp, r, CAP),
              (sk.fold_forces(compact.forces_compact_plain(tf, trows, tp, r)[0],
                              trows[:, 6], tp)[0], cert))):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

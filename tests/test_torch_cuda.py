@@ -71,6 +71,33 @@ def test_fused_substep_kernel_matches_plain_on_card(cuda_device, name):
     assert acc.ok, acc
 
 
+def _capped_inputs(cap, device):
+    """The goldenish scene two frames on, its frame built with capacity
+    ``cap`` (4 leaves deep piles past it)."""
+    cfg = SimConfig(**CONFIGS["goldenish"])
+    st, _ = make_rollout(cfg, 2, device=device)(initial_state(cfg, device))
+    r = cfg.bucket_resolution
+    tf, (ps, vs) = build_frame(st.pos, r, cap, extras=(st.pos, st.vel))
+    return tf, ps, vs, PhysParams.from_config(cfg, device), r
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [4, CAP, None])
+def test_density_kernel_matches_plain_for_each_capacity(cuda_device, cap):
+    # K1's range walk with the self pair kept, held to its plain version;
+    # the capacity cut drops only unoccupied slots, so walking the frame
+    # uncut sums the same members in the same order: the same bits
+    tf, ps, _, tp, r = _capped_inputs(cap, cuda_device)
+    got = sk.density_cuda(tf, ps, tp, r, cap)
+    torch.testing.assert_close(got, sk.density_plain(tf, ps, tp, r, cap),
+                               rtol=1e-5, atol=1e-6)
+    assert _same_bits(sk.density_cuda(tf, ps, tp, r, None), got)
+
+
 @pytest.mark.cuda
 def test_substep_rule_rejects_kernel_without_viscosity(cuda_device):
     tf, ps, vs, tp, r = _card_inputs("tiny", cuda_device, frames=2)
@@ -232,31 +259,67 @@ def test_compact_kernel_matches_plain_on_card(cuda_device, name):
     # the drift count equals the plain version's
     tf, ps, vs, tp, r = _card_inputs(name, cuda_device, frames=2)
     before = dict(sk.launch_counts)
-    rho, c = compact.density_compact(tf, ps, tp, r)
+    rho, c = compact.density_compact(tf, ps, tp, r, CAP)
     rho_p, c_p = compact.density_compact_plain(tf, ps, tp, r)
     torch.testing.assert_close(rho, rho_p, rtol=1e-5, atol=1e-6)
     assert int(c) == int(c_p) == 0
     rows = sk.pack_rows(ps, vs, rho_p)
     rows[100:111, 2] += 2.5 / (r - 1)
     for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
-        out, c = compact.compact_substep(tf, rows, tp, r, xs, al)
+        out, c = compact.compact_substep(tf, rows, tp, r, CAP, xs, al)
         _, c_p = compact.compact_substep_plain(tf, rows, tp, r, xs, al)
         assert int(c) == int(c_p)
         acc = sk.substep_accuracy(tf, rows, out, tp, r, None, xs, al,
                                   sums_fn=compact.compact_sums_plain)
         assert acc.ok, acc
-    f, c = compact.forces_compact(tf, rows, tp, r)
+    f, c = compact.forces_compact(tf, rows, tp, r, CAP)
     assert int(c) == int(c_p)
     assert sk.forces_accuracy(tf, rows, f, None, tp, r, None,
                               sums_fn=compact.compact_sums_plain).ok
     # the planted control: the substep without viscosity fails the rule
     no_visc = tp._replace(viscosity=torch.zeros_like(tp.viscosity))
-    bad, _ = compact.compact_substep_cuda(tf, rows, no_visc, r)
+    bad, _ = compact.compact_substep_cuda(tf, rows, no_visc, r, CAP)
     assert not sk.substep_accuracy(tf, rows, bad, tp, r, None,
                                    sums_fn=compact.compact_sums_plain).ok
     for k in ("compact_density", "compact_substep", "compact_substep_ext",
               "compact_forces"):
         assert sk.launch_counts[k] > before[k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [4, CAP, None])
+def test_compact_kernel_streams_capacity_cut_cells_exactly(cuda_device, cap):
+    # the four K5 instances on a frame built with capacity 4, 32 and None,
+    # with rows drifted past their band, each held to its plain version;
+    # streaming only each cell's capacity-cut prefix keeps every occupied
+    # slot in order, so the bits equal those of the uncut stream, and pj
+    # passed in equals pj built in the wrapper
+    tf, ps, vs, tp, r = _capped_inputs(cap, cuda_device)
+    rho, c = compact.density_compact(tf, ps, tp, r, cap)
+    rho_p, c_p = compact.density_compact_plain(tf, ps, tp, r)
+    torch.testing.assert_close(rho, rho_p, rtol=1e-5, atol=1e-6)
+    assert int(c) == int(c_p) == 0
+    assert _same_bits(compact.density_compact_cuda(tf, ps, tp, r, None)[0],
+                      rho)
+    rows = sk.pack_rows(ps, vs, rho_p)
+    rows[100:111, 2] += 2.5 / (r - 1)
+    pj = sk.pj_cols(rows[:, 6], tp)
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        out, c = compact.compact_substep(tf, rows, tp, r, cap, xs, al, pj)
+        _, c_p = compact.compact_substep_plain(tf, rows, tp, r, xs, al)
+        assert int(c) == int(c_p)
+        acc = sk.substep_accuracy(tf, rows, out, tp, r, None, xs, al,
+                                  sums_fn=compact.compact_sums_plain)
+        assert acc.ok, acc
+        uncut, _ = compact.compact_substep_cuda(tf, rows, tp, r, None, xs,
+                                                al)
+        assert _same_bits(uncut, out)
+    f, c = compact.forces_compact(tf, rows, tp, r, cap, pj)
+    assert int(c) == int(c_p)
+    assert sk.forces_accuracy(tf, rows, f, None, tp, r, None,
+                              sums_fn=compact.compact_sums_plain).ok
+    assert _same_bits(compact.forces_compact_cuda(tf, rows, tp, r, cap)[0],
+                      compact.forces_compact_cuda(tf, rows, tp, r, None)[0])
 
 
 @pytest.mark.cuda

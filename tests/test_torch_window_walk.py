@@ -1,16 +1,16 @@
-"""The window walk of K2 and K3 (``csrc/window_walk.cuh``) on the CPU.
+"""The window walk of K1, K2 and K3 (``csrc/window_walk.cuh``) on the CPU.
 
 - ``sph_kernels.pj_cols``, the j-side columns the kernels read, must equal
   ``pallas_sph._pj_cols`` bit for bit.
 - A line-for-line Python mirror of the kernels' range walk must visit, for
   every row, exactly that row's member set from ``sph_kernels._candidates``
-  (j == i skipped), in walk order: the kernels sum the same terms in the
-  same order as the plain versions.
+  in walk order, j == i skipped (K2, K3) or kept (K1): the kernels sum the
+  same terms in the same order as the plain versions.
 - The kernels' division-free pair terms, evaluated in float32 over the
   plain candidates, must pass the per-particle rule of
   ``sph_kernels.forces_accuracy``.
 - The stepper builds ``pj`` once a frame in faithful mode, once a substep
-  in corrected mode, and not on the compact route.
+  in corrected mode, on either route.
 
 The kernels themselves are held to the plain versions on the card
 (tests/test_torch_cuda.py).
@@ -99,54 +99,47 @@ def _raw_near(raw, cx, cy, cz, r):
     return abs(x - cx) <= 1 and abs(y - cy) <= 1 and abs(z - cz) <= 1
 
 
-def _range_walk(start, raw, occ, c, i, r, cap):
-    """window_pair_sums of csrc/window_walk.cuh, line for line: the slots
-    row i sums, in order, two slots a step."""
+def _range_walk(start, raw, occ, c, i, r, cap, skip_self=True, step=2):
+    """range_walk of csrc/window_walk.cuh, line for line, ``step`` slots a
+    step: the slots row i sums, in order (``skip_self``: K2's and K3's walk,
+    two slots a step; K1's keeps j == i, one slot a step)."""
     cx, cy, cz = c
     x0, x1 = max(cx - 1, 0), min(cx + 1, r - 1)
     y0, y1 = max(cy - 1, 0), min(cy + 1, r - 1)
     z0, z1 = max(cz - 1, 0), min(cz + 1, r - 1)
     out = []
-    if x0 > x1 or y0 > y1 or z0 > z1:
-        return out
-    x, y, z, line = x0, y0, z0, (z0 * r + y0) * r
-    more, q, e, range_line = True, 0, 0, line
+    for z in range(z0, z1 + 1):
+        for y in range(y0, y1 + 1):
+            line = (z * r + y) * r
 
-    def member(j):
-        if not occ[j] or j == i:
-            return False
-        return (0 <= raw[j] - range_line - x0 <= x1 - x0
-                or _raw_near(raw[j], cx, cy, cz, r))
+            def member(j):
+                if not occ[j] or (skip_self and j == i):
+                    return False
+                return (0 <= raw[j] - line - x0 <= x1 - x0
+                        or _raw_near(raw[j], cx, cy, cz, r))
 
-    while True:
-        while q >= e and more:
-            range_line = line
-            q = start[line + x]
-            end = start[line + x + 1]
-            e = min(end, q + cap) if cap >= 0 else end
-            while e == end and x < x1:
-                x += 1
+            end = start[line + x0]
+            x = x0
+            while x <= x1:
+                q = end
                 end = start[line + x + 1]
-                e = min(end, e + cap) if cap >= 0 else end
-            x += 1
-            if x > x1:
-                x = x0
-                y += 1
-                if y > y1:
-                    y = y0
-                    z += 1
-                    more = z <= z1
-                line = (z * r + y) * r
-        if q >= e:
-            break
-        q2 = min(q + 1, e - 1)
-        out += [j for j in ((q, q2) if q2 > q else (q,)) if member(j)]
-        q += 2
+                e = min(end, q + cap) if cap >= 0 else end
+                while e == end and x < x1:
+                    x += 1
+                    end = start[line + x + 1]
+                    e = min(end, e + cap) if cap >= 0 else end
+                while q < e:
+                    q2 = min(q + step - 1, e - 1)
+                    out += [j for j in ((q, q2) if q2 > q else (q,))
+                            if member(j)]
+                    q += step
+                x += 1
     return out
 
 
-def _walk_scene(name):
-    """(frame, sorted positions, R) of a range-walk scene."""
+def _walk_scene(name, cap=CAP):
+    """(frame, sorted positions, R) of a range-walk scene, its frame built
+    with capacity ``cap``."""
     if name == "random":
         rng = np.random.default_rng(4)
         pos = torch.from_numpy(rng.random((3000, 3), dtype=np.float32))
@@ -155,7 +148,7 @@ def _walk_scene(name):
         base, frames = name.split("@")
         cfg, st = _state(base, int(frames))
         pos, r = st.pos, cfg.bucket_resolution
-    tf, (ps,) = build_frame(pos, r, CAP, extras=(pos,))
+    tf, (ps,) = build_frame(pos, r, cap, extras=(pos,))
     if name == "calm@0":
         # rows moved 1.5 cells up in z: they leave their frame-start cell
         ps = ps.clone()
@@ -183,6 +176,29 @@ def test_range_walk_visits_each_rows_members_in_walk_order(name, cap):
         assert got == want, i
         pairs += len(got)
     assert pairs > 0
+
+
+# K1's walk: the self pair kept; the frame built with the walk's capacity
+@pytest.mark.parametrize("cap", [4, CAP, None])
+@pytest.mark.parametrize("name", ["goldenish@0", "goldenish@3", "calm@0",
+                                  "random"])
+def test_range_walk_with_self_visits_each_rows_density_members(name, cap):
+    tf, ps, r = _walk_scene(name, cap)
+    c = sk.fresh_cell(ps, r)
+    j, member = sk._candidates(tf, c, r, sk._window_width(tf, cap))
+    start, raw = tf.start.tolist(), tf.raw.tolist()
+    occ, cells = tf.occ.tolist(), c.tolist()
+    pairs = own = 0
+    for i in range(ps.shape[0]):
+        want = [int(v) for v in j[i][member[i]]]
+        got = _range_walk(start, raw, occ, cells[i], i, r,
+                          -1 if cap is None else cap, skip_self=False,
+                          step=1)
+        assert got == want, i
+        pairs += len(got)
+        own += got.count(i)
+    # the self pair is visited, and is not all the walk visits
+    assert 0 < own < pairs
 
 
 # ------------------------------------------------------------ pair terms --
@@ -259,17 +275,19 @@ def test_division_free_pair_terms_pass_the_forces_rule(name, ext):
 
 # --------------------------------------------------------------- stepper --
 
-@pytest.mark.parametrize("mode", ["faithful", "corrected", "compact"])
+@pytest.mark.parametrize("mode", ["faithful", "corrected", "compact",
+                                  "compact corrected"])
 def test_stepper_builds_pj_once_a_frame_or_substep(monkeypatch, mode):
     cfg = SimConfig(**_CALM)
     calls = []
     real = sk.pj_cols
     monkeypatch.setattr(sk, "pj_cols",
                         lambda rho, phys: calls.append(1) or real(rho, phys))
-    tune = sk.SortedTuning(compact=mode == "compact")
+    tune = sk.SortedTuning(compact=mode.startswith("compact"))
     frames = 2
-    make_rollout(cfg, frames, faithful=mode != "corrected", tune=tune,
-                 device="cpu")(initial_state(cfg, "cpu"))
+    make_rollout(cfg, frames, faithful=not mode.endswith("corrected"),
+                 tune=tune, device="cpu")(initial_state(cfg, "cpu"))
     want = {"faithful": frames, "corrected": frames * cfg.substeps,
-            "compact": 0}[mode]
+            "compact": frames,
+            "compact corrected": frames * cfg.substeps}[mode]
     assert len(calls) == want
