@@ -55,7 +55,23 @@ every phase passed; each prints its seconds):
    card's memory rate and its FP32 operations, counted from the member
    pairs of this run's inputs, over the FP32 rate; and K5's stream, the
    slots a tile that it reads (each union cell cut at the capacity), beside
-   the length of the uncut union.
+   the length of the uncut union;
+8. the slab step (``parallel.make_pallas_slab_step``) on ``LocalRing(4)``,
+   four z-slabs on the one card: the banded K1 and K2 (K2-ext at config 3)
+   held against their banded plain versions on each shard's frame
+   (``slab_pallas.shard_frames``) at frame 0 and after 3 slab frames, at
+   262k and config 3, with K2-band with viscosity 0 as the planted control;
+   the slab path at 262k and at config 3, 3 frames each, with exactly 4 K1
+   and 20 K2 launches a frame; frame 1 at 262k equal to the single-device
+   window route bit for bit wherever ``exact_cert`` is 0, and the overflow
+   equal to its; the calm 1k scene on 2 and 4 slabs for 3 frames, with
+   ``exact_cert`` 0 and within 2e-5 of the single-device route; the slab
+   step's rate at 262k and 1M beside the single-device route's, each a
+   one-frame warm-up and 3 timed frames from the canonical spawn; and the
+   banded kernels' times (one launch on each shard), plain versions and
+   bounds. The slab runs use the row slack of the JAX tests (4.0), since
+   the golden and config-3 spawns are not spread evenly over z, and a halo
+   slack of 8.0.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -85,6 +101,12 @@ ORACLE_ATOL = 1e-5
 # while the host queues it, so that kernel times are device times
 LEAD_CYCLES = 50_000_000
 XSPH, ALPHA = 0.3, 0.5          # BASELINE config 3 (README.md)
+# the slab step: shards on one card and frames a path; the row slack of the
+# JAX tests (the golden and config-3 spawns are not spread evenly over z),
+# and twice the default halo slack (the halo is sized from the mean
+# occupancy, and the golden spawn's column is denser: at 4.0 slab 3 of 262k
+# drops 20,711 boundary rows at frame 0)
+SLAB_D, SLAB_FRAMES, SLAB_SLACK, SLAB_HALO = 4, 3, 4.0, 8.0
 
 # The bound of a kernel: the larger of its bytes over the memory rate and
 # its FP32 operations over the FP32 rate outside the tensor cores (NVIDIA
@@ -121,6 +143,8 @@ OPS_PER_ROW_EXT = {"density": 0, "forces": 6, "fused": 15}
 # and K5 also read pj f32[2], and K5 reads cid i32
 ROW_BYTES = {"density": 12 + 4 + 1 + 4, "fused": 32 + 4 + 1 + 32,
              "forces": 32 + 4 + 1 + 48}
+# a dead row of a slab's buffer: K1 writes its ρ 0, K2 copies its row
+DEAD_ROW_BYTES = {"density": 4, "fused": 64}
 # every kernel of the port: (kind, source, the TPU kernel it replaces)
 KERNELS = {
     "density": ("density", "density.cu", "pallas_sph.py:961"),
@@ -131,19 +155,26 @@ KERNELS = {
     "compact_substep": ("fused", "compact.cu", "pallas_compact.py:237"),
     "compact_substep_ext": ("fused", "compact.cu", "pallas_compact.py:237"),
     "compact_forces": ("forces", "compact.cu", "pallas_compact.py:237"),
+    "density_band": ("density", "density.cu", "pallas_sph.py:961"),
+    "fused_substep_band": ("fused", "fused_substep.cu", "pallas_sph.py:961"),
+    "fused_substep_ext_band": ("fused", "fused_substep.cu",
+                               "pallas_sph.py:961"),
 }
 
 
-def bound(name: str, n: int, r: int, pairs: int,
-          ext: bool) -> tuple[float, str]:
+def bound(name: str, n: int, r: int, pairs: int, ext: bool,
+          s_cells: int | None = None, n_dead: int = 0) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take for
     kernel ``name``'s work on n rows at resolution r with ``pairs`` member
     pairs (self pairs excluded for the force modes), with or without the
-    extension sums."""
+    extension sums. A banded instance gives its start tables' cells
+    ``s_cells`` (default R³) and its dead rows ``n_dead``."""
     kind = KERNELS[name][0]
     nbytes = n * (ROW_BYTES[kind] + (4 if name.startswith("compact") else 0)
                   + (8 if kind != "density" else 0))
-    nbytes += 4 * (r ** 3 + 1) + 4 * 15           # start[], the scalars
+    nbytes += n_dead * DEAD_ROW_BYTES.get(kind, 0)
+    cells = r ** 3 if s_cells is None else s_cells
+    nbytes += 4 * (cells + 1) + 4 * 15            # start[], the scalars
     ops = pairs * (OPS_PER_PAIR[kind] + (OPS_PER_PAIR_EXT if ext else 0))
     ops += n * (OPS_PER_ROW[kind] + (OPS_PER_ROW_EXT[kind] if ext else 0))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -573,9 +604,9 @@ def main() -> None:
 
     times = {}      # name → {shape: (ms, plain ms, bound ms, bound by)}
 
-    def timed(name, shape, n, r, pairs, ext, fn, plain):
+    def timed(name, shape, n, r, pairs, ext, fn, plain, **band):
         km, pm = time_ms(fn, 20), time_ms(plain, 1)
-        b_ms, b_by = bound(name, n, r, pairs, ext)
+        b_ms, b_by = bound(name, n, r, pairs, ext, **band)
         times.setdefault(name, {})[shape] = (km, pm, b_ms, b_by)
         print(f"time {shape} {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
               f"bound {b_ms:.5f} ms ({b_by}, {pairs} member pairs) = "
@@ -671,15 +702,247 @@ def main() -> None:
                       lambda: compact.forces_compact_plain(frame, rows,
                                                            phys, r))
 
+    # ---- 8. the slab step on LocalRing(4), one card
+    from sphfluidsimulation_torch.parallel import (LocalRing, collect,
+                                                   distribute,
+                                                   make_pallas_slab_step)
+    from sphfluidsimulation_torch.parallel.slab_pallas import shard_frames
+
+    ring = LocalRing(SLAB_D)
+    slab_cfgs = {"262k": (sizes["262k"], states0["262k"]),
+                 "c3": (c3, c3_state)}
+
+    def slab_setup(cfg, d=SLAB_D):
+        step, spec = make_pallas_slab_step(cfg, LocalRing(d),
+                                           row_slack=SLAB_SLACK,
+                                           halo_slack=SLAB_HALO)
+        print(f"slab spec, {cfg.n_particles} particles: {spec._asdict()}, "
+              f"c_loc {spec.c_loc}", flush=True)
+        return step, spec, PhysParams.from_config(cfg, dev)
+
+    def compare_slab(cfg, spec, sst, label, planted=False):
+        """K1-band and K2-band (K2-ext-band with extensions) against their
+        banded plain versions on each shard's frame of ``sst``."""
+        phys = PhysParams.from_config(cfg, dev)
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        name = ("fused_substep_ext_band" if sk.uses_extensions(xs, al)
+                else "fused_substep_band")
+        sfs = shard_frames(cfg, spec, ring, sst)
+        live = [int(sf.frame.start[-1]) for sf in sfs]
+        for k, sf in enumerate(sfs):
+            lab, band = f"{label}, shard {k}", sf.band
+            rho_k = sk.density_cuda(sf.frame, sf.pos_s, phys, r, cap,
+                                    band=band)
+            rho_p = sk.density_plain(sf.frame, sf.pos_s, phys, r, cap, band)
+            hold_density(rho_k, rho_p, "density_band", lab)
+            rows = sk.pack_rows(sf.pos_s, sf.vel_s, rho_p)
+            out = sk.fused_substep_cuda(sf.frame, rows, phys, r, cap, xs, al,
+                                        band=band)
+            line = must_pass(sk.substep_accuracy(
+                sf.frame, rows, out, phys, r, cap, xs, al, band=band),
+                name, lab)
+            e = max_err(out, sk.fused_substep_plain(sf.frame, rows, phys, r,
+                                                    cap, xs, al, band=band))
+            errs[name] = max(errs[name], e)
+            print(f"compare {lab}: {name} max|k-p| {e:.3e}, {line}; band "
+                  f"{band}, live rows {live[k]} of {rows.shape[0]}, "
+                  f"certificate (clip, halo drops, lost) {int(sf.cert)}",
+                  flush=True)
+            if planted and live[k] == max(live):
+                no_visc = phys._replace(
+                    viscosity=torch.zeros_like(phys.viscosity))
+                bad = sk.fused_substep_cuda(sf.frame, rows, no_visc, r, cap,
+                                            xs, al, band=band)
+                must_fail(sk.substep_accuracy(sf.frame, rows, bad, phys, r,
+                                              cap, xs, al, band=band),
+                          f"{name} with viscosity 0", lab)
+
+    with Phase("slab compare frame 0"):
+        for key, (cfg, st0) in slab_cfgs.items():
+            _, spec, _ = slab_setup(cfg)
+            compare_slab(cfg, spec, distribute(st0, cfg, spec),
+                         f"{key} slab frame 0")
+
+    slab_after = {}
+    for key, (cfg, st0) in slab_cfgs.items():
+        with Phase(f"slab path {key}"):
+            step, spec, phys = slab_setup(cfg)
+            ext = sk.uses_extensions(cfg.xsph, cfg.artificial_viscosity)
+            ref1, mr = make_rollout(cfg, 1, device=dev)(st0)
+            sst = distribute(st0, cfg, spec)
+            torch.cuda.synchronize()
+            sk.reset_launch_counts()
+            ms = []
+            for f in range(SLAB_FRAMES):
+                sst, m = step(sst, phys)
+                ms.append(m)
+                if f == 0:
+                    sst1 = sst
+            torch.cuda.synchronize()
+            launches = dict(sk.launch_counts)
+            want = dict(zero, density_band=SLAB_D * SLAB_FRAMES)
+            want["fused_substep_ext_band" if ext else "fused_substep_band"] \
+                = 5 * SLAB_D * SLAB_FRAMES
+            print(f"launches in the slab path {key}: {launches}", flush=True)
+            if launches != want:
+                fail(f"slab path {key}: launch counts {launches}, expected "
+                     f"{want}")
+            for name, c in launches.items():
+                launches_total[name] += c
+            out1, lost = collect(sst1, cfg.n_particles)
+            diffs = [float((a.double() - b.double()).abs().max())
+                     for a, b in zip(out1, ref1)]
+            bits = all(torch.equal(a, b) for a, b in zip(out1, ref1))
+            cert1 = int(ms[0].exact_cert)
+            print(f"slab {key} frame 1 vs the single-device window route: "
+                  f"bit for bit {bits}; max |diff| pos {diffs[0]:.3e}, vel "
+                  f"{diffs[1]:.3e}, nan_count {diffs[2]:.0f}; exact_cert "
+                  f"{cert1}, lost {lost}; overflow {int(ms[0].overflow)} "
+                  f"(single device {int(mr.overflow[0])}); exact_cert per "
+                  f"frame {[int(x.exact_cert) for x in ms]}, max_speed "
+                  f"{[float(f'{float(x.max_speed):.4g}') for x in ms]} "
+                  f"[{ident}]", flush=True)
+            if int(ms[0].overflow) != int(mr.overflow[0]):
+                fail(f"slab {key}: frame-1 overflow differs")
+            if key == "262k" and cert1 == 0 and not bits:
+                fail("slab 262k frame 1 leaves the single-device route "
+                     "with exact_cert 0")
+            # a row whose window the band cut may go non-finite, as on the
+            # compact route; only where the certificate says so
+            pos = sst.pos[sst.valid]
+            fin = torch.isfinite(pos).all(1)
+            certs = sum(int(x.exact_cert) for x in ms)
+            print(f"slab {key}: own rows with non-finite positions "
+                  f"{int((~fin).sum())}", flush=True)
+            if not bool(fin.all()) and certs == 0:
+                fail(f"slab {key}: non-finite positions with exact_cert 0")
+            if not bool(((pos[fin] >= 0) & (pos[fin] <= 1)).all()):
+                fail(f"slab {key}: own rows outside [0, 1]")
+            slab_after[key] = (spec, sst)
+
+    with Phase(f"slab compare frame {SLAB_FRAMES}"):
+        for key, (cfg, _) in slab_cfgs.items():
+            spec, sst = slab_after[key]
+            compare_slab(cfg, spec, sst, f"{key} slab frame {SLAB_FRAMES}",
+                         planted=key == "262k")
+
+    with Phase("slab calm 1k"):
+        calm = SimConfig(particle_number=1024, bucket_resolution=11,
+                         preset=0, gas_constant=20.0, rest_density=1.7,
+                         viscosity=0.05, stiffness_coefficient=1000.0,
+                         frame_dt=1 / 240)
+        s0 = initial_state(calm, dev)
+        ref, _ = make_rollout(calm, 3, device=dev)(s0)
+        for d in (2, 4):
+            step, spec, phys = slab_setup(calm, d)
+            sst = distribute(s0, calm, spec)
+            certs = []
+            for _ in range(3):
+                sst, m = step(sst, phys)
+                certs.append(int(m.exact_cert))
+            out, lost = collect(sst, calm.n_particles)
+            e = float((out.pos - ref.pos).abs().max())
+            bits = all(torch.equal(a, b) for a, b in zip(out, ref))
+            print(f"slab calm 1k, {d} slabs, 3 frames: max |dpos| {e:.3e} "
+                  f"(< 2e-5), bit for bit {bits}, exact_cert {certs}, lost "
+                  f"{lost}", flush=True)
+            if certs != [0, 0, 0] or lost or not e < 2e-5:
+                fail(f"the calm slab run on {d} slabs")
+
+    with Phase("slab rates"):
+        for key, cfg in sizes.items():
+            step, spec, phys = slab_setup(cfg)
+            st0 = states0[key]
+            sst, _ = step(distribute(st0, cfg, spec), phys)     # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SLAB_FRAMES):
+                sst, m = step(sst, phys)
+            torch.cuda.synchronize()
+            dt_slab = time.perf_counter() - t0
+            s1, _ = make_rollout(cfg, 1, device=dev)(st0)          # warm-up
+            roll = make_rollout(cfg, SLAB_FRAMES, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            roll(s1)
+            torch.cuda.synchronize()
+            dt_one = time.perf_counter() - t0
+            work = cfg.n_particles * cfg.substeps * SLAB_FRAMES
+            print(f"slab rate {key} ({SLAB_D} slabs, frames 2-"
+                  f"{SLAB_FRAMES + 1}): {work / dt_slab:.6g} "
+                  f"particle-substeps/s ({dt_slab:.4f} s), single-device "
+                  f"window route {work / dt_one:.6g} ({dt_one:.4f} s), "
+                  f"ratio {dt_one / dt_slab:.4f}; exact_cert "
+                  f"{int(m.exact_cert)} [{ident}]", flush=True)
+
+    with Phase("slab timing"):
+        for key, (cfg, _) in slab_cfgs.items():
+            spec, sst = slab_after[key]
+            phys = PhysParams.from_config(cfg, dev)
+            r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+            xs, al = cfg.xsph, cfg.artificial_viscosity
+            ext = sk.uses_extensions(xs, al)
+            sfs = shard_frames(cfg, spec, ring, sst)
+            scal, scal_f = sk.scal_block(phys), sk.scal_block(phys, xs, al)
+            ins = []
+            for sf in sfs:
+                rows = sk.pack_rows(sf.pos_s, sf.vel_s, sk.density_cuda(
+                    sf.frame, sf.pos_s, phys, r, cap, band=sf.band))
+                mid = rows
+                for _ in range(2):
+                    mid = sk.fused_substep_cuda(sf.frame, mid, phys, r, cap,
+                                                xs, al, band=sf.band)
+                ins.append((sf, mid, sk.pj_cols(rows[:, 6], phys)))
+            n_live = sum(int(sf.frame.start[-1]) for sf in sfs)
+            n_dead = SLAB_D * spec.c_loc - n_live
+            cells = SLAB_D * spec.z_span * r * r
+            d_pairs = sum(sk.member_pairs(sf.frame, sf.pos_s, r, cap,
+                                          sf.band)[0] for sf in sfs)
+            f_pairs = 0
+            for sf, mid, _ in ins:
+                tot, own = sk.member_pairs(sf.frame, mid[:, 0:3], r, cap,
+                                           sf.band)
+                f_pairs += tot - own
+            shape = f"{key}_slab"
+            print(f"member pairs {shape}: density {d_pairs}, substep 3 "
+                  f"{f_pairs}; live rows {n_live} of {SLAB_D * spec.c_loc}",
+                  flush=True)
+            if not ext:
+                timed("density_band", shape, n_live, r, d_pairs, False,
+                      lambda: [sk.density_cuda(sf.frame, sf.pos_s, phys, r,
+                                               cap, scal, sf.band)
+                               for sf, _, _ in ins],
+                      lambda: [sk.density_plain(sf.frame, sf.pos_s, phys, r,
+                                                cap, sf.band)
+                               for sf, _, _ in ins],
+                      s_cells=cells, n_dead=n_dead)
+            name = "fused_substep_ext_band" if ext else "fused_substep_band"
+            timed(name, shape, n_live, r, f_pairs, ext,
+                  lambda: [sk.fused_substep_cuda(sf.frame, mid, phys, r, cap,
+                                                 xs, al, pj, scal_f, sf.band)
+                           for sf, mid, pj in ins],
+                  lambda: [sk.fused_substep_plain(sf.frame, mid, phys, r,
+                                                  cap, xs, al, band=sf.band)
+                           for sf, mid, _ in ins],
+                  s_cells=cells, n_dead=n_dead)
+
     # the main shape of each kernel's path first; the others as ms_<shape>
     main_shape = {"density": "262k", "fused_substep": "262k",
                   "fused_substep_ext": "c3", "forces": "c3",
                   "compact_density": "262k", "compact_substep": "262k",
-                  "compact_substep_ext": "c3", "compact_forces": "262k"}
+                  "compact_substep_ext": "c3", "compact_forces": "262k",
+                  "density_band": "262k_slab",
+                  "fused_substep_band": "262k_slab",
+                  "fused_substep_ext_band": "c3_slab"}
+    slab_text = (f", {SLAB_D} slabs: the sum of one launch on each shard's "
+                 f"frame after {SLAB_FRAMES} slab frames")
     shape_text = {"262k": "262144 particles, R = 47",
                   "1m": "1048576 particles, R = 75",
                   "c3": "config 3: 524176 particles, R = 47, XSPH 0.3, "
-                        "alpha 0.5"}
+                        "alpha 0.5",
+                  "262k_slab": "262144 particles, R = 47" + slab_text,
+                  "c3_slab": "config 3" + slab_text}
     record = {"kernels": []}
     for name, (_, file, replaces) in KERNELS.items():
         main = main_shape[name]

@@ -18,10 +18,11 @@ substep at 262k and 1M and K5-ext at config 3 on rows two substeps into
 the frame (and the K5 substep at 262k on frame-start rows); K5 forces at
 262k. The kernels are launched through their C entry points with every
 input built beforehand, so each time is the kernel's alone, on either tree
-(a tree whose entry points take pj, the j-side columns, or K5's capacity
-gets them). Prints one line, with the card's name and power limit. To
-compare the parent commit with the working tree in one call, from the
-root of a checkout:
+(a tree whose entry points take pj, the j-side columns, K5's capacity or
+K1-K3's band of z-planes gets them; the band is the whole grid, (0, R)).
+Prints one line, with the card's name and power limit. To compare the
+parent commit with the working tree in one call, from the root of a
+checkout:
 
     git archive HEAD | (mkdir -p build/parent && tar -x -C build/parent)
     for root in build/parent . . build/parent; do
@@ -106,7 +107,8 @@ def main() -> None:
     lib = cuda_build.load()
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     sigs = {n: a for v in cuda_build.KERNELS.values() for n, a in v}
-    takes_pj = len(sigs["sph_forces"]) == 12
+    takes_pj = len(sigs["sph_forces"]) >= 12
+    takes_band = len(sigs["sph_density"]) == 12
     k5_takes_pj = len(sigs["sph_compact"]) == 15
 
     def ptr(t):
@@ -136,6 +138,7 @@ def main() -> None:
         pj = sk.pj_cols(rows[:, 6], phys)
         head = (ptr(rows), ptr(pj)) if takes_pj else (ptr(rows),)
         tail = (ptr(frame.start), ptr(frame.raw), ptr(frame.occ))
+        band = (0, r) if takes_band else ()
         new_rows = torch.empty_like(rows)
         sums = torch.empty((n, 12), dtype=torch.float32, device=dev)
         rho = torch.empty(n, dtype=torch.float32, device=dev)
@@ -153,12 +156,13 @@ def main() -> None:
                                    ptr(cert), n, r, stream)
 
         ms = kernel_ms(lambda: lib.sph_density(
-            ptr(pos_s), *tail, ptr(scal), ptr(rho), n, r, cap, stream))
+            ptr(pos_s), *tail, ptr(scal), ptr(rho), n, r, cap, *band,
+            stream))
         out.append(f"K1 {label} frame 10 median {ms:.4f} ms")
         if faithful:
             name = "K2-ext" if ext else "K2"
             ms = kernel_ms(lambda: lib.sph_fused_substep(
-                *head, *tail, ptr(scal_f), ptr(new_rows), n, r, cap,
+                *head, *tail, ptr(scal_f), ptr(new_rows), n, r, cap, *band,
                 int(ext), stream))
             out.append(f"{name} {label} frame 10 median {ms:.4f} ms")
             ms = kernel_ms(lambda: k5_launch(compact._DENSITY, pos_s, scal,
@@ -170,8 +174,8 @@ def main() -> None:
                        f"substep 3 median {ms:.4f} ms")
         if not faithful or not ext:
             ms = kernel_ms(lambda: lib.sph_forces(
-                *head, *tail, ptr(scal), ptr(sums), n, r, cap, int(ext),
-                stream))
+                *head, *tail, ptr(scal), ptr(sums), n, r, cap, *band,
+                int(ext), stream))
             out.append(f"K3{'' if ext else ' no-ext'} {label} frame 10 "
                        f"median {ms:.4f} ms")
         if label == "262k":

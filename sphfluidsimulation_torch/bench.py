@@ -6,9 +6,13 @@ spawn, golden physics constants, SampleScene.unity:362-376) scaled to the
 requested particle count, with the bucket resolution scaled like the golden
 config (occupancy-preserving: R ∝ N^(1/3), golden 262144 → 47, 1048576 → 75).
 
-Methodology: one warm-up rollout, then one timed rollout of ``frames``
-frames; the host clock brackets the timed rollout with device
-synchronisations. A measurement needs the card: without CUDA it raises.
+Methodology, the JAX bench's (``sphfluidsimulation_tpu/bench.py:96-136``): a
+warm-up rollout of ``warmup_frames`` frames; the rollout of ``frames``
+frames run once untimed; then the same rollout timed, so the timed window is
+frames [warmup + frames, warmup + 2·frames). The host clock brackets it with
+device synchronisations. ``steady_frames`` rolls deeper, ``frames`` at a
+time, and times one late window (the dam-break's frame cost changes with the
+frame index). A measurement needs the card: without CUDA it raises.
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ def scaled_config(n_particles: int) -> SimConfig:
 
 
 def run_bench(n_particles: int = 1 << 20, frames: int = 20,
-              warmup_frames: int = 5,
-              tune: SortedTuning | None = None) -> dict:
-    """``tune`` selects the route (None reads ``SPH_PALLAS_COMPACT``)."""
+              warmup_frames: int = 5, tune: SortedTuning | None = None,
+              steady_frames: int = 0) -> dict:
+    """``tune`` selects the route (None reads ``SPH_PALLAS_COMPACT``);
+    ``steady_frames`` > 0 adds the ``steady_state_*`` keys."""
     if not torch.cuda.is_available():
         raise RuntimeError("run_bench measures the card; no CUDA device")
     device = torch.device("cuda")
@@ -50,15 +55,36 @@ def run_bench(n_particles: int = 1 << 20, frames: int = 20,
     compile_s = time.perf_counter() - t0
 
     roll = make_rollout(cfg, frames, tune=tune, device=device)
+    state, _ = roll(state)          # the timed length, once untimed
     device_sync()
     t0 = time.perf_counter()
-    final, m = roll(state)
+    state, m = roll(state)
     device_sync()
     elapsed = time.perf_counter() - t0
+
+    steady = {}
+    if steady_frames:
+        frame0 = warmup_frames + 2 * frames     # frames already simulated
+        reps = max(1, steady_frames // frames)
+        for _ in range(reps - 1):
+            state, _ = roll(state)
+        device_sync()
+        t0 = time.perf_counter()
+        state, m = roll(state)
+        device_sync()
+        s_elapsed = time.perf_counter() - t0
+        w0 = frame0 + (reps - 1) * frames
+        steady = {
+            "steady_state_value": round(
+                cfg.n_particles * cfg.substeps * frames / s_elapsed, 1),
+            "steady_state_frames_window": [w0, w0 + frames],
+            "steady_state_elapsed_s": round(s_elapsed, 3),
+        }
 
     rate = cfg.n_particles * cfg.substeps * frames / elapsed
     ident = gpu_identity().splitlines()[0].split(", ")
     return {
+        **steady,
         "metric": "particle-substeps/sec/chip (dam-break, faithful mode)",
         "value": round(rate, 1),
         "unit": "particle-substeps/s",

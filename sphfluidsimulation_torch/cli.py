@@ -20,7 +20,9 @@ kernel K5 (``ops/compact.py``).
 What needs code the port does not have yet exits with code 2 and names its
 ROADMAP.md item: ``export`` and ``--export-dir``/``--animate``/``--viewer``
 (render, queue A item 10), ``sweep`` (scene batching, item 11) and
-``--shards > 1`` (slab decomposition, item 11).
+``--shards > 1``. The JAX CLI's ``--shards`` runs the slab step of the
+sites tier (queue A items 9 and 11); the port's slab step of the sorted
+tier is the library's ``parallel.make_pallas_slab_step``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ import sys
 
 _RENDER = "render is not ported yet: ROADMAP.md queue A item 10"
 _BATCH = "scene batching is not ported yet: ROADMAP.md queue A item 11"
-_SLAB = "the slab decomposition is not ported yet: ROADMAP.md queue A item 11"
+_SLAB = ("--shards runs the sites tier's slab step, which is not ported yet: "
+         "ROADMAP.md queue A items 9 and 11 (the sorted tier's slab step is "
+         "sphfluidsimulation_torch.parallel.make_pallas_slab_step)")
 
 
 def _add_config_flags(p: argparse.ArgumentParser) -> None:

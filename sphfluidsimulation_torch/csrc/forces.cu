@@ -30,25 +30,33 @@
 
 namespace {
 
-template <bool kExt>
+template <bool kExt, bool kBand>
 __global__ void __launch_bounds__(sph::kBlock)
 forces_kernel(sph::WalkArgs a, float4* __restrict__ out) {
-  sph::walk_row<kExt>(
-      a, [&](const sph::Scalars&, const sph::Particle&, int i,
-             const sph::PairSums& acc) { sph::store_sums(out, i, acc); });
+  sph::walk_row<kExt, kBand>(
+      a,
+      [&](const sph::Scalars&, const sph::Particle&, int i,
+          const sph::PairSums& acc) { sph::store_sums(out, i, acc); },
+      [&](int i) { sph::store_sums(out, i, sph::PairSums{}); });
 }
 
 }  // namespace
 
-// ext != 0 selects the instance with the extension sums.
+// (zbase, z_span) is the frame's band of z-planes, (0, r) for the whole
+// grid (the walk is K2's; the slab step does not launch K3, so its callers
+// pass (0, r)); ext != 0 selects the instance with the extension sums.
 extern "C" int sph_forces(const float* rows, const float* pj,
                           const int* start, const int* raw,
                           const uint8_t* occ, const float* scal, float* out,
-                          int n, int r, int cap, int ext, void* stream) {
+                          int n, int r, int cap, int zbase, int z_span,
+                          int ext, void* stream) {
   const sph::WalkArgs a{reinterpret_cast<const float4*>(rows),
                         reinterpret_cast<const float2*>(pj),
-                        start, raw, occ, scal, n, r, cap};
-  return sph::launch_walk(ext ? forces_kernel<true> : forces_kernel<false>,
-                          a, reinterpret_cast<float4*>(out),
+                        start, raw, occ, scal, n, r, cap, zbase, z_span};
+  static const sph::WalkKernel instances[2][2] = {
+      {forces_kernel<false, false>, forces_kernel<false, true>},
+      {forces_kernel<true, false>, forces_kernel<true, true>}};
+  return sph::launch_walk(instances, ext != 0, a,
+                          reinterpret_cast<float4*>(out),
                           (cudaStream_t)stream);
 }

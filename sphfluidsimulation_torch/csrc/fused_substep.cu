@@ -15,7 +15,9 @@
 // (:1440-1450): the artificial viscosity joins the force, and the XSPH
 // correction dv moves the position only, after the NaN trap, so a trapped
 // particle still moves by dt * dv (stepper.py:57-59). The instance without
-// extensions is the faithful K2.
+// extensions is the faithful K2. The banded instances (a slab's frame,
+// fused_substep(band=) :1835-1887) are the same kernels with the band's
+// (zbase, z_span); they copy dead rows through.
 //
 // Rows are f32[N, 8] = (x, y, z, vx, vy, vz, rho, nan_count); pj is f32[N, 2]
 // = (press_j, [rho_j > eps] / rho_j) of the frame-start density, which is
@@ -44,29 +46,37 @@
 
 namespace {
 
-template <bool kExt>
+template <bool kExt, bool kBand>
 __global__ void __launch_bounds__(sph::kBlock)
 fused_substep_kernel(sph::WalkArgs a, float4* __restrict__ out) {
-  sph::walk_row<kExt>(
-      a, [&](const sph::Scalars& s, const sph::Particle& p, int i,
-             const sph::PairSums& acc) {
+  sph::walk_row<kExt, kBand>(
+      a,
+      [&](const sph::Scalars& s, const sph::Particle& p, int i,
+          const sph::PairSums& acc) {
         sph::fused_tail<kExt>(s, p, acc, out, i);
+      },
+      [&](int i) {   // a dead row is copied through
+        out[2 * i] = __ldg(a.rows + 2 * i);
+        out[2 * i + 1] = __ldg(a.rows + 2 * i + 1);
       });
 }
 
 }  // namespace
 
-// ext != 0 selects the instance with the extension sums.
+// (zbase, z_span) is the frame's band of z-planes, (0, r) for the whole
+// grid; ext != 0 selects the instance with the extension sums.
 extern "C" int sph_fused_substep(const float* rows, const float* pj,
                                  const int* start, const int* raw,
                                  const uint8_t* occ, const float* scal,
-                                 float* out, int n, int r, int cap, int ext,
-                                 void* stream) {
+                                 float* out, int n, int r, int cap, int zbase,
+                                 int z_span, int ext, void* stream) {
   const sph::WalkArgs a{reinterpret_cast<const float4*>(rows),
                         reinterpret_cast<const float2*>(pj),
-                        start, raw, occ, scal, n, r, cap};
-  return sph::launch_walk(ext ? fused_substep_kernel<true>
-                              : fused_substep_kernel<false>,
-                          a, reinterpret_cast<float4*>(out),
+                        start, raw, occ, scal, n, r, cap, zbase, z_span};
+  static const sph::WalkKernel instances[2][2] = {
+      {fused_substep_kernel<false, false>, fused_substep_kernel<false, true>},
+      {fused_substep_kernel<true, false>, fused_substep_kernel<true, true>}};
+  return sph::launch_walk(instances, ext != 0, a,
+                          reinterpret_cast<float4*>(out),
                           (cudaStream_t)stream);
 }

@@ -32,14 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # source → its C functions (name, argtypes): pointers and the stream as
-# c_void_p, ints as c_int
+# c_void_p, ints as c_int (K1-K3 take n, r, cap, then the band's zbase and
+# z_span, and K2/K3 the extension switch)
 KERNELS = {
     "density.cu": (("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _P)),),
+                                     _I, _I, _P)),),
     "fused_substep.cu": (("sph_fused_substep", (_P, _P, _P, _P, _P, _P, _P,
-                                                 _I, _I, _I, _I, _P)),),
+                                                 _I, _I, _I, _I, _I, _I,
+                                                 _P)),),
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _P)),),
+                                   _I, _I, _I, _P)),),
     "compact.cu": (("sph_compact", (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _I, _I, _I, _P)),),
 }

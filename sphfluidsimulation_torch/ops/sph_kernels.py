@@ -27,6 +27,15 @@ cell, each cell clamped to its first ``capacity`` slots (only those can be
 ``occ``), so their candidate set is exact: the sorted tier has no truncation
 certificate. K2 and K3 (``csrc/window_walk.cuh``) read the j-side
 pressure and guarded 1/ρ from :func:`pj_cols`.
+
+Banded instances (``band=(zbase, z_span)``, the slab step's frame,
+``ops/frame.py``): the window's z range is clipped to the band's planes and
+``start`` is indexed by local plane; the gate reads global raw ids and does
+not change. Every pass treats the rows past ``start[-1]`` (the dead rows of
+a slab row buffer, which sort last) as absent: density 0, force sums 0, the
+substep copies them through. Without a band there are none. K1 and K2 run
+banded; K3 takes the band from the shared walk but the slab step does not
+launch it.
 """
 
 from __future__ import annotations
@@ -54,10 +63,14 @@ _CHUNK_PAIRS = 1 << 21
 # Kernel launches per wrapper; a run resets them and reads them back to show
 # which kernels its main path went through.
 # "fused_substep" counts K2 without extensions, "fused_substep_ext" with; the
-# "compact_*" entries count the K5 instances (ops/compact.py).
+# "*_band" entries count the banded instances of K1 and K2 (the slab step,
+# parallel/slab_pallas.py); the "compact_*" entries count the K5 instances
+# (ops/compact.py).
 launch_counts = {"density": 0, "fused_substep": 0, "fused_substep_ext": 0,
                  "forces": 0, "compact_density": 0, "compact_substep": 0,
-                 "compact_substep_ext": 0, "compact_forces": 0}
+                 "compact_substep_ext": 0, "compact_forces": 0,
+                 "density_band": 0, "fused_substep_band": 0,
+                 "fused_substep_ext_band": 0}
 
 
 def reset_launch_counts() -> None:
@@ -73,16 +86,39 @@ class SortedTuning(NamedTuple):
              the fused substep and the forces without extensions; False is
              the per-particle window walk of K1, K2 and K3.
 
-    The Mosaic layout knobs have no counterpart (ROADMAP.md queue B,
-    "Knobs"); ``bf16`` candidates wait for the semantic knobs."""
+    The semantic knobs of the JAX tuning are not ported yet, and setting one
+    away from its default raises (:meth:`from_env`). The Mosaic layout
+    variables have no counterpart and are ignored: ``SPH_PALLAS_ROWS``,
+    ``_TPG``, ``_UNROLL``, ``_FLAT``, ``_INTCELL``, ``_SS``, ``_CROWS``,
+    ``_CK``, ``_W_FUDGE``, ``_LINE_FUDGE``, ``_IKI`` and ``_PJ`` (the
+    kernels walk ``start[]`` exactly and always read precomputed j-side
+    columns; ROADMAP.md queue B, "Not ported, by design")."""
 
     compact: bool = False
 
     @classmethod
     def from_env(cls) -> "SortedTuning":
         """``SPH_PALLAS_COMPACT=1`` selects the compact route, as in
-        ``PallasTuning.from_env`` (pallas_sph.py:223)."""
-        return cls(compact=os.environ.get("SPH_PALLAS_COMPACT", "0") == "1")
+        ``PallasTuning.from_env`` (pallas_sph.py:207-241). A semantic
+        variable set away from its JAX default raises
+        ``NotImplementedError`` naming its ROADMAP.md item, instead of
+        running the default route unasked."""
+        env = os.environ
+        for var, on, default, item in _UNPORTED_ENV:
+            if (env.get(var, default) == "1") == on:
+                raise NotImplementedError(
+                    f"{var}={env[var]} selects a variant that is not ported "
+                    f"to torch yet: ROADMAP.md queue B, {item}")
+        return cls(compact=env.get("SPH_PALLAS_COMPACT", "0") == "1")
+
+
+# the semantic variables of PallasTuning.from_env that the port lacks:
+# (variable, the value of ``== "1"`` that selects the variant, the default,
+# the ROADMAP.md item that ports it)
+_UNPORTED_ENV = (("SPH_PALLAS_FUSED", False, "1", "B4 (unfused route)"),
+                 ("SPH_PALLAS_KAHAN", True, "0", "B2 (kahan)"),
+                 ("SPH_PALLAS_BF16", True, "0", "B3 (bf16)"),
+                 ("SPH_PALLAS_FACC", False, "1", "B5 (fuse_acc)"))
 
 
 def default_tuning() -> SortedTuning:
@@ -170,14 +206,27 @@ def _window_width(frame: SortedFrame, capacity: int | None) -> int:
     return max(width, 1)
 
 
-def _candidates(frame: SortedFrame, c: torch.Tensor, r: int, width: int
+def _n_live(frame: SortedFrame) -> int:
+    """The rows before the dead ones: ``start[-1]`` (waits for the card)."""
+    return int(frame.start[-1])
+
+
+def _candidates(frame: SortedFrame, c: torch.Tensor, r: int, width: int,
+                band: tuple[int, int] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense candidate gather for the fresh cells ``c`` i32[m, 3]: sorted
-    indices i64[m, 27·width] and the membership mask bool[m, 27·width]."""
+    indices i64[m, 27·width] and the membership mask bool[m, 27·width].
+    With ``band`` the window keeps the band's z-planes and reads ``start``
+    by local plane."""
     offs = torch.tensor(_OFFSETS, dtype=torch.int32, device=c.device)
     nc = c[:, None, :] + offs[None]                          # [m, 27, 3]
     inb = ((nc >= 0) & (nc < r)).all(-1)
-    cell = nc[..., 0] + nc[..., 1] * r + nc[..., 2] * (r * r)
+    z = nc[..., 2]
+    if band is not None:
+        zbase, z_span = band
+        inb = inb & (z >= zbase) & (z < zbase + z_span)
+        z = z - zbase
+    cell = nc[..., 0] + nc[..., 1] * r + z * (r * r)
     cell = torch.where(inb, cell, 0).long()
     s = frame.start[cell].long()
     cnt = torch.where(inb, frame.start[cell + 1].long() - s, 0)
@@ -226,34 +275,37 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def density_plain(frame: SortedFrame, pos_s: torch.Tensor,
-                  phys: PhysParams, r: int,
-                  capacity: int | None) -> torch.Tensor:
+                  phys: PhysParams, r: int, capacity: int | None,
+                  band: tuple[int, int] | None = None) -> torch.Tensor:
     """ρᵢ = m·Σⱼ W_poly6(|xᵢ−xⱼ|²) over the window pairs, self included
-    (Density.compute:32-60)."""
-    n = pos_s.shape[0]
+    (Density.compute:32-60); 0 for dead rows."""
+    n = _n_live(frame)
     width = _window_width(frame, capacity)
     rows = max(1, _CHUNK_PAIRS // (27 * width))
-    w_sum = torch.empty(n, dtype=pos_s.dtype, device=pos_s.device)
+    w_sum = pos_s.new_zeros(pos_s.shape[0])
     for i0 in range(0, n, rows):
         ids = torch.arange(i0, min(i0 + rows, n), device=pos_s.device)
-        j, member = _candidates(frame, fresh_cell(pos_s[ids], r), r, width)
-        w_sum[i0:i0 + rows] = density_sums_plain(pos_s, phys, ids, j, member)
+        j, member = _candidates(frame, fresh_cell(pos_s[ids], r), r, width,
+                                band)
+        w_sum[ids] = density_sums_plain(pos_s, phys, ids, j, member)
     return phys.mass * w_sum
 
 
 def member_pairs(frame: SortedFrame, pos_s: torch.Tensor, r: int,
-                 capacity: int | None) -> tuple[int, int]:
+                 capacity: int | None,
+                 band: tuple[int, int] | None = None) -> tuple[int, int]:
     """(member pairs, self pairs) of the window route at these positions:
     the pairs (i, j) that the plain versions' gate keeps, the self pair
     included, and how many of them are j == i. The density sums all of
     them, the force passes all but the self pairs. Waits for the card."""
-    n = pos_s.shape[0]
+    n = _n_live(frame)
     width = _window_width(frame, capacity)
     rows = max(1, _CHUNK_PAIRS // (27 * width))
     total = own = 0
     for i0 in range(0, n, rows):
         ids = torch.arange(i0, min(i0 + rows, n), device=pos_s.device)
-        j, member = _candidates(frame, fresh_cell(pos_s[ids], r), r, width)
+        j, member = _candidates(frame, fresh_cell(pos_s[ids], r), r, width,
+                                band)
         total += int(member.sum())
         own += int((member & (j == ids[:, None])).sum())
     return total, own
@@ -275,7 +327,8 @@ def density_sums_plain(pos_s: torch.Tensor, phys: PhysParams,
 
 def forces_plain(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                  r: int, capacity: int | None, ext: bool = False,
-                 magnitude: bool = False) -> torch.Tensor:
+                 magnitude: bool = False,
+                 band: tuple[int, int] | None = None) -> torch.Tensor:
     """K3's plain version: the raw force-side pair sums per sorted particle,
     f[N, 12] = (press 3, visc 3, xsph 3, avisc 3), from the rows state
     (``rho`` the frame-start density, positions and velocities fresh).
@@ -291,17 +344,18 @@ def forces_plain(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
     rounding works at, and the sums add those: a difference that may cancel
     (pᵢ + pⱼ, h − |r|, h² − |r|², vⱼ − vᵢ, the Π numerator v·r) enters by
     the sizes of its operands. The result bounds the rounding of a float32
-    evaluation, up to a count of roundings (``substep_accuracy``)."""
-    n = rows.shape[0]
+    evaluation, up to a count of roundings (``substep_accuracy``). Dead
+    rows' sums are 0."""
+    n = _n_live(frame)
     width = _window_width(frame, capacity)
     chunk = max(1, _CHUNK_PAIRS // (27 * width))
-    out = rows.new_zeros((n, N_SUMS))
+    out = rows.new_zeros((rows.shape[0], N_SUMS))
     for i0 in range(0, n, chunk):
         ids = torch.arange(i0, min(i0 + chunk, n), device=rows.device)
         j, member = _candidates(frame, fresh_cell(rows[ids, 0:3], r), r,
-                                width)
+                                width, band)
         sums = force_sums_plain(rows, phys, ids, j, member, ext, magnitude)
-        out[i0:i0 + chunk, :sums.shape[1]] = sums
+        out[ids, :sums.shape[1]] = sums
     return out
 
 
@@ -402,23 +456,32 @@ def fold_forces(sums: torch.Tensor, rho_s: torch.Tensor, phys: PhysParams,
 SumsFn = Callable[..., torch.Tensor]
 
 
+def _band_kw(band: tuple[int, int] | None) -> dict:
+    """``band`` as a keyword for a ``SumsFn``: K5's plain sums take none."""
+    return {} if band is None else {"band": band}
+
+
 def fused_substep_plain(frame: SortedFrame, rows: torch.Tensor,
                         phys: PhysParams, r: int, capacity: int | None,
                         xsph: float = 0.0, alpha_visc: float = 0.0,
-                        sums_fn: SumsFn = forces_plain) -> torch.Tensor:
+                        sums_fn: SumsFn = forces_plain,
+                        band: tuple[int, int] | None = None) -> torch.Tensor:
     """One substep over the rows state: pair forces, then the integrate
     tail of ``sim.stepper.integrate_substep`` (VelPos.compute:49-157).
-    ``sums_fn`` gives the pair sums: the window walk of K2, or the tile
-    candidates of K5 (``compact.compact_sums_plain``)."""
+    ``sums_fn`` gives the pair sums: the window walk of K2 (banded with
+    ``band``), or the tile candidates of K5 (``compact.compact_sums_plain``).
+    Dead rows are copied through."""
     from ..sim.stepper import integrate_substep
 
     sums = sums_fn(frame, rows, phys, r, capacity,
-                   uses_extensions(xsph, alpha_visc))
+                   uses_extensions(xsph, alpha_visc), **_band_kw(band))
     rho = rows[:, 6]
     f, dv = fold_forces(sums, rho, phys, xsph, alpha_visc, fused_tail=True)
     pos_n, vel_n, nan_mask = integrate_substep(rows[:, 0:3], rows[:, 3:6], f,
                                                phys, dv)
-    return pack_rows(pos_n, vel_n, rho, rows[:, 7] + nan_mask.to(rows.dtype))
+    out = pack_rows(pos_n, vel_n, rho, rows[:, 7] + nan_mask.to(rows.dtype))
+    live = torch.arange(rows.shape[0], device=rows.device) < frame.start[-1]
+    return torch.where(live[:, None], out, rows)
 
 
 # ---------------------------------------------------------- accuracy rule --
@@ -464,13 +527,14 @@ def _hold(out: torch.Tensor, p32: torch.Tensor, p64: torch.Tensor,
 
 def _reference(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                r: int, capacity: int | None, xsph: float, alpha_visc: float,
-               sums_fn: SumsFn):
+               sums_fn: SumsFn, band: tuple[int, int] | None = None):
     """(rows64, phys64, force scale F, dv scale DV or None): the float64
     inputs and the rounding scales of the folded force and XSPH outputs."""
     rows64 = rows.double()
     ph = PhysParams(*(t.double() for t in phys))
     mag = sums_fn(frame, rows64, ph, r, capacity,
-                  uses_extensions(xsph, alpha_visc), magnitude=True)
+                  uses_extensions(xsph, alpha_visc), magnitude=True,
+                  **_band_kw(band))
     f_mag, dv_mag = fold_forces(mag, rows64[:, 6], ph, abs(xsph),
                                 abs(alpha_visc))
     return rows64, ph, f_mag, dv_mag
@@ -480,11 +544,12 @@ def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
                      out: torch.Tensor, phys: PhysParams, r: int,
                      capacity: int | None, xsph: float = 0.0,
                      alpha_visc: float = 0.0,
-                     sums_fn: SumsFn = forces_plain) -> Accuracy:
+                     sums_fn: SumsFn = forces_plain,
+                     band: tuple[int, int] | None = None) -> Accuracy:
     """Holds ``out``, one substep of ``rows`` computed elsewhere (the CUDA
     kernel), to the accuracy of the plain version, particle by particle.
-    ``sums_fn`` names the plain version's pair sums (K2's by default; K5's
-    is ``compact.compact_sums_plain``).
+    ``sums_fn`` names the plain version's pair sums (K2's by default, banded
+    with ``band``; K5's is ``compact.compact_sums_plain``).
 
     The golden EOS explodes (FIDELITY.md Part D): force sums cancel terms
     many orders above their result, so no fixed tolerance against the
@@ -504,11 +569,11 @@ def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
     The NaN pattern and the ρ and NaN-count lanes must equal p32's.
     """
     p32 = fused_substep_plain(frame, rows, phys, r, capacity, xsph,
-                              alpha_visc, sums_fn)
+                              alpha_visc, sums_fn, band)
     rows64, ph, f_mag, dv_mag = _reference(frame, rows, phys, r, capacity,
-                                           xsph, alpha_visc, sums_fn)
+                                           xsph, alpha_visc, sums_fn, band)
     p64 = fused_substep_plain(frame, rows64, ph, r, capacity, xsph,
-                              alpha_visc, sums_fn)
+                              alpha_visc, sums_fn, band)
     pos, vel = rows64[:, 0:3], rows64[:, 3:6]
     # the wall force's rounding scale: its depth h − x or 1 − x − h
     # cancels, and so may depth·stiffness − Σ damping·v
@@ -570,9 +635,16 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
             f"(contiguous={t.is_contiguous()})")
 
 
-def _check_frame(frame: SortedFrame, n: int, r: int,
-                 device: torch.device) -> None:
-    _check("frame.start", frame.start, torch.int32, (r * r * r + 1,), device)
+def _band_args(band: tuple[int, int] | None, r: int) -> tuple[int, int]:
+    """(zbase, z_span) of the kernels' walk: the whole grid without a
+    band."""
+    return (0, r) if band is None else (int(band[0]), int(band[1]))
+
+
+def _check_frame(frame: SortedFrame, n: int, r: int, device: torch.device,
+                 band: tuple[int, int] | None = None) -> None:
+    s_cells = _band_args(band, r)[1] * r * r
+    _check("frame.start", frame.start, torch.int32, (s_cells + 1,), device)
     _check("frame.raw", frame.raw, torch.int32, (n,), device)
     _check("frame.occ", frame.occ, torch.bool, (n,), device)
 
@@ -588,14 +660,15 @@ def _raise_on_error(name: str, err: int) -> None:
 
 def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
                  r: int, capacity: int | None,
-                 scal: torch.Tensor | None = None) -> torch.Tensor:
-    """K1 (``csrc/density.cu``) on the card. ``scal`` is
-    :func:`scal_block` of ``phys`` (built here when None); K1 reads none of
-    its coefficient lanes, so K2's block serves too."""
+                 scal: torch.Tensor | None = None,
+                 band: tuple[int, int] | None = None) -> torch.Tensor:
+    """K1 (``csrc/density.cu``) on the card, banded with ``band``. ``scal``
+    is :func:`scal_block` of ``phys`` (built here when None); K1 reads none
+    of its coefficient lanes, so K2's block serves too."""
     n = pos_s.shape[0]
     dev = pos_s.device
     _check("pos_s", pos_s, torch.float32, (n, 3), dev)
-    _check_frame(frame, n, r, dev)
+    _check_frame(frame, n, r, dev, band)
     if scal is None:
         scal = scal_block(phys)
     _check("phys", scal, torch.float32, (N_SCAL,), dev)
@@ -604,25 +677,27 @@ def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
     err = lib.sph_density(
         _ptr(pos_s), _ptr(frame.start), _ptr(frame.raw), _ptr(frame.occ),
         _ptr(scal), _ptr(rho), n, r, _cap_arg(capacity),
+        *_band_args(band, r),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error("density", err)
-    launch_counts["density"] += 1
+    launch_counts["density" if band is None else "density_band"] += 1
     return rho
 
 
 def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
                  pj: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
-                 r: int, capacity: int | None, ext: bool) -> None:
+                 r: int, capacity: int | None, ext: bool,
+                 band: tuple[int, int] | None = None) -> None:
     """Checks the inputs of K2 or K3 and launches it into ``out``."""
     n = rows.shape[0]
     dev = rows.device
     _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
-    _check_frame(frame, n, r, dev)
+    _check_frame(frame, n, r, dev, band)
     _check("phys", scal, torch.float32, (N_SCAL,), dev)
     _check("pj", pj, torch.float32, (n, 2), dev)
     err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
              _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
-             _cap_arg(capacity), int(ext),
+             _cap_arg(capacity), *_band_args(band, r), int(ext),
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error(name, err)
 
@@ -634,7 +709,8 @@ def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
     """K3 (``csrc/forces.cu``) on the card: raw sums f32[N, 12] from the
     rows state; ``ext`` selects the instance with the extension sums.
     ``pj`` is :func:`pj_cols` of the rows' ρ and ``scal``
-    :func:`scal_block` of ``phys``; each is built here when None."""
+    :func:`scal_block` of ``phys``; each is built here when None. It walks
+    the whole grid: the slab step never launches K3."""
     if pj is None:
         pj = pj_cols(rows[:, 6], phys)
     if scal is None:
@@ -651,12 +727,14 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
                        phys: PhysParams, r: int, capacity: int | None,
                        xsph: float = 0.0, alpha_visc: float = 0.0,
                        pj: torch.Tensor | None = None,
-                       scal: torch.Tensor | None = None) -> torch.Tensor:
-    """K2 (``csrc/fused_substep.cu``) on the card. Reads the state as it was
-    before the substep and writes a new rows tensor. Nonzero coefficients
-    select the instance with the extension sums. ``pj`` is :func:`pj_cols`
-    of the rows' ρ and ``scal`` :func:`scal_block` of ``phys`` and the
-    coefficients; each is built here when None."""
+                       scal: torch.Tensor | None = None,
+                       band: tuple[int, int] | None = None) -> torch.Tensor:
+    """K2 (``csrc/fused_substep.cu``) on the card, banded with ``band``.
+    Reads the state as it was before the substep and writes a new rows
+    tensor. Nonzero coefficients select the instance with the extension
+    sums. ``pj`` is :func:`pj_cols` of the rows' ρ and ``scal``
+    :func:`scal_block` of ``phys`` and the coefficients; each is built here
+    when None."""
     if pj is None:
         pj = pj_cols(rows[:, 6], phys)
     if scal is None:
@@ -664,8 +742,9 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
     ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
     _walk_launch(cuda_build.load().sph_fused_substep, "fused_substep", frame,
-                 rows, pj, scal, out, r, capacity, ext)
-    launch_counts["fused_substep_ext" if ext else "fused_substep"] += 1
+                 rows, pj, scal, out, r, capacity, ext, band)
+    name = "fused_substep_ext" if ext else "fused_substep"
+    launch_counts[name if band is None else name + "_band"] += 1
     return out
 
 
@@ -673,15 +752,17 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
 
 def density_pass(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
                  r: int, capacity: int | None,
-                 scal: torch.Tensor | None = None) -> torch.Tensor:
+                 scal: torch.Tensor | None = None,
+                 band: tuple[int, int] | None = None) -> torch.Tensor:
     """ρ per sorted particle: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. ``capacity`` is the config's voxel capacity
-    (None: uncapped); it bounds the walk, the result does not depend on it
-    beyond what ``frame.occ`` already says. ``scal`` (as in
-    :func:`density_cuda`) is read by the kernel only."""
+    version for a CPU tensor, over the frame's ``band`` (None: the whole
+    grid). ``capacity`` is the config's voxel capacity (None: uncapped); it
+    bounds the walk, the result does not depend on it beyond what
+    ``frame.occ`` already says. ``scal`` (as in :func:`density_cuda`) is
+    read by the kernel only."""
     if pos_s.is_cuda:
-        return density_cuda(frame, pos_s, phys, r, capacity, scal)
-    return density_plain(frame, pos_s, phys, r, capacity)
+        return density_cuda(frame, pos_s, phys, r, capacity, scal, band)
+    return density_plain(frame, pos_s, phys, r, capacity, band)
 
 
 def forces_pass(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
@@ -706,14 +787,15 @@ def forces_pass(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
 def fused_substep(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                   r: int, capacity: int | None, xsph: float = 0.0,
                   alpha_visc: float = 0.0, pj: torch.Tensor | None = None,
-                  scal: torch.Tensor | None = None) -> torch.Tensor:
+                  scal: torch.Tensor | None = None,
+                  band: tuple[int, int] | None = None) -> torch.Tensor:
     """One whole integration substep over the rows state (pair forces, m²/ρ
     scaling, extension sums, wall penalty, gravity, NaN trap, semi-implicit
     Euler, clamp): the CUDA kernel K2 for a CUDA tensor, the plain version
-    for a CPU one. ``pj`` and ``scal`` (as in :func:`fused_substep_cuda`)
-    are read by the kernel only."""
+    for a CPU one, over the frame's ``band``. ``pj`` and ``scal`` (as in
+    :func:`fused_substep_cuda`) are read by the kernel only."""
     if rows.is_cuda:
         return fused_substep_cuda(frame, rows, phys, r, capacity, xsph,
-                                  alpha_visc, pj, scal)
+                                  alpha_visc, pj, scal, band)
     return fused_substep_plain(frame, rows, phys, r, capacity, xsph,
-                               alpha_visc)
+                               alpha_visc, band=band)

@@ -37,7 +37,8 @@ mode's forces without extensions; with extensions the corrected forces stay
 on K3, as in JAX (pallas_sph.py:1720).
 
 Backends: ``neighbor="sorted"``, the counterpart of the JAX ``"pallas"``
-tier, and ``neighbor="brute"``, the O(N²) oracle (``ops/brute.py``,
+tier (``"pallas"``, the JAX name, selects it too), and ``neighbor="brute"``,
+the O(N²) oracle (``ops/brute.py``,
 ``ops/extensions.py``), which is the oracle on the card, where there is no
 JAX. K1-K3 walk ``start[]`` cell by cell with no static window and no
 per-line cap, so their candidate set is exactly the reference's and
@@ -75,6 +76,8 @@ ParamStepFn = Callable[[ParticleState, PhysParams],
                        tuple[ParticleState, StepMetrics]]
 
 NEIGHBORS = ("sorted", "brute")
+# JAX backend names that the port runs under another name
+_ALIASES = {"pallas": "sorted"}
 # the profiler ranges of one sorted frame, in order: faithful mode
 # (fused_substep opens once per substep) and corrected mode (the ranges
 # from build_frame to integrate+unsort open once per substep, after one
@@ -88,7 +91,6 @@ _NOT_PORTED = {
     "slotted": "queue A item 8 (exact tiers: ops/cellops.py)",
     "gather": "queue A item 8 (exact tiers: ops/cellops.py)",
     "sites": "queue A item 9 (sites tier: ops/sites.py)",
-    "pallas": "queue A item 5 (its port is neighbor='sorted')",
 }
 
 
@@ -103,13 +105,17 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     return dev
 
 
-def _check_supported(neighbor: str) -> None:
+def _check_supported(neighbor: str) -> str:
+    """The port's name of backend ``neighbor``; raises for one that is not
+    ported or unknown."""
     if neighbor in _NOT_PORTED:
         raise NotImplementedError(
             f"neighbor={neighbor!r} is not ported to torch yet: ROADMAP.md "
             f"{_NOT_PORTED[neighbor]}; use neighbor='sorted' or 'brute'")
+    neighbor = _ALIASES.get(neighbor, neighbor)
     if neighbor not in NEIGHBORS:
         raise ValueError(f"unknown neighbor backend {neighbor!r}")
+    return neighbor
 
 
 def integrate_substep(pos: torch.Tensor, vel: torch.Tensor,
@@ -348,16 +354,15 @@ def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
     physics scalars come from ``phys``. State comes in and goes out in the
     caller's particle order; it runs on the device its tensors are on.
 
-    neighbor: 'sorted' (the CUDA kernels on the card) or 'brute' (O(N²)
-              oracle).
+    neighbor: 'sorted' (the CUDA kernels on the card; 'pallas', the JAX
+              name, is the same tier) or 'brute' (O(N²) oracle).
     faithful: reuse the frame-start bucket + density across all substeps
               (reference semantics); False rebuilds them every substep.
     tune:     the sorted tier's route (``SortedTuning``; None reads
               ``SPH_PALLAS_COMPACT``), the JAX ``pallas_tune``.
     """
     cfg = cfg.validate()
-    _check_supported(neighbor)
-    if neighbor == "brute":
+    if _check_supported(neighbor) == "brute":
         return _brute_step(cfg, faithful)
     tune = default_tuning() if tune is None else tune
     return _sorted_step(cfg, tune) if faithful else _corrected_step(cfg, tune)
@@ -397,7 +402,7 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
     (stepper.py:610-634).
     """
     cfg = cfg.validate()
-    _check_supported(neighbor)
+    neighbor = _check_supported(neighbor)
     device = resolve_device(device)
     tune = default_tuning() if tune is None else tune
     if neighbor != "sorted" or not faithful:
@@ -425,7 +430,8 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
         for _ in range(n_frames):
             with span("build_frame"):
                 frame, (pos, vel, nan_count) = build_frame(
-                    pos, r, cap, extras=(pos, vel, nan_count), gid=pid)
+                    pos, r, cap, extras=(pos, vel, nan_count), gid=pid,
+                    n_ids=n)
             pid = frame.order
             pos, vel, nan_hits, m = _sorted_frame(frame, pos, vel, phys, cfg,
                                                   tune)

@@ -63,6 +63,28 @@ def state_to_numpy(state: ParticleState
             state.nan_count.detach().cpu().numpy())
 
 
+def slab_state_from_numpy(pos: np.ndarray, vel: np.ndarray,
+                          nan_count: np.ndarray, pid: np.ndarray,
+                          valid: np.ndarray,
+                          device: torch.device | str | None = None):
+    """Carry a JAX ``parallel.slab.SlabState`` (as numpy arrays) across to
+    the port's (``parallel/slab.py``)."""
+    from .parallel.slab import SlabState
+    return SlabState(
+        pos=torch.tensor(np.asarray(pos, np.float32), device=device),
+        vel=torch.tensor(np.asarray(vel, np.float32), device=device),
+        nan_count=torch.tensor(np.asarray(nan_count, np.int32),
+                               device=device),
+        pid=torch.tensor(np.asarray(pid, np.int32), device=device),
+        valid=torch.tensor(np.asarray(valid, bool), device=device))
+
+
+def slab_state_to_numpy(st) -> tuple[np.ndarray, ...]:
+    """(pos, vel, nan_count, pid, valid) of a port ``SlabState`` as numpy
+    arrays, ready for the JAX package."""
+    return tuple(t.detach().cpu().numpy() for t in st)
+
+
 class StepMetrics(NamedTuple):
     """Per-frame observability (the same six fields as the JAX package)."""
 

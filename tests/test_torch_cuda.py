@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; on a CPU-only host they skip. They
+include the banded K1 and K2 of the slab step and the slab step itself. They
 import no JAX (the machine with the card has none), so run them without the
 JAX test conftest, from the root of a checkout:
 
@@ -247,7 +248,8 @@ def test_scene_and_bench_on_card(cuda_device):
     sk.reset_launch_counts()
     out = run_bench(4096, frames=2, warmup_frames=1, tune=COMPACT)
     assert out["pallas_tuning"] == {"compact": True} and out["value"] > 0
-    assert sk.launch_counts["compact_substep"] == 3 * 5
+    # the warm-up frame, the timed length once untimed, then timed
+    assert sk.launch_counts["compact_substep"] == (1 + 2 * 2) * 5
     assert sk.launch_counts["fused_substep"] == 0
 
 
@@ -343,3 +345,111 @@ def test_compact_rollout_never_waits_for_the_card(cuda_device, faithful):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert final.pos.is_cuda and m.exact_cert.is_cuda
+
+
+# ------------------------------------------------- banded K1 / K2 (slab) --
+
+def _banded_inputs(cap, device, band=(1, 6), frames=2, **ext):
+    """A slab shard's frame on the card: the goldenish scene ``frames`` on,
+    the rows of ``band``'s planes live and 300 dead rows after them, built
+    with capacity ``cap``; some rows then moved 1.5 cells up in z, so that
+    their windows leave the band."""
+    cfg = SimConfig(**CONFIGS["goldenish"], **ext)
+    st, _ = make_rollout(cfg, frames, device=device)(
+        initial_state(cfg, device))
+    r = cfg.bucket_resolution
+    pos = torch.cat([st.pos, st.pos[:300]])
+    vel = torch.cat([st.vel, st.vel[:300]])
+    az = (pos[:, 2] * (r - 1)).to(torch.int32).clamp(0, r - 1)
+    valid = (az >= band[0]) & (az < band[0] + band[1])
+    valid[cfg.n_particles:] = False
+    gid = torch.arange(pos.shape[0], dtype=torch.int32,
+                       device=device) % cfg.n_particles
+    tf, (ps, vs) = build_frame(pos, r, cap, extras=(pos, vel), gid=gid,
+                               n_ids=cfg.n_particles, band=band, valid=valid)
+    n_live = int(tf.start[-1])
+    assert 0 < n_live < pos.shape[0] - 300
+    return tf, ps, vs, PhysParams.from_config(cfg, device), r, n_live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [4, CAP, None])
+def test_banded_kernels_match_plain_on_card(cuda_device, cap):
+    # K1, K2 and K2-ext over a band with dead rows, each held to its banded
+    # plain version; dead rows: density 0, the substep copies them through;
+    # walking the capped frame uncut gives the same bits
+    band = (1, 6)
+    tf, ps, vs, tp, r, n_live = _banded_inputs(cap, cuda_device, band)
+    before = dict(sk.launch_counts)
+    rho = sk.density_pass(tf, ps, tp, r, cap, band=band)
+    assert sk.launch_counts["density_band"] == before["density_band"] + 1
+    assert sk.launch_counts["density"] == before["density"]
+    torch.testing.assert_close(
+        rho, sk.density_plain(tf, ps, tp, r, cap, band), rtol=1e-5,
+        atol=1e-6)
+    assert not rho[n_live:].any()
+    assert _same_bits(sk.density_cuda(tf, ps, tp, r, None, band=band), rho)
+    rows = sk.pack_rows(ps, vs, rho)
+    rows[100:400:3, 2] = (rows[100:400:3, 2] + 1.5 / (r - 1)).clamp(max=1.0)
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        out = sk.fused_substep(tf, rows, tp, r, cap, xs, al, band=band)
+        assert torch.equal(out[n_live:], rows[n_live:])
+        acc = sk.substep_accuracy(tf, rows, out, tp, r, cap, xs, al,
+                                  band=band)
+        assert acc.ok, acc
+        uncut = sk.fused_substep_cuda(tf, rows, tp, r, None, xs, al,
+                                      band=band)
+        assert _same_bits(uncut, out)
+    # the planted control: the banded substep without viscosity fails
+    no_visc = tp._replace(viscosity=torch.zeros_like(tp.viscosity))
+    bad = sk.fused_substep_cuda(tf, rows, no_visc, r, cap, band=band)
+    assert not sk.substep_accuracy(tf, rows, bad, tp, r, cap,
+                                   band=band).ok
+    for k in ("fused_substep_band", "fused_substep_ext_band"):
+        assert sk.launch_counts[k] > before[k]
+    assert sk.launch_counts["fused_substep"] == before["fused_substep"]
+
+
+@pytest.mark.cuda
+def test_whole_grid_band_is_the_unbanded_launch_on_card(cuda_device):
+    # band (0, r) walks what the unbanded instance walks: the same bits
+    tf, ps, vs, tp, r = _card_inputs("goldenish", cuda_device, frames=2)
+    whole = (0, r)
+    assert _same_bits(sk.density_cuda(tf, ps, tp, r, CAP, band=whole),
+                      sk.density_cuda(tf, ps, tp, r, CAP))
+    rows = sk.pack_rows(ps, vs, sk.density_cuda(tf, ps, tp, r, CAP))
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        assert _same_bits(
+            sk.fused_substep_cuda(tf, rows, tp, r, CAP, xs, al, band=whole),
+            sk.fused_substep_cuda(tf, rows, tp, r, CAP, xs, al))
+    with pytest.raises(ValueError):         # start[] too short for a band
+        sk.density_cuda(tf, ps, tp, r, CAP, band=(0, r + 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4])
+def test_slab_step_on_card_equals_single_device(cuda_device, d):
+    # the calm scene: own rows walk the single device's candidates in its
+    # order and the halo copies are overwritten before they are read, so
+    # the slab step gives the single-device rollout's bits, through D K1
+    # and 5·D K2 launches a frame
+    from sphfluidsimulation_torch.parallel import (LocalRing, collect,
+                                                   distribute,
+                                                   make_pallas_slab_step)
+    cfg = SimConfig(**_CALM)
+    s0 = initial_state(cfg, cuda_device)
+    step, spec = make_pallas_slab_step(cfg, LocalRing(d), row_slack=4.0)
+    sst = distribute(s0, cfg, spec)
+    phys = PhysParams.from_config(cfg, cuda_device)
+    sk.reset_launch_counts()
+    for _ in range(3):
+        sst, m = step(sst, phys)
+        assert int(m.exact_cert) == 0
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    density_band=3 * d,
+                                    fused_substep_band=15 * d)
+    out, lost = collect(sst, cfg.n_particles)
+    ref, mr = make_rollout(cfg, 3, device=cuda_device)(s0)
+    assert lost == 0 and int(m.overflow) == int(mr.overflow[-1])
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)

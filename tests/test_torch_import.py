@@ -24,6 +24,10 @@ MODULES = [
     "sphfluidsimulation_torch.models.presets",
     "sphfluidsimulation_torch.models.scene",
     "sphfluidsimulation_torch.sim.stepper",
+    "sphfluidsimulation_torch.parallel",
+    "sphfluidsimulation_torch.parallel.ring",
+    "sphfluidsimulation_torch.parallel.slab",
+    "sphfluidsimulation_torch.parallel.slab_pallas",
     "sphfluidsimulation_torch.utils.profiling",
     "sphfluidsimulation_torch.utils.metrics",
     "sphfluidsimulation_torch.utils.checkpoint",

@@ -198,10 +198,12 @@ def test_cuda_build_flags_and_cache_key():
         assert path == cuda_build.library_path(s)  # keyed by content only
     for s in (*cuda_build.HEADERS, *cuda_build.KERNELS):
         assert (cuda_build.CSRC / s).is_file()
-    # the K3 and K2 bindings take pj after the rows and the extension
-    # switch before the stream
+    # the K3 and K2 bindings take pj after the rows, the band (zbase,
+    # z_span) after the capacity and the extension switch before the
+    # stream; K1 takes the band too
     sigs = {n: a for v in cuda_build.KERNELS.values() for n, a in v}
-    assert len(sigs["sph_forces"]) == len(sigs["sph_fused_substep"]) == 12
+    assert len(sigs["sph_forces"]) == len(sigs["sph_fused_substep"]) == 14
+    assert len(sigs["sph_density"]) == 12
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

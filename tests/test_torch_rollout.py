@@ -98,7 +98,9 @@ def test_scene_steps():
     assert scene.frame == 0
 
 
-@pytest.mark.parametrize("neighbor", ["slotted", "gather", "sites", "pallas"])
+# "pallas", the JAX name of the sorted tier, runs it
+# (tests/test_torch_slab.py::test_neighbor_pallas_is_the_sorted_tier)
+@pytest.mark.parametrize("neighbor", ["slotted", "gather", "sites"])
 def test_unported_backends_raise(neighbor):
     cfg = SimConfig(**_CALM)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -5,7 +5,8 @@
 - A line-for-line Python mirror of the kernels' range walk must visit, for
   every row, exactly that row's member set from ``sph_kernels._candidates``
   in walk order, j == i skipped (K2, K3) or kept (K1): the kernels sum the
-  same terms in the same order as the plain versions.
+  same terms in the same order as the plain versions; on a slab's banded
+  frame too, where dead rows walk nothing.
 - The kernels' division-free pair terms, evaluated in float32 over the
   plain candidates, must pass the per-particle rule of
   ``sph_kernels.forces_accuracy``.
@@ -26,6 +27,7 @@ from sphfluidsimulation_tpu.ops import pallas_sph
 from sphfluidsimulation_tpu.params import PhysParams as JPhys
 from sphfluidsimulation_torch.config import EPSILON, SimConfig
 from sphfluidsimulation_torch.ops import sph_kernels as sk
+from sphfluidsimulation_torch.ops import sph_math
 from sphfluidsimulation_torch.ops.frame import build_frame
 from sphfluidsimulation_torch.params import PhysParams
 from sphfluidsimulation_torch.sim.stepper import (initial_state,
@@ -99,18 +101,26 @@ def _raw_near(raw, cx, cy, cz, r):
     return abs(x - cx) <= 1 and abs(y - cy) <= 1 and abs(z - cz) <= 1
 
 
-def _range_walk(start, raw, occ, c, i, r, cap, skip_self=True, step=2):
+def _range_walk(start, raw, occ, c, i, r, cap, skip_self=True, step=2,
+                band=None):
     """range_walk of csrc/window_walk.cuh, line for line, ``step`` slots a
     step: the slots row i sums, in order (``skip_self``: K2's and K3's walk,
-    two slots a step; K1's keeps j == i, one slot a step)."""
+    two slots a step; K1's keeps j == i, one slot a step), over the frame's
+    ``band`` of z-planes (None: the whole grid, (0, r)); a dead row (past
+    ``start[-1]``, walk_row's and K1's dead_row) walks nothing."""
+    zbase, z_span = (0, r) if band is None else band
+    if i >= start[z_span * r * r]:
+        return []
     cx, cy, cz = c
     x0, x1 = max(cx - 1, 0), min(cx + 1, r - 1)
     y0, y1 = max(cy - 1, 0), min(cy + 1, r - 1)
-    z0, z1 = max(cz - 1, 0), min(cz + 1, r - 1)
+    z0 = max(cz - 1, 0, zbase)
+    z1 = min(cz + 1, r - 1, zbase + z_span - 1)
     out = []
     for z in range(z0, z1 + 1):
         for y in range(y0, y1 + 1):
-            line = (z * r + y) * r
+            line = (z * r + y) * r                   # global: the raw gate
+            sl = ((z - zbase) * r + y) * r           # local: start[]
 
             def member(j):
                 if not occ[j] or (skip_self and j == i):
@@ -118,15 +128,15 @@ def _range_walk(start, raw, occ, c, i, r, cap, skip_self=True, step=2):
                 return (0 <= raw[j] - line - x0 <= x1 - x0
                         or _raw_near(raw[j], cx, cy, cz, r))
 
-            end = start[line + x0]
+            end = start[sl + x0]
             x = x0
             while x <= x1:
                 q = end
-                end = start[line + x + 1]
+                end = start[sl + x + 1]
                 e = min(end, q + cap) if cap >= 0 else end
                 while e == end and x < x1:
                     x += 1
-                    end = start[line + x + 1]
+                    end = start[sl + x + 1]
                     e = min(end, e + cap) if cap >= 0 else end
                 while q < e:
                     q2 = min(q + step - 1, e - 1)
@@ -199,6 +209,46 @@ def test_range_walk_with_self_visits_each_rows_density_members(name, cap):
         own += got.count(i)
     # the self pair is visited, and is not all the walk visits
     assert 0 < own < pairs
+
+
+# K1's and K2's banded walk: a slab's frame over its band of z-planes, with
+# dead rows past the live ones (ops/frame.py), rows moved 1.5 cells in z so
+# that some windows leave the band; each live row visits exactly its banded
+# members (sph_kernels._candidates with the band), a dead row nothing
+@pytest.mark.parametrize("cap", [4, CAP, None])
+@pytest.mark.parametrize("band", [(-2, 7), (3, 5), (7, 7)])
+def test_banded_range_walk_visits_each_rows_band_members(band, cap):
+    cfg, st = _state("goldenish", 3)
+    r = cfg.bucket_resolution
+    rng = np.random.default_rng(8)
+    valid = torch.from_numpy(rng.random(st.pos.shape[0]) < 0.8)
+    az = sph_math.cell_index(st.pos[:, 2], r).clamp(0, r - 1)
+    valid &= (az >= band[0]) & (az < band[0] + band[1])
+    tf, (ps,) = build_frame(st.pos, r, cap, extras=(st.pos,),
+                            gid=torch.arange(st.pos.shape[0],
+                                             dtype=torch.int32),
+                            band=band, valid=valid)
+    ps = ps.clone()
+    ps[::7, 2] = (ps[::7, 2] + 1.5 / (r - 1)).clamp(max=1.0)
+    c = sk.fresh_cell(ps, r)
+    n_live = int(tf.start[-1])
+    assert 0 < n_live < ps.shape[0]
+    j, member = sk._candidates(tf, c[:n_live], r, sk._window_width(tf, cap),
+                               band)
+    start, raw = tf.start.tolist(), tf.raw.tolist()
+    occ, cells = tf.occ.tolist(), c.tolist()
+    capw = -1 if cap is None else cap
+    pairs = 0
+    for i in range(ps.shape[0]):
+        for skip_self, step in ((True, 2), (False, 1)):
+            got = _range_walk(start, raw, occ, cells[i], i, r, capw,
+                              skip_self, step, band)
+            want = ([int(v) for v in j[i][member[i]]
+                     if not skip_self or int(v) != i]
+                    if i < n_live else [])
+            assert got == want, (i, skip_self)
+            pairs += len(got)
+    assert pairs > 0
 
 
 # ------------------------------------------------------------ pair terms --
