@@ -71,7 +71,27 @@ every phase passed; each prints its seconds):
    banded kernels' times (one launch on each shard), plain versions and
    bounds. The slab runs use the row slack of the JAX tests (4.0), since
    the golden and config-3 spawns are not spread evenly over z, and a halo
-   slack of 8.0.
+   slack of 8.0;
+9. the tuning variants (``SortedTuning``, the JAX ``PallasTuning``'s
+   semantic knobs; their libraries are built in phase 2 beside the
+   default ones, each build's seconds printed): each new instance held to
+   the plain version of its own variant at frame 0 and on the frame-10
+   states, at 262k and config 3 (K2/K3 with ``fuse_acc`` off, the
+   ``kahan`` K1, K2 and K3, the ``bf16`` K2, K2-ext, K3 and K5 force
+   modes), with the Kahan kernels' max |k - p64| printed beside the
+   default kernels' on the config-3 state, and two planted controls that
+   must fail: the bf16 K2-ext held to the f32 plain version and the
+   fuse_acc K2-ext with viscosity 0; then, each with the counters reset
+   before it, every variant's path selected through its ``SPH_PALLAS_*``
+   variable, 3 frames each (among them the unfused route, 1 K1 + 5 K3 a
+   frame and no K2, at 262k and config 3); the compact-route slab step on
+   ``LocalRing(4)`` at 262k and config 3 for 3 frames (4 K5-band density
+   and 20 K5-band substep launches a frame), its kernels held to their
+   banded plain versions on each shard's frame, and the calm 1k scene on
+   2 and 4 slabs (``exact_cert`` 0, within 2e-5 of the single-device
+   compact route); the CLI at config 3 with ``SPH_PALLAS_FUSED=0`` and
+   with ``SPH_PALLAS_KAHAN=1``; and each new instance's time, plain time
+   and bound, as in phase 7.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -108,6 +128,9 @@ XSPH, ALPHA = 0.3, 0.5          # BASELINE config 3 (README.md)
 # drops 20,711 boundary rows at frame 0)
 SLAB_D, SLAB_FRAMES, SLAB_SLACK, SLAB_HALO = 4, 3, 4.0, 8.0
 
+# the slab step on the compact route and the variants' paths: frames a path
+VARIANT_FRAMES = 3
+
 # The bound of a kernel: the larger of its bytes over the memory rate and
 # its FP32 operations over the FP32 rate outside the tensor cores (NVIDIA
 # H100 SXM, dense, from NVIDIA's H100 datasheet).
@@ -131,6 +154,16 @@ FP32_OPS_PER_S = 67e12
 # The kernels' add_pair_pj does more (the constants, 1/|r| by rsqrt).
 OPS_PER_PAIR = {"density": 12, "forces": 32, "fused": 32}
 OPS_PER_PAIR_EXT = 27
+# the variants (a kernel's name + its tags): kahan's compensation costs 3
+# more operations per accumulator and member pair (y = term - c, and
+# c = (t - s) - y, beside the sum's own add): one accumulator in density,
+# three in the fused-accumulator force pair, six more for the extension
+# sums; bf16 with rho_j from the candidate computes press_j and 1/rho_j per
+# pair (3) on the window route (K5 once a streamed slot: not counted);
+# fuse_acc off sums the same terms in two triples (the same count)
+KAHAN_ACCUMULATORS = {"density": 1, "forces": 3, "fused": 3}
+KAHAN_ACCUMULATORS_EXT = 6
+BF16_RHO_OPS = 3
 # per-row operations outside the pair loop: ρ·m; the fused tail 50 (+15
 # for the extension fold), into whose scales the constants fold; the
 # forces write the raw sums, so they apply the constants to them (6, +6
@@ -159,7 +192,21 @@ KERNELS = {
     "fused_substep_band": ("fused", "fused_substep.cu", "pallas_sph.py:961"),
     "fused_substep_ext_band": ("fused", "fused_substep.cu",
                                "pallas_sph.py:961"),
+    "compact_density_band": ("density", "compact.cu",
+                             "pallas_compact.py:237"),
+    "compact_substep_band": ("fused", "compact.cu", "pallas_compact.py:237"),
+    "compact_substep_ext_band": ("fused", "compact.cu",
+                                 "pallas_compact.py:237"),
 }
+# the variants' instances: the kernel's entry with the variant's tag
+# (sph_kernels.variant_tag)
+KERNELS.update({f"{name}+{tag}": KERNELS[name] for name, tags in (
+    ("density", ("kahan",)),
+    ("fused_substep", ("facc0", "kahan", "bf16")),
+    ("fused_substep_ext", ("facc0", "kahan", "bf16")),
+    ("forces", ("facc0", "kahan", "bf16")),
+    ("compact_substep", ("bf16",)), ("compact_substep_ext", ("bf16",)),
+    ("compact_forces", ("bf16",))) for tag in tags})
 
 
 def bound(name: str, n: int, r: int, pairs: int, ext: bool,
@@ -168,14 +215,24 @@ def bound(name: str, n: int, r: int, pairs: int, ext: bool,
     kernel ``name``'s work on n rows at resolution r with ``pairs`` member
     pairs (self pairs excluded for the force modes), with or without the
     extension sums. A banded instance gives its start tables' cells
-    ``s_cells`` (default R³) and its dead rows ``n_dead``."""
+    ``s_cells`` (default R³) and its dead rows ``n_dead``. A variant's
+    instance (``name`` with its tags) adds its own operations."""
     kind = KERNELS[name][0]
-    nbytes = n * (ROW_BYTES[kind] + (4 if name.startswith("compact") else 0)
-                  + (8 if kind != "density" else 0))
+    tags = name.split("+")[1:]
+    k5 = name.startswith("compact")
+    rho_j = "bf16" in tags and (ext or k5)        # pj not read
+    nbytes = n * (ROW_BYTES[kind] + (4 if k5 else 0)
+                  + (8 if kind != "density" and not rho_j else 0))
     nbytes += n_dead * DEAD_ROW_BYTES.get(kind, 0)
     cells = r ** 3 if s_cells is None else s_cells
     nbytes += 4 * (cells + 1) + 4 * 15            # start[], the scalars
-    ops = pairs * (OPS_PER_PAIR[kind] + (OPS_PER_PAIR_EXT if ext else 0))
+    per_pair = OPS_PER_PAIR[kind] + (OPS_PER_PAIR_EXT if ext else 0)
+    if "kahan" in tags:
+        per_pair += 3 * (KAHAN_ACCUMULATORS[kind]
+                         + (KAHAN_ACCUMULATORS_EXT if ext else 0))
+    if rho_j and not k5:
+        per_pair += BF16_RHO_OPS
+    ops = pairs * per_pair
     ops += n * (OPS_PER_ROW[kind] + (OPS_PER_ROW_EXT[kind] if ext else 0))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), \
@@ -230,17 +287,23 @@ def main() -> None:
     print(f"gpu: {ident} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | nvcc {cuda_build.nvcc_path()}", flush=True)
 
-    # ---- 2. build
+    # ---- 2. build: the default libraries and the variants' (phase 9)
+    FACC0, KAHAN, BF16 = (SortedTuning(fuse_acc=False),
+                          SortedTuning(kahan=True), SortedTuning(bf16=True))
     with Phase("build"):
-        libs = cuda_build.build()
+        libs = cuda_build.build((FACC0, KAHAN, BF16))
         cuda_build.load()
-        print(f"build: {', '.join(p.name for p in libs)}", flush=True)
+        for lib in libs:
+            secs = cuda_build.build_seconds.get(lib.name)
+            print(f"build {lib.name}: "
+                  f"{'cached' if secs is None else f'{secs:.2f} s of nvcc'}",
+                  flush=True)
 
     sizes = {"262k": GOLDEN_CONFIG, "1m": scaled_config(1 << 20)}
     c3 = SimConfig(particle_number=524288, preset=2, xsph=XSPH,
                    artificial_viscosity=ALPHA)
     k5 = SortedTuning(compact=True)
-    errs = dict.fromkeys(sk.launch_counts, 0.0)
+    errs = dict.fromkeys(KERNELS, 0.0)
 
     def frame_inputs(cfg, state):
         r, cap = cfg.bucket_resolution, cfg.voxel_capacity
@@ -297,8 +360,10 @@ def main() -> None:
 
     def compare_k5(cfg, state, label, forces=False, planted=False):
         """K5 against its plain versions: density on the frame, then the
-        fused substep (and the forces) on rows two plain substeps into the
-        frame, whose fresh cells may have left their tile's band."""
+        fused substep (and the forces) on rows two substeps into the frame
+        (two K5 launches), whose fresh cells may have left their tile's
+        band. The drift count of each kernel equals its plain version's
+        (the fresh spans of the same rows)."""
         frame, pos_s, vel_s, phys, r, cap = frame_inputs(cfg, state)
         xs, al = cfg.xsph, cfg.artificial_viscosity
         ext = sk.uses_extensions(xs, al)
@@ -308,31 +373,28 @@ def main() -> None:
         same_cert(ck, cp, "K5 density", label)
         rows = sk.pack_rows(pos_s, vel_s, rho_p)
         for _ in range(2):
-            rows, _ = compact.compact_substep_plain(frame, rows, phys, r, xs,
-                                                    al)
+            rows, _ = compact.compact_substep_cuda(frame, rows, phys, r, cap,
+                                                   xs, al)
+        cp = compact.spans_of(frame, rows[:, 0:3], r, True)[1]
         name = "compact_substep_ext" if ext else "compact_substep"
         out_k, ck = compact.compact_substep_cuda(frame, rows, phys, r, cap,
                                                  xs, al)
-        out_p, cp = compact.compact_substep_plain(frame, rows, phys, r, xs,
-                                                  al)
-        line = must_pass(sk.substep_accuracy(
-            frame, rows, out_k, phys, r, None, xs, al,
-            sums_fn=compact.compact_sums_plain), f"K5 {name}", label)
+        ref = sk.substep_reference(frame, rows, phys, r, None, xs, al,
+                                   compact.compact_sums_plain)
+        line = must_pass(sk.hold(out_k, ref), f"K5 {name}", label)
         drift = same_cert(ck, cp, f"K5 {name}", label)
-        e_s = max_err(out_k, out_p)
+        e_s = max_err(out_k[:, :6], ref.p32)
         errs[name] = max(errs[name], e_s)
         print(f"compare {label}: {name} on substep 3 max|k-p| {e_s:.3e}, "
               f"{line}; drift count {drift} (plain {int(cp)})", flush=True)
         if forces:
             s_k, ck = compact.forces_compact_cuda(frame, rows, phys, r, cap)
-            s_p, cp = compact.forces_compact_plain(frame, rows, phys, r)
-            f_k = sk.fold_forces(s_k, rows[:, 6], phys)[0]
-            f_p = sk.fold_forces(s_p, rows[:, 6], phys)[0]
-            line = must_pass(sk.forces_accuracy(
-                frame, rows, f_k, None, phys, r, None,
-                sums_fn=compact.compact_sums_plain), "K5 forces", label)
+            f_k = sk.fold_forces(s_k, rows[:, 6], phys, fuse_acc=False)[0]
+            ref_f = sk.forces_reference(frame, rows, phys, r, None,
+                                        sums_fn=compact.compact_sums_plain)
+            line = must_pass(sk.hold(f_k, ref_f), "K5 forces", label)
             drift = same_cert(ck, cp, "K5 forces", label)
-            e_f = max_err(f_k, f_p)
+            e_f = max_err(f_k, ref_f.p32)
             errs["compact_forces"] = max(errs["compact_forces"], e_f)
             print(f"compare {label}: compact_forces max|k-p| {e_f:.3e}, "
                   f"{line}; drift count {drift}", flush=True)
@@ -341,78 +403,94 @@ def main() -> None:
                 viscosity=torch.zeros_like(phys.viscosity))
             bad, _ = compact.compact_substep_cuda(frame, rows, no_visc, r,
                                                   cap, xs, al)
-            must_fail(sk.substep_accuracy(
-                frame, rows, bad, phys, r, None, xs, al,
-                sums_fn=compact.compact_sums_plain),
-                "the K5 substep with viscosity 0", label)
+            must_fail(sk.hold(bad, ref),
+                      "the K5 substep with viscosity 0", label)
 
-    def compare(cfg, state, label, planted=False):
-        """K1 and K2 against their plain versions (the faithful path)."""
+    DEFAULT = SortedTuning()
+
+    def hold_out(name, out, ref, label):
+        """Holds ``out`` to ``ref`` (it must pass); the max |k - p32| joins
+        kernel ``name``'s error; returns it and the rule's line."""
+        line = must_pass(sk.hold(out, ref), name, label)
+        n = ref.p32.shape[1]
+        e = max_err(out[:, :n], ref.p32)
+        errs[name] = max(errs[name], e)
+        return e, line
+
+    def compare(cfg, state, label, planted=False, tunes=(DEFAULT,)):
+        """K1 and K2 against their plain versions (the faithful path), K2
+        in each variant of ``tunes`` against the plain version of its own
+        variant; with ``planted`` the default K2 with viscosity 0 must
+        fail."""
         frame, pos_s, vel_s, phys, r, cap = frame_inputs(cfg, state)
         _, rho_p = compare_density(frame, pos_s, phys, r, cap, label)
         rows = sk.pack_rows(pos_s, vel_s, rho_p)
-        out_k = sk.fused_substep_cuda(frame, rows, phys, r, cap)
-        line = must_pass(sk.substep_accuracy(frame, rows, out_k, phys, r,
-                                             cap), "substep kernel", label)
-        e_s = max_err(out_k, sk.fused_substep_plain(frame, rows, phys, r,
-                                                    cap))
-        errs["fused_substep"] = max(errs["fused_substep"], e_s)
-        print(f"compare {label}: substep max|k-p| {e_s:.3e}, {line}; "
-              f"overflow {int((~frame.occ).sum())}", flush=True)
-        if planted:
-            # the substep kernel without viscosity must fail the check, or
-            # the check cannot see a viscosity fault
-            no_visc = phys._replace(
-                viscosity=torch.zeros_like(phys.viscosity))
-            must_fail(sk.substep_accuracy(
-                frame, rows, sk.fused_substep_cuda(frame, rows, no_visc, r,
-                                                   cap), phys, r, cap),
-                "the substep kernel with viscosity 0", label)
+        for tune in tunes:
+            name = "fused_substep" + sk.variant_tag("fused_substep.cu", tune)
+            ref = sk.substep_reference(frame, rows, phys, r, cap, tune=tune)
+            out_k = sk.fused_substep_cuda(frame, rows, phys, r, cap,
+                                          tune=tune)
+            e_s, line = hold_out(name, out_k, ref, label)
+            print(f"compare {label}: {name} max|k-p| {e_s:.3e}, {line}; "
+                  f"overflow {int((~frame.occ).sum())}", flush=True)
+            if planted and tune == DEFAULT:
+                # the substep kernel without viscosity must fail the check,
+                # or the check cannot see a viscosity fault
+                no_visc = phys._replace(
+                    viscosity=torch.zeros_like(phys.viscosity))
+                must_fail(sk.hold(sk.fused_substep_cuda(frame, rows, no_visc,
+                                                        r, cap), ref),
+                          "the substep kernel with viscosity 0", label)
+        return frame, rows, phys, r, cap
 
-    def compare_ext(cfg, state, label, planted=False):
-        """K1, K2-ext, K3 and K3 + integrate_substep at config 3."""
+    def compare_ext(cfg, state, label, planted=False, tunes=(DEFAULT,)):
+        """K1, K2-ext, K3 and K3 + integrate_substep at config 3, K2-ext
+        and K3 in each variant of ``tunes`` against the plain version of
+        its own variant; returns the frame's inputs and, for each variant,
+        K2-ext's output and reference and K3's folded output and
+        reference."""
         frame, pos_s, vel_s, phys, r, cap = frame_inputs(cfg, state)
         rho_k, _ = compare_density(frame, pos_s, phys, r, cap, label)
         rows = sk.pack_rows(pos_s, vel_s, rho_k)
-        k2 = sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH, ALPHA)
-        line2 = must_pass(sk.substep_accuracy(frame, rows, k2, phys, r, cap,
-                                              XSPH, ALPHA),
-                          "the substep kernel with extensions", label)
-        e2 = max_err(k2, sk.fused_substep_plain(frame, rows, phys, r, cap,
-                                                XSPH, ALPHA))
-        sums = sk.forces_cuda(frame, rows, phys, r, cap, ext=True)
-        f, dv = sk.fold_forces(sums, rows[:, 6], phys, XSPH, ALPHA)
-        line3 = must_pass(sk.forces_accuracy(frame, rows, f, dv, phys, r,
-                                             cap, XSPH, ALPHA),
-                          "the forces kernel", label)
-        fp, dvp = sk.fold_forces(sk.forces_plain(frame, rows, phys, r, cap,
-                                                 ext=True),
-                                 rows[:, 6], phys, XSPH, ALPHA)
-        e3 = max(max_err(f, fp), max_err(dv, dvp))
-        pos_n, vel_n, nan = integrate_substep(rows[:, 0:3], rows[:, 3:6], f,
-                                              phys, dv)
-        k3 = sk.pack_rows(pos_n, vel_n, rows[:, 6],
-                          rows[:, 7] + nan.to(rows.dtype))
-        line32 = must_pass(sk.substep_accuracy(frame, rows, k3, phys, r, cap,
-                                               XSPH, ALPHA),
-                           "K3 + integrate_substep", label)
-        e32 = max_err(k3, k2)
-        errs["fused_substep_ext"] = max(errs["fused_substep_ext"], e2)
-        errs["forces"] = max(errs["forces"], e3)
-        print(f"compare {label}: substep-ext max|k-p| {e2:.3e}, {line2}; "
-              f"forces max|k-p| {e3:.3e}, {line3}; K3+integrate vs "
-              f"substep-ext max|diff| {e32:.3e}, {line32}; overflow "
-              f"{int((~frame.occ).sum())}", flush=True)
-        if planted:
-            must_fail(sk.substep_accuracy(
-                frame, rows, sk.fused_substep_cuda(frame, rows, phys, r, cap,
-                                                   XSPH, 0.0),
-                phys, r, cap, XSPH, ALPHA),
-                "the substep kernel with the artificial viscosity 0", label)
-            f0, dv0 = sk.fold_forces(sums, rows[:, 6], phys, 0.0, ALPHA)
-            must_fail(sk.forces_accuracy(frame, rows, f0, dv0, phys, r, cap,
-                                         XSPH, ALPHA),
-                      "the forces kernel with XSPH 0", label)
+        accs = {}
+        for tune in tunes:
+            n2 = "fused_substep_ext" + sk.variant_tag("fused_substep.cu",
+                                                      tune)
+            n3 = "forces" + sk.variant_tag("forces.cu", tune)
+            ref2 = sk.substep_reference(frame, rows, phys, r, cap, XSPH,
+                                        ALPHA, tune=tune)
+            k2 = sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH,
+                                       ALPHA, tune=tune)
+            e2, line2 = hold_out(n2, k2, ref2, label)
+            ref3 = sk.forces_reference(frame, rows, phys, r, cap, XSPH,
+                                       ALPHA, tune=tune)
+            sums = sk.forces_cuda(frame, rows, phys, r, cap, True,
+                                  tune=tune)
+            f, dv = sk.fold_forces(sums, rows[:, 6], phys, XSPH, ALPHA,
+                                   fuse_acc=tune.fuse_acc)
+            e3, line3 = hold_out(n3, sk.forces_out(f, dv, XSPH), ref3,
+                                 label)
+            accs[tune] = (k2, ref2, sk.forces_out(f, dv, XSPH), ref3)
+            pos_n, vel_n, nan = integrate_substep(rows[:, 0:3], rows[:, 3:6],
+                                                  f, phys, dv)
+            k3 = sk.pack_rows(pos_n, vel_n, rows[:, 6],
+                              rows[:, 7] + nan.to(rows.dtype))
+            line32 = must_pass(sk.hold(k3, ref2),
+                               f"{n3} + integrate_substep", label)
+            e32 = max_err(k3, k2)
+            print(f"compare {label}: {n2} max|k-p| {e2:.3e}, {line2}; {n3} "
+                  f"max|k-p| {e3:.3e}, {line3}; K3+integrate vs "
+                  f"substep-ext max|diff| {e32:.3e}, {line32}; overflow "
+                  f"{int((~frame.occ).sum())}", flush=True)
+            if planted and tune == DEFAULT:
+                must_fail(sk.hold(sk.fused_substep_cuda(
+                    frame, rows, phys, r, cap, XSPH, 0.0), ref2),
+                    "the substep kernel with the artificial viscosity 0",
+                    label)
+                f0, dv0 = sk.fold_forces(sums, rows[:, 6], phys, 0.0, ALPHA)
+                must_fail(sk.hold(sk.forces_out(f0, dv0, XSPH), ref3),
+                          "the forces kernel with XSPH 0", label)
+        return frame, rows, phys, r, cap, accs
 
     # ---- 3. compare at frame 0 (out-of-cube spawns)
     with Phase("compare frame 0"):
@@ -429,9 +507,24 @@ def main() -> None:
 
     # ---- 4. main paths, each after a one-frame warm-up (the first launch
     # of each torch kernel loads its module; that is set-up time)
-    launches_total = dict.fromkeys(sk.launch_counts, 0)
+    launches_total = dict.fromkeys(KERNELS, 0)
 
-    def run_path(label, rolls, inputs, want, cfgs, exact=True):
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    def read_launches(label, want):
+        """The counters since the last reset, which must be ``want``'s
+        nonzero entries exactly; added to the kernels' totals."""
+        launches = nonzero(sk.launch_counts)
+        print(f"launches in {label}: {launches}", flush=True)
+        if launches != nonzero(want):
+            fail(f"{label}: launch counts {launches}, expected "
+                 f"{nonzero(want)}")
+        for name, c in launches.items():
+            launches_total[name] += c
+
+    def run_path(label, rolls, inputs, want, cfgs, exact=True,
+                 frames=FRAMES):
         torch.cuda.synchronize()
         sk.reset_launch_counts()
         results = {}
@@ -440,12 +533,7 @@ def main() -> None:
             final, m = roll(inputs[k])
             torch.cuda.synchronize()
             results[k] = (final, m, time.perf_counter() - t0)
-        launches = dict(sk.launch_counts)
-        print(f"launches in {label}: {launches}", flush=True)
-        if launches != want:
-            fail(f"{label}: launch counts {launches}, expected {want}")
-        for name, c in launches.items():
-            launches_total[name] += c
+        read_launches(label, want)
         for k, (final, m, dt) in results.items():
             cfg = cfgs[k]
             pos = final.pos
@@ -463,9 +551,9 @@ def main() -> None:
                 fail(f"{k}: positions outside [0, 1]")
             if exact and cert != 0:
                 fail(f"{k}: exact_cert {cert}")
-            rate = cfg.n_particles * cfg.substeps * FRAMES / dt
+            rate = cfg.n_particles * cfg.substeps * frames / dt
             print(f"rollout {k}: N={cfg.n_particles} "
-                  f"R={cfg.bucket_resolution} {FRAMES} frames in {dt:.4f} s "
+                  f"R={cfg.bucket_resolution} {frames} frames in {dt:.4f} s "
                   f"= {rate:.6g} particle-substeps/s; exact_cert "
                   f"{cert} {m.exact_cert.tolist()}; non-finite position "
                   f"rows {bad}; overflow per frame "
@@ -576,21 +664,26 @@ def main() -> None:
         argv = ["run", "--device", "cuda", "--particles", "524288",
                 "--preset", "2", "--xsph", str(XSPH), "--alpha-visc",
                 str(ALPHA), "--frames", "3"]
+        # the route and the variant from the SPH_PALLAS_* variables, as the
+        # JAX CLI's users set them
         for extra, env, want in (
-                ([], "0", dict(zero, density=3, fused_substep_ext=15)),
-                (["--corrected"], "0", dict(zero, density=18, forces=15)),
-                ([], "1", dict(zero, compact_density=3,
-                               compact_substep_ext=15))):
-            os.environ["SPH_PALLAS_COMPACT"] = env
+                ([], {}, dict(density=3, fused_substep_ext=15)),
+                (["--corrected"], {}, dict(density=18, forces=15)),
+                ([], {"SPH_PALLAS_COMPACT": "1"},
+                 dict(compact_density=3, compact_substep_ext=15)),
+                ([], {"SPH_PALLAS_FUSED": "0"}, dict(density=3, forces=15)),
+                ([], {"SPH_PALLAS_KAHAN": "1"},
+                 {"density+kahan": 3, "fused_substep_ext+kahan": 15})):
+            os.environ.update(env)
             sk.reset_launch_counts()
             rc = cli.main(argv + extra)
-            launches = dict(sk.launch_counts)
-            print(f"cli SPH_PALLAS_COMPACT={env} {' '.join(argv + extra)}: "
-                  f"exit {rc}, launches {launches}", flush=True)
-            if rc != 0 or launches != want:
-                fail(f"the CLI run {extra} (SPH_PALLAS_COMPACT={env}) exits "
-                     f"{rc} with launches {launches}, expected 0 and {want}")
-        del os.environ["SPH_PALLAS_COMPACT"]
+            for var in env:
+                del os.environ[var]
+            label = f"cli {env or 'default'} {' '.join(argv + extra)}"
+            print(f"{label}: exit {rc}", flush=True)
+            if rc != 0:
+                fail(f"{label} exits {rc}")
+            read_launches(label, want)
 
     # ---- 7. timing, kernel vs plain vs bound, at each path's frame-10
     # state of the K1-K3 route; K5 at the same states
@@ -780,16 +873,10 @@ def main() -> None:
                 if f == 0:
                     sst1 = sst
             torch.cuda.synchronize()
-            launches = dict(sk.launch_counts)
             want = dict(zero, density_band=SLAB_D * SLAB_FRAMES)
             want["fused_substep_ext_band" if ext else "fused_substep_band"] \
                 = 5 * SLAB_D * SLAB_FRAMES
-            print(f"launches in the slab path {key}: {launches}", flush=True)
-            if launches != want:
-                fail(f"slab path {key}: launch counts {launches}, expected "
-                     f"{want}")
-            for name, c in launches.items():
-                launches_total[name] += c
+            read_launches(f"the slab path {key}", want)
             out1, lost = collect(sst1, cfg.n_particles)
             diffs = [float((a.double() - b.double()).abs().max())
                      for a, b in zip(out1, ref1)]
@@ -927,6 +1014,355 @@ def main() -> None:
                            for sf, mid, _ in ins],
                   s_cells=cells, n_dead=n_dead)
 
+    # ---- 9. the tuning variants and the banded K5
+    vtunes = (FACC0, KAHAN, BF16)
+
+    def compare_k5_bf16(cfg, state, label, forces=False):
+        """K5's bf16 force modes against their plain versions on the
+        frame-start rows (the window route's density), the drift count
+        equal to the plain version's."""
+        frame, pos_s, vel_s, phys, r, cap = frame_inputs(cfg, state)
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        rows = sk.pack_rows(pos_s, vel_s,
+                            sk.density_plain(frame, pos_s, phys, r, cap))
+        cp = compact.spans_of(frame, pos_s, r, True)[1]
+        name = ("compact_substep_ext" if sk.uses_extensions(xs, al)
+                else "compact_substep") + "+bf16"
+        ref = sk.substep_reference(frame, rows, phys, r, None, xs, al,
+                                   compact.compact_sums_plain, tune=BF16)
+        out, ck = compact.compact_substep_cuda(frame, rows, phys, r, cap,
+                                               xs, al, tune=BF16)
+        e, line = hold_out(name, out, ref, label)
+        same_cert(ck, cp, name, label)
+        print(f"compare {label}: {name} max|k-p| {e:.3e}, {line}; drift "
+              f"count {int(ck)}", flush=True)
+        if forces:
+            ref_f = sk.forces_reference(frame, rows, phys, r, None,
+                                        sums_fn=compact.compact_sums_plain,
+                                        tune=BF16)
+            sums, ck = compact.forces_compact_cuda(frame, rows, phys, r, cap,
+                                                   tune=BF16)
+            f = sk.fold_forces(sums, rows[:, 6], phys, fuse_acc=False)[0]
+            e, line = hold_out("compact_forces+bf16", f, ref_f, label)
+            same_cert(ck, cp, "compact_forces+bf16", label)
+            print(f"compare {label}: compact_forces+bf16 max|k-p| {e:.3e}, "
+                  f"{line}", flush=True)
+
+    def compare_variants(label, st262, st_c3, st_k5_262, st_k5_c3,
+                         planted=False):
+        """Each new instance against the plain version of its variant at
+        262k and config 3; the Kahan kernels' max |k - p64| beside the
+        default kernels' at config 3; with ``planted`` the two controls."""
+        lab = f"262k {label}"
+        frame, rows, phys, r, cap = compare(sizes["262k"], st262, lab,
+                                            tunes=vtunes)
+        pos_s = rows[:, 0:3].contiguous()
+        hold_density(sk.density_cuda(frame, pos_s, phys, r, cap,
+                                     tune=KAHAN),
+                     sk.density_plain(frame, pos_s, phys, r, cap,
+                                      tune=KAHAN), "density+kahan", lab)
+        for tune in vtunes:
+            name = "forces" + sk.variant_tag("forces.cu", tune)
+            ref = sk.forces_reference(frame, rows, phys, r, cap, tune=tune)
+            f = sk.fold_forces(sk.forces_cuda(frame, rows, phys, r, cap,
+                                              tune=tune),
+                               rows[:, 6], phys, fuse_acc=tune.fuse_acc)[0]
+            e, line = hold_out(name, f, ref, lab)
+            print(f"compare {lab}: {name} (no extensions) max|k-p| "
+                  f"{e:.3e}, {line}", flush=True)
+        compare_k5_bf16(sizes["262k"], st_k5_262, lab, forces=True)
+        lab = f"config 3 {label}"
+        frame, rows, phys, r, cap, outs = compare_ext(
+            c3, st_c3, lab, tunes=(DEFAULT,) + vtunes)
+        pos_s = rows[:, 0:3].contiguous()
+        rho_kahan = sk.density_cuda(frame, pos_s, phys, r, cap, tune=KAHAN)
+        hold_density(rho_kahan, sk.density_plain(frame, pos_s, phys, r, cap,
+                                                 tune=KAHAN),
+                     "density+kahan", lab)
+        p64 = sk.density_plain(frame, pos_s.double(), PhysParams(
+            *(t.double() for t in phys)), r, cap)
+        e_k1 = [float((x.double() - p64).abs().max()) for x in
+                (rho_kahan, sk.density_cuda(frame, pos_s, phys, r, cap))]
+        errs_k = {t: (sk.hold(k2, ref2).err, sk.hold(k3, ref3).err)
+                  for t, (k2, ref2, k3, ref3) in outs.items()}
+        print(f"kahan vs default, {lab}: max|k-p64| K1 {e_k1[0]:.6e} vs "
+              f"{e_k1[1]:.6e}; K2-ext {errs_k[KAHAN][0]:.6e} vs "
+              f"{errs_k[DEFAULT][0]:.6e}; K3 {errs_k[KAHAN][1]:.6e} vs "
+              f"{errs_k[DEFAULT][1]:.6e} (each against the float64 "
+              f"evaluation of its own variant)", flush=True)
+        compare_k5_bf16(c3, st_k5_c3, lab)
+        if planted:
+            k2_bf16, ref_def = outs[BF16][0], outs[DEFAULT][1]
+            must_fail(sk.hold(k2_bf16, ref_def),
+                      "the bf16 K2-ext held to the f32 plain version", lab)
+            no_visc = phys._replace(
+                viscosity=torch.zeros_like(phys.viscosity))
+            must_fail(sk.hold(sk.fused_substep_cuda(frame, rows, no_visc, r,
+                                                    cap, XSPH, ALPHA),
+                              ref_def),
+                      "the fuse_acc K2-ext with viscosity 0", lab)
+
+    with Phase("tuning variants: compare frame 0"):
+        compare_variants("frame 0", states0["262k"], c3_state,
+                         states0["262k"], c3_state)
+    with Phase(f"tuning variants: compare frame {FRAMES}"):
+        compare_variants(f"frame {FRAMES}", states["262k"],
+                         c3_states["config 3 faithful"], k5_states["262k"],
+                         k5_states["config 3 faithful, compact"],
+                         planted=True)
+
+    # every variant's path, selected through its SPH_PALLAS_* variable
+    # (make_rollout reads them), VARIANT_FRAMES frames from the spawn
+    vf = VARIANT_FRAMES
+    variant_paths = (
+        ("unfused 262k", {"SPH_PALLAS_FUSED": "0"}, "262k",
+         {"density": vf, "forces": 5 * vf}),
+        ("unfused config 3", {"SPH_PALLAS_FUSED": "0"}, "c3",
+         {"density": vf, "forces": 5 * vf}),
+        ("facc0 262k", {"SPH_PALLAS_FACC": "0"}, "262k",
+         {"density": vf, "fused_substep+facc0": 5 * vf}),
+        ("facc0 config 3", {"SPH_PALLAS_FACC": "0"}, "c3",
+         {"density": vf, "fused_substep_ext+facc0": 5 * vf}),
+        ("facc0 unfused 262k", {"SPH_PALLAS_FACC": "0",
+                                "SPH_PALLAS_FUSED": "0"}, "262k",
+         {"density": vf, "forces+facc0": 5 * vf}),
+        ("kahan 262k", {"SPH_PALLAS_KAHAN": "1"}, "262k",
+         {"density+kahan": vf, "fused_substep+kahan": 5 * vf}),
+        ("kahan unfused config 3", {"SPH_PALLAS_KAHAN": "1",
+                                    "SPH_PALLAS_FUSED": "0"}, "c3",
+         {"density+kahan": vf, "forces+kahan": 5 * vf}),
+        ("bf16 262k", {"SPH_PALLAS_BF16": "1"}, "262k",
+         {"density": vf, "fused_substep+bf16": 5 * vf}),
+        ("bf16 config 3", {"SPH_PALLAS_BF16": "1"}, "c3",
+         {"density": vf, "fused_substep_ext+bf16": 5 * vf}),
+        ("bf16 unfused 262k", {"SPH_PALLAS_BF16": "1",
+                               "SPH_PALLAS_FUSED": "0"}, "262k",
+         {"density": vf, "forces+bf16": 5 * vf}),
+        ("bf16 compact 262k", {"SPH_PALLAS_BF16": "1",
+                               "SPH_PALLAS_COMPACT": "1"}, "262k",
+         {"compact_density": vf, "compact_substep+bf16": 5 * vf}),
+        ("bf16 compact config 3", {"SPH_PALLAS_BF16": "1",
+                                   "SPH_PALLAS_COMPACT": "1"}, "c3",
+         {"compact_density": vf, "compact_substep_ext+bf16": 5 * vf}),
+        ("bf16 compact unfused 262k", {"SPH_PALLAS_BF16": "1",
+                                       "SPH_PALLAS_COMPACT": "1",
+                                       "SPH_PALLAS_FUSED": "0"}, "262k",
+         {"compact_density": vf, "compact_forces+bf16": 5 * vf}))
+    with Phase("tuning variants: paths"):
+        for label, env, key, want in variant_paths:
+            cfg, st0 = ((c3, c3_state) if key == "c3"
+                        else (sizes[key], states0[key]))
+            os.environ.update(env)
+            try:
+                roll = make_rollout(cfg, vf, device=dev)
+            finally:
+                for var in env:
+                    del os.environ[var]
+            run_path(f"the {label} path ({env})", {label: roll},
+                     {label: st0}, want, {label: cfg},
+                     exact="SPH_PALLAS_COMPACT" not in env, frames=vf)
+
+    # the slab step on the compact route: the banded K5
+    slab_k5 = {}
+    for key, (cfg, st0) in slab_cfgs.items():
+        with Phase(f"tuning variants: compact slab path {key}"):
+            step, spec = make_pallas_slab_step(
+                cfg, LocalRing(SLAB_D), row_slack=SLAB_SLACK,
+                halo_slack=SLAB_HALO, tune=k5)
+            phys = PhysParams.from_config(cfg, dev)
+            ext = sk.uses_extensions(cfg.xsph, cfg.artificial_viscosity)
+            sst = distribute(st0, cfg, spec)
+            torch.cuda.synchronize()
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            ms = []
+            for _ in range(vf):
+                sst, m = step(sst, phys)
+                ms.append(m)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            want = {"compact_density_band": SLAB_D * vf,
+                    ("compact_substep_ext_band" if ext
+                     else "compact_substep_band"): 5 * SLAB_D * vf}
+            read_launches(f"the compact slab path {key}", want)
+            pos = sst.pos[sst.valid]
+            fin = torch.isfinite(pos).all(1)
+            certs = [int(x.exact_cert) for x in ms]
+            print(f"compact slab {key} ({SLAB_D} slabs, {vf} frames from "
+                  f"the spawn, {dt:.4f} s): exact_cert {certs}, overflow "
+                  f"{[int(x.overflow) for x in ms]}, own rows with "
+                  f"non-finite positions {int((~fin).sum())} [{ident}]",
+                  flush=True)
+            if not bool(fin.all()) and sum(certs) == 0:
+                fail(f"compact slab {key}: non-finite positions with "
+                     f"exact_cert 0")
+            if not bool(((pos[fin] >= 0) & (pos[fin] <= 1)).all()):
+                fail(f"compact slab {key}: own rows outside [0, 1]")
+            slab_k5[key] = (spec, sst)
+
+    with Phase("tuning variants: compact slab compare"):
+        for key, (cfg, _) in slab_cfgs.items():
+            spec, sst = slab_k5[key]
+            phys = PhysParams.from_config(cfg, dev)
+            r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+            xs, al = cfg.xsph, cfg.artificial_viscosity
+            name = ("compact_substep_ext_band" if sk.uses_extensions(xs, al)
+                    else "compact_substep_band")
+            for k, sf in enumerate(shard_frames(cfg, spec, ring, sst)):
+                lab = f"{key} compact slab frame {vf}, shard {k}"
+                rho_k, _ = compact.density_compact_cuda(
+                    sf.frame, sf.pos_s, phys, r, cap, band=sf.band)
+                rho_p, _ = compact.density_compact_plain(
+                    sf.frame, sf.pos_s, phys, r, sf.band)
+                hold_density(rho_k, rho_p, "compact_density_band", lab)
+                rows = sk.pack_rows(sf.pos_s, sf.vel_s, rho_p)
+                ref = sk.substep_reference(sf.frame, rows, phys, r, None, xs,
+                                           al, compact.compact_sums_plain,
+                                           sf.band)
+                out, ck = compact.compact_substep_cuda(
+                    sf.frame, rows, phys, r, cap, xs, al, band=sf.band)
+                e, line = hold_out(name, out, ref, lab)
+                same_cert(ck, compact.spans_of(sf.frame, rows[:, 0:3], r,
+                                               True, sf.band)[1], name, lab)
+                print(f"compare {lab}: {name} max|k-p| {e:.3e}, {line}; "
+                      f"band {sf.band}, live rows {int(sf.frame.start[-1])}"
+                      f", drift count {int(ck)}", flush=True)
+
+    with Phase("tuning variants: compact slab calm 1k"):
+        calm = SimConfig(particle_number=1024, bucket_resolution=11,
+                         preset=0, gas_constant=20.0, rest_density=1.7,
+                         viscosity=0.05, stiffness_coefficient=1000.0,
+                         frame_dt=1 / 240)
+        s0 = initial_state(calm, dev)
+        ref, _ = make_rollout(calm, 3, tune=k5, device=dev)(s0)
+        for d in (2, 4):
+            step, spec = make_pallas_slab_step(calm, LocalRing(d),
+                                               row_slack=SLAB_SLACK,
+                                               halo_slack=SLAB_HALO, tune=k5)
+            phys = PhysParams.from_config(calm, dev)
+            sst = distribute(s0, calm, spec)
+            certs = []
+            for _ in range(3):
+                sst, m = step(sst, phys)
+                certs.append(int(m.exact_cert))
+            out, lost = collect(sst, calm.n_particles)
+            e = float((out.pos - ref.pos).abs().max())
+            e_v = float((out.vel - ref.vel).abs().max())
+            print(f"compact slab calm 1k, {d} slabs, 3 frames: max |dpos| "
+                  f"{e:.3e} (< 2e-5), max |dvel| {e_v:.3e}, exact_cert "
+                  f"{certs}, lost {lost}", flush=True)
+            if certs != [0, 0, 0] or lost or not e < 2e-5:
+                fail(f"the calm compact slab run on {d} slabs")
+
+    with Phase("tuning variants: timing"):
+        for shape, (cfg, st) in (("262k", shapes["262k"]),
+                                 ("c3", shapes["c3"])):
+            frame, pos_s, vel_s, phys, r, cap = frame_inputs(cfg, st)
+            n = pos_s.shape[0]
+            xs, al = cfg.xsph, cfg.artificial_viscosity
+            ext = sk.uses_extensions(xs, al)
+            rows = sk.pack_rows(pos_s, vel_s,
+                                sk.density_cuda(frame, pos_s, phys, r, cap))
+            mid = rows
+            for _ in range(2):
+                mid = sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al)
+            scal, scal_f = sk.scal_block(phys), sk.scal_block(phys, xs, al)
+            pj = sk.pj_cols(rows[:, 6], phys)
+            tot, own = sk.member_pairs(frame, pos_s, r, cap)
+            m_tot, m_own = sk.member_pairs(frame, mid[:, 0:3], r, cap)
+            k_tot, k_own = compact.member_pairs(frame, mid[:, 0:3], r,
+                                                fresh=True)
+            ftot, fown = compact.member_pairs(frame, pos_s, r, fresh=True)
+            if not ext:
+                timed("density+kahan", shape, n, r, tot, False,
+                      lambda: sk.density_cuda(frame, pos_s, phys, r, cap,
+                                              scal, tune=KAHAN),
+                      lambda: sk.density_plain(frame, pos_s, phys, r, cap,
+                                               tune=KAHAN))
+            base = "fused_substep_ext" if ext else "fused_substep"
+            for tune in vtunes:
+                name = base + sk.variant_tag("fused_substep.cu", tune)
+                timed(name, shape, n, r, m_tot - m_own, ext,
+                      lambda: sk.fused_substep_cuda(frame, mid, phys, r, cap,
+                                                    xs, al, pj, scal_f,
+                                                    tune=tune),
+                      lambda: sk.fused_substep_plain(frame, mid, phys, r,
+                                                     cap, xs, al, tune=tune))
+                name = "forces" + sk.variant_tag("forces.cu", tune)
+                timed(name, shape, n, r, tot - own, ext,
+                      lambda: sk.forces_cuda(frame, rows, phys, r, cap, ext,
+                                             pj, scal, tune=tune),
+                      lambda: sk.forces_plain(frame, rows, phys, r, cap, ext,
+                                              tune=tune))
+            name = ("compact_substep_ext" if ext else "compact_substep") \
+                + "+bf16"
+            timed(name, shape, n, r, k_tot - k_own, ext,
+                  lambda: compact.compact_substep_cuda(frame, mid, phys, r,
+                                                       cap, xs, al, pj,
+                                                       scal_f, tune=BF16),
+                  lambda: compact.compact_substep_plain(frame, mid, phys, r,
+                                                        xs, al, tune=BF16))
+            if not ext:
+                timed("compact_forces+bf16", shape, n, r, ftot - fown, False,
+                      lambda: compact.forces_compact_cuda(frame, rows, phys,
+                                                          r, cap, pj, scal,
+                                                          tune=BF16),
+                      lambda: compact.forces_compact_plain(frame, rows, phys,
+                                                           r, BF16))
+        for key, (cfg, _) in slab_cfgs.items():
+            spec, sst = slab_k5[key]
+            phys = PhysParams.from_config(cfg, dev)
+            r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+            xs, al = cfg.xsph, cfg.artificial_viscosity
+            ext = sk.uses_extensions(xs, al)
+            sfs = shard_frames(cfg, spec, ring, sst)
+            scal, scal_f = sk.scal_block(phys), sk.scal_block(phys, xs, al)
+            ins = []
+            for sf in sfs:
+                rows = sk.pack_rows(sf.pos_s, sf.vel_s,
+                                    compact.density_compact_cuda(
+                                        sf.frame, sf.pos_s, phys, r, cap,
+                                        band=sf.band)[0])
+                mid = rows
+                for _ in range(2):
+                    mid, _ = compact.compact_substep_cuda(
+                        sf.frame, mid, phys, r, cap, xs, al, band=sf.band)
+                ins.append((sf, mid, sk.pj_cols(rows[:, 6], phys)))
+            n_live = sum(int(sf.frame.start[-1]) for sf in sfs)
+            n_dead = SLAB_D * spec.c_loc - n_live
+            cells = SLAB_D * spec.z_span * r * r
+            d_pairs = sum(compact.member_pairs(sf.frame, sf.pos_s, r, False,
+                                               sf.band)[0] for sf in sfs)
+            f_pairs = 0
+            for sf, mid, _ in ins:
+                tot, own = compact.member_pairs(sf.frame, mid[:, 0:3], r,
+                                                True, sf.band)
+                f_pairs += tot - own
+            shape = f"{key}_slab"
+            print(f"member pairs {shape}, compact route: density {d_pairs}, "
+                  f"substep 3 {f_pairs}; live rows {n_live} of "
+                  f"{SLAB_D * spec.c_loc}", flush=True)
+            if not ext:
+                timed("compact_density_band", shape, n_live, r, d_pairs,
+                      False,
+                      lambda: [compact.density_compact_cuda(
+                          sf.frame, sf.pos_s, phys, r, cap, scal, sf.band)
+                          for sf, _, _ in ins],
+                      lambda: [compact.density_compact_plain(
+                          sf.frame, sf.pos_s, phys, r, sf.band)
+                          for sf, _, _ in ins],
+                      s_cells=cells, n_dead=n_dead)
+            name = ("compact_substep_ext_band" if ext
+                    else "compact_substep_band")
+            timed(name, shape, n_live, r, f_pairs, ext,
+                  lambda: [compact.compact_substep_cuda(
+                      sf.frame, mid, phys, r, cap, xs, al, pj, scal_f,
+                      sf.band) for sf, mid, pj in ins],
+                  lambda: [compact.compact_substep_plain(
+                      sf.frame, mid, phys, r, xs, al, sf.band)
+                      for sf, mid, _ in ins],
+                  s_cells=cells, n_dead=n_dead)
+
     # the main shape of each kernel's path first; the others as ms_<shape>
     main_shape = {"density": "262k", "fused_substep": "262k",
                   "fused_substep_ext": "c3", "forces": "c3",
@@ -934,7 +1370,16 @@ def main() -> None:
                   "compact_substep_ext": "c3", "compact_forces": "262k",
                   "density_band": "262k_slab",
                   "fused_substep_band": "262k_slab",
-                  "fused_substep_ext_band": "c3_slab"}
+                  "fused_substep_ext_band": "c3_slab",
+                  "compact_density_band": "262k_slab",
+                  "compact_substep_band": "262k_slab",
+                  "compact_substep_ext_band": "c3_slab",
+                  "density+kahan": "262k"}
+    for name in KERNELS:
+        if "+" in name and name not in main_shape:
+            at_c3 = name.startswith(("fused_substep_ext",
+                                     "compact_substep_ext", "forces"))
+            main_shape[name] = "c3" if at_c3 else "262k"
     slab_text = (f", {SLAB_D} slabs: the sum of one launch on each shard's "
                  f"frame after {SLAB_FRAMES} slab frames")
     shape_text = {"262k": "262144 particles, R = 47",

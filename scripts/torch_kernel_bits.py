@@ -11,7 +11,10 @@ golden particles (R = 47) and at BASELINE config 3 (524,176 particles, XSPH
 metrics (K1 and K2, or K2-ext), a 2-frame corrected rollout's at config 3
 (K1 and K3 with extensions), and, on the frame built from the rollout's
 final state, K1's density, K2's (K2-ext's) substep and K3's sums, each
-launched through the tree's own wrapper without a band. The second form
+launched through the tree's own wrapper without a band. The rollouts and,
+in a tree whose wrappers take a tuning, the kernels run in the variant of
+the ``SPH_PALLAS_*`` variables (``sph_kernels.default_tuning``). The second
+form
 says, tensor by tensor, whether two such files hold the same bits, and exits
 1 if any differ. To compare the parent commit with the working tree in one
 call, from the root of a checkout:
@@ -21,10 +24,15 @@ call, from the root of a checkout:
     python3 scripts/torch_kernel_bits.py . build/change.pt
     python3 scripts/torch_kernel_bits.py --compare build/parent.pt \\
         build/change.pt
+
+To hold a variant of the change to the parent's default (the parent's
+kernels sum pressure and viscosity in two accumulators), run the change's
+line as ``SPH_PALLAS_FACC=0 python3 scripts/torch_kernel_bits.py . OUT``.
 """
 
 from __future__ import annotations
 
+import inspect
 import pathlib
 import sys
 
@@ -61,6 +69,9 @@ def save(root: pathlib.Path, out: str) -> None:
     if not cuda_build.CSRC.is_relative_to(root):
         sys.exit(f"imported the package from {cuda_build.CSRC}, not {root}")
     dev = torch.device("cuda")
+    # the variant of the environment, in a tree whose kernels take one
+    tuned = "tune" in inspect.signature(sk.fused_substep_cuda).parameters
+    kw = {"tune": sk.default_tuning()} if tuned else {}
     c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
                    artificial_viscosity=0.5)
     res = {}
@@ -78,13 +89,13 @@ def save(root: pathlib.Path, out: str) -> None:
                 res[f"{label} {mode} rollout {name}"] = t
         frame, (pos_s, vel_s) = build_frame(st.pos, r, cap,
                                             extras=(st.pos, st.vel))
-        rho = sk.density_cuda(frame, pos_s, phys, r, cap)
+        rho = sk.density_cuda(frame, pos_s, phys, r, cap, **kw)
         rows = sk.pack_rows(pos_s, vel_s, rho)
         res[f"{label} K1"] = rho
         res[f"{label} K2{'-ext' if xs else ''}"] = sk.fused_substep_cuda(
-            frame, rows, phys, r, cap, xs, al)
+            frame, rows, phys, r, cap, xs, al, **kw)
         res[f"{label} K3"] = sk.forces_cuda(frame, rows, phys, r, cap,
-                                            sk.uses_extensions(xs, al))
+                                            sk.uses_extensions(xs, al), **kw)
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in res.items()}, out)
     print(f"{root}: {len(res)} tensors to {out}")

@@ -19,14 +19,19 @@ the frame (and the K5 substep at 262k on frame-start rows); K5 forces at
 262k. The kernels are launched through their C entry points with every
 input built beforehand, so each time is the kernel's alone, on either tree
 (a tree whose entry points take pj, the j-side columns, K5's capacity or
-K1-K3's band of z-planes gets them; the band is the whole grid, (0, R)).
-Prints one line, with the card's name and power limit. To compare the
-parent commit with the working tree in one call, from the root of a
-checkout:
+the band of z-planes gets them; the band is the whole grid, (0, R)). The
+rollouts and, in a tree with variant libraries, the kernels run in the
+variant of the ``SPH_PALLAS_*`` variables (``sph_kernels.default_tuning``;
+the route is set by the script). Prints one line, with the card's name and
+power limit. To compare the parent commit with the working tree in one
+call, from the root of a checkout:
 
     git archive HEAD | (mkdir -p build/parent && tar -x -C build/parent)
     for root in build/parent . . build/parent; do
         python3 scripts/torch_rollout_ab.py $root; done
+
+and ``SPH_PALLAS_FACC=0 python3 scripts/torch_rollout_ab.py .`` times the
+change's two-accumulator instances, the parent's default kernels.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import pathlib
 import statistics
 import sys
 import time
+import types
 
 
 def main() -> None:
@@ -59,8 +65,9 @@ def main() -> None:
     dev = torch.device("cuda")
     c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
                    artificial_viscosity=0.5)
-    k5 = sk.SortedTuning(compact=True)
-    window = sk.SortedTuning(compact=False)
+    env_tune = sk.default_tuning()
+    k5 = env_tune._replace(compact=True)
+    window = env_tune._replace(compact=False)
     out = []
     for label, cfg, faithful, tune in (
             ("262k", GOLDEN_CONFIG, True, window),
@@ -105,11 +112,18 @@ def main() -> None:
         return statistics.median(ms)
 
     lib = cuda_build.load()
+    if hasattr(cuda_build, "function"):
+        # the C entry points of the environment's variant
+        srcs = {n: src for src, v in cuda_build.KERNELS.items() for n, _ in v}
+        lib = types.SimpleNamespace(**{
+            n: cuda_build.function(src, n, env_tune)
+            for n, src in srcs.items()})
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     sigs = {n: a for v in cuda_build.KERNELS.values() for n, a in v}
     takes_pj = len(sigs["sph_forces"]) >= 12
     takes_band = len(sigs["sph_density"]) == 12
-    k5_takes_pj = len(sigs["sph_compact"]) == 15
+    k5_takes_pj = len(sigs["sph_compact"]) >= 15
+    k5_takes_band = len(sigs["sph_compact"]) == 17
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
@@ -150,7 +164,8 @@ def main() -> None:
                     mode, int(use_ext), ptr(inp),
                     None if mode == compact._DENSITY else ptr(pj),
                     ptr(frame.cid), *tail, ptr(sc), ptr(dst), ptr(cert), n,
-                    r, -1 if cap is None else cap, stream)
+                    r, -1 if cap is None else cap,
+                    *((0, r) if k5_takes_band else ()), stream)
             return lib.sph_compact(mode, int(use_ext), ptr(inp),
                                    ptr(frame.cid), *tail, ptr(sc), ptr(dst),
                                    ptr(cert), n, r, stream)

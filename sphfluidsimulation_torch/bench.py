@@ -39,7 +39,8 @@ def scaled_config(n_particles: int) -> SimConfig:
 def run_bench(n_particles: int = 1 << 20, frames: int = 20,
               warmup_frames: int = 5, tune: SortedTuning | None = None,
               steady_frames: int = 0) -> dict:
-    """``tune`` selects the route (None reads ``SPH_PALLAS_COMPACT``);
+    """``tune`` selects the route and variant (None reads the
+    ``SPH_PALLAS_*`` variables);
     ``steady_frames`` > 0 adds the ``steady_state_*`` keys."""
     if not torch.cuda.is_available():
         raise RuntimeError("run_bench measures the card; no CUDA device")

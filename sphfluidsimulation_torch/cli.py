@@ -13,9 +13,14 @@ viscosity), in faithful and corrected mode:
     python -m sphfluidsimulation_torch run --particles 524288 --preset 2 \\
         --xsph 0.3 --alpha-visc 0.5 [--corrected]
 
-``run`` and ``bench`` take the route from ``SPH_PALLAS_COMPACT``, as the JAX
-CLI's users set it: ``SPH_PALLAS_COMPACT=1`` selects the compact-lane
-kernel K5 (``ops/compact.py``).
+``run`` and ``bench`` take the route and the kernels' variant from the
+``SPH_PALLAS_*`` variables, as the JAX CLI's users set them
+(``sph_kernels.SortedTuning.from_env``): ``SPH_PALLAS_COMPACT=1`` selects
+the compact-lane kernel K5 (``ops/compact.py``), ``SPH_PALLAS_FUSED=0`` the
+unfused route (K3 and ``integrate_substep`` a substep),
+``SPH_PALLAS_KAHAN=1`` the compensated sums, ``SPH_PALLAS_BF16=1`` the
+bfloat16 candidates and ``SPH_PALLAS_FACC=0`` the two-accumulator force
+kernels.
 
 What needs code the port does not have yet exits with code 2 and names its
 ROADMAP.md item: ``export`` and ``--export-dir``/``--animate``/``--viewer``

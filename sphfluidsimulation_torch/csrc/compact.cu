@@ -22,6 +22,20 @@
 // add_pair_pj, and the fused tail is fused_tail, so K5 cannot drift from
 // K1-K3. A row sums its candidates in ascending sorted order, as K1-K3 do.
 //
+// Banded instances (kBand; density_compact(band=) :622-629 and
+// compact_substep(band=) :648-665, for the slab step's frame): the cells
+// are the band's local ids (z_span * R^2 of them from plane zbase, cid and
+// start[] local; a fresh cell's z is clipped into the band as
+// fresh_spans(band=) :147-186 does), the gate reads global raw ids, and
+// the rows from start[s_cells] on are dead: their density is 0, the
+// substep copies them through, and they enter neither a span nor the drift
+// count. The band is a template argument, as K1's and K2's are: reading it
+// at run time cost K2-ext and K3 7-8% (PERF.md). With SPH_BF16=1 the force
+// modes read the candidates' vx, vy, vz and rho rounded to bfloat16, and
+// press_j and 1/rho_j computed from the rounded rho, as JAX's compact
+// kernel reads its bf16 window (pallas_compact.py:249, :416-418); density
+// reads positions only.
+//
 // What bounds it on the H100: every row evaluates every candidate the tile
 // keeps, a few times its own member pairs where the tile's rows share their
 // cells, and far more where they spread over many (a tile's span widens
@@ -94,22 +108,40 @@ __device__ __forceinline__ bool cell_near(int c, int cx, int cy, int cz) {
          && (unsigned)((c >> 20) - cz + 1) <= 2u;
 }
 
-template <int kMode, bool kExt>
+template <int kMode, bool kExt, bool kBand>
 __global__ void __launch_bounds__(kWarps * 32)
 compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
                const int* __restrict__ cid, const int* __restrict__ start,
                const int* __restrict__ raw, const uint8_t* __restrict__ occ,
                const float* __restrict__ scal, float* __restrict__ out,
-               int* __restrict__ cert, int n, int r, int cap) {
+               int* __restrict__ cert, int n, int r, int cap, int zbase,
+               int z_span) {
   __shared__ Slot slots[kWarps][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tile = blockIdx.x * kWarps + warp;
   if (tile * 32 >= n) return;              // the whole warp leaves
   const int i = tile * 32 + lane;
-  const bool live = i < n;                 // the last tile is ragged
-  const int s_cells = r * r * r;
-  const sph::Scalars s = sph::load_scalars(scal);
+  const int s_cells = kBand ? z_span * r * r : r * r * r;
+  // the live rows: all n, or in a slab's frame those before the dead rows
+  const int n_live = kBand ? __ldg(start + s_cells) : n;
+  const bool live = i < n_live;            // the last tile is ragged
   const float4* __restrict__ rows4 = reinterpret_cast<const float4*>(in);
+  float4* __restrict__ out4 = reinterpret_cast<float4*>(out);
+  const auto dead = [&] {                  // row i of a slab's dead rows
+    if constexpr (kMode == kDensity) {
+      out[i] = 0.f;
+    } else if constexpr (kMode == kForces) {
+      sph::store_sums<false>(out4, i, sph::PairSums{});
+    } else {
+      out4[2 * i] = __ldg(rows4 + 2 * i);
+      out4[2 * i + 1] = __ldg(rows4 + 2 * i + 1);
+    }
+  };
+  if (kBand && tile * 32 >= n_live) {      // a tile of dead rows
+    if (i < n) dead();
+    return;
+  }
+  const sph::Scalars s = sph::load_scalars(scal);
 
   sph::Particle p{};
   if (live) {
@@ -129,8 +161,11 @@ compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
   const int c = live ? __ldg(cid + i) : 0;
   int lo = warp_min(live, c), hi = warp_max(live, c);
   if constexpr (kMode != kDensity) {
+    const int lz = kBand ? min(max(min(max(cz, 0), r - 1) - zbase, 0),
+                               z_span - 1)
+                         : min(max(cz, 0), r - 1);
     const int fcid = min(max(cx, 0), r - 1) + min(max(cy, 0), r - 1) * r
-                     + min(max(cz, 0), r - 1) * r * r;
+                     + lz * r * r;
     const int band = r * r + r + 1;
     const int lo_allow = lo - band, hi_allow = hi + band;
     const unsigned drift =
@@ -167,7 +202,7 @@ compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
 
   const float press_i = s.gas_k * (p.rho - s.rho0);
   sph::PairSums acc;
-  float dens = 0.f;
+  sph::Acc dens;
   for (int k = 0; k < kLines; ++k) {
     int base = __shfl_sync(kAll, seg_a, k);
     const int seg_end = __shfl_sync(kAll, seg_b, k);
@@ -205,7 +240,10 @@ compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
         } else {
           e.a = __ldg(rows4 + 2 * j);
           e.b = __ldg(rows4 + 2 * j + 1);
-          e.pj = __ldg(pj + j);
+          float press_j, inv_j;
+          sph::candidate<true>(s, e.a, e.b, press_j, inv_j,
+                               [&] { return __ldg(pj + j); });
+          e.pj = make_float2(press_j, inv_j);
         }
         e.j = j;
         e.cell = packed;
@@ -224,8 +262,8 @@ compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
                              dens);
           } else {
             if (e.j == i) continue;        // VelPos.compute:82
-            sph::add_pair_pj<kExt>(s, p, press_i, e.a, e.b, e.pj.x, e.pj.y,
-                                   true, acc);
+            sph::add_pair_pj<kExt, false>(s, p, press_i, 1.f, e.a, e.b,
+                                          e.pj.x, e.pj.y, true, acc);
           }
         }
       }
@@ -233,13 +271,16 @@ compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
     }
   }
 
-  if (!live) return;
+  if (!live) {
+    if (kBand && i < n) dead();
+    return;
+  }
   if constexpr (kMode == kDensity) {
-    out[i] = s.mass * dens;
+    out[i] = s.mass * sph::total(dens);
   } else if constexpr (kMode == kForces) {
-    sph::store_sums(reinterpret_cast<float4*>(out), i, acc);
+    sph::store_sums<false>(out4, i, acc);
   } else {
-    sph::fused_tail<kExt>(s, p, acc, reinterpret_cast<float4*>(out), i);
+    sph::fused_tail<kExt, false>(s, p, acc, out4, i);
   }
 }
 
@@ -250,24 +291,33 @@ compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
 // = f32[N, 12]), 2 fused substep (in = rows, pj, out = rows; ext != 0 adds
 // the extension sums). *cert (zeroed by the caller) receives the drift count
 // of the force modes. cap is the voxel capacity of the frame (< 0: uncut);
-// r is at most 1024.
+// r is at most 1024. (zbase, z_span) is the frame's band of z-planes, (0, r)
+// for the whole grid; density and the fused substep have banded instances
+// (the slab step's), the forces mode has none.
 extern "C" int sph_compact(int mode, int ext, const float* in, const float* pj,
                            const int* cid, const int* start, const int* raw,
                            const uint8_t* occ, const float* scal, float* out,
-                           int* cert, int n, int r, int cap, void* stream) {
+                           int* cert, int n, int r, int cap, int zbase,
+                           int z_span, void* stream) {
+  const bool band = zbase != 0 || z_span != r;
   if (mode < kDensity || mode > kFused || (ext && mode != kFused) ||
-      r > kMaxR || (mode != kDensity && pj == nullptr))
+      r > kMaxR || (mode != kDensity && pj == nullptr) ||
+      (band && mode == kForces))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int tiles = (n + 31) / 32;
     const int blocks = (tiles + kWarps - 1) / kWarps;
-    auto kernel = mode == kDensity ? compact_kernel<kDensity, false>
-                  : mode == kForces ? compact_kernel<kForces, false>
-                  : ext ? compact_kernel<kFused, true>
-                        : compact_kernel<kFused, false>;
+    auto kernel =
+        mode == kDensity ? (band ? compact_kernel<kDensity, false, true>
+                                 : compact_kernel<kDensity, false, false>)
+        : mode == kForces ? compact_kernel<kForces, false, false>
+        : ext ? (band ? compact_kernel<kFused, true, true>
+                      : compact_kernel<kFused, true, false>)
+              : (band ? compact_kernel<kFused, false, true>
+                      : compact_kernel<kFused, false, false>);
     kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
         in, reinterpret_cast<const float2*>(pj), cid, start, raw, occ, scal,
-        out, cert, n, r, cap);
+        out, cert, n, r, cap, zbase, z_span);
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,10 @@
 // over the reference's 27-cell window (Density.compute:32-60), self included.
 // Its banded instance (a slab's frame, a band of z-planes with dead rows
 // past the live ones; density_pass(band=) :1682-1697) is the same kernel
-// with the band's (zbase, z_span); dead rows get 0.
+// with the band's (zbase, z_span); dead rows get 0. Built with SPH_KAHAN=1
+// it is the kahan instance (PallasTuning.kahan, pallas_sph.py:1118-1130):
+// the same walk, the running sum compensated (sph_common.cuh::accum) and
+// the compensation folded in before the mass.
 //
 // What bounds it on the H100: the neighbour walk is a gather. Each thread
 // reads, per candidate slot, the occupancy byte, the raw id and 12 bytes of
@@ -45,7 +48,7 @@ density_kernel(const float* __restrict__ pos, const int* __restrict__ start,
   const sph::Scalars s = sph::load_scalars(scal);
   const float px = __ldg(pos + 3 * i), py = __ldg(pos + 3 * i + 1),
               pz = __ldg(pos + 3 * i + 2);
-  float acc = 0.f;
+  sph::Acc acc;
   sph::range_walk<1, false, kBand>(
       sph::fresh_coord(px, r), sph::fresh_coord(py, r),
       sph::fresh_coord(pz, r), i, r, cap, zbase, z_span, start, raw, occ,
@@ -54,7 +57,7 @@ density_kernel(const float* __restrict__ pos, const int* __restrict__ start,
                          __ldg(pos + 3 * q + 1), __ldg(pos + 3 * q + 2), use,
                          acc);
       });
-  rho[i] = s.mass * acc;
+  rho[i] = s.mass * sph::total(acc);
 }
 
 }  // namespace

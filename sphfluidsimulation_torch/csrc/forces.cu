@@ -15,7 +15,11 @@
 // Input rows f32[N, 8] = (x, y, z, vx, vy, vz, rho, aux) and pj f32[N, 2] =
 // (press_j, [rho_j > eps] / rho_j), the layout K2 reads; output f32[N, 12] =
 // (press 3, visc 3, xsph 3, avisc 3), three float4 stores per particle.
-// Without kExt the last six lanes are zero.
+// Without kExt the last six lanes are zero. The variants are K2's
+// (fused_substep.cu): with fuse_acc (SPH_FACC, the default) the output is
+// (pressure + mu_i viscosity 3, xsph 3, avisc 3, 0 3), the layout of
+// forces_pallas under fuse_acc (xb = 3, pallas_sph.py:1740-1748); kahan and
+// bf16 as in K2.
 //
 // What bounds it on the H100: the gather walk of K2 (a chain of L1 loads
 // per candidate slot, about 257 slots a row at config 3) and its per-pair
@@ -36,8 +40,10 @@ forces_kernel(sph::WalkArgs a, float4* __restrict__ out) {
   sph::walk_row<kExt, kBand>(
       a,
       [&](const sph::Scalars&, const sph::Particle&, int i,
-          const sph::PairSums& acc) { sph::store_sums(out, i, acc); },
-      [&](int i) { sph::store_sums(out, i, sph::PairSums{}); });
+          const sph::PairSums& acc) {
+        sph::store_sums<sph::kFacc>(out, i, acc);
+      },
+      [&](int i) { sph::store_sums<sph::kFacc>(out, i, sph::PairSums{}); });
 }
 
 }  // namespace

@@ -19,6 +19,14 @@
 // fused_substep(band=) :1835-1887) are the same kernels with the band's
 // (zbase, z_span); they copy dead rows through.
 //
+// Variants (compile-time switches, sph_common.cuh; one library per set):
+// fuse_acc (SPH_FACC, the default, as in JAX: pressure and viscosity in
+// one accumulator triple with the row's viscosity factor, the tail scaling
+// it by m^2/rho_i alone, :1106-1115, :1420-1430; SPH_FACC=0 is the
+// two-accumulator kernel), kahan (compensated sums) and bf16 (candidate
+// values rounded where JAX rounds them; with extensions rho_j comes from
+// the rows and press_j and 1/rho_j are computed from it, pj is not read).
+//
 // Rows are f32[N, 8] = (x, y, z, vx, vy, vz, rho, nan_count); pj is f32[N, 2]
 // = (press_j, [rho_j > eps] / rho_j) of the frame-start density, which is
 // rho for i and for j in all five substeps (sph_kernels.pj_cols, once a
@@ -53,7 +61,7 @@ fused_substep_kernel(sph::WalkArgs a, float4* __restrict__ out) {
       a,
       [&](const sph::Scalars& s, const sph::Particle& p, int i,
           const sph::PairSums& acc) {
-        sph::fused_tail<kExt>(s, p, acc, out, i);
+        sph::fused_tail<kExt, sph::kFacc>(s, p, acc, out, i);
       },
       [&](int i) {   // a dead row is copied through
         out[2 * i] = __ldg(a.rows + 2 * i);

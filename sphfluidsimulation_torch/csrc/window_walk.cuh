@@ -105,8 +105,9 @@ __device__ __forceinline__ bool dead_row(int i, const int* __restrict__ start,
 }
 
 // The inputs of K2 and K3, as one kernel parameter: rows f32[N, 8], pj
-// f32[N, 2] (press_j, [rho_j > eps] / rho_j), the scalar block, the frame's
-// start, raw and occ, and its band.
+// f32[N, 2] (press_j, [rho_j > eps] / rho_j; not read by the bf16 instance
+// with extensions), the scalar block, the frame's start, raw and occ, and
+// its band.
 struct WalkArgs {
   const float4* __restrict__ rows;
   const float2* __restrict__ pj;
@@ -119,7 +120,10 @@ struct WalkArgs {
 
 // Row i's pair sums (j == i skipped) in walk order (ascending sorted
 // index), two slots a step without the extensions (with them, the second
-// pair's registers cost more occupancy than the overlap gains).
+// pair's registers cost more occupancy than the overlap gains), in the
+// library's variant (sph_common.cuh: kFacc, kKahan, kBf16). The bf16
+// instance with extensions reads rho_j from the rows and not from pj, as
+// JAX's window kernel does there (pallas_sph.py:1191-1203).
 template <bool kExt, bool kBand>
 __device__ __forceinline__ void window_pair_sums(const Scalars& s,
                                                  const Particle& p, int i,
@@ -127,13 +131,17 @@ __device__ __forceinline__ void window_pair_sums(const Scalars& s,
                                                  PairSums& acc) {
   const int r = a.r;
   const float press_i = s.gas_k * (p.rho - s.rho0);
+  const float vmu = p.rho > kEps ? s.visc : 1.f;   // fuse_acc's row factor
   range_walk<kExt ? 1 : 2, true, kBand>(
       fresh_coord(p.px, r), fresh_coord(p.py, r), fresh_coord(p.pz, r), i, r,
       a.cap, a.zbase, a.z_span, a.start, a.raw, a.occ,
       [&](int q, bool use) {
-        const float2 pj = __ldg(a.pj + q);
-        add_pair_pj<kExt>(s, p, press_i, __ldg(a.rows + 2 * q),
-                          __ldg(a.rows + 2 * q + 1), pj.x, pj.y, use, acc);
+        float4 qa = __ldg(a.rows + 2 * q), qb = __ldg(a.rows + 2 * q + 1);
+        float press_j, inv_j;
+        candidate<kExt>(s, qa, qb, press_j, inv_j,
+                        [&] { return __ldg(a.pj + q); });
+        add_pair_pj<kExt, kFacc>(s, p, press_i, vmu, qa, qb, press_j, inv_j,
+                                 use, acc);
       });
 }
 

@@ -8,7 +8,9 @@ state (``Start``, :82-94) and advances frames (``Update``, :96-108).
 The default backend is ``"sorted"`` (the JAX package defaults to
 ``"slotted"``, which is not ported yet: ROADMAP.md queue A item 8);
 ``"brute"`` is the O(N²) oracle. ``faithful=False`` selects the corrected
-mode, ``tune=SortedTuning(compact=True)`` the compact-lane route (K5), and
+mode, ``tune=SortedTuning(compact=True)`` the compact-lane route (K5)
+(``SortedTuning``'s other fields the unfused route and the kernels'
+variants), and
 the config's ``xsph`` and ``artificial_viscosity`` reach every backend
 through the frame step. The scene runs on the card unless ``device`` names
 the CPU; without a card it raises.

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -32,8 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # source → its C functions (name, argtypes): pointers and the stream as
-# c_void_p, ints as c_int (K1-K3 take n, r, cap, then the band's zbase and
-# z_span, and K2/K3 the extension switch)
+# c_void_p, ints as c_int (K1-K3 and K5 take n, r, cap, then the band's
+# zbase and z_span, and K2/K3 the extension switch)
 KERNELS = {
     "density.cu": (("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _P)),),
@@ -43,10 +44,33 @@ KERNELS = {
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _P)),),
     "compact.cu": (("sph_compact", (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _I, _I, _P)),),
+                                     _P, _I, _I, _I, _I, _I, _P)),),
 }
+# the variant switches: (SortedTuning field, macro, default, library tag)
+SWITCHES = (("fuse_acc", "SPH_FACC", True, "facc0"),
+            ("kahan", "SPH_KAHAN", False, "kahan"),
+            ("bf16", "SPH_BF16", False, "bf16"))
+# the switches each source reads (K5 has neither kahan nor fuse_acc, K1 no
+# candidate values to round, as in JAX)
+SOURCE_SWITCHES = {"density.cu": ("kahan",),
+                   "fused_substep.cu": ("fuse_acc", "kahan", "bf16"),
+                   "forces.cu": ("fuse_acc", "kahan", "bf16"),
+                   "compact.cu": ("bf16",)}
 
 _lib: types.SimpleNamespace | None = None
+_variants: dict[tuple[str, tuple[str, ...]], types.SimpleNamespace] = {}
+# nvcc seconds of each library built by this process, by file name
+build_seconds: dict[str, float] = {}
+
+
+def defines(source: str, tune) -> tuple[str, ...]:
+    """The ``-D`` switches of ``tune``'s instance of ``source`` (an object
+    with the ``SWITCHES`` fields, e.g. a ``SortedTuning``): those of the
+    switches it reads that are away from their defaults."""
+    return tuple(f"-D{macro}={int(getattr(tune, field))}"
+                 for field, macro, default, _ in SWITCHES
+                 if field in SOURCE_SWITCHES[source]
+                 and getattr(tune, field) != default)
 
 
 def nvcc_path() -> str:
@@ -64,29 +88,34 @@ def nvcc_path() -> str:
                        "are built from source on the machine with the card")
 
 
-def library_path(source: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(source: str, switches: tuple[str, ...] = ()) -> Path:
+    """The library of ``source`` compiled with the ``-D`` ``switches``: its
+    name carries the switches' tags and a hash of the flags and sources."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + switches).encode())
     for name in (*HEADERS, source):
         digest.update(name.encode())
         digest.update((CSRC / name).read_bytes())
     stem = source.removesuffix(".cu")
-    return BUILD_DIR / f"libsph_{stem}_{digest.hexdigest()[:16]}.so"
+    tags = "".join(f"_{tag}" for _, macro, _, tag in SWITCHES
+                   if any(d.startswith(f"-D{macro}=") for d in switches))
+    return BUILD_DIR / f"libsph_{stem}{tags}_{digest.hexdigest()[:16]}.so"
 
 
-def _build_one(source: str) -> Path:
+def _build_one(source: str, switches: tuple[str, ...] = ()) -> Path:
     """Compile one kernel source unless its library exists.
 
     Writes to a temporary name and renames, so a concurrent build never
     loads a half-written file.
     """
-    out = library_path(source)
+    out = library_path(source, switches)
     if out.exists():
         return out
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+    cmd = [nvcc, *NVCC_FLAGS, *switches, "-o", tmp, str(CSRC / source)]
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -97,29 +126,55 @@ def _build_one(source: str) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    build_seconds[out.name] = time.perf_counter() - t0
     return out
 
 
-def build() -> list[Path]:
-    """The kernel libraries, one per source in ``KERNELS`` order; the
-    missing ones are compiled side by side, one nvcc each."""
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        return list(pool.map(_build_one, KERNELS))
+def build(tunes=()) -> list[Path]:
+    """The kernel libraries, one per source in ``KERNELS`` order, then the
+    variant libraries of ``tunes`` (each source whose switches a tuning
+    sets); the missing ones are compiled side by side, one nvcc each."""
+    jobs = [(source, ()) for source in KERNELS]
+    for tune in tunes:
+        jobs += [(source, defines(source, tune)) for source in KERNELS
+                 if defines(source, tune)
+                 and (source, defines(source, tune)) not in jobs]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return list(pool.map(lambda job: _build_one(*job), jobs))
+
+
+def _bind(path: Path, sigs, fns: dict) -> None:
+    lib = ctypes.CDLL(str(path))
+    fns.setdefault("libraries", []).append(lib)
+    for name, argtypes in sigs:
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        fns[name] = fn
 
 
 def load() -> types.SimpleNamespace:
-    """The bound kernel functions, one attribute per C function (built on
-    first call)."""
+    """The bound kernel functions of the default instances, one attribute
+    per C function (built on first call)."""
     global _lib
     if _lib is None:
-        fns = {"libraries": []}
+        fns: dict = {}
         for path, sigs in zip(build(), KERNELS.values()):
-            lib = ctypes.CDLL(str(path))
-            fns["libraries"].append(lib)
-            for name, argtypes in sigs:
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-                fns[name] = fn
+            _bind(path, sigs, fns)
         _lib = types.SimpleNamespace(**fns)
     return _lib
+
+
+def function(source: str, name: str, tune=None):
+    """C function ``name`` of ``source`` in ``tune``'s variant (None: the
+    default instance, from :func:`load`); a variant's library is built on
+    first call, and a failed build raises."""
+    switches = () if tune is None else defines(source, tune)
+    if not switches:
+        return getattr(load(), name)
+    key = (source, switches)
+    if key not in _variants:
+        fns: dict = {}
+        _bind(_build_one(source, switches), KERNELS[source], fns)
+        _variants[key] = types.SimpleNamespace(**fns)
+    return getattr(_variants[key], name)

@@ -28,6 +28,14 @@ cell, each cell clamped to its first ``capacity`` slots (only those can be
 certificate. K2 and K3 (``csrc/window_walk.cuh``) read the j-side
 pressure and guarded 1/ρ from :func:`pj_cols`.
 
+Tuning variants (``SortedTuning``, the semantic knobs of the JAX
+``PallasTuning``): ``fuse_acc`` (the default; pressure and viscosity in one
+accumulator, K2 and K3), ``kahan`` (compensated sums, K1-K3) and ``bf16``
+(candidate values rounded to bfloat16, K2 and K3). Every wrapper and plain
+version takes ``tune``; each variant's instance is the same source compiled
+with its switches (``cuda_build.function``), and its plain version computes
+the same variant.
+
 Banded instances (``band=(zbase, z_span)``, the slab step's frame,
 ``ops/frame.py``): the window's z range is clipped to the band's planes and
 ``start`` is indexed by local plane; the gate reads global raw ids and does
@@ -57,73 +65,125 @@ N_SUMS = 12              # K3 lanes: press 3, visc 3, xsph 3, avisc 3
 N_SCAL = 15              # scal_block lanes (sph_common.cuh::Scalars)
 _C_POLY6 = 315.0 / (64.0 * math.pi)
 _C_GRAD = 45.0 / math.pi
-# candidate entries per chunk of the plain versions' dense gather
+# candidate entries per chunk of the plain versions' dense gather; the
+# compensated sums, which walk it column by column, take larger chunks
 _CHUNK_PAIRS = 1 << 21
+_KAHAN_CHUNK_PAIRS = 1 << 24
 
 # Kernel launches per wrapper; a run resets them and reads them back to show
 # which kernels its main path went through.
 # "fused_substep" counts K2 without extensions, "fused_substep_ext" with; the
-# "*_band" entries count the banded instances of K1 and K2 (the slab step,
-# parallel/slab_pallas.py); the "compact_*" entries count the K5 instances
-# (ops/compact.py).
-launch_counts = {"density": 0, "fused_substep": 0, "fused_substep_ext": 0,
-                 "forces": 0, "compact_density": 0, "compact_substep": 0,
-                 "compact_substep_ext": 0, "compact_forces": 0,
-                 "density_band": 0, "fused_substep_band": 0,
-                 "fused_substep_ext_band": 0}
+# "*_band" entries count the banded instances of K1, K2 and K5 (the slab
+# step, parallel/slab_pallas.py); the "compact_*" entries count the K5
+# instances (ops/compact.py). A tuning variant's instance counts under its
+# instance's name with the variant's tag (:func:`variant_tag`), e.g.
+# "fused_substep_ext+bf16" or "density+kahan"; those keys appear at their
+# first launch.
+_COUNTERS = ("density", "fused_substep", "fused_substep_ext", "forces",
+             "compact_density", "compact_substep", "compact_substep_ext",
+             "compact_forces", "density_band", "fused_substep_band",
+             "fused_substep_ext_band", "compact_density_band",
+             "compact_substep_band", "compact_substep_ext_band")
+launch_counts = dict.fromkeys(_COUNTERS, 0)
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    """Every count to 0, and the variants' keys dropped."""
+    launch_counts.clear()
+    launch_counts.update(dict.fromkeys(_COUNTERS, 0))
+
+
+def _count(name: str) -> None:
+    launch_counts[name] = launch_counts.get(name, 0) + 1
 
 
 class SortedTuning(NamedTuple):
-    """Route of the sorted tier; the counterpart of the JAX ``PallasTuning``
-    (pallas_sph.py:73-204), of which only the route switch is ported.
+    """Route and variant of the sorted tier; the counterpart of the JAX
+    ``PallasTuning`` (pallas_sph.py:73-204), with its field names and
+    defaults for the semantic knobs.
 
-    compact: the compact-lane route, K5 (``ops/compact.py``), for density,
-             the fused substep and the forces without extensions; False is
-             the per-particle window walk of K1, K2 and K3.
+    compact:  the compact-lane route, K5 (``ops/compact.py``), for density,
+              the fused substep and the forces without extensions; False
+              is the per-particle window walk of K1, K2 and K3.
+    fused:    one kernel a substep (K2, or K5's fused mode); False runs the
+              unfused route, the forces kernel (K3, or K5's forces mode
+              without extensions) and ``integrate_substep`` a substep
+              (JAX stepper.py:361-376). The slab step always fuses.
+    kahan:    compensated pair sums in K1, K2 and K3 (K5 has none, as in
+              JAX): the same candidates and pair terms, and each running
+              sum carries its compensation, folded in before the result.
+    bf16:     candidates' values rounded to bfloat16 where JAX rounds them
+              (:func:`bf16_round`): vx and vy on the window route without
+              extensions, vx, vy, vz and ρⱼ (and what is computed from ρⱼ)
+              with extensions and in K5's force modes. Density does not
+              read them.
+    fuse_acc: pressure and viscosity share one accumulator triple in K2
+              and K3, the viscosity folded in per row (μ where ρᵢ > ε,
+              else 1); K3's sums are then (combined 3, xsph 3, avisc 3).
+              K5 keeps two accumulators under either value, as in JAX.
 
-    The semantic knobs of the JAX tuning are not ported yet, and setting one
-    away from its default raises (:meth:`from_env`). The Mosaic layout
-    variables have no counterpart and are ignored: ``SPH_PALLAS_ROWS``,
-    ``_TPG``, ``_UNROLL``, ``_FLAT``, ``_INTCELL``, ``_SS``, ``_CROWS``,
-    ``_CK``, ``_W_FUDGE``, ``_LINE_FUDGE``, ``_IKI`` and ``_PJ`` (the
-    kernels walk ``start[]`` exactly and always read precomputed j-side
-    columns; ROADMAP.md queue B, "Not ported, by design")."""
+    The Mosaic layout variables have no counterpart and are ignored:
+    ``SPH_PALLAS_ROWS``, ``_TPG``, ``_UNROLL``, ``_FLAT``, ``_INTCELL``,
+    ``_SS``, ``_CROWS``, ``_CK``, ``_W_FUDGE``, ``_LINE_FUDGE``, ``_IKI``
+    and ``_PJ`` (the kernels walk ``start[]`` exactly and always read
+    precomputed j-side columns; ROADMAP.md queue B, "Not ported, by
+    design")."""
 
     compact: bool = False
+    fused: bool = True
+    kahan: bool = False
+    bf16: bool = False
+    fuse_acc: bool = True
 
     @classmethod
     def from_env(cls) -> "SortedTuning":
-        """``SPH_PALLAS_COMPACT=1`` selects the compact route, as in
-        ``PallasTuning.from_env`` (pallas_sph.py:207-241). A semantic
-        variable set away from its JAX default raises
-        ``NotImplementedError`` naming its ROADMAP.md item, instead of
-        running the default route unasked."""
-        env = os.environ
-        for var, on, default, item in _UNPORTED_ENV:
-            if (env.get(var, default) == "1") == on:
-                raise NotImplementedError(
-                    f"{var}={env[var]} selects a variant that is not ported "
-                    f"to torch yet: ROADMAP.md queue B, {item}")
-        return cls(compact=env.get("SPH_PALLAS_COMPACT", "0") == "1")
+        """The semantic ``SPH_PALLAS_*`` variables, read as
+        ``PallasTuning.from_env`` reads them (pallas_sph.py:207-241): a
+        switch is on when its variable is "1", and an unset variable takes
+        the default."""
+        d = cls()
 
+        def on(var: str, default: bool) -> bool:
+            return os.environ.get(var, "1" if default else "0") == "1"
 
-# the semantic variables of PallasTuning.from_env that the port lacks:
-# (variable, the value of ``== "1"`` that selects the variant, the default,
-# the ROADMAP.md item that ports it)
-_UNPORTED_ENV = (("SPH_PALLAS_FUSED", False, "1", "B4 (unfused route)"),
-                 ("SPH_PALLAS_KAHAN", True, "0", "B2 (kahan)"),
-                 ("SPH_PALLAS_BF16", True, "0", "B3 (bf16)"),
-                 ("SPH_PALLAS_FACC", False, "1", "B5 (fuse_acc)"))
+        return cls(compact=on("SPH_PALLAS_COMPACT", d.compact),
+                   fused=on("SPH_PALLAS_FUSED", d.fused),
+                   kahan=on("SPH_PALLAS_KAHAN", d.kahan),
+                   bf16=on("SPH_PALLAS_BF16", d.bf16),
+                   fuse_acc=on("SPH_PALLAS_FACC", d.fuse_acc))
+
+    def k5(self) -> "SortedTuning":
+        """The variant K5 computes under this tuning: bf16 only (JAX's
+        compact kernel reads neither ``kahan`` nor ``fuse_acc``)."""
+        return SortedTuning(compact=True, fused=self.fused, bf16=self.bf16,
+                            fuse_acc=False)
 
 
 def default_tuning() -> SortedTuning:
     """Call-time default: the environment is read when used, not at import."""
     return SortedTuning.from_env()
+
+
+_DEFAULT = SortedTuning()
+
+
+def _tuned(tune: SortedTuning | None) -> SortedTuning:
+    return _DEFAULT if tune is None else tune
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 and back, as JAX's ``astype(bfloat16)``
+    does it (``pallas_sph._pack_pair_bf16`` / ``unpack_pair_bf16``): round
+    to nearest, ties to even, subnormals kept, ±inf kept, and a NaN becomes
+    the quiet NaN of its sign (0x7FC0 or 0xFFC0). Integer arithmetic on the
+    float32 bits, as the kernels do it (``sph_common.cuh::bf16_round``);
+    a float64 ``x`` must hold float32 values, as the rows of a float64
+    evaluation do."""
+    u = x.to(torch.float32).view(torch.int32)
+    r = (u + 0x7FFF + ((u >> 16) & 1)) & -0x10000
+    nan = (u & 0x7FFFFFFF) > 0x7F800000
+    r = torch.where(nan, (u & -0x80000000) | 0x7FC00000, r)
+    return r.view(torch.float32).to(x.dtype)
 
 
 # ---------------------------------------------------------------- layout --
@@ -274,20 +334,55 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[:, 0]
 
 
+def _kahan_sum(terms: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """Compensated (Kahan) sum over dim 1, sequential in column order, of
+    ``terms`` f[m, K, L] where ``gate`` bool[m, K, L] holds (a column whose
+    gate fails leaves the sum and its compensation as they were), the
+    recurrence of the JAX kernel's ``accum`` (pallas_sph.py:1118-1130):
+
+        y = term − c;  t = s + y;  c = (t − s) − y;  s = t.
+
+    The result is s + c, as the JAX kernel folds it (:1392-1394). With
+    c = (t − s) − y the textbook correction would be s − c; the port
+    computes what JAX computes (tests/test_torch_variants.py pins the
+    sign)."""
+    s = terms.new_zeros((terms.shape[0],) + tuple(terms.shape[2:]))
+    c = torch.zeros_like(s)
+    # a column no row keeps changes nothing: only the others are walked
+    active = gate.reshape(gate.shape[0], gate.shape[1], -1).any(2).any(0)
+    for k in active.nonzero()[:, 0].tolist():
+        g = gate[:, k]
+        y = terms[:, k] - c
+        t = s + y
+        c = torch.where(g, (t - s) - y, c)
+        s = torch.where(g, t, s)
+    return s + c
+
+
+def _chunk_rows(width: int, kahan: bool) -> int:
+    """Rows a chunk of the plain versions' dense gather: the compensated
+    sums run column by column, so they take larger chunks."""
+    pairs = _KAHAN_CHUNK_PAIRS if kahan else _CHUNK_PAIRS
+    return max(1, pairs // (27 * width))
+
+
 def density_plain(frame: SortedFrame, pos_s: torch.Tensor,
                   phys: PhysParams, r: int, capacity: int | None,
-                  band: tuple[int, int] | None = None) -> torch.Tensor:
+                  band: tuple[int, int] | None = None,
+                  tune: SortedTuning | None = None) -> torch.Tensor:
     """ρᵢ = m·Σⱼ W_poly6(|xᵢ−xⱼ|²) over the window pairs, self included
-    (Density.compute:32-60); 0 for dead rows."""
+    (Density.compute:32-60); 0 for dead rows. ``tune.kahan`` sums in walk
+    order with compensation (K1's kahan instance)."""
+    kahan = _tuned(tune).kahan
     n = _n_live(frame)
     width = _window_width(frame, capacity)
-    rows = max(1, _CHUNK_PAIRS // (27 * width))
+    rows = _chunk_rows(width, kahan)
     w_sum = pos_s.new_zeros(pos_s.shape[0])
     for i0 in range(0, n, rows):
         ids = torch.arange(i0, min(i0 + rows, n), device=pos_s.device)
         j, member = _candidates(frame, fresh_cell(pos_s[ids], r), r, width,
                                 band)
-        w_sum[ids] = density_sums_plain(pos_s, phys, ids, j, member)
+        w_sum[ids] = density_sums_plain(pos_s, phys, ids, j, member, kahan)
     return phys.mass * w_sum
 
 
@@ -313,25 +408,31 @@ def member_pairs(frame: SortedFrame, pos_s: torch.Tensor, r: int,
 
 def density_sums_plain(pos_s: torch.Tensor, phys: PhysParams,
                        ids: torch.Tensor, j: torch.Tensor,
-                       member: torch.Tensor) -> torch.Tensor:
+                       member: torch.Tensor,
+                       kahan: bool = False) -> torch.Tensor:
     """Σⱼ W_poly6(|xᵢ−xⱼ|²) of rows ``ids`` i64[m] over the candidates ``j``
-    i64[m, K] that ``member`` keeps, summed in the fixed tree order."""
+    i64[m, K] that ``member`` keeps, summed in the fixed tree order, or
+    with ``kahan`` in column (walk) order with compensation, each member
+    inside the support a step, as K1's kahan instance sums."""
     sc = scal_block(phys)
     h2, c9 = sc[1], sc[2]
     d = pos_s[ids][:, None, :] - pos_s[j]
     r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
     diff = h2 - r2
-    w = torch.where(diff > 0, c9 * diff * diff * diff, 0.0)
-    return _tree_sum(torch.where(member, w, 0.0))
+    use = member & (diff > 0)
+    w = torch.where(use, c9 * diff * diff * diff, 0.0)
+    return _kahan_sum(w, use) if kahan else _tree_sum(w)
 
 
 def forces_plain(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                  r: int, capacity: int | None, ext: bool = False,
                  magnitude: bool = False,
-                 band: tuple[int, int] | None = None) -> torch.Tensor:
+                 band: tuple[int, int] | None = None,
+                 tune: SortedTuning | None = None) -> torch.Tensor:
     """K3's plain version: the raw force-side pair sums per sorted particle,
-    f[N, 12] = (press 3, visc 3, xsph 3, avisc 3), from the rows state
-    (``rho`` the frame-start density, positions and velocities fresh).
+    f[N, 12], from the rows state (``rho`` the frame-start density,
+    positions and velocities fresh), in the layout of ``tune``'s instance
+    (:func:`force_sums_plain`).
 
     press = Σ (pᵢ + pⱼ)/(2ρⱼ) ∇W rᵢⱼ and visc = Σ ∇²W (vⱼ − vᵢ)/ρⱼ over
     candidates with ρⱼ > ε (VelPos.compute:64-99; the formulas of
@@ -346,33 +447,64 @@ def forces_plain(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
     the sizes of its operands. The result bounds the rounding of a float32
     evaluation, up to a count of roundings (``substep_accuracy``). Dead
     rows' sums are 0."""
+    tune = _tuned(tune)
     n = _n_live(frame)
     width = _window_width(frame, capacity)
-    chunk = max(1, _CHUNK_PAIRS // (27 * width))
+    chunk = _chunk_rows(width, tune.kahan)
     out = rows.new_zeros((rows.shape[0], N_SUMS))
     for i0 in range(0, n, chunk):
         ids = torch.arange(i0, min(i0 + chunk, n), device=rows.device)
         j, member = _candidates(frame, fresh_cell(rows[ids, 0:3], r), r,
                                 width, band)
-        sums = force_sums_plain(rows, phys, ids, j, member, ext, magnitude)
+        sums = force_sums_plain(rows, phys, ids, j, member, ext, magnitude,
+                                tune)
         out[ids, :sums.shape[1]] = sums
     return out
 
 
+def candidate_values(rows: torch.Tensor, j: torch.Tensor, ext: bool,
+                     tune: SortedTuning
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(vⱼ f[m, K, 3], ρⱼ f[m, K]) as ``tune``'s instance reads them: with
+    ``tune.bf16`` vx and vy rounded (:func:`bf16_round`), and also vz and
+    ρⱼ where the JAX kernel reads ρⱼ from the candidate and not from
+    precomputed j-side columns, that is with extensions or on the compact
+    route (pallas_sph.py:855-861, :1191-1203; pallas_compact.py:416-418).
+    The pressure, 1/ρⱼ and what the extensions compute from ρⱼ follow
+    from the value returned."""
+    v_j, rho_j = rows[j, 3:6], rows[j, 6]
+    if tune.bf16:
+        if ext or tune.compact:
+            return bf16_round(v_j), bf16_round(rho_j)
+        v_j = torch.cat([bf16_round(v_j[..., 0:2]), v_j[..., 2:3]], -1)
+    return v_j, rho_j
+
+
 def force_sums_plain(rows: torch.Tensor, phys: PhysParams, ids: torch.Tensor,
                      j: torch.Tensor, member: torch.Tensor, ext: bool,
-                     magnitude: bool) -> torch.Tensor:
+                     magnitude: bool,
+                     tune: SortedTuning | None = None) -> torch.Tensor:
     """The force-side pair sums of :func:`forces_plain` for rows ``ids``
     i64[m] over the candidates ``j`` i64[m, K] that ``member`` keeps, j == i
-    skipped, summed in the fixed tree order: f[m, 6], or f[m, 12] with
-    ``ext``."""
+    skipped, in ``tune``'s variant:
+
+    - the candidates' values of :func:`candidate_values` (``bf16``);
+    - ``fuse_acc``: pressure and viscosity in one triple, each pair adding
+      pc·∇W·r + ∇²W/ρⱼ·μᵢ·(vⱼ − vᵢ) with μᵢ = μ where ρᵢ > ε and 1
+      elsewhere (pallas_sph.py:1106-1115, :1234-1245): f[m, 3], or f[m, 9]
+      with ``ext`` (combined 3, xsph 3, avisc 3); else f[m, 6] or f[m, 12]
+      (press 3, visc 3, xsph 3, avisc 3);
+    - summed in the fixed tree order, or with ``kahan`` in column (walk)
+      order with compensation (:func:`_kahan_sum`)."""
+    tune = _tuned(tune)
     pos_s, vel_s, rho_s = rows[:, 0:3], rows[:, 3:6], rows[:, 6]
     h = phys.h
     h2 = h * h
     h6 = h2 * h2 * h2                              # as in scal_block
     c9 = _C_POLY6 / (h6 * h2 * h)
     cs = torch.sqrt(phys.gas_constant)
-    rho_i, rho_j = rho_s[ids, None], rho_s[j]
+    v_j, rho_j = candidate_values(rows, j, ext, tune)
+    rho_i = rho_s[ids, None]
     rho_ok = rho_j > EPSILON                       # per-j guard (:91)
     safe_j = torch.where(rho_ok, rho_j, 1.0)
     cand = member & (j != ids[:, None])                       # skip j == i
@@ -384,7 +516,7 @@ def force_sums_plain(rows: torch.Tensor, phys: PhysParams, ids: torch.Tensor,
     gwv = sph_math.grad_w_vis_r(abs_r, h, h6)
     p_i = sph_math.eos_pressure(rho_i, phys.gas_constant, phys.rest_density)
     p_j = sph_math.eos_pressure(rho_j, phys.gas_constant, phys.rest_density)
-    v_i, v_j = vel_s[ids, None, :], vel_s[j]
+    v_i = vel_s[ids, None, :]
     if magnitude:
         hr = h - abs_r
         g = torch.where(g != 0, g + 3 * _C_GRAD / h6 * h * hr * hr / abs_r,
@@ -395,9 +527,16 @@ def force_sums_plain(rows: torch.Tensor, phys: PhysParams, ids: torch.Tensor,
     pc = (p_i + p_j) / (2.0 * safe_j)
     vc = gwv / safe_j
     dv = v_j - v_i                                            # v_j − v_i
-    terms = [torch.where(m[..., None], pc[..., None] * (g[..., None] * d),
-                         0.0),
-             torch.where(m[..., None], vc[..., None] * dv, 0.0)]
+    gates = [m[..., None].expand(d.shape)]
+    if tune.fuse_acc:
+        vmu = torch.where(rho_i > EPSILON, phys.viscosity, 1.0)
+        terms = [torch.where(m[..., None], pc[..., None] * (g[..., None] * d)
+                             + (vc * vmu)[..., None] * dv, 0.0)]
+    else:
+        terms = [torch.where(m[..., None], pc[..., None] * (g[..., None] * d),
+                             0.0),
+                 torch.where(m[..., None], vc[..., None] * dv, 0.0)]
+        gates.append(gates[0])
     if ext:
         d2 = h2 - r2
         w6 = torch.where(d2 > 0, c9 * d2 * d2 * d2, 0.0)
@@ -418,16 +557,24 @@ def force_sums_plain(rows: torch.Tensor, phys: PhysParams, ids: torch.Tensor,
                          0.0)
         terms.append(torch.where(cand[..., None], (pi * g)[..., None] * d,
                                  0.0))
-    return _tree_sum(torch.cat(terms, -1))
+        gates += [cand[..., None].expand(d.shape)] * 2
+    terms = torch.cat(terms, -1)
+    if tune.kahan:
+        return _kahan_sum(terms, torch.cat(gates, -1))
+    return _tree_sum(terms)
 
 
 def fold_forces(sums: torch.Tensor, rho_s: torch.Tensor, phys: PhysParams,
                 xsph: float = 0.0, alpha_visc: float = 0.0,
-                fused_tail: bool = False
+                fused_tail: bool = False, fuse_acc: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Raw sums f[N, 12] → (force f[N, 3], XSPH correction dv f[N, 3] or
     None): the m²/ρᵢ scaling guarded by ρᵢ > ε (when it fails the raw sums
     pass through, VelPos.compute:101-105) and the extension constants.
+    ``fuse_acc`` says the sums' layout: (combined 3, xsph 3, avisc 3), the
+    viscosity already folded in per row (``forces_pallas``,
+    pallas_sph.py:1740-1748), or, when False, (press 3, visc 3, xsph 3,
+    avisc 3), the layout of K3's ``facc0`` instance and of K5.
 
     Each extension term is folded only when its own coefficient is nonzero,
     as ``forces_pallas`` does (pallas_sph.py:1760-1768): dv is None for
@@ -439,44 +586,56 @@ def fold_forces(sums: torch.Tensor, rho_s: torch.Tensor, phys: PhysParams,
     i_ok = (rho_s > EPSILON)[:, None]
     s_i = torch.where(i_ok, rho_s[:, None], 1.0)
     m_ = phys.mass
-    f_press = torch.where(i_ok, sums[:, 0:3] * (m_ * m_ / s_i), sums[:, 0:3])
-    f_vis = torch.where(i_ok, sums[:, 3:6] * (phys.viscosity * m_ * m_ / s_i),
-                        sums[:, 3:6])
-    f = f_press + f_vis
+    f = torch.where(i_ok, sums[:, 0:3] * (m_ * m_ / s_i), sums[:, 0:3])
+    xb = 3
+    if not fuse_acc:
+        f = f + torch.where(
+            i_ok, sums[:, 3:6] * (phys.viscosity * m_ * m_ / s_i),
+            sums[:, 3:6])
+        xb = 6
     if not uses_extensions(xsph, alpha_visc):
         return f, None
-    dv = (xsph * m_) * sums[:, 6:9] if fused_tail or xsph != 0.0 else None
+    dv = ((xsph * m_) * sums[:, xb:xb + 3] if fused_tail or xsph != 0.0
+          else None)
     if fused_tail or alpha_visc != 0.0:
-        f = f + (alpha_visc * m_ * m_) * sums[:, 9:12]
+        f = f + (alpha_visc * m_ * m_) * sums[:, xb + 3:xb + 6]
     return f, dv
 
 
 # a plain version of the raw pair sums, forces_plain's signature: (frame,
-# rows, phys, r, capacity, ext, magnitude) → f[N, 12]
+# rows, phys, r, capacity, ext, magnitude, band=, tune=) → f[N, 12]; one
+# whose kernel reads only some of the variant switches names the variant it
+# computes under a tuning as its attribute ``variant`` (K5's:
+# SortedTuning.k5), which also says its sums' layout
 SumsFn = Callable[..., torch.Tensor]
 
 
-def _band_kw(band: tuple[int, int] | None) -> dict:
-    """``band`` as a keyword for a ``SumsFn``: K5's plain sums take none."""
-    return {} if band is None else {"band": band}
+def _variant(sums_fn: SumsFn, tune: SortedTuning | None) -> SortedTuning:
+    """The variant ``sums_fn`` computes under ``tune``."""
+    tune = _tuned(tune)
+    return getattr(sums_fn, "variant", lambda t: t)(tune)
 
 
 def fused_substep_plain(frame: SortedFrame, rows: torch.Tensor,
                         phys: PhysParams, r: int, capacity: int | None,
                         xsph: float = 0.0, alpha_visc: float = 0.0,
                         sums_fn: SumsFn = forces_plain,
-                        band: tuple[int, int] | None = None) -> torch.Tensor:
+                        band: tuple[int, int] | None = None,
+                        tune: SortedTuning | None = None) -> torch.Tensor:
     """One substep over the rows state: pair forces, then the integrate
     tail of ``sim.stepper.integrate_substep`` (VelPos.compute:49-157).
-    ``sums_fn`` gives the pair sums: the window walk of K2 (banded with
-    ``band``), or the tile candidates of K5 (``compact.compact_sums_plain``).
+    ``sums_fn`` gives the pair sums: the window walk of K2, or the tile
+    candidates of K5 (``compact.compact_sums_plain``, which computes
+    ``tune.k5()``), each banded with ``band`` and in ``tune``'s variant.
     Dead rows are copied through."""
     from ..sim.stepper import integrate_substep
 
+    tune = _variant(sums_fn, tune)
     sums = sums_fn(frame, rows, phys, r, capacity,
-                   uses_extensions(xsph, alpha_visc), **_band_kw(band))
+                   uses_extensions(xsph, alpha_visc), band=band, tune=tune)
     rho = rows[:, 6]
-    f, dv = fold_forces(sums, rho, phys, xsph, alpha_visc, fused_tail=True)
+    f, dv = fold_forces(sums, rho, phys, xsph, alpha_visc, fused_tail=True,
+                        fuse_acc=tune.fuse_acc)
     pos_n, vel_n, nan_mask = integrate_substep(rows[:, 0:3], rows[:, 3:6], f,
                                                phys, dv)
     out = pack_rows(pos_n, vel_n, rho, rows[:, 7] + nan_mask.to(rows.dtype))
@@ -527,17 +686,72 @@ def _hold(out: torch.Tensor, p32: torch.Tensor, p64: torch.Tensor,
 
 def _reference(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                r: int, capacity: int | None, xsph: float, alpha_visc: float,
-               sums_fn: SumsFn, band: tuple[int, int] | None = None):
+               sums_fn: SumsFn, band: tuple[int, int] | None,
+               tune: SortedTuning):
     """(rows64, phys64, force scale F, dv scale DV or None): the float64
-    inputs and the rounding scales of the folded force and XSPH outputs."""
+    inputs and the rounding scales of the folded force and XSPH outputs
+    (the magnitudes summed in tree order: their order does not matter)."""
     rows64 = rows.double()
     ph = PhysParams(*(t.double() for t in phys))
     mag = sums_fn(frame, rows64, ph, r, capacity,
                   uses_extensions(xsph, alpha_visc), magnitude=True,
-                  **_band_kw(band))
+                  band=band, tune=tune._replace(kahan=False))
     f_mag, dv_mag = fold_forces(mag, rows64[:, 6], ph, abs(xsph),
-                                abs(alpha_visc))
+                                abs(alpha_visc), fuse_acc=tune.fuse_acc)
     return rows64, ph, f_mag, dv_mag
+
+
+class Reference(NamedTuple):
+    """What :func:`hold` holds an output to: the plain version in float32
+    (p32) and in float64 (p64), and each lane's rounding scale σ; ``aux``
+    (the substep's ρ and NaN-count lanes of p32) must be matched exactly."""
+
+    p32: torch.Tensor
+    p64: torch.Tensor
+    sigma: torch.Tensor
+    aux: torch.Tensor | None = None
+
+
+def substep_reference(frame: SortedFrame, rows: torch.Tensor,
+                      phys: PhysParams, r: int, capacity: int | None,
+                      xsph: float = 0.0, alpha_visc: float = 0.0,
+                      sums_fn: SumsFn = forces_plain,
+                      band: tuple[int, int] | None = None,
+                      tune: SortedTuning | None = None) -> Reference:
+    """The reference of :func:`substep_accuracy` for one substep of
+    ``rows``, computed once for any number of outputs."""
+    tune = _variant(sums_fn, tune)
+    p32 = fused_substep_plain(frame, rows, phys, r, capacity, xsph,
+                              alpha_visc, sums_fn, band, tune)
+    rows64, ph, f_mag, dv_mag = _reference(frame, rows, phys, r, capacity,
+                                           xsph, alpha_visc, sums_fn, band,
+                                           tune)
+    p64 = fused_substep_plain(frame, rows64, ph, r, capacity, xsph,
+                              alpha_visc, sums_fn, band, tune)
+    pos, vel = rows64[:, 0:3], rows64[:, 3:6]
+    # the wall force's rounding scale: its depth h − x or 1 − x − h
+    # cancels, and so may depth·stiffness − Σ damping·v
+    near = ((pos < ph.h) | (pos > 1.0 - ph.h)).any(-1, keepdim=True)
+    wall = torch.where(near, ph.mass * (
+        ph.stiffness * (1.0 + ph.h + pos.abs())
+        + ph.damping * vel.abs().sum(-1, keepdim=True)), 0.0)
+    zero = torch.zeros_like(ph.gravity_y)
+    g = torch.stack([zero, ph.gravity_y, zero]).abs()
+    sig_v = vel.abs() + p64[:, 3:6].abs() \
+        + ph.dt / ph.mass * (f_mag + wall) + ph.dt * g
+    sig_x = pos.abs() + p64[:, 0:3].abs() + ph.dt * sig_v
+    if dv_mag is not None:
+        sig_x = sig_x + ph.dt * dv_mag
+    return Reference(p32[:, :6], p64[:, :6], torch.cat([sig_x, sig_v], 1),
+                     p32[:, 6:8])
+
+
+def hold(out: torch.Tensor, ref: Reference) -> Accuracy:
+    """Holds ``out`` (a substep's rows, or folded forces) to ``ref``."""
+    if ref.aux is None:
+        return _hold(out, ref.p32, ref.p64, ref.sigma)
+    same_aux = bool((out[:, 6:8] == ref.aux).all())
+    return _hold(out[:, :6], ref.p32, ref.p64, ref.sigma, same_aux)
 
 
 def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
@@ -545,11 +759,13 @@ def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
                      capacity: int | None, xsph: float = 0.0,
                      alpha_visc: float = 0.0,
                      sums_fn: SumsFn = forces_plain,
-                     band: tuple[int, int] | None = None) -> Accuracy:
+                     band: tuple[int, int] | None = None,
+                     tune: SortedTuning | None = None) -> Accuracy:
     """Holds ``out``, one substep of ``rows`` computed elsewhere (the CUDA
-    kernel), to the accuracy of the plain version, particle by particle.
-    ``sums_fn`` names the plain version's pair sums (K2's by default, banded
-    with ``band``; K5's is ``compact.compact_sums_plain``).
+    kernel), to the accuracy of the plain version in the same variant
+    ``tune``, particle by particle. ``sums_fn`` names the plain version's
+    pair sums (K2's by default, banded with ``band``; K5's is
+    ``compact.compact_sums_plain``).
 
     The golden EOS explodes (FIDELITY.md Part D): force sums cancel terms
     many orders above their result, so no fixed tolerance against the
@@ -568,54 +784,58 @@ def substep_accuracy(frame: SortedFrame, rows: torch.Tensor,
     pairs; a dropped or wrong term shows at the scale of the term itself.
     The NaN pattern and the ρ and NaN-count lanes must equal p32's.
     """
-    p32 = fused_substep_plain(frame, rows, phys, r, capacity, xsph,
-                              alpha_visc, sums_fn, band)
-    rows64, ph, f_mag, dv_mag = _reference(frame, rows, phys, r, capacity,
-                                           xsph, alpha_visc, sums_fn, band)
-    p64 = fused_substep_plain(frame, rows64, ph, r, capacity, xsph,
-                              alpha_visc, sums_fn, band)
-    pos, vel = rows64[:, 0:3], rows64[:, 3:6]
-    # the wall force's rounding scale: its depth h − x or 1 − x − h
-    # cancels, and so may depth·stiffness − Σ damping·v
-    near = ((pos < ph.h) | (pos > 1.0 - ph.h)).any(-1, keepdim=True)
-    wall = torch.where(near, ph.mass * (
-        ph.stiffness * (1.0 + ph.h + pos.abs())
-        + ph.damping * vel.abs().sum(-1, keepdim=True)), 0.0)
-    zero = torch.zeros_like(ph.gravity_y)
-    g = torch.stack([zero, ph.gravity_y, zero]).abs()
-    sig_v = vel.abs() + p64[:, 3:6].abs() \
-        + ph.dt / ph.mass * (f_mag + wall) + ph.dt * g
-    sig_x = pos.abs() + p64[:, 0:3].abs() + ph.dt * sig_v
-    if dv_mag is not None:
-        sig_x = sig_x + ph.dt * dv_mag
-    same_aux = bool((out[:, 6:8] == p32[:, 6:8]).all())
-    return _hold(out[:, :6], p32[:, :6], p64[:, :6],
-                 torch.cat([sig_x, sig_v], 1), same_aux)
+    return hold(out, substep_reference(frame, rows, phys, r, capacity, xsph,
+                                       alpha_visc, sums_fn, band, tune))
+
+
+def forces_reference(frame: SortedFrame, rows: torch.Tensor,
+                     phys: PhysParams, r: int, capacity: int | None,
+                     xsph: float = 0.0, alpha_visc: float = 0.0,
+                     sums_fn: SumsFn = forces_plain,
+                     tune: SortedTuning | None = None) -> Reference:
+    """The reference of :func:`forces_accuracy`: the folded force, and the
+    XSPH correction's lanes after it whenever ``xsph`` is nonzero."""
+    tune = _variant(sums_fn, tune)
+    ext = uses_extensions(xsph, alpha_visc)
+    folds = []
+    for rw, ph in ((rows, phys), (rows.double(),
+                                  PhysParams(*(t.double() for t in phys)))):
+        sums = sums_fn(frame, rw, ph, r, capacity, ext, tune=tune)
+        folds.append(fold_forces(sums, rw[:, 6], ph, xsph, alpha_visc,
+                                 fuse_acc=tune.fuse_acc))
+    p32, p64 = folds
+    _, _, f_mag, dv_mag = _reference(frame, rows, phys, r, capacity, xsph,
+                                     alpha_visc, sums_fn, None, tune)
+    if dv_mag is None:
+        return Reference(p32[0], p64[0], f_mag)
+    return Reference(torch.cat(p32, 1), torch.cat(p64, 1),
+                     torch.cat([f_mag, dv_mag], 1))
+
+
+def forces_out(f: torch.Tensor, dv: torch.Tensor | None,
+               xsph: float) -> torch.Tensor:
+    """(f, dv) as :func:`hold` reads folded forces: dv's lanes after f's
+    when ``xsph`` is nonzero, None standing for zeros."""
+    if xsph == 0.0:
+        return f
+    return torch.cat([f, torch.zeros_like(f) if dv is None else dv], 1)
 
 
 def forces_accuracy(frame: SortedFrame, rows: torch.Tensor, f: torch.Tensor,
                     dv: torch.Tensor | None, phys: PhysParams, r: int,
                     capacity: int | None, xsph: float = 0.0,
                     alpha_visc: float = 0.0,
-                    sums_fn: SumsFn = forces_plain) -> Accuracy:
+                    sums_fn: SumsFn = forces_plain,
+                    tune: SortedTuning | None = None) -> Accuracy:
     """Holds (``f``, ``dv``), the folded force and XSPH correction computed
     elsewhere (K3 or K5 + :func:`fold_forces`), to the plain version
-    ``sums_fn`` particle by particle, under the rule of
-    :func:`substep_accuracy`: σ is the folded magnitude sum of each output
-    lane. ``dv`` None stands for zeros; its lanes are checked whenever
+    ``sums_fn`` in the variant ``tune`` particle by particle, under the
+    rule of :func:`substep_accuracy`: σ is the folded magnitude sum of each
+    output lane. ``dv`` None stands for zeros; its lanes are checked whenever
     ``xsph`` is nonzero."""
-    ext = uses_extensions(xsph, alpha_visc)
-    sums32 = sums_fn(frame, rows, phys, r, capacity, ext)
-    p32 = fold_forces(sums32, rows[:, 6], phys, xsph, alpha_visc)
-    rows64, ph, f_mag, dv_mag = _reference(frame, rows, phys, r, capacity,
-                                           xsph, alpha_visc, sums_fn)
-    sums64 = sums_fn(frame, rows64, ph, r, capacity, ext)
-    p64 = fold_forces(sums64, rows64[:, 6], ph, xsph, alpha_visc)
-    if dv_mag is None:
-        return _hold(f, p32[0], p64[0], f_mag)
-    dv = torch.zeros_like(f) if dv is None else dv
-    return _hold(torch.cat([f, dv], 1), torch.cat(p32, 1),
-                 torch.cat(p64, 1), torch.cat([f_mag, dv_mag], 1))
+    return hold(forces_out(f, dv, xsph),
+                forces_reference(frame, rows, phys, r, capacity, xsph,
+                                 alpha_visc, sums_fn, tune))
 
 
 # ------------------------------------------------------------ CUDA route --
@@ -658,13 +878,26 @@ def _raise_on_error(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def variant_tag(source: str, tune: SortedTuning) -> str:
+    """The launch-count tag of ``tune``'s instance of kernel ``source``:
+    "" for the default instance, else "+facc0", "+kahan", "+bf16" for each
+    switch it reads that is away from its default
+    (``cuda_build.SOURCE_SWITCHES``)."""
+    return "".join(f"+{tag}" for field, _, default, tag in cuda_build.SWITCHES
+                   if field in cuda_build.SOURCE_SWITCHES[source]
+                   and getattr(tune, field) != default)
+
+
 def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
                  r: int, capacity: int | None,
                  scal: torch.Tensor | None = None,
-                 band: tuple[int, int] | None = None) -> torch.Tensor:
-    """K1 (``csrc/density.cu``) on the card, banded with ``band``. ``scal``
+                 band: tuple[int, int] | None = None,
+                 tune: SortedTuning | None = None) -> torch.Tensor:
+    """K1 (``csrc/density.cu``) on the card, banded with ``band``, in
+    ``tune``'s variant (``kahan``; None: the default instance). ``scal``
     is :func:`scal_block` of ``phys`` (built here when None); K1 reads none
     of its coefficient lanes, so K2's block serves too."""
+    tune = _tuned(tune)
     n = pos_s.shape[0]
     dev = pos_s.device
     _check("pos_s", pos_s, torch.float32, (n, 3), dev)
@@ -673,14 +906,14 @@ def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
         scal = scal_block(phys)
     _check("phys", scal, torch.float32, (N_SCAL,), dev)
     rho = torch.empty(n, dtype=torch.float32, device=dev)
-    lib = cuda_build.load()
-    err = lib.sph_density(
-        _ptr(pos_s), _ptr(frame.start), _ptr(frame.raw), _ptr(frame.occ),
-        _ptr(scal), _ptr(rho), n, r, _cap_arg(capacity),
-        *_band_args(band, r),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    fn = cuda_build.function("density.cu", "sph_density", tune)
+    err = fn(_ptr(pos_s), _ptr(frame.start), _ptr(frame.raw), _ptr(frame.occ),
+             _ptr(scal), _ptr(rho), n, r, _cap_arg(capacity),
+             *_band_args(band, r),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error("density", err)
-    launch_counts["density" if band is None else "density_band"] += 1
+    _count(("density" if band is None else "density_band")
+           + variant_tag("density.cu", tune))
     return rho
 
 
@@ -705,21 +938,25 @@ def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
 def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                 r: int, capacity: int | None, ext: bool = False,
                 pj: torch.Tensor | None = None,
-                scal: torch.Tensor | None = None) -> torch.Tensor:
+                scal: torch.Tensor | None = None,
+                tune: SortedTuning | None = None) -> torch.Tensor:
     """K3 (``csrc/forces.cu``) on the card: raw sums f32[N, 12] from the
-    rows state; ``ext`` selects the instance with the extension sums.
-    ``pj`` is :func:`pj_cols` of the rows' ρ and ``scal``
-    :func:`scal_block` of ``phys``; each is built here when None. It walks
-    the whole grid: the slab step never launches K3."""
+    rows state, in the layout of ``tune``'s instance (:func:`fold_forces`;
+    None: the default instance); ``ext`` selects the instance with the
+    extension sums. ``pj`` is :func:`pj_cols` of the rows' ρ and ``scal``
+    :func:`scal_block` of ``phys``; each is built here when None (the
+    ``bf16`` instance with extensions reads ρⱼ from the rows instead). It
+    walks the whole grid: the slab step never launches K3."""
+    tune = _tuned(tune)
     if pj is None:
         pj = pj_cols(rows[:, 6], phys)
     if scal is None:
         scal = scal_block(phys)
     out = torch.empty((rows.shape[0], N_SUMS), dtype=torch.float32,
                       device=rows.device)
-    _walk_launch(cuda_build.load().sph_forces, "forces", frame, rows, pj,
-                 scal, out, r, capacity, ext)
-    launch_counts["forces"] += 1
+    _walk_launch(cuda_build.function("forces.cu", "sph_forces", tune),
+                 "forces", frame, rows, pj, scal, out, r, capacity, ext)
+    _count("forces" + variant_tag("forces.cu", tune))
     return out
 
 
@@ -728,23 +965,28 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
                        xsph: float = 0.0, alpha_visc: float = 0.0,
                        pj: torch.Tensor | None = None,
                        scal: torch.Tensor | None = None,
-                       band: tuple[int, int] | None = None) -> torch.Tensor:
-    """K2 (``csrc/fused_substep.cu``) on the card, banded with ``band``.
-    Reads the state as it was before the substep and writes a new rows
-    tensor. Nonzero coefficients select the instance with the extension
-    sums. ``pj`` is :func:`pj_cols` of the rows' ρ and ``scal``
-    :func:`scal_block` of ``phys`` and the coefficients; each is built here
-    when None."""
+                       band: tuple[int, int] | None = None,
+                       tune: SortedTuning | None = None) -> torch.Tensor:
+    """K2 (``csrc/fused_substep.cu``) on the card, banded with ``band``, in
+    ``tune``'s variant (None: the default instance). Reads the state as it
+    was before the substep and writes a new rows tensor. Nonzero
+    coefficients select the instance with the extension sums. ``pj`` is
+    :func:`pj_cols` of the rows' ρ and ``scal`` :func:`scal_block` of
+    ``phys`` and the coefficients; each is built here when None."""
+    tune = _tuned(tune)
     if pj is None:
         pj = pj_cols(rows[:, 6], phys)
     if scal is None:
         scal = scal_block(phys, xsph, alpha_visc)
     ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
-    _walk_launch(cuda_build.load().sph_fused_substep, "fused_substep", frame,
-                 rows, pj, scal, out, r, capacity, ext, band)
+    _walk_launch(cuda_build.function("fused_substep.cu", "sph_fused_substep",
+                                     tune),
+                 "fused_substep", frame, rows, pj, scal, out, r, capacity,
+                 ext, band)
     name = "fused_substep_ext" if ext else "fused_substep"
-    launch_counts[name if band is None else name + "_band"] += 1
+    _count((name if band is None else name + "_band")
+           + variant_tag("fused_substep.cu", tune))
     return out
 
 
@@ -753,49 +995,57 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
 def density_pass(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
                  r: int, capacity: int | None,
                  scal: torch.Tensor | None = None,
-                 band: tuple[int, int] | None = None) -> torch.Tensor:
+                 band: tuple[int, int] | None = None,
+                 tune: SortedTuning | None = None) -> torch.Tensor:
     """ρ per sorted particle: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor, over the frame's ``band`` (None: the whole
-    grid). ``capacity`` is the config's voxel capacity (None: uncapped); it
-    bounds the walk, the result does not depend on it beyond what
-    ``frame.occ`` already says. ``scal`` (as in :func:`density_cuda`) is
-    read by the kernel only."""
+    grid), in ``tune``'s variant. ``capacity`` is the config's voxel
+    capacity (None: uncapped); it bounds the walk, the result does not
+    depend on it beyond what ``frame.occ`` already says. ``scal`` (as in
+    :func:`density_cuda`) is read by the kernel only."""
     if pos_s.is_cuda:
-        return density_cuda(frame, pos_s, phys, r, capacity, scal, band)
-    return density_plain(frame, pos_s, phys, r, capacity, band)
+        return density_cuda(frame, pos_s, phys, r, capacity, scal, band,
+                            tune)
+    return density_plain(frame, pos_s, phys, r, capacity, band, tune)
 
 
 def forces_pass(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                 r: int, capacity: int | None, xsph: float = 0.0,
                 alpha_visc: float = 0.0, pj: torch.Tensor | None = None,
-                scal: torch.Tensor | None = None
+                scal: torch.Tensor | None = None,
+                tune: SortedTuning | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(force f[N, 3], XSPH correction dv f[N, 3] or None) per sorted
     particle (``forces_pallas``): the raw sums from the CUDA kernel K3 for a
-    CUDA tensor or from the plain version for a CPU one, then
-    :func:`fold_forces`. Integration is the caller's
+    CUDA tensor or from the plain version for a CPU one, in ``tune``'s
+    variant, then :func:`fold_forces`. Integration is the caller's
     (``sim.stepper.integrate_substep``). ``pj`` and ``scal`` (as in
     :func:`forces_cuda`) are read by the kernel only."""
+    tune = _tuned(tune)
     ext = uses_extensions(xsph, alpha_visc)
     if rows.is_cuda:
-        sums = forces_cuda(frame, rows, phys, r, capacity, ext, pj, scal)
+        sums = forces_cuda(frame, rows, phys, r, capacity, ext, pj, scal,
+                           tune)
     else:
-        sums = forces_plain(frame, rows, phys, r, capacity, ext)
-    return fold_forces(sums, rows[:, 6], phys, xsph, alpha_visc)
+        sums = forces_plain(frame, rows, phys, r, capacity, ext, tune=tune)
+    return fold_forces(sums, rows[:, 6], phys, xsph, alpha_visc,
+                       fuse_acc=tune.fuse_acc)
 
 
 def fused_substep(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                   r: int, capacity: int | None, xsph: float = 0.0,
                   alpha_visc: float = 0.0, pj: torch.Tensor | None = None,
                   scal: torch.Tensor | None = None,
-                  band: tuple[int, int] | None = None) -> torch.Tensor:
+                  band: tuple[int, int] | None = None,
+                  tune: SortedTuning | None = None) -> torch.Tensor:
     """One whole integration substep over the rows state (pair forces, m²/ρ
     scaling, extension sums, wall penalty, gravity, NaN trap, semi-implicit
     Euler, clamp): the CUDA kernel K2 for a CUDA tensor, the plain version
-    for a CPU one, over the frame's ``band``. ``pj`` and ``scal`` (as in
-    :func:`fused_substep_cuda`) are read by the kernel only."""
+    for a CPU one, over the frame's ``band``, in ``tune``'s variant.
+    ``pj`` and ``scal`` (as in :func:`fused_substep_cuda`) are read by the
+    kernel only."""
     if rows.is_cuda:
         return fused_substep_cuda(frame, rows, phys, r, capacity, xsph,
-                                  alpha_visc, pj, scal, band)
+                                  alpha_visc, pj, scal, band, tune)
     return fused_substep_plain(frame, rows, phys, r, capacity, xsph,
-                               alpha_visc, band=band)
+                               alpha_visc, band=band, tune=tune)

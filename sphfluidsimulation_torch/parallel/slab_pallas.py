@@ -4,7 +4,8 @@ Counterpart of ``sphfluidsimulation_tpu/parallel/slab_pallas.py``: each shard
 of the slab axis (``parallel/ring.py``) holds cell-sorted row buffers of its
 owned z-slab plus halo rows, exchanges boundary particle rows with its two
 neighbours, and runs the banded K1 and K2 (``ops/sph_kernels.py``,
-``csrc/window_walk.cuh``) on its local frame.
+``csrc/window_walk.cuh``), or on the compact route the banded K5
+(``ops/compact.py``), on its local frame.
 
 Decomposition (slab_pallas.py:15-30): ownership is keyed by the STALE anchor
 cell's z-plane, so the rows a shard must see from its neighbours (their rows
@@ -16,10 +17,12 @@ five substeps. A frame is:
 - the banded frame over the shard's ``z_span`` planes with ``gid = pid``,
   so owner and halo copies rank a shared cell's rows alike and the 32-slot
   capacity drop does not depend on the shard count;
-- K1 once, then the owner's ρ overwrites the halo copies' (one exchange);
+- K1 (K5 density) once, then the owner's ρ overwrites the halo copies'
+  (one exchange);
 - ``pack_rows`` and ``pj_cols`` once;
-- five × (K2 over the band, then the fresh (pos, vel) of the boundary rows
-  sent to their halo copies, written into frame-constant sorted slots);
+- five × (K2 (the K5 substep) over the band, then the fresh (pos, vel) of
+  the boundary rows sent to their halo copies, written into frame-constant
+  sorted slots);
 - the own rows unsorted back into the buffer; metrics summed over the ring.
 
 Exactness (slab_pallas.py:32-39): an own row whose fresh window stays in the
@@ -28,13 +31,16 @@ band sees exactly the candidates it sees on one device. The certificate
 whose fresh 3-plane window leaves the band (a torch reduction over the
 substep's input positions, so K2 stays the one kernel of every path), plus
 the frame's ``clip_count``, the boundary rows the halo buffers dropped and
-the migration's ``lost``. Halo rows are integrated over truncated windows,
+the migration's ``lost``; on the compact route also K5's drift count of
+every live row, as JAX sums it (:205-216). Halo rows are integrated over truncated windows,
 but the owner overwrites each of their values before anything reads it, so
 their windows are not counted. This differs from JAX's tile-granular drift
 count by design (ROADMAP.md queue C, "Certificates differ by design").
 
-The step always takes the fused route (K2), as JAX does (:263-264). The
-compact route (K5) has no banded instance yet: ROADMAP.md queue B, B1.
+The step always takes the fused route (K2, or K5's fused substep on the
+compact route, as JAX's ``density_pass`` and ``fused_substep`` route it,
+pallas_sph.py:1694), as JAX does (:263-264); the variants of ``tune``
+(``kahan``, ``bf16``, ``fuse_acc``) select the kernels' instances.
 """
 
 from __future__ import annotations
@@ -44,8 +50,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import SimConfig
+from ..ops import compact, sph_math
 from ..ops import sph_kernels as sk
-from ..ops import sph_math
 from ..ops.frame import SortedFrame, build_frame
 from ..ops.sph_kernels import SortedTuning, default_tuning
 from ..params import PhysParams
@@ -195,10 +201,11 @@ def _shard_frame(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring, my: int,
     return sf, (pos, vel, nan_count, pid, valid)
 
 
-def _local_step(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring):
+def _local_step(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring,
+                tune: SortedTuning):
     """The step of one shard, a generator that yields its exchanges
     (``parallel/ring.py``): ``(my, pos, vel, nan_count, pid, valid, phys)``
-    → ``(pos, vel, nan_count, pid, valid, metrics)``."""
+    → ``(pos, vel, nan_count, pid, valid, metrics)``. ``tune`` is fused."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     xsph, alpha = cfg.xsph, cfg.artificial_viscosity
     c0, hc = spec.cap_rows, spec.halo_cap
@@ -212,7 +219,12 @@ def _local_step(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring):
         # -- the stale density, once a frame; the halo rows' own estimate
         # is edge-truncated, so the owner's value overwrites it
         scal = sk.scal_block(phys, xsph, alpha)
-        rho_s = sk.density_pass(frame, sf.pos_s, phys, r, cap, scal, band)
+        if tune.compact:
+            rho_s, _ = compact.density_compact(frame, sf.pos_s, phys, r, cap,
+                                               scal, band)
+        else:
+            rho_s = sk.density_pass(frame, sf.pos_s, phys, r, cap, scal,
+                                    band, tune)
         rho_l = rho_s[inv]
         hb_rho = yield ring.up(rho_l[sf.up_idx])
         ht_rho = yield ring.down(rho_l[sf.dn_idx])
@@ -229,8 +241,14 @@ def _local_step(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring):
         cert = sf.cert
         for _ in range(cfg.substeps):
             cert = cert + _band_leaks(rows[:, 2], sf.own_s, r, band)
-            rows = sk.fused_substep(frame, rows, phys, r, cap, xsph, alpha,
-                                    pj, scal, band)
+            if tune.compact:
+                rows, drift = compact.compact_substep(
+                    frame, rows, phys, r, cap, xsph, alpha, pj, scal, band,
+                    tune)
+                cert = cert + drift
+            else:
+                rows = sk.fused_substep(frame, rows, phys, r, cap, xsph,
+                                        alpha, pj, scal, band, tune)
             # the owners' fresh values for the halo copies, which the next
             # substep reads through the frame's stale candidate structure
             hb_new = yield ring.up(rows[up_spos, 0:6])
@@ -299,20 +317,16 @@ def make_pallas_slab_step(cfg: SimConfig, ring: Ring, *, halo: int = 2,
     counts on it.
 
     The state must lie on ``device`` (None: the card; without one it
-    raises). Like JAX (slab_pallas.py:263-264) the step always takes the
-    fused route (K2); ``tune=SortedTuning(compact=True)`` raises, since the
-    banded K5 is not ported (ROADMAP.md queue B, B1).
+    raises). ``tune`` (None: the ``SPH_PALLAS_*`` variables) selects the
+    route, K1 and K2 or K5 (``compact``), and the kernels' variants; like
+    JAX (slab_pallas.py:263-264) the step always takes the fused route.
     """
     cfg = cfg.validate()
-    tune = default_tuning() if tune is None else tune
-    if tune.compact:
-        raise NotImplementedError(
-            "the slab step on the compact route needs the banded K5, which "
-            "is not ported to torch yet: ROADMAP.md queue B, B1")
+    tune = (default_tuning() if tune is None else tune)._replace(fused=True)
     device = resolve_device(device)
     spec = make_pallas_spec(cfg, ring.d, halo=halo, row_slack=row_slack,
                             halo_slack=halo_slack, hops=hops)
-    local = _local_step(cfg, spec, ring)
+    local = _local_step(cfg, spec, ring, tune)
     n_held = len(ring.indices)
 
     def step(st: SlabState, phys: PhysParams

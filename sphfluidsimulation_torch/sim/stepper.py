@@ -34,7 +34,17 @@ scalar block is built once a frame.
 read from ``SPH_PALLAS_COMPACT``) takes the compact-lane route, K5
 (``ops/compact.py``), for the density, the fused substep and the corrected
 mode's forces without extensions; with extensions the corrected forces stay
-on K3, as in JAX (pallas_sph.py:1720).
+on K3, as in JAX (pallas_sph.py:1720). ``tune.fused=False``
+(``SPH_PALLAS_FUSED=0``) is the unfused faithful route (JAX stepper.py:
+361-376, :459-473): density once, then each substep the forces kernel (K3,
+or K5's forces mode on the compact route without extensions) on the
+frame-start ρ and ``integrate_substep``, all in sorted space:
+
+    build_frame → density (K1) → pj → 5 × (pack rows → forces (K3)
+         → integrate) → metrics
+
+The other fields of ``tune`` (``kahan``, ``bf16``, ``fuse_acc``) select
+each kernel's variant, and every kernel of a frame is launched in it.
 
 Backends: ``neighbor="sorted"``, the counterpart of the JAX ``"pallas"``
 tier (``"pallas"``, the JAX name, selects it too), and ``neighbor="brute"``,
@@ -79,9 +89,10 @@ NEIGHBORS = ("sorted", "brute")
 # JAX backend names that the port runs under another name
 _ALIASES = {"pallas": "sorted"}
 # the profiler ranges of one sorted frame, in order: faithful mode
-# (fused_substep opens once per substep) and corrected mode (the ranges
-# from build_frame to integrate+unsort open once per substep, after one
-# frame-start build_frame and density)
+# (fused_substep opens once per substep; on the unfused route "forces" and
+# "integrate" open once per substep in its place) and corrected mode (the
+# ranges from build_frame to integrate+unsort open once per substep, after
+# one frame-start build_frame and density)
 FRAME_PHASES = ("build_frame", "density", "pack_rows", "fused_substep",
                 "unpack+metrics")
 CORRECTED_PHASES = ("build_frame", "density", "pack_rows", "forces",
@@ -173,15 +184,35 @@ def _density(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     if tune.compact:
         return compact.density_compact(frame, pos_s, phys, r, cap, scal)[0]
-    return sph_kernels.density_pass(frame, pos_s, phys, r, cap, scal)
+    return sph_kernels.density_pass(frame, pos_s, phys, r, cap, scal,
+                                    tune=tune)
+
+
+def _forces(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
+            cfg: SimConfig, tune: SortedTuning, pj: torch.Tensor,
+            scal: torch.Tensor):
+    """(force, XSPH dv or None, certificate or None) of the rows state:
+    K5's forces mode on the compact route without extensions (its drift
+    count the certificate), else K3 (``forces_pallas`` routes so,
+    pallas_sph.py:1720-1725)."""
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+    if tune.compact and not sph_kernels.uses_extensions(xsph, alpha):
+        f, c = compact.forces_compact(frame, rows, phys, r, cap, pj, scal,
+                                      tune)
+        return f, None, c
+    f, dv = sph_kernels.forces_pass(frame, rows, phys, r, cap, xsph, alpha,
+                                    pj, scal, tune)
+    return f, dv, None
 
 
 def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
                   vel_s: torch.Tensor, phys: PhysParams, cfg: SimConfig,
                   tune: SortedTuning):
     """One frame in sorted space: density once, then the fused substeps
-    (K2, or K5 on the compact route). Returns (pos_s, vel_s, nan_hits_s,
-    metrics)."""
+    (K2, or K5 on the compact route), or with ``tune.fused`` False the
+    forces kernel and ``integrate_substep`` a substep. Returns (pos_s,
+    vel_s, nan_hits_s, metrics)."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     xsph, alpha = cfg.xsph, cfg.artificial_viscosity
     # the scalar block of the frame's kernels, once a frame
@@ -194,17 +225,36 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
         # the substeps' j-side columns, once a frame: rho is the
         # frame-start density of every substep
         pj = sph_kernels.pj_cols(rho_s, phys)
-    for _ in range(cfg.substeps):
-        with span("fused_substep"):
-            if tune.compact:
-                rows, c = compact.compact_substep(frame, rows, phys, r, cap,
-                                                  xsph, alpha, pj, scal)
-                cert = _add_cert(cert, c)
-            else:
-                rows = sph_kernels.fused_substep(frame, rows, phys, r, cap,
-                                                 xsph, alpha, pj, scal)
+    if not tune.fused:
+        nan_hits = torch.zeros(rho_s.shape, dtype=torch.int32,
+                               device=rho_s.device)
+        for k in range(cfg.substeps):
+            if k:
+                with span("pack_rows"):
+                    rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
+            with span("forces"):
+                f, dv, c = _forces(frame, rows, phys, cfg, tune, pj, scal)
+                if c is not None:
+                    cert = _add_cert(cert, c)
+            with span("integrate"):
+                pos_s, vel_s, nan_mask = integrate_substep(pos_s, vel_s, f,
+                                                           phys, dv)
+                nan_hits = nan_hits + nan_mask.to(torch.int32)
+    else:
+        for _ in range(cfg.substeps):
+            with span("fused_substep"):
+                if tune.compact:
+                    rows, c = compact.compact_substep(
+                        frame, rows, phys, r, cap, xsph, alpha, pj, scal,
+                        tune=tune)
+                    cert = _add_cert(cert, c)
+                else:
+                    rows = sph_kernels.fused_substep(
+                        frame, rows, phys, r, cap, xsph, alpha, pj, scal,
+                        tune=tune)
     with span("unpack+metrics"):
-        pos_s, vel_s, _, nan_hits = sph_kernels.unpack_rows(rows)
+        if tune.fused:
+            pos_s, vel_s, _, nan_hits = sph_kernels.unpack_rows(rows)
         # matches grid.overflow_count: rank-overflow + out-of-range drops
         ovf = (~frame.occ).sum().to(torch.int32)
         m = _metrics(vel_s, rho_s, nan_hits, ovf, phys, cert)
@@ -247,8 +297,6 @@ def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
     times. On the compact route density and, without extensions, the forces
     are K5; the certificate sums the forces' drift counts."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
-    xsph, alpha = cfg.xsph, cfg.artificial_viscosity
-    k5_forces = tune.compact and not sph_kernels.uses_extensions(xsph, alpha)
 
     def step(state: ParticleState, phys: PhysParams
              ) -> tuple[ParticleState, StepMetrics]:
@@ -271,13 +319,9 @@ def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
                 rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
                 pj = sph_kernels.pj_cols(rho_s, phys)
             with span("forces"):
-                if k5_forces:
-                    f, c = compact.forces_compact(frame, rows, phys, r, cap,
-                                                  pj, scal)
-                    dv, cert = None, _add_cert(cert, c)
-                else:
-                    f, dv = sph_kernels.forces_pass(frame, rows, phys, r, cap,
-                                                    xsph, alpha, pj, scal)
+                f, dv, c = _forces(frame, rows, phys, cfg, tune, pj, scal)
+                if c is not None:
+                    cert = _add_cert(cert, c)
             with span("integrate+unsort"):
                 pos_s, vel_s, nan_mask = integrate_substep(pos_s, vel_s, f,
                                                            phys, dv)
@@ -358,8 +402,10 @@ def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
               name, is the same tier) or 'brute' (O(N²) oracle).
     faithful: reuse the frame-start bucket + density across all substeps
               (reference semantics); False rebuilds them every substep.
-    tune:     the sorted tier's route (``SortedTuning``; None reads
-              ``SPH_PALLAS_COMPACT``), the JAX ``pallas_tune``.
+    tune:     the sorted tier's route and variant (``SortedTuning``; None
+              reads the ``SPH_PALLAS_*`` variables), the JAX
+              ``pallas_tune``: with ``tune.fused`` False the faithful
+              mode takes the unfused route.
     """
     cfg = cfg.validate()
     if _check_supported(neighbor) == "brute":

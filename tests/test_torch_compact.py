@@ -411,6 +411,6 @@ def test_cpu_tensors_route_to_the_plain_versions():
              compact.compact_substep_plain(tf, trows, tp, r, 0.3, 0.4)),
             (compact.forces_compact(tf, trows, tp, r, CAP),
              (sk.fold_forces(compact.forces_compact_plain(tf, trows, tp, r)[0],
-                             trows[:, 6], tp)[0], cert))):
+                             trows[:, 6], tp, fuse_acc=False)[0], cert))):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert sk.launch_counts == dict.fromkeys(sk.launch_counts, 0)

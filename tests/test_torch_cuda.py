@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; on a CPU-only host they skip. They
-include the banded K1 and K2 of the slab step and the slab step itself. They
+include the banded K1, K2 and K5 of the slab step and the slab step itself,
+and each tuning variant's instance (fuse_acc off, kahan, bf16). They
 import no JAX (the machine with the card has none), so run them without the
 JAX test conftest, from the root of a checkout:
 
@@ -244,10 +245,10 @@ def test_scene_and_bench_on_card(cuda_device):
                     tune=SortedTuning(compact=False))
     assert out["value"] > 0 and out["exact_cert_total"] == 0
     assert out["device_name"] == torch.cuda.get_device_name(0)
-    assert out["pallas_tuning"] == {"compact": False}
+    assert out["pallas_tuning"] == SortedTuning()._asdict()
     sk.reset_launch_counts()
     out = run_bench(4096, frames=2, warmup_frames=1, tune=COMPACT)
-    assert out["pallas_tuning"] == {"compact": True} and out["value"] > 0
+    assert out["pallas_tuning"] == COMPACT._asdict() and out["value"] > 0
     # the warm-up frame, the timed length once untimed, then timed
     assert sk.launch_counts["compact_substep"] == (1 + 2 * 2) * 5
     assert sk.launch_counts["fused_substep"] == 0
@@ -453,3 +454,203 @@ def test_slab_step_on_card_equals_single_device(cuda_device, d):
     assert lost == 0 and int(m.overflow) == int(mr.overflow[-1])
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------ tuning variants --
+
+VARIANT_TUNES = {"facc0": SortedTuning(fuse_acc=False),
+                 "kahan": SortedTuning(kahan=True),
+                 "bf16": SortedTuning(bf16=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["goldenish", "tiny"])
+def test_kahan_density_kernel_matches_plain_on_card(cuda_device, name):
+    tf, ps, _, tp, r = _card_inputs(name, cuda_device, frames=2)
+    kahan = VARIANT_TUNES["kahan"]
+    before = sk.launch_counts.get("density+kahan", 0)
+    got = sk.density_pass(tf, ps, tp, r, CAP, tune=kahan)
+    assert sk.launch_counts["density+kahan"] == before + 1
+    want = sk.density_plain(tf, ps, tp, r, CAP, tune=kahan)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    # the compensated sum is at least as close to float64 as the default
+    p64 = sk.density_plain(tf, ps.double(), PhysParams(
+        *(t.double() for t in tp)), r, CAP)
+    e_k = float((got.double() - p64).abs().max())
+    e_d = float((sk.density_cuda(tf, ps, tp, r, CAP).double()
+                 - p64).abs().max())
+    assert e_k <= e_d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("variant", sorted(VARIANT_TUNES))
+def test_variant_substep_and_forces_match_plain_on_card(cuda_device,
+                                                        variant, ext):
+    # K2 and K3 in each variant, held to the plain version of the same
+    # variant by the accuracy rules, counted under the variant's tag
+    tune = VARIANT_TUNES[variant]
+    xs, al = (XSPH, ALPHA) if ext else (0.0, 0.0)
+    tf, ps, vs, tp, r = _card_inputs("goldenish", cuda_device, frames=2)
+    rows = sk.pack_rows(ps, vs, sk.density_plain(tf, ps, tp, r, CAP))
+    rows[100:111, 2] = (rows[100:111, 2] + 1.5 / (r - 1)).clamp(max=1.0)
+    key = ("fused_substep_ext" if ext else "fused_substep") + "+" + variant
+    before = sk.launch_counts.get(key, 0)
+    out = sk.fused_substep(tf, rows, tp, r, CAP, xs, al, tune=tune)
+    assert sk.launch_counts[key] == before + 1
+    acc = sk.substep_accuracy(tf, rows, out, tp, r, CAP, xs, al, tune=tune)
+    assert acc.ok, acc
+    f, dv = sk.forces_pass(tf, rows, tp, r, CAP, xs, al, tune=tune)
+    assert sk.launch_counts["forces+" + variant] >= 1
+    acc = sk.forces_accuracy(tf, rows, f, dv, tp, r, CAP, xs, al, tune=tune)
+    assert acc.ok, acc
+    # the planted control: the variant without viscosity fails its rule
+    no_visc = tp._replace(viscosity=torch.zeros_like(tp.viscosity))
+    bad = sk.fused_substep_cuda(tf, rows, no_visc, r, CAP, xs, al,
+                                tune=tune)
+    assert not sk.substep_accuracy(tf, rows, bad, tp, r, CAP, xs, al,
+                                   tune=tune).ok
+
+
+@pytest.mark.cuda
+def test_bf16_ext_kernels_take_rho_j_from_the_rows_on_card(cuda_device):
+    # with extensions the bf16 K2 and K3 read ρⱼ from the rows, rounded,
+    # and compute press_j and 1/ρⱼ from it: pj is not read (garbage gives
+    # the same bits), and the result is the plain bf16 version's, not the
+    # f32 one's
+    bf = VARIANT_TUNES["bf16"]
+    tf, ps, vs, tp, r = _card_inputs("goldenish", cuda_device, frames=2,
+                                     xsph=XSPH, artificial_viscosity=ALPHA)
+    rows = sk.pack_rows(ps, vs, sk.density_plain(tf, ps, tp, r, CAP))
+    pj = sk.pj_cols(rows[:, 6], tp)
+    junk = torch.full_like(pj, float("nan"))
+    out = sk.fused_substep_cuda(tf, rows, tp, r, CAP, XSPH, ALPHA, pj,
+                                tune=bf)
+    assert _same_bits(out, sk.fused_substep_cuda(tf, rows, tp, r, CAP, XSPH,
+                                                 ALPHA, junk, tune=bf))
+    assert sk.substep_accuracy(tf, rows, out, tp, r, CAP, XSPH, ALPHA,
+                               tune=bf).ok
+    assert not sk.substep_accuracy(tf, rows, out, tp, r, CAP, XSPH,
+                                   ALPHA).ok
+    sums = sk.forces_cuda(tf, rows, tp, r, CAP, True, pj, tune=bf)
+    assert _same_bits(sums, sk.forces_cuda(tf, rows, tp, r, CAP, True, junk,
+                                           tune=bf))
+    f, dv = sk.fold_forces(sums, rows[:, 6], tp, XSPH, ALPHA)
+    assert sk.forces_accuracy(tf, rows, f, dv, tp, r, CAP, XSPH, ALPHA,
+                              tune=bf).ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["goldenish", "tiny"])
+def test_bf16_compact_kernel_matches_plain_on_card(cuda_device, name):
+    bf = VARIANT_TUNES["bf16"]
+    tf, ps, vs, tp, r = _card_inputs(name, cuda_device, frames=2)
+    rows = sk.pack_rows(ps, vs, sk.density_plain(tf, ps, tp, r, CAP))
+    rows[100:111, 2] += 2.5 / (r - 1)
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        out, c = compact.compact_substep(tf, rows, tp, r, CAP, xs, al,
+                                         tune=bf)
+        _, c_p = compact.compact_substep_plain(tf, rows, tp, r, xs, al,
+                                               tune=bf)
+        assert int(c) == int(c_p)
+        acc = sk.substep_accuracy(tf, rows, out, tp, r, None, xs, al,
+                                  sums_fn=compact.compact_sums_plain,
+                                  tune=bf)
+        assert acc.ok, acc
+    f, c = compact.forces_compact(tf, rows, tp, r, CAP, tune=bf)
+    assert sk.forces_accuracy(tf, rows, f, None, tp, r, None,
+                              sums_fn=compact.compact_sums_plain,
+                              tune=bf).ok
+    for k in ("compact_substep+bf16", "compact_substep_ext+bf16",
+              "compact_forces+bf16"):
+        assert sk.launch_counts[k] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [4, CAP, None])
+def test_banded_compact_kernel_matches_plain_on_card(cuda_device, cap):
+    # K5-band density and substep over a band with dead rows, each held to
+    # its banded plain version: dead rows get density 0 and are copied
+    # through, the drift count equals the plain version's, and the
+    # capacity-cut stream gives the uncut stream's bits
+    band = (1, 6)
+    tf, ps, vs, tp, r, n_live = _banded_inputs(cap, cuda_device, band)
+    before = dict(sk.launch_counts)
+    rho, c = compact.density_compact(tf, ps, tp, r, cap, band=band)
+    assert sk.launch_counts["compact_density_band"] == \
+        before["compact_density_band"] + 1
+    rho_p, _ = compact.density_compact_plain(tf, ps, tp, r, band)
+    torch.testing.assert_close(rho, rho_p, rtol=1e-5, atol=1e-6)
+    assert not rho[n_live:].any() and int(c) == 0
+    assert _same_bits(compact.density_compact_cuda(tf, ps, tp, r, None,
+                                                   band=band)[0], rho)
+    rows = sk.pack_rows(ps, vs, rho_p)
+    rows[100:400:3, 2] = (rows[100:400:3, 2] + 1.5 / (r - 1)).clamp(max=1.0)
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        out, c = compact.compact_substep(tf, rows, tp, r, cap, xs, al,
+                                         band=band)
+        _, c_p = compact.compact_substep_plain(tf, rows, tp, r, xs, al, band)
+        assert int(c) == int(c_p)
+        assert torch.equal(out[n_live:], rows[n_live:])
+        acc = sk.substep_accuracy(tf, rows, out, tp, r, None, xs, al,
+                                  sums_fn=compact.compact_sums_plain,
+                                  band=band)
+        assert acc.ok, acc
+        uncut, _ = compact.compact_substep_cuda(tf, rows, tp, r, None, xs,
+                                                al, band=band)
+        assert _same_bits(uncut, out)
+    for k in ("compact_substep_band", "compact_substep_ext_band"):
+        assert sk.launch_counts[k] > before[k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["window", "compact"])
+def test_unfused_route_on_card(cuda_device, route):
+    # SPH_PALLAS_FUSED=0: one density and five forces launches a frame and
+    # no fused substep, tracking the fused route (tests/test_pallas.py:
+    # 198-226)
+    cfg = SimConfig(**_CALM)
+    s0 = initial_state(cfg, cuda_device)
+    compact_route = route == "compact"
+    sk.reset_launch_counts()
+    a, ma = make_rollout(cfg, 3, tune=SortedTuning(compact=compact_route,
+                                                   fused=False),
+                         device=cuda_device)(s0)
+    want = (dict(compact_density=3, compact_forces=15) if compact_route
+            else dict(density=3, forces=15))
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    **want)
+    b, mb = make_rollout(cfg, 3, tune=SortedTuning(compact=compact_route),
+                         device=cuda_device)(s0)
+    torch.testing.assert_close(a.pos, b.pos, rtol=0, atol=1e-6)
+    torch.testing.assert_close(a.vel, b.vel, rtol=0, atol=1e-6)
+    assert int(ma.exact_cert.sum()) == int(mb.exact_cert.sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4])
+def test_compact_slab_step_on_card(cuda_device, d):
+    # the slab step on the compact route: D K5-band density and 5·D K5-band
+    # substep launches a frame, within the slab tolerance of the
+    # single-device compact route (tests/test_slab_pallas.py:97-131)
+    from sphfluidsimulation_torch.parallel import (LocalRing, collect,
+                                                   distribute,
+                                                   make_pallas_slab_step)
+    cfg = SimConfig(**_CALM)
+    s0 = initial_state(cfg, cuda_device)
+    step, spec = make_pallas_slab_step(cfg, LocalRing(d), row_slack=4.0,
+                                       tune=COMPACT)
+    sst = distribute(s0, cfg, spec)
+    phys = PhysParams.from_config(cfg, cuda_device)
+    sk.reset_launch_counts()
+    for _ in range(3):
+        sst, m = step(sst, phys)
+        assert int(m.exact_cert) == 0
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    compact_density_band=3 * d,
+                                    compact_substep_band=15 * d)
+    out, lost = collect(sst, cfg.n_particles)
+    ref, _ = make_rollout(cfg, 3, tune=COMPACT, device=cuda_device)(s0)
+    assert lost == 0
+    torch.testing.assert_close(out.pos, ref.pos, rtol=0, atol=2e-5)
+    torch.testing.assert_close(out.vel, ref.vel, rtol=0, atol=2e-4)

@@ -435,9 +435,19 @@ def test_slab_step_migration_overflow_is_certified():
 
 def test_slab_step_rejects_the_compact_route_and_needs_the_card(
         monkeypatch):
-    with pytest.raises(NotImplementedError, match="B1"):
-        make_pallas_slab_step(CALM, LocalRing(2), device="cpu",
-                              tune=sk.SortedTuning(compact=True))
+    # the compact route runs on the CPU through the banded K5's plain
+    # versions (the name is kept from when it raised); without a card the
+    # default device raises
+    step, spec = make_pallas_slab_step(CALM, LocalRing(2), device="cpu",
+                                       row_slack=4.0,
+                                       tune=sk.SortedTuning(compact=True))
+    s0 = initial_state(CALM, "cpu")
+    sst, m = step(distribute(s0, CALM, spec), PhysParams.from_config(CALM))
+    out, lost = collect(sst, CALM.n_particles)
+    ref, _ = make_rollout(CALM, 1, tune=sk.SortedTuning(compact=True),
+                          device="cpu")(s0)
+    assert int(m.exact_cert) == 0 and lost == 0
+    assert float((out.pos - ref.pos).abs().max()) < 2e-5
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         make_pallas_slab_step(CALM, LocalRing(2))
@@ -591,12 +601,15 @@ def test_bench_times_the_jax_window_and_a_steady_window(monkeypatch):
     assert "steady_state_value" not in out
 
 
-@pytest.mark.parametrize("var,value,item", [
-    ("SPH_PALLAS_FUSED", "0", "B4"), ("SPH_PALLAS_KAHAN", "1", "B2"),
-    ("SPH_PALLAS_BF16", "1", "B3"), ("SPH_PALLAS_FACC", "0", "B5"),
+@pytest.mark.parametrize("var,value,field", [
+    ("SPH_PALLAS_FUSED", "0", "fused"), ("SPH_PALLAS_KAHAN", "1", "kahan"),
+    ("SPH_PALLAS_BF16", "1", "bf16"), ("SPH_PALLAS_FACC", "0", "fuse_acc"),
     (None, None, None)])
 def test_tuning_variables_raise_unless_default(monkeypatch, var, value,
-                                               item):
+                                               field):
+    # each semantic variable selects its variant (they raised until the
+    # variants were ported; the test keeps its name), and the stepper and
+    # the slab step take it from the environment
     for v in ("SPH_PALLAS_FUSED", "SPH_PALLAS_KAHAN", "SPH_PALLAS_BF16",
               "SPH_PALLAS_FACC", "SPH_PALLAS_COMPACT"):
         monkeypatch.delenv(v, raising=False)
@@ -612,10 +625,14 @@ def test_tuning_variables_raise_unless_default(monkeypatch, var, value,
         assert sk.default_tuning() == sk.SortedTuning(compact=True)
         return
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        sk.SortedTuning.from_env()
-    with pytest.raises(NotImplementedError, match=item):
-        make_rollout(CALM, 1, device="cpu")
+    want = sk.SortedTuning()._replace(**{field: value == "1"})
+    assert want != sk.SortedTuning()
+    assert sk.SortedTuning.from_env() == want
+    s0 = initial_state(CALM, "cpu")
+    got = make_rollout(CALM, 1, device="cpu")(s0)
+    same = make_rollout(CALM, 1, tune=want, device="cpu")(s0)
+    for x, y in zip((*got[0], *got[1]), (*same[0], *same[1])):
+        assert torch.equal(x, y)
 
 
 def test_neighbor_pallas_is_the_sorted_tier():

@@ -313,13 +313,14 @@ def test_division_free_pair_terms_pass_the_forces_rule(name, ext):
     rows = sk.pack_rows(ps, vs, sk.density_plain(tf, ps, tp, r, CAP))
     xs, al = (XSPH, ALPHA) if ext else (0.0, 0.0)
     sums = _pj_sums(tf, rows, tp, r, CAP, ext)
-    f, dv = sk.fold_forces(sums, rows[:, 6], tp, xs, al)
+    # the sums of the two-accumulator pair (K3's facc0 instance)
+    f, dv = sk.fold_forces(sums, rows[:, 6], tp, xs, al, fuse_acc=False)
     acc = sk.forces_accuracy(tf, rows, f, dv, tp, r, CAP, xs, al)
     assert acc.ok, acc
     # the planted control: the pressure sums dropped fail the rule
     sums0 = sums.clone()
     sums0[:, 0:3] = 0.0
-    f0, dv0 = sk.fold_forces(sums0, rows[:, 6], tp, xs, al)
+    f0, dv0 = sk.fold_forces(sums0, rows[:, 6], tp, xs, al, fuse_acc=False)
     assert not sk.forces_accuracy(tf, rows, f0, dv0, tp, r, CAP, xs, al).ok
 
 
