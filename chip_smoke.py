@@ -91,7 +91,28 @@ every phase passed; each prints its seconds):
    2 and 4 slabs (``exact_cert`` 0, within 2e-5 of the single-device
    compact route); the CLI at config 3 with ``SPH_PALLAS_FUSED=0`` and
    with ``SPH_PALLAS_KAHAN=1``; and each new instance's time, plain time
-   and bound, as in phase 7.
+   and bound, as in phase 7;
+10. the paths of the JAX package's default backend and its export path,
+   each with the launch counters reset before it: the exact tiers
+   (``neighbor="slotted"`` and ``"gather"``, plain PyTorch, which launch no
+   hand-written kernel) on the calm 1k scene, faithful and corrected, 3
+   frames, within 1e-5 of the port's brute oracle, and slotted with XSPH
+   0.3 and artificial viscosity 0.4 likewise; at 262k, 3 frames each of
+   slotted and gather, their frame-1 overflow equal to the voxel table's
+   (``grid.build_bucket``; the sorted tier's, which ranks within anchor
+   runs, is printed beside: the two differ where spawns alias, as in JAX),
+   each tier's rate beside the sorted tier's; at config 3, 3 frames of
+   slotted with the extensions, positions in [0, 1]; the calm pin
+   (tests/data/calm1024_pin_r2.npz) after 100 frames on the sorted and the
+   slotted tier, RMSE and max error printed and held to the CPU tests'
+   tolerance, ``exact_cert`` 0; ``make_dt_rollout`` on the sorted tier at
+   262k over 5 frames of a varying schedule, bit-equal to stepping frame by
+   frame, with exactly 1 K1 and 5 K2 launches a frame; ``snapshot_every=5``
+   on a 10-frame sorted rollout at 262k: 2 snapshots, the last the final
+   positions, the final state bit-equal to the rollout without snapshots,
+   the same launches; and the render layer: ``mesh_properties`` of a 262k
+   state on the card equal to the same call on the CPU within 1e-6, a PNG
+   and a viewer HTML written from it, the seconds of each printed.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -130,6 +151,11 @@ SLAB_D, SLAB_FRAMES, SLAB_SLACK, SLAB_HALO = 4, 3, 4.0, 8.0
 
 # the slab step on the compact route and the variants' paths: frames a path
 VARIANT_FRAMES = 3
+# phase 10: the calm pin's tolerance, (RMSE, max) at frame 100, that of
+# tests/test_torch_calm_pin.py (JAX's own CPU rollout is off the TPU-written
+# pin by 4.47e-6 / 6.19e-5 there); the dt replay's schedule (frame deltas)
+PIN_RMSE, PIN_MAX = 1e-5, 1e-4
+DT_SCHEDULE = (1 / 240, 1 / 120, 1 / 360, 1 / 180, 1 / 480)
 
 # The bound of a kernel: the larger of its bytes over the memory rate and
 # its FP32 operations over the FP32 rate outside the tensor cores (NVIDIA
@@ -1362,6 +1388,200 @@ def main() -> None:
                       sf.frame, mid, phys, r, xs, al, sf.band)
                       for sf, mid, _ in ins],
                   s_cells=cells, n_dead=n_dead)
+
+    # ---- 10. the JAX package's default backend and its export path
+    from sphfluidsimulation_torch import make_dt_rollout, make_param_step
+    from sphfluidsimulation_torch.ops import grid
+    from sphfluidsimulation_torch.native import build as native_build
+    from sphfluidsimulation_torch.render import export, meshprops, viewer
+
+    def same_bits(a, b):
+        """Bit for bit, NaN payloads included."""
+        return a.shape == b.shape and a.dtype == b.dtype and bool(
+            (a.view(torch.int32) == b.view(torch.int32)).all())
+
+    def no_kernel(label):
+        read_launches(label, zero)
+
+    calm = SimConfig(particle_number=1024, bucket_resolution=11, preset=0,
+                     gas_constant=20.0, rest_density=1.7, viscosity=0.05,
+                     stiffness_coefficient=1000.0, frame_dt=1 / 240)
+    with Phase("exact tiers: calm 1k"):
+        for cfg, tiers in ((calm, ("slotted", "gather")),
+                           (calm.replace(xsph=0.3, artificial_viscosity=0.4),
+                            ("slotted",))):
+            s0 = initial_state(cfg, dev)
+            for faithful in (True, False):
+                b, mb = make_rollout(cfg, 3, neighbor="brute",
+                                     faithful=faithful, device=dev)(s0)
+                for tier in tiers:
+                    sk.reset_launch_counts()
+                    a, ma = make_rollout(cfg, 3, neighbor=tier,
+                                         faithful=faithful, device=dev)(s0)
+                    torch.cuda.synchronize()
+                    no_kernel(f"the {tier} path")
+                    e = float((a.pos - b.pos).abs().max())
+                    print(f"calm 1k {tier}, xsph {cfg.xsph}, alpha "
+                          f"{cfg.artificial_viscosity}, faithful={faithful}:"
+                          f" vs brute max |dpos| {e:.3e} over 3 frames (< "
+                          f"{ORACLE_ATOL:g}); overflow {ma.overflow.tolist()}"
+                          f" vs {mb.overflow.tolist()}", flush=True)
+                    if not e < ORACLE_ATOL or not torch.equal(ma.overflow,
+                                                              mb.overflow):
+                        fail(f"the {tier} tier leaves the brute oracle "
+                             f"(faithful={faithful}, xsph {cfg.xsph})")
+
+    with Phase("exact tiers: 262k and config 3"):
+        cfg, st0 = sizes["262k"], states0["262k"]
+        bucket, _ = grid.build_bucket(st0.pos, cfg.bucket_resolution,
+                                      cfg.voxel_capacity)
+        table_ovf = int(grid.overflow_count(bucket))
+        rates = {}
+        for tier in ("sorted", "slotted", "gather"):
+            make_rollout(cfg, 1, neighbor=tier, device=dev)(st0)  # warm-up
+            roll = make_rollout(cfg, 3, neighbor=tier, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final, m = roll(st0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rates[tier] = cfg.n_particles * cfg.substeps * 3 / dt
+            ovf1 = int(m.overflow[0])
+            print(f"262k {tier}: 3 frames from the spawn in {dt:.4f} s = "
+                  f"{rates[tier]:.6g} particle-substeps/s ({rates[tier] / rates['sorted']:.4f} "
+                  f"of the sorted tier's); frame-1 overflow {ovf1} (voxel "
+                  f"table {table_ovf}); overflow per frame "
+                  f"{m.overflow.tolist()}, non-finite position rows "
+                  f"{int((~torch.isfinite(final.pos)).any(1).sum())} "
+                  f"[{ident}]", flush=True)
+            if tier != "sorted" and ovf1 != table_ovf:
+                fail(f"262k {tier}: frame-1 overflow {ovf1}, the voxel "
+                     f"table's {table_ovf}")
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        final, m = make_rollout(c3, 3, neighbor="slotted", device=dev)(
+            c3_state)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        no_kernel("the slotted config 3 path")
+        pos = final.pos
+        inside = bool(((pos >= 0) & (pos <= 1)).all())
+        print(f"config 3 slotted with extensions, 3 frames from the spawn "
+              f"in {dt:.4f} s = {c3.n_particles * c3.substeps * 3 / dt:.6g} "
+              f"particle-substeps/s: positions in [0, 1] {inside}, overflow "
+              f"{m.overflow.tolist()}, max_speed "
+              f"{[float(f'{x:.4g}') for x in m.max_speed.tolist()]} "
+              f"[{ident}]", flush=True)
+        if not inside:
+            fail("config 3 slotted: positions outside [0, 1]")
+
+    with Phase("calm pin"):
+        with np.load(os.path.join(root, "tests", "data",
+                                  "calm1024_pin_r2.npz")) as z:
+            pin = torch.from_numpy(z["f100"]).to(dev)
+        for tier in ("sorted", "slotted"):
+            final, m = make_rollout(calm, 100, neighbor=tier, device=dev)(
+                initial_state(calm, dev))
+            d = (final.pos.double() - pin.double())
+            rmse, mx = float(d.pow(2).mean().sqrt()), float(d.abs().max())
+            cert = int(m.exact_cert.sum())
+            print(f"calm pin f100, {tier}: RMSE {rmse:.4e} (< {PIN_RMSE:g}),"
+                  f" max {mx:.4e} (< {PIN_MAX:g}), exact_cert {cert} "
+                  f"[{ident}]", flush=True)
+            if not (rmse < PIN_RMSE and mx < PIN_MAX and cert == 0):
+                fail(f"the calm pin on the {tier} tier")
+
+    with Phase("dt replay 262k"):
+        cfg, st0 = sizes["262k"], states0["262k"]
+        nf = len(DT_SCHEDULE)
+        roll = make_dt_rollout(cfg, nf, device=dev)
+        roll(st0, DT_SCHEDULE[:1] * nf)                         # warm-up
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        final, m = roll(st0, DT_SCHEDULE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        read_launches("the dt replay", dict(zero, density=nf,
+                                            fused_substep=5 * nf))
+        step = make_param_step(cfg)
+        base = PhysParams.from_config(cfg, dev)
+        div = torch.tensor(cfg.substep_divisor, dtype=torch.float32,
+                           device=dev)
+        st = st0
+        for d_f in DT_SCHEDULE:
+            st, _ = step(st, base._replace(dt=torch.tensor(
+                d_f, dtype=torch.float32, device=dev) / div))
+        bits = all(same_bits(a, b) for a, b in zip(final, st))
+        print(f"dt replay 262k, {nf} frames of {DT_SCHEDULE}: {dt:.4f} s, "
+              f"bit-equal to stepping frame by frame {bits}; exact_cert "
+              f"{m.exact_cert.tolist()} [{ident}]", flush=True)
+        if not bits:
+            fail("the dt replay leaves per-frame stepping")
+
+    with Phase("snapshots 262k"):
+        cfg, st0 = sizes["262k"], states0["262k"]
+        sk.reset_launch_counts()
+        final, m, snaps = make_rollout(cfg, 10, snapshot_every=5,
+                                       device=dev)(st0)
+        torch.cuda.synchronize()
+        read_launches("the snapshot rollout", dict(zero, density=10,
+                                                   fused_substep=50))
+        sk.reset_launch_counts()
+        plain, _ = make_rollout(cfg, 10, device=dev)(st0)
+        torch.cuda.synchronize()
+        read_launches("the rollout without snapshots",
+                      dict(zero, density=10, fused_substep=50))
+        ok = (snaps.shape == (2, cfg.n_particles, 3)
+              and same_bits(snaps[1], final.pos)
+              and all(same_bits(a, b) for a, b in zip(final, plain)))
+        print(f"snapshots 262k, every 5 of 10 frames: {tuple(snaps.shape)}, "
+              f"the last the final positions and the final state bit-equal "
+              f"to the rollout without snapshots: {ok}", flush=True)
+        if not ok:
+            fail("the snapshot rollout")
+
+    with Phase("render 262k"):
+        cfg = sizes["262k"]
+        rp = meshprops.RenderParams.from_config(cfg, dev)
+        nan_mask = final.nan_count > 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mat, col = meshprops.mesh_properties(final.pos, final.vel, rp,
+                                             nan_mask)
+        torch.cuda.synchronize()
+        t_mesh = time.perf_counter() - t0
+        mat_c, col_c = meshprops.mesh_properties(
+            final.pos.cpu(), final.vel.cpu(),
+            meshprops.RenderParams.from_config(cfg), nan_mask.cpu())
+        e_mesh = max(float((a.cpu() - b).abs().max())
+                     for a, b in ((mat, mat_c), (col, col_c)))
+        out_dir = os.path.join(root, "build", "render")
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        img = export.render_frame_png(final.pos.cpu().numpy(),
+                                      col.cpu().numpy(),
+                                      sim_scale=cfg.sim_scale,
+                                      particle_radius=cfg.particle_radius)
+        png = os.path.join(out_dir, "frame.png")
+        export.save_png(png, img)
+        t_png = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        html = viewer.export_html_viewer(
+            os.path.join(out_dir, "viewer.html"), snaps.cpu().numpy(),
+            torch.linalg.vector_norm(final.vel, dim=-1).expand(
+                snaps.shape[0], -1).cpu().numpy(),
+            sim_scale=cfg.sim_scale, low_speed=cfg.low_speed,
+            high_speed=cfg.high_speed)
+        t_html = time.perf_counter() - t0
+        print(f"render 262k: mesh_properties {t_mesh:.6f} s on the card "
+              f"(max |card - cpu| {e_mesh:.3e}, < 1e-6); PNG "
+              f"{os.path.getsize(png)} bytes in {t_png:.4f} s (rasteriser "
+              f"{'native' if native_build.load_framecodec() else 'numpy'}); "
+              f"viewer HTML {os.path.getsize(html)} bytes in {t_html:.4f} s "
+              f"[{ident}]", flush=True)
+        if not e_mesh < 1e-6:
+            fail("mesh_properties on the card leaves the CPU's")
 
     # the main shape of each kernel's path first; the others as ms_<shape>
     main_shape = {"density": "262k", "fused_substep": "262k",

@@ -13,10 +13,13 @@ card and plain PyTorch on the CPU. Public API:
 
 from .config import GOLDEN_CONFIG, TINY_CONFIG, SimConfig  # noqa: F401
 from .params import PhysParams  # noqa: F401
-from .state import ParticleState, StepMetrics, make_state  # noqa: F401
+from .state import (FrameAux, ParticleState, StepMetrics,  # noqa: F401
+                    make_state)
 from .models.scene import Scene  # noqa: F401
 from .sim.stepper import (  # noqa: F401
     initial_state,
+    integrate_substep,
+    make_dt_rollout,
     make_frame_step,
     make_param_step,
     make_rollout,

@@ -37,11 +37,12 @@ def scaled_config(n_particles: int) -> SimConfig:
 
 
 def run_bench(n_particles: int = 1 << 20, frames: int = 20,
-              warmup_frames: int = 5, tune: SortedTuning | None = None,
+              warmup_frames: int = 5, neighbor: str = "sorted",
+              tune: SortedTuning | None = None,
               steady_frames: int = 0) -> dict:
-    """``tune`` selects the route and variant (None reads the
-    ``SPH_PALLAS_*`` variables);
-    ``steady_frames`` > 0 adds the ``steady_state_*`` keys."""
+    """``neighbor`` is the tier (``make_rollout``'s); ``tune`` selects the
+    sorted tier's route and variant (None reads the ``SPH_PALLAS_*``
+    variables); ``steady_frames`` > 0 adds the ``steady_state_*`` keys."""
     if not torch.cuda.is_available():
         raise RuntimeError("run_bench measures the card; no CUDA device")
     device = torch.device("cuda")
@@ -50,12 +51,13 @@ def run_bench(n_particles: int = 1 << 20, frames: int = 20,
     state = initial_state(cfg, device)
 
     t0 = time.perf_counter()
-    state, _ = make_rollout(cfg, warmup_frames, tune=tune,
-                            device=device)(state)
+    state, _ = make_rollout(cfg, warmup_frames, neighbor=neighbor,
+                            tune=tune, device=device)(state)
     device_sync()
     compile_s = time.perf_counter() - t0
 
-    roll = make_rollout(cfg, frames, tune=tune, device=device)
+    roll = make_rollout(cfg, frames, neighbor=neighbor, tune=tune,
+                        device=device)
     state, _ = roll(state)          # the timed length, once untimed
     device_sync()
     t0 = time.perf_counter()
@@ -96,7 +98,7 @@ def run_bench(n_particles: int = 1 << 20, frames: int = 20,
         "elapsed_s": round(elapsed, 3),
         # the kernel build happens at first use, inside the warm-up
         "compile_plus_warmup_s": round(compile_s, 1),
-        "neighbor": "sorted",
+        "neighbor": neighbor,
         "pallas_tuning": tune._asdict(),
         "scan_unroll": False,
         "site_capacity": None,

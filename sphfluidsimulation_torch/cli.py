@@ -1,9 +1,12 @@
 """Command-line runner.
 
-Counterpart of ``sphfluidsimulation_tpu/cli.py`` (``run`` :65-147, ``bench``
-:305-311, the flags :18-62): ``python -m sphfluidsimulation_torch run`` with
-one flag per reference inspector field (SphFluidSimulation.cs:34-53), plus
-checkpoint/resume and a metrics JSONL. ``--device`` names the torch device;
+Counterpart of ``sphfluidsimulation_tpu/cli.py`` (``run`` :65-147, ``export``
+:217-244, ``bench`` :305-311, the flags :18-62, :317-362): ``python -m
+sphfluidsimulation_torch run`` with one flag per reference inspector field
+(SphFluidSimulation.cs:34-53), plus checkpoint/resume, a metrics JSONL,
+frame export (``--export-dir``, ``--animate``), the standalone WebGL viewer
+(``--viewer``, ``--viewer-live``) and ``export`` of a checkpoint to PNG and
+PLY. ``--device`` names the torch device;
 it defaults to the card, and a run asked for on a card that is not there
 stops with exit code 2 instead of running on the CPU.
 
@@ -23,8 +26,7 @@ bfloat16 candidates and ``SPH_PALLAS_FACC=0`` the two-accumulator force
 kernels.
 
 What needs code the port does not have yet exits with code 2 and names its
-ROADMAP.md item: ``export`` and ``--export-dir``/``--animate``/``--viewer``
-(render, queue A item 10), ``sweep`` (scene batching, item 11) and
+ROADMAP.md item: ``sweep`` (scene batching, queue A item 11) and
 ``--shards > 1``. The JAX CLI's ``--shards`` runs the slab step of the
 sites tier (queue A items 9 and 11); the port's slab step of the sorted
 tier is the library's ``parallel.make_pallas_slab_step``.
@@ -34,9 +36,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
-_RENDER = "render is not ported yet: ROADMAP.md queue A item 10"
+import numpy as np
+
 _BATCH = "scene batching is not ported yet: ROADMAP.md queue A item 11"
 _SLAB = ("--shards runs the sites tier's slab step, which is not ported yet: "
          "ROADMAP.md queue A items 9 and 11 (the sorted tier's slab step is "
@@ -61,10 +65,12 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--high-speed", type=float, default=0.5)
     p.add_argument("--frame-dt", type=float, default=1.0 / 60.0)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--neighbor", choices=["sorted", "brute"],
+    p.add_argument("--neighbor",
+                   choices=["sorted", "slotted", "gather", "brute"],
                    default="sorted",
                    help="'sorted': the CUDA kernels on the card (plain "
-                        "torch on the CPU); 'brute': the O(N²) oracle")
+                        "torch on the CPU); 'slotted', 'gather': the exact "
+                        "tiers (plain torch); 'brute': the O(N²) oracle")
     p.add_argument("--corrected", action="store_true",
                    help="rebuild bucket+density every substep instead of "
                         "the reference's once-per-frame reuse")
@@ -116,11 +122,6 @@ def cmd_run(a) -> int:
 
     if a.shards > 1:
         return _unavailable(f"--shards {a.shards}: {_SLAB}")
-    render = [flag for flag, on in (
-        ("--export-dir", a.export_dir), ("--animate", a.animate),
-        ("--viewer", a.viewer)) if on]
-    if render:
-        return _unavailable(f"{', '.join(render)}: {_RENDER}")
     dev = _device(a.device)
     if dev is None:
         return 2
@@ -138,8 +139,27 @@ def cmd_run(a) -> int:
 
     log = MetricsLogger(a.metrics, n_particles=scene.cfg.n_particles,
                         substeps=scene.cfg.substeps)
+    export_every = a.export_every if a.export_dir else 0
+    if a.export_dir:
+        os.makedirs(a.export_dir, exist_ok=True)
+
+    exported: list[str] = []
+    viewer_frames: list = []
+    viewer_speeds: list = []
     for _ in range(a.frames):
         scene.step()
+        if a.viewer and scene.frame % max(a.viewer_every, 1) == 0:
+            vel = scene.state.vel.cpu().numpy()
+            viewer_frames.append(scene.state.pos.cpu().numpy())
+            viewer_speeds.append(np.linalg.norm(vel, axis=-1))
+            # live mode: rewrite the self-contained viewer every k recorded
+            # frames with an auto-refresh tag, so a browser on the file
+            # follows the RUNNING simulation (the reference draws every
+            # frame, SphFluidSimulation.cs:106-107); the final write below
+            # drops the refresh
+            if a.viewer_live and len(viewer_frames) % a.viewer_live == 0:
+                _write_viewer(a.viewer, scene.cfg, viewer_frames,
+                              viewer_speeds, refresh_s=2.0)
         rec = log.log(scene.frame, scene.last_metrics)
         if a.verbose:
             print(json.dumps(rec))
@@ -147,13 +167,80 @@ def cmd_run(a) -> int:
                 scene.frame % a.checkpoint_every == 0:
             save_checkpoint(a.checkpoint, scene.state, scene.cfg,
                             frame=scene.frame)
+        if export_every and scene.frame % export_every == 0:
+            exported.append(_export_frame(scene, a.export_dir))
 
     if a.checkpoint:
         save_checkpoint(a.checkpoint, scene.state, scene.cfg,
                         frame=scene.frame)
         print(f"checkpoint → {a.checkpoint}")
+    if a.animate:
+        from .render.export import assemble_animation
+        # only the frames THIS run wrote: a glob would splice in stale
+        # frame_*.png files left in the directory by earlier runs
+        if exported:
+            print(f"animation → {assemble_animation(exported, a.animate)}")
+        else:
+            print("no exported frames to animate (use --export-dir)")
+    if a.viewer and viewer_frames:
+        _write_viewer(a.viewer, scene.cfg, viewer_frames, viewer_speeds)
+        print(f"viewer → {a.viewer}")
     last = log.history[-1] if log.history else {}
     print(json.dumps({"frames": scene.frame, **last}))
+    return 0
+
+
+def _write_viewer(path: str, cfg, frames: list, speeds: list,
+                  refresh_s: float | None = None) -> None:
+    from .render.viewer import export_html_viewer
+    export_html_viewer(path, np.stack(frames), np.stack(speeds),
+                       sim_scale=cfg.sim_scale, low_speed=cfg.low_speed,
+                       high_speed=cfg.high_speed, refresh_s=refresh_s)
+
+
+def _colors(state, cfg) -> np.ndarray:
+    """The speed ramp with the NaN-trap marker, computed on the state's
+    device, as numpy."""
+    from .render.meshprops import RenderParams, speed_colors
+    rp = RenderParams.from_config(cfg, state.vel.device)
+    return speed_colors(state.vel, rp,
+                        nan_mask=state.nan_count > 0).cpu().numpy()
+
+
+def _export_frame(scene, out_dir: str) -> str:
+    from .render.export import render_frame_png, save_png
+
+    img = render_frame_png(scene.state.pos.cpu().numpy(),
+                           _colors(scene.state, scene.cfg),
+                           sim_scale=scene.cfg.sim_scale,
+                           particle_radius=scene.cfg.particle_radius)
+    path = os.path.join(out_dir, f"frame_{scene.frame:05d}.png")
+    save_png(path, img)
+    return path
+
+
+def cmd_export(a) -> int:
+    from .render.export import (render_frame_png, save_instanced_mesh_ply,
+                                save_png, save_ply)
+    from .utils.checkpoint import load_checkpoint
+
+    state, cfg, _ = load_checkpoint(a.checkpoint)
+    colors = _colors(state, cfg)
+    pos = state.pos.numpy()
+    if a.png:
+        save_png(a.png, render_frame_png(
+            pos, colors, sim_scale=cfg.sim_scale,
+            particle_radius=cfg.particle_radius))
+        print(f"png → {a.png}")
+    if a.ply:
+        save_ply(a.ply, pos, colors)
+        print(f"ply → {a.ply}")
+    if a.ply_mesh:
+        save_instanced_mesh_ply(a.ply_mesh, pos, colors,
+                                sim_scale=cfg.sim_scale,
+                                particle_radius=cfg.particle_radius,
+                                max_particles=a.mesh_max_particles)
+        print(f"instanced mesh ply → {a.ply_mesh}")
     return 0
 
 
@@ -163,7 +250,8 @@ def cmd_bench(a) -> int:
     if _device("cuda") is None:
         return 2
     result = run_bench(n_particles=a.particles, frames=a.frames,
-                       warmup_frames=a.warmup, tune=default_tuning())
+                       warmup_frames=a.warmup, neighbor=a.neighbor,
+                       tune=default_tuning())
     print(json.dumps(result))
     return 0
 
@@ -171,7 +259,7 @@ def cmd_bench(a) -> int:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     # the JAX package's other commands, whatever arguments they carry
-    unported = {"export": _RENDER, "sweep": _BATCH}
+    unported = {"sweep": _BATCH}
     if argv and argv[0] in unported:
         return _unavailable(f"{argv[0]}: {unported[argv[0]]}")
     parser = argparse.ArgumentParser(
@@ -179,7 +267,7 @@ def main(argv=None) -> int:
         description="SPH fluid simulation, PyTorch + CUDA")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("run", help="advance a scene")
+    p = sub.add_parser("run", help="advance a scene and export artifacts")
     _add_config_flags(p)
     p.add_argument("--frames", type=int, default=60)
     p.add_argument("--checkpoint", type=str, default=None,
@@ -188,17 +276,41 @@ def main(argv=None) -> int:
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--metrics", type=str, default=None,
                    help="JSONL metrics path")
-    p.add_argument("--export-dir", type=str, default=None, help=_RENDER)
-    p.add_argument("--animate", type=str, default=None, help=_RENDER)
-    p.add_argument("--viewer", type=str, default=None, help=_RENDER)
+    p.add_argument("--export-dir", type=str, default=None)
+    p.add_argument("--export-every", type=int, default=10)
+    p.add_argument("--animate", type=str, default=None,
+                   help="assemble exported frames into a GIF/APNG at this "
+                        "path after the run")
+    p.add_argument("--viewer", type=str, default=None,
+                   help="write a standalone interactive WebGL viewer "
+                        "(orbit camera + playback) of the run's frames "
+                        "to this html path")
+    p.add_argument("--viewer-every", type=int, default=1,
+                   help="record every k-th frame into --viewer")
+    p.add_argument("--viewer-live", type=int, default=0, metavar="K",
+                   help="rewrite --viewer every K recorded frames WHILE "
+                        "the run is in progress (auto-refresh); 0 = only "
+                        "write at the end")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--shards", type=int, default=1, help=_SLAB)
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("export", help="render a checkpoint to png/ply")
+    p.add_argument("checkpoint")
+    p.add_argument("--png", type=str, default=None)
+    p.add_argument("--ply", type=str, default=None)
+    p.add_argument("--ply-mesh", type=str, default=None,
+                   help="octasphere-instanced mesh PLY (the reference's "
+                        "actual per-particle draw)")
+    p.add_argument("--mesh-max-particles", type=int, default=65536)
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("bench", help="measure throughput on the card")
     p.add_argument("--particles", type=int, default=1048576)
     p.add_argument("--frames", type=int, default=20)
     p.add_argument("--warmup", type=int, default=5)
+    p.add_argument("--neighbor", choices=["sorted", "slotted", "gather"],
+                   default="sorted")
     p.set_defaults(fn=cmd_bench)
 
     a = parser.parse_args(argv)

@@ -5,9 +5,10 @@ role of the reference's ``SphFluidSimulation`` MonoBehaviour
 (Assets/Scripts/SphFluidSimulation.cs): owns the config, spawns the initial
 state (``Start``, :82-94) and advances frames (``Update``, :96-108).
 
-The default backend is ``"sorted"`` (the JAX package defaults to
-``"slotted"``, which is not ported yet: ROADMAP.md queue A item 8);
-``"brute"`` is the O(N²) oracle. ``faithful=False`` selects the corrected
+The default backend is ``"sorted"``, the tier that runs the hand-written
+CUDA kernels. This differs from the JAX package on purpose: its default is
+``"slotted"``, which the port runs too (with ``"gather"``, the exact tiers
+of ``ops/cellops.py``, plain PyTorch); ``"brute"`` is the O(N²) oracle. ``faithful=False`` selects the corrected
 mode, ``tune=SortedTuning(compact=True)`` the compact-lane route (K5)
 (``SortedTuning``'s other fields the unfused route and the kernels'
 variants), and

@@ -1,11 +1,12 @@
-"""Frame stepper and rollout engine — the sorted-frame tier and the brute
-oracle.
+"""Frame stepper and rollout engine — the sorted-frame tier, the exact
+tiers and the brute oracle.
 
 Counterpart of ``sphfluidsimulation_tpu/sim/stepper.py``: ``integrate_substep``
-(:40-60), ``_metrics`` (:63-75), the brute branch of ``make_param_step``
-(:87-207), ``_make_pallas_step`` in both modes (:269-393),
-``_make_pallas_rollout`` (:405-516), ``make_frame_step``, ``make_rollout``
-(:569-634) and ``initial_state``.
+(:40-60), ``_metrics`` (:63-75), the brute, slotted and gather branches of
+``make_param_step`` (:87-207), ``_make_pallas_step`` in both modes
+(:269-393), ``_make_pallas_rollout`` (:405-516), ``make_frame_step``,
+``make_dt_rollout`` (:519-566), ``make_rollout`` (:569-634) and
+``initial_state``.
 
 Each frame reproduces the reference pipeline (SphFluidSimulation.cs:96-108).
 In faithful mode the neighbour structure and the density are computed ONCE
@@ -47,8 +48,10 @@ The other fields of ``tune`` (``kahan``, ``bf16``, ``fuse_acc``) select
 each kernel's variant, and every kernel of a frame is launched in it.
 
 Backends: ``neighbor="sorted"``, the counterpart of the JAX ``"pallas"``
-tier (``"pallas"``, the JAX name, selects it too), and ``neighbor="brute"``,
-the O(N²) oracle (``ops/brute.py``,
+tier (``"pallas"``, the JAX name, selects it too); the exact tiers
+``"slotted"`` (the JAX package's default) and ``"gather"``
+(``ops/cellops.py``, plain PyTorch over the voxel table); and
+``neighbor="brute"``, the O(N²) oracle (``ops/brute.py``,
 ``ops/extensions.py``), which is the oracle on the card, where there is no
 JAX. K1-K3 walk ``start[]`` cell by cell with no static window and no
 per-line cap, so their candidate set is exactly the reference's and
@@ -74,7 +77,8 @@ from typing import Callable
 import torch
 
 from ..config import SimConfig
-from ..ops import brute, compact, extensions, grid, sph_kernels, sph_math
+from ..ops import (brute, cellops, compact, extensions, grid, sph_kernels,
+                   sph_math)
 from ..ops.frame import SortedFrame, build_frame
 from ..ops.sph_kernels import SortedTuning, default_tuning
 from ..params import PhysParams
@@ -85,7 +89,7 @@ StepFn = Callable[[ParticleState], tuple[ParticleState, StepMetrics]]
 ParamStepFn = Callable[[ParticleState, PhysParams],
                        tuple[ParticleState, StepMetrics]]
 
-NEIGHBORS = ("sorted", "brute")
+NEIGHBORS = ("sorted", "slotted", "gather", "brute")
 # JAX backend names that the port runs under another name
 _ALIASES = {"pallas": "sorted"}
 # the profiler ranges of one sorted frame, in order: faithful mode
@@ -99,8 +103,6 @@ CORRECTED_PHASES = ("build_frame", "density", "pack_rows", "forces",
                     "integrate+unsort", "metrics")
 # JAX backends not ported yet, with the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "slotted": "queue A item 8 (exact tiers: ops/cellops.py)",
-    "gather": "queue A item 8 (exact tiers: ops/cellops.py)",
     "sites": "queue A item 9 (sites tier: ops/sites.py)",
 }
 
@@ -122,7 +124,8 @@ def _check_supported(neighbor: str) -> str:
     if neighbor in _NOT_PORTED:
         raise NotImplementedError(
             f"neighbor={neighbor!r} is not ported to torch yet: ROADMAP.md "
-            f"{_NOT_PORTED[neighbor]}; use neighbor='sorted' or 'brute'")
+            f"{_NOT_PORTED[neighbor]}; use neighbor='sorted', 'slotted', "
+            "'gather' or 'brute'")
     neighbor = _ALIASES.get(neighbor, neighbor)
     if neighbor not in NEIGHBORS:
         raise ValueError(f"unknown neighbor backend {neighbor!r}")
@@ -339,25 +342,66 @@ def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
     return step
 
 
-def _brute_step(cfg: SimConfig, faithful: bool) -> ParamStepFn:
-    """Frame step on the O(N²) oracle (the brute branch of JAX
-    ``make_param_step``, stepper.py:87-207): bucket and density from the
-    frame start (every substep when not ``faithful``), all-pairs forces,
-    the extension oracles over the brute window, which keeps the self pair
-    (JAX ``_brute_pair_mask``)."""
-    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+def _table_step(cfg: SimConfig, neighbor: str, faithful: bool
+                ) -> ParamStepFn:
+    """Frame step over the voxel table: the brute, slotted and gather
+    branches of JAX ``make_param_step`` (stepper.py:87-207). The bucket and
+    the density come from the frame start (every substep when not
+    ``faithful``); the slotted tier packs the slot rows with that density
+    once a frame and repacks the positions and velocities each substep.
+    Brute's extension oracles run over the brute window, which keeps the
+    self pair (JAX ``_brute_pair_mask``)."""
+    r, n, cap = cfg.bucket_resolution, cfg.n_particles, cfg.voxel_capacity
     xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+    if cap is None and neighbor != "brute":
+        # the exact tiers hold static [R³, capacity] slot arrays: an
+        # uncapped table would need capacity N (JAX stepper.py:110-119)
+        raise ValueError(
+            "voxel_capacity=None (no reference drop) is supported by the "
+            "'brute' and 'sorted' backends only; pick a finite capacity "
+            f"for neighbor={neighbor!r}")
+    use_ext = sph_kernels.uses_extensions(xsph, alpha)
+    if use_ext and neighbor == "gather":
+        raise NotImplementedError(
+            "xsph/artificial viscosity are implemented for the 'slotted', "
+            "'sorted' and 'brute' backends")
 
     def frame_aux(pos, phys):
+        """(bucket, packed slots or None, ρ) from the current positions."""
         bucket, _ = grid.build_bucket(pos, r, cap)
-        rho = brute.density_bruteforce(pos, bucket.cell_id, bucket.in_table,
-                                       phys, r)
-        return bucket, rho
+        if neighbor == "brute":
+            return bucket, None, brute.density_bruteforce(
+                pos, bucket.cell_id, bucket.in_table, phys, r)
+        if neighbor == "gather":
+            return bucket, None, cellops.density_grid(pos, bucket, cap, phys,
+                                                      r)
+        slots = cellops.pack_slots(bucket.table, cap, n, pos, None, None)
+        rho = cellops.density_slotted_rows(pos, bucket.cell, slots, cap,
+                                           phys, r)
+        return bucket, cellops.pack_slots(bucket.table, cap, n, pos,
+                                          torch.zeros_like(pos), rho), rho
 
-    def forces(pos, vel, rho, bucket, phys):
+    def forces(pos, vel, bucket, frame, rho, phys):
+        """(force, XSPH dv or None) of the fresh state."""
+        if neighbor == "gather":
+            return cellops.fluid_forces_grid(pos, vel, rho, bucket, cap,
+                                             phys, r), None
+        if neighbor == "slotted":
+            slots = cellops.repack_fresh(frame, bucket.table, cap, n, pos,
+                                         vel)
+            ids = torch.arange(n, dtype=torch.int32, device=pos.device)
+            f = cellops.fluid_forces_slotted_rows(pos, vel, ids, rho, slots,
+                                                  cap, phys, r)
+            if alpha != 0.0:
+                f = f + extensions.artificial_viscosity_slotted(
+                    pos, vel, rho, slots, cap, phys, r, alpha)
+            dv = (extensions.xsph_slotted(pos, vel, rho, slots, cap, phys, r,
+                                          xsph)
+                  if xsph != 0.0 else None)
+            return f, dv
         f = brute.fluid_forces_bruteforce(pos, vel, rho, bucket.cell_id,
                                           bucket.in_table, phys, r)
-        if not sph_kernels.uses_extensions(xsph, alpha):
+        if not use_ext:
             return f, None
         pair_mask = brute.window_mask(sph_math.cell_index(pos, r),
                                       bucket.cell_id, bucket.in_table, r)
@@ -371,14 +415,14 @@ def _brute_step(cfg: SimConfig, faithful: bool) -> ParamStepFn:
     def step(state: ParticleState, phys: PhysParams
              ) -> tuple[ParticleState, StepMetrics]:
         pos, vel = state.pos, state.vel
-        bucket, rho0 = frame_aux(pos, phys)
-        ovf = grid.overflow_count(bucket)
-        bucket_s, rho = bucket, rho0
+        aux = frame_aux(pos, phys)
+        ovf = grid.overflow_count(aux[0])
+        rho0 = aux[2]
         nan_hits = torch.zeros_like(state.nan_count)
         for _ in range(cfg.substeps):
             if not faithful:
-                bucket_s, rho = frame_aux(pos, phys)
-            f, dv = forces(pos, vel, rho, bucket_s, phys)
+                aux = frame_aux(pos, phys)
+            f, dv = forces(pos, vel, *aux, phys)
             pos, vel, nan_mask = integrate_substep(pos, vel, f, phys, dv)
             nan_hits = nan_hits + nan_mask.to(torch.int32)
         return (ParticleState(pos=pos, vel=vel,
@@ -399,7 +443,9 @@ def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
     caller's particle order; it runs on the device its tensors are on.
 
     neighbor: 'sorted' (the CUDA kernels on the card; 'pallas', the JAX
-              name, is the same tier) or 'brute' (O(N²) oracle).
+              name, is the same tier), 'slotted' (packed slot rows, the
+              JAX default), 'gather' (per-candidate gathers) or 'brute'
+              (O(N²) oracle).
     faithful: reuse the frame-start bucket + density across all substeps
               (reference semantics); False rebuilds them every substep.
     tune:     the sorted tier's route and variant (``SortedTuning``; None
@@ -408,8 +454,9 @@ def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
               mode takes the unfused route.
     """
     cfg = cfg.validate()
-    if _check_supported(neighbor) == "brute":
-        return _brute_step(cfg, faithful)
+    neighbor = _check_supported(neighbor)
+    if neighbor != "sorted":
+        return _table_step(cfg, neighbor, faithful)
     tune = default_tuning() if tune is None else tune
     return _sorted_step(cfg, tune) if faithful else _corrected_step(cfg, tune)
 
@@ -431,22 +478,98 @@ def _stack(ms: list[StepMetrics]) -> StepMetrics | None:
     return StepMetrics(*(torch.stack(x) for x in zip(*ms))) if ms else None
 
 
+def _check_snapshots(n_frames: int, snapshot_every: int) -> None:
+    if snapshot_every < 0 or (snapshot_every and n_frames % snapshot_every):
+        raise ValueError("snapshot_every must be 0 or divide n_frames")
+
+
+def _result(final: ParticleState, ms: list[StepMetrics],
+            snaps: list[torch.Tensor], snapshot_every: int):
+    """(final, metrics), and the stacked snapshots when they were asked
+    for."""
+    if not snapshot_every:
+        return final, _stack(ms)
+    return final, _stack(ms), (torch.stack(snaps) if snaps else
+                               final.pos.new_zeros((0,) + final.pos.shape))
+
+
+def _frame_loop(state: ParticleState, n_frames: int, snapshot_every: int,
+                step: Callable[[ParticleState, int],
+                               tuple[ParticleState, StepMetrics]]):
+    """``step(state, f)`` for each frame f, with the positions of frames
+    k−1, 2k−1, ... kept for ``snapshot_every`` = k > 0."""
+    ms, snaps = [], []
+    for f in range(n_frames):
+        state, m = step(state, f)
+        ms.append(m)
+        if snapshot_every and (f + 1) % snapshot_every == 0:
+            snaps.append(state.pos)
+    return _result(state, ms, snaps, snapshot_every)
+
+
+def make_dt_rollout(cfg: SimConfig, n_frames: int, *,
+                    neighbor: str = "sorted", faithful: bool = True,
+                    snapshot_every: int = 0,
+                    tune: SortedTuning | None = None,
+                    device: torch.device | str | None = None):
+    """Variable frame-dt rollout ``(state, dt_schedule) → (state, metrics[,
+    snapshots])`` on ``device`` (None: the card; without one it raises).
+
+    The reference's timestep depends on the frame rate: each substep
+    advances ``Time.deltaTime / 25`` (SphFluidSimulation.cs:101-102), so
+    replaying a recorded run needs a dt per frame, not the fixed
+    ``frame_dt`` that :func:`make_rollout` bakes. ``dt_schedule`` holds
+    ``n_frames`` FRAME deltas (Unity's ``Time.deltaTime``); frame f's
+    substep dt is the float32 ``dt_schedule[f] / substep_divisor``, and the
+    rest of the physics comes from the config. The result is bit-equal to
+    stepping frame by frame through :func:`make_param_step` with
+    ``phys._replace(dt=dt_f / divisor)``; on the sorted tier each frame is
+    one density launch and five fused substeps. ``snapshot_every`` is
+    :func:`make_rollout`'s.
+    """
+    _check_snapshots(n_frames, snapshot_every)
+    cfg = cfg.validate()
+    device = resolve_device(device)
+    param_step = make_param_step(cfg, neighbor=neighbor, faithful=faithful,
+                                 tune=tune)
+    base = PhysParams.from_config(cfg, device)
+    div = torch.tensor(cfg.substep_divisor, dtype=torch.float32,
+                       device=device)
+
+    def rollout(state: ParticleState, dt_schedule):
+        dts = torch.as_tensor(dt_schedule, dtype=torch.float32,
+                              device=device).reshape(n_frames) / div
+        return _frame_loop(
+            state, n_frames, snapshot_every,
+            lambda st, f: param_step(st, base._replace(dt=dts[f])))
+
+    return rollout
+
+
 def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
-                 faithful: bool = True, tune: SortedTuning | None = None,
+                 faithful: bool = True, snapshot_every: int = 0,
+                 tune: SortedTuning | None = None,
                  device: torch.device | str | None = None):
-    """Build ``state → (state, metrics)`` over ``n_frames`` frames, with
-    ``metrics`` a ``StepMetrics`` of per-frame tensors ``[n_frames]``, on
-    ``device`` (None: the card; without one it raises). ``tune`` selects the
-    route as in :func:`make_param_step`.
+    """Build ``state → (state, metrics[, snapshots])`` over ``n_frames``
+    frames, with ``metrics`` a ``StepMetrics`` of per-frame tensors
+    ``[n_frames]``, on ``device`` (None: the card; without one it raises).
+    ``tune`` selects the route as in :func:`make_param_step`.
+
+    ``snapshot_every=k`` (k > 0) also returns the positions of every k-th
+    frame (frames k−1, 2k−1, ... counted from 0), stacked as
+    ``f32[n_frames // k, N, 3]``, in the caller's particle order; k must
+    divide ``n_frames``; 0 returns no snapshots.
 
     Faithful sorted rollouts keep the state in SORTED order across frames:
     the rollout carries the particle-id column ``pid`` and passes it to the
     sort as the tie-break, so capacity ranks stay keyed to original ids and
     the result is bit-equal to stepping frame by frame; it unsorts once at
-    the end (``_make_pallas_rollout``, stepper.py:405-516 of the JAX
-    package). Every other rollout loops over the frame step
-    (stepper.py:610-634).
+    the end and once for each snapshot (``_make_pallas_rollout``,
+    stepper.py:405-516 of the JAX package). Every other rollout loops over
+    the frame step (stepper.py:610-634). For a recorded dt per frame, see
+    :func:`make_dt_rollout`.
     """
+    _check_snapshots(n_frames, snapshot_every)
     cfg = cfg.validate()
     neighbor = _check_supported(neighbor)
     device = resolve_device(device)
@@ -454,26 +577,17 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
     if neighbor != "sorted" or not faithful:
         step = make_frame_step(cfg, neighbor=neighbor, faithful=faithful,
                                tune=tune, device=device)
-
-        def loop(state: ParticleState
-                 ) -> tuple[ParticleState, StepMetrics]:
-            ms = []
-            for _ in range(n_frames):
-                state, m = step(state)
-                ms.append(m)
-            return state, _stack(ms)
-
-        return loop
+        return lambda state: _frame_loop(state, n_frames, snapshot_every,
+                                         lambda st, _: step(st))
 
     r, cap, n = cfg.bucket_resolution, cfg.voxel_capacity, cfg.n_particles
     phys = PhysParams.from_config(cfg, device)
 
-    def rollout(state: ParticleState
-                ) -> tuple[ParticleState, StepMetrics]:
+    def rollout(state: ParticleState):
         pos, vel, nan_count = state
         pid = torch.arange(n, dtype=torch.int32, device=pos.device)
-        ms = []
-        for _ in range(n_frames):
+        ms, snaps = [], []
+        for f in range(n_frames):
             with span("build_frame"):
                 frame, (pos, vel, nan_count) = build_frame(
                     pos, r, cap, extras=(pos, vel, nan_count), gid=pid,
@@ -483,9 +597,11 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
                                                   tune)
             nan_count = nan_count + nan_hits
             ms.append(m)
+            if snapshot_every and (f + 1) % snapshot_every == 0:
+                snaps.append(_unsort(pid, pos))
         final = ParticleState(pos=_unsort(pid, pos), vel=_unsort(pid, vel),
                               nan_count=_unsort(pid, nan_count))
-        return final, _stack(ms)
+        return _result(final, ms, snaps, snapshot_every)
 
     return rollout
 

@@ -1,7 +1,7 @@
 """Particle state and per-frame metrics.
 
 Counterpart of ``sphfluidsimulation_tpu/state.py`` (``ParticleState``,
-``StepMetrics``, ``make_state``). The reference stores particle state in
+``FrameAux``, ``StepMetrics``, ``make_state``). The reference stores particle state in
 ping-ponged float4 textures (SphFluidSimulation.cs:138-155); the port keeps
 flat ``[N, 3]`` float32 tensors. Particle index ``i`` corresponds to
 reference texel ``(i % res, i / res)`` (Density.compute:53).
@@ -83,6 +83,20 @@ def slab_state_to_numpy(st) -> tuple[np.ndarray, ...]:
     """(pos, vel, nan_count, pid, valid) of a port ``SlabState`` as numpy
     arrays, ready for the JAX package."""
     return tuple(t.detach().cpu().numpy() for t in st)
+
+
+class FrameAux(NamedTuple):
+    """Per-frame quantities reused across the five substeps.
+
+    The reference builds the bucket once a frame and computes the density
+    once a frame, then reuses both for all five integration substeps
+    (SphFluidSimulation.cs:98-102). ``cell`` is each particle's voxel at the
+    frame start (the "stale" cell of the neighbour lookup), ``rho`` the
+    frame-start density.
+    """
+
+    rho: torch.Tensor   # f32[N]
+    cell: torch.Tensor  # i32[N, 3] — frame-start voxel coordinates
 
 
 class StepMetrics(NamedTuple):

@@ -139,14 +139,11 @@ def test_cli_run_brute_matches_sorted_on_calm(capsys):
     assert a["mean_density"] == pytest.approx(b["mean_density"], rel=1e-5)
 
 
+# export, --export-dir, --viewer and --animate run
+# (tests/test_torch_render.py)
 @pytest.mark.parametrize("argv", [
-    ["export", "ck.npz", "--png", "x.png"],
     ["sweep", "--scenes", "8"],
-    ["run", "--device", "cpu", "--export-dir", "frames"],
-    ["run", "--device", "cpu", "--viewer", "v.html"],
-    ["run", "--device", "cpu", "--animate", "a.gif"],
     ["run", "--device", "cpu", "--shards", "2"],
-
 ])
 def test_cli_unported_cases_exit_2_naming_their_roadmap_item(argv, capsys):
     assert cli.main(argv) == 2

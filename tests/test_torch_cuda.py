@@ -2,7 +2,9 @@
 
 These tests need an NVIDIA GPU and nvcc; on a CPU-only host they skip. They
 include the banded K1, K2 and K5 of the slab step and the slab step itself,
-and each tuning variant's instance (fuse_acc off, kahan, bf16). They
+each tuning variant's instance (fuse_acc off, kahan, bf16), and the paths
+around the kernels that run on the card: the exact tiers, the dt replay,
+the snapshots of the sorted rollout and the render properties. They
 import no JAX (the machine with the card has none), so run them without the
 JAX test conftest, from the root of a checkout:
 
@@ -654,3 +656,87 @@ def test_compact_slab_step_on_card(cuda_device, d):
     assert lost == 0
     torch.testing.assert_close(out.pos, ref.pos, rtol=0, atol=2e-5)
     torch.testing.assert_close(out.vel, ref.vel, rtol=0, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("neighbor", ["slotted", "gather"])
+def test_exact_tiers_track_the_brute_oracle_on_card(cuda_device, neighbor,
+                                                    faithful):
+    # the exact tiers are plain PyTorch: no hand-written kernel launches,
+    # and 3 calm frames within 1e-5 of the port's brute oracle, the
+    # overflow equal (tests/test_torch_cellops.py holds them to JAX)
+    cfg = SimConfig(**_CALM)
+    s0 = initial_state(cfg, cuda_device)
+    sk.reset_launch_counts()
+    a, ma = make_rollout(cfg, 3, neighbor=neighbor, faithful=faithful,
+                         device=cuda_device)(s0)
+    assert not any(sk.launch_counts.values())
+    b, mb = make_rollout(cfg, 3, neighbor="brute", faithful=faithful,
+                         device=cuda_device)(s0)
+    torch.testing.assert_close(a.pos, b.pos, rtol=0, atol=1e-5)
+    assert torch.equal(ma.overflow, mb.overflow)
+
+
+@pytest.mark.cuda
+def test_dt_rollout_is_bit_equal_to_stepping_on_card(cuda_device):
+    # one K1 and five K2 launches a frame, and the result of stepping frame
+    # by frame with each frame's substep dt
+    from sphfluidsimulation_torch import make_dt_rollout, make_param_step
+    cfg = SimConfig(**_GOLDENISH)
+    s0 = initial_state(cfg, cuda_device)
+    dts = [1 / 240, 1 / 120, 1 / 360, 1 / 180]
+    sk.reset_launch_counts()
+    final, m = make_dt_rollout(cfg, len(dts), device=cuda_device)(s0, dts)
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    density=len(dts),
+                                    fused_substep=5 * len(dts))
+    step = make_param_step(cfg)
+    base = PhysParams.from_config(cfg, cuda_device)
+    div = torch.tensor(cfg.substep_divisor, dtype=torch.float32,
+                       device=cuda_device)
+    st = s0
+    for dt in dts:
+        st, _ = step(st, base._replace(dt=torch.tensor(
+            dt, dtype=torch.float32, device=cuda_device) / div))
+    for a, b in zip(final, st):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_snapshots_of_the_sorted_rollout_on_card(cuda_device):
+    # taken inside the sorted frame loop: the same launches and the same
+    # final state as the rollout without snapshots
+    cfg = SimConfig(**_GOLDENISH)
+    s0 = initial_state(cfg, cuda_device)
+    sk.reset_launch_counts()
+    final, _, snaps = make_rollout(cfg, 4, snapshot_every=2,
+                                   device=cuda_device)(s0)
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    density=4, fused_substep=20)
+    _, _, every = make_rollout(cfg, 4, snapshot_every=1,
+                               device=cuda_device)(s0)
+    plain, _ = make_rollout(cfg, 4, device=cuda_device)(s0)
+    assert snaps.shape == (2, cfg.n_particles, 3)
+    assert _same_bits(snaps[0], every[1]) and _same_bits(snaps[1], every[3])
+    for a, b in zip(final, plain):
+        assert _same_bits(a, b)
+    assert _same_bits(snaps[1], final.pos)
+
+
+@pytest.mark.cuda
+def test_mesh_properties_on_card(cuda_device):
+    from sphfluidsimulation_torch.render import meshprops
+    cfg = SimConfig(**_GOLDENISH)
+    st, _ = make_rollout(cfg, 2, device=cuda_device)(
+        initial_state(cfg, cuda_device))
+    mask = st.nan_count > 0
+    mat, col = meshprops.mesh_properties(
+        st.pos, st.vel, meshprops.RenderParams.from_config(cfg, cuda_device),
+        mask)
+    assert mat.device.type == "cuda" and col.device.type == "cuda"
+    mat_c, col_c = meshprops.mesh_properties(
+        st.pos.cpu(), st.vel.cpu(), meshprops.RenderParams.from_config(cfg),
+        mask.cpu())
+    torch.testing.assert_close(mat.cpu(), mat_c, rtol=0, atol=1e-6)
+    torch.testing.assert_close(col.cpu(), col_c, rtol=0, atol=1e-6)

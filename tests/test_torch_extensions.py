@@ -162,3 +162,68 @@ def test_corrected_frame_builds_once_more_than_its_substeps(monkeypatch):
     assert len(calls) == 1 + cfg.substeps
     assert int(m.exact_cert) == 0 and m.overflow.dtype == torch.int32
     assert bool(((st.pos >= 0) & (st.pos <= 1)).all())
+
+
+def _slotted_inputs(seed=5):
+    """A 1k calm cloud's bucket, frame-start density and packed slots, in
+    both packages."""
+    from sphfluidsimulation_tpu.ops import cellops as jcell
+    from sphfluidsimulation_tpu.ops.grid import build_bucket as jbucket
+    from sphfluidsimulation_torch.ops import cellops
+    from sphfluidsimulation_torch.ops.grid import build_bucket
+    jc = JConfig(**_CALM)
+    r, n = jc.bucket_resolution, jc.n_particles
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.05, 0.6, (n, 3)).astype(np.float32)
+    vel = rng.normal(0, 0.3, (n, 3)).astype(np.float32)
+    tp = PhysParams.from_config(SimConfig(**_CALM))
+    tb, _ = build_bucket(torch.from_numpy(pos), r, CAP)
+    rho = cellops.density_grid(torch.from_numpy(pos), tb, CAP, tp, r)
+    slots = cellops.pack_slots(tb.table, CAP, n, torch.from_numpy(pos),
+                               torch.from_numpy(vel), rho)
+    jb, _ = jbucket(jnp.asarray(pos), r, CAP)
+    jslots = jcell.pack_slots(jb.table, CAP, n, jnp.asarray(pos),
+                              jnp.asarray(vel), jnp.asarray(rho.numpy()))
+    return (pos, vel, rho, slots, tp), (jslots, JPhys.from_config(jc)), r
+
+
+@pytest.mark.parametrize("term", ["xsph", "avisc"])
+def test_slotted_extension_sums_match_jax(term):
+    """``xsph_slotted`` and ``artificial_viscosity_slotted`` against JAX's
+    on the same packed slots: within 1e-6 of the largest term (both sum the
+    same terms per window offset in the same offset order)."""
+    from sphfluidsimulation_tpu.ops import extensions as jext
+    from sphfluidsimulation_torch.ops import extensions as text
+    (pos, vel, rho, slots, tp), (jslots, jp), r = _slotted_inputs()
+    args = (torch.from_numpy(pos), torch.from_numpy(vel), rho, slots, CAP,
+            tp, r)
+    jargs = (jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(rho.numpy()),
+             jslots, CAP, jp, r)
+    fn, jfn, coef = {"xsph": (text.xsph_slotted, jext.xsph_slotted, XSPH),
+                     "avisc": (text.artificial_viscosity_slotted,
+                               jext.artificial_viscosity_slotted, ALPHA)}[
+        term]
+    got, want = fn(*args, coef).numpy(), np.asarray(jfn(*jargs, coef))
+    scale = float(np.abs(want).max())
+    assert scale > 0
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"xsph": 0.5},
+    {"artificial_viscosity": 0.3},
+    {"xsph": 0.3, "artificial_viscosity": 0.2},
+])
+def test_slotted_extensions_track_the_port_brute(overrides):
+    # tests/test_extensions.py:26-41 on the port: the slotted frame step
+    # with the extensions against the port's brute oracle, one frame, atol
+    # 1e-5, mean density within 1e-5; and against JAX's slotted step
+    cfg = SimConfig(**_CALM).replace(**overrides)
+    st = initial_state(cfg, "cpu")
+    ss, ms = make_frame_step(cfg, neighbor="slotted", device="cpu")(st)
+    sb, mb = make_frame_step(cfg, neighbor="brute", device="cpu")(st)
+    np.testing.assert_allclose(ss.pos.numpy(), sb.pos.numpy(), atol=1e-5)
+    assert float(ms.mean_density) == pytest.approx(float(mb.mean_density),
+                                                   rel=1e-5)
+    js, _ = _jax_frames(dict(_CALM, **overrides), 1, neighbor="slotted")
+    np.testing.assert_allclose(ss.pos.numpy(), np.asarray(js.pos), atol=1e-6)

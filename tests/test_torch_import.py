@@ -21,6 +21,7 @@ MODULES = [
     "sphfluidsimulation_torch.ops.grid",
     "sphfluidsimulation_torch.ops.brute",
     "sphfluidsimulation_torch.ops.extensions",
+    "sphfluidsimulation_torch.ops.cellops",
     "sphfluidsimulation_torch.models.presets",
     "sphfluidsimulation_torch.models.scene",
     "sphfluidsimulation_torch.sim.stepper",
@@ -28,6 +29,14 @@ MODULES = [
     "sphfluidsimulation_torch.parallel.ring",
     "sphfluidsimulation_torch.parallel.slab",
     "sphfluidsimulation_torch.parallel.slab_pallas",
+    "sphfluidsimulation_torch.render",
+    "sphfluidsimulation_torch.render.meshprops",
+    "sphfluidsimulation_torch.render.camera",
+    "sphfluidsimulation_torch.render.sphere",
+    "sphfluidsimulation_torch.render.export",
+    "sphfluidsimulation_torch.render.viewer",
+    "sphfluidsimulation_torch.native",
+    "sphfluidsimulation_torch.native.build",
     "sphfluidsimulation_torch.utils.profiling",
     "sphfluidsimulation_torch.utils.metrics",
     "sphfluidsimulation_torch.utils.checkpoint",

@@ -99,8 +99,9 @@ def test_scene_steps():
 
 
 # "pallas", the JAX name of the sorted tier, runs it
-# (tests/test_torch_slab.py::test_neighbor_pallas_is_the_sorted_tier)
-@pytest.mark.parametrize("neighbor", ["slotted", "gather", "sites"])
+# (tests/test_torch_slab.py::test_neighbor_pallas_is_the_sorted_tier);
+# "slotted" and "gather" run (tests/test_torch_cellops.py)
+@pytest.mark.parametrize("neighbor", ["sites"])
 def test_unported_backends_raise(neighbor):
     cfg = SimConfig(**_CALM)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
