@@ -10,8 +10,9 @@ every phase passed; each prints its seconds):
 
 1. identity: the card's name and power limit (nvidia-smi), torch's CUDA
    version, the nvcc path;
-2. build: compile the CUDA kernels from ``sphfluidsimulation_torch/csrc``,
-   one nvcc per source, side by side;
+2. build: compile the CUDA kernels from ``sphfluidsimulation_torch/csrc``
+   (the probe group of ``csrc/probes`` included), one nvcc per source,
+   side by side;
 3. compare: each kernel against its plain PyTorch version on the same
    inputs at frame 0 (which still holds out-of-cube spawns): K1 density and
    K2 fused substep at both sizes of the faithful path (262,144 particles,
@@ -112,7 +113,26 @@ every phase passed; each prints its seconds):
    positions, the final state bit-equal to the rollout without snapshots,
    the same launches; and the render layer: ``mesh_properties`` of a 262k
    state on the card equal to the same call on the CPU within 1e-6, a PNG
-   and a viewer HTML written from it, the seconds of each printed.
+   and a viewer HTML written from it, the seconds of each printed;
+11. the probes (``sphfluidsimulation_torch/probes``, the Hopper
+   micro-benchmarks of the JAX package's Mosaic probes; their libraries
+   are built in phase 2 beside the rest), each run through its entry point
+   with the probe launch counters reset before it and read after: live
+   (and ``live.probe_device`` in a child process), the ten intops stages
+   against the scripts' numpy truth, loopstruct A-E on the script's
+   synthetic walk (262,144 rows x 1,408 candidates; also with the gate
+   open) and A_f, B_f, D_f (with its range pre-pass) and E_f on the 262k
+   frame-10 state of phase 4 under K3's rule (the walk share B_f / A_f
+   printed), the twelve mxu instances (D, G, A, M, D128, A128, M128 at 1x
+   and 3x TF32) under ``mxu.mxu_rule`` with the script's divergence table
+   and ``torch.bmm``'s time, v7prims against np.roll and scalar S0-S3
+   within an ulp, every kernel timed beside its plain version and bound;
+   the compact probe's one-step check at 16,384 particles, which must bear
+   out its explanation (``compact.checks``); and planted controls that
+   must fail: intops stage 3 with a shift of 9, loopstruct A with a line
+   dropped, and mxu's (``mxu.CONTROLS``: at 1x TF32 G, A, M, A128 and M128
+   with the first chunk dropped and with the velocity accumulate negated,
+   A at 1x and 3x with the ones column zeroed).
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -317,7 +337,7 @@ def main() -> None:
     FACC0, KAHAN, BF16 = (SortedTuning(fuse_acc=False),
                           SortedTuning(kahan=True), SortedTuning(bf16=True))
     with Phase("build"):
-        libs = cuda_build.build((FACC0, KAHAN, BF16))
+        libs = cuda_build.build((FACC0, KAHAN, BF16), probes=True)
         cuda_build.load()
         for lib in libs:
             secs = cuda_build.build_seconds.get(lib.name)
@@ -1583,6 +1603,65 @@ def main() -> None:
         if not e_mesh < 1e-6:
             fail("mesh_properties on the card leaves the CPU's")
 
+    # ---- 11. the probes (sphfluidsimulation_torch/probes), each through
+    # its entry point with the probe counters reset before it: every probe
+    # kernel held to its plain version at the scripts' full sizes (the
+    # loopstruct frame form on the 262k frame-10 state of phase 4), then
+    # the planted controls, which must fail their rules
+    from sphfluidsimulation_torch import probes
+    from sphfluidsimulation_torch.probes import compact as p_compact
+    from sphfluidsimulation_torch.probes import intops as p_intops
+    from sphfluidsimulation_torch.probes import loopstruct as p_ls
+    from sphfluidsimulation_torch.probes import mxu as p_mxu
+
+    with Phase("probes"):
+        probe_runs = {}
+        probes.reset_launch_counts()
+        for name in probes.NAMES:
+            if name == "compact":
+                continue
+            t0 = time.perf_counter()
+            kw = {"state": states["262k"]} if name == "loopstruct" else {}
+            probe_runs[name] = probes.run(name, dev, **kw)
+            print(f"probe {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        probe_launches = dict(probes.launch_counts)
+        print(f"launches in the probes: {probe_launches}", flush=True)
+        for name, res in probe_runs.items():
+            if not res["ok"]:
+                fail(f"probe {name}: a kernel disagrees with its plain "
+                     f"version")
+            for k in res["kernels"]:
+                if not probe_launches.get(k):
+                    fail(f"probe kernel {k} was not launched")
+        # compact: the one-step check of its script (no kernel of its own;
+        # its bench stages are phase 4's rates), and what one run can show
+        # of why its routes differ
+        if not p_compact.checks(dev)["explained"]:
+            fail("probe compact: the routes' difference is not the compact "
+                 "route's certified rows")
+        # planted controls
+        st3 = [st for st in p_intops.stages() if st.stage == 3][0]
+        a3, b3 = p_intops.inputs_on(st3, dev)
+        bad = p_intops.stage_cuda(3, a3, b3, shift=9)
+        if np.array_equal(bad.cpu().numpy(), st3.truth):
+            fail("planted control passed: intops stage 3 with a shift of 9")
+        opened = p_ls.gate_open(p_ls.to_device(
+            p_ls.synth_inputs(np.random.RandomState(0)), dev))
+        bad = p_ls.synth_cuda("A", p_ls.drop_line(opened))
+        if p_ls.synth_rule("A", p_ls.synth_plain("A", opened), bad, opened):
+            fail("planted control passed: loopstruct A with a line dropped")
+        # mxu's, launched by its run beside their instances
+        mxu_controls = probe_runs["mxu"]["controls"]
+        if len(mxu_controls) != sum(map(len, p_mxu.CONTROLS.values())):
+            fail("probe mxu: a planted control did not run")
+        for label, n_over in mxu_controls.items():
+            if not n_over:
+                fail(f"planted control passed: mxu {label}")
+        print(f"planted controls fail as they must: intops stage 3 with a "
+              f"shift of 9, loopstruct A with a line dropped, mxu "
+              f"{', '.join(mxu_controls)} [{ident}]", flush=True)
+
     # the main shape of each kernel's path first; the others as ms_<shape>
     main_shape = {"density": "262k", "fused_substep": "262k",
                   "fused_substep_ext": "c3", "forces": "c3",
@@ -1624,6 +1703,16 @@ def main() -> None:
                             f"bound_ms_{other}": b_ms,
                             f"bound_by_{other}": b_by})
         record["kernels"].append(rec)
+    for res in probe_runs.values():
+        for name, k in res["kernels"].items():
+            record["kernels"].append({
+                "name": f"probe_{name}", "route": "cuda",
+                "source": k["source"], "replaces": k["replaces"],
+                "launches": probe_launches[name],
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                "library": k["library"]})
     print(json.dumps(record), flush=True)
     print(ident, flush=True)
     print(json.dumps({"ok": True, "device": {

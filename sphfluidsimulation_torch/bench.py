@@ -22,6 +22,7 @@ import time
 import torch
 
 from .config import SimConfig
+from .ops import cuda_build
 from .ops.sph_kernels import SortedTuning, default_tuning
 from .sim.stepper import initial_state, make_rollout
 from .utils.profiling import device_sync, gpu_identity
@@ -109,4 +110,14 @@ def run_bench(n_particles: int = 1 << 20, frames: int = 20,
         "device": str(device),
         "device_name": torch.cuda.get_device_name(0),
         "power_limit": ident[1] if len(ident) > 1 else "not measured",
+        "torch_cuda": torch.version.cuda,
+        "nvcc": _nvcc(),
     }
+
+
+def _nvcc() -> str:
+    """The nvcc the kernels were built with, or why there is none."""
+    try:
+        return cuda_build.nvcc_path()
+    except RuntimeError as e:
+        return f"not found: {e}"

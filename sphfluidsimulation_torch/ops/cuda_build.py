@@ -8,6 +8,12 @@ build happens at first use, on the machine with the card, into ``build/`` at
 the root of the checkout; each file name carries a hash of its source, the
 shared headers and the flags, so an edit rebuilds and an unchanged tree
 reuses it.
+
+The probe group (``PROBE_KERNELS``, sources under ``csrc/probes/``, the
+Hopper micro-benchmarks of ``sphfluidsimulation_torch/probes``) builds the
+same way into the same directory, but only at a probe's first use
+(:func:`probe_function`) or when :func:`build` is asked for it: the main
+path's :func:`load` never compiles it.
 """
 
 from __future__ import annotations
@@ -46,6 +52,21 @@ KERNELS = {
     "compact.cu": (("sph_compact", (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _I, _I, _I, _I, _I, _P)),),
 }
+# the probe group: source (relative to csrc/) → its C functions, as KERNELS
+PROBE_KERNELS = {
+    "probes/live.cu": (("probe_live", (_P, _P, _P, _I, _P)),),
+    "probes/intops.cu": (("probe_intops", (_I, _P, _P, _P, _I, _I, _P)),),
+    "probes/loopstruct.cu": (
+        ("probe_loopstruct_synth", (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _P)),
+        ("probe_loopstruct_ranges", (_P, _P, _P, _P, _I, _I, _I, _P)),
+        ("probe_loopstruct_frame", (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _P))),
+    "probes/mxu.cu": (("probe_mxu", (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _P)),),
+    "probes/v7prims.cu": (("probe_v7prims", (_P, _P, _P, _P, _I, _I, _P)),),
+    "probes/scalar.cu": (("probe_scalar", (_I, _P, _P, _P, _P, _I, _P)),),
+}
 # the variant switches: (SortedTuning field, macro, default, library tag)
 SWITCHES = (("fuse_acc", "SPH_FACC", True, "facc0"),
             ("kahan", "SPH_KAHAN", False, "kahan"),
@@ -59,6 +80,7 @@ SOURCE_SWITCHES = {"density.cu": ("kahan",),
 
 _lib: types.SimpleNamespace | None = None
 _variants: dict[tuple[str, tuple[str, ...]], types.SimpleNamespace] = {}
+_probes: dict[str, types.SimpleNamespace] = {}
 # nvcc seconds of each library built by this process, by file name
 build_seconds: dict[str, float] = {}
 
@@ -95,7 +117,7 @@ def library_path(source: str, switches: tuple[str, ...] = ()) -> Path:
     for name in (*HEADERS, source):
         digest.update(name.encode())
         digest.update((CSRC / name).read_bytes())
-    stem = source.removesuffix(".cu")
+    stem = source.removesuffix(".cu").replace("/", "_")
     tags = "".join(f"_{tag}" for _, macro, _, tag in SWITCHES
                    if any(d.startswith(f"-D{macro}=") for d in switches))
     return BUILD_DIR / f"libsph_{stem}{tags}_{digest.hexdigest()[:16]}.so"
@@ -130,15 +152,19 @@ def _build_one(source: str, switches: tuple[str, ...] = ()) -> Path:
     return out
 
 
-def build(tunes=()) -> list[Path]:
+def build(tunes=(), probes: bool = False) -> list[Path]:
     """The kernel libraries, one per source in ``KERNELS`` order, then the
     variant libraries of ``tunes`` (each source whose switches a tuning
-    sets); the missing ones are compiled side by side, one nvcc each."""
+    sets), then with ``probes`` the probe group's, one per source in
+    ``PROBE_KERNELS`` order; the missing ones are compiled side by side, one
+    nvcc each."""
     jobs = [(source, ()) for source in KERNELS]
     for tune in tunes:
         jobs += [(source, defines(source, tune)) for source in KERNELS
                  if defines(source, tune)
                  and (source, defines(source, tune)) not in jobs]
+    if probes:
+        jobs += [(source, ()) for source in PROBE_KERNELS]
     with ThreadPoolExecutor(len(jobs)) as pool:
         return list(pool.map(lambda job: _build_one(*job), jobs))
 
@@ -178,3 +204,14 @@ def function(source: str, name: str, tune=None):
         _bind(_build_one(source, switches), KERNELS[source], fns)
         _variants[key] = types.SimpleNamespace(**fns)
     return getattr(_variants[key], name)
+
+
+def probe_function(source: str, name: str):
+    """C function ``name`` of the probe source ``source`` (a key of
+    ``PROBE_KERNELS``); its library is built on first call, and a failed
+    build raises."""
+    if source not in _probes:
+        fns: dict = {}
+        _bind(_build_one(source), PROBE_KERNELS[source], fns)
+        _probes[source] = types.SimpleNamespace(**fns)
+    return getattr(_probes[source], name)

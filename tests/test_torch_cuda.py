@@ -2,8 +2,9 @@
 
 These tests need an NVIDIA GPU and nvcc; on a CPU-only host they skip. They
 include the banded K1, K2 and K5 of the slab step and the slab step itself,
-each tuning variant's instance (fuse_acc off, kahan, bf16), and the paths
-around the kernels that run on the card: the exact tiers, the dt replay,
+each tuning variant's instance (fuse_acc off, kahan, bf16), the probes'
+kernels (sphfluidsimulation_torch/probes), and the paths around the
+kernels that run on the card: the exact tiers, the dt replay,
 the snapshots of the sorted rollout and the render properties. They
 import no JAX (the machine with the card has none), so run them without the
 JAX test conftest, from the root of a checkout:
@@ -11,6 +12,7 @@ JAX test conftest, from the root of a checkout:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -740,3 +742,129 @@ def test_mesh_properties_on_card(cuda_device):
         mask.cpu())
     torch.testing.assert_close(mat.cpu(), mat_c, rtol=0, atol=1e-6)
     torch.testing.assert_close(col.cpu(), col_c, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------- probes --
+# The Hopper micro-benchmarks of the JAX package's Mosaic probes
+# (sphfluidsimulation_torch/probes): each kernel against its plain version
+# at a small size, each launch counted.
+
+def _probe_launches(name, fn):
+    from sphfluidsimulation_torch.probes import common as pcommon
+    before = pcommon.launch_counts.get(name, 0)
+    out = fn()
+    assert pcommon.launch_counts.get(name, 0) == before + 1, name
+    return out
+
+
+@pytest.mark.cuda
+def test_probe_live_kernel_matches_plain_on_card(cuda_device):
+    from sphfluidsimulation_torch.probes import live
+    x = torch.rand(live.SHAPE, device=cuda_device)
+    c = torch.tensor([live.clock_constant()], device=cuda_device)
+    got = _probe_launches("live", lambda: live.live(x, c))
+    assert torch.equal(got, live.live_plain(x, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", range(10))
+def test_probe_intops_stage_equals_the_truth_on_card(cuda_device, stage):
+    from sphfluidsimulation_torch.probes import intops
+    st = intops.stages()[stage]
+    a, b = intops.inputs_on(st, cuda_device)
+    got = _probe_launches(st.kname, lambda: intops.stage_run(st, a, b))
+    assert np.array_equal(got.cpu().numpy(), st.truth)
+    if st.stage == 3:       # the planted control: a shift of 9
+        bad = intops.stage_cuda(3, a, b, shift=9)
+        assert not np.array_equal(bad.cpu().numpy(), st.truth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["A", "B", "C", "D", "E"])
+def test_probe_loopstruct_synth_kernel_on_card(cuda_device, variant):
+    from sphfluidsimulation_torch.probes import loopstruct as ls
+    inp = ls.to_device(ls.synth_inputs(np.random.RandomState(0), 2),
+                       cuda_device)
+    for data in (inp, ls.gate_open(inp)):
+        got = _probe_launches(f"loopstruct_{variant}",
+                              lambda: ls.synth(variant, data))
+        assert ls.synth_rule(variant, ls.synth_plain(variant, data), got,
+                             data)
+    if variant == "A":      # the planted control: a line dropped
+        opened = ls.gate_open(inp)
+        bad = ls.synth_cuda("A", ls.drop_line(opened))
+        assert not ls.synth_rule("A", ls.synth_plain("A", opened), bad,
+                                 opened)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [4, 32])
+def test_probe_loopstruct_frame_kernels_on_card(cuda_device, cap):
+    from sphfluidsimulation_torch.probes import loopstruct as ls
+    cfg = SimConfig(**_GOLDENISH, voxel_capacity=cap)
+    st, _ = make_rollout(cfg, 3, device=cuda_device)(
+        initial_state(cfg, cuda_device))
+    fin = ls.frame_inputs(cfg, st)
+    rg = _probe_launches("loopstruct_ranges", lambda: ls.ranges_cuda(fin))
+    want_rg = ls.ranges_plain(fin)
+    assert torch.equal(rg[1], want_rg[1]) and torch.equal(rg[0], want_rg[0])
+    ref = sk.forces_reference(fin.frame, fin.rows, fin.phys, fin.r, cap)
+    k3 = sk.forces_cuda(fin.frame, fin.rows, fin.phys, fin.r, cap, False,
+                        fin.pj, fin.scal)
+    for v in ("A_f", "D_f", "E_f"):
+        got = _probe_launches(f"loopstruct_{v}",
+                              lambda: ls.frame_cuda(v, fin, rg))
+        acc = ls.frame_hold(fin, got, ref)
+        assert acc.ok, (v, acc)
+        # the same terms in the same order as K3
+        assert torch.equal(got.view(torch.int32), k3.view(torch.int32)), v
+    total, members = ls.walk_sum_plain(fin)
+    got = _probe_launches("loopstruct_B_f", lambda: ls.frame_cuda("B_f", fin))
+    assert ls.walk_sum_rule(got, total, members)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,prec", [
+    ("D", 1), ("G", 1), ("G", 3), ("A", 1), ("A", 3), ("M", 1), ("M", 3),
+    ("D128", 1), ("A128", 1), ("A128", 3), ("M128", 1), ("M128", 3)])
+def test_probe_mxu_instance_on_card(cuda_device, variant, prec):
+    from sphfluidsimulation_torch.probes import mxu
+    inp = mxu.script_inputs(cuda_device, 2048)[mxu.rows_of(variant)]
+    got = _probe_launches(mxu.kernel_name(variant, prec),
+                          lambda: mxu.mxu(variant, prec, inp))
+    rule = mxu.mxu_rule(variant, prec, inp)
+    hold = mxu.mxu_hold(variant, prec, inp, got, rule)
+    assert hold.ok, hold
+    # the planted controls: wrong kernels, each of which must fail the rule
+    for fault in mxu.CONTROLS.get((variant, prec), ()):
+        bad = mxu.mxu_cuda(variant, prec, inp, fault)
+        assert not mxu.mxu_hold(variant, prec, inp, bad, rule).ok, fault
+
+
+@pytest.mark.cuda
+def test_probe_v7prims_kernel_on_card(cuda_device):
+    from sphfluidsimulation_torch.probes import v7prims as v7
+    x = torch.from_numpy(v7.x_input()).to(cuda_device)
+    off = torch.tensor([v7.OFF], dtype=torch.int32, device=cuda_device)
+    for name, tab in v7.tables().items():
+        table = torch.from_numpy(tab).to(cuda_device)
+        got = _probe_launches("v7prims", lambda: v7.prims(off, x, table))
+        assert torch.equal(got, v7.prims_plain(off, x, table))
+        if name == "B":
+            assert np.array_equal(got.cpu().numpy(), v7.expected_b(x.cpu()
+                                                                   .numpy()))
+    # an offset the bulk copy cannot take answers NaN
+    bad = v7.prims_cuda(off + 2, x, table)
+    assert torch.isnan(bad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
+def test_probe_scalar_kernel_on_card(cuda_device, variant):
+    from sphfluidsimulation_torch.probes import scalar
+    slc, spans, x = (torch.from_numpy(a).to(cuda_device)
+                     for a in scalar.synth_inputs(2))
+    got = _probe_launches(f"scalar_S{variant}",
+                          lambda: scalar.scalar(variant, slc, spans, x))
+    assert scalar.ulps(scalar.scalar_plain(variant, slc, spans, x),
+                       got) <= 1

@@ -44,7 +44,21 @@ MODULES = [
     "sphfluidsimulation_torch.bench",
     "sphfluidsimulation_torch.cli",
     "sphfluidsimulation_torch.__main__",
+    "sphfluidsimulation_torch.probes",
+    "sphfluidsimulation_torch.probes.common",
+    "sphfluidsimulation_torch.probes.live",
+    "sphfluidsimulation_torch.probes.intops",
+    "sphfluidsimulation_torch.probes.loopstruct",
+    "sphfluidsimulation_torch.probes.mxu",
+    "sphfluidsimulation_torch.probes.v7prims",
+    "sphfluidsimulation_torch.probes.scalar",
+    "sphfluidsimulation_torch.probes.compact",
+    "sphfluidsimulation_torch.probes.__main__",
 ]
+# the port's scripts and its smoke run import no JAX either (the machine
+# with the card has none)
+PORT_SCRIPTS = sorted((ROOT / "scripts").glob("torch_*.py")) + [
+    ROOT / "chip_smoke.py"]
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -63,7 +77,7 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_no_source_file_imports_jax():
     offenders = []
-    for path in sorted(PKG.rglob("*.py")):
+    for path in sorted(PKG.rglob("*.py")) + PORT_SCRIPTS:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
