@@ -1,7 +1,7 @@
 """Throughput benchmark: particle-substeps/sec on the dam-break, on the card.
 
 Counterpart of ``sphfluidsimulation_tpu/bench.py`` (``scaled_config``,
-``run_bench``). Workload: the reference's canonical dam-break scene (preset 2
+``_site_bands``, ``run_bench``). Workload: the reference's canonical dam-break scene (preset 2
 spawn, golden physics constants, SampleScene.unity:362-376) scaled to the
 requested particle count, with the bucket resolution scaled like the golden
 config (occupancy-preserving: R ∝ N^(1/3), golden 262144 → 47, 1048576 → 75).
@@ -22,7 +22,7 @@ import time
 import torch
 
 from .config import SimConfig
-from .ops import cuda_build
+from .ops import cuda_build, sites
 from .ops.sph_kernels import SortedTuning, default_tuning
 from .sim.stepper import initial_state, make_rollout
 from .utils.profiling import device_sync, gpu_identity
@@ -30,25 +30,37 @@ from .utils.profiling import device_sync, gpu_identity
 NORTH_STAR = 1e9  # particle-substeps/sec/chip @ 1M (BASELINE.json)
 
 
-def scaled_config(n_particles: int) -> SimConfig:
+def scaled_config(n_particles: int,
+                  site_capacity: int | None = None) -> SimConfig:
     """Golden physics at a given N; R scales to preserve voxel occupancy."""
     base_r = 47
     r = max(3, round(base_r * (n_particles / 262144.0) ** (1.0 / 3.0)))
-    return SimConfig(particle_number=n_particles, bucket_resolution=r)
+    kw = {} if site_capacity is None else {"site_capacity": site_capacity}
+    return SimConfig(particle_number=n_particles, bucket_resolution=r, **kw)
+
+
+def site_bands(cfg: SimConfig, device: torch.device) -> int:
+    """The z-band count a sites-tier run on ``device`` resolves to (0 in
+    the config: ``sites.bands_for``), JAX bench.py:28-31."""
+    return cfg.site_bands or sites.bands_for(
+        cfg.bucket_resolution, cfg.n_particles,
+        cfg.site_capacity_i or cfg.site_capacity, cfg.site_capacity, device)
 
 
 def run_bench(n_particles: int = 1 << 20, frames: int = 20,
               warmup_frames: int = 5, neighbor: str = "sorted",
               tune: SortedTuning | None = None,
-              steady_frames: int = 0) -> dict:
+              steady_frames: int = 0,
+              site_capacity: int | None = None) -> dict:
     """``neighbor`` is the tier (``make_rollout``'s); ``tune`` selects the
     sorted tier's route and variant (None reads the ``SPH_PALLAS_*``
-    variables); ``steady_frames`` > 0 adds the ``steady_state_*`` keys."""
+    variables); ``steady_frames`` > 0 adds the ``steady_state_*`` keys;
+    ``site_capacity`` sets the sites tier's (None: the config's 32)."""
     if not torch.cuda.is_available():
         raise RuntimeError("run_bench measures the card; no CUDA device")
     device = torch.device("cuda")
     tune = default_tuning() if tune is None else tune
-    cfg = scaled_config(n_particles)
+    cfg = scaled_config(n_particles, site_capacity)
     state = initial_state(cfg, device)
 
     t0 = time.perf_counter()
@@ -102,8 +114,8 @@ def run_bench(n_particles: int = 1 << 20, frames: int = 20,
         "neighbor": neighbor,
         "pallas_tuning": tune._asdict(),
         "scan_unroll": False,
-        "site_capacity": None,
-        "site_bands": None,
+        "site_capacity": cfg.site_capacity if neighbor == "sites" else None,
+        "site_bands": site_bands(cfg, device) if neighbor == "sites" else None,
         "host_loop": True,
         "exact_cert_total": int(m.exact_cert.sum()),
         "overflow_max": int(m.overflow.max()),

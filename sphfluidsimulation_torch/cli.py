@@ -1,14 +1,16 @@
 """Command-line runner.
 
-Counterpart of ``sphfluidsimulation_tpu/cli.py`` (``run`` :65-147, ``export``
-:217-244, ``bench`` :305-311, the flags :18-62, :317-362): ``python -m
+Counterpart of ``sphfluidsimulation_tpu/cli.py`` (``run`` :65-147, the slab
+run ``_run_slab`` :150-200, ``export`` :217-244, ``sweep`` :264-301,
+``bench`` :305-311, the flags :18-62, :317-371): ``python -m
 sphfluidsimulation_torch run`` with one flag per reference inspector field
 (SphFluidSimulation.cs:34-53), plus checkpoint/resume, a metrics JSONL,
 frame export (``--export-dir``, ``--animate``), the standalone WebGL viewer
-(``--viewer``, ``--viewer-live``) and ``export`` of a checkpoint to PNG and
-PLY. ``--device`` names the torch device;
-it defaults to the card, and a run asked for on a card that is not there
-stops with exit code 2 instead of running on the CPU.
+(``--viewer``, ``--viewer-live``), ``export`` of a checkpoint to PNG and
+PLY, the batched ``sweep`` (BASELINE config 5) and ``run --shards N``, the
+sites tier's slab step. ``--device`` names the torch device; it defaults to
+the card, and a run asked for on a card that is not there stops with exit
+code 2 instead of running on the CPU.
 
 BASELINE config 3 (512k water-column collapse with XSPH and artificial
 viscosity), in faithful and corrected mode:
@@ -16,20 +18,31 @@ viscosity), in faithful and corrected mode:
     python -m sphfluidsimulation_torch run --particles 524288 --preset 2 \\
         --xsph 0.3 --alpha-visc 0.5 [--corrected]
 
-``run`` and ``bench`` take the route and the kernels' variant from the
-``SPH_PALLAS_*`` variables, as the JAX CLI's users set them
+BASELINE config 5 (8 scenes of 524,288 particles, rest density swept from
+1.0 to 2.0, one PNG a scene):
+
+    python -m sphfluidsimulation_torch sweep --particles 524288 --scenes 8 \\
+        --export-dir frames/
+
+``--neighbor`` picks the tier: ``sorted`` (the port's default: the CUDA
+kernels on the card, the tier JAX names ``pallas``),
+``slotted`` (the JAX CLI's default) and ``gather`` (the exact tiers),
+``sites`` (the site grids, ``--site-capacity``) and ``brute`` (the O(N²)
+oracle). ``run --shards N --halo H --row-slack S`` runs the sites tier's
+slab step on N z-slabs (``parallel.make_slab_step`` on ``LocalRing(N)``:
+the JAX CLI needs N devices, the port runs the N slabs on one device); like
+JAX it exits 2 for ``--corrected``, ``--export-dir``, ``--animate`` and
+``--viewer``, which the slab step has no counterpart of.
+
+``run``, ``sweep`` and ``bench`` take the route and the kernels' variant
+from the ``SPH_PALLAS_*`` variables, as the JAX CLI's users set them
 (``sph_kernels.SortedTuning.from_env``): ``SPH_PALLAS_COMPACT=1`` selects
 the compact-lane kernel K5 (``ops/compact.py``), ``SPH_PALLAS_FUSED=0`` the
 unfused route (K3 and ``integrate_substep`` a substep),
 ``SPH_PALLAS_KAHAN=1`` the compensated sums, ``SPH_PALLAS_BF16=1`` the
 bfloat16 candidates and ``SPH_PALLAS_FACC=0`` the two-accumulator force
-kernels.
-
-What needs code the port does not have yet exits with code 2 and names its
-ROADMAP.md item: ``sweep`` (scene batching, queue A item 11) and
-``--shards > 1``. The JAX CLI's ``--shards`` runs the slab step of the
-sites tier (queue A items 9 and 11); the port's slab step of the sorted
-tier is the library's ``parallel.make_pallas_slab_step``.
+kernels. ``bench --host-loop`` is accepted: the port's bench always chains
+frames from the host.
 """
 
 from __future__ import annotations
@@ -40,12 +53,6 @@ import os
 import sys
 
 import numpy as np
-
-_BATCH = "scene batching is not ported yet: ROADMAP.md queue A item 11"
-_SLAB = ("--shards runs the sites tier's slab step, which is not ported yet: "
-         "ROADMAP.md queue A items 9 and 11 (the sorted tier's slab step is "
-         "sphfluidsimulation_torch.parallel.make_pallas_slab_step)")
-
 
 def _add_config_flags(p: argparse.ArgumentParser) -> None:
     # one flag per reference inspector field (SphFluidSimulation.cs:34-53)
@@ -66,11 +73,13 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--frame-dt", type=float, default=1.0 / 60.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--neighbor",
-                   choices=["sorted", "slotted", "gather", "brute"],
+                   choices=["sorted", "sites", "slotted", "gather", "brute"],
                    default="sorted",
-                   help="'sorted': the CUDA kernels on the card (plain "
-                        "torch on the CPU); 'slotted', 'gather': the exact "
-                        "tiers (plain torch); 'brute': the O(N²) oracle")
+                   help="'sorted' (JAX's 'pallas'): the CUDA "
+                        "kernels on the card (plain torch on the CPU); "
+                        "'sites': the site grids; 'slotted', 'gather': the "
+                        "exact tiers; 'brute': the O(N²) oracle (all but "
+                        "'sorted' plain torch)")
     p.add_argument("--corrected", action="store_true",
                    help="rebuild bucket+density every substep instead of "
                         "the reference's once-per-frame reuse")
@@ -78,6 +87,9 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    help="XSPH advection-smoothing epsilon (0 disables)")
     p.add_argument("--alpha-visc", type=float, default=0.0,
                    help="Monaghan artificial-viscosity alpha (0 disables)")
+    p.add_argument("--site-capacity", type=int, default=32,
+                   help="distinct (position[,rho,v]) sites per voxel for "
+                        "the 'sites' backend (overflow is certified)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the card)")
 
@@ -92,12 +104,8 @@ def _config_from_args(a) -> "SimConfig":
         damping_coefficient=a.damping, particle_radius=a.particle_radius,
         low_speed=a.low_speed, high_speed=a.high_speed, frame_dt=a.frame_dt,
         seed=a.seed, xsph=a.xsph, artificial_viscosity=a.alpha_visc,
+        site_capacity=a.site_capacity,
     ).validate()
-
-
-def _unavailable(msg: str) -> int:
-    print(msg, file=sys.stderr)
-    return 2
 
 
 def _device(name: str):
@@ -120,11 +128,11 @@ def cmd_run(a) -> int:
     from .utils.checkpoint import load_checkpoint, save_checkpoint
     from .utils.metrics import MetricsLogger
 
-    if a.shards > 1:
-        return _unavailable(f"--shards {a.shards}: {_SLAB}")
     dev = _device(a.device)
     if dev is None:
         return 2
+    if a.shards > 1:
+        return _run_slab(a, dev)
     if a.resume:
         state, cfg, meta = load_checkpoint(a.resume, dev)
         scene = Scene(cfg, neighbor=a.neighbor, faithful=not a.corrected,
@@ -190,6 +198,56 @@ def cmd_run(a) -> int:
     return 0
 
 
+def _run_slab(a, dev) -> int:
+    """The sites tier's slab step on ``LocalRing(--shards)`` (JAX
+    ``_run_slab``, cli.py:150-200), on one device."""
+    from .params import PhysParams
+    from .parallel import slab
+    from .parallel.ring import LocalRing
+    from .sim.stepper import initial_state
+    from .utils.checkpoint import load_checkpoint, save_checkpoint
+    from .utils.metrics import MetricsLogger
+
+    # the flags the slab step has no counterpart of fail loudly instead of
+    # being dropped (it has no corrected mode and no frame-export hook)
+    unsupported = [flag for flag, on in (
+        ("--corrected", a.corrected), ("--export-dir", a.export_dir),
+        ("--animate", a.animate), ("--viewer", a.viewer)) if on]
+    if unsupported:
+        print(f"{', '.join(unsupported)} not supported with --shards > 1",
+              file=sys.stderr)
+        return 2
+    start_frame = 0
+    if a.resume:
+        state0, cfg, meta = load_checkpoint(a.resume, dev)
+        start_frame = meta.get("frame", 0)
+        print(f"resumed frame {start_frame} from {a.resume}")
+    else:
+        cfg = _config_from_args(a)
+        state0 = initial_state(cfg, dev)
+    step, spec = slab.make_slab_step(cfg, LocalRing(a.shards), halo=a.halo,
+                                     row_slack=a.row_slack, device=dev)
+    phys = PhysParams.from_config(cfg, dev)
+    sst = slab.distribute(state0, cfg, spec)
+    log = MetricsLogger(a.metrics, n_particles=cfg.n_particles,
+                        substeps=cfg.substeps)
+    for f in range(start_frame + 1, start_frame + a.frames + 1):
+        sst, m = step(sst, phys)
+        rec = log.log(f, m)
+        if a.verbose:
+            print(json.dumps(rec))
+    out, lost = slab.collect(sst, cfg.n_particles)
+    if a.checkpoint:
+        save_checkpoint(a.checkpoint, out, cfg, frame=start_frame + a.frames)
+        print(f"checkpoint → {a.checkpoint}")
+    last = log.history[-1] if log.history else {}
+    print(json.dumps({"frames": start_frame + a.frames, "shards": a.shards,
+                      "slab_z": spec.slab_z, "halo": spec.halo,
+                      "rows_per_device": spec.cap_rows,
+                      "lost": int(lost), **last}))
+    return 0
+
+
 def _write_viewer(path: str, cfg, frames: list, speeds: list,
                   refresh_s: float | None = None) -> None:
     from .render.viewer import export_html_viewer
@@ -244,6 +302,55 @@ def cmd_export(a) -> int:
     return 0
 
 
+def sweep_overrides(lo: float, hi: float, scenes: int) -> list[dict]:
+    """The sweep's scenes (JAX cli.py:274-278): rest density evenly from
+    ``lo`` to ``hi``, scene i with seed i."""
+    return [{"rest_density": float(v), "seed": i}
+            for i, v in enumerate(np.linspace(lo, hi, scenes))]
+
+
+def cmd_sweep(a) -> int:
+    """Batched multi-scene sweep (BASELINE config 5): scenes with varied
+    physics in lockstep (``parallel.BatchedScenes``), then one JSON line of
+    per-scene metrics and, with ``--export-dir``, a PNG a scene (JAX
+    cli.py:264-301)."""
+    from .ops.sph_kernels import default_tuning
+    from .parallel.batch import BatchedScenes
+    from .render.export import render_frame_png, save_png
+    from .render.meshprops import RenderParams, speed_colors
+
+    dev = _device(a.device)
+    if dev is None:
+        return 2
+    cfg = _config_from_args(a)
+    bs = BatchedScenes(cfg, sweep_overrides(*a.vary_rest_density, a.scenes),
+                       neighbor=a.neighbor, faithful=not a.corrected,
+                       tune=default_tuning(), devices=dev)
+    for _ in range(a.frames):
+        bs.step()
+    m = bs.last_metrics
+    print(json.dumps({
+        "scenes": a.scenes, "frames": bs.frame,
+        "mean_density": [round(float(x), 4) for x in m.mean_density],
+        "max_speed": [float(x) for x in m.max_speed],
+        "overflow": [int(x) for x in m.overflow],
+        "exact_cert": [int(x) for x in m.exact_cert],
+    }))
+    if a.export_dir:
+        os.makedirs(a.export_dir, exist_ok=True)
+        rp = RenderParams.from_config(cfg, dev)
+        states = bs.states
+        for i in range(a.scenes):
+            # the speed ramp without the NaN-trap marker, as JAX's sweep
+            colors = speed_colors(states.vel[i], rp).cpu().numpy()
+            img = render_frame_png(states.pos[i].cpu().numpy(), colors,
+                                   sim_scale=cfg.sim_scale,
+                                   particle_radius=cfg.particle_radius)
+            save_png(os.path.join(a.export_dir, f"scene_{i:02d}.png"), img)
+        print(f"frames → {a.export_dir}")
+    return 0
+
+
 def cmd_bench(a) -> int:
     from .bench import run_bench
     from .ops.sph_kernels import default_tuning
@@ -257,11 +364,6 @@ def cmd_bench(a) -> int:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    # the JAX package's other commands, whatever arguments they carry
-    unported = {"sweep": _BATCH}
-    if argv and argv[0] in unported:
-        return _unavailable(f"{argv[0]}: {unported[argv[0]]}")
     parser = argparse.ArgumentParser(
         prog="sphfluidsimulation_torch",
         description="SPH fluid simulation, PyTorch + CUDA")
@@ -292,7 +394,13 @@ def main(argv=None) -> int:
                         "the run is in progress (auto-refresh); 0 = only "
                         "write at the end")
     p.add_argument("--verbose", action="store_true")
-    p.add_argument("--shards", type=int, default=1, help=_SLAB)
+    p.add_argument("--shards", type=int, default=1,
+                   help="z-slab shards (>1 runs the sites tier's slab step, "
+                        "all shards on --device)")
+    p.add_argument("--halo", type=int, default=2,
+                   help="slab halo z-planes (drift tolerance + 1)")
+    p.add_argument("--row-slack", type=float, default=2.0,
+                   help="per-shard particle row capacity = N/shards·slack")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("export", help="render a checkpoint to png/ply")
@@ -305,12 +413,25 @@ def main(argv=None) -> int:
     p.add_argument("--mesh-max-particles", type=int, default=65536)
     p.set_defaults(fn=cmd_export)
 
+    p = sub.add_parser("sweep", help="batched multi-scene parameter sweep")
+    _add_config_flags(p)
+    p.add_argument("--scenes", type=int, default=8)
+    p.add_argument("--frames", type=int, default=30)
+    p.add_argument("--vary-rest-density", type=float, nargs=2,
+                   default=(1.0, 2.0))
+    p.add_argument("--export-dir", type=str, default=None)
+    p.set_defaults(fn=cmd_sweep)
+
     p = sub.add_parser("bench", help="measure throughput on the card")
     p.add_argument("--particles", type=int, default=1048576)
     p.add_argument("--frames", type=int, default=20)
     p.add_argument("--warmup", type=int, default=5)
-    p.add_argument("--neighbor", choices=["sorted", "slotted", "gather"],
+    p.add_argument("--neighbor",
+                   choices=["sorted", "sites", "slotted", "gather"],
                    default="sorted")
+    p.add_argument("--host-loop", action="store_true",
+                   help="accepted for the JAX CLI's users: the port's bench "
+                        "always chains per-frame steps from the host")
     p.set_defaults(fn=cmd_bench)
 
     a = parser.parse_args(argv)

@@ -8,7 +8,8 @@ state (``Start``, :82-94) and advances frames (``Update``, :96-108).
 The default backend is ``"sorted"``, the tier that runs the hand-written
 CUDA kernels. This differs from the JAX package on purpose: its default is
 ``"slotted"``, which the port runs too (with ``"gather"``, the exact tiers
-of ``ops/cellops.py``, plain PyTorch); ``"brute"`` is the O(N²) oracle. ``faithful=False`` selects the corrected
+of ``ops/cellops.py``, and ``"sites"``, the site grids of ``ops/sites.py``,
+plain PyTorch); ``"brute"`` is the O(N²) oracle. ``faithful=False`` selects the corrected
 mode, ``tune=SortedTuning(compact=True)`` the compact-lane route (K5)
 (``SortedTuning``'s other fields the unfused route and the kernels'
 variants), and

@@ -18,9 +18,13 @@ the generators of the shards it holds:
 
 ``up(x)`` sends x to the next shard and returns what the previous one sent;
 ``down(x)`` the other way; the edge shards receive zeros, as ``ppermute``
-gives edge devices. ``psum`` and ``pmax`` return the sum and the maximum
-over all shards. Every shard yields the same exchanges in the same order
-with tensors of the same shape.
+gives edge devices. ``psum``, ``pmax`` and ``pmean`` return the sum, the
+maximum and the mean over all shards (``lax.pmean`` is the sum over the
+shard count). ``gather(x)`` returns every shard's x concatenated in shard
+order along dim 0, ``lax.all_gather(x, axis, tiled=True)``: ``DistRing``
+takes it from ``torch.distributed.all_gather``, which gloo and NCCL both
+have. Every shard yields the same exchanges in the same order with tensors
+of the same shape.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ ShardStep = Generator["Exchange", torch.Tensor, Any]
 
 
 class Exchange(NamedTuple):
-    op: str            # "up", "down", "sum" or "max"
+    op: str            # "up", "down", "sum", "max", "mean" or "gather"
     x: torch.Tensor
 
 
@@ -59,6 +63,14 @@ class Ring:
     @staticmethod
     def pmax(x: torch.Tensor) -> Exchange:
         return Exchange("max", x)
+
+    @staticmethod
+    def pmean(x: torch.Tensor) -> Exchange:
+        return Exchange("mean", x)
+
+    @staticmethod
+    def gather(x: torch.Tensor) -> Exchange:
+        return Exchange("gather", x)
 
     @property
     def indices(self) -> list[int]:
@@ -111,10 +123,12 @@ class LocalRing(Ring):
             return [torch.zeros_like(xs[0])] + xs[:-1]
         if op == "down":
             return xs[1:] + [torch.zeros_like(xs[-1])]
+        if op == "gather":
+            return [torch.cat(xs)] * self.d
         total = xs[0]
         for x in xs[1:]:
-            total = total + x if op == "sum" else torch.maximum(total, x)
-        return [total] * self.d
+            total = torch.maximum(total, x) if op == "max" else total + x
+        return [total / self.d if op == "mean" else total] * self.d
 
 
 class DistRing(Ring):
@@ -150,11 +164,16 @@ class DistRing(Ring):
         # gloo and NCCL send bytes: carry bool as uint8
         x = req.x.to(torch.uint8) if req.x.dtype == torch.bool else req.x
         x = x.contiguous()
-        if req.op in ("sum", "max"):
+        if req.op in ("sum", "max", "mean"):
             out = x.clone()
-            dist.all_reduce(out, dist.ReduceOp.SUM if req.op == "sum"
-                            else dist.ReduceOp.MAX, group=self.group)
-            return out
+            dist.all_reduce(out, dist.ReduceOp.MAX if req.op == "max"
+                            else dist.ReduceOp.SUM, group=self.group)
+            return out / self.d if req.op == "mean" else out
+        if req.op == "gather":
+            parts = [torch.empty_like(x) for _ in range(self.d)]
+            dist.all_gather(parts, x, group=self.group)
+            out = torch.cat(parts)
+            return out.to(torch.bool) if req.x.dtype == torch.bool else out
         dst, src = ((self.rank + 1, self.rank - 1) if req.op == "up"
                     else (self.rank - 1, self.rank + 1))
         out = torch.zeros_like(x)

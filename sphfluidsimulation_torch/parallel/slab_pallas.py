@@ -58,7 +58,8 @@ from ..params import PhysParams
 from ..sim.stepper import resolve_device
 from ..state import StepMetrics
 from .ring import Ring, ShardStep
-from .slab import SlabSpec, SlabState, _migrate, front
+from .slab import (SlabSpec, SlabState, _migrate, _ring_step, _shards,
+                   front)
 
 
 class PallasSlabSpec(NamedTuple):
@@ -283,14 +284,6 @@ def _local_step(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring,
     return step
 
 
-def _shards(st: SlabState, n_held: int, c: int) -> list[tuple]:
-    """The rows of each shard held here, as the tuples a shard step takes."""
-    if st.pos.shape[0] != n_held * c:
-        raise ValueError(f"slab state of {st.pos.shape[0]} rows; the ring "
-                         f"holds {n_held} shards of {c} rows here")
-    return [tuple(t[k * c:(k + 1) * c] for t in st) for k in range(n_held)]
-
-
 def shard_frames(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring,
                  st: SlabState) -> list[ShardFrame]:
     """The ``ShardFrame`` of each shard held here, as a step of ``st``
@@ -326,18 +319,5 @@ def make_pallas_slab_step(cfg: SimConfig, ring: Ring, *, halo: int = 2,
     device = resolve_device(device)
     spec = make_pallas_spec(cfg, ring.d, halo=halo, row_slack=row_slack,
                             halo_slack=halo_slack, hops=hops)
-    local = _local_step(cfg, spec, ring, tune)
-    n_held = len(ring.indices)
-
-    def step(st: SlabState, phys: PhysParams
-             ) -> tuple[SlabState, StepMetrics]:
-        if st.pos.device.type != device.type:
-            raise ValueError(f"slab state on {st.pos.device}; this step "
-                             f"runs on {device}")
-        outs = ring.run(local, [a + (phys,) for a in
-                                _shards(st, n_held, spec.cap_rows)])
-        new = SlabState(*(torch.cat([o[k] for o in outs])
-                          for k in range(5)))
-        return new, outs[0][5]
-
-    return step, spec
+    return _ring_step(_local_step(cfg, spec, ring, tune), ring,
+                      spec.cap_rows, device), spec

@@ -1,6 +1,7 @@
 """Physics parameters as 0-d float32 tensors.
 
-Counterpart of ``sphfluidsimulation_tpu/params.py::PhysParams``. The reference
+Counterpart of ``sphfluidsimulation_tpu/params.py`` (``PhysParams``,
+``stack_params``). The reference
 uploads its physics constants as shader uniforms each dispatch
 (SphFluidSimulation.cs:229-265); here they are 0-d float32 tensors on the
 simulation device, so the frame loop reads them without a host round trip.
@@ -60,3 +61,10 @@ class PhysParams(NamedTuple):
         return cls(**{k: torch.tensor(np.asarray(d[k], np.float32),
                                       device=device)
                       for k in cls._fields})
+
+
+def stack_params(params: list[PhysParams]) -> PhysParams:
+    """Per-scene params stacked along a leading scene axis: each field a
+    float32 tensor [S] (JAX ``stack_params``, params.py:53-55)."""
+    return PhysParams(*(torch.stack(xs) for xs in zip(*params)))
+

@@ -3,7 +3,8 @@ tiers and the brute oracle.
 
 Counterpart of ``sphfluidsimulation_tpu/sim/stepper.py``: ``integrate_substep``
 (:40-60), ``_metrics`` (:63-75), the brute, slotted and gather branches of
-``make_param_step`` (:87-207), ``_make_pallas_step`` in both modes
+``make_param_step`` (:87-207), ``_make_sites_step`` (:210-266),
+``_make_pallas_step`` in both modes
 (:269-393), ``_make_pallas_rollout`` (:405-516), ``make_frame_step``,
 ``make_dt_rollout`` (:519-566), ``make_rollout`` (:569-634) and
 ``initial_state``.
@@ -50,7 +51,9 @@ each kernel's variant, and every kernel of a frame is launched in it.
 Backends: ``neighbor="sorted"``, the counterpart of the JAX ``"pallas"``
 tier (``"pallas"``, the JAX name, selects it too); the exact tiers
 ``"slotted"`` (the JAX package's default) and ``"gather"``
-(``ops/cellops.py``, plain PyTorch over the voxel table); and
+(``ops/cellops.py``, plain PyTorch over the voxel table); the site grids,
+``"sites"`` (``ops/sites.py``, plain PyTorch, ``exact_cert`` the candidates
+and sites beyond the site capacity); and
 ``neighbor="brute"``, the O(N²) oracle (``ops/brute.py``,
 ``ops/extensions.py``), which is the oracle on the card, where there is no
 JAX. K1-K3 walk ``start[]`` cell by cell with no static window and no
@@ -77,19 +80,19 @@ from typing import Callable
 import torch
 
 from ..config import SimConfig
-from ..ops import (brute, cellops, compact, extensions, grid, sph_kernels,
-                   sph_math)
+from ..ops import (brute, cellops, compact, extensions, grid, sites,
+                   sph_kernels, sph_math)
 from ..ops.frame import SortedFrame, build_frame
 from ..ops.sph_kernels import SortedTuning, default_tuning
 from ..params import PhysParams
-from ..state import ParticleState, StepMetrics, make_state
+from ..state import ParticleState, StepMetrics, make_state, stack_states
 from ..utils.profiling import span
 
 StepFn = Callable[[ParticleState], tuple[ParticleState, StepMetrics]]
 ParamStepFn = Callable[[ParticleState, PhysParams],
                        tuple[ParticleState, StepMetrics]]
 
-NEIGHBORS = ("sorted", "slotted", "gather", "brute")
+NEIGHBORS = ("sorted", "slotted", "gather", "brute", "sites")
 # JAX backend names that the port runs under another name
 _ALIASES = {"pallas": "sorted"}
 # the profiler ranges of one sorted frame, in order: faithful mode
@@ -101,10 +104,6 @@ FRAME_PHASES = ("build_frame", "density", "pack_rows", "fused_substep",
                 "unpack+metrics")
 CORRECTED_PHASES = ("build_frame", "density", "pack_rows", "forces",
                     "integrate+unsort", "metrics")
-# JAX backends not ported yet, with the ROADMAP.md item that ports them
-_NOT_PORTED = {
-    "sites": "queue A item 9 (sites tier: ops/sites.py)",
-}
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -119,13 +118,7 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
 
 
 def _check_supported(neighbor: str) -> str:
-    """The port's name of backend ``neighbor``; raises for one that is not
-    ported or unknown."""
-    if neighbor in _NOT_PORTED:
-        raise NotImplementedError(
-            f"neighbor={neighbor!r} is not ported to torch yet: ROADMAP.md "
-            f"{_NOT_PORTED[neighbor]}; use neighbor='sorted', 'slotted', "
-            "'gather' or 'brute'")
+    """The port's name of backend ``neighbor``; raises for an unknown one."""
     neighbor = _ALIASES.get(neighbor, neighbor)
     if neighbor not in NEIGHBORS:
         raise ValueError(f"unknown neighbor backend {neighbor!r}")
@@ -432,6 +425,55 @@ def _table_step(cfg: SimConfig, neighbor: str, faithful: bool
     return step
 
 
+def _sites_step(cfg: SimConfig, faithful: bool) -> ParamStepFn:
+    """Frame step on the site-grid tier (JAX ``_make_sites_step``,
+    stepper.py:210-266), plain PyTorch (``ops/sites.py``): the frame
+    binding (the stale bucket's membership) and the site-grid density once
+    a frame, then five × (site-grid forces + ``integrate_substep``), all
+    state in particle order; the grids are rebuilt every substep from fresh
+    values, the reference's fresh reads through stale lists
+    (VelPos.compute:57-58, 86-94). ``faithful=False`` rebuilds the binding
+    and the density every substep. ``exact_cert`` counts candidates and
+    sites dropped by the site capacity (``cfg.site_capacity``,
+    ``site_capacity_i``); ``cfg.site_bands`` (0: ``sites.bands_for`` the
+    state's device, each frame) runs the passes over z-bands,
+    bit-identical to the one-piece pass."""
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    kj = cfg.site_capacity
+    ki = cfg.site_capacity_i or kj
+    xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+
+    def frame_aux(pos, phys, nb):
+        stale_cid, in_cap, ovf = sites.frame_binding(pos, r, cap)
+        rho, cert = sites.density_sites(pos, stale_cid, in_cap, phys, r, ki,
+                                        kj, z_bands=nb)
+        return stale_cid, in_cap, ovf, rho, cert
+
+    def step(state: ParticleState, phys: PhysParams
+             ) -> tuple[ParticleState, StepMetrics]:
+        pos, vel = state.pos, state.vel
+        nb = cfg.site_bands or sites.bands_for(r, cfg.n_particles, ki, kj,
+                                               pos.device)
+        stale_cid, in_cap, ovf, rho0, cert = frame_aux(pos, phys, nb)
+        rho = rho0
+        nan_hits = torch.zeros_like(state.nan_count)
+        for _ in range(cfg.substeps):
+            if not faithful:
+                stale_cid, in_cap, _, rho, c = frame_aux(pos, phys, nb)
+                cert = cert + c
+            f, dv, c = sites.fluid_forces_sites(
+                pos, vel, rho, stale_cid, in_cap, phys, r, ki, kj,
+                xsph=xsph, alpha_visc=alpha, z_bands=nb)
+            pos, vel, nan_mask = integrate_substep(pos, vel, f, phys, dv)
+            nan_hits = nan_hits + nan_mask.to(torch.int32)
+            cert = cert + c
+        return (ParticleState(pos=pos, vel=vel,
+                              nan_count=state.nan_count + nan_hits),
+                _metrics(vel, rho0, nan_hits, ovf, phys, cert))
+
+    return step
+
+
 def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
                     faithful: bool = True,
                     tune: SortedTuning | None = None) -> ParamStepFn:
@@ -444,8 +486,8 @@ def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
 
     neighbor: 'sorted' (the CUDA kernels on the card; 'pallas', the JAX
               name, is the same tier), 'slotted' (packed slot rows, the
-              JAX default), 'gather' (per-candidate gathers) or 'brute'
-              (O(N²) oracle).
+              JAX default), 'gather' (per-candidate gathers), 'sites'
+              (the site grids) or 'brute' (O(N²) oracle).
     faithful: reuse the frame-start bucket + density across all substeps
               (reference semantics); False rebuilds them every substep.
     tune:     the sorted tier's route and variant (``SortedTuning``; None
@@ -455,6 +497,8 @@ def make_param_step(cfg: SimConfig, *, neighbor: str = "sorted",
     """
     cfg = cfg.validate()
     neighbor = _check_supported(neighbor)
+    if neighbor == "sites":
+        return _sites_step(cfg, faithful)
     if neighbor != "sorted":
         return _table_step(cfg, neighbor, faithful)
     tune = default_tuning() if tune is None else tune
@@ -475,7 +519,7 @@ def make_frame_step(cfg: SimConfig, *, neighbor: str = "sorted",
 
 
 def _stack(ms: list[StepMetrics]) -> StepMetrics | None:
-    return StepMetrics(*(torch.stack(x) for x in zip(*ms))) if ms else None
+    return stack_states(ms) if ms else None
 
 
 def _check_snapshots(n_frames: int, snapshot_every: int) -> None:
@@ -566,7 +610,10 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
     the result is bit-equal to stepping frame by frame; it unsorts once at
     the end and once for each snapshot (``_make_pallas_rollout``,
     stepper.py:405-516 of the JAX package). Every other rollout loops over
-    the frame step (stepper.py:610-634). For a recorded dt per frame, see
+    the frame step (stepper.py:610-634). JAX refuses multi-frame rollouts
+    of the banded sites step (stepper.py:588-605), whose ``lax.scan``
+    faults the TPU worker; this rollout is a host loop and runs them, equal
+    to stepping frame by frame. For a recorded dt per frame, see
     :func:`make_dt_rollout`.
     """
     _check_snapshots(n_frames, snapshot_every)

@@ -44,6 +44,13 @@ def make_state(pos: torch.Tensor, vel: torch.Tensor | None = None
                          nan_count=nan_count)
 
 
+def stack_states(states: list) -> "ParticleState":
+    """Per-scene states (``ParticleState``, a slab ``SlabState`` or
+    ``StepMetrics``) stacked along a leading scene axis, as the JAX
+    package's ``jax.tree.map(jnp.stack, *states)``."""
+    return type(states[0])(*(torch.stack(xs) for xs in zip(*states)))
+
+
 def state_from_numpy(pos: np.ndarray, vel: np.ndarray, nan_count: np.ndarray,
                      device: torch.device | str | None = None
                      ) -> ParticleState:

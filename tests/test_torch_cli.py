@@ -141,13 +141,103 @@ def test_cli_run_brute_matches_sorted_on_calm(capsys):
 
 # export, --export-dir, --viewer and --animate run
 # (tests/test_torch_render.py)
-@pytest.mark.parametrize("argv", [
-    ["sweep", "--scenes", "8"],
-    ["run", "--device", "cpu", "--shards", "2"],
-])
-def test_cli_unported_cases_exit_2_naming_their_roadmap_item(argv, capsys):
-    assert cli.main(argv) == 2
-    assert "ROADMAP.md queue A item" in capsys.readouterr().err
+
+
+_SMALL = ["--particles", "512", "--bucket-resolution", "9"]
+
+
+def test_cli_sweep_prints_jax_sweep_metrics_and_writes_a_png_a_scene(
+        tmp_path, capsys):
+    # JAX cli.py:264-301 on the slotted tier (the JAX CLI's default), two
+    # scenes of 512 particles, one frame; JAX's BatchedScenes on the same
+    # scenes gives the same metrics
+    from sphfluidsimulation_tpu.parallel.batch import BatchedScenes as JB
+    out_dir = tmp_path / "frames"
+    rc, out = _run(["sweep", "--device", "cpu", *_SMALL, "--scenes", "2",
+                    "--frames", "1", "--neighbor", "slotted",
+                    "--vary-rest-density", "1.2", "1.6", "--export-dir",
+                    str(out_dir)], capsys)
+    assert rc == 0 and out[-1] == f"frames → {out_dir}"
+    got = json.loads(out[-2])
+    assert list(got) == ["scenes", "frames", "mean_density", "max_speed",
+                         "overflow", "exact_cert"]
+    assert got["scenes"] == 2 and got["frames"] == 1
+    jb = JB(JConfig(particle_number=512, bucket_resolution=9),
+            cli.sweep_overrides(1.2, 1.6, 2))
+    jb.step()
+    m = jb.last_metrics
+    assert got["overflow"] == [int(x) for x in m.overflow]
+    assert got["exact_cert"] == [int(x) for x in m.exact_cert] == [0, 0]
+    np.testing.assert_allclose(got["mean_density"],
+                               np.asarray(m.mean_density), atol=1e-4)
+    assert sorted(p.name for p in out_dir.iterdir()) == ["scene_00.png",
+                                                         "scene_01.png"]
+
+
+def test_cli_sweep_sorted_default_runs_each_scene_as_alone(capsys):
+    # the port's default tier; scene 1's metrics are those of its own run
+    rc, out = _run(["sweep", "--device", "cpu", *_SMALL, "--scenes", "2",
+                    "--frames", "2"], capsys)
+    assert rc == 0
+    got = json.loads(out[-1])
+    cfg = SimConfig(particle_number=512, bucket_resolution=9,
+                    **cli.sweep_overrides(1.0, 2.0, 2)[1])
+    _, m = make_rollout(cfg, 2, device="cpu")(initial_state(cfg, "cpu"))
+    assert got["mean_density"][1] == round(float(m.mean_density[-1]), 4)
+    assert got["max_speed"][1] == float(m.max_speed[-1])
+    assert got["overflow"][1] == int(m.overflow[-1])
+
+
+def test_cli_run_shards_resumes_and_logs(tmp_path, capsys):
+    # JAX cli.py:150-200: the sites slab step on 2 slabs, its metrics JSONL,
+    # a checkpoint, and a resume through the same path
+    metrics, ck = str(tmp_path / "m.jsonl"), str(tmp_path / "ck.npz")
+    rc, out = _run(["run", "--device", "cpu", *_CALM_FLAGS, "--shards", "2",
+                    "--row-slack", "4", "--frames", "2", "--metrics",
+                    metrics, "--checkpoint", ck], capsys)
+    assert rc == 0
+    final = json.loads(out[-1])
+    assert final["frames"] == 2 and final["shards"] == 2
+    assert final["lost"] == 0 and final["halo"] == 2
+    assert final["slab_z"] == 6 and final["rows_per_device"] == 2048
+    lines = [json.loads(x) for x in open(metrics)]
+    assert [x["frame"] for x in lines] == [1, 2]
+    rc, out = _run(["run", "--device", "cpu", "--resume", ck, "--shards",
+                    "2", "--row-slack", "4", "--frames", "1"], capsys)
+    assert rc == 0 and out[0].startswith("resumed frame 2")
+    assert json.loads(out[-1])["frames"] == 3
+
+
+def test_cli_run_shards_matches_the_sites_step_on_calm(capsys):
+    # one slab frame of the calm scene equals the single-device sites step
+    # within the slab tolerances (tests/test_slab.py:164-167)
+    args = ["run", "--device", "cpu", *_CALM_FLAGS, "--frames", "1",
+            "--site-capacity", "24"]
+    _, a = _run(args + ["--shards", "2", "--row-slack", "4"], capsys)
+    _, b = _run(args + ["--neighbor", "sites"], capsys)
+    a, b = json.loads(a[-1]), json.loads(b[-1])
+    assert a["exact_cert"] == 0 == b["exact_cert"]
+    assert a["overflow"] == b["overflow"]
+    assert a["mean_density"] == pytest.approx(b["mean_density"], rel=1e-5)
+
+
+@pytest.mark.parametrize("flag", [["--corrected"], ["--export-dir", "x"],
+                                  ["--animate", "a.gif"], ["--viewer",
+                                                           "v.html"]])
+def test_cli_run_shards_refuses_what_the_slab_step_lacks(flag, capsys):
+    # as the JAX CLI (cli.py:164-172): exit 2, naming the flag
+    assert cli.main(["run", "--device", "cpu", "--shards", "2",
+                     *flag]) == 2
+    assert f"{flag[0]} not supported with --shards > 1" in \
+        capsys.readouterr().err
+
+
+def test_cli_bench_takes_the_jax_flags(monkeypatch, capsys):
+    # --neighbor sites and --host-loop parse; without a card bench exits 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["bench", "--neighbor", "sites", "--host-loop",
+                     "--particles", "1024"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_cli_without_a_card_exits_2(monkeypatch, capsys):
@@ -155,4 +245,6 @@ def test_cli_without_a_card_exits_2(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["run", *_CALM_FLAGS, "--frames", "1"]) == 2
     assert cli.main(["bench", "--particles", "1024"]) == 2
+    assert cli.main(["sweep", *_CALM_FLAGS, "--frames", "1"]) == 2
+    assert cli.main(["run", *_CALM_FLAGS, "--shards", "2"]) == 2
     assert "no CUDA device" in capsys.readouterr().err

@@ -5,7 +5,9 @@ include the banded K1, K2 and K5 of the slab step and the slab step itself,
 each tuning variant's instance (fuse_acc off, kahan, bf16), the probes'
 kernels (sphfluidsimulation_torch/probes), and the paths around the
 kernels that run on the card: the exact tiers, the dt replay,
-the snapshots of the sorted rollout and the render properties. They
+the snapshots of the sorted rollout, the render properties, the scene
+batch, the sites tier, its slab step, the domain step and the CLI's
+``sweep`` and ``run --shards``. They
 import no JAX (the machine with the card has none), so run them without the
 JAX test conftest, from the root of a checkout:
 
@@ -742,6 +744,162 @@ def test_mesh_properties_on_card(cuda_device):
         mask.cpu())
     torch.testing.assert_close(mat.cpu(), mat_c, rtol=0, atol=1e-6)
     torch.testing.assert_close(col.cpu(), col_c, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------- batching, sites, domain --
+# The modules around the kernels: scene batching launches K1 and
+# K2 a scene and frame; the sites tier, the sites slab step and the domain
+# step are plain PyTorch on the card and launch no kernel.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+def test_batched_scenes_launch_the_kernels_and_equal_each_scene_alone(
+        cuda_device, ext):
+    from sphfluidsimulation_torch.parallel import BatchedScenes
+    kw = dict(xsph=XSPH, artificial_viscosity=ALPHA) if ext else {}
+    cfg = SimConfig(**_GOLDENISH, **kw)
+    overrides = [{"rest_density": 1.0 + 0.25 * i, "seed": i}
+                 for i in range(3)]
+    bs = BatchedScenes(cfg, overrides, devices=cuda_device)
+    sk.reset_launch_counts()
+    bs.step(2)
+    k2 = "fused_substep_ext" if ext else "fused_substep"
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    density=6, **{k2: 30})
+    for i, ov in enumerate(overrides):
+        c = cfg.replace(**ov)
+        solo, _ = make_rollout(c, 2, device=cuda_device)(
+            initial_state(c, cuda_device))
+        for a, b in zip(bs.states, solo):
+            assert _same_bits(a[i], b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faithful", [True, False])
+def test_sites_tier_tracks_the_brute_oracle_on_card(cuda_device, faithful):
+    cfg = SimConfig(**_CALM, xsph=XSPH, artificial_viscosity=ALPHA)
+    s0 = initial_state(cfg, cuda_device)
+    sk.reset_launch_counts()
+    a, ma = make_rollout(cfg, 3, neighbor="sites", faithful=faithful,
+                         device=cuda_device)(s0)
+    assert not any(sk.launch_counts.values())
+    b, mb = make_rollout(cfg, 3, neighbor="brute", faithful=faithful,
+                         device=cuda_device)(s0)
+    torch.testing.assert_close(a.pos, b.pos, rtol=0, atol=1e-5)
+    assert int(ma.exact_cert.sum()) == 0
+    assert torch.equal(ma.overflow, mb.overflow)
+
+
+@pytest.mark.cuda
+def test_sites_banded_passes_bit_identical_on_card(cuda_device):
+    # the z-banded grids hold the one-piece grid's sites, folded in the
+    # same order: bit-identical on the card too; and the card within the
+    # CPU's tolerances of the same passes on the CPU
+    from sphfluidsimulation_torch.ops import sites
+    cfg = SimConfig(particle_number=4096, bucket_resolution=17, preset=1)
+    pos = initial_state(cfg, cuda_device).pos
+    vel = 0.05 * torch.sin(37.0 * pos)
+    p, r = PhysParams.from_config(cfg, cuda_device), cfg.bucket_resolution
+    cid, ic, _ = sites.frame_binding(pos, r, 32)
+    out = {}
+    for nb in (1, 4):
+        rho, cr = sites.density_sites(pos, cid, ic, p, r, 32, 32, z_bands=nb)
+        f, _, cf = sites.fluid_forces_sites(pos, vel, rho, cid, ic, p, r,
+                                            32, 32, z_bands=nb)
+        out[nb] = (rho, f, cr, cf)
+    for a, b in zip(out[1], out[4]):
+        assert torch.equal(a, b)
+    pc = PhysParams.from_config(cfg)
+    cid_c, ic_c, _ = sites.frame_binding(pos.cpu(), r, 32)
+    assert torch.equal(cid_c, cid.cpu()) and torch.equal(ic_c, ic.cpu())
+    rho_c, _ = sites.density_sites(pos.cpu(), cid_c, ic_c, pc, r, 32, 32)
+    torch.testing.assert_close(out[1][0].cpu(), rho_c, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sites_bound_holds_the_one_piece_pass_on_card(cuda_device):
+    # the card takes 1M's passes in one piece, within sites.one_piece_bytes
+    from sphfluidsimulation_torch.bench import scaled_config, site_bands
+    from sphfluidsimulation_torch.ops import sites
+    from sphfluidsimulation_torch.sim.stepper import make_frame_step
+    cfg = scaled_config(1 << 20)
+    assert site_bands(cfg, cuda_device) == 1
+    st = initial_state(cfg, cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    make_frame_step(cfg, neighbor="sites", device=cuda_device)(st)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert peak <= sites.one_piece_bytes(cfg.bucket_resolution,
+                                         cfg.n_particles, 32, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4])
+def test_sites_slab_step_matches_single_device_on_card(cuda_device, d):
+    from sphfluidsimulation_torch.parallel import (LocalRing, collect,
+                                                   distribute,
+                                                   make_slab_step)
+    cfg = SimConfig(**dict(_CALM, gas_constant=1.0, site_capacity=24))
+    gen = torch.Generator().manual_seed(d)
+    s0 = initial_state(cfg, cuda_device)._replace(
+        pos=(0.05 + 0.9 * torch.rand(cfg.n_particles, 3,
+                                     generator=gen)).to(cuda_device),
+        vel=(0.02 * torch.randn(cfg.n_particles, 3,
+                                generator=gen)).to(cuda_device))
+    step, spec = make_slab_step(cfg, LocalRing(d), device=cuda_device)
+    sst, m = step(distribute(s0, cfg, spec),
+                  PhysParams.from_config(cfg, cuda_device))
+    out, lost = collect(sst, cfg.n_particles)
+    from sphfluidsimulation_torch.sim.stepper import make_frame_step
+    ref, _ = make_frame_step(cfg, neighbor="sites", device=cuda_device)(s0)
+    assert lost == 0 and int(m.exact_cert) == 0
+    torch.testing.assert_close(out.pos, ref.pos, rtol=0, atol=2e-6)
+    torch.testing.assert_close(out.vel, ref.vel, rtol=0, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_domain_step_equals_the_gather_step_on_card(cuda_device):
+    from sphfluidsimulation_torch.parallel import (LocalRing,
+                                                   make_sharded_frame_step)
+    from sphfluidsimulation_torch.sim.stepper import make_frame_step
+    cfg = SimConfig(**_GOLDENISH)
+    s0 = initial_state(cfg, cuda_device)
+    out, m = make_sharded_frame_step(cfg, LocalRing(4), device=cuda_device)(
+        s0, PhysParams.from_config(cfg, cuda_device))
+    ref, mr = make_frame_step(cfg, neighbor="gather", device=cuda_device)(s0)
+    torch.testing.assert_close(out.pos, ref.pos, rtol=0, atol=2e-6,
+                               equal_nan=True)
+    assert int(m.overflow) == int(mr.overflow)
+
+
+@pytest.mark.cuda
+def test_sweep_and_shards_cli_on_card(cuda_device, tmp_path, capsys):
+    from sphfluidsimulation_torch import cli
+    argv = ["--particles", "1024", "--bucket-resolution", "11"]
+    sk.reset_launch_counts()
+    assert cli.main(["sweep", *argv, "--scenes", "2", "--frames", "2",
+                     "--export-dir", str(tmp_path)]) == 0
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    density=4, fused_substep=20)
+    assert len(list(tmp_path.glob("scene_*.png"))) == 2
+    assert cli.main(["run", *argv, "--shards", "2", "--row-slack", "4",
+                     "--frames", "1"]) == 0
+    assert '"lost": 0' in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_entry_runs_a_frame_on_card(cuda_device):
+    from sphfluidsimulation_torch.entry import dryrun_multichip, entry
+    step, (state, phys) = entry()
+    assert state.pos.device.type == "cuda"
+    sk.reset_launch_counts()
+    state, m = step(state, phys)
+    assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
+                                    density=1, fused_substep=5)
+    assert bool(torch.isfinite(state.pos).all())
+    dryrun_multichip(8)
 
 
 # ------------------------------------------------------------- probes --

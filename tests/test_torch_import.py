@@ -22,6 +22,7 @@ MODULES = [
     "sphfluidsimulation_torch.ops.brute",
     "sphfluidsimulation_torch.ops.extensions",
     "sphfluidsimulation_torch.ops.cellops",
+    "sphfluidsimulation_torch.ops.sites",
     "sphfluidsimulation_torch.models.presets",
     "sphfluidsimulation_torch.models.scene",
     "sphfluidsimulation_torch.sim.stepper",
@@ -29,6 +30,9 @@ MODULES = [
     "sphfluidsimulation_torch.parallel.ring",
     "sphfluidsimulation_torch.parallel.slab",
     "sphfluidsimulation_torch.parallel.slab_pallas",
+    "sphfluidsimulation_torch.parallel.batch",
+    "sphfluidsimulation_torch.parallel.domain",
+    "sphfluidsimulation_torch.entry",
     "sphfluidsimulation_torch.render",
     "sphfluidsimulation_torch.render.meshprops",
     "sphfluidsimulation_torch.render.camera",

@@ -100,16 +100,14 @@ def test_scene_steps():
 
 # "pallas", the JAX name of the sorted tier, runs it
 # (tests/test_torch_slab.py::test_neighbor_pallas_is_the_sorted_tier);
-# "slotted" and "gather" run (tests/test_torch_cellops.py)
-@pytest.mark.parametrize("neighbor", ["sites"])
-def test_unported_backends_raise(neighbor):
+# "slotted" and "gather" run (tests/test_torch_cellops.py), "sites" too
+# (tests/test_torch_sites.py)
+def test_unknown_backend_raises():
     cfg = SimConfig(**_CALM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_frame_step(cfg, neighbor=neighbor, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_rollout(cfg, 2, neighbor=neighbor, device="cpu")
     with pytest.raises(ValueError):
         make_frame_step(cfg, neighbor="nope", device="cpu")
+    with pytest.raises(ValueError):
+        make_rollout(cfg, 2, neighbor="nope", device="cpu")
 
 
 def test_brute_rollout_equals_brute_stepping_and_tracks_jax_brute():
