@@ -24,9 +24,12 @@ every phase passed; each prints its seconds):
    substep with extensions at config 3, the substep and forces on rows two
    substeps into the frame, where rows drift, with the drift count equal to
    the plain version's; every kernel with the frame's voxel capacity;
-4. main paths, each after a one-frame warm-up, with the launch counters
-   reset just before and read just after it: the faithful 10-frame
-   ``make_rollout`` at both sizes (1 + 5 launches a frame, no extension
+4. main paths, each after an untimed first call of its rollout (which
+   builds the kernels and records the graph), with the launch counters
+   reset just before and read just after it; the sorted tier's rollouts
+   run as a replayed CUDA graph, the default on the card
+   (``sim/graph.py``): the faithful 10-frame ``make_rollout`` at both
+   sizes (1 + 5 launches a frame, no extension
    instance), then config 3 faithful (K1 + 5 K2-ext a frame) and config 3
    corrected (6 K1 + 5 K3 a frame); then the compact route
    (``tune=SortedTuning(compact=True)``): faithful at both sizes (1 K5
@@ -164,6 +167,16 @@ every phase passed; each prints its seconds):
    sites step; the row-sharded domain step on ``LocalRing(4)`` at 262k
    for 1 frame against the single-device gather step; and ``entry()`` run
    once (1 K1 + 5 K2). Each prints its seconds and rate.
+13. the graph against the host loop: at 262k golden, 1M, config 3
+   faithful and corrected and on the compact route at 262k, the graph
+   rollout (``host_loop=False``) and the host loop (``host_loop=True``),
+   10 frames from the same spawn state, run host, graph, graph, host with
+   the counters reset before each run and read after it (exactly the
+   path's launches in both modes), the outputs and every metric lane
+   bit-equal; each mode's rate, host ms a frame, device ms a frame (the
+   profiler's kernel, copy and memset time) and device idle share; and
+   ``snapshot_every=5`` and ``make_dt_rollout`` at 262k bit-equal in both
+   modes with the same launches.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -771,6 +784,118 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
         in_cube(state.pos, "entry()", int(m.exact_cert))
 
 
+def phase13(dev, ident: str, read_launches, zero: dict, sizes: dict, c3,
+            k5, states0: dict, c3_state) -> None:
+    """The sorted tier's rollout as a replayed CUDA graph (``sim/graph.py``,
+    the default on the card) against its host loop (``host_loop=True``),
+    each from the same spawn state: bit-equal outputs, metrics and
+    snapshots included, the exact launch counts in both modes, and each
+    mode's rate, host and device ms a frame and device idle share."""
+    import torch
+
+    from sphfluidsimulation_torch import make_dt_rollout
+    from sphfluidsimulation_torch.ops import sph_kernels as sk
+    from sphfluidsimulation_torch.sim.stepper import make_rollout
+    from sphfluidsimulation_torch.utils.profiling import device_ms
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    modes = ("host", "graph")
+
+    def flat(out):
+        return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
+
+    def bit_equal(a, b):
+        return len(a) == len(b) and all(
+            x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+                *(t.view(torch.int32) if t.is_floating_point() else t
+                  for t in (x, y)))
+            for x, y in zip(a, b))
+
+    def timed_call(label, mode, roll, args, want):
+        """One counted, host-timed call: (flat outputs, host ms)."""
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = flat(roll(*args))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        read_launches(f"{label}, {mode}", want)
+        if roll.host_loop is not (mode == "host"):
+            fail(f"{label}: the {mode} rollout reports host_loop "
+                 f"{roll.host_loop}")
+        return out, ms
+
+    # (config, faithful, tune, state, launches a frame)
+    cells = {
+        "262k": (sizes["262k"], True, None, states0["262k"],
+                 dict(density=1, fused_substep=5)),
+        "1m": (sizes["1m"], True, None, states0["1m"],
+               dict(density=1, fused_substep=5)),
+        "config 3 faithful": (c3, True, None, c3_state,
+                              dict(density=1, fused_substep_ext=5)),
+        "config 3 corrected": (c3, False, None, c3_state,
+                               dict(density=6, forces=5)),
+        "262k compact": (sizes["262k"], True, k5, states0["262k"],
+                         dict(compact_density=1, compact_substep=5)),
+    }
+    with Phase("graph against host loop"):
+        for label, (cfg, faithful, tune, st0, per_frame) in cells.items():
+            want = dict(zero, **{k: v * FRAMES for k, v in per_frame.items()})
+            rolls = {m: make_rollout(cfg, FRAMES, faithful=faithful,
+                                     tune=tune, device=dev,
+                                     host_loop=m == "host") for m in modes}
+            for m in modes:
+                rolls[m](st0)          # warm-up; the graph's records it
+            outs, host_ms = {}, {m: [] for m in modes}
+            for m in ("host", "graph", "graph", "host"):
+                outs[m], ms = timed_call(label, m, rolls[m], (st0,), want)
+                host_ms[m].append(ms / FRAMES)
+            if not bit_equal(outs["host"], outs["graph"]):
+                fail(f"{label}: the graph leaves the host loop")
+            dev_ms = {}
+            for m in modes:
+                with torch.profiler.profile(activities=acts) as prof:
+                    rolls[m](st0)
+                    torch.cuda.synchronize()
+                dev_ms[m] = device_ms(prof) / FRAMES
+            work = cfg.n_particles * cfg.substeps
+            text = []
+            for m in modes:
+                mean = sum(host_ms[m]) / len(host_ms[m])
+                text.append(
+                    f"{m} {work / mean * 1e3:.6g} particle-substeps/s (host "
+                    f"{' / '.join(f'{x:.4f}' for x in host_ms[m])} ms a "
+                    f"frame, device {dev_ms[m]:.4f}, idle share "
+                    f"{1 - dev_ms[m] / mean:.4f})")
+            gain = sum(host_ms["host"]) / sum(host_ms["graph"])
+            print(f"graph vs host loop, {label}, frames 0-{FRAMES - 1}: "
+                  f"{'; '.join(text)}; graph/host rate {gain:.4f}; outputs "
+                  f"and metrics bit-equal [{ident}]", flush=True)
+
+        cfg, st0 = sizes["262k"], states0["262k"]
+        nf = len(DT_SCHEDULE)
+        for label, make, args, want in (
+                ("262k snapshot_every=5", lambda hl: make_rollout(
+                    cfg, FRAMES, snapshot_every=5, device=dev, host_loop=hl),
+                 (st0,), dict(zero, density=FRAMES,
+                              fused_substep=5 * FRAMES)),
+                ("262k dt replay", lambda hl: make_dt_rollout(
+                    cfg, nf, device=dev, host_loop=hl),
+                 (st0, DT_SCHEDULE), dict(zero, density=nf,
+                                          fused_substep=5 * nf))):
+            outs = {}
+            for m in modes:
+                roll = make(m == "host")
+                roll(*args)
+                outs[m], _ = timed_call(label, m, roll, args, want)
+            ok = bit_equal(outs["host"], outs["graph"])
+            print(f"graph vs host loop, {label}: {len(outs['graph'])} "
+                  f"output tensors bit-equal {ok} [{ident}]", flush=True)
+            if not ok:
+                fail(f"{label}: the graph leaves the host loop")
+
+
 def main() -> None:
     import torch
 
@@ -1019,8 +1144,9 @@ def main() -> None:
         compare_k5(c3, c3_state, "config 3 frame 0")
     states0 = dict(states)
 
-    # ---- 4. main paths, each after a one-frame warm-up (the first launch
-    # of each torch kernel loads its module; that is set-up time)
+    # ---- 4. main paths, each after an untimed first call of its rollout
+    # (the first launch of each torch kernel loads its module, and the first
+    # call records the graph; that is set-up time)
     launches_total = dict.fromkeys(KERNELS, 0)
 
     def nonzero(counts):
@@ -1039,6 +1165,10 @@ def main() -> None:
 
     def run_path(label, rolls, inputs, want, cfgs, exact=True,
                  frames=FRAMES):
+        # a first call of each rollout, untimed and uncounted: it builds the
+        # kernels, loads their modules and records the sorted tier's graph
+        for k, roll in rolls.items():
+            roll(inputs[k])
         torch.cuda.synchronize()
         sk.reset_launch_counts()
         results = {}
@@ -1079,8 +1209,6 @@ def main() -> None:
 
     zero = dict.fromkeys(sk.launch_counts, 0)
     with Phase("faithful rollouts 262k, 1m"):
-        for k, cfg in sizes.items():
-            make_rollout(cfg, 1, device=dev)(states[k])
         rolls = {k: make_rollout(c, FRAMES, device=dev)
                  for k, c in sizes.items()}
         states = run_path(
@@ -1091,7 +1219,6 @@ def main() -> None:
     c3_states = {}
     for k, faithful in c3_modes.items():
         with Phase(f"rollout {k}"):
-            make_rollout(c3, 1, faithful=faithful, device=dev)(c3_state)
             roll = make_rollout(c3, FRAMES, faithful=faithful, device=dev)
             want = (dict(zero, density=FRAMES, fused_substep_ext=FRAMES * 5)
                     if faithful else
@@ -1101,8 +1228,6 @@ def main() -> None:
 
     # the compact route (K5)
     with Phase("compact rollouts 262k, 1m"):
-        for k, cfg in sizes.items():
-            make_rollout(cfg, 1, tune=k5, device=dev)(states0[k])
         rolls = {k: make_rollout(c, FRAMES, tune=k5, device=dev)
                  for k, c in sizes.items()}
         k5_states = run_path(
@@ -1119,7 +1244,6 @@ def main() -> None:
     for k, (cfg, faithful, want) in k5_paths.items():
         with Phase(f"rollout {k}"):
             st0 = c3_state if cfg is c3 else states0["262k"]
-            make_rollout(cfg, 1, faithful=faithful, tune=k5, device=dev)(st0)
             roll = make_rollout(cfg, FRAMES, faithful=faithful, tune=k5,
                                 device=dev)
             k5_states.update(run_path(f"the {k} path", {k: roll}, {k: st0},
@@ -1464,6 +1588,7 @@ def main() -> None:
             dt_slab = time.perf_counter() - t0
             s1, _ = make_rollout(cfg, 1, device=dev)(st0)          # warm-up
             roll = make_rollout(cfg, SLAB_FRAMES, device=dev)
+            roll(s1)                                  # records the graph
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             roll(s1)
@@ -1926,8 +2051,8 @@ def main() -> None:
         table_ovf = int(grid.overflow_count(bucket))
         rates = {}
         for tier in ("sorted", "slotted", "gather"):
-            make_rollout(cfg, 1, neighbor=tier, device=dev)(st0)  # warm-up
             roll = make_rollout(cfg, 3, neighbor=tier, device=dev)
+            roll(st0)                # warm-up; the sorted tier's records it
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             final, m = roll(st0)
@@ -2134,6 +2259,10 @@ def main() -> None:
     # step and entry()
     phase12(dev, ident, read_launches, hold_density, hold_out, zero, sizes,
             os.path.join(root, "build", "phase12"))
+
+    # ---- 13. the graph rollout against the host loop
+    phase13(dev, ident, read_launches, zero, sizes, c3, k5, states0,
+            c3_state)
 
     # the main shape of each kernel's path first; the others as ms_<shape>
     main_shape = {"density": "262k", "fused_substep": "262k",

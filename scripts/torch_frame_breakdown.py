@@ -4,11 +4,13 @@
 Rolls the golden dam-break (262,144 particles, R = 47), the bench
 headline (1,048,576 particles, R = 75) and BASELINE config 3 (524,176
 particles, R = 47, XSPH 0.3, artificial viscosity 0.5) in faithful and in
-corrected mode forward 10 frames, then profiles the rollout of the next
-frames; each cell on the window route (K1-K3) and on the compact-lane
-route (K5, ``SortedTuning(compact=True)``; config 3 corrected keeps K3 for
-its forces there, as the extensions are on). Each phase's device time is
-that of the kernels launched inside the stepper's own profiler ranges
+corrected mode forward 10 frames, then profiles the host loop's rollout
+(``host_loop=True``; a replay of the default graph rollout opens no
+range) of the next frames; each cell on the window route (K1-K3) and on
+the compact-lane route (K5, ``SortedTuning(compact=True)``; config 3
+corrected keeps K3 for its forces there, as the extensions are on). Each
+phase's device time is that of the kernels launched inside the stepper's
+own profiler ranges
 (``stepper.FRAME_PHASES``: frame build, density kernel, rows pack, each
 fused substep, unpack + metrics; ``stepper.CORRECTED_PHASES`` in corrected
 mode: each substep's frame build, density, pack, forces kernel and
@@ -173,7 +175,7 @@ def main() -> None:
 
         # host clock of the rollout: the frame time users see
         roll = stepper.make_rollout(cfg, args.frames, faithful=faithful,
-                                    tune=tune, device=dev)
+                                    tune=tune, device=dev, host_loop=True)
         roll(state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()

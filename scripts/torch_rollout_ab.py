@@ -7,9 +7,15 @@ faithful rollout at 262,144 particles (R = 47) and 1,048,576 (R = 75) and
 BASELINE config 3 (524,176 particles, XSPH 0.3, artificial viscosity 0.5)
 faithful and corrected on the window route (K1-K3), and the same four on
 the compact route (K5; its corrected cell at 262k, where K5 takes the
-forces). Each rollout runs 10 frames after a one-frame warm-up, five times;
-the host clock between device syncs gives the median, min and max
-particle-substeps/s. Then the median of 7 CUDA-event timings (20 launches
+forces). Each rollout runs 10 frames after a one-frame warm-up and one
+untimed call, five times; the host clock between device syncs gives the
+median, min and max particle-substeps/s and the median host ms a frame;
+one more run under ``torch.profiler`` gives the device ms a frame (its
+kernels, copies and memsets) and the device idle share, 1 − device ms /
+host ms. ``--loop host`` or ``--loop graph`` runs the rollouts as the host
+loop or as the replayed CUDA graph (``make_rollout(host_loop=...)``;
+without it the tree's default, and a tree without the choice runs its host
+loop). Then the median of 7 CUDA-event timings (20 launches
 each, behind a spin of the card so that they are device times) of each
 kernel on its path's frame-10 state of the window route: K1 at every
 shape; K2 and K3 without extensions at 262k and 1M; K2-ext at config 3; K3
@@ -30,12 +36,18 @@ call, from the root of a checkout:
     for root in build/parent . . build/parent; do
         python3 scripts/torch_rollout_ab.py $root; done
 
-and ``SPH_PALLAS_FACC=0 python3 scripts/torch_rollout_ab.py .`` times the
-change's two-accumulator instances, the parent's default kernels.
+``SPH_PALLAS_FACC=0 python3 scripts/torch_rollout_ab.py .`` times the
+change's two-accumulator instances, the parent's default kernels, and
+
+    for loop in host graph graph host; do
+        python3 scripts/torch_rollout_ab.py . --loop $loop; done
+
+compares the two rollout modes of one tree.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import pathlib
 import statistics
@@ -45,7 +57,11 @@ import types
 
 
 def main() -> None:
-    root = pathlib.Path(sys.argv[1]).resolve()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("root")
+    ap.add_argument("--loop", choices=["host", "graph"], default=None)
+    args = ap.parse_args()
+    root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
 
@@ -57,6 +73,7 @@ def main() -> None:
     from sphfluidsimulation_torch.params import PhysParams
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                       make_rollout)
+    from sphfluidsimulation_torch.utils import profiling
     from sphfluidsimulation_torch.utils.profiling import gpu_identity
 
     if not cuda_build.CSRC.is_relative_to(root):
@@ -68,7 +85,10 @@ def main() -> None:
     env_tune = sk.default_tuning()
     k5 = env_tune._replace(compact=True)
     window = env_tune._replace(compact=False)
-    out = []
+    loop = {} if args.loop is None else {"host_loop": args.loop == "host"}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = [f"loop {args.loop or 'default'}"]
     for label, cfg, faithful, tune in (
             ("262k", GOLDEN_CONFIG, True, window),
             ("1m", scaled_config(1 << 20), True, window),
@@ -80,17 +100,29 @@ def main() -> None:
             ("K5 262k-corrected", GOLDEN_CONFIG, False, k5)):
         st, _ = make_rollout(cfg, 1, faithful=faithful, tune=tune,
                              device=dev)(initial_state(cfg, dev))
-        roll = make_rollout(cfg, 10, faithful=faithful, tune=tune, device=dev)
-        rates = []
+        roll = make_rollout(cfg, 10, faithful=faithful, tune=tune, device=dev,
+                            **loop)
+        roll(st)                 # untimed: the graph records itself here
+        rates, host_ms = [], []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             roll(st)
             torch.cuda.synchronize()
-            rates.append(cfg.n_particles * cfg.substeps * 10
-                         / (time.perf_counter() - t0))
-        out.append(f"{label} rate median {statistics.median(rates):.6g} "
-                   f"(min {min(rates):.6g}, max {max(rates):.6g})")
+            dt = time.perf_counter() - t0
+            rates.append(cfg.n_particles * cfg.substeps * 10 / dt)
+            host_ms.append(dt * 1e3 / 10)
+        text = (f"{label} rate median {statistics.median(rates):.6g} "
+                f"(min {min(rates):.6g}, max {max(rates):.6g}), host "
+                f"{statistics.median(host_ms):.4f} ms/frame")
+        if hasattr(profiling, "device_ms"):
+            with torch.profiler.profile(activities=acts) as prof:
+                roll(st)
+                torch.cuda.synchronize()
+            dev_ms = profiling.device_ms(prof) / 10
+            text += (f", device {dev_ms:.4f} ms/frame, idle share "
+                     f"{1 - dev_ms / statistics.median(host_ms):.4f}")
+        out.append(text)
 
     def kernel_ms(fn):
         """Median ms of fn, a launch through a C entry point (0 on success)."""
@@ -200,7 +232,7 @@ def main() -> None:
             ms = kernel_ms(lambda: k5_launch(compact._FORCES, rows, scal,
                                              sums))
             out.append(f"K5 forces {label} frame 10 median {ms:.4f} ms")
-    print(f"{sys.argv[1]} | {' | '.join(out)} | "
+    print(f"{args.root} | {' | '.join(out)} | "
           f"{gpu_identity().splitlines()[0]}", flush=True)
 
 

@@ -10,9 +10,13 @@ Methodology, the JAX bench's (``sphfluidsimulation_tpu/bench.py:96-136``): a
 warm-up rollout of ``warmup_frames`` frames; the rollout of ``frames``
 frames run once untimed; then the same rollout timed, so the timed window is
 frames [warmup + frames, warmup + 2·frames). The host clock brackets it with
-device synchronisations. ``steady_frames`` rolls deeper, ``frames`` at a
-time, and times one late window (the dam-break's frame cost changes with the
-frame index). A measurement needs the card: without CUDA it raises.
+device synchronisations. ``host_loop=False`` (the default, JAX's) times the
+sorted tier's rollout as a replayed CUDA graph (``sim/graph.py``), whose
+capture falls in the warm-up as JAX's compile does; ``host_loop=True`` times
+the loop over frames on the host, which the other tiers need.
+``steady_frames`` rolls deeper, ``frames`` at a time, and times one late
+window (the dam-break's frame cost changes with the frame index). A
+measurement needs the card: without CUDA it raises.
 """
 
 from __future__ import annotations
@@ -51,11 +55,15 @@ def run_bench(n_particles: int = 1 << 20, frames: int = 20,
               warmup_frames: int = 5, neighbor: str = "sorted",
               tune: SortedTuning | None = None,
               steady_frames: int = 0,
-              site_capacity: int | None = None) -> dict:
+              site_capacity: int | None = None,
+              host_loop: bool = False) -> dict:
     """``neighbor`` is the tier (``make_rollout``'s); ``tune`` selects the
     sorted tier's route and variant (None reads the ``SPH_PALLAS_*``
     variables); ``steady_frames`` > 0 adds the ``steady_state_*`` keys;
-    ``site_capacity`` sets the sites tier's (None: the config's 32)."""
+    ``site_capacity`` sets the sites tier's (None: the config's 32);
+    ``host_loop`` is ``make_rollout``'s (False, the graph, raises
+    ``NotImplementedError`` for the tiers that loop on the host only), and
+    the result records it."""
     if not torch.cuda.is_available():
         raise RuntimeError("run_bench measures the card; no CUDA device")
     device = torch.device("cuda")
@@ -65,12 +73,13 @@ def run_bench(n_particles: int = 1 << 20, frames: int = 20,
 
     t0 = time.perf_counter()
     state, _ = make_rollout(cfg, warmup_frames, neighbor=neighbor,
-                            tune=tune, device=device)(state)
+                            tune=tune, device=device,
+                            host_loop=host_loop)(state)
     device_sync()
     compile_s = time.perf_counter() - t0
 
     roll = make_rollout(cfg, frames, neighbor=neighbor, tune=tune,
-                        device=device)
+                        device=device, host_loop=host_loop)
     state, _ = roll(state)          # the timed length, once untimed
     device_sync()
     t0 = time.perf_counter()
@@ -109,14 +118,15 @@ def run_bench(n_particles: int = 1 << 20, frames: int = 20,
         "bucket_resolution": cfg.bucket_resolution,
         "frames_timed": frames,
         "elapsed_s": round(elapsed, 3),
-        # the kernel build happens at first use, inside the warm-up
+        # the kernel build, and the graph's capture, happen at first use,
+        # inside the warm-up
         "compile_plus_warmup_s": round(compile_s, 1),
         "neighbor": neighbor,
         "pallas_tuning": tune._asdict(),
         "scan_unroll": False,
         "site_capacity": cfg.site_capacity if neighbor == "sites" else None,
         "site_bands": site_bands(cfg, device) if neighbor == "sites" else None,
-        "host_loop": True,
+        "host_loop": host_loop,
         "exact_cert_total": int(m.exact_cert.sum()),
         "overflow_max": int(m.overflow.max()),
         "device": str(device),

@@ -41,8 +41,10 @@ the compact-lane kernel K5 (``ops/compact.py``), ``SPH_PALLAS_FUSED=0`` the
 unfused route (K3 and ``integrate_substep`` a substep),
 ``SPH_PALLAS_KAHAN=1`` the compensated sums, ``SPH_PALLAS_BF16=1`` the
 bfloat16 candidates and ``SPH_PALLAS_FACC=0`` the two-accumulator force
-kernels. ``bench --host-loop`` is accepted: the port's bench always chains
-frames from the host.
+kernels. ``bench`` times the sorted tier's rollout as a replayed CUDA graph,
+JAX's one dispatch a rollout; ``bench --host-loop`` times the loop over
+frames on the host instead, which the other tiers need (``--neighbor
+sites``, ``slotted``, ``gather``: without it they exit 2).
 """
 
 from __future__ import annotations
@@ -356,9 +358,13 @@ def cmd_bench(a) -> int:
     from .ops.sph_kernels import default_tuning
     if _device("cuda") is None:
         return 2
-    result = run_bench(n_particles=a.particles, frames=a.frames,
-                       warmup_frames=a.warmup, neighbor=a.neighbor,
-                       tune=default_tuning())
+    try:
+        result = run_bench(n_particles=a.particles, frames=a.frames,
+                           warmup_frames=a.warmup, neighbor=a.neighbor,
+                           tune=default_tuning(), host_loop=a.host_loop)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     print(json.dumps(result))
     return 0
 
@@ -430,8 +436,9 @@ def main(argv=None) -> int:
                    choices=["sorted", "sites", "slotted", "gather"],
                    default="sorted")
     p.add_argument("--host-loop", action="store_true",
-                   help="accepted for the JAX CLI's users: the port's bench "
-                        "always chains per-frame steps from the host")
+                   help="time a loop over frames on the host; without it "
+                        "the sorted tier's rollout is timed as a replayed "
+                        "CUDA graph (the other tiers need this flag)")
     p.set_defaults(fn=cmd_bench)
 
     a = parser.parse_args(argv)

@@ -7,7 +7,9 @@ Counterpart of ``sphfluidsimulation_tpu/sim/stepper.py``: ``integrate_substep``
 ``_make_pallas_step`` in both modes
 (:269-393), ``_make_pallas_rollout`` (:405-516), ``make_frame_step``,
 ``make_dt_rollout`` (:519-566), ``make_rollout`` (:569-634) and
-``initial_state``.
+``initial_state``. The sorted tier's rollouts run as a CUDA graph on the
+card by default (``sim/graph.py``, JAX's one dispatch a rollout); this
+module holds their host loops, JAX's ``host_loop=True``.
 
 Each frame reproduces the reference pipeline (SphFluidSimulation.cs:96-108).
 In faithful mode the neighbour structure and the density are computed ONCE
@@ -67,10 +69,11 @@ window or line cap, which the port has no counterpart of. ``overflow``
 counts particles dropped by the voxel capacity, as in JAX.
 
 The sorted frame loop never waits for the device (no ``.item()``, ``.cpu()``
-or data-dependent shapes on the CUDA path); metrics stay on the device. Each
-phase runs inside a profiler range named in ``FRAME_PHASES`` or
-``CORRECTED_PHASES`` (``utils.profiling.span``: free when no profiler runs),
-which ``scripts/torch_frame_breakdown.py`` reads.
+or data-dependent shapes on the CUDA path); metrics stay on the device, and
+so a frame can be recorded as a CUDA graph. Each phase of the host loop runs
+inside a profiler range named in ``FRAME_PHASES`` or ``CORRECTED_PHASES``
+(``utils.profiling.span``: free when no profiler runs), which
+``scripts/torch_frame_breakdown.py`` reads; a graph replay opens none.
 """
 
 from __future__ import annotations
@@ -255,6 +258,22 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
         ovf = (~frame.occ).sum().to(torch.int32)
         m = _metrics(vel_s, rho_s, nan_hits, ovf, phys, cert)
     return pos_s, vel_s, nan_hits, m
+
+
+def _carried_frame(state: ParticleState, pid: torch.Tensor,
+                   phys: PhysParams, cfg: SimConfig, tune: SortedTuning):
+    """One faithful frame of the rollout's sorted carry: ``state`` is in
+    the order of the particle ids ``pid``, which key the sort's tie-break,
+    so the frame is the per-frame step's bit for bit. Returns (state,
+    pid, metrics), the state in the frame's sorted order."""
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    pos, vel, nan_count = state
+    with span("build_frame"):
+        frame, (pos, vel, nan_count) = build_frame(
+            pos, r, cap, extras=(pos, vel, nan_count), gid=pid,
+            n_ids=cfg.n_particles)
+    pos, vel, nan_hits, m = _sorted_frame(frame, pos, vel, phys, cfg, tune)
+    return ParticleState(pos, vel, nan_count + nan_hits), frame.order, m
 
 
 def _unsort(order: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -555,7 +574,8 @@ def make_dt_rollout(cfg: SimConfig, n_frames: int, *,
                     neighbor: str = "sorted", faithful: bool = True,
                     snapshot_every: int = 0,
                     tune: SortedTuning | None = None,
-                    device: torch.device | str | None = None):
+                    device: torch.device | str | None = None,
+                    host_loop: bool | None = None):
     """Variable frame-dt rollout ``(state, dt_schedule) → (state, metrics[,
     snapshots])`` on ``device`` (None: the card; without one it raises).
 
@@ -568,12 +588,20 @@ def make_dt_rollout(cfg: SimConfig, n_frames: int, *,
     rest of the physics comes from the config. The result is bit-equal to
     stepping frame by frame through :func:`make_param_step` with
     ``phys._replace(dt=dt_f / divisor)``; on the sorted tier each frame is
-    one density launch and five fused substeps. ``snapshot_every`` is
-    :func:`make_rollout`'s.
+    one density launch and five fused substeps. ``snapshot_every`` and
+    ``host_loop`` are :func:`make_rollout`'s; the graph reads frame f's dt
+    from a device copy of the schedule, filled before the first replay.
     """
     _check_snapshots(n_frames, snapshot_every)
     cfg = cfg.validate()
+    neighbor = _check_supported(neighbor)
     device = resolve_device(device)
+    from . import graph       # here: graph.py imports this module
+    if not graph.choose_host_loop(neighbor, device, host_loop):
+        return graph.GraphRollout(graph.FrameBody(
+            cfg, n_frames, faithful=faithful, snapshot_every=snapshot_every,
+            tune=default_tuning() if tune is None else tune, device=device,
+            dt=True))
     param_step = make_param_step(cfg, neighbor=neighbor, faithful=faithful,
                                  tune=tune)
     base = PhysParams.from_config(cfg, device)
@@ -587,13 +615,15 @@ def make_dt_rollout(cfg: SimConfig, n_frames: int, *,
             state, n_frames, snapshot_every,
             lambda st, f: param_step(st, base._replace(dt=dts[f])))
 
+    rollout.host_loop = True
     return rollout
 
 
 def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
                  faithful: bool = True, snapshot_every: int = 0,
                  tune: SortedTuning | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 host_loop: bool | None = None):
     """Build ``state → (state, metrics[, snapshots])`` over ``n_frames``
     frames, with ``metrics`` a ``StepMetrics`` of per-frame tensors
     ``[n_frames]``, on ``device`` (None: the card; without one it raises).
@@ -603,6 +633,19 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
     frame (frames k−1, 2k−1, ... counted from 0), stacked as
     ``f32[n_frames // k, N, 3]``, in the caller's particle order; k must
     divide ``n_frames``; 0 returns no snapshots.
+
+    ``host_loop`` chooses how the frames run, and the rollout's
+    ``.host_loop`` attribute says which ran:
+    - None (the default): the graph for the sorted tier on the card, in
+      both modes, on every route and variant of ``tune``; the host loop
+      for the other tiers and on the CPU;
+    - False: the graph, JAX's one dispatch a rollout (``sim/graph.py``):
+      the frame recorded once as a CUDA graph and replayed, bit for bit the
+      host loop's result. It raises on the CPU and, as
+      ``NotImplementedError``, on the slotted, gather, brute and sites
+      tiers, whose rollouts loop on the host (ROADMAP.md A16);
+    - True: a loop over frames on the host, each phase in its profiler
+      range (``FRAME_PHASES``), JAX's ``run_bench(host_loop=True)``.
 
     Faithful sorted rollouts keep the state in SORTED order across frames:
     the rollout carries the particle-id column ``pid`` and passes it to the
@@ -621,35 +664,37 @@ def make_rollout(cfg: SimConfig, n_frames: int, *, neighbor: str = "sorted",
     neighbor = _check_supported(neighbor)
     device = resolve_device(device)
     tune = default_tuning() if tune is None else tune
+    from . import graph       # here: graph.py imports this module
+    if not graph.choose_host_loop(neighbor, device, host_loop):
+        return graph.GraphRollout(graph.FrameBody(
+            cfg, n_frames, faithful=faithful, snapshot_every=snapshot_every,
+            tune=tune, device=device))
     if neighbor != "sorted" or not faithful:
         step = make_frame_step(cfg, neighbor=neighbor, faithful=faithful,
                                tune=tune, device=device)
-        return lambda state: _frame_loop(state, n_frames, snapshot_every,
-                                         lambda st, _: step(st))
 
-    r, cap, n = cfg.bucket_resolution, cfg.voxel_capacity, cfg.n_particles
+        def rollout(state: ParticleState):
+            return _frame_loop(state, n_frames, snapshot_every,
+                               lambda st, _: step(st))
+
+        rollout.host_loop = True
+        return rollout
+
     phys = PhysParams.from_config(cfg, device)
 
     def rollout(state: ParticleState):
-        pos, vel, nan_count = state
-        pid = torch.arange(n, dtype=torch.int32, device=pos.device)
+        pid = torch.arange(cfg.n_particles, dtype=torch.int32,
+                           device=state.pos.device)
         ms, snaps = [], []
         for f in range(n_frames):
-            with span("build_frame"):
-                frame, (pos, vel, nan_count) = build_frame(
-                    pos, r, cap, extras=(pos, vel, nan_count), gid=pid,
-                    n_ids=n)
-            pid = frame.order
-            pos, vel, nan_hits, m = _sorted_frame(frame, pos, vel, phys, cfg,
-                                                  tune)
-            nan_count = nan_count + nan_hits
+            state, pid, m = _carried_frame(state, pid, phys, cfg, tune)
             ms.append(m)
             if snapshot_every and (f + 1) % snapshot_every == 0:
-                snaps.append(_unsort(pid, pos))
-        final = ParticleState(pos=_unsort(pid, pos), vel=_unsort(pid, vel),
-                              nan_count=_unsort(pid, nan_count))
+                snaps.append(_unsort(pid, state.pos))
+        final = ParticleState(*(_unsort(pid, x) for x in state))
         return _result(final, ms, snaps, snapshot_every)
 
+    rollout.host_loop = True
     return rollout
 
 

@@ -16,6 +16,7 @@ import subprocess
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
+from torch.autograd import DeviceType
 
 
 def span(name: str):
@@ -25,6 +26,19 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()
+
+
+def device_ms(prof: torch.profiler.profile) -> float:
+    """The device milliseconds of a finished ``torch.profiler`` trace: the
+    summed durations of its kernels, copies and memsets (a CUDA graph's
+    replayed kernels among them), without the device-side copies of the
+    profiler ranges. Against the host clock of the same work it gives the
+    device's idle share, 1 − device ms / host ms."""
+    events = prof.events()
+    ranges = {e.name for e in events if e.device_type == DeviceType.CPU}
+    return sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA
+               and e.name not in ranges) / 1e3
 
 
 def device_sync(device: torch.device | str | None = None) -> None:

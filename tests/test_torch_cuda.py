@@ -4,7 +4,8 @@ These tests need an NVIDIA GPU and nvcc; on a CPU-only host they skip. They
 include the banded K1, K2 and K5 of the slab step and the slab step itself,
 each tuning variant's instance (fuse_acc off, kahan, bf16), the probes'
 kernels (sphfluidsimulation_torch/probes), and the paths around the
-kernels that run on the card: the exact tiers, the dt replay,
+kernels that run on the card: the graph rollout against the host loop,
+the exact tiers, the dt replay,
 the snapshots of the sorted rollout, the render properties, the scene
 batch, the sites tier, its slab step, the domain step and the CLI's
 ``sweep`` and ``run --shards``. They
@@ -218,18 +219,26 @@ def test_rollout_on_card_tracks_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["window", "compact"])
+@pytest.mark.parametrize("host_loop", [True, False])
 @pytest.mark.parametrize("faithful", [True, False])
-def test_rollout_never_waits_for_the_card(cuda_device, faithful):
+def test_rollout_never_waits_for_the_card(cuda_device, faithful, host_loop,
+                                          route):
     # the frame loop keeps metrics on the device: no .item(), .cpu() or
     # data-dependent shapes; torch raises on any synchronising call. The
     # corrected mode with both extensions too: its per-substep frame build,
-    # K3 and host integration need no sync either
+    # K3 and host integration need no sync either. The same holds for the
+    # graph rollout's copies in and out around its replays, and on the
+    # compact route's kernels (K5), whose drift counts stay on the device
     cfg = SimConfig(**CONFIGS["tiny"])
     if not faithful:
         cfg = cfg.replace(xsph=XSPH, artificial_viscosity=ALPHA)
     state = initial_state(cfg, cuda_device)
-    roll = make_rollout(cfg, 3, faithful=faithful, device=cuda_device)
-    roll(state)                                # builds the kernels
+    roll = make_rollout(cfg, 3, faithful=faithful, device=cuda_device,
+                        tune=SortedTuning(compact=route == "compact"),
+                        host_loop=host_loop)
+    assert roll.host_loop is host_loop
+    roll(state)                       # builds the kernels, records the graph
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -237,6 +246,105 @@ def test_rollout_never_waits_for_the_card(cuda_device, faithful):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert final.pos.is_cuda and m.exact_cert.is_cuda
+
+
+# ---------------------------------------------- the graph rollout (A12) --
+
+GRAPH_CASES = {
+    "faithful": dict(),
+    "corrected": dict(faithful=False, xsph=XSPH, artificial_viscosity=ALPHA),
+    "compact": dict(tune=COMPACT),
+    "compact-corrected": dict(faithful=False, tune=COMPACT),
+    "unfused": dict(tune=SortedTuning(fused=False)),
+    "snapshots": dict(snapshot_every=2),
+    "dt": dict(dts=[1 / 240, 1 / 120, 1 / 360, 1 / 180]),
+}
+
+
+def _graph_and_loop(case, device, n_frames=4):
+    """The host loop's rollout of ``case`` (GRAPH_CASES) on the goldenish
+    scene from the spawn, then the graph's twice (its first call records
+    it): (outputs flattened, the launch counts, ``.host_loop``) of each,
+    the counters reset before each."""
+    from sphfluidsimulation_torch import make_dt_rollout
+    kw = dict(GRAPH_CASES[case])
+    dts = kw.pop("dts", None)
+    ext = {k: kw.pop(k) for k in ("xsph", "artificial_viscosity") if k in kw}
+    cfg = SimConfig(**_GOLDENISH, **ext)
+    s0 = initial_state(cfg, device)
+
+    def call(host_loop):
+        if dts is None:
+            roll = make_rollout(cfg, n_frames, device=device,
+                                host_loop=host_loop, **kw)
+            return roll, lambda: roll(s0)
+        roll = make_dt_rollout(cfg, len(dts), device=device,
+                               host_loop=host_loop, **kw)
+        return roll, lambda: roll(s0, dts)
+
+    loop, graph = call(True), call(False)
+    runs = []
+    for roll, run in (loop, graph, graph):
+        sk.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        flat = [t for x in out
+                for t in (x if isinstance(x, tuple) else (x,))]
+        runs.append((flat, dict(sk.launch_counts), roll.host_loop))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_rollout_is_bit_equal_to_the_host_loop_on_card(cuda_device,
+                                                             case):
+    # JAX's one dispatch a rollout: the frame recorded once and replayed
+    # gives the host loop's state, every metric lane and every snapshot,
+    # bit for bit, through the same launches, on its first call (which
+    # records it) and again on a replay
+    (loop, loop_counts, h), *graphs = _graph_and_loop(case, cuda_device)
+    assert h is True and sum(loop_counts.values()) > 0
+    for out, counts, host_loop in graphs:
+        assert host_loop is False
+        assert counts == loop_counts
+        assert len(out) == len(loop)
+        for x, y in zip(loop, out):
+            assert x.shape == y.shape and x.dtype == y.dtype
+            assert (_same_bits(x, y) if x.is_floating_point()
+                    else torch.equal(x, y))
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_and_runs_no_loop_on_card(cuda_device,
+                                                         monkeypatch):
+    # no fallback: a frame that cannot be recorded (here it reads a value
+    # back to the host, which a capture forbids) raises, counts nothing,
+    # leaves the caller's stream current and runs no host loop in its place
+    from sphfluidsimulation_torch.sim import graph, stepper
+    real = stepper._sorted_frame
+
+    def reads_back(*args):
+        out = real(*args)
+        float(out[3].max_speed)
+        return out
+
+    cfg = SimConfig(**_GOLDENISH)
+    s0 = initial_state(cfg, cuda_device)
+    roll = make_rollout(cfg, 2, device=cuda_device, host_loop=False)
+    assert isinstance(roll, graph.GraphRollout)
+    monkeypatch.setattr(stepper, "_sorted_frame", reads_back)
+    stream = torch.cuda.current_stream(cuda_device)
+    sk.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        roll(s0)
+    assert sk.launch_counts == dict.fromkeys(sk.launch_counts, 0)
+    assert torch.cuda.current_stream(cuda_device) == stream
+    assert roll._graph is None
+    monkeypatch.setattr(stepper, "_sorted_frame", real)
+    final, _ = roll(s0)
+    ref, _ = make_rollout(cfg, 2, device=cuda_device, host_loop=True)(s0)
+    for a, b in zip(final, ref):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
