@@ -23,7 +23,14 @@ every phase passed; each prints its seconds):
    fused substep at both sizes, forces at 262k, density and the fused
    substep with extensions at config 3, the substep and forces on rows two
    substeps into the frame, where rows drift, with the drift count equal to
-   the plain version's; every kernel with the frame's voxel capacity;
+   the plain version's; every kernel with the frame's voxel capacity; the
+   scene-axis instances (one launch over all scenes of a batch) at
+   BASELINE config 5 (8 scenes of 524,288 requested particles, rest
+   density 1.0-2.0): K1-scenes, and K2-scenes on the rows two substeps
+   into the frame, each scene held to its plain version and bit-equal to
+   its solo launch, and K2-ext-scenes likewise on 2 scenes of config 3's
+   physics, whose artificial viscosity zeroed is a planted control that
+   must fail;
 4. main paths, each after an untimed first call of its rollout (which
    builds the kernels and records the graph), with the launch counters
    reset just before and read just after it; the sorted tier's rollouts
@@ -34,14 +41,19 @@ every phase passed; each prints its seconds):
    corrected (6 K1 + 5 K3 a frame); then the compact route
    (``tune=SortedTuning(compact=True)``): faithful at both sizes (1 K5
    density + 5 K5 substeps a frame), config 3 faithful (1 + 5 K5-ext) and
-   262k corrected (6 K5 density + 5 K5 forces); positions must be in
+   262k corrected (6 K5 density + 5 K5 forces); config 5 through
+   ``parallel.BatchedScenes`` (its default on the card, a replayed graph a
+   frame: 1 K1-scenes + 5 K2-scenes), its finite positions in [0, 1] and
+   its non-finite rows counted (phase 12 replays their first frames
+   through the plain versions); positions must be in
    [0, 1], and finite with ``exact_cert`` 0 on the K1-K3 route (on K5's
    the certificate is the drift count, printed beside the rate, and where
    it is not 0 a drifted row may end non-finite, as its plain version
    does; the count is printed); then the compares again on the
-   frame-10 states, with planted controls that must fail their rule: K2
-   with viscosity zeroed, K2-ext with the artificial viscosity zeroed, K3
-   with XSPH zeroed, K5 with viscosity zeroed;
+   frame-10 states (config 5's frame 11 for the scene axis), with planted
+   controls that must fail their rule: K2 with viscosity zeroed, K2-ext
+   with the artificial viscosity zeroed, K3 with XSPH zeroed, K5 with
+   viscosity zeroed, K2-scenes with viscosity zeroed;
 5. reference: the 1,024-particle golden dam-break (tests/data) on the card,
    frame-1 max error < 1e-5 and frame-5 RMSE < 1e-3; and a 1,024-particle
    calm scene with XSPH 0.3 and artificial viscosity 0.4, whose sorted tier
@@ -59,7 +71,10 @@ every phase passed; each prints its seconds):
    card's memory rate and its FP32 operations, counted from the member
    pairs of this run's inputs, over the FP32 rate; and K5's stream, the
    slots a tile that it reads (each union cell cut at the capacity), beside
-   the length of the uncut union;
+   the length of the uncut union; the scene-axis instances at phase 3's
+   batches (config 5 at frame 11, the config-3 batch at frame 0), their
+   plain versions scene by scene, and beside them the solo K1 and K2 on
+   the same inputs, one launch a scene;
 8. the slab step (``parallel.make_pallas_slab_step``) on ``LocalRing(4)``,
    four z-slabs on the one card: the banded K1 and K2 (K2-ext at config 3)
    held against their banded plain versions on each shard's frame
@@ -140,10 +155,17 @@ every phase passed; each prints its seconds):
    each with the launch counters reset before it and read after it:
    BASELINE config 5 through the CLI's ``sweep`` (8 scenes of 524,288
    requested particles, rest density 1.0-2.0, 3 frames, the sorted tier,
-   a PNG a scene): exactly 8 K1 and 40 K2 launches a frame, 8 PNGs; the
-   same sweep through ``parallel.BatchedScenes``, timed (a warm-up frame,
-   then 3 frames), with scene 3 bit-equal to its solo ``make_rollout``
-   and the aggregate particle-substeps/s printed; scenes 0 and 7 (the
+   a PNG a scene): exactly 1 K1-scenes and 5 K2-scenes launches a frame,
+   8 PNGs; the same sweep through ``parallel.BatchedScenes`` in both
+   modes, the host loop (``host_loop=True``) and the graph (the default),
+   each after a first frame, run host, graph, graph, host over 3 frames
+   each, with exactly 1 + 5 launches a frame in every run and the states
+   and metrics of the two modes bit-equal at frames 4, 7 and 10; each
+   mode's aggregate particle-substeps/s and host ms a frame printed, and
+   over frames 8-10 its host ms a frame beside the device ms a frame of a
+   second batch that runs the same frames under the profiler (bit-equal
+   to the first), and so the idle share; every scene at
+   frame 4 bit-equal to its solo ``make_rollout``; scenes 0 and 7 (the
    ends of the rest-density sweep) and each scene in which a position went
    non-finite, stepped alone on their rows of the batch's ``PhysParams``
    and bit-equal to the batch, with the last frame of scenes 0 and 7 and
@@ -151,8 +173,8 @@ every phase passed; each prints its seconds):
    each K2 launch held to its plain version (phase 3's rules); a
    position may end non-finite with ``exact_cert`` 0 only where the plain
    substep on the same inputs gives it too; a batch of 2 scenes of
-   config 3's physics (2 K1 + 10 K2-ext a frame, scene 1 bit-equal to its
-   solo rollout); config 5 on the slotted
+   config 3's physics (1 K1-scenes + 5 K2-ext-scenes a frame, each scene
+   bit-equal to its solo rollout after 2 frames); config 5 on the slotted
    tier (the JAX CLI's default) for 1 frame, no kernel launch; the sites
    tier (``neighbor="sites"``, plain torch, no kernel launch) at 262k
    golden for 3 frames (frame 1 takes the spawn escalation) with positions
@@ -295,6 +317,11 @@ KERNELS = {
     "compact_substep_band": ("fused", "compact.cu", "pallas_compact.py:237"),
     "compact_substep_ext_band": ("fused", "compact.cu",
                                  "pallas_compact.py:237"),
+    "density_scenes": ("density", "density.cu", "pallas_sph.py:961"),
+    "fused_substep_scenes": ("fused", "fused_substep.cu",
+                             "pallas_sph.py:961"),
+    "fused_substep_ext_scenes": ("fused", "fused_substep.cu",
+                                 "pallas_sph.py:961"),
 }
 # the variants' instances: the kernel's entry with the variant's tag
 # (sph_kernels.variant_tag)
@@ -308,13 +335,16 @@ KERNELS.update({f"{name}+{tag}": KERNELS[name] for name, tags in (
 
 
 def bound(name: str, n: int, r: int, pairs: int, ext: bool,
-          s_cells: int | None = None, n_dead: int = 0) -> tuple[float, str]:
+          s_cells: int | None = None, n_dead: int = 0,
+          scenes: int = 1) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take for
     kernel ``name``'s work on n rows at resolution r with ``pairs`` member
     pairs (self pairs excluded for the force modes), with or without the
     extension sums. A banded instance gives its start tables' cells
-    ``s_cells`` (default R³) and its dead rows ``n_dead``. A variant's
-    instance (``name`` with its tags) adds its own operations."""
+    ``s_cells`` (default R³) and its dead rows ``n_dead``; a scene-axis
+    instance its ``scenes`` (n counts the rows of all of them, each with its
+    own start table and scalars). A variant's instance (``name`` with its
+    tags) adds its own operations."""
     kind = KERNELS[name][0]
     tags = name.split("+")[1:]
     k5 = name.startswith("compact")
@@ -323,7 +353,7 @@ def bound(name: str, n: int, r: int, pairs: int, ext: bool,
                   + (8 if kind != "density" and not rho_j else 0))
     nbytes += n_dead * DEAD_ROW_BYTES.get(kind, 0)
     cells = r ** 3 if s_cells is None else s_cells
-    nbytes += 4 * (cells + 1) + 4 * 15            # start[], the scalars
+    nbytes += scenes * (4 * (cells + 1) + 4 * 15)   # start[], the scalars
     per_pair = OPS_PER_PAIR[kind] + (OPS_PER_PAIR_EXT if ext else 0)
     if "kahan" in tags:
         per_pair += 3 * (KAHAN_ACCUMULATORS[kind]
@@ -383,6 +413,7 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
                                                       make_param_step,
                                                       make_rollout)
     from sphfluidsimulation_torch.state import ParticleState
+    from sphfluidsimulation_torch.utils.profiling import device_ms
 
     def sync():
         if dev.type == "cuda":
@@ -479,7 +510,8 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
                               nan_count=state.nan_count + unsort(nan_hits)),
                 unsort(went))
 
-    # -- config 5 through the CLI: 8 K1 + 40 K2 launches a frame, 8 PNGs
+    # -- config 5 through the CLI: 1 K1 + 5 K2 launches a frame over the
+    # scene axis (a replayed graph), 8 PNGs
     c5 = SimConfig(particle_number=c5_particles)
     png_dir = os.path.join(out_dir, "config5")
     os.makedirs(png_dir, exist_ok=True)
@@ -487,55 +519,117 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
         os.remove(os.path.join(png_dir, f))
     c5_argv = ["sweep", "--device", dev.type, "--particles",
                str(c5_particles), "--scenes", str(c5_scenes)]
+    scenes_want = dict(zero, density_scenes=C5_FRAMES,
+                       fused_substep_scenes=C5_FRAMES * 5)
     with Phase("config 5 sweep"):
         dt = run_cli(f"cli {' '.join(c5_argv)} --frames {C5_FRAMES} "
                      f"--export-dir", c5_argv + [
                          "--frames", str(C5_FRAMES), "--export-dir",
-                         png_dir],
-                     dict(zero, density=c5_scenes * C5_FRAMES,
-                          fused_substep=c5_scenes * C5_FRAMES * 5))
+                         png_dir], scenes_want)
         pngs = sorted(os.listdir(png_dir))
         print(f"config 5 sweep: {len(pngs)} PNGs {pngs[:2]}..., "
               f"{sum(os.path.getsize(os.path.join(png_dir, f)) for f in pngs)}"
-              f" bytes; the command's seconds include the spawns and the "
-              f"export", flush=True)
+              f" bytes; the command's seconds include the spawns, the "
+              f"graph's recording and the export", flush=True)
         if len(pngs) != c5_scenes:
             fail(f"config 5 sweep wrote {len(pngs)} PNGs")
-        # the same batch, timed, and scene 3 against its solo rollout
+        # the same batch in both modes, host loop and graph, each after a
+        # first frame (which records the graph), run H G G H over frames
+        # 2-4 and 5-7: the same launches, the same bits
         overrides = cli.sweep_overrides(1.0, 2.0, c5_scenes)
-        bs = BatchedScenes(c5, overrides, devices=dev)
-        bs.step()                                          # warm-up
+        modes = ("host", "graph")
+        # the graph is the default on the card
+        bss = {m: BatchedScenes(c5, overrides, devices=dev,
+                                host_loop=True if m == "host" else None)
+               for m in modes}
+        for m in modes:
+            if dev.type == "cuda" and bss[m].host_loop is not (m == "host"):
+                fail(f"config 5 BatchedScenes, {m}: host_loop "
+                     f"{bss[m].host_loop}")
+            bss[m].step()
         sync()
-        sk.reset_launch_counts()
-        t0 = time.perf_counter()
-        bs.step(C5_FRAMES)
-        sync()
-        dt = time.perf_counter() - t0
-        read_launches("config 5 BatchedScenes", dict(
-            zero, density=c5_scenes * C5_FRAMES,
-            fused_substep=c5_scenes * C5_FRAMES * 5))
-        rate = c5_scenes * c5.n_particles * c5.substeps * C5_FRAMES / dt
-        c3 = c5.replace(**overrides[3 % c5_scenes])
-        sk.reset_launch_counts()
-        solo, _ = make_rollout(c3, C5_FRAMES + 1, device=dev)(
-            initial_state(c3, dev))
-        sync()
-        read_launches("config 5 scene 3 alone", dict(
-            zero, density=C5_FRAMES + 1, fused_substep=(C5_FRAMES + 1) * 5))
-        states, params = bs.states, bs.params
-        bits = all(same_bits(x[3 % c5_scenes], y)
-                   for x, y in zip(states, solo))
-        m = bs.last_metrics
-        print(f"config 5 sorted: {c5_scenes} scenes x {c5.n_particles} "
-              f"particles, frames 2-{C5_FRAMES + 1} in {dt:.4f} s = "
-              f"{rate:.6g} particle-substeps/s aggregate; scene 3 bit-equal "
-              f"to its solo rollout {bits}; mean_density "
+        host_ms = {m: [] for m in modes}
+        for k, m in enumerate(("host", "graph", "graph", "host")):
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            bss[m].step(C5_FRAMES)
+            sync()
+            host_ms[m].append((time.perf_counter() - t0) * 1e3 / C5_FRAMES)
+            read_launches(f"config 5 BatchedScenes, {m}", scenes_want)
+            if k == 1:
+                states4, m4 = bss["graph"].states, bss["graph"].last_metrics
+        if not all(same_bits(x, y) for x, y in zip(
+                (*bss["host"].states, *bss["host"].last_metrics),
+                (*bss["graph"].states, *bss["graph"].last_metrics))):
+            fail("config 5: the graph leaves the host loop")
+        # frames 8-10 of each mode on the host clock, and the same frames of
+        # a twin batch (stepped to frame 7 untimed) under the profiler: the
+        # device ms a frame and the idle share of the same work
+        late_ms, dev_ms = {}, {}
+        for m in modes:
+            twin = BatchedScenes(c5, overrides, devices=dev,
+                                 host_loop=True if m == "host" else None)
+            twin.step(2 * C5_FRAMES + 1)
+            sync()
+            t0 = time.perf_counter()
+            bss[m].step(C5_FRAMES)
+            sync()
+            late_ms[m] = (time.perf_counter() - t0) * 1e3 / C5_FRAMES
+            if dev.type == "cuda":
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    twin.step(C5_FRAMES)
+                    sync()
+                dev_ms[m] = device_ms(prof) / C5_FRAMES
+            else:
+                twin.step(C5_FRAMES)
+                dev_ms[m] = float("nan")
+            if not all(same_bits(x, y) for x, y in zip(twin.states,
+                                                       bss[m].states)):
+                fail(f"config 5, {m}: a second batch leaves the first")
+            del twin
+        if not all(same_bits(x, y) for x, y in zip(
+                (*bss["host"].states, *bss["host"].last_metrics),
+                (*bss["graph"].states, *bss["graph"].last_metrics))):
+            fail("config 5: the graph leaves the host loop at frame 10")
+        work = c5_scenes * c5.n_particles * c5.substeps
+        text = []
+        for m in modes:
+            mean = sum(host_ms[m]) / len(host_ms[m])
+            text.append(
+                f"{m} {work / mean * 1e3:.6g} particle-substeps/s aggregate "
+                f"(host {' / '.join(f'{x:.4f}' for x in host_ms[m])} ms a "
+                f"frame; frames 8-10 host {late_ms[m]:.4f}, device "
+                f"{dev_ms[m]:.4f} ms a frame, idle share "
+                f"{1 - dev_ms[m] / late_ms[m]:.4f})")
+        print(f"config 5 sorted, {c5_scenes} scenes x {c5.n_particles} "
+              f"particles, frames 2-{2 * C5_FRAMES + 1}: {'; '.join(text)}; "
+              f"graph/host rate {sum(host_ms['host']) / sum(host_ms['graph']):.4f}"
+              f"; states and metrics bit-equal at frames {C5_FRAMES + 1}, "
+              f"{2 * C5_FRAMES + 1} and {3 * C5_FRAMES + 1} [{ident}]",
+              flush=True)
+        params = bss["graph"].params
+        del bss
+        # every scene at frame 4 against its solo rollout (1 K1 + 5 K2 a
+        # frame, the solo instances), bit for bit
+        states, m = states4, m4
+        for sc in range(c5_scenes):
+            cs = c5.replace(**overrides[sc])
+            sk.reset_launch_counts()
+            solo, _ = make_rollout(cs, C5_FRAMES + 1, device=dev)(
+                initial_state(cs, dev))
+            sync()
+            read_launches(f"config 5 scene {sc} alone", dict(
+                zero, density=C5_FRAMES + 1,
+                fused_substep=(C5_FRAMES + 1) * 5))
+            if not all(same_bits(x[sc], y) for x, y in zip(states, solo)):
+                fail(f"config 5: scene {sc} leaves its solo rollout")
+        print(f"config 5: each of the {c5_scenes} scenes at frame "
+              f"{C5_FRAMES + 1} bit-equal to its solo rollout; mean_density "
               f"{[round(float(x), 4) for x in m.mean_density]}, overflow "
               f"{m.overflow.tolist()}, exact_cert {m.exact_cert.tolist()} "
               f"[{ident}]", flush=True)
-        if not bits:
-            fail("config 5: scene 3 leaves its solo rollout")
-        del solo
         # K1 and K2 at config 5's shape and per-scene scalars: each scene
         # stepped alone on its row of the batch's PhysParams; the last frame
         # of the two ends of the rest-density sweep, and each frame in which
@@ -571,28 +665,33 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
         for sc in range(c5_scenes):
             in_cube(states.pos[sc], f"config 5 scene {sc}",
                     int(m.exact_cert[sc]), proven.get(sc))
-        del bs, states
-        # the batch with the extension sums: config 3's physics, 2 scenes
+        del states
+        # the batch with the extension sums: config 3's physics, 2 scenes,
+        # 1 K1 + 5 K2-ext a frame over the scene axis
         c3b = SimConfig(particle_number=c5_particles, preset=2, xsph=XSPH,
                         artificial_viscosity=ALPHA)
         ov3 = cli.sweep_overrides(1.2, 1.8, 2)
         bs = BatchedScenes(c3b, ov3, devices=dev)
+        bs.step()                                      # records the graph
+        sync()
         sk.reset_launch_counts()
         bs.step()
         sync()
         read_launches("config 3 BatchedScenes", dict(
-            zero, density=2, fused_substep_ext=10))
-        sk.reset_launch_counts()
-        solo, _ = make_rollout(c3b.replace(**ov3[1]), 1, device=dev)(
-            initial_state(c3b.replace(**ov3[1]), dev))
-        sync()
-        read_launches("config 3 scene 1 alone", dict(
-            zero, density=1, fused_substep_ext=5))
-        bits = all(same_bits(x[1], y) for x, y in zip(bs.states, solo))
-        print(f"config 3 batch of 2 scenes with extensions: scene 1 "
-              f"bit-equal to its solo rollout {bits}", flush=True)
-        if not bits:
-            fail("config 3 batch: scene 1 leaves its solo rollout")
+            zero, density_scenes=1, fused_substep_ext_scenes=5))
+        for sc in range(2):
+            cs = c3b.replace(**ov3[sc])
+            sk.reset_launch_counts()
+            solo, _ = make_rollout(cs, 2, device=dev)(initial_state(cs,
+                                                                    dev))
+            sync()
+            read_launches(f"config 3 scene {sc} alone", dict(
+                zero, density=2, fused_substep_ext=10))
+            if not all(same_bits(x[sc], y) for x, y in zip(bs.states,
+                                                           solo)):
+                fail(f"config 3 batch: scene {sc} leaves its solo rollout")
+        print("config 3 batch of 2 scenes with extensions: each scene "
+              "bit-equal to its solo rollout after 2 frames", flush=True)
         del bs, solo
     with Phase("config 5 slotted"):
         dt = run_cli(f"cli {' '.join(c5_argv)} --frames 1 --neighbor "
@@ -910,11 +1009,15 @@ def main() -> None:
     from sphfluidsimulation_torch.ops import compact, cuda_build
     from sphfluidsimulation_torch.ops import sph_kernels as sk
     from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning
-    from sphfluidsimulation_torch.ops.frame import build_frame
-    from sphfluidsimulation_torch.params import PhysParams
+    from sphfluidsimulation_torch.ops.frame import (build_frame,
+                                                    build_frame_scenes,
+                                                    scene_frame)
+    from sphfluidsimulation_torch.parallel import BatchedScenes
+    from sphfluidsimulation_torch.params import PhysParams, stack_params
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                       integrate_substep,
                                                       make_rollout)
+    from sphfluidsimulation_torch.state import stack_states
     from sphfluidsimulation_torch.utils.profiling import (CudaTimer,
                                                           gpu_identity)
 
@@ -940,6 +1043,13 @@ def main() -> None:
     c3 = SimConfig(particle_number=524288, preset=2, xsph=XSPH,
                    artificial_viscosity=ALPHA)
     k5 = SortedTuning(compact=True)
+    # the batches of the scene axis: config 5, and 2 scenes of config 3's
+    # physics (the extension sums), as phase 12 runs them
+    c5 = SimConfig(particle_number=C5_PARTICLES)
+    c5_ov = cli.sweep_overrides(1.0, 2.0, C5_SCENES)
+    c3b = SimConfig(particle_number=C5_PARTICLES, preset=2, xsph=XSPH,
+                    artificial_viscosity=ALPHA)
+    c3b_ov = cli.sweep_overrides(1.2, 1.8, 2)
     errs = dict.fromkeys(KERNELS, 0.0)
 
     def frame_inputs(cfg, state):
@@ -1131,6 +1241,77 @@ def main() -> None:
                           "the forces kernel with XSPH 0", label)
         return frame, rows, phys, r, cap, accs
 
+    def same_bits(a, b):
+        """Bit for bit, NaN payloads included."""
+        return a.shape == b.shape and a.dtype == b.dtype and bool(
+            (a.view(torch.int32) == b.view(torch.int32)).all())
+
+    def scene_inputs(cfg, overrides, states=None):
+        """A batch's frame over the scene axis, its sorted positions and
+        velocities, its stacked params (the spawn states when None)."""
+        cfgs = [cfg.replace(**ov) for ov in overrides]
+        if states is None:
+            states = stack_states([initial_state(c, dev) for c in cfgs])
+        params = stack_params([PhysParams.from_config(c, dev) for c in cfgs])
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        frame, (pos_s, vel_s) = build_frame_scenes(
+            states.pos, r, cap, extras=(states.pos, states.vel))
+        return frame, pos_s, vel_s, params, r, cap
+
+    def compare_scenes(cfg, overrides, states, label, planted=False):
+        """K1-scenes, then K2-scenes (K2-ext-scenes with extensions) on the
+        rows two substeps into the frame, against each scene's plain
+        version (phase 3's rules) and bit-equal to each scene's solo
+        launch; with ``planted`` K2-scenes with viscosity 0 (the
+        artificial viscosity 0 with extensions) must fail scene 0's rule.
+        Returns the frame, the positions, those rows, the params."""
+        frame, pos_s, vel_s, params, r, cap = scene_inputs(cfg, overrides,
+                                                           states)
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        ext = sk.uses_extensions(xs, al)
+        name = "fused_substep_ext_scenes" if ext else "fused_substep_scenes"
+        scal = sk.scal_blocks(params, xs, al)
+        rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap, scal)
+        rows = sk.pack_rows_scenes(pos_s, vel_s, rho)
+        pj = sk.pj_cols_scenes(rho, params)
+        for _ in range(2):
+            rows = sk.fused_substep_scenes_cuda(frame, rows, params, r, cap,
+                                                xs, al, pj, scal)
+        out = sk.fused_substep_scenes_cuda(frame, rows, params, r, cap, xs,
+                                           al, pj, scal)
+        refs = []
+        for sc in range(pos_s.shape[0]):
+            fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+            lab = f"{label} scene {sc}"
+            hold_density(rho[sc], sk.density_plain(fs, pos_s[sc], ph, r,
+                                                   cap),
+                         "density_scenes", lab)
+            refs.append(sk.substep_reference(fs, rows[sc], ph, r, cap, xs,
+                                             al))
+            e, line = hold_out(name, out[sc], refs[-1], lab)
+            solo = (same_bits(rho[sc], sk.density_cuda(
+                        fs, pos_s[sc], ph, r, cap))
+                    and same_bits(out[sc], sk.fused_substep_cuda(
+                        fs, rows[sc], ph, r, cap, xs, al)))
+            print(f"compare {lab}: {name} on substep 3 max|k-p| {e:.3e}, "
+                  f"{line}; K1 and K2 bit-equal to the scene's solo "
+                  f"launches {solo}", flush=True)
+            if not solo:
+                fail(f"{lab}: a scene-axis kernel leaves the solo kernel")
+        if planted:
+            if ext:
+                bad = sk.fused_substep_scenes_cuda(frame, rows, params, r,
+                                                   cap, xs, 0.0, pj)
+                what = f"{name} with the artificial viscosity 0"
+            else:
+                bad = sk.fused_substep_scenes_cuda(
+                    frame, rows, params._replace(
+                        viscosity=torch.zeros_like(params.viscosity)),
+                    r, cap, xs, al, pj)
+                what = f"{name} with viscosity 0"
+            must_fail(sk.hold(bad[0], refs[0]), what, f"{label} scene 0")
+        return frame, pos_s, rows, params, r, cap
+
     # ---- 3. compare at frame 0 (out-of-cube spawns)
     with Phase("compare frame 0"):
         states = {k: initial_state(c, dev) for k, c in sizes.items()}
@@ -1142,6 +1323,10 @@ def main() -> None:
         for k, cfg in sizes.items():
             compare_k5(cfg, states[k], f"{k} frame 0", forces=k == "262k")
         compare_k5(c3, c3_state, "config 3 frame 0")
+    with Phase("compare scene axis frame 0"):
+        compare_scenes(c5, c5_ov, None, "config 5 frame 0")
+        c3b_in = compare_scenes(c3b, c3b_ov, None, "config 3 batch frame 0",
+                                planted=True)
     states0 = dict(states)
 
     # ---- 4. main paths, each after an untimed first call of its rollout
@@ -1226,6 +1411,38 @@ def main() -> None:
             c3_states.update(run_path(f"the {k} path", {k: roll},
                                       {k: c3_state}, want, {k: c3}))
 
+    # config 5 over the scene axis: BatchedScenes, a replayed graph a frame
+    # (1 K1-scenes + 5 K2-scenes), after a first frame that records it.
+    # The golden EOS may leave a row non-finite at exact_cert 0 (the
+    # reference's own inf - inf, which phase 12 replays through the plain
+    # versions over frames 1-4): counted here; a finite position must lie
+    # in [0, 1]
+    with Phase("rollout config 5 batch"):
+        bs = BatchedScenes(c5, c5_ov, devices=dev)
+        bs.step()
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        bs.step(FRAMES)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        read_launches("the config 5 batch path", dict(
+            zero, density_scenes=FRAMES, fused_substep_scenes=5 * FRAMES))
+        c5_states, m = bs.states, bs.last_metrics
+        del bs
+        pos = c5_states.pos
+        fin = torch.isfinite(pos).all(2)
+        if not bool(((pos[fin] >= 0) & (pos[fin] <= 1)).all()):
+            fail("config 5 batch: positions outside [0, 1]")
+        print(f"rollout config 5 batch: {C5_SCENES} scenes x "
+              f"{c5.n_particles} particles, frames 2-{FRAMES + 1} in "
+              f"{dt:.4f} s = "
+              f"{C5_SCENES * c5.n_particles * c5.substeps * FRAMES / dt:.6g}"
+              f" particle-substeps/s aggregate; non-finite position rows "
+              f"per scene {(~fin).sum(1).tolist()}; exact_cert "
+              f"{m.exact_cert.tolist()}; overflow {m.overflow.tolist()} "
+              f"[{ident}]", flush=True)
+
     # the compact route (K5)
     with Phase("compact rollouts 262k, 1m"):
         rolls = {k: make_rollout(c, FRAMES, tune=k5, device=dev)
@@ -1255,6 +1472,9 @@ def main() -> None:
             compare(cfg, states[k], f"{k} frame {FRAMES}", planted=True)
         compare_ext(c3, c3_states["config 3 faithful"],
                     f"config 3 frame {FRAMES}", planted=True)
+    with Phase(f"compare scene axis frame {FRAMES + 1}"):
+        c5_in = compare_scenes(c5, c5_ov, c5_states,
+                               f"config 5 frame {FRAMES + 1}", planted=True)
     with Phase(f"compare K5 frame {FRAMES}"):
         for k, cfg in sizes.items():
             compare_k5(cfg, k5_states[k], f"{k} frame {FRAMES}",
@@ -1432,6 +1652,56 @@ def main() -> None:
                                                           r, cap, pj, scal),
                       lambda: compact.forces_compact_plain(frame, rows,
                                                            phys, r))
+        # the scene-axis instances: K1-scenes on config 5's frame-11
+        # frame, K2-scenes on its rows two substeps in; K2-ext-scenes on
+        # the config-3 batch's, frame 0 (compare_scenes' inputs); each
+        # plain version is the solo plain version scene by scene
+        for shape, (frame, pos_s, mid, params, r, cap), cfg in (
+                ("c5", c5_in, c5), ("c3x2", c3b_in, c3b)):
+            n_sc, n = pos_s.shape[:2]
+            xs, al = cfg.xsph, cfg.artificial_viscosity
+            ext = sk.uses_extensions(xs, al)
+            scal = sk.scal_blocks(params, xs, al)
+            pj = sk.pj_cols_scenes(mid[..., 6], params)
+            tot = sum(sk.member_pairs(scene_frame(frame, sc), pos_s[sc], r,
+                                      cap)[0] for sc in range(n_sc))
+            m_tot = sum(t - o for t, o in (
+                sk.member_pairs(scene_frame(frame, sc), mid[sc, :, 0:3], r,
+                                cap) for sc in range(n_sc)))
+            print(f"member pairs {shape}, {n_sc} scenes: frame start "
+                  f"{tot} ({tot / (n_sc * n):.2f} a particle), substep 3 "
+                  f"{m_tot} without the self pairs", flush=True)
+            if not ext:
+                timed("density_scenes", shape, n_sc * n, r, tot, False,
+                      lambda: sk.density_scenes_cuda(frame, pos_s, params,
+                                                     r, cap, scal),
+                      lambda: sk.density_scenes_plain(frame, pos_s, params,
+                                                      r, cap),
+                      scenes=n_sc)
+            timed("fused_substep_ext_scenes" if ext
+                  else "fused_substep_scenes", shape, n_sc * n, r, m_tot,
+                  ext,
+                  lambda: sk.fused_substep_scenes_cuda(
+                      frame, mid, params, r, cap, xs, al, pj, scal),
+                  lambda: sk.fused_substep_scenes_plain(
+                      frame, mid, params, r, cap, xs, al),
+                  scenes=n_sc)
+            # the solo kernels on the same inputs, one launch a scene, as
+            # the batch ran before the scene axis (not a main path's count)
+            solo = [(scene_frame(frame, sc), sk.scene_params(params, sc))
+                    for sc in range(n_sc)]
+            blocks = [sk.scal_block(ph, xs, al) for _, ph in solo]
+            k1 = (float("nan") if ext else time_ms(lambda: [
+                sk.density_cuda(fs, pos_s[sc], ph, r, cap, blocks[sc])
+                for sc, (fs, ph) in enumerate(solo)], 20))
+            k2 = time_ms(lambda: [
+                sk.fused_substep_cuda(fs, mid[sc], ph, r, cap, xs, al,
+                                      pj[sc], blocks[sc])
+                for sc, (fs, ph) in enumerate(solo)], 20)
+            print(f"time {shape}: the solo kernels on the same inputs, "
+                  f"{n_sc} launches each: K1 {k1:.4f} ms, "
+                  f"{'K2-ext' if ext else 'K2'} {k2:.4f} ms [{ident}]",
+                  flush=True)
 
     # ---- 8. the slab step on LocalRing(4), one card
     from sphfluidsimulation_torch.parallel import (LocalRing, collect,
@@ -2008,11 +2278,6 @@ def main() -> None:
     from sphfluidsimulation_torch.native import build as native_build
     from sphfluidsimulation_torch.render import export, meshprops, viewer
 
-    def same_bits(a, b):
-        """Bit for bit, NaN payloads included."""
-        return a.shape == b.shape and a.dtype == b.dtype and bool(
-            (a.view(torch.int32) == b.view(torch.int32)).all())
-
     def no_kernel(label):
         read_launches(label, zero)
 
@@ -2275,6 +2540,8 @@ def main() -> None:
                   "compact_density_band": "262k_slab",
                   "compact_substep_band": "262k_slab",
                   "compact_substep_ext_band": "c3_slab",
+                  "density_scenes": "c5", "fused_substep_scenes": "c5",
+                  "fused_substep_ext_scenes": "c3x2",
                   "density+kahan": "262k"}
     for name in KERNELS:
         if "+" in name and name not in main_shape:
@@ -2288,7 +2555,11 @@ def main() -> None:
                   "c3": "config 3: 524176 particles, R = 47, XSPH 0.3, "
                         "alpha 0.5",
                   "262k_slab": "262144 particles, R = 47" + slab_text,
-                  "c3_slab": "config 3" + slab_text}
+                  "c3_slab": "config 3" + slab_text,
+                  "c5": f"config 5: {C5_SCENES} scenes x 524176 particles, "
+                        f"R = 47, one launch over the scenes",
+                  "c3x2": "2 scenes of config 3's physics x 524176 "
+                          "particles, R = 47, one launch over the scenes"}
     record = {"kernels": []}
     for name, (_, file, replaces) in KERNELS.items():
         main = main_shape[name]

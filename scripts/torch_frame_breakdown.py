@@ -8,7 +8,12 @@ corrected mode forward 10 frames, then profiles the host loop's rollout
 (``host_loop=True``; a replay of the default graph rollout opens no
 range) of the next frames; each cell on the window route (K1-K3) and on
 the compact-lane route (K5, ``SortedTuning(compact=True)``; config 3
-corrected keeps K3 for its forces there, as the extensions are on). Each
+corrected keeps K3 for its forces there, as the extensions are on).
+BASELINE config 5 (``sweep --particles 524288 --scenes 8``: 8 scenes of
+524,288 particles, rest density 1.0-2.0) runs on the window route through
+``parallel.BatchedScenes`` with ``host_loop=True``: two batches 10 frames
+on, the next frames of one on the host clock and of the other under the
+profiler; its rate is the aggregate over the scenes. Each
 phase's device time is that of the kernels launched inside the stepper's
 own profiler ranges
 (``stepper.FRAME_PHASES``: frame build, density kernel, rows pack, each
@@ -23,7 +28,10 @@ rollout's kernels goes to a file. Run from the root of a checkout on a
 machine with a CUDA card:
 
     python3 scripts/torch_frame_breakdown.py [--frames 3] [--out build/profile]
-        [--route window|compact|both]
+        [--route window|compact|both] [--cells 262k 1m config3 ...]
+
+``--cells`` picks among 262k, 1m, config3, config3-corrected and config5
+(default: all).
 
 Writes the profiler tables to ``<out>/breakdown_<cell>.txt``.
 """
@@ -135,12 +143,79 @@ def tile_slots(cfg, state) -> tuple[float, float, float]:
                  for x in (slots, streamed, filled))
 
 
+CELLS = ("262k", "1m", "config3", "config3-corrected", "config5")
+
+
+def print_phases(label: str, cfg, ms: dict, calls: dict, dev_ms: float,
+                 host_ms: float, prof_ms: float, frames: int, ident: str,
+                 scenes: int = 1) -> None:
+    """The device ms per frame of each phase, the device frame against the
+    host clock of the rollout, the rate and the device's idle share."""
+    batch = f"{scenes} scenes x " if scenes > 1 else ""
+    print(f"[{label}] {batch}N={cfg.n_particles} R={cfg.bucket_resolution}, "
+          f"frames 10-{9 + frames}, device ms per frame [{ident}]:")
+    in_ranges = sum(ms.values())
+    for name, t in ms.items():
+        print(f"  {name:18s} {t:9.4f} ms  {100 * t / dev_ms:5.1f}%  "
+              f"({calls[name]} ranges)")
+    print(f"  {'outside ranges':18s} {dev_ms - in_ranges:9.4f} ms  "
+          f"{100 * (dev_ms - in_ranges) / dev_ms:5.1f}%")
+    rate = scenes * cfg.n_particles * cfg.substeps / host_ms * 1e3
+    print(f"  {'device frame':18s} {dev_ms:9.4f} ms; rollout "
+          f"{host_ms:.4f} ms/frame on the host clock ({prof_ms:.4f} "
+          f"under the profiler) = {rate:.6g} particle-substeps/s; device "
+          f"idle share {1 - dev_ms / host_ms:.4f}")
+
+
+def write_table(prof, out: str, label: str, ident: str) -> None:
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=30)
+    with open(os.path.join(out, f"breakdown_{label}.txt"), "w") as f:
+        f.write(f"{ident}\n{table}\n")
+
+
+def config5_cell(dev, frames: int, acts, out: str, ident: str) -> None:
+    """BASELINE config 5 through ``BatchedScenes`` on its host loop: two
+    batches 10 frames on, then the next ``frames`` of one timed on the host
+    clock and the same frames of the other profiled. A tree before the
+    scene axis has no ``host_loop`` keyword; its batch always loops on the
+    host."""
+    from sphfluidsimulation_torch import cli
+    from sphfluidsimulation_torch.parallel import BatchedScenes
+    cfg = SimConfig(particle_number=524288)
+    overrides = cli.sweep_overrides(1.0, 2.0, 8)
+    batches = []
+    for _ in range(2):
+        try:
+            bs = BatchedScenes(cfg, overrides, devices=dev, host_loop=True)
+        except TypeError:
+            bs = BatchedScenes(cfg, overrides, devices=dev)
+        bs.step(10)
+        batches.append(bs)
+    timed, traced = batches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed.step(frames)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / frames
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        traced.step(frames)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / frames
+    ms, calls, dev_ms = phase_device_ms(prof, frames, stepper.FRAME_PHASES)
+    print_phases("config5", cfg, ms, calls, dev_ms, host_ms, prof_ms,
+                 frames, ident, scenes=len(overrides))
+    write_table(prof, out, "config5", ident)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--route", choices=["window", "compact", "both"],
                     default="both")
+    ap.add_argument("--cells", nargs="+", choices=CELLS, default=CELLS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -165,7 +240,8 @@ def main() -> None:
                  ("262k", GOLDEN_CONFIG, True),
                  ("1m", scaled_config(1 << 20), True),
                  ("config3", c3, True),
-                 ("config3-corrected", c3, False))]
+                 ("config3-corrected", c3, False))
+             if cell in args.cells]
     for label, cfg, faithful, tune in cells:
         phases = stepper.FRAME_PHASES if faithful else \
             stepper.CORRECTED_PHASES
@@ -189,18 +265,8 @@ def main() -> None:
             torch.cuda.synchronize()
             prof_ms = (time.perf_counter() - t0) * 1e3 / args.frames
         ms, calls, dev_ms = phase_device_ms(prof, args.frames, phases)
-        in_ranges = sum(ms.values())
-        print(f"[{label}] N={cfg.n_particles} R={cfg.bucket_resolution}, "
-              f"frames 10-{9 + args.frames}, device ms per frame [{ident}]:")
-        for name, t in ms.items():
-            print(f"  {name:18s} {t:9.4f} ms  {100 * t / dev_ms:5.1f}%  "
-                  f"({calls[name]} ranges)")
-        print(f"  {'outside ranges':18s} {dev_ms - in_ranges:9.4f} ms  "
-              f"{100 * (dev_ms - in_ranges) / dev_ms:5.1f}%")
-        print(f"  {'device frame':18s} {dev_ms:9.4f} ms; rollout "
-              f"{host_ms:.4f} ms/frame on the host clock ({prof_ms:.4f} "
-              f"under the profiler); device idle share "
-              f"{1 - dev_ms / host_ms:.4f}")
+        print_phases(label, cfg, ms, calls, dev_ms, host_ms, prof_ms,
+                     args.frames, ident)
         # the slots each kernel walks per particle: K1-K3 their 27 cells,
         # K5 its tile's stream (the corrected forces with extensions stay K3)
         force_slots = dens_slots = walk_slots(cfg, state)
@@ -220,11 +286,9 @@ def main() -> None:
               f"{force} {k_ns / (force_slots * cfg.n_particles):.4f} ns per "
               f"slot, density {k1_ns / (dens_slots * cfg.n_particles):.4f} "
               f"ns per slot")
-
-        table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=30)
-        with open(os.path.join(args.out, f"breakdown_{label}.txt"), "w") as f:
-            f.write(f"{ident}\n{table}\n")
+        write_table(prof, args.out, label, ident)
+    if "config5" in args.cells:
+        config5_cell(dev, args.frames, acts, args.out, ident)
 
 
 if __name__ == "__main__":

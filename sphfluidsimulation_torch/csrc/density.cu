@@ -7,7 +7,11 @@
 // over the reference's 27-cell window (Density.compute:32-60), self included.
 // Its banded instance (a slab's frame, a band of z-planes with dead rows
 // past the live ones; density_pass(band=) :1682-1697) is the same kernel
-// with the band's (zbase, z_span); dead rows get 0. Built with SPH_KAHAN=1
+// with the band's (zbase, z_span); dead rows get 0. Its scene-axis
+// instance (sph_density_scenes) is density_pass under JAX's vmap of the
+// frame step (parallel/batch.py:42-46): one launch over the stacked frames
+// of S scenes, blockIdx.y the scene (window_walk.cuh::scene_args). Built
+// with SPH_KAHAN=1
 // it is the kahan instance (PallasTuning.kahan, pallas_sph.py:1118-1130):
 // the same walk, the running sum compensated (sph_common.cuh::accum) and
 // the compensation folded in before the mass.
@@ -33,14 +37,14 @@
 
 namespace {
 
+// Row i of a frame's density: the thread of density_kernel and of
+// density_scenes_kernel.
 template <bool kBand>
-__global__ void __launch_bounds__(sph::kBlock)
-density_kernel(const float* __restrict__ pos, const int* __restrict__ start,
-               const int* __restrict__ raw, const uint8_t* __restrict__ occ,
-               const float* __restrict__ scal, float* __restrict__ rho,
-               int n, int r, int cap, int zbase, int z_span) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__device__ __forceinline__ void density_row(
+    int i, const float* __restrict__ pos, const int* __restrict__ start,
+    const int* __restrict__ raw, const uint8_t* __restrict__ occ,
+    const float* __restrict__ scal, float* __restrict__ rho, int r, int cap,
+    int zbase, int z_span) {
   if (kBand && sph::dead_row(i, start, r, z_span)) {
     rho[i] = 0.f;
     return;
@@ -60,6 +64,37 @@ density_kernel(const float* __restrict__ pos, const int* __restrict__ start,
   rho[i] = s.mass * sph::total(acc);
 }
 
+template <bool kBand>
+__global__ void __launch_bounds__(sph::kBlock)
+density_kernel(const float* __restrict__ pos, const int* __restrict__ start,
+               const int* __restrict__ raw, const uint8_t* __restrict__ occ,
+               const float* __restrict__ scal, float* __restrict__ rho,
+               int n, int r, int cap, int zbase, int z_span) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  density_row<kBand>(i, pos, start, raw, occ, scal, rho, r, cap, zbase,
+                     z_span);
+}
+
+// The scene-axis instance (window_walk.cuh::scene_args): blockIdx.y is the
+// scene, whose inputs are the scene's blocks of the stacked arrays; each
+// thread is the unbanded kernel's thread of that scene.
+__global__ void __launch_bounds__(sph::kBlock)
+density_scenes_kernel(const float* __restrict__ pos,
+                      const int* __restrict__ start,
+                      const int* __restrict__ raw,
+                      const uint8_t* __restrict__ occ,
+                      const float* __restrict__ scal, float* __restrict__ rho,
+                      int n, int r, int cap) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t rows = (size_t)blockIdx.y * n;
+  const size_t cells = (size_t)blockIdx.y * ((size_t)r * r * r + 1);
+  density_row<false>(i, pos + 3 * rows, start + cells, raw + rows,
+                     occ + rows, scal + (size_t)blockIdx.y * sph::kScalLanes,
+                     rho + rows, r, cap, 0, r);
+}
+
 }  // namespace
 
 // (zbase, z_span) is the frame's band of z-planes; (0, r) for the whole
@@ -75,5 +110,20 @@ extern "C" int sph_density(const float* pos, const int* start, const int* raw,
     kernel<<<blocks, sph::kBlock, 0, (cudaStream_t)stream>>>(
         pos, start, raw, occ, scal, rho, n, r, cap, zbase, z_span);
   }
+  return (int)cudaGetLastError();
+}
+
+// K1 over `scenes` scenes of n rows each, every input stacked scene after
+// scene (window_walk.cuh::scene_args): one launch, grid (row blocks,
+// scenes).
+extern "C" int sph_density_scenes(const float* pos, const int* start,
+                                  const int* raw, const uint8_t* occ,
+                                  const float* scal, float* rho, int n, int r,
+                                  int cap, int scenes, void* stream) {
+  if (n > 0 && scenes > 0)
+    density_scenes_kernel<<<dim3((n + sph::kBlock - 1) / sph::kBlock,
+                                 scenes),
+                            sph::kBlock, 0, (cudaStream_t)stream>>>(
+        pos, start, raw, occ, scal, rho, n, r, cap);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,10 @@
 // particle still moves by dt * dv (stepper.py:57-59). The instance without
 // extensions is the faithful K2. The banded instances (a slab's frame,
 // fused_substep(band=) :1835-1887) are the same kernels with the band's
-// (zbase, z_span); they copy dead rows through.
+// (zbase, z_span); they copy dead rows through. The scene-axis instances
+// (sph_fused_substep_scenes) are fused_substep under JAX's vmap of the
+// frame step (parallel/batch.py:42-46): one launch over the stacked rows
+// of S scenes, blockIdx.y the scene (window_walk.cuh::scene_args).
 //
 // Variants (compile-time switches, sph_common.cuh; one library per set):
 // fuse_acc (SPH_FACC, the default, as in JAX: pressure and viscosity in
@@ -69,6 +72,22 @@ fused_substep_kernel(sph::WalkArgs a, float4* __restrict__ out) {
       });
 }
 
+// The scene-axis instance (window_walk.cuh::scene_args): blockIdx.y is the
+// scene, and each thread is the unbanded kernel's thread of that scene.
+template <bool kExt>
+__global__ void __launch_bounds__(sph::kBlock)
+fused_substep_scenes_kernel(sph::WalkArgs a, float4* __restrict__ out) {
+  const int scene = blockIdx.y;
+  float4* const out_s = out + 2 * (size_t)scene * a.n;
+  sph::walk_row<kExt, false>(
+      sph::scene_args(a, scene),
+      [&](const sph::Scalars& s, const sph::Particle& p, int i,
+          const sph::PairSums& acc) {
+        sph::fused_tail<kExt, sph::kFacc>(s, p, acc, out_s, i);
+      },
+      [](int) {});   // no dead rows without a band
+}
+
 }  // namespace
 
 // (zbase, z_span) is the frame's band of z-planes, (0, r) for the whole
@@ -87,4 +106,22 @@ extern "C" int sph_fused_substep(const float* rows, const float* pj,
   return sph::launch_walk(instances, ext != 0, a,
                           reinterpret_cast<float4*>(out),
                           (cudaStream_t)stream);
+}
+
+// K2 over `scenes` scenes of n rows each, every input stacked scene after
+// scene (window_walk.cuh::scene_args): one launch, grid (row blocks,
+// scenes); ext != 0 selects the instance with the extension sums.
+extern "C" int sph_fused_substep_scenes(const float* rows, const float* pj,
+                                        const int* start, const int* raw,
+                                        const uint8_t* occ, const float* scal,
+                                        float* out, int n, int r, int cap,
+                                        int scenes, int ext, void* stream) {
+  const sph::WalkArgs a{reinterpret_cast<const float4*>(rows),
+                        reinterpret_cast<const float2*>(pj),
+                        start, raw, occ, scal, n, r, cap, 0, r};
+  static const sph::WalkKernel instances[2] = {
+      fused_substep_scenes_kernel<false>, fused_substep_scenes_kernel<true>};
+  return sph::launch_walk_scenes(instances, ext != 0, a, scenes,
+                                 reinterpret_cast<float4*>(out),
+                                 (cudaStream_t)stream);
 }

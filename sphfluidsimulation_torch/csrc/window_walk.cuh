@@ -118,6 +118,30 @@ struct WalkArgs {
   int n, r, cap, zbase, z_span;
 };
 
+// The scene axis (the batched step of parallel/batch.py, the counterpart
+// of JAX's vmap of the frame step, whose batching rule prepends the scene
+// to the Pallas grid): S scenes of n rows each, every input stacked scene
+// after scene (rows, pj, raw, occ and the output by n rows, start by
+// r^3 + 1 entries, the scalar block by its kScalLanes lanes), one launch
+// over a grid of (row blocks, S). blockIdx.y is the scene, so a block lies
+// in one scene and its threads are the solo kernel's threads of that
+// scene, on the scene's arrays, in the same walk order: the same sums, bit
+// for bit. A flat grid over S * n rows would split a block between two
+// scenes whenever n is not a multiple of kBlock, and cost each thread a
+// division to find its scene. The scene axis walks the whole grid: no
+// band, no dead rows.
+constexpr int kScalLanes = sizeof(Scalars) / sizeof(float);
+
+// Scene s's inputs of a launch over the scene axis.
+__device__ __forceinline__ WalkArgs scene_args(const WalkArgs& a, int s) {
+  const size_t rows = (size_t)s * a.n;
+  const size_t cells = (size_t)s * ((size_t)a.r * a.r * a.r + 1);
+  return WalkArgs{a.rows + 2 * rows, a.pj + rows, a.start + cells,
+                  a.raw + rows, a.occ + rows,
+                  a.scal + (size_t)s * kScalLanes,
+                  a.n, a.r, a.cap, 0, a.r};
+}
+
 // Row i's pair sums (j == i skipped) in walk order (ascending sorted
 // index), two slots a step without the extensions (with them, the second
 // pair's registers cost more occupancy than the overlap gains), in the
@@ -180,6 +204,18 @@ inline int launch_walk(const WalkKernel (&instances)[2][2], bool ext,
       instances[ext ? 1 : 0][banded(a.zbase, a.z_span, a.r) ? 1 : 0];
   if (a.n > 0)
     kernel<<<(a.n + kBlock - 1) / kBlock, kBlock, 0, st>>>(a, out);
+  return (int)cudaGetLastError();
+}
+
+// Launches the scene-axis instance of K2 or K3 for the extension switch
+// over `scenes` scenes of a.n rows (scene_args), grid (row blocks, scenes),
+// on stream st; `instances` is the kernel without and with kExt.
+inline int launch_walk_scenes(const WalkKernel (&instances)[2], bool ext,
+                              const WalkArgs& a, int scenes, float4* out,
+                              cudaStream_t st) {
+  if (a.n > 0 && scenes > 0)
+    instances[ext ? 1 : 0]<<<dim3((a.n + kBlock - 1) / kBlock, scenes),
+                             kBlock, 0, st>>>(a, out);
   return (int)cudaGetLastError();
 }
 

@@ -40,13 +40,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # source → its C functions (name, argtypes): pointers and the stream as
 # c_void_p, ints as c_int (K1-K3 and K5 take n, r, cap, then the band's
-# zbase and z_span, and K2/K3 the extension switch)
+# zbase and z_span, and K2/K3 the extension switch; the scene-axis
+# instances of K1 and K2 take n, r, cap, then the scene count)
 KERNELS = {
     "density.cu": (("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _P)),),
+                                     _I, _I, _P)),
+                   ("sph_density_scenes", (_P, _P, _P, _P, _P, _P, _I, _I,
+                                           _I, _I, _P))),
     "fused_substep.cu": (("sph_fused_substep", (_P, _P, _P, _P, _P, _P, _P,
                                                  _I, _I, _I, _I, _I, _I,
-                                                 _P)),),
+                                                 _P)),
+                         ("sph_fused_substep_scenes", (_P, _P, _P, _P, _P,
+                                                       _P, _P, _I, _I, _I,
+                                                       _I, _I, _P))),
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _P)),),
     "compact.cu": (("sph_compact", (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,

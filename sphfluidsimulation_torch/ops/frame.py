@@ -132,3 +132,77 @@ def build_frame(pos: torch.Tensor, r: int, capacity: int | None,
     frame = SortedFrame(order=order, cid=cid_s, raw=raw_s, occ=occ,
                         start=start, clip_count=clip_count)
     return frame, tuple(e[perm] for e in extras)
+
+
+def scene_frame(frame: SortedFrame, s: int) -> SortedFrame:
+    """Scene ``s``'s frame of a frame over a leading scene axis."""
+    return SortedFrame(*(x[s] for x in frame))
+
+
+def build_frame_scenes(pos: torch.Tensor, r: int, capacity: int | None,
+                       extras: tuple[torch.Tensor, ...] = (),
+                       gid: torch.Tensor | None = None, *,
+                       n_ids: int | None = None
+                       ) -> tuple[SortedFrame, tuple[torch.Tensor, ...]]:
+    """:func:`build_frame` of each scene of ``pos`` f32[S, N, 3] at once:
+    one stable sort over the key (scene, anchor cell, gid).
+
+    The frame's fields carry the scene axis first: ``order``, ``cid``,
+    ``raw`` and ``occ`` [S, N], ``start`` i32[S, R³ + 1] in scene-local
+    indices, ``clip_count`` i32[S] (0: no band). Scene s's slice
+    (:func:`scene_frame`) and its sorted ``extras`` (each [S, N, ...]) are
+    integer for integer ``build_frame(pos[s], r, capacity, extras[s],
+    gid[s], n_ids=n_ids)``. ``gid`` i32[S, N] (default the identity in
+    every scene) must be unique among each scene's rows and below
+    ``n_ids`` (None: ``N`` with the default ``gid``, else ``gid.max() + 1``,
+    which waits for the card). The whole grid only: no band, no dead
+    rows."""
+    n_scenes, n = pos.shape[:2]
+    dev = pos.device
+    s_cells = r * r * r
+    cell = sph_math.cell_index(pos, r)
+    # int32 arithmetic wraps exactly as build_frame's does
+    cid_raw = cell[..., 0] + cell[..., 1] * r + cell[..., 2] * (r * r)
+    in_range = (cid_raw >= 0) & (cid_raw < s_cells)
+    anchor = cell.clamp(0, r - 1)
+    cid_key = anchor[..., 0] + anchor[..., 1] * r + anchor[..., 2] * (r * r)
+    if gid is None:
+        gid = torch.arange(n, dtype=torch.int32, device=dev).expand(
+            n_scenes, n)
+        n_ids = n
+    elif n_ids is None:
+        n_ids = int(gid.max()) + 1 if n else 1
+    if n_scenes * s_cells * n_ids >= 2 ** 63:
+        raise ValueError(f"{n_scenes} scenes x {s_cells} cells x {n_ids} "
+                         f"ids overflow the int64 sort key")
+    scene = torch.arange(n_scenes, dtype=torch.int64, device=dev)[:, None]
+    # (scene, anchor, gid) is unique; within a scene the order is
+    # build_frame's key cid·n_ids + gid
+    key = (scene * s_cells + cid_key) * n_ids + gid.to(torch.int64)
+    perm = torch.sort(key.reshape(-1), stable=True).indices
+    # perm keeps each scene's rows in its own block of N
+    local = (perm.view(n_scenes, n) - scene * n)
+
+    def take(x: torch.Tensor) -> torch.Tensor:
+        return x.reshape((n_scenes * n,) + tuple(x.shape[2:]))[perm].view(
+            x.shape)
+
+    order = gid.gather(1, local).to(torch.int32)
+    cid_s = cid_key.gather(1, local)
+    raw_s = cid_raw.gather(1, local)
+    occ = in_range.gather(1, local)
+
+    cells = torch.arange(s_cells + 1, dtype=torch.int32, device=dev)
+    start = torch.searchsorted(cid_s, cells.expand(n_scenes, s_cells + 1)
+                               .contiguous(), out_int32=True)
+    if capacity is not None:
+        # rank within the anchor run, gathered from the scene's start table
+        # (not a cummax scan)
+        rank = torch.arange(n, dtype=torch.int32, device=dev) \
+            - start.gather(1, cid_s.long())
+        occ = occ & (rank < capacity)
+    frame = SortedFrame(order=order, cid=cid_s, raw=raw_s, occ=occ,
+                        start=start,
+                        clip_count=torch.zeros(n_scenes, dtype=torch.int32,
+                                               device=dev))
+    return frame, tuple(take(e) for e in extras)

@@ -44,6 +44,14 @@ a slab row buffer, which sort last) as absent: density 0, force sums 0, the
 substep copies them through. Without a band there are none. K1 and K2 run
 banded; K3 takes the band from the shared walk but the slab step does not
 launch it.
+
+Scene-axis instances (the batched step of ``parallel/batch.py``, JAX's
+``vmap`` of the frame step): :func:`density_scenes` and
+:func:`fused_substep_scenes` take a frame with a leading scene axis
+(``frame.build_frame_scenes``) and a stacked ``PhysParams``, and launch K1
+and K2 once over all scenes (``sph_density_scenes``,
+``sph_fused_substep_scenes``); each scene's result is its solo pass's, bit
+for bit.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ import torch
 from ..config import EPSILON
 from ..params import PhysParams
 from . import cuda_build, sph_math
-from .frame import SortedFrame
+from .frame import SortedFrame, scene_frame
 
 N_FIELDS = 8             # rows lanes: x, y, z, vx, vy, vz, rho, nan_count
 N_SUMS = 12              # K3 lanes: press 3, visc 3, xsph 3, avisc 3
@@ -74,7 +82,9 @@ _KAHAN_CHUNK_PAIRS = 1 << 24
 # which kernels its main path went through.
 # "fused_substep" counts K2 without extensions, "fused_substep_ext" with; the
 # "*_band" entries count the banded instances of K1, K2 and K5 (the slab
-# step, parallel/slab_pallas.py); the "compact_*" entries count the K5
+# step, parallel/slab_pallas.py); the "*_scenes" entries the scene-axis
+# instances of K1 and K2 (the batched step, parallel/batch.py), one a
+# launch over all scenes; the "compact_*" entries count the K5
 # instances (ops/compact.py). A tuning variant's instance counts under its
 # instance's name with the variant's tag (:func:`variant_tag`), e.g.
 # "fused_substep_ext+bf16" or "density+kahan"; those keys appear at their
@@ -83,7 +93,9 @@ _COUNTERS = ("density", "fused_substep", "fused_substep_ext", "forces",
              "compact_density", "compact_substep", "compact_substep_ext",
              "compact_forces", "density_band", "fused_substep_band",
              "fused_substep_ext_band", "compact_density_band",
-             "compact_substep_band", "compact_substep_ext_band")
+             "compact_substep_band", "compact_substep_ext_band",
+             "density_scenes", "fused_substep_scenes",
+             "fused_substep_ext_scenes")
 launch_counts = dict.fromkeys(_COUNTERS, 0)
 
 
@@ -1049,3 +1061,180 @@ def fused_substep(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                                   alpha_visc, pj, scal, band, tune)
     return fused_substep_plain(frame, rows, phys, r, capacity, xsph,
                                alpha_visc, band=band, tune=tune)
+
+
+# ------------------------------------------------------------ scene axis --
+# K1 and K2 over a leading scene axis (the batched step of
+# ``parallel/batch.py``; JAX vmaps ``density_pass`` and ``fused_substep``,
+# and Pallas's batching rule prepends the scene to the kernel's grid). The
+# frame is ``frame.build_frame_scenes``'s: every field [S, ...], ``start``
+# in scene-local indices; the physics is a stacked ``PhysParams``, one row a
+# scene. Each scene's result is, bit for bit, the solo pass of that scene
+# on its row of the params: the plain versions call the solo plain
+# versions scene by scene, and the kernels' threads are the solo kernels'
+# threads (``csrc/window_walk.cuh::scene_args``). The default variant only
+# (the other tunings batch scene by scene, ``parallel/batch.py``).
+
+def scene_params(params: PhysParams, s: int) -> PhysParams:
+    """Scene ``s``'s row of a stacked ``PhysParams``."""
+    return PhysParams(*(x[s] for x in params))
+
+
+def scal_blocks(params: PhysParams, xsph: float = 0.0,
+                alpha_visc: float = 0.0) -> torch.Tensor:
+    """:func:`scal_block` of each scene's row of the stacked ``params``, as
+    f32[S, N_SCAL] (the same elementwise arithmetic, so row s is the solo
+    block of scene s)."""
+    return scal_block(params, xsph, alpha_visc).T.contiguous()
+
+
+def pack_rows_scenes(pos_s: torch.Tensor, vel_s: torch.Tensor,
+                     rho_s: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_rows` over S·N rows: f32[S, N, 8] (NaN counts 0). The
+    lanes are copied into the rows (``torch.cat`` of [S·N, 3] pieces
+    measured about twice as slow a row on the card as one scene's)."""
+    rows = rho_s.new_empty(rho_s.shape + (N_FIELDS,))
+    rows[..., 0:3] = pos_s
+    rows[..., 3:6] = vel_s
+    rows[..., 6] = rho_s
+    rows[..., 7] = 0.0
+    return rows
+
+
+def unpack_rows_scenes(rows: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """:func:`unpack_rows` over S·N rows: (pos_s [S, N, 3], vel_s, rho_s
+    [S, N], nan i32[S, N])."""
+    return (rows[..., 0:3], rows[..., 3:6], rows[..., 6],
+            rows[..., 7].to(torch.int32))
+
+
+def pj_cols_scenes(rho: torch.Tensor, params: PhysParams) -> torch.Tensor:
+    """:func:`pj_cols` over S·N rows: f32[S, N, 2] from ρ f32[S, N], each
+    row with its own scene's k and ρ₀ (the columns copied in, as
+    :func:`pack_rows_scenes` packs)."""
+    pj = rho.new_empty(rho.shape + (2,))
+    pj[..., 0] = params.gas_constant[:, None] * (
+        rho - params.rest_density[:, None])
+    ok = rho > EPSILON
+    pj[..., 1] = torch.where(ok, 1.0, 0.0) / torch.where(ok, rho, 1.0)
+    return pj
+
+
+def density_scenes_plain(frame: SortedFrame, pos_s: torch.Tensor,
+                         params: PhysParams, r: int,
+                         capacity: int | None) -> torch.Tensor:
+    """ρ f32[S, N]: :func:`density_plain` of each scene."""
+    return torch.stack([
+        density_plain(scene_frame(frame, s), pos_s[s],
+                      scene_params(params, s), r, capacity)
+        for s in range(pos_s.shape[0])])
+
+
+def fused_substep_scenes_plain(frame: SortedFrame, rows: torch.Tensor,
+                               params: PhysParams, r: int,
+                               capacity: int | None, xsph: float = 0.0,
+                               alpha_visc: float = 0.0) -> torch.Tensor:
+    """rows f32[S, N, 8] after one substep: :func:`fused_substep_plain` of
+    each scene."""
+    return torch.stack([
+        fused_substep_plain(scene_frame(frame, s), rows[s],
+                            scene_params(params, s), r, capacity, xsph,
+                            alpha_visc)
+        for s in range(rows.shape[0])])
+
+
+def _check_scenes(frame: SortedFrame, n_scenes: int, n: int, r: int,
+                  scal: torch.Tensor, device: torch.device) -> None:
+    if not 0 < n_scenes <= 65535:
+        raise ValueError(f"{n_scenes} scenes: the scene axis is the launch "
+                         f"grid's y, 1 to 65535")
+    _check("frame.start", frame.start, torch.int32,
+           (n_scenes, r * r * r + 1), device)
+    _check("frame.raw", frame.raw, torch.int32, (n_scenes, n), device)
+    _check("frame.occ", frame.occ, torch.bool, (n_scenes, n), device)
+    _check("phys", scal, torch.float32, (n_scenes, N_SCAL), device)
+
+
+def density_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
+                        params: PhysParams, r: int, capacity: int | None,
+                        scal: torch.Tensor | None = None) -> torch.Tensor:
+    """K1's scene-axis instance (``csrc/density.cu``
+    ``sph_density_scenes``): ρ f32[S, N] in one launch. ``scal`` is
+    :func:`scal_blocks` of ``params`` (built here when None)."""
+    n_scenes, n = pos_s.shape[:2]
+    dev = pos_s.device
+    if scal is None:
+        scal = scal_blocks(params)
+    _check("pos_s", pos_s, torch.float32, (n_scenes, n, 3), dev)
+    _check_scenes(frame, n_scenes, n, r, scal, dev)
+    rho = torch.empty((n_scenes, n), dtype=torch.float32, device=dev)
+    fn = cuda_build.function("density.cu", "sph_density_scenes")
+    err = fn(_ptr(pos_s), _ptr(frame.start), _ptr(frame.raw),
+             _ptr(frame.occ), _ptr(scal), _ptr(rho), n, r,
+             _cap_arg(capacity), n_scenes,
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on_error("density_scenes", err)
+    _count("density_scenes")
+    return rho
+
+
+def fused_substep_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
+                              params: PhysParams, r: int,
+                              capacity: int | None, xsph: float = 0.0,
+                              alpha_visc: float = 0.0,
+                              pj: torch.Tensor | None = None,
+                              scal: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """K2's scene-axis instances (``csrc/fused_substep.cu``
+    ``sph_fused_substep_scenes``): new rows f32[S, N, 8] in one launch,
+    the instance with the extension sums for nonzero coefficients. ``pj``
+    is :func:`pj_cols_scenes` of the rows' ρ and ``scal``
+    :func:`scal_blocks` of ``params`` and the coefficients; each is built
+    here when None."""
+    n_scenes, n = rows.shape[:2]
+    dev = rows.device
+    if pj is None:
+        pj = pj_cols_scenes(rows[..., 6], params)
+    if scal is None:
+        scal = scal_blocks(params, xsph, alpha_visc)
+    ext = uses_extensions(xsph, alpha_visc)
+    _check("rows", rows, torch.float32, (n_scenes, n, N_FIELDS), dev)
+    _check("pj", pj, torch.float32, (n_scenes, n, 2), dev)
+    _check_scenes(frame, n_scenes, n, r, scal, dev)
+    out = torch.empty_like(rows)
+    fn = cuda_build.function("fused_substep.cu", "sph_fused_substep_scenes")
+    err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
+             _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
+             _cap_arg(capacity), n_scenes, int(ext),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    name = "fused_substep_ext_scenes" if ext else "fused_substep_scenes"
+    _raise_on_error(name, err)
+    _count(name)
+    return out
+
+
+def density_scenes(frame: SortedFrame, pos_s: torch.Tensor,
+                   params: PhysParams, r: int, capacity: int | None,
+                   scal: torch.Tensor | None = None) -> torch.Tensor:
+    """ρ f32[S, N] of every scene: K1's scene-axis instance for a CUDA
+    tensor, the plain version for a CPU tensor. ``scal`` (as in
+    :func:`density_scenes_cuda`) is read by the kernel only."""
+    if pos_s.is_cuda:
+        return density_scenes_cuda(frame, pos_s, params, r, capacity, scal)
+    return density_scenes_plain(frame, pos_s, params, r, capacity)
+
+
+def fused_substep_scenes(frame: SortedFrame, rows: torch.Tensor,
+                         params: PhysParams, r: int, capacity: int | None,
+                         xsph: float = 0.0, alpha_visc: float = 0.0,
+                         pj: torch.Tensor | None = None,
+                         scal: torch.Tensor | None = None) -> torch.Tensor:
+    """One substep of every scene's rows f32[S, N, 8]: K2's scene-axis
+    instance for a CUDA tensor, the plain version for a CPU tensor. ``pj``
+    and ``scal`` (as in :func:`fused_substep_scenes_cuda`) are read by the
+    kernel only."""
+    if rows.is_cuda:
+        return fused_substep_scenes_cuda(frame, rows, params, r, capacity,
+                                         xsph, alpha_visc, pj, scal)
+    return fused_substep_scenes_plain(frame, rows, params, r, capacity,
+                                      xsph, alpha_visc)

@@ -7,26 +7,38 @@ viscosity, ...) advanced in lockstep. All scenes of a batch share structure
 scalars ride a stacked ``PhysParams`` with one row a scene, and the states
 a leading scene axis.
 
-JAX ``vmap``s the frame step over the scene axis. The port runs each
-scene's frame step in turn on its row of the stacked state and params: on
-the sorted tier that is 1 K1 and 5 K2 launches (K2-ext with extensions) a
-scene and frame, so each scene's result is bit for bit the result of
-stepping that scene alone. Folding the scene axis into the kernels' launch
-grid is performance work (ROADMAP.md queue A). JAX's ``mesh=`` scatters the
-scenes over devices; here ``devices=`` gives each device a contiguous block
-of scenes, as ``P(axis)`` does, with no traffic between devices.
+JAX ``vmap``s the frame step over the scene axis under one ``jit``: one
+program a frame, whose Pallas kernels take the scene as a grid axis. The
+port's batched step (:func:`make_batched_step`) has that shape on the
+sorted tier's faithful window route in the default variant
+(``stepper.scene_axis``): one frame build over all scenes, one K1 launch
+and five K2 launches (K2-ext with extensions) over all scenes
+(``stepper.make_scenes_step``). Every other tier, mode, route and variant
+runs each scene's frame step in turn on its row (:func:`over_scenes`):
+the slotted, gather, brute and sites tiers, the corrected mode (K3), the
+compact route (K5), the unfused route and the ``kahan``, ``bf16`` and
+``fuse_acc=False`` variants. Either way each scene's result is bit for bit
+the result of stepping that scene alone.
+
+On the card :class:`BatchedScenes` of the sorted tier records one batched
+frame as a CUDA graph and replays it each frame (``sim/graph.py``
+``RecordedStep``; ``host_loop=True`` keeps the Python loop). JAX's
+``mesh=`` scatters the scenes over devices; here ``devices=`` gives each
+device a contiguous block of scenes, as ``P(axis)`` does, with no traffic
+between devices, and each block its own graph.
 """
 
 from __future__ import annotations
 
 from contextlib import nullcontext
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
 from ..config import SimConfig
-from ..ops.sph_kernels import SortedTuning
+from ..ops.sph_kernels import SortedTuning, default_tuning
 from ..params import PhysParams, stack_params
+from ..sim import graph, stepper
 from ..sim.stepper import initial_state, make_param_step, resolve_device
 from ..state import ParticleState, StepMetrics, stack_states
 
@@ -66,12 +78,44 @@ def over_scenes(step):
 def make_batched_step(base: SimConfig, *, neighbor: str = "sorted",
                       faithful: bool = True,
                       tune: SortedTuning | None = None):
-    """``(states, params) → (states, metrics)`` over a leading scene axis:
-    each scene's frame step on its row, one scene after another (JAX's
-    ``vmap`` of ``make_param_step``). ``neighbor`` and ``tune`` are
-    ``make_param_step``'s (the port's default tier, ``"sorted"``)."""
+    """``(states, params) → (states, metrics)`` over a leading scene axis
+    (JAX's ``vmap`` of ``make_param_step``): the scene-axis step on the
+    sorted tier's faithful window route in the default variant, else each
+    scene's frame step on its row, one scene after another (the module
+    docstring). ``neighbor`` and ``tune`` are ``make_param_step``'s (the
+    port's default tier, ``"sorted"``; None reads the ``SPH_PALLAS_*``
+    variables)."""
+    tune = default_tuning() if tune is None else tune
+    if stepper.scene_axis(neighbor, faithful, tune):
+        return stepper.make_scenes_step(base)
     return over_scenes(make_param_step(base, neighbor=neighbor,
                                        faithful=faithful, tune=tune))
+
+
+class SceneCarry(NamedTuple):
+    """What a recorded batched frame reads and writes in place: a block's
+    states ([S, N, ...], the callers' order) and its last metrics ([S]
+    lanes)."""
+
+    states: ParticleState
+    metrics: StepMetrics
+
+    def clone(self) -> "SceneCarry":
+        return SceneCarry(ParticleState(*(x.clone() for x in self.states)),
+                          StepMetrics(*(x.clone() for x in self.metrics)))
+
+
+def scene_frame_body(step, params: PhysParams):
+    """``advance(carry)``: one batched frame of ``step`` on a
+    :class:`SceneCarry` with the block's ``params``, written back into the
+    carry; what ``BatchedScenes`` records, and on the CPU runs eagerly."""
+
+    def advance(c: SceneCarry) -> None:
+        states, m = step(c.states, params)
+        for dst, src in zip((*c.states, *c.metrics), (*states, *m)):
+            dst.copy_(src)
+
+    return advance
 
 
 class BatchedScenes:
@@ -81,14 +125,31 @@ class BatchedScenes:
     contiguous blocks, one a device, as JAX's ``mesh=`` shards them
     (``P(axis)``): the scene count must divide by the device count. Each
     block steps on its own device. ``states`` and ``last_metrics`` are the
-    whole batch on the first device (a copy when there are several).
+    whole batch on the first device (a copy when there are several, or
+    when the frames replay a graph).
+
+    ``host_loop`` has ``make_rollout``'s meaning, and the ``.host_loop``
+    attribute says which mode runs:
+    - None (the default): on the card, a recorded graph for the sorted
+      tier (every route, mode and variant), one replay a frame; the host
+      loop for the other tiers and on the CPU;
+    - False: the graph; it raises on the CPU and, as
+      ``NotImplementedError``, on the slotted, gather, brute and sites
+      tiers;
+    - True: the batched step called from Python each frame, each phase in
+      its profiler range.
+    Each block's graph (``sim/graph.py`` ``RecordedStep``) is recorded on
+    its device at the first frame, after one eager warm-up frame on a copy
+    of the block; a capture that fails raises, and nothing runs in its
+    place. The launch counters after a replay equal the host loop's.
     """
 
     def __init__(self, base: SimConfig, overrides: Sequence[dict], *,
                  neighbor: str = "sorted", faithful: bool = True,
                  tune: SortedTuning | None = None,
                  devices: Sequence[torch.device | str] | torch.device
-                 | str | None = None):
+                 | str | None = None,
+                 host_loop: bool | None = None):
         self.configs = batch_configs(base, overrides)
         if devices is None or isinstance(devices, (str, torch.device)):
             devices = [devices]
@@ -97,6 +158,9 @@ class BatchedScenes:
         if n_scenes % n_dev:
             raise ValueError(f"{n_scenes} scenes do not divide over "
                              f"{n_dev} devices")
+        tier = stepper._check_supported(neighbor)
+        self.host_loop = any([graph.choose_host_loop(tier, d, host_loop)
+                              for d in self.devices])
         per = n_scenes // n_dev
         self._step = make_batched_step(base, neighbor=neighbor,
                                        faithful=faithful, tune=tune)
@@ -108,6 +172,15 @@ class BatchedScenes:
                 stack_states([initial_state(c, dev) for c in cfgs]),
                 stack_params([PhysParams.from_config(c, dev)
                               for c in cfgs])))
+        # each block's recorded frame, whose carry holds its states
+        self._graphs = []
+        if not self.host_loop:
+            for dev, (states, params) in zip(self.devices, self.blocks):
+                carry = SceneCarry(states, StepMetrics(*(
+                    torch.zeros(per, dtype=t, device=dev)
+                    for t in graph.METRIC_DTYPES)))
+                self._graphs.append((carry, graph.RecordedStep(
+                    scene_frame_body(self._step, params), carry, dev)))
         self.last_metrics: StepMetrics | None = None
         self.frame = 0
 
@@ -120,7 +193,11 @@ class BatchedScenes:
 
     @property
     def states(self) -> ParticleState:
-        return self._gather([b[0] for b in self.blocks], self.devices[0])
+        parts = [b[0] for b in self.blocks]
+        if self._graphs:
+            # the carries change at the next replay
+            parts = [type(p)(*(x.clone() for x in p)) for p in parts]
+        return self._gather(parts, self.devices[0])
 
     @property
     def params(self) -> PhysParams:
@@ -133,10 +210,14 @@ class BatchedScenes:
                     zip(self.devices, self.blocks)):
                 with (torch.cuda.device(dev) if dev.type == "cuda"
                       else nullcontext()):
-                    states, m = self._step(states, params)
-                self.blocks[k] = (states, params)
+                    if self._graphs:
+                        carry, recorded = self._graphs[k]
+                        recorded.replay()
+                        m = StepMetrics(*(x.clone() for x in carry.metrics))
+                    else:
+                        states, m = self._step(states, params)
+                        self.blocks[k] = (states, params)
                 ms.append(m)
             self.last_metrics = self._gather(ms, self.devices[0])
             self.frame += 1
         return self.states
-

@@ -14,9 +14,12 @@ counterpart of a compiled scan is a CUDA graph:
   ``SortedTuning``. So a replay launches the kernels the host loop
   launches (K1, K2, K3, K5), on the same inputs, and its result is the
   host loop's bit for bit.
-- :class:`GraphRollout` warms the body up once on a copy of the carry,
+- :class:`RecordedStep` warms a step up once on a copy of its carry,
   records it once (``torch.cuda.CUDAGraph``, in the graph's own memory
-  pool) and replays it ``n_frames // k`` times a call.
+  pool) and replays it; :class:`GraphRollout` replays the body
+  ``n_frames // k`` times a call. ``parallel.BatchedScenes`` records its
+  batched frame (JAX's jitted ``vmap`` of the step, one program a frame)
+  with the same class, one replay a frame.
 
 Nothing in the body depends on a Python number that changes from frame to
 frame: the frame index is a device counter. Frame f's metrics go to lane f
@@ -47,7 +50,7 @@ from ..state import ParticleState, StepMetrics
 from . import stepper
 
 # dtypes of the StepMetrics lanes, in field order
-_METRIC_DTYPES = (torch.float32,) * 3 + (torch.int32,) * 3
+METRIC_DTYPES = (torch.float32,) * 3 + (torch.int32,) * 3
 
 
 def choose_host_loop(neighbor: str, device: torch.device,
@@ -132,7 +135,7 @@ class FrameBody:
             pid=torch.zeros(n, dtype=torch.int32, device=dev),
             counter=torch.zeros(1, dtype=torch.int64, device=dev),
             metrics=StepMetrics(*(torch.zeros(nf, dtype=t, device=dev)
-                                  for t in _METRIC_DTYPES)),
+                                  for t in METRIC_DTYPES)),
             snaps=(torch.zeros(self.replays, n, 3, **f32)
                    if self.snapshot_every else None),
             dts=torch.zeros(nf, **f32) if self.div is not None else None)
@@ -192,55 +195,69 @@ class FrameBody:
         return final, m, c.snaps.clone()
 
 
+class RecordedStep:
+    """``advance(carry)`` recorded once as a CUDA graph on ``device`` and
+    replayed: the graph reads and writes the carry's tensors in place. The
+    first :meth:`replay` warms ``advance`` up on ``carry.clone()`` (it
+    builds the kernels and primes the caching allocator) and records it on
+    a side stream; a capture that fails raises, counts nothing, restores
+    the caller's stream, and nothing runs in its place. Each replay adds
+    the launch counts the capture's wrappers counted."""
+
+    def __init__(self, advance, carry, device: torch.device):
+        self._advance, self._carry, self.device = advance, carry, device
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches: dict[str, int] = {}
+
+    def replay(self) -> None:
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        counts = sph_kernels.launch_counts
+        for name, k in self.launches.items():
+            counts[name] = counts.get(name, 0) + k
+
+    def _capture(self) -> None:
+        counts = sph_kernels.launch_counts
+        saved = dict(counts)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        try:
+            # the outer stream context restores the caller's stream even
+            # when a failed capture skips the inner one's exit
+            with torch.cuda.stream(side):
+                self._advance(self._carry.clone())
+                before = dict(counts)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=side):
+                    self._advance(self._carry)
+            self.launches = {name: k - before.get(name, 0)
+                             for name, k in counts.items()
+                             if k != before.get(name, 0)}
+        finally:
+            counts.clear()
+            counts.update(saved)
+        main.wait_stream(side)
+        self.graph = graph
+
+
 class GraphRollout:
     """``make_rollout`` / ``make_dt_rollout`` of the sorted tier on the
     card: ``rollout(state[, dt_schedule])`` copies the state into the
-    carry, replays the recorded body ``n_frames // k`` times and returns
-    fresh tensors. The first call warms the body up on a copy of the carry
-    (it builds the kernels and primes the caching allocator) and records
-    it; a capture that fails raises, and nothing runs in its place."""
+    carry, replays the recorded body (:class:`RecordedStep`) ``n_frames //
+    k`` times and returns fresh tensors. The first call records the body."""
 
     host_loop = False
 
     def __init__(self, body: FrameBody):
         self.body = body
         self._carry = body.new_carry()
-        self._graph: torch.cuda.CUDAGraph | None = None
-        self._launches: dict[str, int] = {}
+        self._step = RecordedStep(body.advance, self._carry, body.device)
 
     def __call__(self, state: ParticleState, dt_schedule=None):
         body = self.body
         body.load(self._carry, state, dt_schedule)
-        if body.replays and self._graph is None:
-            self._capture()
-        counts = sph_kernels.launch_counts
         for _ in range(body.replays):
-            self._graph.replay()
-            for name, k in self._launches.items():
-                counts[name] = counts.get(name, 0) + k
+            self._step.replay()
         return body.result(self._carry)
-
-    def _capture(self) -> None:
-        body, dev = self.body, self.body.device
-        counts = sph_kernels.launch_counts
-        saved = dict(counts)
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        try:
-            # the outer stream context restores the caller's stream even
-            # when a failed capture skips the inner one's exit
-            with torch.cuda.stream(side):
-                body.advance(self._carry.clone())
-                before = dict(counts)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, stream=side):
-                    body.advance(self._carry)
-            self._launches = {name: k - before.get(name, 0)
-                              for name, k in counts.items()
-                              if k != before.get(name, 0)}
-        finally:
-            counts.clear()
-            counts.update(saved)
-        main.wait_stream(side)
-        self._graph = graph

@@ -9,7 +9,11 @@ Counterpart of ``sphfluidsimulation_tpu/sim/stepper.py``: ``integrate_substep``
 ``make_dt_rollout`` (:519-566), ``make_rollout`` (:569-634) and
 ``initial_state``. The sorted tier's rollouts run as a CUDA graph on the
 card by default (``sim/graph.py``, JAX's one dispatch a rollout); this
-module holds their host loops, JAX's ``host_loop=True``.
+module holds their host loops, JAX's ``host_loop=True``. It also holds
+the faithful sorted step over a leading scene axis
+(:func:`make_scenes_step`), the port's form of JAX's ``vmap`` of the frame
+step (``parallel/batch.py:42-46``), which ``parallel.BatchedScenes`` takes
+on the sorted tier's window route.
 
 Each frame reproduces the reference pipeline (SphFluidSimulation.cs:96-108).
 In faithful mode the neighbour structure and the density are computed ONCE
@@ -85,7 +89,7 @@ import torch
 from ..config import SimConfig
 from ..ops import (brute, cellops, compact, extensions, grid, sites,
                    sph_kernels, sph_math)
-from ..ops.frame import SortedFrame, build_frame
+from ..ops.frame import SortedFrame, build_frame, build_frame_scenes
 from ..ops.sph_kernels import SortedTuning, default_tuning
 from ..params import PhysParams
 from ..state import ParticleState, StepMetrics, make_state, stack_states
@@ -297,6 +301,81 @@ def _sorted_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
             pos=_unsort(frame.order, pos_s), vel=_unsort(frame.order, vel_s),
             nan_count=state.nan_count + _unsort(frame.order, nan_hits))
         return new_state, m
+
+    return step
+
+
+def _unsort_scenes(order: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """:func:`_unsort` within each scene: ``a`` [S, N, ...] in each scene's
+    sorted order, ``order`` i32[S, N] its scene-local particle ids."""
+    n_scenes, n = order.shape
+    idx = order.long() + n * torch.arange(n_scenes, device=order.device)[
+        :, None]
+    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    out.view((n_scenes * n,) + tuple(a.shape[2:]))[idx.view(-1)] = \
+        a.reshape((n_scenes * n,) + tuple(a.shape[2:]))
+    return out
+
+
+def scene_axis(neighbor: str, faithful: bool, tune: SortedTuning) -> bool:
+    """Whether the batched step of ``neighbor``'s tier takes the scene axis
+    (:func:`make_scenes_step`): the sorted tier, faithful, on the window
+    route, fused, in the default variant (``tune == SortedTuning()``)."""
+    return (_check_supported(neighbor) == "sorted" and faithful
+            and tune == SortedTuning())
+
+
+def make_scenes_step(cfg: SimConfig) -> ParamStepFn:
+    """The faithful sorted frame step over a leading scene axis:
+    ``(states, params) → (states, metrics)`` with states [S, N, ...] and
+    a stacked ``PhysParams``, in the callers' order, as ``_sorted_step``
+    of each scene on its row, bit for bit (JAX's ``vmap`` of the step, one
+    program a frame):
+
+        build_frame_scenes → K1 over the scenes → pack rows and pj
+        → 5 × K2 over the scenes → unpack, each scene's metrics
+        → each scene's unsort
+
+    K1 and K2 launch once a phase over all scenes
+    (``sph_kernels.density_scenes``, ``fused_substep_scenes``; K2-ext with
+    ``cfg.xsph`` or ``cfg.artificial_viscosity``); each scene's metrics
+    are ``_metrics`` of its own rows, the solo reductions. The profiler
+    ranges are ``_sorted_step``'s (``FRAME_PHASES``)."""
+    cfg = cfg.validate()
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+
+    def step(states: ParticleState, params: PhysParams
+             ) -> tuple[ParticleState, StepMetrics]:
+        with span("build_frame"):
+            frame, (pos_s, vel_s) = build_frame_scenes(
+                states.pos, r, cap, extras=(states.pos, states.vel))
+        scal = sph_kernels.scal_blocks(params, xsph, alpha)
+        with span("density"):
+            rho_s = sph_kernels.density_scenes(frame, pos_s, params, r, cap,
+                                               scal)
+        with span("pack_rows"):
+            rows = sph_kernels.pack_rows_scenes(pos_s, vel_s, rho_s)
+            pj = sph_kernels.pj_cols_scenes(rho_s, params)
+        for _ in range(cfg.substeps):
+            with span("fused_substep"):
+                rows = sph_kernels.fused_substep_scenes(
+                    frame, rows, params, r, cap, xsph, alpha, pj, scal)
+        with span("unpack+metrics"):
+            pos_s, vel_s, _, nan_hits = sph_kernels.unpack_rows_scenes(rows)
+            ovf = (~frame.occ).sum(1).to(torch.int32)
+            # each scene's reductions on its own rows, as the solo step
+            # reduces them (a reduction over [S, N] may sum in another
+            # tree); ρ is copied out so that each mean starts aligned
+            m = stack_states([
+                _metrics(vel_s[s], rho_s[s].clone(), nan_hits[s], ovf[s],
+                         sph_kernels.scene_params(params, s))
+                for s in range(rows.shape[0])])
+        order = frame.order
+        return ParticleState(
+            pos=_unsort_scenes(order, pos_s),
+            vel=_unsort_scenes(order, vel_s),
+            nan_count=states.nan_count + _unsort_scenes(order, nan_hits)), m
 
     return step
 

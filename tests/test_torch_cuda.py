@@ -7,7 +7,9 @@ kernels (sphfluidsimulation_torch/probes), and the paths around the
 kernels that run on the card: the graph rollout against the host loop,
 the exact tiers, the dt replay,
 the snapshots of the sorted rollout, the render properties, the scene
-batch, the sites tier, its slab step, the domain step and the CLI's
+batch (the scene-axis K1 and K2 at config 5's shape, the batch's graph
+against its host loop), the sites tier, its slab step, the domain step
+and the CLI's
 ``sweep`` and ``run --shards``. They
 import no JAX (the machine with the card has none), so run them without the
 JAX test conftest, from the root of a checkout:
@@ -339,7 +341,7 @@ def test_failed_capture_raises_and_runs_no_loop_on_card(cuda_device,
         roll(s0)
     assert sk.launch_counts == dict.fromkeys(sk.launch_counts, 0)
     assert torch.cuda.current_stream(cuda_device) == stream
-    assert roll._graph is None
+    assert roll._step.graph is None
     monkeypatch.setattr(stepper, "_sorted_frame", real)
     final, _ = roll(s0)
     ref, _ = make_rollout(cfg, 2, device=cuda_device, host_loop=True)(s0)
@@ -855,9 +857,10 @@ def test_mesh_properties_on_card(cuda_device):
 
 
 # ------------------------------------------- batching, sites, domain --
-# The modules around the kernels: scene batching launches K1 and
-# K2 a scene and frame; the sites tier, the sites slab step and the domain
-# step are plain PyTorch on the card and launch no kernel.
+# The modules around the kernels: scene batching launches K1 and K2 once a
+# phase over all scenes (the scene axis); the sites tier, the sites slab
+# step and the domain step are plain PyTorch on the card and launch no
+# kernel.
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ext", [False, True])
@@ -871,15 +874,172 @@ def test_batched_scenes_launch_the_kernels_and_equal_each_scene_alone(
     bs = BatchedScenes(cfg, overrides, devices=cuda_device)
     sk.reset_launch_counts()
     bs.step(2)
-    k2 = "fused_substep_ext" if ext else "fused_substep"
+    # one K1 and five K2 a frame over the three scenes
+    k2 = "fused_substep_ext_scenes" if ext else "fused_substep_scenes"
     assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
-                                    density=6, **{k2: 30})
+                                    density_scenes=2, **{k2: 10})
     for i, ov in enumerate(overrides):
         c = cfg.replace(**ov)
         solo, _ = make_rollout(c, 2, device=cuda_device)(
             initial_state(c, cuda_device))
         for a, b in zip(bs.states, solo):
             assert _same_bits(a[i], b)
+
+
+def _config5_batch(device, ext):
+    """The frame of config 5's batch over the scene axis (8 scenes of
+    524,288 requested particles, rest density 1.0-2.0), or with ``ext`` 2
+    scenes of config 3's physics, from the spawn: (frame, sorted
+    positions, sorted velocities, stacked params, r, cap, xsph, alpha)."""
+    from sphfluidsimulation_torch import cli
+    from sphfluidsimulation_torch.ops.frame import build_frame_scenes
+    from sphfluidsimulation_torch.params import stack_params
+    from sphfluidsimulation_torch.state import stack_states
+    if ext:
+        base = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+                         artificial_viscosity=0.5)
+        overrides = cli.sweep_overrides(1.2, 1.8, 2)
+    else:
+        base = SimConfig(particle_number=524288)
+        overrides = cli.sweep_overrides(1.0, 2.0, 8)
+    cfgs = [base.replace(**ov) for ov in overrides]
+    states = stack_states([initial_state(c, device) for c in cfgs])
+    params = stack_params([PhysParams.from_config(c, device) for c in cfgs])
+    r, cap = base.bucket_resolution, base.voxel_capacity
+    frame, (ps, vs) = build_frame_scenes(states.pos, r, cap,
+                                         extras=(states.pos, states.vel))
+    return (frame, ps, vs, params, r, cap, base.xsph,
+            base.artificial_viscosity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+def test_scene_axis_kernels_match_plain_at_config5_on_card(cuda_device,
+                                                           ext):
+    # K1-scenes and K2-scenes (K2-ext-scenes: 2 scenes of config 3's
+    # physics) in one launch each, every scene held to its plain version
+    # (the solo rules) and bit-equal to its solo launch, on the rows two
+    # substeps into the frame; the viscosity (the artificial viscosity)
+    # zeroed must fail scene 0's rule
+    from sphfluidsimulation_torch.ops.frame import scene_frame
+    frame, ps, vs, params, r, cap, xs, al = _config5_batch(cuda_device, ext)
+    name = "fused_substep_ext_scenes" if ext else "fused_substep_scenes"
+    before = dict(sk.launch_counts)
+    rho = sk.density_scenes(frame, ps, params, r, cap)
+    rows = sk.pack_rows_scenes(ps, vs, rho)
+    for _ in range(2):
+        rows = sk.fused_substep_scenes(frame, rows, params, r, cap, xs, al)
+    out = sk.fused_substep_scenes(frame, rows, params, r, cap, xs, al)
+    assert sk.launch_counts["density_scenes"] == \
+        before["density_scenes"] + 1
+    assert sk.launch_counts[name] == before[name] + 3
+    for sc in range(ps.shape[0]):
+        fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+        torch.testing.assert_close(rho[sc], sk.density_plain(
+            fs, ps[sc], ph, r, cap), rtol=1e-5, atol=1e-6)
+        assert _same_bits(rho[sc], sk.density_cuda(fs, ps[sc], ph, r, cap))
+        acc = sk.substep_accuracy(fs, rows[sc], out[sc], ph, r, cap, xs, al)
+        assert acc.ok, (sc, acc)
+        assert _same_bits(out[sc], sk.fused_substep_cuda(
+            fs, rows[sc], ph, r, cap, xs, al))
+    if ext:
+        bad = sk.fused_substep_scenes_cuda(frame, rows, params, r, cap, xs,
+                                           0.0)
+    else:
+        bad = sk.fused_substep_scenes_cuda(
+            frame, rows, params._replace(
+                viscosity=torch.zeros_like(params.viscosity)), r, cap)
+    fs, ph = scene_frame(frame, 0), sk.scene_params(params, 0)
+    assert not sk.substep_accuracy(fs, rows[0], bad[0], ph, r, cap, xs,
+                                   al).ok
+
+
+# the batched steps BatchedScenes records: the scene axis (with and
+# without extensions) and, scene by scene, the corrected and compact routes
+BATCH_CASES = {"scene-axis": ({}, {}),
+               "scene-axis-ext": ({}, dict(xsph=XSPH,
+                                           artificial_viscosity=ALPHA)),
+               "corrected": (dict(faithful=False), {}),
+               "compact": (dict(tune=COMPACT), {})}
+
+
+def _batches(case, device, **kw):
+    from sphfluidsimulation_torch.parallel import BatchedScenes
+    opts, ext = BATCH_CASES[case]
+    cfg = SimConfig(**_GOLDENISH, **ext)
+    overrides = [{"rest_density": 1.0 + 0.25 * i, "seed": i}
+                 for i in range(3)]
+    return {mode: BatchedScenes(cfg, overrides, devices=device,
+                                host_loop=mode == "host", **opts, **kw)
+            for mode in ("host", "graph")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BATCH_CASES))
+def test_batched_scenes_graph_is_bit_equal_to_the_host_loop_on_card(
+        cuda_device, case):
+    # JAX's one program a frame: each frame of the batch one replay of the
+    # recorded batched step, bit for bit the host loop's states and
+    # metrics, through the same launches
+    bss = _batches(case, cuda_device)
+    assert bss["host"].host_loop is True and bss["graph"].host_loop is False
+    counts = {}
+    for mode, bs in bss.items():
+        bs.step()                 # the graph's first frame records it
+        sk.reset_launch_counts()
+        bs.step(3)
+        torch.cuda.synchronize()
+        counts[mode] = dict(sk.launch_counts)
+    assert counts["graph"] == counts["host"]
+    assert sum(counts["host"].values()) > 0
+    if case.startswith("scene-axis"):
+        assert counts["host"]["density_scenes"] == 3
+    for a, b in zip((*bss["host"].states, *bss["host"].last_metrics),
+                    (*bss["graph"].states, *bss["graph"].last_metrics)):
+        assert a.shape == b.shape and _same_bits(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["host", "graph"])
+def test_batched_frame_never_waits_for_the_card(cuda_device, mode):
+    # the batched frame build, the scene-axis kernels, the per-scene
+    # metrics and unsorts make no synchronising call, in either mode
+    bs = _batches("scene-axis-ext", cuda_device)[mode]
+    bs.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bs.step(2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_failed_batched_capture_raises_on_card(cuda_device, monkeypatch):
+    # no fallback: a batched frame that cannot be recorded (it reads a
+    # value back) raises, counts nothing, leaves the caller's stream
+    # current and steps nothing in its place
+    bss = _batches("scene-axis", cuda_device)
+    real = sk.density_scenes
+
+    def reads_back(*args, **kw):
+        rho = real(*args, **kw)
+        float(rho.max())
+        return rho
+
+    monkeypatch.setattr(sk, "density_scenes", reads_back)
+    stream = torch.cuda.current_stream(cuda_device)
+    sk.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        bss["graph"].step()
+    assert sk.launch_counts == dict.fromkeys(sk.launch_counts, 0)
+    assert torch.cuda.current_stream(cuda_device) == stream
+    assert bss["graph"].frame == 0
+    monkeypatch.setattr(sk, "density_scenes", real)
+    for bs in bss.values():
+        bs.step(2)
+    for a, b in zip(bss["host"].states, bss["graph"].states):
+        assert _same_bits(a, b)
 
 
 @pytest.mark.cuda
@@ -989,8 +1149,10 @@ def test_sweep_and_shards_cli_on_card(cuda_device, tmp_path, capsys):
     sk.reset_launch_counts()
     assert cli.main(["sweep", *argv, "--scenes", "2", "--frames", "2",
                      "--export-dir", str(tmp_path)]) == 0
+    # the scene axis: 1 K1 + 5 K2 a frame over both scenes
     assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
-                                    density=4, fused_substep=20)
+                                    density_scenes=2,
+                                    fused_substep_scenes=10)
     assert len(list(tmp_path.glob("scene_*.png"))) == 2
     assert cli.main(["run", *argv, "--shards", "2", "--row-slack", "4",
                      "--frames", "1"]) == 0
