@@ -19,8 +19,9 @@ every phase passed; each prints its seconds):
    R = 47, and 1,048,576 particles, R = 75); K1, K2 with the extension sums,
    K3 forces, and K3 + ``integrate_substep`` at BASELINE config 3 (524,288
    requested = 524,176 active particles, R = 47, preset 2, XSPH 0.3,
-   artificial viscosity 0.5); the compact-lane kernel K5: density and the
-   fused substep at both sizes, forces at 262k, density and the fused
+   artificial viscosity 0.5); the compact-lane kernel K5: density at both
+   sizes, the fused substep at 262k (at 1M it is held at frame 10: its
+   plain version takes 13 s a call), forces at 262k, density and the fused
    substep with extensions at config 3, the substep and forces on rows two
    substeps into the frame, where rows drift, with the drift count equal to
    the plain version's; every kernel with the frame's voxel capacity; the
@@ -30,7 +31,15 @@ every phase passed; each prints its seconds):
    into the frame, each scene held to its plain version and bit-equal to
    its solo launch, and K2-ext-scenes likewise on 2 scenes of config 3's
    physics, whose artificial viscosity zeroed is a planted control that
-   must fail;
+   must fail; K3-scenes (config 5) and K3-ext-scenes (the config-3 batch)
+   on the rows two substeps into the frame, and the K5-scenes instances,
+   density on the frame and the substep (with extensions on the config-3
+   batch) and forces on the rows two substeps in, each scene bit-equal to
+   its solo launch (K5's drift count too, and equal to its plain
+   version's), the two ends of the sweep held to their plain versions
+   (K5, whose plain version takes seconds a scene: scene 0),
+   with planted controls (K3-scenes and K5-scenes with viscosity 0,
+   K3-ext-scenes folded with XSPH 0);
 4. main paths, each after an untimed first call of its rollout (which
    builds the kernels and records the graph), with the launch counters
    reset just before and read just after it; the sorted tier's rollouts
@@ -72,9 +81,12 @@ every phase passed; each prints its seconds):
    pairs of this run's inputs, over the FP32 rate; and K5's stream, the
    slots a tile that it reads (each union cell cut at the capacity), beside
    the length of the uncut union; the scene-axis instances at phase 3's
-   batches (config 5 at frame 11, the config-3 batch at frame 0), their
-   plain versions scene by scene, and beside them the solo K1 and K2 on
-   the same inputs, one launch a scene;
+   batches (config 5 at frame 11, the config-3 batch at frame 0): K1,
+   K2, K3 and K5 (density, substep, forces; with extensions K2-ext, K3-ext
+   and K5-ext on the config-3 batch; the forces on the frame-start rows,
+   the substeps on the rows two substeps in), their plain versions scene
+   by scene, and beside them the solo kernels on the same inputs, one
+   launch a scene;
 8. the slab step (``parallel.make_pallas_slab_step``) on ``LocalRing(4)``,
    four z-slabs on the one card: the banded K1 and K2 (K2-ext at config 3)
    held against their banded plain versions on each shard's frame
@@ -110,7 +122,12 @@ every phase passed; each prints its seconds):
    2 and 4 slabs (``exact_cert`` 0, within 2e-5 of the single-device
    compact route); the CLI at config 3 with ``SPH_PALLAS_FUSED=0`` and
    with ``SPH_PALLAS_KAHAN=1``; and each new instance's time, plain time
-   and bound, as in phase 7;
+   and bound, as in phase 7; the variants' scene-axis instances on 2
+   scenes of 262k: each variant's batch (``kahan``, ``bf16``,
+   ``fuse_acc=False``, ``bf16`` on the compact route) through
+   ``BatchedScenes`` for 3 frames with its exact launches, then each
+   instance on the spawn's frame bit-equal to its solo launch scene by
+   scene, scene 0 held to its variant's plain version, and timed;
 10. the paths of the JAX package's default backend and its export path,
    each with the launch counters reset before it: the exact tiers
    (``neighbor="slotted"`` and ``"gather"``, plain PyTorch, which launch no
@@ -174,7 +191,18 @@ every phase passed; each prints its seconds):
    position may end non-finite with ``exact_cert`` 0 only where the plain
    substep on the same inputs gives it too; a batch of 2 scenes of
    config 3's physics (1 K1-scenes + 5 K2-ext-scenes a frame, each scene
-   bit-equal to its solo rollout after 2 frames); config 5 on the slotted
+   bit-equal to its solo rollout after 2 frames); the sweep's other
+   routes on the scene axis: ``sweep --corrected`` (6 K1-scenes + 5
+   K3-scenes a frame) and the ``SPH_PALLAS_COMPACT=1`` sweep (1 + 5
+   K5-scenes) through the CLI for 3 frames and through ``BatchedScenes``
+   in both modes as above (H G G H, the exact launches, the modes
+   bit-equal, each mode's rate, host and device ms a frame and idle
+   share), scenes 0 and 7 bit-equal to their solo rollouts, positions in
+   the cube (a non-finite one at ``exact_cert`` 0 replayed through the
+   plain versions, as for the faithful batch); and one frame each of
+   config 5 compact corrected (6 + 5 K5-scenes) and of the config-3
+   batch corrected (K3-ext-scenes) and compact (K5-ext-scenes), its last
+   scene bit-equal to its solo rollout; config 5 on the slotted
    tier (the JAX CLI's default) for 1 frame, no kernel launch; the sites
    tier (``neighbor="sites"``, plain torch, no kernel launch) at 262k
    golden for 3 frames (frame 1 takes the spawn escalation) with positions
@@ -322,6 +350,16 @@ KERNELS = {
                              "pallas_sph.py:961"),
     "fused_substep_ext_scenes": ("fused", "fused_substep.cu",
                                  "pallas_sph.py:961"),
+    "forces_scenes": ("forces", "forces.cu", "pallas_sph.py:961"),
+    "forces_ext_scenes": ("forces", "forces.cu", "pallas_sph.py:961"),
+    "compact_density_scenes": ("density", "compact.cu",
+                               "pallas_compact.py:237"),
+    "compact_substep_scenes": ("fused", "compact.cu",
+                               "pallas_compact.py:237"),
+    "compact_substep_ext_scenes": ("fused", "compact.cu",
+                                   "pallas_compact.py:237"),
+    "compact_forces_scenes": ("forces", "compact.cu",
+                              "pallas_compact.py:237"),
 }
 # the variants' instances: the kernel's entry with the variant's tag
 # (sph_kernels.variant_tag)
@@ -331,7 +369,9 @@ KERNELS.update({f"{name}+{tag}": KERNELS[name] for name, tags in (
     ("fused_substep_ext", ("facc0", "kahan", "bf16")),
     ("forces", ("facc0", "kahan", "bf16")),
     ("compact_substep", ("bf16",)), ("compact_substep_ext", ("bf16",)),
-    ("compact_forces", ("bf16",))) for tag in tags})
+    ("compact_forces", ("bf16",)), ("density_scenes", ("kahan",)),
+    ("fused_substep_scenes", ("facc0", "kahan", "bf16")),
+    ("compact_substep_scenes", ("bf16",))) for tag in tags})
 
 
 def bound(name: str, n: int, r: int, pairs: int, ext: bool,
@@ -403,12 +443,14 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
     from sphfluidsimulation_torch.ops import sites
     from sphfluidsimulation_torch.ops import sph_kernels as sk
     from sphfluidsimulation_torch.ops.frame import build_frame
+    from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning
     from sphfluidsimulation_torch.params import PhysParams
     from sphfluidsimulation_torch.parallel import (BatchedScenes, LocalRing,
                                                    collect, distribute,
                                                    make_sharded_frame_step,
                                                    make_slab_step)
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
+                                                      integrate_substep,
                                                       make_frame_step,
                                                       make_param_step,
                                                       make_rollout)
@@ -509,6 +551,187 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
         return (ParticleState(pos=unsort(pos_s), vel=unsort(vel_s),
                               nan_count=state.nan_count + unsort(nan_hits)),
                 unsort(went))
+
+    def replay_corrected_frame(cfg, state, phys, label):
+        """One corrected sorted frame of ``state`` without extensions as
+        ``_corrected_step`` runs it (each substep: build_frame, K1, K3 with
+        the substep's pj and the frame's scalar block, the fold,
+        ``integrate_substep``), K1 and K3 held to their plain versions on
+        the same inputs (K3's rule includes the NaN pattern). Returns the
+        new state and the rows whose position went non-finite in it; for
+        each such row the plain force, integrated alike, must give a
+        non-finite position too."""
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        scal = sk.scal_block(phys)
+        pos, vel = state.pos, state.vel
+        nan_hits = torch.zeros_like(state.nan_count)
+        went = torch.zeros_like(nan_hits, dtype=torch.bool)
+        for k in range(cfg.substeps):
+            lab = f"{label} substep {k + 1}"
+            frame, (pos_s, vel_s) = build_frame(pos, r, cap,
+                                                extras=(pos, vel))
+            rho = sk.density_cuda(frame, pos_s, phys, r, cap, scal)
+            hold_density(rho, sk.density_plain(frame, pos_s, phys, r, cap),
+                         "density", lab)
+            rows = sk.pack_rows(pos_s, vel_s, rho)
+            ref = sk.forces_reference(frame, rows, phys, r, cap)
+            f, _ = sk.fold_forces(sk.forces_cuda(
+                frame, rows, phys, r, cap, False, sk.pj_cols(rho, phys),
+                scal), rho, phys)
+            e, line = hold_out("forces", f, ref, lab)
+            print(f"compare {lab}: forces max|k-p| {e:.3e}, {line}",
+                  flush=True)
+            pos_n, vel_n, nan = integrate_substep(pos_s, vel_s, f, phys)
+            new = (torch.isfinite(pos_s).all(1)
+                   & ~torch.isfinite(pos_n).all(1))
+            if bool(new.any()):
+                pos_p, _, _ = integrate_substep(pos_s, vel_s, ref.p32, phys)
+                if not bool((~torch.isfinite(pos_p[new])).any(1).all()):
+                    fail(f"{lab}: the kernel's position goes non-finite "
+                         f"where the plain version's does not")
+            order = frame.order.long()
+
+            def unsort(a):
+                o = torch.empty_like(a)
+                o[order] = a
+                return o
+
+            went |= unsort(new)
+            pos, vel = unsort(pos_n), unsort(vel_n)
+            nan_hits = nan_hits + unsort(nan.to(torch.int32))
+        return (ParticleState(pos=pos, vel=vel,
+                              nan_count=state.nan_count + nan_hits), went)
+
+    def prove_scenes(cfg, overrides, params, states, frames, faithful):
+        """Each scene of ``states`` (after ``frames`` frames) in which a
+        position went non-finite, stepped alone on its row of the batch's
+        ``params`` and bit-equal to the batch, each frame in which a
+        position goes non-finite replayed with every launch held to its
+        plain version (``replay_frame``, ``replay_corrected_frame``).
+        Returns {scene: rows proven non-finite}."""
+        bad = ~torch.isfinite(states.pos).all(2)
+        proven = {}
+        replay = replay_frame if faithful else replay_corrected_frame
+        for sc in bad.any(1).nonzero()[:, 0].tolist():
+            cs = cfg.replace(**overrides[sc])
+            ps = PhysParams(*(x[sc] for x in params))
+            pstep = make_param_step(cs, faithful=faithful)
+            st = initial_state(cs, dev)
+            proven[sc] = torch.zeros_like(bad[sc])
+            for f in range(frames):
+                nxt, _ = pstep(st, ps)
+                if bool((~torch.isfinite(nxt.pos).all(1)
+                         & torch.isfinite(st.pos).all(1)).any()):
+                    label = (f"{cfg.substeps}-substep frame {f + 1} of scene "
+                             f"{sc} (rest density {cs.rest_density:g}, "
+                             f"faithful={faithful})")
+                    rep, went = replay(cs, st, ps, label)
+                    if not all(same_bits(a, b) for a, b in zip(rep, nxt)):
+                        fail(f"{label}: the replay leaves the frame step")
+                    proven[sc] |= went
+                st = nxt
+            if not all(same_bits(x[sc], y) for x, y in zip(states, st)):
+                fail(f"scene {sc} alone leaves the batch")
+        return proven
+
+    def sweep_modes(label, cfg, overrides, kw, per_frame, solo_scenes):
+        """One route of the sweep through ``BatchedScenes`` in both modes,
+        the host loop and the graph, each after a first frame (which
+        records the graph), run H G G H over C5_FRAMES frames each: the
+        exact launches a frame in every run and the two modes' states and
+        metrics bit-equal; each mode's aggregate particle-substeps/s and
+        host ms a frame, and over the next C5_FRAMES frames its host ms
+        beside the device ms of a second batch that runs the same frames
+        under the profiler, and so the idle share; the scenes
+        ``solo_scenes`` at frame C5_FRAMES + 1 bit-equal to their solo
+        rollouts; positions in the cube (``in_cube``, with
+        ``prove_scenes``)."""
+        want = dict(zero, **{k: v * C5_FRAMES for k, v in per_frame.items()})
+        modes = ("host", "graph")
+        bss = {m: BatchedScenes(cfg, overrides, devices=dev,
+                                host_loop=True if m == "host" else None,
+                                **kw) for m in modes}
+        for m in modes:
+            if dev.type == "cuda" and bss[m].host_loop is not (m == "host"):
+                fail(f"{label}, {m}: host_loop {bss[m].host_loop}")
+            bss[m].step()
+        sync()
+        host_ms = {m: [] for m in modes}
+        for k, m in enumerate(("host", "graph", "graph", "host")):
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            bss[m].step(C5_FRAMES)
+            sync()
+            host_ms[m].append((time.perf_counter() - t0) * 1e3 / C5_FRAMES)
+            read_launches(f"{label}, {m}", want)
+            if k == 1:
+                states, ms = bss["graph"].states, bss["graph"].last_metrics
+        if not all(same_bits(x, y) for x, y in zip(
+                (*bss["host"].states, *bss["host"].last_metrics),
+                (*bss["graph"].states, *bss["graph"].last_metrics))):
+            fail(f"{label}: the graph leaves the host loop")
+        late_ms, dev_ms = {}, {}
+        for m in modes:
+            twin = BatchedScenes(cfg, overrides, devices=dev,
+                                 host_loop=True if m == "host" else None,
+                                 **kw)
+            twin.step(2 * C5_FRAMES + 1)
+            sync()
+            t0 = time.perf_counter()
+            bss[m].step(C5_FRAMES)
+            sync()
+            late_ms[m] = (time.perf_counter() - t0) * 1e3 / C5_FRAMES
+            if dev.type == "cuda":
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    twin.step(C5_FRAMES)
+                    sync()
+                dev_ms[m] = device_ms(prof) / C5_FRAMES
+            else:
+                twin.step(C5_FRAMES)
+                dev_ms[m] = float("nan")
+            if not all(same_bits(x, y) for x, y in zip(twin.states,
+                                                       bss[m].states)):
+                fail(f"{label}, {m}: a second batch leaves the first")
+            del twin
+        work = len(overrides) * cfg.n_particles * cfg.substeps
+        text = []
+        for m in modes:
+            mean = sum(host_ms[m]) / len(host_ms[m])
+            text.append(
+                f"{m} {work / mean * 1e3:.6g} particle-substeps/s aggregate "
+                f"(host {' / '.join(f'{x:.4f}' for x in host_ms[m])} ms a "
+                f"frame; frames {2 * C5_FRAMES + 2}-{3 * C5_FRAMES + 1} host "
+                f"{late_ms[m]:.4f}, device {dev_ms[m]:.4f} ms a frame, idle "
+                f"share {1 - dev_ms[m] / late_ms[m]:.4f})")
+        print(f"{label}, {len(overrides)} scenes x {cfg.n_particles} "
+              f"particles, frames 2-{2 * C5_FRAMES + 1}: {'; '.join(text)}; "
+              f"graph/host rate "
+              f"{sum(host_ms['host']) / sum(host_ms['graph']):.4f}; states "
+              f"and metrics bit-equal at frames {C5_FRAMES + 1} and "
+              f"{2 * C5_FRAMES + 1}; exact_cert {ms.exact_cert.tolist()} "
+              f"[{ident}]", flush=True)
+        params = bss["graph"].params
+        del bss
+        faithful = kw.get("faithful", True)
+        for sc in solo_scenes:
+            cs = cfg.replace(**overrides[sc])
+            solo, _ = make_rollout(cs, C5_FRAMES + 1, faithful=faithful,
+                                   tune=kw.get("tune"), device=dev)(
+                initial_state(cs, dev))
+            if not all(same_bits(x[sc], y) for x, y in zip(states, solo)):
+                fail(f"{label}: scene {sc} leaves its solo rollout")
+        print(f"{label}: scenes {list(solo_scenes)} at frame "
+              f"{C5_FRAMES + 1} bit-equal to their solo rollouts", flush=True)
+        # on the compact route a drifted row may end non-finite, counted by
+        # its scene's certificate
+        proven = ({} if kw.get("tune", SortedTuning()).compact else
+                  prove_scenes(cfg, overrides, params, states, C5_FRAMES + 1,
+                               faithful))
+        for sc in range(len(overrides)):
+            in_cube(states.pos[sc], f"{label} scene {sc}",
+                    int(ms.exact_cert[sc]), proven.get(sc))
 
     # -- config 5 through the CLI: 1 K1 + 5 K2 launches a frame over the
     # scene axis (a replayed graph), 8 PNGs
@@ -693,6 +916,69 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
         print("config 3 batch of 2 scenes with extensions: each scene "
               "bit-equal to its solo rollout after 2 frames", flush=True)
         del bs, solo
+    # -- the sweep's other routes on the scene axis: --corrected (6
+    # K1-scenes + 5 K3-scenes a frame) and SPH_PALLAS_COMPACT=1 (1 + 5
+    # K5-scenes), through the CLI and through BatchedScenes in both modes;
+    # the compact route corrected (6 + 5 K5-scenes), and the config-3 batch
+    # corrected (K3-ext-scenes) and compact (K5-ext-scenes), one frame each
+    compact_tune = SortedTuning(compact=True)
+    with Phase("config 5 corrected and compact sweeps"):
+        for env, extra, per_frame in (
+                ({}, ["--corrected"], dict(density_scenes=6,
+                                           forces_scenes=5)),
+                ({"SPH_PALLAS_COMPACT": "1"}, [],
+                 dict(compact_density_scenes=1,
+                      compact_substep_scenes=5))):
+            os.environ.update(env)
+            try:
+                run_cli(f"cli {env or ''} {' '.join(c5_argv + extra)} "
+                        f"--frames {C5_FRAMES}",
+                        c5_argv + extra + ["--frames", str(C5_FRAMES)],
+                        dict(zero, **{k: v * C5_FRAMES
+                                      for k, v in per_frame.items()}))
+            finally:
+                for var in env:
+                    del os.environ[var]
+        ends = (0, c5_scenes - 1)
+        sweep_modes("config 5 corrected", c5, overrides,
+                    dict(faithful=False), dict(density_scenes=6,
+                                               forces_scenes=5), ends)
+        sweep_modes("config 5 compact", c5, overrides,
+                    dict(tune=compact_tune),
+                    dict(compact_density_scenes=1,
+                         compact_substep_scenes=5), ends)
+        for label, cfg, ov, kw, want in (
+                ("config 5 compact corrected", c5, overrides,
+                 dict(faithful=False, tune=compact_tune),
+                 dict(compact_density_scenes=6, compact_forces_scenes=5)),
+                ("config 3 batch corrected", c3b, ov3,
+                 dict(faithful=False),
+                 dict(density_scenes=6, forces_ext_scenes=5)),
+                ("config 3 batch compact", c3b, ov3, dict(tune=compact_tune),
+                 dict(compact_density_scenes=1,
+                      compact_substep_ext_scenes=5))):
+            bs = BatchedScenes(cfg, ov, devices=dev, **kw)
+            bs.step()                                  # records the graph
+            sync()
+            sk.reset_launch_counts()
+            bs.step()
+            sync()
+            read_launches(label, dict(zero, **want))
+            sc = len(ov) - 1
+            cs = cfg.replace(**ov[sc])
+            solo, _ = make_rollout(cs, 2, faithful=kw.get("faithful", True),
+                                   tune=kw.get("tune"), device=dev)(
+                initial_state(cs, dev))
+            if not all(same_bits(x[sc], y) for x, y in zip(bs.states, solo)):
+                fail(f"{label}: scene {sc} leaves its solo rollout")
+            m = bs.last_metrics
+            print(f"{label}: scene {sc} bit-equal to its solo rollout after "
+                  f"2 frames; exact_cert {m.exact_cert.tolist()} [{ident}]",
+                  flush=True)
+            for k in range(len(ov)):
+                in_cube(bs.states.pos[k], f"{label} scene {k}",
+                        int(m.exact_cert[k]))
+            del bs, solo
     with Phase("config 5 slotted"):
         dt = run_cli(f"cli {' '.join(c5_argv)} --frames 1 --neighbor "
                      f"slotted", c5_argv + ["--frames", "1", "--neighbor",
@@ -1107,12 +1393,13 @@ def main() -> None:
                  f"{int(cp)}")
         return int(ck)
 
-    def compare_k5(cfg, state, label, forces=False, planted=False):
-        """K5 against its plain versions: density on the frame, then the
-        fused substep (and the forces) on rows two substeps into the frame
-        (two K5 launches), whose fresh cells may have left their tile's
-        band. The drift count of each kernel equals its plain version's
-        (the fresh spans of the same rows)."""
+    def compare_k5(cfg, state, label, forces=False, planted=False,
+                   substep=True):
+        """K5 against its plain versions: density on the frame, then (with
+        ``substep``) the fused substep (and the forces) on rows two
+        substeps into the frame (two K5 launches), whose fresh cells may
+        have left their tile's band. The drift count of each kernel equals
+        its plain version's (the fresh spans of the same rows)."""
         frame, pos_s, vel_s, phys, r, cap = frame_inputs(cfg, state)
         xs, al = cfg.xsph, cfg.artificial_viscosity
         ext = sk.uses_extensions(xs, al)
@@ -1120,6 +1407,8 @@ def main() -> None:
         rho_p, cp = compact.density_compact_plain(frame, pos_s, phys, r)
         hold_density(rho_k, rho_p, "compact_density", label)
         same_cert(ck, cp, "K5 density", label)
+        if not substep:
+            return
         rows = sk.pack_rows(pos_s, vel_s, rho_p)
         for _ in range(2):
             rows, _ = compact.compact_substep_cuda(frame, rows, phys, r, cap,
@@ -1264,7 +1553,8 @@ def main() -> None:
         version (phase 3's rules) and bit-equal to each scene's solo
         launch; with ``planted`` K2-scenes with viscosity 0 (the
         artificial viscosity 0 with extensions) must fail scene 0's rule.
-        Returns the frame, the positions, those rows, the params."""
+        Returns the frame, the positions, the frame-start rows, the rows
+        two substeps in, the params, r and the capacity."""
         frame, pos_s, vel_s, params, r, cap = scene_inputs(cfg, overrides,
                                                            states)
         xs, al = cfg.xsph, cfg.artificial_viscosity
@@ -1272,7 +1562,7 @@ def main() -> None:
         name = "fused_substep_ext_scenes" if ext else "fused_substep_scenes"
         scal = sk.scal_blocks(params, xs, al)
         rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap, scal)
-        rows = sk.pack_rows_scenes(pos_s, vel_s, rho)
+        rows = rows0 = sk.pack_rows_scenes(pos_s, vel_s, rho)
         pj = sk.pj_cols_scenes(rho, params)
         for _ in range(2):
             rows = sk.fused_substep_scenes_cuda(frame, rows, params, r, cap,
@@ -1310,7 +1600,147 @@ def main() -> None:
                     r, cap, xs, al, pj)
                 what = f"{name} with viscosity 0"
             must_fail(sk.hold(bad[0], refs[0]), what, f"{label} scene 0")
-        return frame, pos_s, rows, params, r, cap
+        return frame, pos_s, rows0, rows, params, r, cap
+
+    def held_scenes(n_sc):
+        """The scenes whose launches are held to their plain versions: the
+        two ends of a sweep (every scene is bit-equal to its solo launch,
+        which phases 3 and 4b hold to its plain version)."""
+        return sorted({0, n_sc - 1})
+
+    def compare_scenes_forces(cfg, overrides, states, label, planted=False):
+        """K3-scenes (K3-ext-scenes with extensions) on the rows two
+        substeps into the frame, as the unfused route launches it (a
+        spawn's velocities are 0): each scene's sums bit-equal to its solo
+        launch, and the ends of the sweep held to their plain versions
+        (the solo rule); with ``planted`` the viscosity zeroed (XSPH 0 in
+        the fold with extensions) must fail scene 0's rule."""
+        frame, pos_s, vel_s, params, r, cap = scene_inputs(cfg, overrides,
+                                                           states)
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        ext = sk.uses_extensions(xs, al)
+        name = "forces_ext_scenes" if ext else "forces_scenes"
+        scal = sk.scal_blocks(params)
+        rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap, scal)
+        rows = sk.pack_rows_scenes(pos_s, vel_s, rho)
+        pj = sk.pj_cols_scenes(rho, params)
+        for _ in range(2):
+            rows = sk.fused_substep_scenes_cuda(
+                frame, rows, params, r, cap, xs, al, pj,
+                sk.scal_blocks(params, xs, al))
+        sums = sk.forces_scenes_cuda(frame, rows, params, r, cap, ext, pj,
+                                     scal)
+        view = sk.scene_view(params)
+        f, dv = sk.fold_forces(sums, rho, view, xs, al)
+        n_sc = pos_s.shape[0]
+        refs = {}
+        for sc in range(n_sc):
+            fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+            lab = f"{label} scene {sc}"
+            if not same_bits(sums[sc], sk.forces_cuda(fs, rows[sc], ph, r,
+                                                      cap, ext)):
+                fail(f"{lab}: K3-scenes leaves the solo K3")
+            if sc not in held_scenes(n_sc):
+                continue
+            refs[sc] = sk.forces_reference(fs, rows[sc], ph, r, cap, xs, al)
+            out = sk.forces_out(f[sc], None if dv is None else dv[sc], xs)
+            e, line = hold_out(name, out, refs[sc], lab)
+            print(f"compare {lab}: {name} max|k-p| {e:.3e}, {line}",
+                  flush=True)
+        print(f"compare {label}: {name}, each of the {n_sc} scenes "
+              f"bit-equal to its solo K3 launch", flush=True)
+        if planted:
+            ph = sk.scene_params(params, 0)
+            if ext:
+                f0, dv0 = sk.fold_forces(sums[0], rho[0], ph, 0.0, al)
+                what = f"{name} folded with XSPH 0"
+            else:
+                no_visc = params._replace(
+                    viscosity=torch.zeros_like(params.viscosity))
+                bad = sk.forces_scenes_cuda(frame, rows, no_visc, r, cap,
+                                            False, pj,
+                                            sk.scal_blocks(no_visc))
+                f0, dv0 = sk.fold_forces(bad[0], rho[0], ph)
+                what = f"{name} with viscosity 0"
+            must_fail(sk.hold(sk.forces_out(f0, dv0, xs), refs[0]), what,
+                      f"{label} scene 0")
+
+    def compare_scenes_k5(cfg, overrides, states, label, planted=False):
+        """K5-scenes: density on the frame, then the fused substep (K5-ext
+        with extensions) and, without extensions, the forces on the rows
+        two substeps into the frame; each scene's output and drift count
+        bit-equal to its solo launch's, each drift count equal to its plain
+        version's, and scene 0 held to its plain versions (the solo rules;
+        K5's plain version takes seconds a scene); with ``planted`` the
+        substep with viscosity 0 must fail scene 0's rule."""
+        frame, pos_s, vel_s, params, r, cap = scene_inputs(cfg, overrides,
+                                                           states)
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        ext = sk.uses_extensions(xs, al)
+        name = "compact_substep_ext_scenes" if ext else \
+            "compact_substep_scenes"
+        rho, c0 = compact.density_compact_scenes_cuda(frame, pos_s, params, r,
+                                                      cap)
+        rows = sk.pack_rows_scenes(pos_s, vel_s, rho)
+        pj = sk.pj_cols_scenes(rho, params)
+        scal = sk.scal_blocks(params, xs, al)
+        for _ in range(2):
+            rows, _ = compact.compact_substep_scenes_cuda(
+                frame, rows, params, r, cap, xs, al, pj, scal)
+        out, cs = compact.compact_substep_scenes_cuda(frame, rows, params, r,
+                                                      cap, xs, al, pj, scal)
+        if not ext:
+            sums, cf = compact.forces_compact_scenes_cuda(
+                frame, rows, params, r, cap, pj, sk.scal_blocks(params))
+        n_sc = pos_s.shape[0]
+        refs = {}
+        for sc in range(n_sc):
+            fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+            lab = f"{label} scene {sc}"
+            d1, c1 = compact.density_compact_cuda(fs, pos_s[sc], ph, r, cap)
+            o1, k1 = compact.compact_substep_cuda(fs, rows[sc], ph, r, cap,
+                                                  xs, al)
+            solo = (same_bits(rho[sc], d1) and int(c0[sc]) == int(c1)
+                    and same_bits(out[sc], o1) and int(cs[sc]) == int(k1))
+            if not ext:
+                s1, f1 = compact.forces_compact_cuda(fs, rows[sc], ph, r,
+                                                     cap)
+                solo = solo and same_bits(sums[sc], s1) and \
+                    int(cf[sc]) == int(f1)
+            if not solo:
+                fail(f"{lab}: a K5-scenes launch leaves the solo K5")
+            cp = compact.spans_of(fs, rows[sc, :, 0:3], r, True)[1]
+            drift = same_cert(cs[sc], cp, name, lab)
+            if not ext:
+                same_cert(cf[sc], cp, "compact_forces_scenes", lab)
+            if sc != 0:
+                continue
+            hold_density(rho[sc], compact.density_compact_plain(
+                fs, pos_s[sc], ph, r)[0], "compact_density_scenes", lab)
+            refs[sc] = sk.substep_reference(fs, rows[sc], ph, r, None, xs,
+                                            al, compact.compact_sums_plain)
+            e, line = hold_out(name, out[sc], refs[sc], lab)
+            print(f"compare {lab}: {name} on substep 3 max|k-p| {e:.3e}, "
+                  f"{line}; drift count {drift}", flush=True)
+            if not ext:
+                ref_f = sk.forces_reference(
+                    fs, rows[sc], ph, r, None,
+                    sums_fn=compact.compact_sums_plain)
+                f_k = sk.fold_forces(sums[sc], rows[sc, :, 6], ph,
+                                     fuse_acc=False)[0]
+                e, line = hold_out("compact_forces_scenes", f_k, ref_f, lab)
+                print(f"compare {lab}: compact_forces_scenes max|k-p| "
+                      f"{e:.3e}, {line}", flush=True)
+        print(f"compare {label}: K5-scenes, each of the {n_sc} scenes "
+              f"bit-equal to its solo launches; drift counts "
+              f"{cs.tolist()}", flush=True)
+        if planted:
+            bad, _ = compact.compact_substep_scenes_cuda(
+                frame, rows, params._replace(
+                    viscosity=torch.zeros_like(params.viscosity)),
+                r, cap, xs, al, pj)
+            must_fail(sk.hold(bad[0], refs[0]), f"{name} with viscosity 0",
+                      f"{label} scene 0")
 
     # ---- 3. compare at frame 0 (out-of-cube spawns)
     with Phase("compare frame 0"):
@@ -1321,12 +1751,22 @@ def main() -> None:
         compare_ext(c3, c3_state, "config 3 frame 0")
     with Phase("compare K5 frame 0"):
         for k, cfg in sizes.items():
-            compare_k5(cfg, states[k], f"{k} frame 0", forces=k == "262k")
+            # the 1M substep is held at frame 10 (its plain version takes
+            # 13 s a call)
+            compare_k5(cfg, states[k], f"{k} frame 0", forces=k == "262k",
+                       substep=k != "1m")
         compare_k5(c3, c3_state, "config 3 frame 0")
     with Phase("compare scene axis frame 0"):
         compare_scenes(c5, c5_ov, None, "config 5 frame 0")
         c3b_in = compare_scenes(c3b, c3b_ov, None, "config 3 batch frame 0",
                                 planted=True)
+    with Phase("compare K3-scenes and K5-scenes frame 0"):
+        compare_scenes_forces(c5, c5_ov, None, "config 5 frame 0",
+                              planted=True)
+        compare_scenes_forces(c3b, c3b_ov, None, "config 3 batch frame 0",
+                              planted=True)
+        compare_scenes_k5(c5, c5_ov, None, "config 5 frame 0", planted=True)
+        compare_scenes_k5(c3b, c3b_ov, None, "config 3 batch frame 0")
     states0 = dict(states)
 
     # ---- 4. main paths, each after an untimed first call of its rollout
@@ -1656,15 +2096,16 @@ def main() -> None:
         # frame, K2-scenes on its rows two substeps in; K2-ext-scenes on
         # the config-3 batch's, frame 0 (compare_scenes' inputs); each
         # plain version is the solo plain version scene by scene
-        for shape, (frame, pos_s, mid, params, r, cap), cfg in (
+        for shape, (frame, pos_s, rows0, mid, params, r, cap), cfg in (
                 ("c5", c5_in, c5), ("c3x2", c3b_in, c3b)):
             n_sc, n = pos_s.shape[:2]
             xs, al = cfg.xsph, cfg.artificial_viscosity
             ext = sk.uses_extensions(xs, al)
             scal = sk.scal_blocks(params, xs, al)
             pj = sk.pj_cols_scenes(mid[..., 6], params)
-            tot = sum(sk.member_pairs(scene_frame(frame, sc), pos_s[sc], r,
-                                      cap)[0] for sc in range(n_sc))
+            win0 = [sk.member_pairs(scene_frame(frame, sc), pos_s[sc], r,
+                                    cap) for sc in range(n_sc)]
+            tot, f0 = sum(t for t, _ in win0), sum(t - o for t, o in win0)
             m_tot = sum(t - o for t, o in (
                 sk.member_pairs(scene_frame(frame, sc), mid[sc, :, 0:3], r,
                                 cap) for sc in range(n_sc)))
@@ -1702,6 +2143,69 @@ def main() -> None:
                   f"{n_sc} launches each: K1 {k1:.4f} ms, "
                   f"{'K2-ext' if ext else 'K2'} {k2:.4f} ms [{ident}]",
                   flush=True)
+            # K3-scenes and K5-scenes on the same inputs: the forces of
+            # both (the corrected mode's) on the frame-start rows, K5
+            # density on the frame, the K5 substep on the rows two
+            # substeps in; beside them the solo kernels, one launch a
+            # scene. At the frame start no row has left its tile's band,
+            # so K5's member pairs there are K1's (tot, f0 without the
+            # self pairs); two substeps in they are counted
+            scal_f = sk.scal_blocks(params)
+            k5_mid = sum(t - o for t, o in (
+                compact.member_pairs(fs, mid[sc, :, 0:3], r, True)
+                for sc, (fs, _) in enumerate(solo)))
+            print(f"K5 member pairs {shape}, {n_sc} scenes: substep 3 "
+                  f"{k5_mid} without the self pairs", flush=True)
+            timed("forces_ext_scenes" if ext else "forces_scenes", shape,
+                  n_sc * n, r, f0, ext,
+                  lambda: sk.forces_scenes_cuda(frame, rows0, params, r, cap,
+                                                ext, pj, scal_f),
+                  lambda: sk.forces_scenes_plain(frame, rows0, params, r,
+                                                 cap, ext),
+                  scenes=n_sc)
+            timed("compact_substep_ext_scenes" if ext
+                  else "compact_substep_scenes", shape, n_sc * n, r, k5_mid,
+                  ext,
+                  lambda: compact.compact_substep_scenes_cuda(
+                      frame, mid, params, r, cap, xs, al, pj, scal),
+                  lambda: compact.compact_substep_scenes_plain(
+                      frame, mid, params, r, xs, al),
+                  scenes=n_sc)
+            solo_ms = {"K3": time_ms(lambda: [
+                sk.forces_cuda(fs, rows0[sc], ph, r, cap, ext, pj[sc],
+                               blocks[sc])
+                for sc, (fs, ph) in enumerate(solo)], 20),
+                "K5 substep": time_ms(lambda: [
+                    compact.compact_substep_cuda(fs, mid[sc], ph, r, cap, xs,
+                                                 al, pj[sc], blocks[sc])
+                    for sc, (fs, ph) in enumerate(solo)], 20)}
+            if not ext:
+                timed("compact_density_scenes", shape, n_sc * n, r, tot,
+                      False,
+                      lambda: compact.density_compact_scenes_cuda(
+                          frame, pos_s, params, r, cap, scal),
+                      lambda: compact.density_compact_scenes_plain(
+                          frame, pos_s, params, r),
+                      scenes=n_sc)
+                timed("compact_forces_scenes", shape, n_sc * n, r, f0,
+                      False,
+                      lambda: compact.forces_compact_scenes_cuda(
+                          frame, rows0, params, r, cap, pj, scal),
+                      lambda: compact.forces_compact_scenes_plain(
+                          frame, rows0, params, r),
+                      scenes=n_sc)
+                solo_ms["K5 density"] = time_ms(lambda: [
+                    compact.density_compact_cuda(fs, pos_s[sc], ph, r, cap,
+                                                 blocks[sc])
+                    for sc, (fs, ph) in enumerate(solo)], 20)
+                solo_ms["K5 forces"] = time_ms(lambda: [
+                    compact.forces_compact_cuda(fs, rows0[sc], ph, r, cap,
+                                                pj[sc], blocks[sc])
+                    for sc, (fs, ph) in enumerate(solo)], 20)
+            print(f"time {shape}: the solo kernels on the same inputs, "
+                  f"{n_sc} launches each: "
+                  f"{', '.join(f'{k} {v:.4f} ms' for k, v in solo_ms.items())}"
+                  f" [{ident}]", flush=True)
 
     # ---- 8. the slab step on LocalRing(4), one card
     from sphfluidsimulation_torch.parallel import (LocalRing, collect,
@@ -2070,6 +2574,112 @@ def main() -> None:
             run_path(f"the {label} path ({env})", {label: roll},
                      {label: st0}, want, {label: cfg},
                      exact="SPH_PALLAS_COMPACT" not in env, frames=vf)
+
+    # the variants' scene-axis instances: 2 scenes of 262k (rest density
+    # 1.0 and 2.0), each variant's batch through BatchedScenes (the graph)
+    # for VARIANT_FRAMES frames after the frame that records it, then each
+    # instance on the spawn's frame: every scene bit-equal to its solo
+    # launch in the same variant, scene 0 held to the plain version of its
+    # variant, and its time, plain time and bound
+    vb_cfg, vb_ov = sizes["262k"], cli.sweep_overrides(1.0, 2.0, 2)
+    variant_batches = (
+        (KAHAN, {"density_scenes+kahan": 1, "fused_substep_scenes+kahan": 5}),
+        (BF16, {"density_scenes": 1, "fused_substep_scenes+bf16": 5}),
+        (FACC0, {"density_scenes": 1, "fused_substep_scenes+facc0": 5}),
+        (SortedTuning(compact=True, bf16=True),
+         {"compact_density_scenes": 1, "compact_substep_scenes+bf16": 5}))
+    with Phase("tuning variants: scene axis"):
+        frame, pos_s, vel_s, params, r, cap = scene_inputs(vb_cfg, vb_ov)
+        n_sc, n = pos_s.shape[:2]
+        solo = [(scene_frame(frame, sc), sk.scene_params(params, sc))
+                for sc in range(n_sc)]
+        fs0, ph0 = solo[0]
+        rows = sk.pack_rows_scenes(pos_s, vel_s, sk.density_scenes_cuda(
+            frame, pos_s, params, r, cap))
+        pj, scal = sk.pj_cols_scenes(rows[..., 6], params), \
+            sk.scal_blocks(params)
+        win = [sk.member_pairs(fs, pos_s[sc], r, cap)
+               for sc, (fs, _) in enumerate(solo)]
+        k5_win = [compact.member_pairs(fs, pos_s[sc], r, True)
+              for sc, (fs, _) in enumerate(solo)]
+        tot, f_pairs = sum(t for t, _ in win), sum(t - o for t, o in win)
+        k5_pairs = sum(t - o for t, o in k5_win)
+        for tune, per_frame in variant_batches:
+            label = f"the 262k x 2 batch path, {tune}"
+            bs = BatchedScenes(vb_cfg, vb_ov, devices=dev, tune=tune)
+            bs.step()                                  # records the graph
+            torch.cuda.synchronize()
+            sk.reset_launch_counts()
+            bs.step(vf)
+            torch.cuda.synchronize()
+            read_launches(label, dict(zero, **{k: v * vf
+                                               for k, v in per_frame.items()}))
+            pos = bs.states.pos
+            fin = torch.isfinite(pos).all(2)
+            if not bool(((pos[fin] >= 0) & (pos[fin] <= 1)).all()):
+                fail(f"{label}: positions outside [0, 1]")
+            if not tune.compact and not bool(fin.all()):
+                fail(f"{label}: non-finite positions")
+            del bs
+            if tune.compact:
+                name = "compact_substep_scenes+bf16"
+                out, cs = compact.compact_substep_scenes_cuda(
+                    frame, rows, params, r, cap, pj=pj, scal=scal, tune=tune)
+                solo_ok = all(
+                    same_bits(out[sc], o1) and int(cs[sc]) == int(c1)
+                    for sc, (fs, ph) in enumerate(solo)
+                    for o1, c1 in [compact.compact_substep_cuda(
+                        fs, rows[sc], ph, r, cap, tune=tune)])
+                ref = sk.substep_reference(fs0, rows[0], ph0, r, None,
+                                           sums_fn=compact.compact_sums_plain,
+                                           tune=tune)
+                kernel = (lambda: compact.compact_substep_scenes_cuda(
+                    frame, rows, params, r, cap, pj=pj, scal=scal,
+                    tune=tune))
+                plain = (lambda: compact.compact_substep_scenes_plain(
+                    frame, rows, params, r, tune=tune))
+                pairs = k5_pairs
+            else:
+                name = "fused_substep_scenes" + sk.variant_tag(
+                    "fused_substep.cu", tune)
+                out = sk.fused_substep_scenes_cuda(frame, rows, params, r, cap,
+                                                   pj=pj, scal=scal, tune=tune)
+                solo_ok = all(same_bits(out[sc], sk.fused_substep_cuda(
+                    fs, rows[sc], ph, r, cap, tune=tune))
+                    for sc, (fs, ph) in enumerate(solo))
+                ref = sk.substep_reference(fs0, rows[0], ph0, r, cap,
+                                           tune=tune)
+                kernel = (lambda: sk.fused_substep_scenes_cuda(
+                    frame, rows, params, r, cap, pj=pj, scal=scal,
+                    tune=tune))
+                plain = (lambda: sk.fused_substep_scenes_plain(
+                    frame, rows, params, r, cap, tune=tune))
+                pairs = f_pairs
+            e, line = hold_out(name, out[0], ref, "262k x 2 frame 0 scene 0")
+            print(f"compare 262k x 2 frame 0: {name} scene 0 max|k-p| "
+                  f"{e:.3e}, {line}; each scene bit-equal to its solo "
+                  f"launch {solo_ok}", flush=True)
+            if not solo_ok:
+                fail(f"{name} leaves the solo launch of its variant")
+            timed(name, "262kx2", n_sc * n, r, pairs, False, kernel, plain,
+                  scenes=n_sc)
+            if tune.kahan:
+                rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap,
+                                             scal, tune)
+                hold_density(rho[0], sk.density_plain(fs0, pos_s[0], ph0, r,
+                                                      cap, tune=tune),
+                             "density_scenes+kahan", "262k x 2 frame 0")
+                if not all(same_bits(rho[sc], sk.density_cuda(
+                        fs, pos_s[sc], ph, r, cap, tune=tune))
+                        for sc, (fs, ph) in enumerate(solo)):
+                    fail("density_scenes+kahan leaves the solo launch")
+                timed("density_scenes+kahan", "262kx2", n_sc * n, r, tot,
+                      False,
+                      lambda: sk.density_scenes_cuda(frame, pos_s, params, r,
+                                                     cap, scal, tune),
+                      lambda: sk.density_scenes_plain(frame, pos_s, params,
+                                                      r, cap, tune),
+                      scenes=n_sc)
 
     # the slab step on the compact route: the banded K5
     slab_k5 = {}
@@ -2542,7 +3152,16 @@ def main() -> None:
                   "compact_substep_ext_band": "c3_slab",
                   "density_scenes": "c5", "fused_substep_scenes": "c5",
                   "fused_substep_ext_scenes": "c3x2",
+                  "forces_scenes": "c5", "forces_ext_scenes": "c3x2",
+                  "compact_density_scenes": "c5",
+                  "compact_substep_scenes": "c5",
+                  "compact_substep_ext_scenes": "c3x2",
+                  "compact_forces_scenes": "c5",
                   "density+kahan": "262k"}
+    main_shape.update({f"{name}+{tag}": "262kx2" for name, tags in (
+        ("density_scenes", ("kahan",)),
+        ("fused_substep_scenes", ("facc0", "kahan", "bf16")),
+        ("compact_substep_scenes", ("bf16",))) for tag in tags})
     for name in KERNELS:
         if "+" in name and name not in main_shape:
             at_c3 = name.startswith(("fused_substep_ext",
@@ -2559,7 +3178,10 @@ def main() -> None:
                   "c5": f"config 5: {C5_SCENES} scenes x 524176 particles, "
                         f"R = 47, one launch over the scenes",
                   "c3x2": "2 scenes of config 3's physics x 524176 "
-                          "particles, R = 47, one launch over the scenes"}
+                          "particles, R = 47, one launch over the scenes",
+                  "262kx2": "2 scenes x 262144 particles, R = 47, rest "
+                            "density 1.0 and 2.0, frame 0, one launch over "
+                            "the scenes"}
     record = {"kernels": []}
     for name, (_, file, replaces) in KERNELS.items():
         main = main_shape[name]

@@ -10,10 +10,12 @@ range) of the next frames; each cell on the window route (K1-K3) and on
 the compact-lane route (K5, ``SortedTuning(compact=True)``; config 3
 corrected keeps K3 for its forces there, as the extensions are on).
 BASELINE config 5 (``sweep --particles 524288 --scenes 8``: 8 scenes of
-524,288 particles, rest density 1.0-2.0) runs on the window route through
+524,288 particles, rest density 1.0-2.0) runs through
 ``parallel.BatchedScenes`` with ``host_loop=True``: two batches 10 frames
 on, the next frames of one on the host clock and of the other under the
-profiler; its rate is the aggregate over the scenes. Each
+profiler; its rate is the aggregate over the scenes. Its cells are the
+faithful window route (config5), ``sweep --corrected`` (config5-corrected)
+and the ``SPH_PALLAS_COMPACT=1`` sweep (config5-compact). Each
 phase's device time is that of the kernels launched inside the stepper's
 own profiler ranges
 (``stepper.FRAME_PHASES``: frame build, density kernel, rows pack, each
@@ -30,8 +32,8 @@ machine with a CUDA card:
     python3 scripts/torch_frame_breakdown.py [--frames 3] [--out build/profile]
         [--route window|compact|both] [--cells 262k 1m config3 ...]
 
-``--cells`` picks among 262k, 1m, config3, config3-corrected and config5
-(default: all).
+``--cells`` picks among 262k, 1m, config3, config3-corrected, config5,
+config5-corrected and config5-compact (default: all).
 
 Writes the profiler tables to ``<out>/breakdown_<cell>.txt``.
 """
@@ -143,7 +145,14 @@ def tile_slots(cfg, state) -> tuple[float, float, float]:
                  for x in (slots, streamed, filled))
 
 
-CELLS = ("262k", "1m", "config3", "config3-corrected", "config5")
+CELLS = ("262k", "1m", "config3", "config3-corrected", "config5",
+         "config5-corrected", "config5-compact")
+# the config-5 cells: BatchedScenes' options and the stepper's ranges
+CONFIG5 = {"config5": ({}, stepper.FRAME_PHASES),
+           "config5-corrected": (dict(faithful=False),
+                                 stepper.CORRECTED_PHASES),
+           "config5-compact": (dict(tune=SortedTuning(compact=True)),
+                               stepper.FRAME_PHASES)}
 
 
 def print_phases(label: str, cfg, ms: dict, calls: dict, dev_ms: float,
@@ -174,22 +183,25 @@ def write_table(prof, out: str, label: str, ident: str) -> None:
         f.write(f"{ident}\n{table}\n")
 
 
-def config5_cell(dev, frames: int, acts, out: str, ident: str) -> None:
-    """BASELINE config 5 through ``BatchedScenes`` on its host loop: two
-    batches 10 frames on, then the next ``frames`` of one timed on the host
-    clock and the same frames of the other profiled. A tree before the
-    scene axis has no ``host_loop`` keyword; its batch always loops on the
-    host."""
+def config5_cell(dev, frames: int, acts, out: str, ident: str,
+                 label: str = "config5") -> None:
+    """BASELINE config 5 through ``BatchedScenes`` on its host loop, with
+    the options of ``CONFIG5[label]``: two batches 10 frames on, then the
+    next ``frames`` of one timed on the host clock and the same frames of
+    the other profiled. A tree before the scene axis has no ``host_loop``
+    keyword; its batch always loops on the host."""
     from sphfluidsimulation_torch import cli
     from sphfluidsimulation_torch.parallel import BatchedScenes
     cfg = SimConfig(particle_number=524288)
     overrides = cli.sweep_overrides(1.0, 2.0, 8)
+    kw, phases = CONFIG5[label]
     batches = []
     for _ in range(2):
         try:
-            bs = BatchedScenes(cfg, overrides, devices=dev, host_loop=True)
+            bs = BatchedScenes(cfg, overrides, devices=dev, host_loop=True,
+                               **kw)
         except TypeError:
-            bs = BatchedScenes(cfg, overrides, devices=dev)
+            bs = BatchedScenes(cfg, overrides, devices=dev, **kw)
         bs.step(10)
         batches.append(bs)
     timed, traced = batches
@@ -203,10 +215,11 @@ def config5_cell(dev, frames: int, acts, out: str, ident: str) -> None:
         traced.step(frames)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / frames
-    ms, calls, dev_ms = phase_device_ms(prof, frames, stepper.FRAME_PHASES)
-    print_phases("config5", cfg, ms, calls, dev_ms, host_ms, prof_ms,
+    ms, calls, dev_ms = phase_device_ms(prof, frames, phases)
+    print_phases(label, cfg, ms, calls, dev_ms, host_ms, prof_ms,
                  frames, ident, scenes=len(overrides))
-    write_table(prof, out, "config5", ident)
+    print(f"  exact_cert {traced.last_metrics.exact_cert.tolist()}")
+    write_table(prof, out, label, ident)
 
 
 def main() -> None:
@@ -287,8 +300,9 @@ def main() -> None:
               f"slot, density {k1_ns / (dens_slots * cfg.n_particles):.4f} "
               f"ns per slot")
         write_table(prof, args.out, label, ident)
-    if "config5" in args.cells:
-        config5_cell(dev, args.frames, acts, args.out, ident)
+    for label in CONFIG5:
+        if label in args.cells:
+            config5_cell(dev, args.frames, acts, args.out, ident, label)
 
 
 if __name__ == "__main__":

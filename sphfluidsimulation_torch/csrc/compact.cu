@@ -22,6 +22,11 @@
 // add_pair_pj, and the fused tail is fused_tail, so K5 cannot drift from
 // K1-K3. A row sums its candidates in ascending sorted order, as K1-K3 do.
 //
+// Scene-axis instances (compact_scenes_kernel, sph_compact_scenes): the
+// three modes under JAX's vmap of the frame step (parallel/batch.py:42-46,
+// the SPH_PALLAS_COMPACT=1 sweep), one launch over S stacked frames,
+// blockIdx.y the scene, each scene with its own drift count.
+//
 // Banded instances (kBand; density_compact(band=) :622-629 and
 // compact_substep(band=) :648-665, for the slab step's frame): the cells
 // are the band's local ids (z_span * R^2 of them from plane zbase, cid and
@@ -108,14 +113,15 @@ __device__ __forceinline__ bool cell_near(int c, int cx, int cy, int cz) {
          && (unsigned)((c >> 20) - cz + 1) <= 2u;
 }
 
+// The tile of warp threadIdx.x / 32 of block blockIdx.x over one frame's
+// arrays: the body of compact_kernel and of compact_scenes_kernel.
 template <int kMode, bool kExt, bool kBand>
-__global__ void __launch_bounds__(kWarps * 32)
-compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
-               const int* __restrict__ cid, const int* __restrict__ start,
-               const int* __restrict__ raw, const uint8_t* __restrict__ occ,
-               const float* __restrict__ scal, float* __restrict__ out,
-               int* __restrict__ cert, int n, int r, int cap, int zbase,
-               int z_span) {
+__device__ __forceinline__ void compact_tile(
+    const float* __restrict__ in, const float2* __restrict__ pj,
+    const int* __restrict__ cid, const int* __restrict__ start,
+    const int* __restrict__ raw, const uint8_t* __restrict__ occ,
+    const float* __restrict__ scal, float* __restrict__ out,
+    int* __restrict__ cert, int n, int r, int cap, int zbase, int z_span) {
   __shared__ Slot slots[kWarps][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tile = blockIdx.x * kWarps + warp;
@@ -284,6 +290,44 @@ compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
   }
 }
 
+template <int kMode, bool kExt, bool kBand>
+__global__ void __launch_bounds__(kWarps * 32)
+compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
+               const int* __restrict__ cid, const int* __restrict__ start,
+               const int* __restrict__ raw, const uint8_t* __restrict__ occ,
+               const float* __restrict__ scal, float* __restrict__ out,
+               int* __restrict__ cert, int n, int r, int cap, int zbase,
+               int z_span) {
+  compact_tile<kMode, kExt, kBand>(in, pj, cid, start, raw, occ, scal, out,
+                                   cert, n, r, cap, zbase, z_span);
+}
+
+// The scene-axis instance (JAX's vmap of _call_compact): blockIdx.y is the
+// scene, whose inputs are the scene's blocks of the stacked arrays (n rows
+// of in, pj, cid, raw, occ and out, R^3 + 1 entries of start, one scalar
+// block) and whose drift count is cert[scene]; a tile is scene-local, so
+// each warp is the solo kernel's warp of that scene. The whole grid only.
+template <int kMode, bool kExt>
+__global__ void __launch_bounds__(kWarps * 32)
+compact_scenes_kernel(const float* __restrict__ in,
+                      const float2* __restrict__ pj,
+                      const int* __restrict__ cid,
+                      const int* __restrict__ start,
+                      const int* __restrict__ raw,
+                      const uint8_t* __restrict__ occ,
+                      const float* __restrict__ scal, float* __restrict__ out,
+                      int* __restrict__ cert, int n, int r, int cap) {
+  constexpr int kIn = kMode == kDensity ? 3 : 8;      // floats a row
+  constexpr int kOut = kMode == kDensity ? 1 : kMode == kForces ? 12 : 8;
+  const size_t scene = blockIdx.y;
+  const size_t rows = scene * n;
+  const size_t cells = scene * ((size_t)r * r * r + 1);
+  compact_tile<kMode, kExt, false>(
+      in + kIn * rows, kMode == kDensity ? pj : pj + rows, cid + rows,
+      start + cells, raw + rows, occ + rows, scal + scene * sph::kScalLanes,
+      out + kOut * rows, cert + scene, n, r, cap, 0, r);
+}
+
 }  // namespace
 
 // mode: 0 density (in = pos f32[N, 3], out = rho f32[N]; pj unused, may be
@@ -318,6 +362,35 @@ extern "C" int sph_compact(int mode, int ext, const float* in, const float* pj,
     kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
         in, reinterpret_cast<const float2*>(pj), cid, start, raw, occ, scal,
         out, cert, n, r, cap, zbase, z_span);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K5 over `scenes` scenes of n rows each (JAX's vmap of density_compact,
+// compact_substep and forces_compact): every input stacked scene after
+// scene as compact_scenes_kernel reads it, cert i32[scenes] (zeroed by the
+// caller) each scene's drift count; mode, ext, cap and r as in sph_compact,
+// over the whole grid. One launch, grid (tile blocks, scenes).
+extern "C" int sph_compact_scenes(int mode, int ext, const float* in,
+                                  const float* pj, const int* cid,
+                                  const int* start, const int* raw,
+                                  const uint8_t* occ, const float* scal,
+                                  float* out, int* cert, int n, int r,
+                                  int cap, int scenes, void* stream) {
+  if (mode < kDensity || mode > kFused || (ext && mode != kFused) ||
+      r > kMaxR || (mode != kDensity && pj == nullptr) || scenes < 0 ||
+      scenes > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0 && scenes > 0) {
+    const int tiles = (n + 31) / 32;
+    const dim3 grid((tiles + kWarps - 1) / kWarps, scenes);
+    auto kernel = mode == kDensity ? compact_scenes_kernel<kDensity, false>
+                  : mode == kForces ? compact_scenes_kernel<kForces, false>
+                  : ext             ? compact_scenes_kernel<kFused, true>
+                                    : compact_scenes_kernel<kFused, false>;
+    kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+        in, reinterpret_cast<const float2*>(pj), cid, start, raw, occ, scal,
+        out, cert, n, r, cap);
   }
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,12 @@
 // caller (ops/sph_kernels.py::fold_forces, forces_pallas :1737-1770), and
 // the integration is a host pass (sim/stepper.py::integrate_substep). The
 // corrected mode runs it every substep, after rebuilding the frame and the
-// density, and packs pj (sph_kernels.pj_cols) beside the rows.
+// density, and packs pj (sph_kernels.pj_cols) beside the rows. The
+// scene-axis instances (sph_forces_scenes) are forces_pallas under JAX's
+// vmap of the frame step (parallel/batch.py:42-46: sweep --corrected and the
+// unfused route): one launch over the stacked rows of S scenes, blockIdx.y
+// the scene (window_walk.cuh::scene_args), each scene's sums bit for bit its
+// solo launch's.
 //
 // Input rows f32[N, 8] = (x, y, z, vx, vy, vz, rho, aux) and pj f32[N, 2] =
 // (press_j, [rho_j > eps] / rho_j), the layout K2 reads; output f32[N, 12] =
@@ -46,6 +51,21 @@ forces_kernel(sph::WalkArgs a, float4* __restrict__ out) {
       [&](int i) { sph::store_sums<sph::kFacc>(out, i, sph::PairSums{}); });
 }
 
+// The scene-axis instance (window_walk.cuh::scene_args): blockIdx.y is the
+// scene, and each thread is the unbanded kernel's thread of that scene.
+template <bool kExt>
+__global__ void __launch_bounds__(sph::kBlock)
+forces_scenes_kernel(sph::WalkArgs a, float4* __restrict__ out) {
+  float4* const out_s = out + 3 * (size_t)blockIdx.y * a.n;
+  sph::walk_row<kExt, false>(
+      sph::scene_args(a, blockIdx.y),
+      [&](const sph::Scalars&, const sph::Particle&, int i,
+          const sph::PairSums& acc) {
+        sph::store_sums<sph::kFacc>(out_s, i, acc);
+      },
+      [](int) {});   // no dead rows without a band
+}
+
 }  // namespace
 
 // (zbase, z_span) is the frame's band of z-planes, (0, r) for the whole
@@ -65,4 +85,23 @@ extern "C" int sph_forces(const float* rows, const float* pj,
   return sph::launch_walk(instances, ext != 0, a,
                           reinterpret_cast<float4*>(out),
                           (cudaStream_t)stream);
+}
+
+// K3 over `scenes` scenes of n rows each, every input stacked scene after
+// scene (window_walk.cuh::scene_args), the sums f32[S, N, 12]: one launch,
+// grid (row blocks, scenes); ext != 0 selects the instance with the
+// extension sums.
+extern "C" int sph_forces_scenes(const float* rows, const float* pj,
+                                 const int* start, const int* raw,
+                                 const uint8_t* occ, const float* scal,
+                                 float* out, int n, int r, int cap,
+                                 int scenes, int ext, void* stream) {
+  const sph::WalkArgs a{reinterpret_cast<const float4*>(rows),
+                        reinterpret_cast<const float2*>(pj),
+                        start, raw, occ, scal, n, r, cap, 0, r};
+  static const sph::WalkKernel instances[2] = {forces_scenes_kernel<false>,
+                                               forces_scenes_kernel<true>};
+  return sph::launch_walk_scenes(instances, ext != 0, a, scenes,
+                                 reinterpret_cast<float4*>(out),
+                                 (cudaStream_t)stream);
 }

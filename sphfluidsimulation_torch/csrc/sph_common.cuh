@@ -94,6 +94,9 @@ struct Scalars {
   float h, h2, c_poly6, c_grad, mass, gas_k, rho0, visc, stiff, damping,
       grav_y, dt, xsph, alpha_visc, cs;
 };
+// the lanes of one scalar block: a scene-axis launch reads scene s's block
+// at s * kScalLanes
+constexpr int kScalLanes = sizeof(Scalars) / sizeof(float);
 
 __device__ __forceinline__ Scalars load_scalars(const float* __restrict__ s) {
   return Scalars{__ldg(s + 0),  __ldg(s + 1),  __ldg(s + 2),  __ldg(s + 3),

@@ -130,7 +130,6 @@ struct WalkArgs {
 // scenes whenever n is not a multiple of kBlock, and cost each thread a
 // division to find its scene. The scene axis walks the whole grid: no
 // band, no dead rows.
-constexpr int kScalLanes = sizeof(Scalars) / sizeof(float);
 
 // Scene s's inputs of a launch over the scene axis.
 __device__ __forceinline__ WalkArgs scene_args(const WalkArgs& a, int s) {

@@ -56,6 +56,14 @@ have the three layout truncations JAX adds to the certificate (``out_slice``,
 ``clip_w``, ``ovf``, :334-352): the certificate here is the drift count
 alone.
 
+Scene axis (the batched step of ``parallel/batch.py``, JAX's ``vmap`` of
+the frame step under ``SPH_PALLAS_COMPACT=1``): :func:`density_compact_scenes`,
+:func:`compact_substep_scenes` and :func:`forces_compact_scenes` take a
+frame over a leading scene axis (``frame.build_frame_scenes``) and a
+stacked ``PhysParams`` and launch K5 once over all scenes
+(``sph_compact_scenes``, grid (tile blocks, scenes)); each scene's result
+and drift count, i32[S], are its solo pass's, bit for bit.
+
 Routing: a CPU tensor goes to the plain version; a CUDA tensor launches
 ``csrc/compact.cu`` or raises. Each entry point returns ``(out, cert)``.
 """
@@ -68,13 +76,15 @@ import torch
 
 from ..params import PhysParams
 from . import cuda_build, sph_math
-from .frame import SortedFrame
+from .frame import SortedFrame, scene_frame
 from .sph_kernels import (N_FIELDS, N_SCAL, N_SUMS, _CHUNK_PAIRS,
-                          SortedTuning, _band_args, _cap_arg, _check, _count,
-                          _ptr, _raise_on_error, density_sums_plain,
-                          fold_forces, force_sums_plain, fresh_cell,
-                          fused_substep_plain, member_gate, pj_cols,
-                          scal_block, uses_extensions, variant_tag)
+                          SortedTuning, _band_args, _cap_arg, _check,
+                          _check_scenes, _count, _ptr, _raise_on_error,
+                          density_sums_plain, fold_forces, force_sums_plain,
+                          fresh_cell, fused_substep_plain, member_gate,
+                          pj_cols, pj_cols_scenes, scal_block, scal_blocks,
+                          scene_params, scene_view, uses_extensions,
+                          variant_tag)
 
 CROWS = 32               # rows per tile: one warp
 N_LINES = 9              # (dz, dy) ∈ [−1, 1]² candidate lines per tile
@@ -528,3 +538,200 @@ def forces_compact(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
     else:
         sums, cert = forces_compact_plain(frame, rows, phys, r, tune)
     return fold_forces(sums, rows[:, 6], phys, fuse_acc=False)[0], cert
+
+
+# ---------------------------------------------------------- scene axis --
+# Each scene's frame is ``scene_frame(frame, s)``, its physics row s of the
+# stacked params; the plain versions run the solo plain versions scene by
+# scene, the kernel's warps are the solo kernel's warps of their scene
+# (``compact.cu::compact_scenes_kernel``), and each scene has its own drift
+# count, as JAX's vmapped certificate has.
+
+def _stacked(outs: list[tuple[torch.Tensor, torch.Tensor]]
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def density_compact_scenes_plain(frame: SortedFrame, pos_s: torch.Tensor,
+                                 params: PhysParams, r: int
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ρ f32[S, N], cert i32[S]): :func:`density_compact_plain` of each
+    scene."""
+    return _stacked([density_compact_plain(scene_frame(frame, s), pos_s[s],
+                                           scene_params(params, s), r)
+                     for s in range(pos_s.shape[0])])
+
+
+def compact_substep_scenes_plain(frame: SortedFrame, rows: torch.Tensor,
+                                 params: PhysParams, r: int,
+                                 xsph: float = 0.0, alpha_visc: float = 0.0,
+                                 tune: SortedTuning | None = None
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows' f32[S, N, 8], cert i32[S]): :func:`compact_substep_plain` of
+    each scene."""
+    return _stacked([compact_substep_plain(scene_frame(frame, s), rows[s],
+                                           scene_params(params, s), r, xsph,
+                                           alpha_visc, tune=tune)
+                     for s in range(rows.shape[0])])
+
+
+def forces_compact_scenes_plain(frame: SortedFrame, rows: torch.Tensor,
+                                params: PhysParams, r: int,
+                                tune: SortedTuning | None = None
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(raw sums f32[S, N, 12], cert i32[S]): :func:`forces_compact_plain`
+    of each scene."""
+    return _stacked([forces_compact_plain(scene_frame(frame, s), rows[s],
+                                          scene_params(params, s), r, tune)
+                     for s in range(rows.shape[0])])
+
+
+def _launch_scenes(mode: int, ext: bool, inp: torch.Tensor,
+                   pj: torch.Tensor | None, frame: SortedFrame,
+                   scal: torch.Tensor, out: torch.Tensor, r: int,
+                   capacity: int | None, tune: SortedTuning) -> torch.Tensor:
+    """Launches K5's scene-axis instance ``mode`` in ``tune``'s variant;
+    returns each scene's drift count i32[S] (0 for density)."""
+    n_scenes, n = inp.shape[:2]
+    dev = inp.device
+    if r > _MAX_R:
+        raise ValueError(f"K5 takes R <= {_MAX_R}; got {r}")
+    _check_scenes(frame, n_scenes, n, r, scal, dev)
+    _check("frame.cid", frame.cid, torch.int32, (n_scenes, n), dev)
+    if pj is not None:
+        _check("pj", pj, torch.float32, (n_scenes, n, 2), dev)
+    cert = torch.zeros(n_scenes, dtype=torch.int32, device=dev)
+    fn = cuda_build.function("compact.cu", "sph_compact_scenes", tune)
+    err = fn(mode, int(ext), _ptr(inp), None if pj is None else _ptr(pj),
+             _ptr(frame.cid), _ptr(frame.start), _ptr(frame.raw),
+             _ptr(frame.occ), _ptr(scal), _ptr(out), _ptr(cert), n, r,
+             _cap_arg(capacity), n_scenes,
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on_error("compact_scenes", err)
+    return cert
+
+
+def density_compact_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
+                                params: PhysParams, r: int,
+                                capacity: int | None,
+                                scal: torch.Tensor | None = None
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 density over the scene axis on the card: (ρ f32[S, N], cert
+    i32[S]) in one launch. ``scal`` is ``scal_blocks(params)`` (built here
+    when None); the default instance, as :func:`density_compact_cuda`."""
+    n_scenes, n = pos_s.shape[:2]
+    _check("pos_s", pos_s, torch.float32, (n_scenes, n, 3), pos_s.device)
+    rho = torch.empty((n_scenes, n), dtype=torch.float32,
+                      device=pos_s.device)
+    if scal is None:
+        scal = scal_blocks(params)
+    k5 = SortedTuning().k5()
+    cert = _launch_scenes(_DENSITY, False, pos_s, None, frame, scal, rho, r,
+                          capacity, k5)
+    _count("compact_density_scenes")
+    return rho, cert
+
+
+def compact_substep_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
+                                params: PhysParams, r: int,
+                                capacity: int | None, xsph: float = 0.0,
+                                alpha_visc: float = 0.0,
+                                pj: torch.Tensor | None = None,
+                                scal: torch.Tensor | None = None,
+                                tune: SortedTuning | None = None
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 fused substep over the scene axis on the card, in ``tune``'s
+    variant: (rows' f32[S, N, 8], cert i32[S]) in one launch. ``pj`` is
+    ``pj_cols_scenes`` of the rows' ρ and ``scal`` ``scal_blocks`` of
+    ``params`` and the coefficients (each built here when None)."""
+    n_scenes, n = rows.shape[:2]
+    _check("rows", rows, torch.float32, (n_scenes, n, N_FIELDS),
+           rows.device)
+    k5 = (tune or SortedTuning()).k5()
+    ext = uses_extensions(xsph, alpha_visc)
+    out = torch.empty_like(rows)
+    if pj is None:
+        pj = pj_cols_scenes(rows[..., 6], params)
+    if scal is None:
+        scal = scal_blocks(params, xsph, alpha_visc)
+    cert = _launch_scenes(_FUSED, ext, rows, pj, frame, scal, out, r,
+                          capacity, k5)
+    base = "compact_substep_ext" if ext else "compact_substep"
+    _count(base + "_scenes" + variant_tag("compact.cu", k5))
+    return out, cert
+
+
+def forces_compact_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
+                               params: PhysParams, r: int,
+                               capacity: int | None,
+                               pj: torch.Tensor | None = None,
+                               scal: torch.Tensor | None = None,
+                               tune: SortedTuning | None = None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 forces without extensions over the scene axis on the card: (raw
+    sums f32[S, N, 12] in K5's layout, cert i32[S]) in one launch, in
+    ``tune``'s variant; ``pj`` and ``scal`` as in
+    :func:`compact_substep_scenes_cuda`."""
+    n_scenes, n = rows.shape[:2]
+    _check("rows", rows, torch.float32, (n_scenes, n, N_FIELDS),
+           rows.device)
+    k5 = (tune or SortedTuning()).k5()
+    sums = torch.empty((n_scenes, n, N_SUMS), dtype=torch.float32,
+                       device=rows.device)
+    if pj is None:
+        pj = pj_cols_scenes(rows[..., 6], params)
+    if scal is None:
+        scal = scal_blocks(params)
+    cert = _launch_scenes(_FORCES, False, rows, pj, frame, scal, sums, r,
+                          capacity, k5)
+    _count("compact_forces_scenes" + variant_tag("compact.cu", k5))
+    return sums, cert
+
+
+def density_compact_scenes(frame: SortedFrame, pos_s: torch.Tensor,
+                           params: PhysParams, r: int, capacity: int | None,
+                           scal: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ρ f32[S, N], cert i32[S]) of every scene: K5's scene-axis instance
+    for a CUDA tensor, the plain version for a CPU one."""
+    if pos_s.is_cuda:
+        return density_compact_scenes_cuda(frame, pos_s, params, r,
+                                           capacity, scal)
+    return density_compact_scenes_plain(frame, pos_s, params, r)
+
+
+def compact_substep_scenes(frame: SortedFrame, rows: torch.Tensor,
+                           params: PhysParams, r: int, capacity: int | None,
+                           xsph: float = 0.0, alpha_visc: float = 0.0,
+                           pj: torch.Tensor | None = None,
+                           scal: torch.Tensor | None = None,
+                           tune: SortedTuning | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows' f32[S, N, 8], cert i32[S]): one substep of every scene in
+    ``tune``'s variant, K5's scene-axis instance for a CUDA tensor, the
+    plain version for a CPU one."""
+    if rows.is_cuda:
+        return compact_substep_scenes_cuda(frame, rows, params, r, capacity,
+                                           xsph, alpha_visc, pj, scal, tune)
+    return compact_substep_scenes_plain(frame, rows, params, r, xsph,
+                                        alpha_visc, tune)
+
+
+def forces_compact_scenes(frame: SortedFrame, rows: torch.Tensor,
+                          params: PhysParams, r: int, capacity: int | None,
+                          pj: torch.Tensor | None = None,
+                          scal: torch.Tensor | None = None,
+                          tune: SortedTuning | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(force f[S, N, 3], cert i32[S]) without extensions:
+    :func:`forces_compact` of every scene, the raw sums from K5's
+    scene-axis instance for a CUDA tensor or from the plain version for a
+    CPU one, folded over the scenes (``sph_kernels.scene_view``)."""
+    if rows.is_cuda:
+        sums, cert = forces_compact_scenes_cuda(frame, rows, params, r,
+                                                capacity, pj, scal, tune)
+    else:
+        sums, cert = forces_compact_scenes_plain(frame, rows, params, r,
+                                                 tune)
+    return fold_forces(sums, rows[..., 6], scene_view(params),
+                       fuse_acc=False)[0], cert

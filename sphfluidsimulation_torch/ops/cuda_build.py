@@ -41,7 +41,7 @@ _I = ctypes.c_int
 # source → its C functions (name, argtypes): pointers and the stream as
 # c_void_p, ints as c_int (K1-K3 and K5 take n, r, cap, then the band's
 # zbase and z_span, and K2/K3 the extension switch; the scene-axis
-# instances of K1 and K2 take n, r, cap, then the scene count)
+# instances of K1, K2, K3 and K5 take n, r, cap, then the scene count)
 KERNELS = {
     "density.cu": (("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _P)),
@@ -54,9 +54,13 @@ KERNELS = {
                                                        _P, _P, _I, _I, _I,
                                                        _I, _I, _P))),
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _P)),),
+                                   _I, _I, _I, _P)),
+                  ("sph_forces_scenes", (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                         _I, _I, _I, _P))),
     "compact.cu": (("sph_compact", (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _I, _I, _I, _I, _P)),),
+                                     _P, _I, _I, _I, _I, _I, _P)),
+                   ("sph_compact_scenes", (_I, _I, _P, _P, _P, _P, _P, _P,
+                                           _P, _P, _P, _I, _I, _I, _I, _P))),
 }
 # the probe group: source (relative to csrc/) → its C functions, as KERNELS
 PROBE_KERNELS = {

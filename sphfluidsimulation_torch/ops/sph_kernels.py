@@ -46,12 +46,13 @@ banded; K3 takes the band from the shared walk but the slab step does not
 launch it.
 
 Scene-axis instances (the batched step of ``parallel/batch.py``, JAX's
-``vmap`` of the frame step): :func:`density_scenes` and
-:func:`fused_substep_scenes` take a frame with a leading scene axis
-(``frame.build_frame_scenes``) and a stacked ``PhysParams``, and launch K1
-and K2 once over all scenes (``sph_density_scenes``,
-``sph_fused_substep_scenes``); each scene's result is its solo pass's, bit
-for bit.
+``vmap`` of the frame step): :func:`density_scenes`,
+:func:`fused_substep_scenes` and :func:`forces_scenes` take a frame with a
+leading scene axis (``frame.build_frame_scenes``) and a stacked
+``PhysParams``, and launch K1, K2 and K3 once over all scenes
+(``sph_density_scenes``, ``sph_fused_substep_scenes``,
+``sph_forces_scenes``), in every variant; each scene's result is its solo
+pass's, bit for bit.
 """
 
 from __future__ import annotations
@@ -83,8 +84,8 @@ _KAHAN_CHUNK_PAIRS = 1 << 24
 # "fused_substep" counts K2 without extensions, "fused_substep_ext" with; the
 # "*_band" entries count the banded instances of K1, K2 and K5 (the slab
 # step, parallel/slab_pallas.py); the "*_scenes" entries the scene-axis
-# instances of K1 and K2 (the batched step, parallel/batch.py), one a
-# launch over all scenes; the "compact_*" entries count the K5
+# instances of K1, K2, K3 and K5 (the batched step, parallel/batch.py), one
+# a launch over all scenes; the "compact_*" entries count the K5
 # instances (ops/compact.py). A tuning variant's instance counts under its
 # instance's name with the variant's tag (:func:`variant_tag`), e.g.
 # "fused_substep_ext+bf16" or "density+kahan"; those keys appear at their
@@ -95,7 +96,9 @@ _COUNTERS = ("density", "fused_substep", "fused_substep_ext", "forces",
              "fused_substep_ext_band", "compact_density_band",
              "compact_substep_band", "compact_substep_ext_band",
              "density_scenes", "fused_substep_scenes",
-             "fused_substep_ext_scenes")
+             "fused_substep_ext_scenes", "forces_scenes", "forces_ext_scenes",
+             "compact_density_scenes", "compact_substep_scenes",
+             "compact_substep_ext_scenes", "compact_forces_scenes")
 launch_counts = dict.fromkeys(_COUNTERS, 0)
 
 
@@ -581,7 +584,8 @@ def fold_forces(sums: torch.Tensor, rho_s: torch.Tensor, phys: PhysParams,
                 fused_tail: bool = False, fuse_acc: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Raw sums f[N, 12] → (force f[N, 3], XSPH correction dv f[N, 3] or
-    None): the m²/ρᵢ scaling guarded by ρᵢ > ε (when it fails the raw sums
+    None), or f[S, N, 12] → f[S, N, 3] over a scene axis with ``phys`` a
+    :func:`scene_view`: the m²/ρᵢ scaling guarded by ρᵢ > ε (when it fails the raw sums
     pass through, VelPos.compute:101-105) and the extension constants.
     ``fuse_acc`` says the sums' layout: (combined 3, xsph 3, avisc 3), the
     viscosity already folded in per row (``forces_pallas``,
@@ -595,22 +599,22 @@ def fold_forces(sums: torch.Tensor, rho_s: torch.Tensor, phys: PhysParams,
     ``fused_tail`` folds both whenever either coefficient is nonzero, as
     the JAX fused tail does (:1440-1450); K2 and its plain version follow
     it."""
-    i_ok = (rho_s > EPSILON)[:, None]
-    s_i = torch.where(i_ok, rho_s[:, None], 1.0)
+    i_ok = (rho_s > EPSILON)[..., None]
+    s_i = torch.where(i_ok, rho_s[..., None], 1.0)
     m_ = phys.mass
-    f = torch.where(i_ok, sums[:, 0:3] * (m_ * m_ / s_i), sums[:, 0:3])
+    f = torch.where(i_ok, sums[..., 0:3] * (m_ * m_ / s_i), sums[..., 0:3])
     xb = 3
     if not fuse_acc:
         f = f + torch.where(
-            i_ok, sums[:, 3:6] * (phys.viscosity * m_ * m_ / s_i),
-            sums[:, 3:6])
+            i_ok, sums[..., 3:6] * (phys.viscosity * m_ * m_ / s_i),
+            sums[..., 3:6])
         xb = 6
     if not uses_extensions(xsph, alpha_visc):
         return f, None
-    dv = ((xsph * m_) * sums[:, xb:xb + 3] if fused_tail or xsph != 0.0
+    dv = ((xsph * m_) * sums[..., xb:xb + 3] if fused_tail or xsph != 0.0
           else None)
     if fused_tail or alpha_visc != 0.0:
-        f = f + (alpha_visc * m_ * m_) * sums[:, xb + 3:xb + 6]
+        f = f + (alpha_visc * m_ * m_) * sums[..., xb + 3:xb + 6]
     return f, dv
 
 
@@ -1064,20 +1068,29 @@ def fused_substep(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
 
 
 # ------------------------------------------------------------ scene axis --
-# K1 and K2 over a leading scene axis (the batched step of
-# ``parallel/batch.py``; JAX vmaps ``density_pass`` and ``fused_substep``,
-# and Pallas's batching rule prepends the scene to the kernel's grid). The
-# frame is ``frame.build_frame_scenes``'s: every field [S, ...], ``start``
-# in scene-local indices; the physics is a stacked ``PhysParams``, one row a
-# scene. Each scene's result is, bit for bit, the solo pass of that scene
-# on its row of the params: the plain versions call the solo plain
-# versions scene by scene, and the kernels' threads are the solo kernels'
-# threads (``csrc/window_walk.cuh::scene_args``). The default variant only
-# (the other tunings batch scene by scene, ``parallel/batch.py``).
+# K1, K2 and K3 over a leading scene axis (the batched step of
+# ``parallel/batch.py``; JAX vmaps ``density_pass``, ``fused_substep`` and
+# ``forces_pallas``, and Pallas's batching rule prepends the scene to the
+# kernel's grid). The frame is ``frame.build_frame_scenes``'s: every field
+# [S, ...], ``start`` in scene-local indices; the physics is a stacked
+# ``PhysParams``, one row a scene. Each scene's result is, bit for bit, the
+# solo pass of that scene on its row of the params, in ``tune``'s variant:
+# the plain versions call the solo plain versions scene by scene, and the
+# kernels' threads are the solo kernels' threads
+# (``csrc/window_walk.cuh::scene_args``), each variant's from its own
+# library. K5's scene-axis instances are in ``ops/compact.py``.
 
 def scene_params(params: PhysParams, s: int) -> PhysParams:
     """Scene ``s``'s row of a stacked ``PhysParams``."""
     return PhysParams(*(x[s] for x in params))
+
+
+def scene_view(params: PhysParams) -> PhysParams:
+    """A stacked ``PhysParams`` with each field [S, 1, 1]: scene s's scalars
+    broadcast over its rows and lanes, so that the elementwise passes
+    (:func:`fold_forces`, ``sim.stepper.integrate_substep``) run over
+    [S, N, 3] with each element computed as the solo pass computes it."""
+    return PhysParams(*(x[:, None, None] for x in params))
 
 
 def scal_blocks(params: PhysParams, xsph: float = 0.0,
@@ -1121,30 +1134,45 @@ def pj_cols_scenes(rho: torch.Tensor, params: PhysParams) -> torch.Tensor:
 
 
 def density_scenes_plain(frame: SortedFrame, pos_s: torch.Tensor,
-                         params: PhysParams, r: int,
-                         capacity: int | None) -> torch.Tensor:
+                         params: PhysParams, r: int, capacity: int | None,
+                         tune: SortedTuning | None = None) -> torch.Tensor:
     """ρ f32[S, N]: :func:`density_plain` of each scene."""
     return torch.stack([
         density_plain(scene_frame(frame, s), pos_s[s],
-                      scene_params(params, s), r, capacity)
+                      scene_params(params, s), r, capacity, tune=tune)
         for s in range(pos_s.shape[0])])
 
 
 def fused_substep_scenes_plain(frame: SortedFrame, rows: torch.Tensor,
                                params: PhysParams, r: int,
                                capacity: int | None, xsph: float = 0.0,
-                               alpha_visc: float = 0.0) -> torch.Tensor:
+                               alpha_visc: float = 0.0,
+                               tune: SortedTuning | None = None
+                               ) -> torch.Tensor:
     """rows f32[S, N, 8] after one substep: :func:`fused_substep_plain` of
     each scene."""
     return torch.stack([
         fused_substep_plain(scene_frame(frame, s), rows[s],
                             scene_params(params, s), r, capacity, xsph,
-                            alpha_visc)
+                            alpha_visc, tune=tune)
+        for s in range(rows.shape[0])])
+
+
+def forces_scenes_plain(frame: SortedFrame, rows: torch.Tensor,
+                        params: PhysParams, r: int, capacity: int | None,
+                        ext: bool = False,
+                        tune: SortedTuning | None = None) -> torch.Tensor:
+    """Raw sums f32[S, N, 12]: :func:`forces_plain` of each scene on its
+    rows."""
+    return torch.stack([
+        forces_plain(scene_frame(frame, s), rows[s],
+                     scene_params(params, s), r, capacity, ext, tune=tune)
         for s in range(rows.shape[0])])
 
 
 def _check_scenes(frame: SortedFrame, n_scenes: int, n: int, r: int,
-                  scal: torch.Tensor, device: torch.device) -> None:
+                 scal: torch.Tensor, device: torch.device) -> None:
+    """Checks a scene-axis launch's frame and scalar blocks."""
     if not 0 < n_scenes <= 65535:
         raise ValueError(f"{n_scenes} scenes: the scene axis is the launch "
                          f"grid's y, 1 to 65535")
@@ -1157,10 +1185,13 @@ def _check_scenes(frame: SortedFrame, n_scenes: int, n: int, r: int,
 
 def density_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
                         params: PhysParams, r: int, capacity: int | None,
-                        scal: torch.Tensor | None = None) -> torch.Tensor:
+                        scal: torch.Tensor | None = None,
+                        tune: SortedTuning | None = None) -> torch.Tensor:
     """K1's scene-axis instance (``csrc/density.cu``
-    ``sph_density_scenes``): ρ f32[S, N] in one launch. ``scal`` is
-    :func:`scal_blocks` of ``params`` (built here when None)."""
+    ``sph_density_scenes``) in ``tune``'s variant: ρ f32[S, N] in one
+    launch. ``scal`` is :func:`scal_blocks` of ``params`` (built here when
+    None)."""
+    tune = _tuned(tune)
     n_scenes, n = pos_s.shape[:2]
     dev = pos_s.device
     if scal is None:
@@ -1168,14 +1199,42 @@ def density_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
     _check("pos_s", pos_s, torch.float32, (n_scenes, n, 3), dev)
     _check_scenes(frame, n_scenes, n, r, scal, dev)
     rho = torch.empty((n_scenes, n), dtype=torch.float32, device=dev)
-    fn = cuda_build.function("density.cu", "sph_density_scenes")
+    fn = cuda_build.function("density.cu", "sph_density_scenes", tune)
     err = fn(_ptr(pos_s), _ptr(frame.start), _ptr(frame.raw),
              _ptr(frame.occ), _ptr(scal), _ptr(rho), n, r,
              _cap_arg(capacity), n_scenes,
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error("density_scenes", err)
-    _count("density_scenes")
+    _count("density_scenes" + variant_tag("density.cu", tune))
     return rho
+
+
+def _walk_scenes_launch(source: str, entry: str, name: str,
+                        frame: SortedFrame, rows: torch.Tensor,
+                        params: PhysParams, r: int, capacity: int | None,
+                        ext: bool, pj: torch.Tensor | None,
+                        scal: torch.Tensor | None, out: torch.Tensor,
+                        tune: SortedTuning, xsph: float = 0.0,
+                        alpha_visc: float = 0.0) -> None:
+    """Checks the inputs of K2's or K3's scene-axis instance (``entry`` of
+    ``source``), launches it into ``out`` and counts it under ``name`` and
+    the variant's tag; ``pj`` and ``scal`` are built when None."""
+    n_scenes, n = rows.shape[:2]
+    dev = rows.device
+    if pj is None:
+        pj = pj_cols_scenes(rows[..., 6], params)
+    if scal is None:
+        scal = scal_blocks(params, xsph, alpha_visc)
+    _check("rows", rows, torch.float32, (n_scenes, n, N_FIELDS), dev)
+    _check("pj", pj, torch.float32, (n_scenes, n, 2), dev)
+    _check_scenes(frame, n_scenes, n, r, scal, dev)
+    fn = cuda_build.function(source, entry, tune)
+    err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
+             _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
+             _cap_arg(capacity), n_scenes, int(ext),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on_error(name, err)
+    _count(name + variant_tag(source, tune))
 
 
 def fused_substep_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
@@ -1183,58 +1242,95 @@ def fused_substep_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
                               capacity: int | None, xsph: float = 0.0,
                               alpha_visc: float = 0.0,
                               pj: torch.Tensor | None = None,
-                              scal: torch.Tensor | None = None
+                              scal: torch.Tensor | None = None,
+                              tune: SortedTuning | None = None
                               ) -> torch.Tensor:
     """K2's scene-axis instances (``csrc/fused_substep.cu``
-    ``sph_fused_substep_scenes``): new rows f32[S, N, 8] in one launch,
-    the instance with the extension sums for nonzero coefficients. ``pj``
-    is :func:`pj_cols_scenes` of the rows' ρ and ``scal``
-    :func:`scal_blocks` of ``params`` and the coefficients; each is built
-    here when None."""
-    n_scenes, n = rows.shape[:2]
-    dev = rows.device
-    if pj is None:
-        pj = pj_cols_scenes(rows[..., 6], params)
-    if scal is None:
-        scal = scal_blocks(params, xsph, alpha_visc)
+    ``sph_fused_substep_scenes``) in ``tune``'s variant: new rows
+    f32[S, N, 8] in one launch, the instance with the extension sums for
+    nonzero coefficients. ``pj`` is :func:`pj_cols_scenes` of the rows' ρ
+    and ``scal`` :func:`scal_blocks` of ``params`` and the coefficients;
+    each is built here when None."""
     ext = uses_extensions(xsph, alpha_visc)
-    _check("rows", rows, torch.float32, (n_scenes, n, N_FIELDS), dev)
-    _check("pj", pj, torch.float32, (n_scenes, n, 2), dev)
-    _check_scenes(frame, n_scenes, n, r, scal, dev)
     out = torch.empty_like(rows)
-    fn = cuda_build.function("fused_substep.cu", "sph_fused_substep_scenes")
-    err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
-             _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
-             _cap_arg(capacity), n_scenes, int(ext),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    name = "fused_substep_ext_scenes" if ext else "fused_substep_scenes"
-    _raise_on_error(name, err)
-    _count(name)
+    _walk_scenes_launch(
+        "fused_substep.cu", "sph_fused_substep_scenes",
+        "fused_substep_ext_scenes" if ext else "fused_substep_scenes",
+        frame, rows, params, r, capacity, ext, pj, scal, out,
+        _tuned(tune), xsph, alpha_visc)
+    return out
+
+
+def forces_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
+                       params: PhysParams, r: int, capacity: int | None,
+                       ext: bool = False, pj: torch.Tensor | None = None,
+                       scal: torch.Tensor | None = None,
+                       tune: SortedTuning | None = None) -> torch.Tensor:
+    """K3's scene-axis instances (``csrc/forces.cu`` ``sph_forces_scenes``)
+    in ``tune``'s variant: raw sums f32[S, N, 12] in one launch, in the
+    layout of :func:`forces_cuda`; ``ext`` selects the instance with the
+    extension sums. ``pj`` and ``scal`` as in
+    :func:`fused_substep_scenes_cuda` (``scal`` without the coefficients:
+    K3 does not read them)."""
+    out = torch.empty(rows.shape[:2] + (N_SUMS,), dtype=torch.float32,
+                      device=rows.device)
+    _walk_scenes_launch("forces.cu", "sph_forces_scenes",
+                        "forces_ext_scenes" if ext else "forces_scenes",
+                        frame, rows, params, r, capacity, ext, pj, scal,
+                        out, _tuned(tune))
     return out
 
 
 def density_scenes(frame: SortedFrame, pos_s: torch.Tensor,
                    params: PhysParams, r: int, capacity: int | None,
-                   scal: torch.Tensor | None = None) -> torch.Tensor:
-    """ρ f32[S, N] of every scene: K1's scene-axis instance for a CUDA
-    tensor, the plain version for a CPU tensor. ``scal`` (as in
-    :func:`density_scenes_cuda`) is read by the kernel only."""
+                   scal: torch.Tensor | None = None,
+                   tune: SortedTuning | None = None) -> torch.Tensor:
+    """ρ f32[S, N] of every scene in ``tune``'s variant: K1's scene-axis
+    instance for a CUDA tensor, the plain version for a CPU tensor.
+    ``scal`` (as in :func:`density_scenes_cuda`) is read by the kernel
+    only."""
     if pos_s.is_cuda:
-        return density_scenes_cuda(frame, pos_s, params, r, capacity, scal)
-    return density_scenes_plain(frame, pos_s, params, r, capacity)
+        return density_scenes_cuda(frame, pos_s, params, r, capacity, scal,
+                                   tune)
+    return density_scenes_plain(frame, pos_s, params, r, capacity, tune)
 
 
 def fused_substep_scenes(frame: SortedFrame, rows: torch.Tensor,
                          params: PhysParams, r: int, capacity: int | None,
                          xsph: float = 0.0, alpha_visc: float = 0.0,
                          pj: torch.Tensor | None = None,
-                         scal: torch.Tensor | None = None) -> torch.Tensor:
-    """One substep of every scene's rows f32[S, N, 8]: K2's scene-axis
-    instance for a CUDA tensor, the plain version for a CPU tensor. ``pj``
-    and ``scal`` (as in :func:`fused_substep_scenes_cuda`) are read by the
-    kernel only."""
+                         scal: torch.Tensor | None = None,
+                         tune: SortedTuning | None = None) -> torch.Tensor:
+    """One substep of every scene's rows f32[S, N, 8] in ``tune``'s
+    variant: K2's scene-axis instance for a CUDA tensor, the plain version
+    for a CPU tensor. ``pj`` and ``scal`` (as in
+    :func:`fused_substep_scenes_cuda`) are read by the kernel only."""
     if rows.is_cuda:
         return fused_substep_scenes_cuda(frame, rows, params, r, capacity,
-                                         xsph, alpha_visc, pj, scal)
+                                         xsph, alpha_visc, pj, scal, tune)
     return fused_substep_scenes_plain(frame, rows, params, r, capacity,
-                                      xsph, alpha_visc)
+                                      xsph, alpha_visc, tune)
+
+
+def forces_scenes(frame: SortedFrame, rows: torch.Tensor, params: PhysParams,
+                  r: int, capacity: int | None, xsph: float = 0.0,
+                  alpha_visc: float = 0.0, pj: torch.Tensor | None = None,
+                  scal: torch.Tensor | None = None,
+                  tune: SortedTuning | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`forces_pass` of every scene: (force f[S, N, 3], XSPH
+    correction dv f[S, N, 3] or None), the raw sums from K3's scene-axis
+    instance for a CUDA tensor or from the plain version for a CPU one, in
+    ``tune``'s variant, folded over the scenes (:func:`scene_view`). ``pj``
+    and ``scal`` (as in :func:`forces_scenes_cuda`) are read by the kernel
+    only."""
+    tune = _tuned(tune)
+    ext = uses_extensions(xsph, alpha_visc)
+    if rows.is_cuda:
+        sums = forces_scenes_cuda(frame, rows, params, r, capacity, ext, pj,
+                                  scal, tune)
+    else:
+        sums = forces_scenes_plain(frame, rows, params, r, capacity, ext,
+                                   tune)
+    return fold_forces(sums, rows[..., 6], scene_view(params), xsph,
+                       alpha_visc, fuse_acc=tune.fuse_acc)

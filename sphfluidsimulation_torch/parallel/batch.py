@@ -10,15 +10,16 @@ a leading scene axis.
 JAX ``vmap``s the frame step over the scene axis under one ``jit``: one
 program a frame, whose Pallas kernels take the scene as a grid axis. The
 port's batched step (:func:`make_batched_step`) has that shape on the
-sorted tier's faithful window route in the default variant
-(``stepper.scene_axis``): one frame build over all scenes, one K1 launch
-and five K2 launches (K2-ext with extensions) over all scenes
-(``stepper.make_scenes_step``). Every other tier, mode, route and variant
-runs each scene's frame step in turn on its row (:func:`over_scenes`):
-the slotted, gather, brute and sites tiers, the corrected mode (K3), the
-compact route (K5), the unfused route and the ``kahan``, ``bf16`` and
-``fuse_acc=False`` variants. Either way each scene's result is bit for bit
-the result of stepping that scene alone.
+sorted tier, in both modes and on every route and variant
+(``stepper.scene_axis``, ``stepper.make_scenes_step``): each frame build
+over all scenes, and each kernel launch over all scenes. A faithful frame
+is 1 K1 + 5 K2 launches (K2-ext with extensions), an unfused one 1 K1 +
+5 K3, a corrected one 6 K1 + 5 K3, and on the compact route 1 K5 density
++ 5 K5 substeps, or 6 K5 density + 5 K5 forces corrected (K3 with
+extensions), each in the variant's library. The slotted, gather, brute
+and sites tiers have no kernel to batch: they run each scene's frame step
+in turn on its row (:func:`over_scenes`). Either way each scene's result
+is bit for bit the result of stepping that scene alone.
 
 On the card :class:`BatchedScenes` of the sorted tier records one batched
 frame as a CUDA graph and replays it each frame (``sim/graph.py``
@@ -80,14 +81,13 @@ def make_batched_step(base: SimConfig, *, neighbor: str = "sorted",
                       tune: SortedTuning | None = None):
     """``(states, params) → (states, metrics)`` over a leading scene axis
     (JAX's ``vmap`` of ``make_param_step``): the scene-axis step on the
-    sorted tier's faithful window route in the default variant, else each
-    scene's frame step on its row, one scene after another (the module
-    docstring). ``neighbor`` and ``tune`` are ``make_param_step``'s (the
-    port's default tier, ``"sorted"``; None reads the ``SPH_PALLAS_*``
-    variables)."""
+    sorted tier, else each scene's frame step on its row, one scene after
+    another (the module docstring). ``neighbor``, ``faithful`` and ``tune``
+    are ``make_param_step``'s (the port's default tier, ``"sorted"``; None
+    reads the ``SPH_PALLAS_*`` variables)."""
     tune = default_tuning() if tune is None else tune
-    if stepper.scene_axis(neighbor, faithful, tune):
-        return stepper.make_scenes_step(base)
+    if stepper.scene_axis(neighbor):
+        return stepper.make_scenes_step(base, faithful, tune)
     return over_scenes(make_param_step(base, neighbor=neighbor,
                                        faithful=faithful, tune=tune))
 

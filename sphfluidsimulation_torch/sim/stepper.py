@@ -10,10 +10,10 @@ Counterpart of ``sphfluidsimulation_tpu/sim/stepper.py``: ``integrate_substep``
 ``initial_state``. The sorted tier's rollouts run as a CUDA graph on the
 card by default (``sim/graph.py``, JAX's one dispatch a rollout); this
 module holds their host loops, JAX's ``host_loop=True``. It also holds
-the faithful sorted step over a leading scene axis
-(:func:`make_scenes_step`), the port's form of JAX's ``vmap`` of the frame
-step (``parallel/batch.py:42-46``), which ``parallel.BatchedScenes`` takes
-on the sorted tier's window route.
+the sorted step over a leading scene axis (:func:`make_scenes_step`, both
+modes, every route and variant), the port's form of JAX's ``vmap`` of the
+frame step (``parallel/batch.py:42-46``), which ``parallel.BatchedScenes``
+takes on the sorted tier.
 
 Each frame reproduces the reference pipeline (SphFluidSimulation.cs:96-108).
 In faithful mode the neighbour structure and the density are computed ONCE
@@ -140,13 +140,17 @@ def integrate_substep(pos: torch.Tensor, vel: torch.Tensor,
 
     Transcribes VelPos.compute:107-157. ``xsph_dv`` (optional) is the XSPH
     advection-velocity correction, applied to the position update only,
-    after the NaN trap: a trapped particle still moves by dt·dv.
+    after the NaN trap: a trapped particle still moves by dt·dv. Over a
+    scene axis the state is [S, N, 3] and ``p`` a ``scene_view``.
     Returns (pos', vel', nan_mask).
     """
     f_wall = sph_math.wall_force(pos, vel, p.h, p.stiffness, p.damping,
                                  p.mass)
     zero = torch.zeros_like(p.gravity_y)
-    gravity = torch.stack([zero, p.gravity_y, zero])
+    # [3]; over a scene axis (``sph_kernels.scene_view``, [S, 1, 1]
+    # scalars) [S, 1, 3]
+    gravity = (torch.cat([zero, p.gravity_y, zero], -1) if p.gravity_y.dim()
+               else torch.stack([zero, p.gravity_y, zero]))
     a = gravity + (f_fluid + f_wall) / p.mass
 
     # NaN trap (VelPos.compute:143-147): zero the acceleration AND the
@@ -317,67 +321,195 @@ def _unsort_scenes(order: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def scene_axis(neighbor: str, faithful: bool, tune: SortedTuning) -> bool:
+def scene_axis(neighbor: str) -> bool:
     """Whether the batched step of ``neighbor``'s tier takes the scene axis
-    (:func:`make_scenes_step`): the sorted tier, faithful, on the window
-    route, fused, in the default variant (``tune == SortedTuning()``)."""
-    return (_check_supported(neighbor) == "sorted" and faithful
-            and tune == SortedTuning())
+    (:func:`make_scenes_step`): the sorted tier, in every mode, route and
+    variant. The slotted, gather, brute and sites tiers have no kernel and
+    step scene by scene (``parallel.batch.over_scenes``)."""
+    return _check_supported(neighbor) == "sorted"
 
 
-def make_scenes_step(cfg: SimConfig) -> ParamStepFn:
-    """The faithful sorted frame step over a leading scene axis:
-    ``(states, params) → (states, metrics)`` with states [S, N, ...] and
-    a stacked ``PhysParams``, in the callers' order, as ``_sorted_step``
-    of each scene on its row, bit for bit (JAX's ``vmap`` of the step, one
-    program a frame):
+def _density_scenes(frame: SortedFrame, pos_s: torch.Tensor,
+                    params: PhysParams, cfg: SimConfig, tune: SortedTuning,
+                    scal: torch.Tensor) -> torch.Tensor:
+    """:func:`_density` of every scene: ρ f32[S, N] from K5's or K1's
+    scene-axis instance."""
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    if tune.compact:
+        return compact.density_compact_scenes(frame, pos_s, params, r, cap,
+                                              scal)[0]
+    return sph_kernels.density_scenes(frame, pos_s, params, r, cap, scal,
+                                      tune=tune)
 
-        build_frame_scenes → K1 over the scenes → pack rows and pj
-        → 5 × K2 over the scenes → unpack, each scene's metrics
-        → each scene's unsort
 
-    K1 and K2 launch once a phase over all scenes
-    (``sph_kernels.density_scenes``, ``fused_substep_scenes``; K2-ext with
-    ``cfg.xsph`` or ``cfg.artificial_viscosity``); each scene's metrics
-    are ``_metrics`` of its own rows, the solo reductions. The profiler
-    ranges are ``_sorted_step``'s (``FRAME_PHASES``)."""
-    cfg = cfg.validate()
+def _forces_scenes(frame: SortedFrame, rows: torch.Tensor,
+                   params: PhysParams, cfg: SimConfig, tune: SortedTuning,
+                   pj: torch.Tensor, scal: torch.Tensor):
+    """:func:`_forces` of every scene: (force [S, N, 3], XSPH dv or None,
+    drift counts i32[S] or None), K5's forces mode without extensions on
+    the compact route, else K3, each over the scene axis."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+    if tune.compact and not sph_kernels.uses_extensions(xsph, alpha):
+        f, c = compact.forces_compact_scenes(frame, rows, params, r, cap, pj,
+                                             scal, tune)
+        return f, None, c
+    f, dv = sph_kernels.forces_scenes(frame, rows, params, r, cap, xsph,
+                                      alpha, pj, scal, tune)
+    return f, dv, None
 
-    def step(states: ParticleState, params: PhysParams
-             ) -> tuple[ParticleState, StepMetrics]:
+
+def _scenes_metrics(vel: torch.Tensor, rho: torch.Tensor,
+                    nan_hits: torch.Tensor, ovf: torch.Tensor,
+                    params: PhysParams,
+                    cert: torch.Tensor | None) -> StepMetrics:
+    """Each scene's :func:`_metrics` on its own rows, as the solo step
+    reduces them (a reduction over [S, N] may sum in another tree); ρ is
+    copied out so that each mean starts aligned."""
+    return stack_states([
+        _metrics(vel[s], rho[s].clone(), nan_hits[s], ovf[s],
+                 sph_kernels.scene_params(params, s),
+                 None if cert is None else cert[s])
+        for s in range(vel.shape[0])])
+
+
+def _scenes_frame(frame: SortedFrame, pos_s: torch.Tensor,
+                  vel_s: torch.Tensor, params: PhysParams, cfg: SimConfig,
+                  tune: SortedTuning):
+    """:func:`_sorted_frame` of every scene over the scene axis: density
+    once, then the fused substeps (K2, or K5 on the compact route), or with
+    ``tune.fused`` False the forces kernel and ``integrate_substep`` a
+    substep, each launch over all scenes. Returns (pos_s, vel_s,
+    nan_hits_s, metrics), [S, N, ...] and [S]."""
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    xsph, alpha = cfg.xsph, cfg.artificial_viscosity
+    scal = sph_kernels.scal_blocks(params, xsph, alpha)
+    with span("density"):
+        rho_s = _density_scenes(frame, pos_s, params, cfg, tune, scal)
+    cert = None
+    with span("pack_rows"):
+        rows = sph_kernels.pack_rows_scenes(pos_s, vel_s, rho_s)
+        pj = sph_kernels.pj_cols_scenes(rho_s, params)
+    if not tune.fused:
+        view = sph_kernels.scene_view(params)
+        nan_hits = torch.zeros(rho_s.shape, dtype=torch.int32,
+                               device=rho_s.device)
+        for k in range(cfg.substeps):
+            if k:
+                with span("pack_rows"):
+                    rows = sph_kernels.pack_rows_scenes(pos_s, vel_s, rho_s)
+            with span("forces"):
+                f, dv, c = _forces_scenes(frame, rows, params, cfg, tune, pj,
+                                          scal)
+                if c is not None:
+                    cert = _add_cert(cert, c)
+            with span("integrate"):
+                pos_s, vel_s, nan_mask = integrate_substep(pos_s, vel_s, f,
+                                                           view, dv)
+                nan_hits = nan_hits + nan_mask.to(torch.int32)
+    else:
+        for _ in range(cfg.substeps):
+            with span("fused_substep"):
+                if tune.compact:
+                    rows, c = compact.compact_substep_scenes(
+                        frame, rows, params, r, cap, xsph, alpha, pj, scal,
+                        tune=tune)
+                    cert = _add_cert(cert, c)
+                else:
+                    rows = sph_kernels.fused_substep_scenes(
+                        frame, rows, params, r, cap, xsph, alpha, pj, scal,
+                        tune=tune)
+    with span("unpack+metrics"):
+        if tune.fused:
+            pos_s, vel_s, _, nan_hits = sph_kernels.unpack_rows_scenes(rows)
+        ovf = (~frame.occ).sum(1).to(torch.int32)
+        m = _scenes_metrics(vel_s, rho_s, nan_hits, ovf, params, cert)
+    return pos_s, vel_s, nan_hits, m
+
+
+def make_scenes_step(cfg: SimConfig, faithful: bool = True,
+                     tune: SortedTuning | None = None) -> ParamStepFn:
+    """The sorted frame step over a leading scene axis: ``(states, params)
+    → (states, metrics)`` with states [S, N, ...] and a stacked
+    ``PhysParams``, in the callers' order, as :func:`make_param_step`'s
+    sorted step of each scene on its row, bit for bit, in both modes and on
+    every route and variant of ``tune`` (None reads the ``SPH_PALLAS_*``
+    variables): JAX's ``vmap`` of the step, whose kernels take the scene as
+    a grid axis. Faithful:
+
+        build_frame_scenes → K1 (K5) over the scenes → pack rows and pj
+        → 5 × K2 (K5) over the scenes, or unfused 5 × (K3 (K5 forces)
+        → integrate) → unpack, each scene's metrics → each scene's unsort
+
+    Corrected (:func:`_corrected_step` of each scene): one frame-start
+    build and density, then 5 × (build_frame_scenes → K1 (K5) → pack rows
+    and pj → K3 (K5 forces without extensions) → integrate → unsort).
+
+    Every kernel launches once a phase over all scenes
+    (``sph_kernels.density_scenes``, ``fused_substep_scenes``,
+    ``forces_scenes``, ``compact.*_scenes``); the per-scene physics scalars
+    broadcast over [S, 1, 1] (``sph_kernels.scene_view``) in the fold and
+    the integrate; each scene's metrics are ``_metrics`` of its own rows,
+    its certificate the drift counts of its own K5 launches. The profiler
+    ranges are the solo step's (``FRAME_PHASES``, ``CORRECTED_PHASES``)."""
+    cfg = cfg.validate()
+    tune = default_tuning() if tune is None else tune
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+
+    def faithful_step(states: ParticleState, params: PhysParams
+                      ) -> tuple[ParticleState, StepMetrics]:
         with span("build_frame"):
             frame, (pos_s, vel_s) = build_frame_scenes(
                 states.pos, r, cap, extras=(states.pos, states.vel))
-        scal = sph_kernels.scal_blocks(params, xsph, alpha)
-        with span("density"):
-            rho_s = sph_kernels.density_scenes(frame, pos_s, params, r, cap,
-                                               scal)
-        with span("pack_rows"):
-            rows = sph_kernels.pack_rows_scenes(pos_s, vel_s, rho_s)
-            pj = sph_kernels.pj_cols_scenes(rho_s, params)
-        for _ in range(cfg.substeps):
-            with span("fused_substep"):
-                rows = sph_kernels.fused_substep_scenes(
-                    frame, rows, params, r, cap, xsph, alpha, pj, scal)
-        with span("unpack+metrics"):
-            pos_s, vel_s, _, nan_hits = sph_kernels.unpack_rows_scenes(rows)
-            ovf = (~frame.occ).sum(1).to(torch.int32)
-            # each scene's reductions on its own rows, as the solo step
-            # reduces them (a reduction over [S, N] may sum in another
-            # tree); ρ is copied out so that each mean starts aligned
-            m = stack_states([
-                _metrics(vel_s[s], rho_s[s].clone(), nan_hits[s], ovf[s],
-                         sph_kernels.scene_params(params, s))
-                for s in range(rows.shape[0])])
+        pos_s, vel_s, nan_hits, m = _scenes_frame(frame, pos_s, vel_s,
+                                                  params, cfg, tune)
         order = frame.order
         return ParticleState(
             pos=_unsort_scenes(order, pos_s),
             vel=_unsort_scenes(order, vel_s),
             nan_count=states.nan_count + _unsort_scenes(order, nan_hits)), m
 
-    return step
+    def corrected_step(states: ParticleState, params: PhysParams
+                       ) -> tuple[ParticleState, StepMetrics]:
+        pos, vel = states.pos, states.vel
+        scal = sph_kernels.scal_blocks(params)
+        view = sph_kernels.scene_view(params)
+        with span("build_frame"):
+            frame0, (pos0_s,) = build_frame_scenes(pos, r, cap, extras=(pos,))
+        with span("density"):
+            rho0_s = _density_scenes(frame0, pos0_s, params, cfg, tune, scal)
+        nan_hits = torch.zeros_like(states.nan_count)
+        cert = None
+        for _ in range(cfg.substeps):
+            with span("build_frame"):
+                frame, (pos_s, vel_s) = build_frame_scenes(
+                    pos, r, cap, extras=(pos, vel))
+            with span("density"):
+                rho_s = _density_scenes(frame, pos_s, params, cfg, tune,
+                                        scal)
+            with span("pack_rows"):
+                rows = sph_kernels.pack_rows_scenes(pos_s, vel_s, rho_s)
+                pj = sph_kernels.pj_cols_scenes(rho_s, params)
+            with span("forces"):
+                f, dv, c = _forces_scenes(frame, rows, params, cfg, tune, pj,
+                                          scal)
+                if c is not None:
+                    cert = _add_cert(cert, c)
+            with span("integrate+unsort"):
+                pos_s, vel_s, nan_mask = integrate_substep(pos_s, vel_s, f,
+                                                           view, dv)
+                pos = _unsort_scenes(frame.order, pos_s)
+                vel = _unsort_scenes(frame.order, vel_s)
+                nan_hits = nan_hits + _unsort_scenes(
+                    frame.order, nan_mask.to(torch.int32))
+        with span("metrics"):
+            ovf = (~frame0.occ).sum(1).to(torch.int32)
+            m = _scenes_metrics(vel, _unsort_scenes(frame0.order, rho0_s),
+                                nan_hits, ovf, params, cert)
+        return ParticleState(pos=pos, vel=vel,
+                             nan_count=states.nan_count + nan_hits), m
+
+    return faithful_step if faithful else corrected_step
 
 
 def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:

@@ -20,10 +20,16 @@ These tests hold, on small batches (2-4 scenes of 512 particles, R = 9):
   absolute in position and velocity, ρ and the NaN count equal);
 - ``BatchedScenes`` on the scene axis, bit for bit each scene stepped
   alone, with and without the extensions, through 1 K1 + 5 K2 calls a
-  frame; the tiers, modes, routes and variants that keep stepping scene by
-  scene; the recorded frame body run eagerly against the host loop.
+  frame; every other mode, route and variant of the sorted tier on the
+  scene axis too (the corrected mode through 6 K1 + 5 K3 calls a frame,
+  the unfused route 1 K1 + 5 K3, the compact route 1 + 5 K5, the variants
+  in their own instances), each with no solo pass and bit for bit each
+  scene alone; the tiers without kernels, which step scene by scene; the
+  recorded frame body run eagerly against the host loop.
 
-The card's side (the kernels, the graph) is in tests/test_torch_cuda.py.
+The scene axis of K3 and K5 against JAX's vmapped kernels is in
+tests/test_torch_scene_routes.py; the card's side (the kernels, the graph)
+in tests/test_torch_cuda.py.
 """
 
 import jax
@@ -38,7 +44,7 @@ from sphfluidsimulation_tpu.ops.pallas_sph import PallasTuning
 from sphfluidsimulation_tpu.params import PhysParams as JPhys
 from sphfluidsimulation_tpu.params import stack_params as jstack_params
 from sphfluidsimulation_torch.config import SimConfig
-from sphfluidsimulation_torch.ops import sph_kernels as sk
+from sphfluidsimulation_torch.ops import compact, sph_kernels as sk
 from sphfluidsimulation_torch.ops.frame import (build_frame,
                                                 build_frame_scenes,
                                                 scene_frame)
@@ -268,18 +274,29 @@ def test_fused_substep_scenes_matches_jax_vmapped_fused_substep(ext):
 
 # -------------------------------------------------------- BatchedScenes --
 
+# the sorted tier's passes the stepper calls: over the scene axis, and solo
+SCENE_PASSES = {sk: ("density_scenes", "fused_substep_scenes",
+                     "forces_scenes"),
+                compact: ("density_compact_scenes", "compact_substep_scenes",
+                          "forces_compact_scenes")}
+SOLO_PASSES = {sk: ("density_pass", "fused_substep", "forces_pass"),
+               compact: ("density_compact", "compact_substep",
+                         "forces_compact")}
+
+
 def _count_calls(monkeypatch):
     """Counts the calls of the sorted passes, scene axis and solo."""
     calls = {}
-    for name in ("density_scenes", "fused_substep_scenes", "density_pass",
-                 "fused_substep"):
-        real = getattr(sk, name)
+    for passes in (SCENE_PASSES, SOLO_PASSES):
+        for module, names in passes.items():
+            for name in names:
+                real = getattr(module, name)
 
-        def counted(*a, _real=real, _name=name, **k):
-            calls[_name] = calls.get(_name, 0) + 1
-            return _real(*a, **k)
+                def counted(*a, _real=real, _name=name, **k):
+                    calls[_name] = calls.get(_name, 0) + 1
+                    return _real(*a, **k)
 
-        monkeypatch.setattr(sk, name, counted)
+                monkeypatch.setattr(module, name, counted)
     return calls
 
 
@@ -315,12 +332,12 @@ def test_batched_scenes_take_the_scene_axis(monkeypatch, ext):
 ROUTES = {
     "sorted": ("sorted", True, SortedTuning(), True),
     "pallas": ("pallas", True, SortedTuning(), True),
-    "corrected": ("sorted", False, SortedTuning(), False),
-    "compact": ("sorted", True, SortedTuning(compact=True), False),
-    "unfused": ("sorted", True, SortedTuning(fused=False), False),
-    "kahan": ("sorted", True, SortedTuning(kahan=True), False),
-    "bf16": ("sorted", True, SortedTuning(bf16=True), False),
-    "facc0": ("sorted", True, SortedTuning(fuse_acc=False), False),
+    "corrected": ("sorted", False, SortedTuning(), True),
+    "compact": ("sorted", True, SortedTuning(compact=True), True),
+    "unfused": ("sorted", True, SortedTuning(fused=False), True),
+    "kahan": ("sorted", True, SortedTuning(kahan=True), True),
+    "bf16": ("sorted", True, SortedTuning(bf16=True), True),
+    "facc0": ("sorted", True, SortedTuning(fuse_acc=False), True),
     "slotted": ("slotted", True, SortedTuning(), False),
     "gather": ("gather", True, SortedTuning(), False),
     "brute": ("brute", True, SortedTuning(), False),
@@ -330,37 +347,69 @@ ROUTES = {
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_scene_axis_routes(route):
+    # every mode, route and variant of the sorted tier takes the scene
+    # axis; the tiers without kernels step scene by scene
     neighbor, faithful, tune, axis = ROUTES[route]
-    assert stepper.scene_axis(neighbor, faithful, tune) is axis
+    assert stepper.scene_axis(neighbor) is axis
+    step = make_batched_step(SimConfig(**_GOLDEN), neighbor=neighbor,
+                             faithful=faithful, tune=tune)
+    assert (step.__qualname__.startswith("make_scenes_step")) is axis
 
 
-# the routes that keep stepping scene by scene, each bit-equal to its
-# scenes alone (the default and slotted routes: test_torch_parallel.py)
-SCENE_BY_SCENE = {"corrected": dict(faithful=False),
-                  "compact": dict(tune=SortedTuning(compact=True)),
-                  "kahan": dict(tune=SortedTuning(kahan=True))}
+# the sorted tier's other modes, routes and variants (the name dates from
+# when they stepped scene by scene): (options, extension coefficients,
+# scene-axis calls a frame); each scene bit-equal to its scene alone, and
+# no solo pass (the default route: test_batched_scenes_take_the_scene_axis)
+COMPACT = SortedTuning(compact=True)
+SCENE_BY_SCENE = {
+    "corrected": (dict(faithful=False), EXT,
+                  dict(density_scenes=6, forces_scenes=5)),
+    "compact": (dict(tune=COMPACT), EXT,
+                dict(density_compact_scenes=1, compact_substep_scenes=5)),
+    "kahan": (dict(tune=SortedTuning(kahan=True)), EXT,
+              dict(density_scenes=1, fused_substep_scenes=5)),
+    "unfused": (dict(tune=SortedTuning(fused=False)), {},
+                dict(density_scenes=1, forces_scenes=5)),
+    "bf16": (dict(tune=SortedTuning(bf16=True)), EXT,
+             dict(density_scenes=1, fused_substep_scenes=5)),
+    "facc0": (dict(tune=SortedTuning(fuse_acc=False)), {},
+              dict(density_scenes=1, fused_substep_scenes=5)),
+    "compact-corrected": (dict(faithful=False, tune=COMPACT), {},
+                          dict(density_compact_scenes=6,
+                               forces_compact_scenes=5)),
+    "compact-corrected-ext": (dict(faithful=False, tune=COMPACT), EXT,
+                              dict(density_compact_scenes=6,
+                                   forces_scenes=5)),
+    "compact-unfused": (dict(tune=SortedTuning(compact=True, fused=False)),
+                        {}, dict(density_compact_scenes=1,
+                                 forces_compact_scenes=5)),
+}
 
 
 @pytest.mark.parametrize("route", sorted(SCENE_BY_SCENE))
 def test_other_routes_step_scene_by_scene(monkeypatch, route):
-    kw = SCENE_BY_SCENE[route]
-    cfgs, _, _ = _batch(**EXT)
+    kw, ext, per_frame = SCENE_BY_SCENE[route]
+    cfgs, _, _ = _batch(**ext)
     calls = _count_calls(monkeypatch)
-    bs = BatchedScenes(SimConfig(**_GOLDEN, **EXT), OVERRIDES,
+    bs = BatchedScenes(SimConfig(**_GOLDEN, **ext), OVERRIDES,
                        devices="cpu", **kw)
-    bs.step()
-    assert "density_scenes" not in calls
+    bs.step(2)
+    assert calls == {k: 2 * v for k, v in per_frame.items()}
     monkeypatch.undo()
-    want, m = _alone(cfgs, 1, **kw)
+    want, m = _alone(cfgs, 2, **kw)
     for a, b in zip((*bs.states, *bs.last_metrics), (*want, *m)):
         _same_bits(a, b)
 
 
-# the batched steps BatchedScenes records on the card: the scene axis, and
-# scene by scene the sorted tier's other routes
+# the batched steps BatchedScenes records on the card, each on the scene
+# axis: the default route, the corrected mode, the compact route (faithful
+# and corrected), the unfused route and a variant
 BODIES = {"scene-axis": ({}, {}), "scene-axis-ext": ({}, EXT),
           "corrected": (dict(faithful=False), EXT),
-          "compact": (dict(tune=SortedTuning(compact=True)), {})}
+          "compact": (dict(tune=COMPACT), {}),
+          "compact-corrected": (dict(faithful=False, tune=COMPACT), {}),
+          "unfused": (dict(tune=SortedTuning(fused=False)), EXT),
+          "bf16": (dict(tune=SortedTuning(bf16=True)), EXT)}
 
 
 @pytest.mark.parametrize("case", sorted(BODIES))

@@ -7,8 +7,10 @@ kernels (sphfluidsimulation_torch/probes), and the paths around the
 kernels that run on the card: the graph rollout against the host loop,
 the exact tiers, the dt replay,
 the snapshots of the sorted rollout, the render properties, the scene
-batch (the scene-axis K1 and K2 at config 5's shape, the batch's graph
-against its host loop), the sites tier, its slab step, the domain step
+batch (the scene-axis K1, K2 and K3 at config 5's shape and K5 over three
+small scenes, each scene bit-equal to its solo launch; the batch's graph
+against its host loop on every route), the sites tier, its slab step, the
+domain step
 and the CLI's
 ``sweep`` and ``run --shards``. They
 import no JAX (the machine with the card has none), so run them without the
@@ -954,18 +956,140 @@ def test_scene_axis_kernels_match_plain_at_config5_on_card(cuda_device,
                                    al).ok
 
 
-# the batched steps BatchedScenes records: the scene axis (with and
-# without extensions) and, scene by scene, the corrected and compact routes
-BATCH_CASES = {"scene-axis": ({}, {}),
-               "scene-axis-ext": ({}, dict(xsph=XSPH,
-                                           artificial_viscosity=ALPHA)),
-               "corrected": (dict(faithful=False), {}),
-               "compact": (dict(tune=COMPACT), {})}
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+def test_forces_scenes_kernel_matches_plain_at_config5_on_card(cuda_device,
+                                                               ext):
+    # K3-scenes (K3-ext-scenes: 2 scenes of config 3's physics) in one
+    # launch on the rows two substeps into the frame (the spawn's
+    # velocities are 0, and the unfused route runs K3 on such rows): every
+    # scene's sums bit-equal to its solo launch, the ends of the sweep held
+    # to their plain versions (the solo rule); the viscosity zeroed (XSPH 0
+    # in the fold with extensions) must fail scene 0's rule
+    from sphfluidsimulation_torch.ops.frame import scene_frame
+    frame, ps, vs, params, r, cap, xs, al = _config5_batch(cuda_device, ext)
+    name = "forces_ext_scenes" if ext else "forces_scenes"
+    rho = sk.density_scenes(frame, ps, params, r, cap)
+    rows = sk.pack_rows_scenes(ps, vs, rho)
+    for _ in range(2):
+        rows = sk.fused_substep_scenes(frame, rows, params, r, cap, xs, al)
+    before = dict(sk.launch_counts)
+    sums = sk.forces_scenes_cuda(frame, rows, params, r, cap, ext)
+    assert sk.launch_counts[name] == before[name] + 1
+    f, dv = sk.fold_forces(sums, rho, sk.scene_view(params), xs, al)
+    n_sc = ps.shape[0]
+    for sc in range(n_sc):
+        fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+        assert _same_bits(sums[sc], sk.forces_cuda(fs, rows[sc], ph, r, cap,
+                                                   ext))
+        if sc in (0, n_sc - 1):
+            acc = sk.forces_accuracy(fs, rows[sc], f[sc],
+                                     None if dv is None else dv[sc], ph, r,
+                                     cap, xs, al)
+            assert acc.ok, (sc, acc)
+    fs, ph = scene_frame(frame, 0), sk.scene_params(params, 0)
+    if ext:
+        f0, dv0 = sk.fold_forces(sums[0], rho[0], ph, 0.0, al)
+    else:
+        bad = sk.forces_scenes_cuda(frame, rows, params._replace(
+            viscosity=torch.zeros_like(params.viscosity)), r, cap)
+        f0, dv0 = sk.fold_forces(bad[0], rho[0], ph)
+    assert not sk.forces_accuracy(fs, rows[0], f0, dv0, ph, r, cap, xs,
+                                  al).ok
+
+
+@pytest.mark.cuda
+def test_compact_scenes_kernels_match_plain_on_card(cuda_device):
+    # K5-scenes in each mode over 3 scenes with random velocities, on rows
+    # of scene 1 moved 2.5 cells up in z after the frame build (some leave
+    # their tile's band):
+    # every scene's output and drift count bit-equal to its solo launch's,
+    # held to its plain version, the drift counts per scene (scene 1's
+    # only), and the substep without viscosity must fail the rule
+    from sphfluidsimulation_torch.ops.frame import (build_frame_scenes,
+                                                    scene_frame)
+    from sphfluidsimulation_torch.params import stack_params
+    from sphfluidsimulation_torch.state import stack_states
+    cfgs = [SimConfig(**_GOLDENISH).replace(rest_density=1.0 + 0.25 * i,
+                                            seed=i) for i in range(3)]
+    states = stack_states([initial_state(c, cuda_device) for c in cfgs])
+    params = stack_params([PhysParams.from_config(c, cuda_device)
+                           for c in cfgs])
+    r = cfgs[0].bucket_resolution
+    vel = 0.2 * torch.randn(states.vel.shape, device=cuda_device,
+                            generator=torch.Generator(cuda_device)
+                            .manual_seed(0))
+    frame, (ps, vs) = build_frame_scenes(states.pos, r, CAP,
+                                         extras=(states.pos, vel))
+    before = dict(sk.launch_counts)
+    rho, c0 = compact.density_compact_scenes(frame, ps, params, r, CAP)
+    rows = sk.pack_rows_scenes(ps, vs, rho)
+    rows[1, 100:111, 2] += 2.5 / (r - 1)
+    outs = {(xs, al): compact.compact_substep_scenes(frame, rows, params, r,
+                                                     CAP, xs, al)
+            for xs, al in ((0.0, 0.0), (XSPH, ALPHA))}
+    f, cf = compact.forces_compact_scenes(frame, rows, params, r, CAP)
+    sums, _ = compact.forces_compact_scenes_cuda(frame, rows, params, r, CAP)
+    for k in ("compact_density_scenes", "compact_substep_scenes",
+              "compact_substep_ext_scenes", "compact_forces_scenes"):
+        assert sk.launch_counts[k] > before[k]
+    assert c0.tolist() == [0, 0, 0]
+    assert cf.tolist()[0] == cf.tolist()[2] == 0 and int(cf[1]) > 0
+    for sc in range(3):
+        fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+        rho1, c1 = compact.density_compact_cuda(fs, ps[sc], ph, r, CAP)
+        assert _same_bits(rho[sc], rho1) and int(c1) == 0
+        torch.testing.assert_close(rho[sc], compact.density_compact_plain(
+            fs, ps[sc], ph, r)[0], rtol=1e-5, atol=1e-6)
+        cp = compact.spans_of(fs, rows[sc, :, 0:3], r, True)[1]
+        for (xs, al), (out, c) in outs.items():
+            o1, c1 = compact.compact_substep_cuda(fs, rows[sc], ph, r, CAP,
+                                                  xs, al)
+            assert _same_bits(out[sc], o1) and int(c[sc]) == int(c1)
+            assert int(c[sc]) == int(cp)
+            acc = sk.substep_accuracy(fs, rows[sc], out[sc], ph, r, None,
+                                      xs, al,
+                                      sums_fn=compact.compact_sums_plain)
+            assert acc.ok, (sc, xs, acc)
+        s1, c1 = compact.forces_compact_cuda(fs, rows[sc], ph, r, CAP)
+        assert _same_bits(sums[sc], s1) and int(cf[sc]) == int(c1)
+        assert sk.forces_accuracy(fs, rows[sc], f[sc], None, ph, r, None,
+                                  sums_fn=compact.compact_sums_plain).ok
+    no_visc = params._replace(viscosity=torch.zeros_like(params.viscosity))
+    bad, _ = compact.compact_substep_scenes_cuda(frame, rows, no_visc, r, CAP)
+    fs, ph = scene_frame(frame, 1), sk.scene_params(params, 1)
+    assert not sk.substep_accuracy(fs, rows[1], bad[1], ph, r, None,
+                                   sums_fn=compact.compact_sums_plain).ok
+
+
+# the batched steps BatchedScenes records, each on the scene axis: (options,
+# extension coefficients, scene-axis launches a frame)
+_EXT = dict(xsph=XSPH, artificial_viscosity=ALPHA)
+BATCH_CASES = {
+    "scene-axis": ({}, {}, dict(density_scenes=1, fused_substep_scenes=5)),
+    "scene-axis-ext": ({}, _EXT, dict(density_scenes=1,
+                                      fused_substep_ext_scenes=5)),
+    "corrected": (dict(faithful=False), {}, dict(density_scenes=6,
+                                                 forces_scenes=5)),
+    "corrected-ext": (dict(faithful=False), _EXT,
+                      dict(density_scenes=6, forces_ext_scenes=5)),
+    "compact": (dict(tune=COMPACT), {}, dict(compact_density_scenes=1,
+                                             compact_substep_scenes=5)),
+    "compact-corrected": (dict(faithful=False, tune=COMPACT), {},
+                          dict(compact_density_scenes=6,
+                               compact_forces_scenes=5)),
+    "unfused": (dict(tune=SortedTuning(fused=False)), {},
+                dict(density_scenes=1, forces_scenes=5)),
+    "kahan": (dict(tune=SortedTuning(kahan=True)), {},
+              {"density_scenes+kahan": 1, "fused_substep_scenes+kahan": 5}),
+    "bf16-ext": (dict(tune=SortedTuning(bf16=True)), _EXT,
+                 {"density_scenes": 1, "fused_substep_ext_scenes+bf16": 5}),
+}
 
 
 def _batches(case, device, **kw):
     from sphfluidsimulation_torch.parallel import BatchedScenes
-    opts, ext = BATCH_CASES[case]
+    opts, ext, _ = BATCH_CASES[case]
     cfg = SimConfig(**_GOLDENISH, **ext)
     overrides = [{"rest_density": 1.0 + 0.25 * i, "seed": i}
                  for i in range(3)]
@@ -980,7 +1104,8 @@ def test_batched_scenes_graph_is_bit_equal_to_the_host_loop_on_card(
         cuda_device, case):
     # JAX's one program a frame: each frame of the batch one replay of the
     # recorded batched step, bit for bit the host loop's states and
-    # metrics, through the same launches
+    # metrics, through the same scene-axis launches and no solo one; every
+    # scene bit-equal to its solo rollout
     bss = _batches(case, cuda_device)
     assert bss["host"].host_loop is True and bss["graph"].host_loop is False
     counts = {}
@@ -991,12 +1116,18 @@ def test_batched_scenes_graph_is_bit_equal_to_the_host_loop_on_card(
         torch.cuda.synchronize()
         counts[mode] = dict(sk.launch_counts)
     assert counts["graph"] == counts["host"]
-    assert sum(counts["host"].values()) > 0
-    if case.startswith("scene-axis"):
-        assert counts["host"]["density_scenes"] == 3
+    per_frame = BATCH_CASES[case][2]
+    assert {k: v for k, v in counts["host"].items() if v} == {
+        k: 3 * v for k, v in per_frame.items()}
     for a, b in zip((*bss["host"].states, *bss["host"].last_metrics),
                     (*bss["graph"].states, *bss["graph"].last_metrics)):
         assert a.shape == b.shape and _same_bits(a, b)
+    opts = BATCH_CASES[case][0]
+    for i, c in enumerate(bss["graph"].configs):
+        solo, _ = make_rollout(c, 4, device=cuda_device, **opts)(
+            initial_state(c, cuda_device))
+        for a, b in zip(bss["graph"].states, solo):
+            assert _same_bits(a[i], b)
 
 
 @pytest.mark.cuda
@@ -1005,6 +1136,22 @@ def test_batched_frame_never_waits_for_the_card(cuda_device, mode):
     # the batched frame build, the scene-axis kernels, the per-scene
     # metrics and unsorts make no synchronising call, in either mode
     bs = _batches("scene-axis-ext", cuda_device)[mode]
+    bs.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bs.step(2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["corrected-ext", "compact",
+                                  "compact-corrected", "unfused"])
+def test_batched_routes_never_wait_for_the_card(cuda_device, case):
+    # the host loop of the other routes' batched steps makes no
+    # synchronising call either (the graph's capture would fail on one)
+    bs = _batches(case, cuda_device)["host"]
     bs.step()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
