@@ -96,11 +96,19 @@ every phase passed; each prints its seconds):
    and 20 K2 launches a frame; frame 1 at 262k equal to the single-device
    window route bit for bit wherever ``exact_cert`` is 0, and the overflow
    equal to its; the calm 1k scene on 2 and 4 slabs for 3 frames, with
-   ``exact_cert`` 0 and within 2e-5 of the single-device route; the slab
-   step's rate at 262k and 1M beside the single-device route's, each a
-   one-frame warm-up and 3 timed frames from the canonical spawn; and the
-   banded kernels' times (one launch on each shard), plain versions and
-   bounds. The slab runs use the row slack of the JAX tests (4.0), since
+   ``exact_cert`` 0 and within 2e-5 of the single-device route; the
+   recorded slab frame (``slab_pallas.GraphSlabStep``, one replay a call,
+   the default on the card) against the host loop (``host_loop=True``) at
+   262k and config 3 on the window route and at 262k on the compact route:
+   3 frames from the same slab state after a first call of each, run host,
+   graph, graph, host, with exactly 4 K1-band + 20 K2-band launches a
+   frame (K2-ext-band at config 3, K5-band density and substep on the
+   compact route) in every run, the states and every metric lane of each
+   frame bit-equal, each mode's rate, host ms and device ms a frame (the
+   profiler's kernels, copies and memsets) and idle share; the slab
+   step's rate at 262k and 1M in both modes (H G G H, 3 frames after one)
+   beside the single-device graph rollout's; and the banded kernels'
+   times (one launch on each shard), plain versions and bounds. The slab runs use the row slack of the JAX tests (4.0), since
    the golden and config-3 spawns are not spread evenly over z, and a halo
    slack of 8.0;
 9. the tuning variants (``SortedTuning``, the JAX ``PallasTuning``'s
@@ -224,9 +232,14 @@ every phase passed; each prints its seconds):
    the counters reset before each run and read after it (exactly the
    path's launches in both modes), the outputs and every metric lane
    bit-equal; each mode's rate, host ms a frame, device ms a frame (the
-   profiler's kernel, copy and memset time) and device idle share; and
+   profiler's kernel, copy and memset time) and device idle share;
    ``snapshot_every=5`` and ``make_dt_rollout`` at 262k bit-equal in both
-   modes with the same launches.
+   modes with the same launches; and ``Scene.step`` at 262k, one frame a
+   call for 10 frames from the spawn, ``jit=True`` (the recorded frame,
+   the default) against ``jit=False`` (the eager step), H G G H, exactly
+   1 K1 + 5 K2 a frame in every run, the final state and metrics
+   bit-equal, each mode's rate, host and device ms a frame and idle
+   share.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -1169,6 +1182,166 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
         in_cube(state.pos, "entry()", int(m.exact_cert))
 
 
+def flat(out):
+    """A rollout's or a step's outputs as one list of tensors."""
+    return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
+
+
+def bit_equal(a, b) -> bool:
+    """Equal tensor lists, NaNs and signed zeros bit for bit."""
+    import torch
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            *(t.view(torch.int32) if t.is_floating_point() else t
+              for t in (x, y)))
+        for x, y in zip(a, b))
+
+
+def mode_text(work: int, host_ms: dict, dev_ms: dict) -> str:
+    """Each mode's rate, host ms a frame of each run, device ms a frame and
+    device idle share, and the graph's rate over the host loop's."""
+    text = []
+    for m in ("host", "graph"):
+        mean = sum(host_ms[m]) / len(host_ms[m])
+        text.append(
+            f"{m} {work / mean * 1e3:.6g} particle-substeps/s (host "
+            f"{' / '.join(f'{x:.4f}' for x in host_ms[m])} ms a frame, "
+            f"device {dev_ms[m]:.4f}, idle share {1 - dev_ms[m] / mean:.4f})")
+    gain = sum(host_ms["host"]) / sum(host_ms["graph"])
+    return f"{'; '.join(text)}; graph/host rate {gain:.4f}"
+
+
+def profiled_ms(run, frames: int) -> float:
+    """Device ms a frame of ``run()`` (``frames`` frames) under the
+    profiler: its kernels, copies and memsets."""
+    import torch
+
+    from sphfluidsimulation_torch.utils.profiling import device_ms
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    return device_ms(prof) / frames
+
+
+def slab_graph(dev, ident: str, read_launches, zero: dict, sizes: dict, c3,
+               k5, states0: dict, c3_state) -> None:
+    """The slab step on ``LocalRing(SLAB_D)`` as one recorded frame a call
+    (``slab_pallas.GraphSlabStep``, the default on the card) against its
+    host loop (``host_loop=True``): at 262k and config 3 on the window
+    route and at 262k on the compact route, ``SLAB_FRAMES`` frames from
+    the same slab state after a first call of each (which records the
+    graph), run host, graph, graph, host with the exact launches in each
+    run, the states and every metric lane of each frame bit-equal; each
+    mode's rate, host and device ms a frame and idle share. Then the slab
+    rates in both modes at 262k and 1M beside the single-device graph
+    rollout's."""
+    import torch
+
+    from sphfluidsimulation_torch.ops import sph_kernels as sk
+    from sphfluidsimulation_torch.params import PhysParams
+    from sphfluidsimulation_torch.parallel import (LocalRing, distribute,
+                                                   make_pallas_slab_step)
+    from sphfluidsimulation_torch.sim.stepper import make_rollout
+
+    modes = ("host", "graph")
+
+    def steps_of(cfg, tune=None):
+        steps = {}
+        for m in modes:
+            steps[m], spec = make_pallas_slab_step(
+                cfg, LocalRing(SLAB_D), row_slack=SLAB_SLACK,
+                halo_slack=SLAB_HALO, tune=tune, device=dev,
+                host_loop=True if m == "host" else None)
+            if steps[m].host_loop is not (m == "host"):
+                fail(f"the {m} slab step reports host_loop "
+                     f"{steps[m].host_loop}")
+        return steps, spec
+
+    def frames(step, st, phys):
+        """Every frame's state and metrics over SLAB_FRAMES frames."""
+        out = []
+        for _ in range(SLAB_FRAMES):
+            st, m = step(st, phys)
+            out += [*st, *m]
+        return out
+
+    def runs(label, steps, s0, phys, want):
+        """H G G H, each counted and host-timed: (outputs, host ms)."""
+        for m in modes:
+            frames(steps[m], s0, phys)       # warm-up; the graph's records
+        outs, host_ms = {}, {m: [] for m in modes}
+        for m in ("host", "graph", "graph", "host"):
+            torch.cuda.synchronize()
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = frames(steps[m], s0, phys)
+            torch.cuda.synchronize()
+            host_ms[m].append((time.perf_counter() - t0) * 1e3 / SLAB_FRAMES)
+            if want is not None:
+                read_launches(f"slab {label}, {m}", want)
+            if m in outs and not bit_equal(outs[m], out):
+                fail(f"slab {label}: two {m} runs differ")
+            outs[m] = out
+        return outs, host_ms
+
+    cells = {"262k": (sizes["262k"], None, states0["262k"],
+                      dict(density_band=1, fused_substep_band=5)),
+             "config 3": (c3, None, c3_state,
+                          dict(density_band=1, fused_substep_ext_band=5)),
+             "262k compact": (sizes["262k"], k5, states0["262k"],
+                              dict(compact_density_band=1,
+                                   compact_substep_band=5))}
+    with Phase("slab graph against host loop"):
+        for label, (cfg, tune, st0, per_frame) in cells.items():
+            steps, spec = steps_of(cfg, tune)
+            phys = PhysParams.from_config(cfg, dev)
+            s0 = distribute(st0, cfg, spec)
+            want = dict(zero, **{k: v * SLAB_D * SLAB_FRAMES
+                                 for k, v in per_frame.items()})
+            outs, host_ms = runs(label, steps, s0, phys, want)
+            if not bit_equal(outs["host"], outs["graph"]):
+                fail(f"slab {label}: the graph leaves the host loop")
+            dev_ms = {m: profiled_ms(lambda: frames(steps[m], s0, phys),
+                                     SLAB_FRAMES) for m in modes}
+            certs = [int(x) for x in outs["graph"][10::11]]
+            work = cfg.n_particles * cfg.substeps
+            print(f"slab graph vs host loop, {label}, {SLAB_D} slabs, "
+                  f"frames 0-{SLAB_FRAMES - 1}: "
+                  f"{mode_text(work, host_ms, dev_ms)}; states and metrics "
+                  f"of every frame bit-equal; exact_cert {certs} [{ident}]",
+                  flush=True)
+
+    with Phase("slab rates"):
+        for key, cfg in sizes.items():
+            steps, spec = steps_of(cfg)
+            phys = PhysParams.from_config(cfg, dev)
+            s1, _ = steps["graph"](distribute(states0[key], cfg, spec), phys)
+            _, host_ms = runs(f"rates {key}", steps, s1, phys, None)
+            st1, _ = make_rollout(cfg, 1, device=dev)(states0[key])
+            roll = make_rollout(cfg, SLAB_FRAMES, device=dev)
+            roll(st1)                                 # records the graph
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            roll(st1)
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t0) * 1e3 / SLAB_FRAMES
+            work = cfg.n_particles * cfg.substeps
+            rates = {m: work / (sum(v) / len(v)) * 1e3
+                     for m, v in host_ms.items()}
+            text = {m: " / ".join(f"{x:.4f}" for x in v)
+                    for m, v in host_ms.items()}
+            print(f"slab rate {key} ({SLAB_D} slabs, frames 1-{SLAB_FRAMES},"
+                  f" H G G H): host loop {rates['host']:.6g} "
+                  f"particle-substeps/s ({text['host']} ms a frame), graph "
+                  f"{rates['graph']:.6g} ({text['graph']} ms); single-device "
+                  f"graph rollout {work / one_ms * 1e3:.6g} ({one_ms:.4f} "
+                  f"ms); graph / single device "
+                  f"{rates['graph'] * one_ms / work / 1e3:.4f} [{ident}]",
+                  flush=True)
+
+
 def phase13(dev, ident: str, read_launches, zero: dict, sizes: dict, c3,
             k5, states0: dict, c3_state) -> None:
     """The sorted tier's rollout as a replayed CUDA graph (``sim/graph.py``,
@@ -1178,24 +1351,11 @@ def phase13(dev, ident: str, read_launches, zero: dict, sizes: dict, c3,
     mode's rate, host and device ms a frame and device idle share."""
     import torch
 
-    from sphfluidsimulation_torch import make_dt_rollout
+    from sphfluidsimulation_torch import Scene, make_dt_rollout
     from sphfluidsimulation_torch.ops import sph_kernels as sk
     from sphfluidsimulation_torch.sim.stepper import make_rollout
-    from sphfluidsimulation_torch.utils.profiling import device_ms
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     modes = ("host", "graph")
-
-    def flat(out):
-        return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
-
-    def bit_equal(a, b):
-        return len(a) == len(b) and all(
-            x.shape == y.shape and x.dtype == y.dtype and torch.equal(
-                *(t.view(torch.int32) if t.is_floating_point() else t
-                  for t in (x, y)))
-            for x, y in zip(a, b))
 
     def timed_call(label, mode, roll, args, want):
         """One counted, host-timed call: (flat outputs, host ms)."""
@@ -1238,25 +1398,48 @@ def phase13(dev, ident: str, read_launches, zero: dict, sizes: dict, c3,
                 host_ms[m].append(ms / FRAMES)
             if not bit_equal(outs["host"], outs["graph"]):
                 fail(f"{label}: the graph leaves the host loop")
-            dev_ms = {}
-            for m in modes:
-                with torch.profiler.profile(activities=acts) as prof:
-                    rolls[m](st0)
-                    torch.cuda.synchronize()
-                dev_ms[m] = device_ms(prof) / FRAMES
+            dev_ms = {m: profiled_ms(lambda: rolls[m](st0), FRAMES)
+                      for m in modes}
             work = cfg.n_particles * cfg.substeps
-            text = []
-            for m in modes:
-                mean = sum(host_ms[m]) / len(host_ms[m])
-                text.append(
-                    f"{m} {work / mean * 1e3:.6g} particle-substeps/s (host "
-                    f"{' / '.join(f'{x:.4f}' for x in host_ms[m])} ms a "
-                    f"frame, device {dev_ms[m]:.4f}, idle share "
-                    f"{1 - dev_ms[m] / mean:.4f})")
-            gain = sum(host_ms["host"]) / sum(host_ms["graph"])
             print(f"graph vs host loop, {label}, frames 0-{FRAMES - 1}: "
-                  f"{'; '.join(text)}; graph/host rate {gain:.4f}; outputs "
-                  f"and metrics bit-equal [{ident}]", flush=True)
+                  f"{mode_text(work, host_ms, dev_ms)}; outputs and metrics "
+                  f"bit-equal [{ident}]", flush=True)
+
+        # Scene.step, one frame a call: jit=True (the default) replays the
+        # recorded frame, jit=False steps eagerly; each run from the spawn
+        cfg, st0 = sizes["262k"], states0["262k"]
+        scenes = {m: Scene(cfg, device=dev, jit=m == "graph") for m in modes}
+        want = dict(zero, density=FRAMES, fused_substep=5 * FRAMES)
+
+        def scene_run(scene):
+            scene.state = st0
+            for _ in range(FRAMES):
+                st = scene.step()
+            return [*st, *scene.last_metrics]
+
+        for m in modes:
+            if scenes[m].host_loop is not (m == "host"):
+                fail(f"Scene(jit={m == 'graph'}) reports host_loop "
+                     f"{scenes[m].host_loop}")
+            scenes[m].step()                  # the graph's records it
+        outs, host_ms = {}, {m: [] for m in modes}
+        for m in ("host", "graph", "graph", "host"):
+            torch.cuda.synchronize()
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs[m] = scene_run(scenes[m])
+            torch.cuda.synchronize()
+            host_ms[m].append((time.perf_counter() - t0) * 1e3 / FRAMES)
+            read_launches(f"Scene.step 262k, {m}", want)
+        if not bit_equal(outs["host"], outs["graph"]):
+            fail("Scene(jit=True) leaves the eager step")
+        dev_ms = {m: profiled_ms(lambda: scene_run(scenes[m]), FRAMES)
+                  for m in modes}
+        work = cfg.n_particles * cfg.substeps
+        print(f"Scene.step jit=True vs jit=False, 262k, frames 0-"
+              f"{FRAMES - 1}, one frame a call: "
+              f"{mode_text(work, host_ms, dev_ms)}; state and metrics "
+              f"bit-equal [{ident}]", flush=True)
 
         cfg, st0 = sizes["262k"], states0["262k"]
         nf = len(DT_SCHEDULE)
@@ -2349,32 +2532,8 @@ def main() -> None:
             if certs != [0, 0, 0] or lost or not e < 2e-5:
                 fail(f"the calm slab run on {d} slabs")
 
-    with Phase("slab rates"):
-        for key, cfg in sizes.items():
-            step, spec, phys = slab_setup(cfg)
-            st0 = states0[key]
-            sst, _ = step(distribute(st0, cfg, spec), phys)     # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(SLAB_FRAMES):
-                sst, m = step(sst, phys)
-            torch.cuda.synchronize()
-            dt_slab = time.perf_counter() - t0
-            s1, _ = make_rollout(cfg, 1, device=dev)(st0)          # warm-up
-            roll = make_rollout(cfg, SLAB_FRAMES, device=dev)
-            roll(s1)                                  # records the graph
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            roll(s1)
-            torch.cuda.synchronize()
-            dt_one = time.perf_counter() - t0
-            work = cfg.n_particles * cfg.substeps * SLAB_FRAMES
-            print(f"slab rate {key} ({SLAB_D} slabs, frames 2-"
-                  f"{SLAB_FRAMES + 1}): {work / dt_slab:.6g} "
-                  f"particle-substeps/s ({dt_slab:.4f} s), single-device "
-                  f"window route {work / dt_one:.6g} ({dt_one:.4f} s), "
-                  f"ratio {dt_one / dt_slab:.4f}; exact_cert "
-                  f"{int(m.exact_cert)} [{ident}]", flush=True)
+    slab_graph(dev, ident, read_launches, zero, sizes, c3, k5, states0,
+               c3_state)
 
     with Phase("slab timing"):
         for key, (cfg, _) in slab_cfgs.items():

@@ -32,8 +32,23 @@ machine with a CUDA card:
     python3 scripts/torch_frame_breakdown.py [--frames 3] [--out build/profile]
         [--route window|compact|both] [--cells 262k 1m config3 ...]
 
+The slab cells (slab-262k, slab-config3) run the sorted tier's slab step
+(``parallel.make_pallas_slab_step``) on ``LocalRing(4)``, four z-slabs on
+the one card, with the row and halo slack of chip_smoke.py's phase 8 (4.0,
+8.0): one frame from the spawn, then the next frames of the host loop
+(``host_loop=True``) timed on the host clock and the same frames profiled,
+each phase's device time read from the slab step's own ranges
+(``slab_pallas.SLAB_PHASES``: the migration ring, the boundary-row
+exchange, the banded frame build, the banded density, the ρ exchange, the
+rows pack, each banded substep, each fresh-row exchange, unpack +
+metrics), beside the device time of the hand-written kernels alone and
+the recorded frame's (the default, one replay a frame) host clock, device
+time and idle share over the same frames; on the compact route too
+(slab-262k-compact, slab-config3-compact).
+
 ``--cells`` picks among 262k, 1m, config3, config3-corrected, config5,
-config5-corrected and config5-compact (default: all).
+config5-corrected, config5-compact, slab-262k and slab-config3 (default:
+all).
 
 Writes the profiler tables to ``<out>/breakdown_<cell>.txt``.
 """
@@ -146,7 +161,10 @@ def tile_slots(cfg, state) -> tuple[float, float, float]:
 
 
 CELLS = ("262k", "1m", "config3", "config3-corrected", "config5",
-         "config5-corrected", "config5-compact")
+         "config5-corrected", "config5-compact", "slab-262k", "slab-config3")
+# the hand-written kernels' symbols (csrc/*.cu) in a trace
+KERNEL_SYMBOLS = ("density_kernel", "fused_substep_kernel", "forces_kernel",
+                  "compact_kernel")
 # the config-5 cells: BatchedScenes' options and the stepper's ranges
 CONFIG5 = {"config5": ({}, stepper.FRAME_PHASES),
            "config5-corrected": (dict(faithful=False),
@@ -157,12 +175,13 @@ CONFIG5 = {"config5": ({}, stepper.FRAME_PHASES),
 
 def print_phases(label: str, cfg, ms: dict, calls: dict, dev_ms: float,
                  host_ms: float, prof_ms: float, frames: int, ident: str,
-                 scenes: int = 1) -> None:
+                 scenes: int = 1, first: int = 10) -> None:
     """The device ms per frame of each phase, the device frame against the
     host clock of the rollout, the rate and the device's idle share."""
     batch = f"{scenes} scenes x " if scenes > 1 else ""
     print(f"[{label}] {batch}N={cfg.n_particles} R={cfg.bucket_resolution}, "
-          f"frames 10-{9 + frames}, device ms per frame [{ident}]:")
+          f"frames {first}-{first - 1 + frames}, device ms per frame "
+          f"[{ident}]:")
     in_ranges = sum(ms.values())
     for name, t in ms.items():
         print(f"  {name:18s} {t:9.4f} ms  {100 * t / dev_ms:5.1f}%  "
@@ -220,6 +239,71 @@ def config5_cell(dev, frames: int, acts, out: str, ident: str,
                  frames, ident, scenes=len(overrides))
     print(f"  exact_cert {traced.last_metrics.exact_cert.tolist()}")
     write_table(prof, out, label, ident)
+
+
+def kernels_ms(prof, frames: int) -> float:
+    """Device ms per frame of the hand-written kernels in the trace."""
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and any(k in e.name for k in KERNEL_SYMBOLS)) / 1e3 / frames
+
+
+def slab_cell(dev, cfg, tune, frames: int, acts, out: str, ident: str,
+              label: str) -> None:
+    """The slab step on ``LocalRing(4)`` from the state after one frame:
+    its host loop's next ``frames`` frames timed, then profiled and broken
+    down by ``SLAB_PHASES``; the recorded frame's host clock and device
+    time over the same frames."""
+    from sphfluidsimulation_torch.params import PhysParams
+    from sphfluidsimulation_torch.parallel import (LocalRing, distribute,
+                                                   make_pallas_slab_step)
+    from sphfluidsimulation_torch.parallel.slab_pallas import SLAB_PHASES
+    phys = PhysParams.from_config(cfg, dev)
+    steps = {}
+    for mode, host_loop in (("host", True), ("graph", None)):
+        steps[mode], spec = make_pallas_slab_step(
+            cfg, LocalRing(4), row_slack=4.0, halo_slack=8.0, tune=tune,
+            device=dev, host_loop=host_loop)
+    st1, _ = steps["host"](distribute(stepper.initial_state(cfg, dev), cfg,
+                                      spec), phys)
+
+    def run(step):
+        st, m = st1, None
+        for _ in range(frames):
+            st, m = step(st, phys)
+        return m
+
+    host_ms, dev_ms, kern_ms = {}, {}, {}
+    for mode, step in steps.items():
+        run(step)                     # warm-up; the graph's records it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(step)
+        torch.cuda.synchronize()
+        host_ms[mode] = (time.perf_counter() - t0) * 1e3 / frames
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            m = run(step)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3 / frames
+        kern_ms[mode] = kernels_ms(prof, frames)
+        if mode == "host":
+            ms, calls, dev_ms[mode] = phase_device_ms(prof, frames,
+                                                      SLAB_PHASES)
+            print_phases(label, cfg, ms, calls, dev_ms[mode], host_ms[mode],
+                         prof_ms, frames, ident, first=1)
+            write_table(prof, out, label, ident)
+        else:
+            dev_ms[mode] = phase_device_ms(prof, frames, ())[2]
+    print(f"  hand-written kernels {kern_ms['host']:.4f} ms a frame (host "
+          f"loop), {kern_ms['graph']:.4f} (graph); exact_cert "
+          f"{int(m.exact_cert)}")
+    work = cfg.n_particles * cfg.substeps
+    for mode in steps:
+        print(f"  {mode}: host {host_ms[mode]:.4f} ms a frame, device "
+              f"{dev_ms[mode]:.4f}, idle share "
+              f"{1 - dev_ms[mode] / host_ms[mode]:.4f}, "
+              f"{work / host_ms[mode] * 1e3:.6g} particle-substeps/s")
 
 
 def main() -> None:
@@ -303,6 +387,11 @@ def main() -> None:
     for label in CONFIG5:
         if label in args.cells:
             config5_cell(dev, args.frames, acts, args.out, ident, label)
+    for route, tune in routes.items():
+        for cell, cfg in (("slab-262k", GOLDEN_CONFIG), ("slab-config3", c3)):
+            if cell in args.cells:
+                slab_cell(dev, cfg, tune, args.frames, acts, args.out, ident,
+                          cell + ("" if route == "window" else "-compact"))
 
 
 if __name__ == "__main__":

@@ -32,7 +32,7 @@ between devices, and each block its own graph.
 from __future__ import annotations
 
 from contextlib import nullcontext
-from typing import NamedTuple, Sequence
+from typing import Sequence
 
 import torch
 
@@ -90,32 +90,6 @@ def make_batched_step(base: SimConfig, *, neighbor: str = "sorted",
         return stepper.make_scenes_step(base, faithful, tune)
     return over_scenes(make_param_step(base, neighbor=neighbor,
                                        faithful=faithful, tune=tune))
-
-
-class SceneCarry(NamedTuple):
-    """What a recorded batched frame reads and writes in place: a block's
-    states ([S, N, ...], the callers' order) and its last metrics ([S]
-    lanes)."""
-
-    states: ParticleState
-    metrics: StepMetrics
-
-    def clone(self) -> "SceneCarry":
-        return SceneCarry(ParticleState(*(x.clone() for x in self.states)),
-                          StepMetrics(*(x.clone() for x in self.metrics)))
-
-
-def scene_frame_body(step, params: PhysParams):
-    """``advance(carry)``: one batched frame of ``step`` on a
-    :class:`SceneCarry` with the block's ``params``, written back into the
-    carry; what ``BatchedScenes`` records, and on the CPU runs eagerly."""
-
-    def advance(c: SceneCarry) -> None:
-        states, m = step(c.states, params)
-        for dst, src in zip((*c.states, *c.metrics), (*states, *m)):
-            dst.copy_(src)
-
-    return advance
 
 
 class BatchedScenes:
@@ -176,11 +150,10 @@ class BatchedScenes:
         self._graphs = []
         if not self.host_loop:
             for dev, (states, params) in zip(self.devices, self.blocks):
-                carry = SceneCarry(states, StepMetrics(*(
-                    torch.zeros(per, dtype=t, device=dev)
-                    for t in graph.METRIC_DTYPES)))
+                carry = graph.StepCarry(states, params,
+                                        graph.metric_lanes((per,), dev))
                 self._graphs.append((carry, graph.RecordedStep(
-                    scene_frame_body(self._step, params), carry, dev)))
+                    graph.step_body(self._step), carry, dev)))
         self.last_metrics: StepMetrics | None = None
         self.frame = 0
 

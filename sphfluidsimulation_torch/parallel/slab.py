@@ -43,6 +43,7 @@ from ..ops import grid, sites, sph_math
 from ..params import PhysParams
 from ..sim.stepper import integrate_substep, resolve_device
 from ..state import ParticleState, StepMetrics, stack_states
+from ..utils.profiling import span
 from .batch import over_scenes
 from .ring import Ring, ShardStep
 
@@ -97,7 +98,8 @@ def _migrate(frows: torch.Tensor, irows: torch.Tensor, valid: torch.Tensor,
              my: int, r: int, spec: SlabSpec,
              ring: Ring) -> ShardStep:
     """Delivers every valid row of shard ``my`` to its owner slab through
-    ring hops (a shard step: ``yield from`` it).
+    ring hops (a shard step: ``yield from`` it). Its work between the
+    exchanges runs in the profiler range ``migrate``.
 
     frows f32[C, Ff] (positions in columns 0:3), irows i32[C, Fi]. Returns
     (frows, irows, valid, lost): ``lost`` i32[] counts the rows dropped by
@@ -111,31 +113,36 @@ def _migrate(frows: torch.Tensor, irows: torch.Tensor, valid: torch.Tensor,
     if spec.d > 1:
         for dirn, send in ((1, ring.up), (-1, ring.down)):
             for _ in range(spec.hops):
-                own = _owner_of(frows[:, 2], r, spec.slab_z, spec.d)
-                want = valid & ((own - my) * dirn > 0)
-                # send buffer: the rows to send front-compacted
-                sorder = front(want)
-                rf = yield send(frows[sorder])
-                ri = yield send(irows[sorder])
-                rv = yield send(want[sorder])      # edge shards: all False
-                # the rows kept front-compacted, the received appended
-                keep = valid & ~want
-                korder = front(keep)
-                n_keep = keep.sum()
-                ridx = torch.where(rv, n_keep + torch.cumsum(rv, 0) - 1, c)
-                ridx = ridx.clamp(max=c)      # row c: a scratch row, cut
-                mf = torch.cat([frows[korder], frows[:1]])
-                mi = torch.cat([irows[korder], irows[:1]])
-                mf[ridx] = rf
-                mi[ridx] = ri
-                n_tot = n_keep + rv.sum()
-                lost = lost + (n_tot - c).clamp(min=0).to(torch.int32)
-                frows, irows = mf[:c], mi[:c]
-                valid = iota < n_tot.clamp(max=c)
-    own = _owner_of(frows[:, 2], r, spec.slab_z, spec.d)
-    stranded = valid & (own != my)
-    return (frows, irows, valid & ~stranded,
-            lost + stranded.sum().to(torch.int32))
+                with span("migrate"):
+                    own = _owner_of(frows[:, 2], r, spec.slab_z, spec.d)
+                    want = valid & ((own - my) * dirn > 0)
+                    # send buffer: the rows to send front-compacted
+                    sorder = front(want)
+                    sent = (frows[sorder], irows[sorder], want[sorder])
+                rf = yield send(sent[0])
+                ri = yield send(sent[1])
+                rv = yield send(sent[2])      # edge shards: all False
+                with span("migrate"):
+                    # the rows kept front-compacted, the received appended
+                    keep = valid & ~want
+                    korder = front(keep)
+                    n_keep = keep.sum()
+                    ridx = torch.where(rv, n_keep + torch.cumsum(rv, 0) - 1,
+                                       c)
+                    ridx = ridx.clamp(max=c)  # row c: a scratch row, cut
+                    mf = torch.cat([frows[korder], frows[:1]])
+                    mi = torch.cat([irows[korder], irows[:1]])
+                    mf[ridx] = rf
+                    mi[ridx] = ri
+                    n_tot = n_keep + rv.sum()
+                    lost = lost + (n_tot - c).clamp(min=0).to(torch.int32)
+                    frows, irows = mf[:c], mi[:c]
+                    valid = iota < n_tot.clamp(max=c)
+    with span("migrate"):
+        own = _owner_of(frows[:, 2], r, spec.slab_z, spec.d)
+        stranded = valid & (own != my)
+        return (frows, irows, valid & ~stranded,
+                lost + stranded.sum().to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -17,9 +17,14 @@ counterpart of a compiled scan is a CUDA graph:
 - :class:`RecordedStep` warms a step up once on a copy of its carry,
   records it once (``torch.cuda.CUDAGraph``, in the graph's own memory
   pool) and replays it; :class:`GraphRollout` replays the body
-  ``n_frames // k`` times a call. ``parallel.BatchedScenes`` records its
-  batched frame (JAX's jitted ``vmap`` of the step, one program a frame)
-  with the same class, one replay a frame.
+  ``n_frames // k`` times a call.
+- :func:`step_body` is one frame of a step ``(state, phys) → (state,
+  metrics)`` over a :class:`StepCarry`, written back into it. It is what
+  the other recorded entry points replay, one replay a frame, each the
+  counterpart of a jitted JAX step: ``parallel.BatchedScenes`` (the jitted
+  ``vmap`` of the frame step), ``models.Scene`` (``jit=True``) and the
+  slab step on a ``LocalRing`` (``parallel.slab_pallas``, the jitted
+  ``shard_map``: every shard's migration, exchanges and banded kernels).
 
 Nothing in the body depends on a Python number that changes from frame to
 frame: the frame index is a device counter. Frame f's metrics go to lane f
@@ -134,8 +139,7 @@ class FrameBody:
             nan_count=torch.zeros(n, dtype=torch.int32, device=dev),
             pid=torch.zeros(n, dtype=torch.int32, device=dev),
             counter=torch.zeros(1, dtype=torch.int64, device=dev),
-            metrics=StepMetrics(*(torch.zeros(nf, dtype=t, device=dev)
-                                  for t in METRIC_DTYPES)),
+            metrics=metric_lanes((nf,), dev),
             snaps=(torch.zeros(self.replays, n, 3, **f32)
                    if self.snapshot_every else None),
             dts=torch.zeros(nf, **f32) if self.div is not None else None)
@@ -193,6 +197,39 @@ class FrameBody:
         if not self.snapshot_every:
             return final, m
         return final, m, c.snaps.clone()
+
+
+class StepCarry(NamedTuple):
+    """What :func:`step_body` reads and writes in place: the state (a
+    ``ParticleState``, a batch's stacked one or a ``SlabState``), the
+    physics the step reads and the metrics of its last frame (0-d lanes,
+    or one lane a scene)."""
+
+    state: tuple
+    phys: PhysParams
+    metrics: StepMetrics
+
+    def clone(self) -> "StepCarry":
+        return StepCarry(*(type(x)(*(t.clone() for t in x)) for x in self))
+
+
+def step_body(step):
+    """``advance(carry)``: one frame of ``step(state, phys) → (state,
+    metrics)`` on a :class:`StepCarry`, written back into it; what
+    :class:`RecordedStep` records, and on the CPU runs eagerly."""
+
+    def advance(c: StepCarry) -> None:
+        state, m = step(c.state, c.phys)
+        for dst, src in zip((*c.state, *c.metrics), (*state, *m)):
+            dst.copy_(src)
+
+    return advance
+
+
+def metric_lanes(shape: tuple, device: torch.device) -> StepMetrics:
+    """Zeroed ``StepMetrics`` lanes of ``shape`` for a carry."""
+    return StepMetrics(*(torch.zeros(shape, dtype=t, device=device)
+                         for t in METRIC_DTYPES))
 
 
 class RecordedStep:

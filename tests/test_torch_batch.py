@@ -51,9 +51,7 @@ from sphfluidsimulation_torch.ops.frame import (build_frame,
 from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning
 from sphfluidsimulation_torch.params import PhysParams, stack_params
 from sphfluidsimulation_torch.parallel import BatchedScenes
-from sphfluidsimulation_torch.parallel.batch import (SceneCarry,
-                                                     make_batched_step,
-                                                     scene_frame_body)
+from sphfluidsimulation_torch.parallel.batch import make_batched_step
 from sphfluidsimulation_torch.sim import graph, stepper
 from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                   make_frame_step)
@@ -418,13 +416,13 @@ def test_batched_frame_body_is_bit_equal_to_the_host_loop(case):
     base = SimConfig(**_GOLDEN, **ext)
     bs = BatchedScenes(base, OVERRIDES, devices="cpu", host_loop=True, **kw)
     _, params = bs.blocks[0]
-    carry = SceneCarry(bs.states, StepMetrics(*(
+    carry = graph.StepCarry(bs.states, params, StepMetrics(*(
         torch.full((3,), -1, dtype=t) for t in graph.METRIC_DTYPES))).clone()
-    advance = scene_frame_body(make_batched_step(base, **kw), params)
+    advance = graph.step_body(make_batched_step(base, **kw))
     for _ in range(2):
         advance(carry)
     bs.step(2)
-    for a, b in zip((*carry.states, *carry.metrics),
+    for a, b in zip((*carry.state, *carry.metrics),
                     (*bs.states, *bs.last_metrics)):
         _same_bits(a, b)
 

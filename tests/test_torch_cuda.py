@@ -5,7 +5,8 @@ include the banded K1, K2 and K5 of the slab step and the slab step itself,
 each tuning variant's instance (fuse_acc off, kahan, bf16), the probes'
 kernels (sphfluidsimulation_torch/probes), and the paths around the
 kernels that run on the card: the graph rollout against the host loop,
-the exact tiers, the dt replay,
+the recorded slab frame and ``Scene(jit=True)`` against their host
+loops, the exact tiers, the dt replay,
 the snapshots of the sorted rollout, the render properties, the scene
 batch (the scene-axis K1, K2 and K3 at config 5's shape and K5 over three
 small scenes, each scene bit-equal to its solo launch; the batch's graph
@@ -772,6 +773,213 @@ def test_compact_slab_step_on_card(cuda_device, d):
     assert lost == 0
     torch.testing.assert_close(out.pos, ref.pos, rtol=0, atol=2e-5)
     torch.testing.assert_close(out.vel, ref.vel, rtol=0, atol=2e-4)
+
+
+# ------------------------------- the recorded slab frame and Scene(jit) --
+
+# each route of the slab step its graph records: (config extras, tune, the
+# launches a frame on d slabs as a function of d)
+SLAB_GRAPH_CASES = {
+    "window": ({}, None, lambda d: dict(density_band=d,
+                                        fused_substep_band=5 * d)),
+    "ext": (dict(xsph=XSPH, artificial_viscosity=ALPHA), None,
+            lambda d: dict(density_band=d, fused_substep_ext_band=5 * d)),
+    "compact": ({}, COMPACT, lambda d: dict(compact_density_band=d,
+                                            compact_substep_band=5 * d)),
+    "kahan": ({}, SortedTuning(kahan=True),
+              lambda d: {"density_band+kahan": d,
+                         "fused_substep_band+kahan": 5 * d}),
+}
+
+
+def _bits_of(x):
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def _all_same_bits(a, b):
+    a, b = list(a), list(b)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(_bits_of(x), _bits_of(y)) for x, y in zip(a, b))
+
+
+def _slab_steps(case, d, device, **kw):
+    """(cfg, {mode: step}, the slab state of the calm spawn, phys) of the
+    slab step of ``case`` (SLAB_GRAPH_CASES) on ``LocalRing(d)``, host loop
+    and graph."""
+    from sphfluidsimulation_torch.parallel import (LocalRing, distribute,
+                                                   make_pallas_slab_step)
+    ext, tune, _ = SLAB_GRAPH_CASES[case]
+    cfg = SimConfig(**_CALM, **ext)
+    steps, spec = {}, None
+    for mode, host_loop in (("host", True), ("graph", None)):
+        steps[mode], spec = make_pallas_slab_step(
+            cfg, LocalRing(d), row_slack=4.0, tune=tune, device=device,
+            host_loop=host_loop, **kw)
+    sst = distribute(initial_state(cfg, device), cfg, spec)
+    return cfg, steps, sst, PhysParams.from_config(cfg, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SLAB_GRAPH_CASES))
+@pytest.mark.parametrize("d", [2, 4])
+def test_slab_graph_is_bit_equal_to_the_host_loop_on_card(cuda_device, d,
+                                                          case):
+    # JAX's jitted shard_map: the whole LocalRing frame (migration,
+    # exchanges, banded kernels, metrics) replayed as one graph gives the
+    # host loop's state and every metric lane bit for bit, frame by frame,
+    # through the same banded launches
+    _, steps, s0, phys = _slab_steps(case, d, cuda_device)
+    assert steps["host"].host_loop is True
+    assert steps["graph"].host_loop is False
+    runs = {}
+    for mode, step in steps.items():
+        step(s0, phys)               # the graph's first call records it
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        st, frames = s0, []
+        for _ in range(3):
+            st, m = step(st, phys)
+            frames.append((*st, *m))
+        torch.cuda.synchronize()
+        runs[mode] = (frames, dict(sk.launch_counts))
+    per_frame = SLAB_GRAPH_CASES[case][2](d)
+    for mode, (_, counts) in runs.items():
+        assert counts == dict(dict.fromkeys(counts, 0),
+                              **{k: 3 * v for k, v in per_frame.items()})
+    for a, b in zip(runs["host"][0], runs["graph"][0]):
+        assert _all_same_bits(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["window", "compact"])
+def test_slab_graph_never_waits_for_the_card(cuda_device, case):
+    # after the first call (which records the frame) a call copies in,
+    # replays and copies out with no synchronising call
+    _, steps, s0, phys = _slab_steps(case, 4, cuda_device)
+    st, _ = steps["graph"](s0, phys)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            st, m = steps["graph"](st, phys)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.pos.is_cuda and m.exact_cert.is_cuda
+
+
+@pytest.mark.cuda
+def test_failed_slab_capture_raises_and_runs_no_loop_on_card(cuda_device,
+                                                             monkeypatch):
+    # no fallback: a slab frame that cannot be recorded (its density reads
+    # a value back) raises, counts nothing, leaves the caller's stream
+    # current and runs no host loop in its place
+    _, steps, s0, phys = _slab_steps("window", 2, cuda_device)
+    real = sk.density_pass
+
+    def reads_back(*args, **kw):
+        rho = real(*args, **kw)
+        float(rho.max())
+        return rho
+
+    monkeypatch.setattr(sk, "density_pass", reads_back)
+    stream = torch.cuda.current_stream(cuda_device)
+    sk.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        steps["graph"](s0, phys)
+    assert sk.launch_counts == dict.fromkeys(sk.launch_counts, 0)
+    assert torch.cuda.current_stream(cuda_device) == stream
+    assert steps["graph"]._recorded.graph is None
+    monkeypatch.setattr(sk, "density_pass", real)
+    got, want = steps["graph"](s0, phys), steps["host"](s0, phys)
+    assert _all_same_bits((*got[0], *got[1]), (*want[0], *want[1]))
+
+
+SCENE_JIT_MODES = {
+    "faithful": ({}, {}, dict(density=1, fused_substep=5)),
+    "corrected": (dict(xsph=XSPH, artificial_viscosity=ALPHA),
+                  dict(faithful=False), dict(density=6, forces=5)),
+    "compact": ({}, dict(tune=COMPACT),
+                dict(compact_density=1, compact_substep=5)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(SCENE_JIT_MODES))
+def test_scene_jit_is_bit_equal_to_the_eager_step_on_card(cuda_device, mode):
+    # JAX's Scene(jit=True): the frame recorded at the first step and
+    # replayed each frame, bit for bit jit=False's state and metrics
+    # through the same launches; state and last_metrics are copies
+    from sphfluidsimulation_torch import Scene
+    ext, kw, per_frame = SCENE_JIT_MODES[mode]
+    cfg = SimConfig(**_GOLDENISH, **ext)
+    scenes = {jit: Scene(cfg, jit=jit, **kw) for jit in (False, True)}
+    assert scenes[True].host_loop is False
+    assert scenes[False].host_loop is True
+    frames, counts = {}, {}
+    for jit, scene in scenes.items():
+        scene.step()                # records the graph
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        frames[jit] = [(*scene.step(), *scene.last_metrics)
+                       for _ in range(3)]
+        torch.cuda.synchronize()
+        counts[jit] = dict(sk.launch_counts)
+    assert counts[True] == counts[False] == dict(
+        dict.fromkeys(counts[True], 0),
+        **{k: 3 * v for k, v in per_frame.items()})
+    for a, b in zip(frames[False], frames[True]):
+        assert _all_same_bits(a, b)
+    rec = scenes[True]
+    assert rec.state.pos.data_ptr() != rec.state.pos.data_ptr()
+    rec.reset()
+    assert rec.frame == 0
+    assert _all_same_bits(rec.state, initial_state(cfg, cuda_device))
+
+
+@pytest.mark.cuda
+def test_scene_jit_never_waits_for_the_card(cuda_device):
+    from sphfluidsimulation_torch import Scene
+    scene = Scene(SimConfig(**_GOLDENISH))
+    scene.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = scene.step(2)
+        m = scene.last_metrics
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.pos.is_cuda and m.exact_cert.is_cuda and scene.frame == 3
+
+
+@pytest.mark.cuda
+def test_failed_scene_capture_raises_on_card(cuda_device, monkeypatch):
+    # a Scene frame that cannot be recorded raises at the first step and
+    # steps nothing in its place; without the fault it records and matches
+    # the eager step
+    from sphfluidsimulation_torch import Scene
+    from sphfluidsimulation_torch.sim import stepper
+    real = stepper._sorted_frame
+
+    def reads_back(*args):
+        out = real(*args)
+        float(out[3].max_speed)
+        return out
+
+    cfg = SimConfig(**_GOLDENISH)
+    monkeypatch.setattr(stepper, "_sorted_frame", reads_back)
+    scene = Scene(cfg)
+    stream = torch.cuda.current_stream(cuda_device)
+    sk.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        scene.step()
+    assert sk.launch_counts == dict.fromkeys(sk.launch_counts, 0)
+    assert torch.cuda.current_stream(cuda_device) == stream
+    assert scene.frame == 0 and scene.last_metrics is None
+    assert _all_same_bits(scene.state, initial_state(cfg, cuda_device))
+    monkeypatch.setattr(stepper, "_sorted_frame", real)
+    eager = Scene(cfg, jit=False)
+    assert _all_same_bits(scene.step(2), eager.step(2))
 
 
 @pytest.mark.cuda

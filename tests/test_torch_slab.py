@@ -468,9 +468,12 @@ def test_slab_state_round_trips_through_numpy():
 
 
 @pytest.mark.slow
-def test_slab_step_matches_jax_slab_step():
-    # the JAX slab step itself (its kernels in interpret mode), CALM, two
-    # shards, one frame, from the same slab state
+@pytest.mark.parametrize("mode", ["host_loop", "eager_body"])
+def test_slab_step_matches_jax_slab_step(mode):
+    # the JAX slab step itself (its kernels in interpret mode, under
+    # jax.jit as JAX's tests run it), CALM, two shards, one frame, from the
+    # same slab state; the port's host loop, and the body its graph records
+    # (slab_pallas.GraphSlabStep) run eagerly on its carry
     from sphfluidsimulation_tpu.params import PhysParams as JPhys
     jc = JConfig(**_CALM)
     jstep, jspec = jsp.make_pallas_slab_step(jc, _mesh(2), row_slack=4.0)
@@ -480,7 +483,14 @@ def test_slab_step_matches_jax_slab_step():
                                        device="cpu")
     assert tuple(spec) == tuple(jspec)
     sst = distribute(initial_state(CALM, "cpu"), CALM, spec)
-    sst, m = step(sst, PhysParams.from_config(CALM))
+    if mode == "host_loop":
+        sst, m = step(sst, PhysParams.from_config(CALM))
+    else:
+        body = slab_pallas.GraphSlabStep(step, 2 * spec.cap_rows,
+                                         torch.device("cpu"))
+        body.load(sst, PhysParams.from_config(CALM))
+        body.advance(body.carry)
+        sst, m = body.result()
     got, want = slab_state_to_numpy(sst), [np.asarray(x) for x in jst]
     for k in (2, 3, 4):                 # nan_count, pid, valid
         np.testing.assert_array_equal(got[k], want[k])
