@@ -86,7 +86,16 @@ every phase passed; each prints its seconds):
    and K5-ext on the config-3 batch; the forces on the frame-start rows,
    the substeps on the rows two substeps in), their plain versions scene
    by scene, and beside them the solo kernels on the same inputs, one
-   launch a scene;
+   launch a scene; every K5 substep instance also timed walking each tile
+   whole on one warp (``split=0``, the body before wide tiles were split:
+   the "_whole" shapes), given the frame's ``occ_prefix`` as the stepper
+   gives it once a frame (its own time printed beside), and at 262k,
+   config 5 and (phase 9) the 262k slab frames the K5 substep's tile-time
+   distribution (the ``-DSPH_TILE_CLOCK=1`` instance, both bodies: p50,
+   p99, max, the launches' makespan, its ratio to the mean tile, the warps
+   busy on average); and the K5 substep at the 262k spawn (frame-start
+   rows, where no tile may pass the split threshold) beside its whole-tile
+   body (the "262k_f0" shape);
 8. the slab step (``parallel.make_pallas_slab_step``) on ``LocalRing(4)``,
    four z-slabs on the one card: the banded K1 and K2 (K2-ext at config 3)
    held against their banded plain versions on each shard's frame
@@ -1500,7 +1509,8 @@ def main() -> None:
     FACC0, KAHAN, BF16 = (SortedTuning(fuse_acc=False),
                           SortedTuning(kahan=True), SortedTuning(bf16=True))
     with Phase("build"):
-        libs = cuda_build.build((FACC0, KAHAN, BF16), probes=True)
+        libs = cuda_build.build((FACC0, KAHAN, BF16), probes=True,
+                                clock=True)
         cuda_build.load()
         for lib in libs:
             secs = cuda_build.build_seconds.get(lib.name)
@@ -2176,15 +2186,60 @@ def main() -> None:
                 fn()
         return t.ms / reps
 
+    def plain_ms(plain):
+        """A plain version's time: one call, and a call under a second
+        warmed and timed again (the longest take tens of seconds a call)."""
+        torch.cuda.synchronize()
+        with CudaTimer(LEAD_CYCLES) as t:
+            plain()
+        return t.ms if t.ms > 1000.0 else time_ms(plain, 1)
+
     times = {}      # name → {shape: (ms, plain ms, bound ms, bound by)}
 
     def timed(name, shape, n, r, pairs, ext, fn, plain, **band):
-        km, pm = time_ms(fn, 20), time_ms(plain, 1)
+        """Times fn beside its plain version and bound; a K5 substep's fn
+        is a function of the split threshold (called with its default),
+        also timed with every tile whole."""
+        km, pm = time_ms(fn, 20), plain_ms(plain)
         b_ms, b_by = bound(name, n, r, pairs, ext, **band)
         times.setdefault(name, {})[shape] = (km, pm, b_ms, b_by)
+        whole = ""
+        if name.startswith("compact_substep"):
+            # K5's substep beside its body before the split ("_whole")
+            wm = time_ms(lambda: fn(0), 20)
+            times[name][f"{shape}_whole"] = (wm, pm, b_ms, b_by)
+            whole = (f"; one warp a tile {wm:.4f} ms = {100 * b_ms / wm:.2f}%"
+                     f", split/whole {km / wm:.4f}")
         print(f"time {shape} {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
               f"bound {b_ms:.5f} ms ({b_by}, {pairs} member pairs) = "
-              f"{100 * b_ms / km:.2f}% of the bound [{ident}]", flush=True)
+              f"{100 * b_ms / km:.2f}% of the bound{whole} [{ident}]",
+              flush=True)
+
+    def occ_prefix_ms(label, occ):
+        """The split's count of occupied slots (``compact.occ_prefix``),
+        which the path computes once a frame."""
+        ms = time_ms(lambda: compact.occ_prefix(occ), 20)
+        print(f"occ_prefix {label}: {ms:.4f} ms once a frame [{ident}]",
+              flush=True)
+
+    def tile_clock(label, launch):
+        """K5's tile-time distribution (its SPH_TILE_CLOCK instance) with
+        every tile walked whole on one warp and with wide tiles split, on
+        the same inputs: ``launch(split)`` runs the launches and returns
+        their clock buffers, one a launch."""
+        for body, split in (("one warp a tile", 0),
+                            ("split", compact.SPLIT_SLOTS)):
+            clocks = launch(split)
+            torch.cuda.synchronize()
+            st = compact.clock_stats(clocks)
+            print(f"tile clock {label}, {body}: {st['tiles']} tiles, p50 "
+                  f"{st['p50_us']:.2f} us, p99 {st['p99_us']:.2f}, max "
+                  f"{st['max_us']:.2f}, mean {st['mean_us']:.2f}; makespan "
+                  f"{st['makespan_us']:.2f} us over {len(clocks)} "
+                  f"launch(es), {st['makespan_over_mean']:.2f} x the mean "
+                  f"tile, {st['busy_warps']:.0f} warps busy on average; "
+                  f"{st['split_tiles']} tiles split into "
+                  f"{st['split_chunks']} chunks [{ident}]", flush=True)
 
     with Phase("timing"):
         shapes = {"262k": (sizes["262k"], states["262k"]),
@@ -2252,12 +2307,39 @@ def main() -> None:
                                                 xs, al, pj, scal_f),
                   lambda: sk.fused_substep_plain(frame, mid, phys, r, cap,
                                                  xs, al))
+            occ = compact.occ_prefix(frame.occ)
+            occ_prefix_ms(shape, frame.occ)
             timed(k5_fused, shape, n, r, k_tot - k_own, ext,
-                  lambda: compact.compact_substep_cuda(frame, mid, phys, r,
-                                                       cap, xs, al, pj,
-                                                       scal_f),
+                  lambda sp=compact.SPLIT_SLOTS: compact.compact_substep_cuda(
+                      frame, mid, phys, r, cap, xs, al, pj, scal_f,
+                      occ_cum=occ, split=sp),
                   lambda: compact.compact_substep_plain(frame, mid, phys, r,
                                                         xs, al))
+            if shape == "262k":
+                def solo_clock(split):
+                    clock = compact.clock_buffer(n, dev)
+                    compact.compact_substep_cuda(frame, mid, phys, r, cap,
+                                                 xs, al, pj, scal_f,
+                                                 occ_cum=occ, split=split,
+                                                 clock=clock)
+                    return [clock]
+                tile_clock(f"{shape} substep 3", solo_clock)
+                # the spawn's first substep, where no tile may pass the
+                # threshold: the split's check beside the whole-tile body
+                f0, p0, v0, _, _, _ = frame_inputs(cfg, initial_state(cfg,
+                                                                      dev))
+                r0 = sk.pack_rows(p0, v0, sk.density_cuda(f0, p0, phys, r,
+                                                          cap))
+                pj0, occ0 = sk.pj_cols(r0[:, 6], phys), compact.occ_prefix(
+                    f0.occ)
+                tot0, own0 = compact.member_pairs(f0, p0, r, fresh=True)
+                timed(k5_fused, f"{shape}_f0", n, r, tot0 - own0, ext,
+                      lambda sp=compact.SPLIT_SLOTS:
+                      compact.compact_substep_cuda(
+                          f0, r0, phys, r, cap, xs, al, pj0, scal_f,
+                          occ_cum=occ0, split=sp),
+                      lambda: compact.compact_substep_plain(f0, r0, phys, r,
+                                                            xs, al))
             if ext:
                 timed("forces", shape, n, r, tot - own, True,
                       lambda: sk.forces_cuda(frame, rows, phys, r, cap,
@@ -2346,21 +2428,36 @@ def main() -> None:
                   lambda: sk.forces_scenes_plain(frame, rows0, params, r,
                                                  cap, ext),
                   scenes=n_sc)
+            occ = compact.occ_prefix(frame.occ)
+            occ_prefix_ms(f"{shape}, {n_sc} scenes", frame.occ)
             timed("compact_substep_ext_scenes" if ext
                   else "compact_substep_scenes", shape, n_sc * n, r, k5_mid,
                   ext,
-                  lambda: compact.compact_substep_scenes_cuda(
-                      frame, mid, params, r, cap, xs, al, pj, scal),
+                  lambda sp=compact.SPLIT_SLOTS:
+                  compact.compact_substep_scenes_cuda(
+                      frame, mid, params, r, cap, xs, al, pj, scal,
+                      occ_cum=occ, split=sp),
                   lambda: compact.compact_substep_scenes_plain(
                       frame, mid, params, r, xs, al),
                   scenes=n_sc)
+            if shape == "c5":
+                def scenes_clock(split):
+                    clock = compact.clock_buffer(n, dev, n_sc)
+                    compact.compact_substep_scenes_cuda(
+                        frame, mid, params, r, cap, xs, al, pj, scal,
+                        occ_cum=occ, split=split, clock=clock)
+                    return [clock]
+                tile_clock(f"{shape} ({n_sc} scenes) substep 3",
+                           scenes_clock)
+            occ_solo = [compact.occ_prefix(fs.occ) for fs, _ in solo]
             solo_ms = {"K3": time_ms(lambda: [
                 sk.forces_cuda(fs, rows0[sc], ph, r, cap, ext, pj[sc],
                                blocks[sc])
                 for sc, (fs, ph) in enumerate(solo)], 20),
                 "K5 substep": time_ms(lambda: [
                     compact.compact_substep_cuda(fs, mid[sc], ph, r, cap, xs,
-                                                 al, pj[sc], blocks[sc])
+                                                 al, pj[sc], blocks[sc],
+                                                 occ_cum=occ_solo[sc])
                     for sc, (fs, ph) in enumerate(solo)], 20)}
             if not ext:
                 timed("compact_density_scenes", shape, n_sc * n, r, tot,
@@ -2792,9 +2889,11 @@ def main() -> None:
                 ref = sk.substep_reference(fs0, rows[0], ph0, r, None,
                                            sums_fn=compact.compact_sums_plain,
                                            tune=tune)
-                kernel = (lambda: compact.compact_substep_scenes_cuda(
-                    frame, rows, params, r, cap, pj=pj, scal=scal,
-                    tune=tune))
+                occ = compact.occ_prefix(frame.occ)
+                kernel = (lambda sp=compact.SPLIT_SLOTS:
+                          compact.compact_substep_scenes_cuda(
+                              frame, rows, params, r, cap, pj=pj, scal=scal,
+                              tune=tune, occ_cum=occ, split=sp))
                 plain = (lambda: compact.compact_substep_scenes_plain(
                     frame, rows, params, r, tune=tune))
                 pairs = k5_pairs
@@ -2822,6 +2921,16 @@ def main() -> None:
                 fail(f"{name} leaves the solo launch of its variant")
             timed(name, "262kx2", n_sc * n, r, pairs, False, kernel, plain,
                   scenes=n_sc)
+            if tune.compact:
+                # the default instance on the same spawn inputs
+                timed("compact_substep_scenes", "262kx2", n_sc * n, r, pairs,
+                      False,
+                      lambda sp=compact.SPLIT_SLOTS:
+                      compact.compact_substep_scenes_cuda(
+                          frame, rows, params, r, cap, pj=pj, scal=scal,
+                          occ_cum=occ, split=sp),
+                      lambda: compact.compact_substep_scenes_plain(
+                          frame, rows, params, r), scenes=n_sc)
             if tune.kahan:
                 rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap,
                                              scal, tune)
@@ -2974,10 +3083,11 @@ def main() -> None:
                                               tune=tune))
             name = ("compact_substep_ext" if ext else "compact_substep") \
                 + "+bf16"
+            occ = compact.occ_prefix(frame.occ)
             timed(name, shape, n, r, k_tot - k_own, ext,
-                  lambda: compact.compact_substep_cuda(frame, mid, phys, r,
-                                                       cap, xs, al, pj,
-                                                       scal_f, tune=BF16),
+                  lambda sp=compact.SPLIT_SLOTS: compact.compact_substep_cuda(
+                      frame, mid, phys, r, cap, xs, al, pj, scal_f,
+                      tune=BF16, occ_cum=occ, split=sp),
                   lambda: compact.compact_substep_plain(frame, mid, phys, r,
                                                         xs, al, tune=BF16))
             if not ext:
@@ -3005,14 +3115,15 @@ def main() -> None:
                 for _ in range(2):
                     mid, _ = compact.compact_substep_cuda(
                         sf.frame, mid, phys, r, cap, xs, al, band=sf.band)
-                ins.append((sf, mid, sk.pj_cols(rows[:, 6], phys)))
+                ins.append((sf, mid, sk.pj_cols(rows[:, 6], phys),
+                            compact.occ_prefix(sf.frame.occ)))
             n_live = sum(int(sf.frame.start[-1]) for sf in sfs)
             n_dead = SLAB_D * spec.c_loc - n_live
             cells = SLAB_D * spec.z_span * r * r
             d_pairs = sum(compact.member_pairs(sf.frame, sf.pos_s, r, False,
                                                sf.band)[0] for sf in sfs)
             f_pairs = 0
-            for sf, mid, _ in ins:
+            for sf, mid, _, _ in ins:
                 tot, own = compact.member_pairs(sf.frame, mid[:, 0:3], r,
                                                 True, sf.band)
                 f_pairs += tot - own
@@ -3025,21 +3136,34 @@ def main() -> None:
                       False,
                       lambda: [compact.density_compact_cuda(
                           sf.frame, sf.pos_s, phys, r, cap, scal, sf.band)
-                          for sf, _, _ in ins],
+                          for sf, _, _, _ in ins],
                       lambda: [compact.density_compact_plain(
                           sf.frame, sf.pos_s, phys, r, sf.band)
-                          for sf, _, _ in ins],
+                          for sf, _, _, _ in ins],
                       s_cells=cells, n_dead=n_dead)
             name = ("compact_substep_ext_band" if ext
                     else "compact_substep_band")
             timed(name, shape, n_live, r, f_pairs, ext,
-                  lambda: [compact.compact_substep_cuda(
-                      sf.frame, mid, phys, r, cap, xs, al, pj, scal_f,
-                      sf.band) for sf, mid, pj in ins],
+                  lambda sp=compact.SPLIT_SLOTS: [
+                      compact.compact_substep_cuda(
+                          sf.frame, mid, phys, r, cap, xs, al, pj, scal_f,
+                          sf.band, occ_cum=occ, split=sp)
+                      for sf, mid, pj, occ in ins],
                   lambda: [compact.compact_substep_plain(
                       sf.frame, mid, phys, r, xs, al, sf.band)
-                      for sf, mid, _ in ins],
+                      for sf, mid, _, _ in ins],
                   s_cells=cells, n_dead=n_dead)
+            if key == "262k":
+                def slab_clock(split):
+                    clocks = []
+                    for sf, mid, pj, occ in ins:
+                        clocks.append(compact.clock_buffer(mid.shape[0], dev))
+                        compact.compact_substep_cuda(
+                            sf.frame, mid, phys, r, cap, xs, al, pj, scal_f,
+                            sf.band, occ_cum=occ, split=split,
+                            clock=clocks[-1])
+                    return clocks
+                tile_clock(f"{shape} substep 3", slab_clock)
 
     # ---- 10. the JAX package's default backend and its export path
     from sphfluidsimulation_torch import make_dt_rollout, make_param_step

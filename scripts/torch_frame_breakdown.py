@@ -46,6 +46,14 @@ the recorded frame's (the default, one replay a frame) host clock, device
 time and idle share over the same frames; on the compact route too
 (slab-262k-compact, slab-config3-compact).
 
+On the compact route the slab and config-5 cells also print K5's tail:
+on a frame of the cell (each shard's at the state its timed frames start
+from; the scenes' after the profiled frames), the rows two K5 substeps
+in, the K5 substep's tile-clock instance (``-DSPH_TILE_CLOCK=1``)
+with every tile walked whole and with wide tiles split: the makespan of
+its launch(es) and its ratio to the mean tile time, beside the slots a
+tile streams (``tile_slots``'s measures, over those rows' fresh spans).
+
 ``--cells`` picks among 262k, 1m, config3, config3-corrected, config5,
 config5-corrected, config5-compact, slab-262k and slab-config3 (default:
 all).
@@ -70,7 +78,8 @@ from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig  # noqa: E402
 from sphfluidsimulation_torch.bench import scaled_config  # noqa: E402
 from sphfluidsimulation_torch.ops import compact  # noqa: E402
 from sphfluidsimulation_torch.ops import sph_kernels as sk  # noqa: E402
-from sphfluidsimulation_torch.ops.frame import build_frame  # noqa: E402
+from sphfluidsimulation_torch.ops.frame import (  # noqa: E402
+    build_frame, build_frame_scenes, scene_frame)
 from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning  # noqa: E402
 from sphfluidsimulation_torch.sim import stepper  # noqa: E402
 from sphfluidsimulation_torch.utils.profiling import (  # noqa: E402
@@ -160,11 +169,68 @@ def tile_slots(cfg, state) -> tuple[float, float, float]:
                  for x in (slots, streamed, filled))
 
 
+def k5_tail(label: str, ins, ident: str) -> None:
+    """K5's substep tail on ``ins``, a list of (frame, rows, params, r,
+    capacity, xsph, alpha, band) launches (one a shard, or one over the
+    scenes with stacked rows): the rows two K5 substeps into the frame,
+    then each body's tile clock, and the union, streamed and occupied slots
+    of a tile on average over those rows' fresh spans."""
+    mids, union, streamed, filled = [], [], [], []
+    for frame, rows, params, r, cap, xs, al, band in ins:
+        scenes = rows.dim() == 3
+        step = (compact.compact_substep_scenes_cuda if scenes else
+                lambda *a, **k: compact.compact_substep_cuda(*a, band=band,
+                                                             **k))
+        mid = rows
+        for _ in range(2):
+            mid, _ = step(frame, mid, params, r, cap, xs, al)
+        mids.append(mid)
+        for sc in range(rows.shape[0] if scenes else 1):
+            fs = scene_frame(frame, sc) if scenes else frame
+            p = mid[sc] if scenes else mid
+            spans, _ = compact.spans_of(fs, p[:, 0:3], r, True, band)
+            a, b = compact.tile_segments(spans, fs.start, r, band)
+            occ = compact.occ_prefix(fs.occ)
+            union.append((b - a).sum(1).double())
+            streamed.append(compact.stream_slots(spans, fs.start, r, cap,
+                                                 band).double())
+            filled.append((occ[b.long()] - occ[a.long()]).sum(1).double())
+    print(f"  K5 substep 3 tiles: {float(torch.cat(streamed).mean()):.1f} "
+          f"slots streamed a tile, of a union of "
+          f"{float(torch.cat(union).mean()):.1f}, "
+          f"{float(torch.cat(filled).mean()):.1f} occupied")
+    for body, split in (("one warp a tile", 0),
+                        ("split", compact.SPLIT_SLOTS)):
+        clocks = []
+        for (frame, _, params, r, cap, xs, al, band), mid in zip(ins, mids):
+            scenes = mid.shape[0] if mid.dim() == 3 else 1
+            clocks.append(compact.clock_buffer(mid.shape[-2], mid.device,
+                                               scenes))
+            if mid.dim() == 3:
+                compact.compact_substep_scenes_cuda(
+                    frame, mid, params, r, cap, xs, al, split=split,
+                    clock=clocks[-1])
+            else:
+                compact.compact_substep_cuda(frame, mid, params, r, cap, xs,
+                                             al, band=band, split=split,
+                                             clock=clocks[-1])
+        torch.cuda.synchronize()
+        st = compact.clock_stats(clocks)
+        print(f"  K5 tail [{label}], {body}: makespan "
+              f"{st['makespan_us']:.2f} us over {len(clocks)} launch(es), "
+              f"{st['makespan_over_mean']:.2f} x the mean tile "
+              f"({st['mean_us']:.2f} us; p50 {st['p50_us']:.2f}, p99 "
+              f"{st['p99_us']:.2f}, max {st['max_us']:.2f}), "
+              f"{st['busy_warps']:.0f} warps busy on average; "
+              f"{st['split_tiles']} tiles split [{ident}]")
+
+
 CELLS = ("262k", "1m", "config3", "config3-corrected", "config5",
          "config5-corrected", "config5-compact", "slab-262k", "slab-config3")
 # the hand-written kernels' symbols (csrc/*.cu) in a trace
 KERNEL_SYMBOLS = ("density_kernel", "fused_substep_kernel", "forces_kernel",
-                  "compact_kernel")
+                  "compact_kernel", "compact_scenes_kernel",
+                  "compact_chunk_kernel")
 # the config-5 cells: BatchedScenes' options and the stepper's ranges
 CONFIG5 = {"config5": ({}, stepper.FRAME_PHASES),
            "config5-corrected": (dict(faithful=False),
@@ -239,6 +305,19 @@ def config5_cell(dev, frames: int, acts, out: str, ident: str,
                  frames, ident, scenes=len(overrides))
     print(f"  exact_cert {traced.last_metrics.exact_cert.tolist()}")
     write_table(prof, out, label, ident)
+    if kw.get("tune", SortedTuning()).compact:
+        from sphfluidsimulation_torch.params import PhysParams, stack_params
+        states = traced.states
+        params = stack_params([PhysParams.from_config(cfg.replace(**ov), dev)
+                               for ov in overrides])
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        frame, (pos, vel) = build_frame_scenes(states.pos, r, cap,
+                                               extras=(states.pos,
+                                                       states.vel))
+        rho, _ = compact.density_compact_scenes_cuda(frame, pos, params, r,
+                                                     cap)
+        k5_tail(label, [(frame, sk.pack_rows_scenes(pos, vel, rho), params,
+                         r, cap, 0.0, 0.0, None)], ident)
 
 
 def kernels_ms(prof, frames: int) -> float:
@@ -298,6 +377,18 @@ def slab_cell(dev, cfg, tune, frames: int, acts, out: str, ident: str,
     print(f"  hand-written kernels {kern_ms['host']:.4f} ms a frame (host "
           f"loop), {kern_ms['graph']:.4f} (graph); exact_cert "
           f"{int(m.exact_cert)}")
+    if tune.compact:
+        from sphfluidsimulation_torch.parallel.slab_pallas import (
+            shard_frames)
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        ins = []
+        for sf in shard_frames(cfg, spec, LocalRing(4), st1):
+            rho, _ = compact.density_compact_cuda(sf.frame, sf.pos_s, phys,
+                                                  r, cap, band=sf.band)
+            ins.append((sf.frame, sk.pack_rows(sf.pos_s, sf.vel_s, rho),
+                        phys, r, cap, xs, al, sf.band))
+        k5_tail(label, ins, ident)
     work = cfg.n_particles * cfg.substeps
     for mode in steps:
         print(f"  {mode}: host {host_ms[mode]:.4f} ms a frame, device "

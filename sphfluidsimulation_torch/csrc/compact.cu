@@ -69,16 +69,52 @@
 // 0 * inf reaches a sum. Enumerating the union's cells 32 at a time with a
 // prefix sum of their capped lengths, the other way to the same stream,
 // measured slower: most cells of a wide union are empty.
+//
+// Splitting a wide tile (the fused substep's split launch, sph_compact_split;
+// ops/compact.py): one warp walking a wide union alone makes a launch wait on
+// its slowest tile. In the split launch each warp first counts its tile's
+// cost, the occupied slots of its union, from occ_cum (the frame's prefix
+// count of occupied slots, so the cost and the cuts do not depend on the
+// capacity argument). A tile at or below the threshold `split` is walked
+// whole, as above. A heavier one is cut into k = min(16, ceil(cost / split))
+// chunks of about equal cost, each a range of cells, so that each starts at
+// a cell's first slot and the capacity stop works unchanged; the warp queues
+// the k chunks and leaves. The second kernel (compact_chunk_kernel), a wave
+// of resident warps, starts beside the first one's last blocks
+// (programmatic dependent launch) once every tile is seen: each warp takes
+// the next queued chunk, walks it with the stream above, and stores its
+// rows' partial sums; the last of a tile's chunks to finish (a per-tile
+// counter) adds the k partials in ascending chunk order (no float atomics)
+// and runs the tail. A tile past the queue's end (4 chunks a tile on
+// average) is walked by one warp, chunk after chunk, its sums added in the
+// same order. A tile's result is then the same bits
+// whichever warps walk its chunks, in every instance of the same frame
+// (solo, scenes, a replayed graph). The drift count stays a per-tile fact,
+// added once, by the first kernel. SPH_TILE_CLOCK=1 builds an instance that
+// writes each chunk's (each whole tile's) %globaltimer span and clock64
+// cycles.
 #include <climits>
 
 #include "sph_common.cuh"
 
+#ifndef SPH_TILE_CLOCK
+#define SPH_TILE_CLOCK 0
+#endif
+
 namespace {
 
-constexpr int kWarps = 4;            // tiles per block
+constexpr int kWarps = 4;            // tiles (chunks) per block
+constexpr int kChunks = 16;          // the most chunks of a split tile
+constexpr int kQueued = 4;           // the queue's chunks a tile
+// blocks an SM holds of the chunk kernel without extensions: its registers
+// capped at 65536 / (128 * 9) = 56, as the whole-tile kernel's (measured
+// faster, with extensions slower: PERF.md)
+constexpr int kChunkBlocks = 9;
 constexpr int kLines = 9;            // (dz, dy) candidate lines per tile
 constexpr int kMaxR = 1024;          // raw cells pack 10 bits a coordinate
 constexpr unsigned kAll = 0xffffffffu;
+constexpr bool kClock = SPH_TILE_CLOCK != 0;
+constexpr int kClockLanes = 4;       // start ns, end ns, cycles, cells
 enum Mode { kDensity = 0, kForces = 1, kFused = 2 };
 
 // One compacted candidate: its rows entry (a.xyz only in density mode), its
@@ -90,10 +126,54 @@ struct Slot {
   int j, cell;
 };
 
+// One frame's arrays (a scene's blocks of them on the scene axis).
+struct Frame {
+  const float* in;
+  const float2* pj;
+  const int* cid;
+  const int* start;
+  const int* raw;
+  const uint8_t* occ;
+  const int* occ_cum;      // occupied slots before each sorted index [n + 1]
+  const float* scal;
+  float* out;
+  int* cert;
+};
+
+struct Geom {
+  int n, r, cap, zbase, z_span;
+};
+
+// The split launch's queue over S scenes of T tiles (ops/compact.py::
+// _split_scratch), count zero before the launch; `slot` numbers the split
+// tiles. split 0: no split (the whole-tile launch), only clock is read.
+struct Queue {
+  int split;               // occupied union slots past which a tile splits
+  int tiles;               // S * T
+  int cap;                 // chunks the queue holds: kQueued * S * T
+  int* count;              // [6]: slots, chunks reserved, chunks taken,
+                           // tiles past the end, those taken, tiles seen
+  int* owner;              // [S * T] each slot's scene * T + tile
+  int* first;              // [S * T] each slot's first chunk in the queue
+  int* done;               // [S * T] each slot's chunks finished
+  int* rest;               // [S * T] the tiles past the queue's end
+  int* item;               // [cap] slot * kChunks + chunk, or -1
+  float* part;             // [cap, fields, 32] each chunk's partial sums
+  long long* clock;        // SPH_TILE_CLOCK [S, T, kChunks, kClockLanes]
+};
+
 __device__ __forceinline__ int warp_scan_max(int v, int lane) {
   for (int d = 1; d < 32; d <<= 1) {
     const int t = __shfl_up_sync(kAll, v, d);
     if (lane >= d) v = max(v, t);
+  }
+  return v;
+}
+
+__device__ __forceinline__ int warp_scan_add(int v, int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(kAll, v, d);
+    if (lane >= d) v += t;
   }
   return v;
 }
@@ -113,219 +193,624 @@ __device__ __forceinline__ bool cell_near(int c, int cx, int cy, int cz) {
          && (unsigned)((c >> 20) - cz + 1) <= 2u;
 }
 
-// The tile of warp threadIdx.x / 32 of block blockIdx.x over one frame's
-// arrays: the body of compact_kernel and of compact_scenes_kernel.
-template <int kMode, bool kExt, bool kBand>
-__device__ __forceinline__ void compact_tile(
-    const float* __restrict__ in, const float2* __restrict__ pj,
-    const int* __restrict__ cid, const int* __restrict__ start,
-    const int* __restrict__ raw, const uint8_t* __restrict__ occ,
-    const float* __restrict__ scal, float* __restrict__ out,
-    int* __restrict__ cert, int n, int r, int cap, int zbase, int z_span) {
+// the chunks of a tile of `cost` occupied slots past the threshold
+__device__ __forceinline__ int chunks_of(int cost, int split) {
+  return min(kChunks, (cost + split - 1) / split);
+}
+
+// the warp's compacted candidates (one shared array a kernel)
+__device__ __forceinline__ Slot* warp_slots() {
   __shared__ Slot slots[kWarps][32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tile = blockIdx.x * kWarps + warp;
-  if (tile * 32 >= n) return;              // the whole warp leaves
-  const int i = tile * 32 + lane;
-  const int s_cells = kBand ? z_span * r * r : r * r * r;
-  // the live rows: all n, or in a slab's frame those before the dead rows
-  const int n_live = kBand ? __ldg(start + s_cells) : n;
-  const bool live = i < n_live;            // the last tile is ragged
-  const float4* __restrict__ rows4 = reinterpret_cast<const float4*>(in);
-  float4* __restrict__ out4 = reinterpret_cast<float4*>(out);
-  const auto dead = [&] {                  // row i of a slab's dead rows
+  return slots[threadIdx.x >> 5];
+}
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// SPH_TILE_CLOCK: a scene's entries of the clock buffer, or null
+__device__ __forceinline__ long long* tile_clock(long long* clock, int scene,
+                                                 int tiles) {
+  return kClock && clock != nullptr
+             ? clock + (size_t)scene * tiles * kChunks * kClockLanes
+             : nullptr;
+}
+
+// SPH_TILE_CLOCK: a warp's span over one chunk of one tile
+struct Clock {
+  long long t0 = 0, c0 = 0;
+  __device__ void start() {
+    if constexpr (kClock) {
+      t0 = global_ns();
+      c0 = clock64();
+    }
+  }
+  __device__ void stop(long long* clk, int tile, int chunk, int cell0,
+                       int cell1) const {
+    if constexpr (kClock) {
+      if (clk != nullptr && (threadIdx.x & 31) == 0) {
+        long long* e = clk + ((size_t)tile * kChunks + chunk) * kClockLanes;
+        e[0] = t0;
+        e[1] = global_ns();
+        e[2] = clock64() - c0;
+        e[3] = (long long)(unsigned)cell0 | (long long)cell1 << 32;
+      }
+    }
+  }
+};
+
+// Scene `scene`'s blocks of the stacked arrays (n rows of in, pj, cid, raw,
+// occ and out, R^3 + 1 entries of start, n + 1 of occ_cum, one scalar block,
+// one drift count); scene 0 is the solo launch's frame.
+template <int kMode>
+__device__ __forceinline__ Frame scene_block(Frame f, int scene, int n,
+                                             int r) {
+  constexpr int kIn = kMode == kDensity ? 3 : 8;      // floats a row
+  constexpr int kOut = kMode == kDensity ? 1 : kMode == kForces ? 12 : 8;
+  const size_t rows = (size_t)scene * n;
+  const auto at = [](auto* a, size_t k) { return a ? a + k : a; };
+  f.in += kIn * rows;
+  f.pj = at(f.pj, rows);
+  f.cid += rows;
+  f.start += (size_t)scene * ((size_t)r * r * r + 1);
+  f.raw += rows;
+  f.occ += rows;
+  f.occ_cum = at(f.occ_cum, (size_t)scene * (n + 1));
+  f.scal += (size_t)scene * sph::kScalLanes;
+  f.out += kOut * rows;
+  f.cert += scene;
+  return f;
+}
+
+// One warp's view of one tile: its row, the tile's span, lines and filter
+// box, and the row's sums over the cells this warp walks.
+template <int kMode, bool kExt, bool kBand>
+struct Tile {
+  // the sums one chunk hands on, per row
+  static constexpr int kFields = kMode == kDensity ? 1 : kExt ? 12 : 6;
+
+  const Frame& f;
+  const Geom& g;
+  int lane, i;
+  bool live;
+  sph::Particle p{};
+  int cx, cy, cz;
+  int ca, cb, seg_a, seg_b;     // lane k < 9: line k's cells and slots
+  int x0, x1, y0, y1, z0, z1;
+  sph::Scalars s;               // loaded by walk
+  sph::PairSums acc;
+  sph::Acc dens;
+
+  __device__ Tile(const Frame& fr, const Geom& geom)
+      : f(fr), g(geom), lane(threadIdx.x & 31) {}
+
+  // cells of the frame's start table: R^3, or z_span * R^2 in a band
+  __device__ int s_cells() const {
+    return kBand ? g.z_span * g.r * g.r : g.r * g.r * g.r;
+  }
+
+  // row i of a slab's dead rows: density 0, the forces' sums 0, the
+  // substep's row copied through
+  __device__ void dead() {
+    float4* __restrict__ out4 = reinterpret_cast<float4*>(f.out);
     if constexpr (kMode == kDensity) {
-      out[i] = 0.f;
+      f.out[i] = 0.f;
     } else if constexpr (kMode == kForces) {
       sph::store_sums<false>(out4, i, sph::PairSums{});
     } else {
+      const float4* __restrict__ rows4 = reinterpret_cast<const float4*>(f.in);
       out4[2 * i] = __ldg(rows4 + 2 * i);
       out4[2 * i + 1] = __ldg(rows4 + 2 * i + 1);
     }
-  };
-  if (kBand && tile * 32 >= n_live) {      // a tile of dead rows
-    if (i < n) dead();
-    return;
   }
-  const sph::Scalars s = sph::load_scalars(scal);
 
-  sph::Particle p{};
-  if (live) {
-    if constexpr (kMode == kDensity) {
-      p.px = __ldg(in + 3 * i);
-      p.py = __ldg(in + 3 * i + 1);
-      p.pz = __ldg(in + 3 * i + 2);
-    } else {
-      p = sph::load_particle(rows4, i);
+  // The row, the tile's span (stale_spans; fresh_spans in the force modes)
+  // with the drift count added to *cert when `count`, the nine lines and
+  // the filter box. False for a tile of a slab's dead rows.
+  __device__ bool begin(int tile, bool count) {
+    i = tile * 32 + lane;
+    // the live rows: all n, or in a slab's frame those before the dead rows
+    const int r = g.r, s_cells = this->s_cells();
+    const int n_live = kBand ? __ldg(f.start + s_cells) : g.n;
+    live = i < n_live;                     // the last tile is ragged
+    if (kBand && tile * 32 >= n_live) return false;   // a tile of dead rows
+    if (live) {
+      if constexpr (kMode == kDensity) {
+        p.px = __ldg(f.in + 3 * i);
+        p.py = __ldg(f.in + 3 * i + 1);
+        p.pz = __ldg(f.in + 3 * i + 2);
+      } else {
+        p = sph::load_particle(reinterpret_cast<const float4*>(f.in), i);
+      }
     }
-  }
-  const int cx = sph::fresh_coord(p.px, r);
-  const int cy = sph::fresh_coord(p.py, r);
-  const int cz = sph::fresh_coord(p.pz, r);
+    cx = sph::fresh_coord(p.px, r);
+    cy = sph::fresh_coord(p.py, r);
+    cz = sph::fresh_coord(p.pz, r);
 
-  // the tile's cell span (stale_spans; fresh_spans in the force modes)
-  const int c = live ? __ldg(cid + i) : 0;
-  int lo = warp_min(live, c), hi = warp_max(live, c);
-  if constexpr (kMode != kDensity) {
-    const int lz = kBand ? min(max(min(max(cz, 0), r - 1) - zbase, 0),
-                               z_span - 1)
-                         : min(max(cz, 0), r - 1);
-    const int fcid = min(max(cx, 0), r - 1) + min(max(cy, 0), r - 1) * r
-                     + lz * r * r;
-    const int band = r * r + r + 1;
-    const int lo_allow = lo - band, hi_allow = hi + band;
-    const unsigned drift =
-        __ballot_sync(kAll, live && (fcid < lo_allow || fcid > hi_allow));
-    if (lane == 0 && drift) atomicAdd(cert, __popc(drift));
-    lo = min(max(min(max(warp_min(live, fcid), lo_allow), hi_allow), 0),
-             s_cells - 1);
-    hi = min(max(min(max(warp_max(live, fcid), lo_allow), hi_allow), 0),
-             s_cells - 1);
+    const int c = live ? __ldg(f.cid + i) : 0;
+    int lo = warp_min(live, c), hi = warp_max(live, c);
+    if constexpr (kMode != kDensity) {
+      const int lz = kBand ? min(max(min(max(cz, 0), r - 1) - g.zbase, 0),
+                                 g.z_span - 1)
+                           : min(max(cz, 0), r - 1);
+      const int fcid = min(max(cx, 0), r - 1) + min(max(cy, 0), r - 1) * r
+                       + lz * r * r;
+      const int band = r * r + r + 1;
+      const int lo_allow = lo - band, hi_allow = hi + band;
+      const unsigned drift =
+          __ballot_sync(kAll, live && (fcid < lo_allow || fcid > hi_allow));
+      if (count && lane == 0 && drift) atomicAdd(f.cert, __popc(drift));
+      lo = min(max(min(max(warp_min(live, fcid), lo_allow), hi_allow), 0),
+               s_cells - 1);
+      hi = min(max(min(max(warp_max(live, fcid), lo_allow), hi_allow), 0),
+               s_cells - 1);
+    }
+
+    // the nine lines' cells [ca, cb), deduplicated: cb'_k is the running
+    // max of max(ca, cb) over lines 0..k, ca'_k = max(ca_k, cb'_{k-1});
+    // start[] is monotone, so their slots [start[ca'], start[cb']) are
+    // disjoint and ascending, and their union is that of the nine lines'
+    ca = 0;
+    cb = 0;
+    if (lane < kLines) {
+      const int off = (lane / 3 - 1) * r * r + (lane % 3 - 1) * r;
+      ca = min(max(lo + off - 1, 0), s_cells);
+      cb = min(max(hi + off + 2, 0), s_cells);
+    }
+    cb = warp_scan_max(max(ca, cb), lane);
+    const int prev = __shfl_up_sync(kAll, cb, 1);
+    ca = max(ca, lane == 0 ? 0 : prev);
+    seg_a = 0;
+    seg_b = 0;
+    if (lane < kLines) {
+      seg_a = __ldg(f.start + ca);
+      seg_b = __ldg(f.start + cb);
+    }
+    // the ballot's filter: within 1 of the tile's fresh-cell bounding box
+    x0 = warp_min(live, cx) - 1;
+    x1 = warp_max(live, cx) + 1;
+    y0 = warp_min(live, cy) - 1;
+    y1 = warp_max(live, cy) + 1;
+    z0 = warp_min(live, cz) - 1;
+    z1 = warp_max(live, cz) + 1;
+    return true;
   }
 
-  // the nine lines' cells [ca, cb), deduplicated: cb'_k is the running max
-  // of max(ca, cb) over lines 0..k, ca'_k = max(ca_k, cb'_{k-1}); start[] is
-  // monotone, so their slots [start[ca'], start[cb']) are disjoint and
-  // ascending, and their union is that of the nine lines' slots
-  int ca = 0, cb = 0;
-  if (lane < kLines) {
-    const int off = (lane / 3 - 1) * r * r + (lane % 3 - 1) * r;
-    ca = min(max(lo + off - 1, 0), s_cells);
-    cb = min(max(hi + off + 2, 0), s_cells);
+  // The tile's cost, the occupied slots of its union (every lane); lane
+  // k < 9 gets its line's count `len`, the count before the line `before`
+  // and before its first cell `o_a`.
+  __device__ int cost(int& len, int& before, int& o_a) const {
+    o_a = lane < kLines ? __ldg(f.occ_cum + seg_a) : 0;
+    len = lane < kLines ? __ldg(f.occ_cum + seg_b) - o_a : 0;
+    const int upto = warp_scan_add(len, lane);
+    before = upto - len;
+    return __shfl_sync(kAll, upto, 31);
   }
-  const int cb_run = warp_scan_max(max(ca, cb), lane);
-  const int prev = __shfl_up_sync(kAll, cb_run, 1);
-  ca = max(ca, lane == 0 ? 0 : prev);
-  int seg_a = 0, seg_b = 0;
-  if (lane < kLines) {
-    seg_a = __ldg(start + ca);
-    seg_b = __ldg(start + cb_run);
-  }
-  // the ballot's filter: within 1 of the tile's fresh-cell bounding box
-  const int x0 = warp_min(live, cx) - 1, x1 = warp_max(live, cx) + 1;
-  const int y0 = warp_min(live, cy) - 1, y1 = warp_max(live, cy) + 1;
-  const int z0 = warp_min(live, cz) - 1, z1 = warp_max(live, cz) + 1;
 
-  const float press_i = s.gas_k * (p.rho - s.rho0);
-  sph::PairSums acc;
-  sph::Acc dens;
-  for (int k = 0; k < kLines; ++k) {
-    int base = __shfl_sync(kAll, seg_a, k);
-    const int seg_end = __shfl_sync(kAll, seg_b, k);
-    while (base < seg_end) {
-      // lane l reads slot base + l: occupied, or past its cell's capacity
-      // (then the round stops there and the next starts at the next cell)
-      const int j = base + lane;
-      bool keep = false, over = false;
-      int packed = 0, skip_to = 0;
-      if (j < seg_end) {
-        if (__ldg(occ + j)) {               // occupied: raw is in the grid
-          const int rj = __ldg(raw + j);
-          const int z = rj / (r * r);
-          const int rem = rj - z * r * r;
-          const int y = rem / r;
-          const int x = rem - y * r;
-          keep = x >= x0 && x <= x1 && y >= y0 && y <= y1 && z >= z0 &&
-                 z <= z1;
-          packed = x | y << 10 | z << 20;
-        } else if (cap >= 0) {
-          const int cj = __ldg(cid + j);
-          over = j - __ldg(start + cj) >= cap;
-          skip_to = __ldg(start + cj + 1);
-        }
-      }
-      const unsigned overs = __ballot_sync(kAll, over);
-      const int stop = overs ? __ffs(overs) - 1 : 32;
-      base = overs ? __shfl_sync(kAll, skip_to, stop) : base + 32;
-      const unsigned mask = __ballot_sync(kAll, keep && lane < stop);
-      if (keep && lane < stop) {
-        Slot& e = slots[warp][__popc(mask & ((1u << lane) - 1u))];
-        if constexpr (kMode == kDensity) {
-          e.a = make_float4(__ldg(in + 3 * j), __ldg(in + 3 * j + 1),
-                            __ldg(in + 3 * j + 2), 0.f);
-        } else {
-          e.a = __ldg(rows4 + 2 * j);
-          e.b = __ldg(rows4 + 2 * j + 1);
-          float press_j, inv_j;
-          sph::candidate<true>(s, e.a, e.b, press_j, inv_j,
-                               [&] { return __ldg(pj + j); });
-          e.pj = make_float2(press_j, inv_j);
-        }
-        e.j = j;
-        e.cell = packed;
-      }
-      __syncwarp();
-      // each row's own gate, a branch: where the tile's rows spread over
-      // many cells, most of what the box keeps is near none of them, and
-      // the warp then skips the candidate whole
-      const int count = __popc(mask);
-      if (live) {
-        for (int t = 0; t < count; ++t) {
-          const Slot& e = slots[warp][t];
-          if (!cell_near(e.cell, cx, cy, cz)) continue;
-          if constexpr (kMode == kDensity) {
-            sph::add_density(s, p.px, p.py, p.pz, e.a.x, e.a.y, e.a.z, true,
-                             dens);
-          } else {
-            if (e.j == i) continue;        // VelPos.compute:82
-            sph::add_pair_pj<kExt, false>(s, p, press_i, 1.f, e.a, e.b,
-                                          e.pj.x, e.pj.y, true, acc);
+  // The first union cell at or past stream position t (0 < t < cost): the
+  // smallest cell c of the first line whose count reaches t with the
+  // occupied slots of the union before c at least t, by a 32-way search
+  // (ops/compact.py::chunk_cells computes the same).
+  __device__ int cut(int t, int len, int before, int o_a) const {
+    const int k = __ffs(__ballot_sync(kAll, lane < kLines &&
+                                                before + len >= t)) - 1;
+    int lo = __shfl_sync(kAll, ca, k), hi = __shfl_sync(kAll, cb, k);
+    const int need = __shfl_sync(kAll, o_a - before, k) + t;
+    while (hi - lo > 1) {                  // need is not met at lo, at hi
+      const int step = (hi - lo + 31) >> 5;
+      const int c = min(lo + (lane + 1) * step, hi);
+      const bool ok = __ldg(f.occ_cum + __ldg(f.start + c)) >= need;
+      const int first = __ffs(__ballot_sync(kAll, ok)) - 1;
+      const int below = __shfl_sync(kAll, c, max(first - 1, 0));
+      hi = __shfl_sync(kAll, c, first);
+      lo = first == 0 ? lo : below;
+    }
+    return hi;
+  }
+
+  // Streams the union's slots in [a, b) of lane k's line (k < 9) and adds
+  // each candidate's terms to the rows' sums, in slot order.
+  __device__ void walk(int a, int b, Slot* slots) {
+    s = sph::load_scalars(f.scal);
+    const float4* __restrict__ rows4 = reinterpret_cast<const float4*>(f.in);
+    const float press_i = s.gas_k * (p.rho - s.rho0);
+    const int r = g.r;
+    for (int k = 0; k < kLines; ++k) {
+      int base = __shfl_sync(kAll, a, k);
+      const int seg_end = __shfl_sync(kAll, b, k);
+      while (base < seg_end) {
+        // lane l reads slot base + l: occupied, or past its cell's capacity
+        // (then the round stops there and the next starts at the next cell)
+        const int j = base + lane;
+        bool keep = false, over = false;
+        int packed = 0, skip_to = 0;
+        if (j < seg_end) {
+          if (__ldg(f.occ + j)) {            // occupied: raw is in the grid
+            const int rj = __ldg(f.raw + j);
+            const int z = rj / (r * r);
+            const int rem = rj - z * r * r;
+            const int y = rem / r;
+            const int x = rem - y * r;
+            keep = x >= x0 && x <= x1 && y >= y0 && y <= y1 && z >= z0 &&
+                   z <= z1;
+            packed = x | y << 10 | z << 20;
+          } else if (g.cap >= 0) {
+            const int cj = __ldg(f.cid + j);
+            over = j - __ldg(f.start + cj) >= g.cap;
+            skip_to = __ldg(f.start + cj + 1);
           }
         }
+        const unsigned overs = __ballot_sync(kAll, over);
+        const int stop = overs ? __ffs(overs) - 1 : 32;
+        base = overs ? __shfl_sync(kAll, skip_to, stop) : base + 32;
+        const unsigned mask = __ballot_sync(kAll, keep && lane < stop);
+        if (keep && lane < stop) {
+          Slot& e = slots[__popc(mask & ((1u << lane) - 1u))];
+          if constexpr (kMode == kDensity) {
+            e.a = make_float4(__ldg(f.in + 3 * j), __ldg(f.in + 3 * j + 1),
+                              __ldg(f.in + 3 * j + 2), 0.f);
+          } else {
+            e.a = __ldg(rows4 + 2 * j);
+            e.b = __ldg(rows4 + 2 * j + 1);
+            float press_j, inv_j;
+            sph::candidate<true>(s, e.a, e.b, press_j, inv_j,
+                                 [&] { return __ldg(f.pj + j); });
+            e.pj = make_float2(press_j, inv_j);
+          }
+          e.j = j;
+          e.cell = packed;
+        }
+        __syncwarp();
+        // each row's own gate, a branch: where the tile's rows spread over
+        // many cells, most of what the box keeps is near none of them, and
+        // the warp then skips the candidate whole
+        const int count = __popc(mask);
+        if (live) {
+          for (int t = 0; t < count; ++t) {
+            const Slot& e = slots[t];
+            if (!cell_near(e.cell, cx, cy, cz)) continue;
+            if constexpr (kMode == kDensity) {
+              sph::add_density(s, p.px, p.py, p.pz, e.a.x, e.a.y, e.a.z,
+                               true, dens);
+            } else {
+              if (e.j == i) continue;      // VelPos.compute:82
+              sph::add_pair_pj<kExt, false>(s, p, press_i, 1.f, e.a, e.b,
+                                            e.pj.x, e.pj.y, true, acc);
+            }
+          }
+        }
+        __syncwarp();                      // the slots are rewritten next
       }
-      __syncwarp();                        // the slots are rewritten next
     }
   }
 
-  if (!live) {
-    if (kBand && i < n) dead();
-    return;
+  // Streams the union's cells in [c0, c1) (one chunk).
+  __device__ void walk_cells(int c0, int c1, Slot* slots) {
+    int a = 0, b = 0;
+    if (lane < kLines) {
+      a = __ldg(f.start + min(max(ca, c0), c1));
+      b = __ldg(f.start + min(max(cb, c0), c1));
+    }
+    walk(a, b, slots);
   }
-  if constexpr (kMode == kDensity) {
-    out[i] = s.mass * sph::total(dens);
-  } else if constexpr (kMode == kForces) {
-    sph::store_sums<false>(out4, i, acc);
-  } else {
-    sph::fused_tail<kExt, false>(s, p, acc, out4, i);
+
+  // sum `k` of the row (k < kFields), in PairSums' member order
+  __device__ float& sum(int k) {
+    if constexpr (kMode == kDensity) {
+      return dens.s;
+    } else {
+      return reinterpret_cast<sph::Acc*>(&acc)[k].s;
+    }
   }
+
+  // a chunk's partial sums of the row, [kFields][32] at dst
+  __device__ void store(float* dst) {
+#pragma unroll
+    for (int k = 0; k < kFields; ++k) dst[k * 32 + lane] = sum(k);
+  }
+
+  // the partial sums at src added to the row's, or with `first` in place of
+  // them: over a tile's chunks in ascending order, each row's sums add up in
+  // chunk order. kGlobal: src was stored by other warps of the grid.
+  template <bool kGlobal>
+  __device__ void fold(const float* src, bool first) {
+#pragma unroll
+    for (int k = 0; k < kFields; ++k) {
+      const float v = kGlobal ? __ldcg(src + k * 32 + lane)
+                              : src[k * 32 + lane];
+      sum(k) = first ? v : sum(k) + v;
+    }
+  }
+
+  // the row's result from its sums: rho, the raw sums or the substep
+  __device__ void finish() {
+    if (!live) {
+      if (kBand && i < g.n) dead();
+      return;
+    }
+    float4* __restrict__ out4 = reinterpret_cast<float4*>(f.out);
+    if constexpr (kMode == kDensity) {
+      f.out[i] = s.mass * sph::total(dens);
+    } else if constexpr (kMode == kForces) {
+      sph::store_sums<false>(out4, i, acc);
+    } else {
+      sph::fused_tail<kExt, false>(s, p, acc, out4, i);
+    }
+  }
+};
+
+// A split tile (owner = scene * T + tile) of k chunks: its slot and its k
+// chunks on the queue, or, past the queue's end, on the rest list (the
+// chunks it reserved there marked -1).
+__device__ __forceinline__ void enqueue(const Queue& q, int owner, int k) {
+  const int lane = threadIdx.x & 31;
+  int slot = -1, base = 0;
+  if (lane == 0) {
+    base = atomicAdd(q.count + 1, k);
+    if (base + k <= q.cap) {
+      slot = atomicAdd(q.count, 1);
+      q.owner[slot] = owner;
+      q.first[slot] = base;
+      q.done[slot] = 0;
+    } else {
+      q.rest[atomicAdd(q.count + 3, 1)] = owner;
+    }
+  }
+  slot = __shfl_sync(kAll, slot, 0);
+  base = __shfl_sync(kAll, base, 0);
+  if (lane < k && base + lane < q.cap)
+    q.item[base + lane] = slot < 0 ? -1 : slot * kChunks + lane;
 }
 
-template <int kMode, bool kExt, bool kBand>
+// Tile `tile` of scene `scene` walked whole by its warp: the body of the
+// whole-tile kernels. With kSplit (the fused substep's split launch) a tile
+// whose cost passes q.split is queued in chunks instead.
+template <int kMode, bool kExt, bool kBand, bool kSplit>
+__device__ __forceinline__ void whole_tile(const Frame& f, const Geom& g,
+                                           const Queue& q, int scene,
+                                           int tile) {
+  Clock clk;
+  clk.start();
+  if (tile * 32 >= g.n) return;            // the whole warp leaves
+  const int tiles = (g.n + 31) >> 5;
+  long long* clock = tile_clock(q.clock, scene, tiles);
+  Tile<kMode, kExt, kBand> t(f, g);
+  const bool live = t.begin(tile, true);
+  if constexpr (kSplit) {
+    // a tile whose union holds more than q.split occupied slots is queued
+    // (a union of at most q.split slots is light without a look at
+    // occ_cum); then the tile counts as seen, and once every block has
+    // seen its tiles the chunk kernel may start beside this one's last
+    bool queued = false;
+    if (live) {
+      const int slots = __reduce_add_sync(
+          kAll, t.lane < kLines ? t.seg_b - t.seg_a : 0);
+      if (slots > q.split) {
+        int len, before, o_a;
+        const int cost = t.cost(len, before, o_a);
+        if (cost > q.split) {
+          enqueue(q, scene * tiles + tile, chunks_of(cost, q.split));
+          queued = true;
+        }
+      }
+    }
+    __threadfence();
+    __syncwarp();
+    if (t.lane == 0) atomicAdd(q.count + 5, 1);
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+    if (queued) return;
+  }
+  if (!live) {                             // a tile of a slab's dead rows
+    if (t.i < g.n) t.dead();
+    clk.stop(clock, tile, 0, 0, t.s_cells());
+    return;
+  }
+  t.walk(t.seg_a, t.seg_b, warp_slots());
+  t.finish();
+  clk.stop(clock, tile, 0, 0, t.s_cells());   // lane 0 is live here
+}
+
+// One warp a tile over one frame (banded with kBand).
+template <int kMode, bool kExt, bool kBand, bool kSplit>
 __global__ void __launch_bounds__(kWarps * 32)
-compact_kernel(const float* __restrict__ in, const float2* __restrict__ pj,
-               const int* __restrict__ cid, const int* __restrict__ start,
-               const int* __restrict__ raw, const uint8_t* __restrict__ occ,
-               const float* __restrict__ scal, float* __restrict__ out,
-               int* __restrict__ cert, int n, int r, int cap, int zbase,
-               int z_span) {
-  compact_tile<kMode, kExt, kBand>(in, pj, cid, start, raw, occ, scal, out,
-                                   cert, n, r, cap, zbase, z_span);
+compact_kernel(Frame f, Geom g, Queue q) {
+  whole_tile<kMode, kExt, kBand, kSplit>(
+      f, g, q, 0, blockIdx.x * kWarps + (threadIdx.x >> 5));
 }
 
 // The scene-axis instance (JAX's vmap of _call_compact): blockIdx.y is the
-// scene, whose inputs are the scene's blocks of the stacked arrays (n rows
-// of in, pj, cid, raw, occ and out, R^3 + 1 entries of start, one scalar
-// block) and whose drift count is cert[scene]; a tile is scene-local, so
-// each warp is the solo kernel's warp of that scene. The whole grid only.
-template <int kMode, bool kExt>
+// scene, whose inputs are the scene's blocks of the stacked arrays
+// (scene_block) and whose drift count is cert[scene]; a tile is
+// scene-local, so each warp is the solo kernel's warp of that scene.
+template <int kMode, bool kExt, bool kSplit>
 __global__ void __launch_bounds__(kWarps * 32)
-compact_scenes_kernel(const float* __restrict__ in,
-                      const float2* __restrict__ pj,
-                      const int* __restrict__ cid,
-                      const int* __restrict__ start,
-                      const int* __restrict__ raw,
-                      const uint8_t* __restrict__ occ,
-                      const float* __restrict__ scal, float* __restrict__ out,
-                      int* __restrict__ cert, int n, int r, int cap) {
-  constexpr int kIn = kMode == kDensity ? 3 : 8;      // floats a row
-  constexpr int kOut = kMode == kDensity ? 1 : kMode == kForces ? 12 : 8;
-  const size_t scene = blockIdx.y;
-  const size_t rows = scene * n;
-  const size_t cells = scene * ((size_t)r * r * r + 1);
-  compact_tile<kMode, kExt, false>(
-      in + kIn * rows, kMode == kDensity ? pj : pj + rows, cid + rows,
-      start + cells, raw + rows, occ + rows, scal + scene * sph::kScalLanes,
-      out + kOut * rows, cert + scene, n, r, cap, 0, r);
+compact_scenes_kernel(Frame f, Geom g, Queue q) {
+  const int scene = blockIdx.y;
+  whole_tile<kMode, kExt, false, kSplit>(
+      scene_block<kMode>(f, scene, g.n, g.r), g, q, scene,
+      blockIdx.x * kWarps + (threadIdx.x >> 5));
+}
+
+// Chunk m of tile `tile` of a split launch's frame: its cells [c0, c1),
+// walked into t's sums; returns the tile's chunk count.
+template <bool kExt, bool kBand>
+__device__ __forceinline__ int walk_chunk(Tile<kFused, kExt, kBand>& t,
+                                          int split, int tile, int m,
+                                          int& c0, int& c1) {
+  t.begin(tile, false);
+  int len, before, o_a;
+  const int cost = t.cost(len, before, o_a);
+  const int k = chunks_of(cost, split);
+  c0 = m == 0 ? 0 : t.cut(m * cost / k, len, before, o_a);
+  c1 = m == k - 1 ? t.s_cells() : t.cut((m + 1) * cost / k, len, before, o_a);
+  t.walk_cells(c0, c1, warp_slots());
+  return k;
+}
+
+// The split launch's second kernel, one wave of resident warps, launched to
+// start beside the first kernel's last tiles (programmatic dependent
+// launch) once every tile is seen, so the queue is whole: each warp takes
+// the next queued chunk, walks its cells and stores its partial sums; the
+// last of a tile's chunks to finish adds the tile's partials in chunk order
+// and runs the tail. Then the tiles past the queue's end, a warp each,
+// chunk after chunk. It ends after the first kernel. Scene 0 of
+// scene_block is the solo frame.
+template <bool kExt, bool kBand>
+__global__ void __launch_bounds__(kWarps * 32, kExt ? 1 : kChunkBlocks)
+compact_chunk_kernel(Frame fr, Geom g, Queue q) {
+  using T = Tile<kFused, kExt, kBand>;
+  constexpr int kPart = T::kFields * 32;
+  const int lane = threadIdx.x & 31;
+  const int tiles = (g.n + 31) >> 5;
+  const auto seen = [](const int* c) { return *(volatile const int*)c; };
+  if (lane == 0)
+    while (seen(q.count + 5) < q.tiles) __nanosleep(128);
+  __syncwarp();
+  __threadfence();
+  const int queued = min(seen(q.count + 1), q.cap);
+  const int rest = seen(q.count + 3);
+  for (;;) {
+    int h = 0;
+    if (lane == 0) h = atomicAdd(q.count + 2, 1);
+    h = __shfl_sync(kAll, h, 0);
+    if (h >= queued) break;
+    const int item = __ldcg(q.item + h);
+    if (item < 0) continue;             // reserved by a tile past the end
+    Clock clk;
+    clk.start();
+    const int slot = item / kChunks, m = item - slot * kChunks;
+    const int owner = __ldcg(q.owner + slot);
+    const int scene = owner / tiles, tile = owner - scene * tiles;
+    const Frame f = scene_block<kFused>(fr, scene, g.n, g.r);
+    T t(f, g);
+    int c0, c1;
+    const int k = walk_chunk(t, q.split, tile, m, c0, c1);
+    t.store(q.part + (size_t)h * kPart);
+    __threadfence();
+    __syncwarp();
+    int seen = 0;
+    if (lane == 0) seen = atomicAdd(q.done + slot, 1);
+    if (__shfl_sync(kAll, seen, 0) == k - 1) {   // the tile's last chunk
+      __threadfence();
+      const float* part = q.part + (size_t)__ldcg(q.first + slot) * kPart;
+      for (int c = 0; c < k; ++c)
+        t.template fold<true>(part + c * kPart, c == 0);
+      t.finish();
+    }
+    clk.stop(tile_clock(q.clock, scene, tiles), tile, m, c0, c1);
+  }
+  __shared__ float sums[kWarps][T::kFields * 32];
+  float* total = sums[threadIdx.x >> 5];
+  for (;;) {
+    int h = 0;
+    if (lane == 0) h = atomicAdd(q.count + 4, 1);
+    h = __shfl_sync(kAll, h, 0);
+    if (h >= rest) break;
+    const int owner = __ldcg(q.rest + h);
+    const int scene = owner / tiles, tile = owner - scene * tiles;
+    const Frame f = scene_block<kFused>(fr, scene, g.n, g.r);
+    for (int m = 0, k = 1; m < k; ++m) {
+      Clock clk;
+      clk.start();
+      T t(f, g);
+      int c0, c1;
+      k = walk_chunk(t, q.split, tile, m, c0, c1);
+      if (m > 0) t.template fold<false>(total, false);
+      if (m < k - 1) {
+        t.store(total);
+      } else {
+        t.finish();
+      }
+      __syncwarp();
+      clk.stop(tile_clock(q.clock, scene, tiles), tile, m, c0, c1);
+    }
+  }
+  // the stream's next work waits on this kernel: it ends after the first
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <bool kSplit>
+auto fused_kernel(bool ext, bool band) {
+  return ext ? (band ? compact_kernel<kFused, true, true, kSplit>
+                     : compact_kernel<kFused, true, false, kSplit>)
+             : (band ? compact_kernel<kFused, false, true, kSplit>
+                     : compact_kernel<kFused, false, false, kSplit>);
+}
+
+// the blocks of a kernel the card holds at once
+template <typename Kernel>
+int resident_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kWarps * 32, 0);
+  return sms * max(per_sm, 1);
+}
+
+// K5 over `scenes` frames: compact_kernel (banded or not) for one frame,
+// compact_scenes_kernel for more, or for -scenes (the scene-axis entry
+// point, whatever the count); with q.split > 0 (the fused substep) the
+// split launch, its whole-tile kernel then compact_chunk_kernel.
+int launch(int mode, int ext, const Frame& f, const Geom& g, const Queue& q,
+           int scenes, cudaStream_t stream) {
+  if (g.n <= 0) return (int)cudaGetLastError();
+  const bool band = g.zbase != 0 || g.z_span != g.r;
+  const bool split = q.split > 0;
+  const int tiles = (g.n + 31) / 32;
+  const dim3 grid((tiles + kWarps - 1) / kWarps, scenes < 0 ? -scenes : 1);
+  if (scenes == 1) {
+    auto kernel =
+        mode == kDensity ? (band ? compact_kernel<kDensity, false, true, false>
+                                 : compact_kernel<kDensity, false, false, false>)
+        : mode == kForces ? compact_kernel<kForces, false, false, false>
+        : split           ? fused_kernel<true>(ext, band)
+                          : fused_kernel<false>(ext, band);
+    kernel<<<grid, kWarps * 32, 0, stream>>>(f, g, q);
+  } else {
+    auto kernel =
+        mode == kDensity  ? compact_scenes_kernel<kDensity, false, false>
+        : mode == kForces ? compact_scenes_kernel<kForces, false, false>
+        : split ? (ext ? compact_scenes_kernel<kFused, true, true>
+                       : compact_scenes_kernel<kFused, false, true>)
+        : ext   ? compact_scenes_kernel<kFused, true, false>
+                : compact_scenes_kernel<kFused, false, false>;
+    kernel<<<grid, kWarps * 32, 0, stream>>>(f, g, q);
+  }
+  if (split) {
+    auto chunks = ext ? (band ? compact_chunk_kernel<true, true>
+                              : compact_chunk_kernel<true, false>)
+                      : (band ? compact_chunk_kernel<false, true>
+                              : compact_chunk_kernel<false, false>);
+    cudaLaunchAttribute early;
+    early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    early.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(resident_blocks(chunks));
+    cfg.blockDim = dim3(kWarps * 32);
+    cfg.stream = stream;
+    cfg.attrs = &early;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, chunks, f, g, q);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+bool bad_args(int mode, int ext, const float* pj, int r, bool band) {
+  return mode < kDensity || mode > kFused || (ext && mode != kFused) ||
+         r > kMaxR || (mode != kDensity && pj == nullptr) ||
+         (band && mode == kForces);
+}
+
+Frame frame_of(const float* in, const float* pj, const int* cid,
+               const int* start, const int* raw, const uint8_t* occ,
+               const int* occ_cum, const float* scal, float* out,
+               int* cert) {
+  return Frame{in,  reinterpret_cast<const float2*>(pj), cid, start, raw,
+               occ, occ_cum, scal, out, cert};
 }
 
 }  // namespace
@@ -337,60 +822,80 @@ compact_scenes_kernel(const float* __restrict__ in,
 // of the force modes. cap is the voxel capacity of the frame (< 0: uncut);
 // r is at most 1024. (zbase, z_span) is the frame's band of z-planes, (0, r)
 // for the whole grid; density and the fused substep have banded instances
-// (the slab step's), the forces mode has none.
+// (the slab step's), the forces mode has none. Every tile is walked whole.
+// clock (the SPH_TILE_CLOCK=1 build; else ignored, may be null) receives
+// i64[T, 16, 4] as in sph_compact_split.
 extern "C" int sph_compact(int mode, int ext, const float* in, const float* pj,
                            const int* cid, const int* start, const int* raw,
                            const uint8_t* occ, const float* scal, float* out,
-                           int* cert, int n, int r, int cap, int zbase,
-                           int z_span, void* stream) {
-  const bool band = zbase != 0 || z_span != r;
-  if (mode < kDensity || mode > kFused || (ext && mode != kFused) ||
-      r > kMaxR || (mode != kDensity && pj == nullptr) ||
-      (band && mode == kForces))
+                           int* cert, long long* clock, int n, int r, int cap,
+                           int zbase, int z_span, void* stream) {
+  if (bad_args(mode, ext, pj, r, zbase != 0 || z_span != r))
     return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int tiles = (n + 31) / 32;
-    const int blocks = (tiles + kWarps - 1) / kWarps;
-    auto kernel =
-        mode == kDensity ? (band ? compact_kernel<kDensity, false, true>
-                                 : compact_kernel<kDensity, false, false>)
-        : mode == kForces ? compact_kernel<kForces, false, false>
-        : ext ? (band ? compact_kernel<kFused, true, true>
-                      : compact_kernel<kFused, true, false>)
-              : (band ? compact_kernel<kFused, false, true>
-                      : compact_kernel<kFused, false, false>);
-    kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-        in, reinterpret_cast<const float2*>(pj), cid, start, raw, occ, scal,
-        out, cert, n, r, cap, zbase, z_span);
-  }
-  return (int)cudaGetLastError();
+  return launch(mode, ext,
+                frame_of(in, pj, cid, start, raw, occ, nullptr, scal, out,
+                         cert),
+                Geom{n, r, cap, zbase, z_span},
+                Queue{0, 0, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, nullptr, clock},
+                1, (cudaStream_t)stream);
 }
 
 // K5 over `scenes` scenes of n rows each (JAX's vmap of density_compact,
 // compact_substep and forces_compact): every input stacked scene after
 // scene as compact_scenes_kernel reads it, cert i32[scenes] (zeroed by the
-// caller) each scene's drift count; mode, ext, cap and r as in sph_compact,
-// over the whole grid. One launch, grid (tile blocks, scenes).
+// caller) each scene's drift count, clock i64[scenes, T, 16, 4]; mode, ext,
+// cap and r as in sph_compact, over the whole grid. One launch, grid (tile
+// blocks, scenes), every tile walked whole.
 extern "C" int sph_compact_scenes(int mode, int ext, const float* in,
                                   const float* pj, const int* cid,
                                   const int* start, const int* raw,
                                   const uint8_t* occ, const float* scal,
-                                  float* out, int* cert, int n, int r,
-                                  int cap, int scenes, void* stream) {
-  if (mode < kDensity || mode > kFused || (ext && mode != kFused) ||
-      r > kMaxR || (mode != kDensity && pj == nullptr) || scenes < 0 ||
-      scenes > 65535)
+                                  float* out, int* cert, long long* clock,
+                                  int n, int r, int cap, int scenes,
+                                  void* stream) {
+  if (bad_args(mode, ext, pj, r, false) || scenes < 0 || scenes > 65535)
     return (int)cudaErrorInvalidValue;
-  if (n > 0 && scenes > 0) {
-    const int tiles = (n + 31) / 32;
-    const dim3 grid((tiles + kWarps - 1) / kWarps, scenes);
-    auto kernel = mode == kDensity ? compact_scenes_kernel<kDensity, false>
-                  : mode == kForces ? compact_scenes_kernel<kForces, false>
-                  : ext             ? compact_scenes_kernel<kFused, true>
-                                    : compact_scenes_kernel<kFused, false>;
-    kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-        in, reinterpret_cast<const float2*>(pj), cid, start, raw, occ, scal,
-        out, cert, n, r, cap);
-  }
-  return (int)cudaGetLastError();
+  if (scenes == 0) return (int)cudaGetLastError();
+  return launch(mode, ext,
+                frame_of(in, pj, cid, start, raw, occ, nullptr, scal, out,
+                         cert),
+                Geom{n, r, cap, 0, r},
+                Queue{0, 0, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, nullptr, clock},
+                -scenes, (cudaStream_t)stream);
+}
+
+// The fused substep with wide tiles split, over `scenes` stacked scenes (1:
+// the solo frame, banded with (zbase, z_span) as in sph_compact; more: the
+// whole grid as in sph_compact_scenes): a tile whose union holds more than
+// `split` (> 0) occupied slots is walked in min(16, ceil(cost / split))
+// chunks, a warp each. occ_cum i32[scenes, n + 1]: each scene's occupied
+// slots before each sorted index. cert i32[scenes + 6]: each scene's drift
+// count, then the queue's counters, all zero; queue i32[8 * scenes * T] (T
+// = ceil(n / 32)), part f32[4 * scenes * T,
+// 6 (12 with ext), 32]. clock (the SPH_TILE_CLOCK=1 build;
+// else ignored, may be null) receives i64[scenes, T, 16, 4]: each chunk's
+// (each whole tile's) globaltimer start and end, clock64 cycles and cells
+// (c0 | c1 << 32).
+extern "C" int sph_compact_split(
+    int ext, const float* in, const float* pj, const int* cid,
+    const int* start, const int* raw, const uint8_t* occ, const int* occ_cum,
+    const float* scal, float* out, int* cert, int* queue, float* part,
+    long long* clock, int n, int r, int cap, int zbase, int z_span,
+    int scenes, int split, void* stream) {
+  const bool band = zbase != 0 || z_span != r;
+  if (bad_args(kFused, ext, pj, r, band) || split <= 0 || scenes < 1 ||
+      scenes > 65535 || (band && scenes != 1) || occ_cum == nullptr ||
+      queue == nullptr || part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int slots = scenes * ((n + 31) / 32);
+  return launch(kFused, ext,
+                frame_of(in, pj, cid, start, raw, occ, occ_cum, scal, out,
+                         cert),
+                Geom{n, r, cap, zbase, z_span},
+                Queue{split, slots, kQueued * slots, cert + scenes, queue,
+                      queue + slots, queue + 2 * slots, queue + 3 * slots,
+                      queue + 4 * slots, part, clock},
+                scenes > 1 ? -scenes : 1, (cudaStream_t)stream);
 }

@@ -60,9 +60,22 @@ Scene axis (the batched step of ``parallel/batch.py``, JAX's ``vmap`` of
 the frame step under ``SPH_PALLAS_COMPACT=1``): :func:`density_compact_scenes`,
 :func:`compact_substep_scenes` and :func:`forces_compact_scenes` take a
 frame over a leading scene axis (``frame.build_frame_scenes``) and a
-stacked ``PhysParams`` and launch K5 once over all scenes
-(``sph_compact_scenes``, grid (tile blocks, scenes)); each scene's result
-and drift count, i32[S], are its solo pass's, bit for bit.
+stacked ``PhysParams`` and launch K5 once over all scenes (grid (tile
+blocks, scenes)); each scene's result and drift count, i32[S], are its
+solo pass's, bit for bit.
+
+Wide tiles (the fused substep's split launch): a tile's cost is the
+occupied slots of its union (:func:`tile_cost`, from :func:`occ_prefix`,
+which the stepper computes once a frame and passes as ``occ_cum``; it does
+not depend on the capacity argument). A tile whose cost passes
+:data:`SPLIT_SLOTS` is cut into at most :data:`CHUNKS` chunks of about
+equal cost, each a range of the union's cells (:func:`n_chunks`,
+:func:`chunk_cells`), walked by a warp each, and the rows' sums are added
+in chunk order before the tail, so every instance of a frame gives the
+same bits. The kernel decides and queues on the device, with no plan
+launch and no host sync. The plain versions do not split: they sum each
+row's candidates in one tree. Density and the forces walk every tile
+whole.
 
 Routing: a CPU tensor goes to the plain version; a CUDA tensor launches
 ``csrc/compact.cu`` or raises. Each entry point returns ``(out, cert)``.
@@ -71,7 +84,6 @@ Routing: a CPU tensor goes to the plain version; a CUDA tensor launches
 from __future__ import annotations
 
 import ctypes
-
 import torch
 
 from ..params import PhysParams
@@ -88,6 +100,10 @@ from .sph_kernels import (N_FIELDS, N_SCAL, N_SUMS, _CHUNK_PAIRS,
 
 CROWS = 32               # rows per tile: one warp
 N_LINES = 9              # (dz, dy) ∈ [−1, 1]² candidate lines per tile
+CHUNKS = 16              # the most chunks of a split tile (compact.cu kChunks)
+# occupied union slots past which the fused substep splits a tile (PERF.md)
+SPLIT_SLOTS = 1024
+CLOCK_LANES = 4          # a chunk's tile-clock entry (compact.cu kClockLanes)
 _BIG = 1 << 30
 # the kernel's mode argument (csrc/compact.cu)
 _DENSITY, _FORCES, _FUSED = 0, 1, 2
@@ -239,6 +255,106 @@ def spans_of(frame: SortedFrame, pos_s: torch.Tensor, r: int, fresh: bool,
     return fresh_spans(stale, pos_s, r, band, live)
 
 
+# ------------------------------------------------------ the split plan --
+
+def occ_prefix(occ: torch.Tensor) -> torch.Tensor:
+    """i32[..., n + 1]: the occupied slots before each sorted index, per
+    scene along the last axis (one scan over all scenes, each less the
+    scenes' before it: the batched scan measured ten times slower)."""
+    cum = occ.reshape(-1).cumsum(0, dtype=torch.int32).reshape(occ.shape)
+    if occ.dim() > 1:
+        cum = cum - torch.nn.functional.pad(cum[:-1, -1:], (0, 0, 1, 0))
+    return torch.nn.functional.pad(cum, (1, 0))
+
+
+def _cell_occ(start: torch.Tensor, occ_cum: torch.Tensor) -> torch.Tensor:
+    """i64[S + 1]: the occupied slots before each cell's first slot."""
+    return occ_cum[start.long()].long()
+
+
+def tile_cost(spans: torch.Tensor, start: torch.Tensor, occ_cum: torch.Tensor,
+              r: int, band: tuple[int, int] | None = None) -> torch.Tensor:
+    """i32[T]: each tile's cost, the occupied slots of its union (the
+    kernel's; 0 for a tile of dead rows)."""
+    ca, cb = tile_cells(spans, r, band)
+    o = _cell_occ(start, occ_cum)
+    return (o[cb.long()] - o[ca.long()]).sum(1).int()
+
+
+def n_chunks(cost: torch.Tensor, slots: int = SPLIT_SLOTS) -> torch.Tensor:
+    """The chunks of each tile: 1 at or below ``slots``, else
+    ``min(CHUNKS, ceil(cost / slots))``."""
+    k = torch.div(cost + slots - 1, slots, rounding_mode="floor")
+    return torch.where(cost > slots, k.clamp(max=CHUNKS), 1)
+
+
+def chunk_cells(spans: torch.Tensor, start: torch.Tensor,
+                occ_cum: torch.Tensor, r: int, slots: int = SPLIT_SLOTS,
+                band: tuple[int, int] | None = None) -> torch.Tensor:
+    """i32[T, CHUNKS + 1] cell bounds b: chunk m of a tile is the union's
+    cells [b[m], b[m + 1]), b[0] = 0 and b[m] = S (the table's cells) from
+    m = k on, k from :func:`n_chunks`. Inner bound m is the first union
+    cell c at which the union's occupied slots before c reach m·cost // k
+    (``compact.cu`` ``Tile::cut``): each chunk starts at a cell's first
+    slot, and a light tile is one chunk, [0, S)."""
+    s_cells = s_cells_of(r, band)
+    ca, cb = tile_cells(spans, r, band)
+    o = _cell_occ(start, occ_cum)
+    o_a = o[ca.long()]
+    length = o[cb.long()] - o_a
+    before = length.cumsum(1) - length
+    cost = length.sum(1)
+    k = n_chunks(cost, slots)
+    m = torch.arange(CHUNKS + 1, device=spans.device)
+    t = torch.div(m * cost[:, None], k[:, None], rounding_mode="floor")
+    # the first line whose count reaches t, then the first cell in it
+    line = ((before + length)[:, None, :] >= t[..., None]).int().argmax(-1)
+    need = (o_a - before).gather(1, line) + t
+    cut = torch.searchsorted(o, need)
+    cut = torch.where(m == 0, 0, torch.where(m >= k[:, None], s_cells, cut))
+    return cut.int()
+
+
+def clock_buffer(n: int, device, scenes: int = 1) -> torch.Tensor:
+    """The tile clock's output of a launch over ``scenes`` frames of n rows:
+    i64[S, T, CHUNKS, CLOCK_LANES], zero where no warp ran."""
+    return torch.zeros((scenes, n_tiles(n), CHUNKS, CLOCK_LANES),
+                       dtype=torch.int64, device=device)
+
+
+def clock_stats(clocks: list[torch.Tensor]) -> dict:
+    """The tile-time distribution of launches' clocks (one buffer a launch):
+    each tile's time is its chunks' last end less their first start
+    (``%globaltimer``, ns); p50, p99 and max in µs over all tiles, the mean
+    tile time, the launches' makespans (each its last end less its first
+    start) summed, the mean over launches of makespan / mean tile time, the
+    warps busy on average (the chunks' spans summed over the makespans),
+    and the tiles split with their chunks."""
+    tiles, spans, ratios, split, chunks, busy = [], 0.0, [], 0, 0, 0.0
+    for c in clocks:
+        c = c.reshape(-1, CHUNKS, CLOCK_LANES).cpu()
+        ran = c[..., 1] > 0
+        used = ran.any(1)
+        busy += float((c[..., 1] - c[..., 0])[ran].sum()) / 1e3
+        big = torch.iinfo(torch.int64).max
+        t0 = torch.where(ran, c[..., 0], big).amin(1)
+        t1 = torch.where(ran, c[..., 1], 0).amax(1)
+        tiles.append((t1 - t0)[used].double() / 1e3)
+        span = float(t1[used].max() - t0[used].min()) / 1e3
+        spans += span
+        ratios.append(span / float(tiles[-1].mean()))
+        n_ran = ran.sum(1)
+        split += int((n_ran > 1).sum())
+        chunks += int(n_ran[n_ran > 1].sum())
+    us = torch.cat(tiles)
+    return {"tiles": int(us.numel()), "p50_us": float(us.quantile(0.5)),
+            "p99_us": float(us.quantile(0.99)), "max_us": float(us.max()),
+            "mean_us": float(us.mean()), "makespan_us": spans,
+            "makespan_over_mean": sum(ratios) / len(ratios),
+            "busy_warps": busy / spans, "split_tiles": split,
+            "split_chunks": chunks}
+
+
 # ------------------------------------------------------ plain versions --
 
 def _tile_candidates(frame: SortedFrame, spans: torch.Tensor,
@@ -373,32 +489,87 @@ def forces_compact_plain(frame: SortedFrame, rows: torch.Tensor,
 _MAX_R = 1024            # the kernel packs a raw cell in 10 bits an axis
 
 
+def _split_scratch(n_scenes: int, tiles: int, ext: bool,
+                   dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split launch's queue, i32[8·S·T], and its chunks' partial sums,
+    f32[4·S·T, 6 (12 with extensions), CROWS] (``compact.cu`` Queue: the
+    queue holds 4 chunks a tile; its 6 counters follow the drift counts)."""
+    slots = n_scenes * tiles
+    queue = torch.empty(8 * slots, dtype=torch.int32, device=dev)
+    part = torch.empty((4 * slots, 12 if ext else 6, CROWS),
+                       dtype=torch.float32, device=dev)
+    return queue, part
+
+
 def _launch(mode: int, ext: bool, inp: torch.Tensor, pj: torch.Tensor | None,
             frame: SortedFrame, scal: torch.Tensor, out: torch.Tensor, r: int,
             capacity: int | None, band: tuple[int, int] | None,
-            tune: SortedTuning) -> torch.Tensor:
+            tune: SortedTuning, n_scenes: int | None = None, split: int = 0,
+            occ_cum: torch.Tensor | None = None,
+            clock: torch.Tensor | None = None) -> torch.Tensor:
     """Launches the K5 instance ``mode`` over ``band`` in ``tune``'s
-    variant; returns the drift count i32[] (accumulated by the kernel for
-    the force modes, 0 for density)."""
-    n = inp.shape[0]
+    variant, over one frame or (``n_scenes``) a scene axis, every tile
+    walked whole, or with ``split`` > 0 (the fused substep) the tiles past
+    ``split`` occupied union slots split (``occ_cum``: :func:`occ_prefix`
+    of ``frame.occ``, built here when None); returns the drift count, i32[]
+    or i32[S] (accumulated by the kernel for the force modes, 0 for
+    density). ``clock`` (:func:`clock_buffer`) launches the tile-clock
+    instance, which writes it."""
+    stacked = n_scenes is not None
+    n_scenes = n_scenes or 1
+    n = inp.shape[1] if stacked else inp.shape[0]
     dev = inp.device
     if r > _MAX_R:
         raise ValueError(f"K5 takes R <= {_MAX_R}; got {r}")
-    _check("frame.cid", frame.cid, torch.int32, (n,), dev)
-    _check("frame.start", frame.start, torch.int32,
-           (s_cells_of(r, band) + 1,), dev)
-    _check("frame.raw", frame.raw, torch.int32, (n,), dev)
-    _check("frame.occ", frame.occ, torch.bool, (n,), dev)
-    _check("phys", scal, torch.float32, (N_SCAL,), dev)
-    if pj is not None:
-        _check("pj", pj, torch.float32, (n, 2), dev)
-    cert = torch.zeros((), dtype=torch.int32, device=dev)
-    fn = cuda_build.function("compact.cu", "sph_compact", tune)
-    err = fn(mode, int(ext), _ptr(inp), None if pj is None else _ptr(pj),
-             _ptr(frame.cid), _ptr(frame.start), _ptr(frame.raw),
-             _ptr(frame.occ), _ptr(scal), _ptr(out), _ptr(cert), n, r,
-             _cap_arg(capacity), *_band_args(band, r),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if stacked:
+        _check_scenes(frame, n_scenes, n, r, scal, dev)
+        _check("frame.cid", frame.cid, torch.int32, (n_scenes, n), dev)
+        if pj is not None:
+            _check("pj", pj, torch.float32, (n_scenes, n, 2), dev)
+    else:
+        _check("frame.cid", frame.cid, torch.int32, (n,), dev)
+        _check("frame.start", frame.start, torch.int32,
+               (s_cells_of(r, band) + 1,), dev)
+        _check("frame.raw", frame.raw, torch.int32, (n,), dev)
+        _check("frame.occ", frame.occ, torch.bool, (n,), dev)
+        _check("phys", scal, torch.float32, (N_SCAL,), dev)
+        if pj is not None:
+            _check("pj", pj, torch.float32, (n, 2), dev)
+    if clock is not None:
+        _check("clock", clock, torch.int64,
+               (n_scenes, n_tiles(n), CHUNKS, CLOCK_LANES), dev)
+    # the drift counts, then (the split launch) the queue's 6 counters: one
+    # zeroed buffer
+    counts = torch.zeros(n_scenes + 6, dtype=torch.int32, device=dev)
+    cert = counts[:n_scenes] if stacked else counts[0]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    args = (_ptr(inp), None if pj is None else _ptr(pj), _ptr(frame.cid),
+            _ptr(frame.start), _ptr(frame.raw), _ptr(frame.occ))
+    tail = (_ptr(scal), _ptr(out), _ptr(counts))
+    clk = None if clock is None else _ptr(clock)
+
+    def lib(name):
+        return cuda_build.function("compact.cu", name, tune,
+                                   clock=clock is not None)
+
+    if split > 0 and n > 0:
+        if occ_cum is None:
+            occ_cum = occ_prefix(frame.occ)
+        _check("occ_cum", occ_cum, torch.int32,
+               (n_scenes, n + 1) if stacked else (n + 1,), dev)
+        queue, part = _split_scratch(n_scenes, n_tiles(n), ext, dev)
+        err = lib("sph_compact_split")(
+            int(ext), *args, _ptr(occ_cum), *tail, _ptr(queue), _ptr(part),
+            clk, n, r, _cap_arg(capacity), *_band_args(band, r), n_scenes,
+            split, stream)
+    elif stacked:
+        err = lib("sph_compact_scenes")(mode, int(ext), *args, *tail, clk, n,
+                                        r, _cap_arg(capacity), n_scenes,
+                                        stream)
+    else:
+        err = lib("sph_compact")(mode, int(ext), *args, *tail, clk, n, r,
+                                 _cap_arg(capacity), *_band_args(band, r),
+                                 stream)
     _raise_on_error("compact", err)
     return cert
 
@@ -415,10 +586,11 @@ def density_compact_cuda(frame: SortedFrame, pos_s: torch.Tensor,
                          scal: torch.Tensor | None = None,
                          band: tuple[int, int] | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5 density (``csrc/compact.cu``) on the card, banded with ``band``.
-    ``capacity`` is the frame's voxel capacity (None: each union cell
-    streamed uncut); ``scal`` is ``scal_block(phys)`` (built here when
-    None). Density reads no variant switch: the default instance."""
+    """K5 density (``csrc/compact.cu``) on the card, banded with ``band``,
+    every tile walked whole. ``capacity`` is the frame's voxel capacity
+    (None: each union cell streamed uncut); ``scal`` is
+    ``scal_block(phys)`` (built here when None). Density reads no variant
+    switch: the default instance."""
     n = pos_s.shape[0]
     _check("pos_s", pos_s, torch.float32, (n, 3), pos_s.device)
     rho = torch.empty(n, dtype=torch.float32, device=pos_s.device)
@@ -437,15 +609,21 @@ def compact_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
                          pj: torch.Tensor | None = None,
                          scal: torch.Tensor | None = None,
                          band: tuple[int, int] | None = None,
-                         tune: SortedTuning | None = None
+                         tune: SortedTuning | None = None,
+                         occ_cum: torch.Tensor | None = None,
+                         split: int = SPLIT_SLOTS,
+                         clock: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 fused substep on the card, banded with ``band``, in ``tune``'s
     variant (``bf16``; None: the default instance); nonzero coefficients
     select the instance with the extension sums. ``capacity`` as in
     :func:`density_compact_cuda`; ``pj`` is ``pj_cols`` of the rows' ρ
-    (the bf16 instance reads ρⱼ from the rows instead) and ``scal`` is
-    ``scal_block`` of ``phys`` and the coefficients (each built here when
-    None)."""
+    (the bf16 instance reads ρⱼ from the rows instead), ``scal`` is
+    ``scal_block`` of ``phys`` and the coefficients and ``occ_cum`` is
+    ``occ_prefix(frame.occ)`` (each built here when None). A tile whose
+    union holds more than ``split`` occupied slots is split (0: every tile
+    walked whole, the route's body before the split); ``clock``
+    (:func:`clock_buffer`) runs the tile-clock instance, which fills it."""
     n = rows.shape[0]
     _check("rows", rows, torch.float32, (n, N_FIELDS), rows.device)
     k5 = (tune or SortedTuning()).k5()
@@ -456,7 +634,7 @@ def compact_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
     if scal is None:
         scal = scal_block(phys, xsph, alpha_visc)
     cert = _launch(_FUSED, ext, rows, pj, frame, scal, out, r, capacity,
-                   band, k5)
+                   band, k5, split=split, occ_cum=occ_cum, clock=clock)
     _count(_name("compact_substep_ext" if ext else "compact_substep", band,
                  k5))
     return out, cert
@@ -469,8 +647,9 @@ def forces_compact_cuda(frame: SortedFrame, rows: torch.Tensor,
                         tune: SortedTuning | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 forces without extensions on the card: (raw sums f32[N, 12] in
-    the layout of K3's ``facc0`` instance, cert), in ``tune``'s variant.
-    ``capacity``, ``pj`` and ``scal`` as in :func:`compact_substep_cuda`.
+    the layout of K3's ``facc0`` instance, cert), in ``tune``'s variant,
+    every tile walked whole. ``capacity``, ``pj`` and ``scal`` as in
+    :func:`compact_substep_cuda`.
     It walks the whole grid: the slab step never launches it."""
     n = rows.shape[0]
     _check("rows", rows, torch.float32, (n, N_FIELDS), rows.device)
@@ -487,8 +666,8 @@ def forces_compact_cuda(frame: SortedFrame, rows: torch.Tensor,
 
 
 # ------------------------------------------------------------- routing --
-# ``capacity``, ``pj`` and ``scal`` are read by the kernels only: the plain
-# versions do not depend on them.
+# ``capacity``, ``pj``, ``scal`` and ``occ_cum`` are read by the kernels
+# only: the plain versions do not depend on them.
 
 def density_compact(frame: SortedFrame, pos_s: torch.Tensor,
                     phys: PhysParams, r: int, capacity: int | None,
@@ -509,14 +688,16 @@ def compact_substep(frame: SortedFrame, rows: torch.Tensor,
                     pj: torch.Tensor | None = None,
                     scal: torch.Tensor | None = None,
                     band: tuple[int, int] | None = None,
-                    tune: SortedTuning | None = None
+                    tune: SortedTuning | None = None,
+                    occ_cum: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(rows', drift count): one whole substep over the rows state and
     ``band``, in ``tune``'s variant, K5 for a CUDA tensor, the plain version
     for a CPU one."""
     if rows.is_cuda:
         return compact_substep_cuda(frame, rows, phys, r, capacity, xsph,
-                                    alpha_visc, pj, scal, band, tune)
+                                    alpha_visc, pj, scal, band, tune,
+                                    occ_cum)
     return compact_substep_plain(frame, rows, phys, r, xsph, alpha_visc,
                                  band, tune)
 
@@ -544,7 +725,8 @@ def forces_compact(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
 # Each scene's frame is ``scene_frame(frame, s)``, its physics row s of the
 # stacked params; the plain versions run the solo plain versions scene by
 # scene, the kernel's warps are the solo kernel's warps of their scene
-# (``compact.cu::compact_scenes_kernel``), and each scene has its own drift
+# (``compact.cu::compact_kernel``, blockIdx.y the scene; each scene's tiles
+# ranked and split as its solo launch's), and each scene has its own drift
 # count, as JAX's vmapped certificate has.
 
 def _stacked(outs: list[tuple[torch.Tensor, torch.Tensor]]
@@ -586,31 +768,6 @@ def forces_compact_scenes_plain(frame: SortedFrame, rows: torch.Tensor,
                      for s in range(rows.shape[0])])
 
 
-def _launch_scenes(mode: int, ext: bool, inp: torch.Tensor,
-                   pj: torch.Tensor | None, frame: SortedFrame,
-                   scal: torch.Tensor, out: torch.Tensor, r: int,
-                   capacity: int | None, tune: SortedTuning) -> torch.Tensor:
-    """Launches K5's scene-axis instance ``mode`` in ``tune``'s variant;
-    returns each scene's drift count i32[S] (0 for density)."""
-    n_scenes, n = inp.shape[:2]
-    dev = inp.device
-    if r > _MAX_R:
-        raise ValueError(f"K5 takes R <= {_MAX_R}; got {r}")
-    _check_scenes(frame, n_scenes, n, r, scal, dev)
-    _check("frame.cid", frame.cid, torch.int32, (n_scenes, n), dev)
-    if pj is not None:
-        _check("pj", pj, torch.float32, (n_scenes, n, 2), dev)
-    cert = torch.zeros(n_scenes, dtype=torch.int32, device=dev)
-    fn = cuda_build.function("compact.cu", "sph_compact_scenes", tune)
-    err = fn(mode, int(ext), _ptr(inp), None if pj is None else _ptr(pj),
-             _ptr(frame.cid), _ptr(frame.start), _ptr(frame.raw),
-             _ptr(frame.occ), _ptr(scal), _ptr(out), _ptr(cert), n, r,
-             _cap_arg(capacity), n_scenes,
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on_error("compact_scenes", err)
-    return cert
-
-
 def density_compact_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
                                 params: PhysParams, r: int,
                                 capacity: int | None,
@@ -626,8 +783,8 @@ def density_compact_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
     if scal is None:
         scal = scal_blocks(params)
     k5 = SortedTuning().k5()
-    cert = _launch_scenes(_DENSITY, False, pos_s, None, frame, scal, rho, r,
-                          capacity, k5)
+    cert = _launch(_DENSITY, False, pos_s, None, frame, scal, rho, r,
+                   capacity, None, k5, n_scenes)
     _count("compact_density_scenes")
     return rho, cert
 
@@ -638,12 +795,17 @@ def compact_substep_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
                                 alpha_visc: float = 0.0,
                                 pj: torch.Tensor | None = None,
                                 scal: torch.Tensor | None = None,
-                                tune: SortedTuning | None = None
+                                tune: SortedTuning | None = None,
+                                occ_cum: torch.Tensor | None = None,
+                                split: int = SPLIT_SLOTS,
+                                clock: torch.Tensor | None = None
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 fused substep over the scene axis on the card, in ``tune``'s
     variant: (rows' f32[S, N, 8], cert i32[S]) in one launch. ``pj`` is
-    ``pj_cols_scenes`` of the rows' ρ and ``scal`` ``scal_blocks`` of
-    ``params`` and the coefficients (each built here when None)."""
+    ``pj_cols_scenes`` of the rows' ρ, ``scal`` ``scal_blocks`` of
+    ``params`` and the coefficients and ``occ_cum`` ``occ_prefix(frame.occ)``
+    (i32[S, N + 1]; each built here when None); ``split`` and ``clock``
+    (``clock_buffer(N, dev, S)``) as in :func:`compact_substep_cuda`."""
     n_scenes, n = rows.shape[:2]
     _check("rows", rows, torch.float32, (n_scenes, n, N_FIELDS),
            rows.device)
@@ -654,8 +816,8 @@ def compact_substep_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
         pj = pj_cols_scenes(rows[..., 6], params)
     if scal is None:
         scal = scal_blocks(params, xsph, alpha_visc)
-    cert = _launch_scenes(_FUSED, ext, rows, pj, frame, scal, out, r,
-                          capacity, k5)
+    cert = _launch(_FUSED, ext, rows, pj, frame, scal, out, r, capacity,
+                   None, k5, n_scenes, split, occ_cum, clock)
     base = "compact_substep_ext" if ext else "compact_substep"
     _count(base + "_scenes" + variant_tag("compact.cu", k5))
     return out, cert
@@ -682,8 +844,8 @@ def forces_compact_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
         pj = pj_cols_scenes(rows[..., 6], params)
     if scal is None:
         scal = scal_blocks(params)
-    cert = _launch_scenes(_FORCES, False, rows, pj, frame, scal, sums, r,
-                          capacity, k5)
+    cert = _launch(_FORCES, False, rows, pj, frame, scal, sums, r, capacity,
+                   None, k5, n_scenes)
     _count("compact_forces_scenes" + variant_tag("compact.cu", k5))
     return sums, cert
 
@@ -705,14 +867,16 @@ def compact_substep_scenes(frame: SortedFrame, rows: torch.Tensor,
                            xsph: float = 0.0, alpha_visc: float = 0.0,
                            pj: torch.Tensor | None = None,
                            scal: torch.Tensor | None = None,
-                           tune: SortedTuning | None = None
+                           tune: SortedTuning | None = None,
+                           occ_cum: torch.Tensor | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """(rows' f32[S, N, 8], cert i32[S]): one substep of every scene in
     ``tune``'s variant, K5's scene-axis instance for a CUDA tensor, the
     plain version for a CPU one."""
     if rows.is_cuda:
         return compact_substep_scenes_cuda(frame, rows, params, r, capacity,
-                                           xsph, alpha_visc, pj, scal, tune)
+                                           xsph, alpha_visc, pj, scal, tune,
+                                           occ_cum)
     return compact_substep_scenes_plain(frame, rows, params, r, xsph,
                                         alpha_visc, tune)
 

@@ -57,10 +57,12 @@ KERNELS = {
                                    _I, _I, _I, _P)),
                   ("sph_forces_scenes", (_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                          _I, _I, _I, _P))),
-    "compact.cu": (("sph_compact", (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _I, _I, _I, _I, _P)),
-                   ("sph_compact_scenes", (_I, _I, _P, _P, _P, _P, _P, _P,
-                                           _P, _P, _P, _I, _I, _I, _I, _P))),
+    "compact.cu": (("sph_compact", (_I, _I, *(_P,) * 10, *(_I,) * 5, _P)),
+                   ("sph_compact_scenes", (_I, _I, *(_P,) * 10, *(_I,) * 4,
+                                           _P)),
+                   # the fused substep's split launch (ext, 13 pointers, then
+                   # n, r, cap, zbase, z_span, scenes, split)
+                   ("sph_compact_split", (_I, *(_P,) * 13, *(_I,) * 7, _P))),
 }
 # the probe group: source (relative to csrc/) → its C functions, as KERNELS
 PROBE_KERNELS = {
@@ -81,6 +83,8 @@ PROBE_KERNELS = {
 SWITCHES = (("fuse_acc", "SPH_FACC", True, "facc0"),
             ("kahan", "SPH_KAHAN", False, "kahan"),
             ("bf16", "SPH_BF16", False, "bf16"))
+# K5's tile-clock instance (not a tuning: on no path), library tag "clock"
+CLOCK = "-DSPH_TILE_CLOCK=1"
 # the switches each source reads (K5 has neither kahan nor fuse_acc, K1 no
 # candidate values to round, as in JAX)
 SOURCE_SWITCHES = {"density.cu": ("kahan",),
@@ -130,6 +134,7 @@ def library_path(source: str, switches: tuple[str, ...] = ()) -> Path:
     stem = source.removesuffix(".cu").replace("/", "_")
     tags = "".join(f"_{tag}" for _, macro, _, tag in SWITCHES
                    if any(d.startswith(f"-D{macro}=") for d in switches))
+    tags += "_clock" if CLOCK in switches else ""
     return BUILD_DIR / f"libsph_{stem}{tags}_{digest.hexdigest()[:16]}.so"
 
 
@@ -162,17 +167,19 @@ def _build_one(source: str, switches: tuple[str, ...] = ()) -> Path:
     return out
 
 
-def build(tunes=(), probes: bool = False) -> list[Path]:
+def build(tunes=(), probes: bool = False, clock: bool = False) -> list[Path]:
     """The kernel libraries, one per source in ``KERNELS`` order, then the
     variant libraries of ``tunes`` (each source whose switches a tuning
-    sets), then with ``probes`` the probe group's, one per source in
-    ``PROBE_KERNELS`` order; the missing ones are compiled side by side, one
-    nvcc each."""
+    sets), then with ``clock`` K5's tile-clock instance, then with
+    ``probes`` the probe group's, one per source in ``PROBE_KERNELS``
+    order; the missing ones are compiled side by side, one nvcc each."""
     jobs = [(source, ()) for source in KERNELS]
     for tune in tunes:
         jobs += [(source, defines(source, tune)) for source in KERNELS
                  if defines(source, tune)
                  and (source, defines(source, tune)) not in jobs]
+    if clock:
+        jobs.append(("compact.cu", (CLOCK,)))
     if probes:
         jobs += [(source, ()) for source in PROBE_KERNELS]
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -201,11 +208,13 @@ def load() -> types.SimpleNamespace:
     return _lib
 
 
-def function(source: str, name: str, tune=None):
+def function(source: str, name: str, tune=None, clock: bool = False):
     """C function ``name`` of ``source`` in ``tune``'s variant (None: the
-    default instance, from :func:`load`); a variant's library is built on
-    first call, and a failed build raises."""
-    switches = () if tune is None else defines(source, tune)
+    default instance, from :func:`load`), with ``clock`` its tile-clock
+    instance (``-DSPH_TILE_CLOCK=1``, K5 only); a variant's library is
+    built on first call, and a failed build raises."""
+    switches = (() if tune is None else defines(source, tune)) + \
+        ((CLOCK,) if clock else ())
     if not switches:
         return getattr(load(), name)
     key = (source, switches)

@@ -263,6 +263,8 @@ def _local_step(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring,
             rows = sk.pack_rows(sf.pos_s, sf.vel_s, rho_s,
                                 sf.nan_s.to(torch.float32))
             pj = sk.pj_cols(rho_s, phys)
+            # K5's split of wide tiles counts occupied slots, once a frame
+            occ_cum = compact.occ_prefix(frame.occ) if tune.compact else None
             # frame-constant sorted slots of the exchanged rows
             dn_spos, up_spos = inv[sf.dn_idx], inv[sf.up_idx]
             hb_spos, ht_spos = inv[c0:c0 + hc], inv[c0 + hc:]
@@ -274,7 +276,7 @@ def _local_step(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring,
                 if tune.compact:
                     rows, drift = compact.compact_substep(
                         frame, rows, phys, r, cap, xsph, alpha, pj, scal,
-                        band, tune)
+                        band, tune, occ_cum)
                     cert = cert + drift
                 else:
                     rows = sk.fused_substep(frame, rows, phys, r, cap, xsph,

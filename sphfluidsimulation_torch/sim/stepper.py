@@ -232,6 +232,9 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
         # the substeps' j-side columns, once a frame: rho is the
         # frame-start density of every substep
         pj = sph_kernels.pj_cols(rho_s, phys)
+        # K5's split of wide tiles counts occupied slots, once a frame
+        occ_cum = (compact.occ_prefix(frame.occ)
+                   if tune.compact and tune.fused else None)
     if not tune.fused:
         nan_hits = torch.zeros(rho_s.shape, dtype=torch.int32,
                                device=rho_s.device)
@@ -253,7 +256,7 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
                 if tune.compact:
                     rows, c = compact.compact_substep(
                         frame, rows, phys, r, cap, xsph, alpha, pj, scal,
-                        tune=tune)
+                        tune=tune, occ_cum=occ_cum)
                     cert = _add_cert(cert, c)
                 else:
                     rows = sph_kernels.fused_substep(
@@ -390,6 +393,8 @@ def _scenes_frame(frame: SortedFrame, pos_s: torch.Tensor,
     with span("pack_rows"):
         rows = sph_kernels.pack_rows_scenes(pos_s, vel_s, rho_s)
         pj = sph_kernels.pj_cols_scenes(rho_s, params)
+        occ_cum = (compact.occ_prefix(frame.occ)
+                   if tune.compact and tune.fused else None)
     if not tune.fused:
         view = sph_kernels.scene_view(params)
         nan_hits = torch.zeros(rho_s.shape, dtype=torch.int32,
@@ -413,7 +418,7 @@ def _scenes_frame(frame: SortedFrame, pos_s: torch.Tensor,
                 if tune.compact:
                     rows, c = compact.compact_substep_scenes(
                         frame, rows, params, r, cap, xsph, alpha, pj, scal,
-                        tune=tune)
+                        tune=tune, occ_cum=occ_cum)
                     cert = _add_cert(cert, c)
                 else:
                     rows = sph_kernels.fused_substep_scenes(

@@ -6,7 +6,10 @@ A line-for-line Python mirror of the kernel's tile stream (cell-level line
 dedup, the slot segments, each round stopped at the first slot past its
 cell's capacity) must process, for every tile, exactly each union cell's
 capacity-cut prefix, in ascending order, and so every occupied slot of the
-``tile_segments`` union.
+``tile_segments`` union. The split plan of wide tiles (``tile_cost``,
+``n_chunks``, ``chunk_cells``) must cut each tile's stream into
+cell-aligned chunks that cover it once, and a plain fold of the chunks'
+partial sums, in chunk order, must stay with the plain version and JAX.
 
 On the CPU each K5 wrapper runs its plain version; the CUDA kernel is held
 against that plain version on the card by tests/test_torch_cuda.py.
@@ -132,18 +135,21 @@ def test_tile_segments_hold_each_line_slot_once():
 
 # ---------------------------------------------------- the kernel's stream --
 
-def _k5_stream(start, cid, occ, lo, hi, r, cap):
+def _k5_stream(start, cid, occ, lo, hi, r, cap, cells=None, s_cells=None):
     """compact.cu's stream for one tile with span [lo, hi], line for line:
     (the slots its lanes process, in order; the union's cells). ``cap`` < 0
-    streams each cell uncut."""
-    s_cells = r ** 3
+    streams each cell uncut; ``cells`` = (c0, c1) streams one chunk, the
+    union's cells in [c0, c1) (``Tile::walk_cells``)."""
+    s_cells = r ** 3 if s_cells is None else s_cells
+    c0, c1 = (0, s_cells) if cells is None else cells
     segs, union, cb_run = [], [], 0
     for k in range(9):                  # lanes 0-8: the cell-level dedup
         off = (k // 3 - 1) * r * r + (k % 3 - 1) * r
         a = min(max(lo + off - 1, 0), s_cells)
         b = min(max(hi + off + 2, 0), s_cells)
         a, cb_run = max(a, cb_run), max(cb_run, a, b)
-        segs.append((start[a], start[cb_run]))
+        segs.append((start[min(max(a, c0), c1)],
+                     start[min(max(cb_run, c0), c1)]))
         union += range(a, cb_run)
     out = []
     for base, seg_end in segs:
@@ -215,19 +221,218 @@ def test_kernel_stream_reads_each_tiles_occupied_union_slots(scene, cap,
     assert cap != 4 or scene == "calm@3" or shorter > 0
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_density_matches_jax_density_compact(name):
+# ------------------------------------------------ the wide-tile split --
+
+SPLIT_TILE = 5          # the planted wide tile: rows 160-191 of the calm dam
+
+
+def _planted(rows):
+    """The rows with tile SPLIT_TILE's spread over the planes around it:
+    even rows 1.2 cells up in z, odd rows 1.2 cells down, so its fresh span
+    widens by about two planes of cells."""
+    r = _CALM["bucket_resolution"]
+    out = rows.clone()
+    a = SPLIT_TILE * compact.CROWS
+    out[a:a + 32:2, 2] += 1.2 / (r - 1)
+    out[a + 1:a + 32:2, 2] -= 1.2 / (r - 1)
+    out[:, 0:3] = out[:, 0:3].clamp(0.0, 1.0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _split_scene(scene):
+    """(frame, spans, R, band) of the split tests: ``planted`` the calm dam
+    with its planted wide tile (fresh spans), ``band`` a slab shard's frame
+    of goldenish@3 (planes 1-6 live, 300 dead rows; stale spans), else
+    :func:`_stream_scene`'s frame (stale spans)."""
+    if scene == "planted":
+        _, _, _, tf, _, trows, _, r = _drifted_rows()
+        spans, _ = compact.fresh_spans(compact.stale_spans(tf),
+                                       _planted(trows)[:, 0:3], r)
+        return tf, spans, r, None
+    if scene == "band":
+        band = (1, 6)
+        cfg = SimConfig(**_GOLDENISH)
+        st, _ = make_rollout(cfg, 3, device="cpu")(initial_state(cfg, "cpu"))
+        r = cfg.bucket_resolution
+        pos = torch.cat([st.pos, st.pos[:300]])
+        az = (pos[:, 2] * (r - 1)).to(torch.int32).clamp(0, r - 1)
+        valid = (az >= band[0]) & (az < band[0] + band[1])
+        valid[cfg.n_particles:] = False
+        gid = torch.arange(pos.shape[0], dtype=torch.int32) % cfg.n_particles
+        tf, _ = build_frame(pos, r, CAP, extras=(pos,), gid=gid,
+                            n_ids=cfg.n_particles, band=band, valid=valid)
+        return tf, compact.stale_spans(tf, band, r), r, band
+    tf, _, r = _stream_scene(scene, CAP)
+    return tf, compact.stale_spans(tf), r, None
+
+
+@pytest.mark.parametrize("slots", [8, 48])
+@pytest.mark.parametrize("scene", ["calm@3", "goldenish@3", "goldenish@0",
+                                   "planted", "band"])
+def test_split_chunks_cover_each_tiles_stream_once(scene, slots):
+    # the plan's chunks of each tile, streamed by the kernel's mirror, are
+    # its whole stream once, in ascending slot order, each starting at a
+    # cell's first slot; their occupied slots sum to the tile's cost and
+    # split it about evenly; a light tile is one chunk
+    tf, spans, r, band = _split_scene(scene)
+    s_cells = compact.s_cells_of(r, band)
+    occ_cum = compact.occ_prefix(tf.occ)
+    chunks = compact.CHUNKS
+    cost = compact.tile_cost(spans, tf.start, occ_cum, r, band)
+    k = compact.n_chunks(cost, slots)
+    b = compact.chunk_cells(spans, tf.start, occ_cum, r, slots, band)
+    t_n = compact.n_tiles(tf.cid.shape[0])
+    assert b.shape == (t_n, chunks + 1) and b.dtype == torch.int32
+    assert cost.shape == (t_n,) and k.max() <= chunks
+    assert bool((k == 1).eq(cost <= slots).all())
+    assert bool((b[:, 0] == 0).all() and (b[:, 1:] >= b[:, :-1]).all())
+    m = torch.arange(chunks + 1)
+    assert bool((b[m >= k[:, None]] == s_cells).all())
+    start, cid, occ = tf.start.tolist(), tf.cid.tolist(), tf.occ.tolist()
+    for t, (lo, hi) in enumerate(spans.tolist()):
+        whole, _ = _k5_stream(start, cid, occ, lo, hi, r, CAP,
+                              s_cells=s_cells)
+        parts = [_k5_stream(start, cid, occ, lo, hi, r, CAP,
+                            (int(b[t, q]), int(b[t, q + 1])), s_cells)[0]
+                 for q in range(int(k[t]))]
+        assert [j for part in parts for j in part] == whole
+        for part in parts:
+            assert not part or part[0] == start[cid[part[0]]]
+        counts = [sum(occ[j] for j in part) for part in parts]
+        assert sum(counts) == int(cost[t])
+        if k[t] > 1:              # about equal, up to one cell's run
+            assert max(counts) <= -(-int(cost[t]) // int(k[t])) + CAP
+    # the split shows: every scene has split tiles at 8 slots, the planted
+    # tile is among them at both thresholds, dead tiles cost nothing
+    assert slots != 8 or int((k > 1).sum()) > 0
+    if scene == "planted":
+        assert int(k[SPLIT_TILE]) >= 3 and int(k.max()) > 1
+    if scene == "band":
+        assert int(cost[-(300 // compact.CROWS):].max()) == 0
+
+
+@pytest.mark.parametrize("slots", [120, compact.SPLIT_SLOTS])
+def test_n_chunks_grow_with_cost_up_to_the_most(slots):
+    # a tile at or below the threshold is one chunk; past it, one chunk a
+    # threshold's worth of occupied slots, rounded up, at most CHUNKS
+    cost = torch.arange(0, 40 * slots, max(1, slots // 7), dtype=torch.int32)
+    k = compact.n_chunks(cost, slots)
+    for c, kk in zip(cost.tolist(), k.tolist()):
+        want = 1 if c <= slots else min(compact.CHUNKS, -(-c // slots))
+        assert kk == want
+    assert int(k.max()) == compact.CHUNKS and bool((k[1:] >= k[:-1]).all())
+    assert compact.n_chunks(cost, compact.SPLIT_SLOTS).tolist() == \
+        compact.n_chunks(cost).tolist()
+
+
+@pytest.mark.parametrize("scenes", [0, 1, 3])
+def test_occ_prefix_counts_each_scenes_occupied_slots(scenes):
+    # the occupied slots before each sorted index, scene by scene (0: one
+    # frame without a scene axis)
+    gen = torch.Generator().manual_seed(scenes)
+    occ = torch.rand((max(scenes, 1), 97), generator=gen) > 0.3
+    occ = occ[0] if scenes == 0 else occ
+    got = compact.occ_prefix(occ)
+    assert got.dtype == torch.int32 and got.shape[-1] == 98
+    for o, g in zip(occ.reshape(-1, 97), got.reshape(-1, 98)):
+        assert g.tolist() == [0] + o.int().cumsum(0).tolist()
+
+
+def _chunked_sums(slots):
+    """compact_sums_plain cut as the kernel cuts it at ``slots``: each row's
+    candidates split by the chunks of ``chunk_cells`` (the candidate's
+    cell), each chunk's partial sums summed alone, and the partials added
+    in chunk order (a SumsFn, as compact_sums_plain)."""
+    def sums_fn(frame, rows, phys, r, capacity=None, ext=False,
+                magnitude=False, band=None, tune=None):
+        tune = (tune or SortedTuning()).k5()
+        pos_s = rows[:, 0:3]
+        spans, _ = compact.spans_of(frame, pos_s, r, True, band)
+        bounds = compact.chunk_cells(spans, frame.start,
+                                     compact.occ_prefix(frame.occ), r,
+                                     slots, band)
+        out = rows.new_zeros((rows.shape[0], sk.N_SUMS))
+        for ids, j, member in compact._tile_candidates(frame, spans, pos_s,
+                                                       r, band):
+            b = bounds[ids // compact.CROWS].long()
+            chunk = (frame.cid[j][..., None] >= b[:, None, 1:]).sum(-1)
+            total = None
+            for q in range(compact.CHUNKS):
+                part = sk.force_sums_plain(rows, phys, ids, j,
+                                           member & (chunk == q), ext,
+                                           magnitude, tune)
+                total = part if total is None else total + part
+            out[ids, :total.shape[1]] = total
+        return out
+    sums_fn.variant = SortedTuning.k5
+    return sums_fn
+
+
+@pytest.mark.parametrize("xsph,alpha", [(0.0, 0.0), (0.3, 0.4)])
+def test_chunked_fold_matches_plain_and_jax_substep(xsph, alpha):
+    # with a threshold of 16 occupied slots most tiles of the drifted calm
+    # rows split; folding their chunks' partials in chunk order changes
+    # only the rounding: the sums stay within 1e-5 of the plain version's,
+    # and the substep within the JAX test's tolerance of JAX's
+    # compact_substep, with its drift count
+    _, tp, _, tf, _, trows, n, r = _drifted_rows()
+    spans, cert = compact.spans_of(tf, trows[:, 0:3], r, True)
+    cost = compact.tile_cost(spans, tf.start, compact.occ_prefix(tf.occ), r)
+    assert int((compact.n_chunks(cost, 16) > 1).sum()) > cost.shape[0] // 2
+    ext = sk.uses_extensions(xsph, alpha)
+    got = _chunked_sums(16)(tf, trows, tp, r, ext=ext)
+    want = compact.compact_sums_plain(tf, trows, tp, r, ext=ext)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    out = sk.fused_substep_plain(tf, trows, tp, r, None, xsph, alpha,
+                                 _chunked_sums(16))
+    jax_out, wcert = _jax_substep(xsph, alpha)
+    _same_substep(out.numpy(), jax_out)
+    assert int(cert) == wcert == 11
+
+
+def test_chunked_density_fold_matches_plain_and_jax():
+    # density's chunks on the stale spans, folded in chunk order
+    tf, pos_s, tp, r, want, wcert = _jax_density("calm")
+    spans = compact.stale_spans(tf)
+    bounds = compact.chunk_cells(spans, tf.start, compact.occ_prefix(tf.occ),
+                                 r, 16)
+    assert int((bounds[:, 2] < r ** 3).sum()) > 0          # split tiles
+    w = pos_s.new_zeros(pos_s.shape[0])
+    for ids, j, member in compact._tile_candidates(tf, spans, pos_s, r):
+        b = bounds[ids // compact.CROWS].long()
+        chunk = (tf.cid[j][..., None] >= b[:, None, 1:]).sum(-1)
+        w[ids] = sum(sk.density_sums_plain(pos_s, tp, ids, j,
+                                           member & (chunk == q))
+                     for q in range(compact.CHUNKS))
+    got = tp.mass * w
+    torch.testing.assert_close(
+        got, compact.density_compact_plain(tf, pos_s, tp, r)[0], rtol=1e-5,
+        atol=0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+    assert wcert == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_density(name):
+    """(port frame, sorted positions, port physics, R, JAX's density_compact
+    ρ and certificate) at the spawn of ``name``."""
     jp, tp = _phys(name)
     pos = _positions(name)
     n, r = pos.shape[0], CONFIGS[name]["bucket_resolution"]
     jf, tf, pos_s = _frames(pos, r)
     want, wcert = pallas_compact.density_compact(jf, jnp.asarray(pos_s), jp,
                                                  r, n, JTUNE)
-    got, cert = compact.density_compact(tf, torch.from_numpy(pos_s), tp, r,
-                                        CAP)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=0)
-    assert int(cert) == int(wcert) == 0
+    return tf, torch.from_numpy(pos_s), tp, r, np.asarray(want), int(wcert)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_density_matches_jax_density_compact(name):
+    tf, pos_s, tp, r, want, wcert = _jax_density(name)
+    got, cert = compact.density_compact(tf, pos_s, tp, r, CAP)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+    assert int(cert) == wcert == 0
 
 
 def _drifted_rows(name="calm"):
@@ -246,18 +451,30 @@ def _drifted_rows(name="calm"):
     return jp, tp, jf, tf, jrows, trows, n, r
 
 
-@pytest.mark.parametrize("xsph,alpha", [(0.0, 0.0), (0.3, 0.4)])
-def test_substep_matches_jax_compact_substep(xsph, alpha):
-    jp, tp, jf, tf, jrows, trows, n, r = _drifted_rows()
+@functools.lru_cache(maxsize=None)
+def _jax_substep(xsph, alpha):
+    """JAX's compact_substep of the drifted rows: (rows' f32[n, 8], drift
+    count)."""
+    jp, _, jf, _, jrows, _, n, r = _drifted_rows()
     out, wcert = pallas_compact.compact_substep(
         jf, jrows, jp, r, n, xsph=xsph, alpha_visc=alpha, tune=JTUNE)
-    want = np.asarray(out).reshape(-1, sk.N_FIELDS)[:n]
-    got, cert = compact.compact_substep(tf, trows, tp, r, CAP, xsph, alpha)
-    got = got.numpy()
+    return np.asarray(out).reshape(-1, sk.N_FIELDS)[:n], int(wcert)
+
+
+def _same_substep(got, want):
+    # the tolerances of the JAX tests' compact kernel check
     np.testing.assert_allclose(got[:, 0:3], want[:, 0:3], rtol=0, atol=1e-6)
     np.testing.assert_allclose(got[:, 3:6], want[:, 3:6], rtol=0, atol=1e-6)
     np.testing.assert_array_equal(got[:, 6:8], want[:, 6:8])
-    assert int(cert) == int(wcert) == 11
+
+
+@pytest.mark.parametrize("xsph,alpha", [(0.0, 0.0), (0.3, 0.4)])
+def test_substep_matches_jax_compact_substep(xsph, alpha):
+    _, tp, _, tf, _, trows, n, r = _drifted_rows()
+    want, wcert = _jax_substep(xsph, alpha)
+    got, cert = compact.compact_substep(tf, trows, tp, r, CAP, xsph, alpha)
+    _same_substep(got.numpy(), want)
+    assert int(cert) == wcert == 11
 
 
 def test_forces_match_jax_forces_compact():
@@ -368,7 +585,8 @@ def test_cli_and_scene_take_the_compact_route(monkeypatch, tmp_path):
 @pytest.mark.parametrize("faithful", [True, False])
 def test_stepper_passes_capacity_pj_and_scalars_to_k5(monkeypatch, faithful):
     # each K5 call of a compact frame gets the config's capacity, the
-    # frame's scalar block and (force modes) the rows' pj
+    # frame's scalar block, (force modes) the rows' pj and (the substep) the
+    # frame's prefix count of occupied slots
     import inspect
     seen = []
 
@@ -397,6 +615,9 @@ def test_stepper_passes_capacity_pj_and_scalars_to_k5(monkeypatch, faithful):
             rows = b.arguments["rows"]
             assert torch.equal(b.arguments["pj"],
                                sk.pj_cols(rows[:, 6], b.arguments["phys"]))
+        if name == "compact_substep":      # the split's count, once a frame
+            assert torch.equal(b.arguments["occ_cum"], compact.occ_prefix(
+                b.arguments["frame"].occ))
 
 
 def test_cpu_tensors_route_to_the_plain_versions():

@@ -1270,6 +1270,212 @@ def test_compact_scenes_kernels_match_plain_on_card(cuda_device):
                                    sums_fn=compact.compact_sums_plain).ok
 
 
+# ------------------------------------------- K5's split of wide tiles --
+
+# a threshold low enough that most tiles of these small frames split, and
+# the planted wide tile: its rows spread 1.2 cells up and down in z (on the
+# tiny frame tile 40's union then holds 1406 occupied slots, past the
+# default threshold)
+SPLIT16 = 16
+SPLIT_TILE = 5
+
+
+def _planted(rows, r, tile=SPLIT_TILE):
+    out = rows.clone()
+    a = tile * compact.CROWS
+    out[a:a + 32:2, 2] += 1.2 / (r - 1)
+    out[a + 1:a + 32:2, 2] -= 1.2 / (r - 1)
+    out[:, 0:3] = out[:, 0:3].clamp(0.0, 1.0)
+    return out
+
+
+def _split_rows(device, name="calm", tile=SPLIT_TILE):
+    """A frame on the card and its rows with random velocities and the
+    planted wide tile."""
+    tf, ps, _, tp, r = _card_inputs(name, device)
+    vel = 0.2 * torch.randn(ps.shape, device=device,
+                            generator=torch.Generator(device).manual_seed(0))
+    rows = sk.pack_rows(ps, vel, sk.density_plain(tf, ps, tp, r, CAP))
+    return tf, ps, _planted(rows, r, tile), tp, r
+
+
+def _held(tf, rows, out, tp, r, xs=0.0, al=0.0, band=None):
+    return sk.substep_accuracy(tf, rows, out, tp, r, None, xs, al,
+                               sums_fn=compact.compact_sums_plain, band=band)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,slots,tile", [
+    ("calm", 8, SPLIT_TILE), ("calm", SPLIT16, SPLIT_TILE),
+    ("tiny", compact.SPLIT_SLOTS, 40)])
+def test_split_kernel_matches_plain_on_wide_tiles(cuda_device, name, slots,
+                                                  tile):
+    # the substep split at `slots` occupied slots on the planted frame:
+    # held to its plain version with and without extensions, the drift
+    # count the plain version's, the bits those of a second launch, of the
+    # uncut stream and of a launch given occ_cum, one substep launch
+    # counted; the whole-tile body held alike
+    tf, _, rows, tp, r = _split_rows(cuda_device, name, tile)
+    spans, drift = compact.spans_of(tf, rows[:, 0:3], r, True)
+    occ_cum = compact.occ_prefix(tf.occ)
+    k = compact.n_chunks(compact.tile_cost(spans, tf.start, occ_cum, r),
+                         slots)
+    assert int(k[tile]) >= 2 and int((k > 1).sum()) >= 1
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        name_k = "compact_substep_ext" if xs else "compact_substep"
+        before = sk.launch_counts[name_k]
+        out, c = compact.compact_substep_cuda(tf, rows, tp, r, CAP, xs, al,
+                                              split=slots)
+        assert sk.launch_counts[name_k] == before + 1
+        assert int(c) == int(drift)
+        acc = _held(tf, rows, out, tp, r, xs, al)
+        assert acc.ok, acc
+        for again in (compact.compact_substep_cuda(tf, rows, tp, r, CAP, xs,
+                                                   al, split=slots),
+                      compact.compact_substep_cuda(tf, rows, tp, r, None, xs,
+                                                   al, split=slots),
+                      compact.compact_substep_cuda(tf, rows, tp, r, CAP, xs,
+                                                   al, occ_cum=occ_cum,
+                                                   split=slots)):
+            assert _same_bits(again[0], out) and int(again[1]) == int(c)
+        whole, cw = compact.compact_substep_cuda(tf, rows, tp, r, CAP, xs, al,
+                                                 split=0)
+        assert int(cw) == int(drift)
+        acc = _held(tf, rows, whole, tp, r, xs, al)
+        assert acc.ok, acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4])
+def test_split_kernel_matches_plain_on_slab_frames(cuda_device, d):
+    # K5-band split at 16 slots on each shard's frame of the goldenish
+    # scene on d slabs, rows planted: held to the banded plain version,
+    # dead rows copied through, the drift count the plain version's, the
+    # bits those of a second launch
+    from sphfluidsimulation_torch.parallel import (LocalRing, distribute,
+                                                   make_pallas_slab_step)
+    from sphfluidsimulation_torch.parallel.slab_pallas import shard_frames
+    cfg = SimConfig(**_GOLDENISH)
+    ring = LocalRing(d)
+    _, spec = make_pallas_slab_step(cfg, ring, row_slack=4.0, tune=COMPACT)
+    sst = distribute(initial_state(cfg, cuda_device), cfg, spec)
+    tp = PhysParams.from_config(cfg, cuda_device)
+    r = cfg.bucket_resolution
+    split_any = False
+    for sf in shard_frames(cfg, spec, ring, sst):
+        band, n_live = sf.band, int(sf.frame.start[-1])
+        rho, _ = compact.density_compact_cuda(sf.frame, sf.pos_s, tp, r, CAP,
+                                              band=band)
+        torch.testing.assert_close(rho, compact.density_compact_plain(
+            sf.frame, sf.pos_s, tp, r, band)[0], rtol=1e-5, atol=1e-6)
+        rows = sk.pack_rows(sf.pos_s, sf.vel_s, rho)
+        if n_live > (SPLIT_TILE + 1) * compact.CROWS:
+            rows[:n_live] = _planted(rows[:n_live], r)
+        spans, drift = compact.spans_of(sf.frame, rows[:, 0:3], r, True, band)
+        cost = compact.tile_cost(spans, sf.frame.start,
+                                 compact.occ_prefix(sf.frame.occ), r, band)
+        split_any |= bool((cost > SPLIT16).any())
+        out, c = compact.compact_substep_cuda(sf.frame, rows, tp, r, CAP,
+                                              band=band, split=SPLIT16)
+        assert int(c) == int(drift)
+        assert torch.equal(out[n_live:], rows[n_live:])
+        acc = _held(sf.frame, rows, out, tp, r, band=band)
+        assert acc.ok, acc
+        again, _ = compact.compact_substep_cuda(sf.frame, rows, tp, r, CAP,
+                                                band=band, split=SPLIT16)
+        assert _same_bits(again, out)
+    assert split_any
+
+
+@pytest.mark.cuda
+def test_split_scenes_are_bit_equal_to_solo_on_card(cuda_device):
+    # 3 scenes, scene 1's rows planted: the split scene-axis launch gives
+    # each scene its solo split launch's bits and drift count, held to the
+    # plain version
+    from sphfluidsimulation_torch.ops.frame import (build_frame_scenes,
+                                                    scene_frame)
+    from sphfluidsimulation_torch.params import stack_params
+    from sphfluidsimulation_torch.state import stack_states
+    cfgs = [SimConfig(**_CALM).replace(rest_density=1.5 + 0.1 * i, seed=i)
+            for i in range(3)]
+    states = stack_states([initial_state(c, cuda_device) for c in cfgs])
+    params = stack_params([PhysParams.from_config(c, cuda_device)
+                           for c in cfgs])
+    r = cfgs[0].bucket_resolution
+    frame, (ps, vs) = build_frame_scenes(states.pos, r, CAP,
+                                         extras=(states.pos, states.vel))
+    rho, _ = compact.density_compact_scenes_cuda(frame, ps, params, r, CAP)
+    rows = sk.pack_rows_scenes(ps, vs, rho)
+    rows[1] = _planted(rows[1], r)
+    out, cs = compact.compact_substep_scenes_cuda(frame, rows, params, r, CAP,
+                                                  XSPH, ALPHA, split=SPLIT16)
+    for sc in range(3):
+        fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+        o1, c1 = compact.compact_substep_cuda(fs, rows[sc], ph, r, CAP, XSPH,
+                                              ALPHA, split=SPLIT16)
+        assert _same_bits(out[sc], o1) and int(cs[sc]) == int(c1)
+        acc = _held(fs, rows[sc], out[sc], ph, r, XSPH, ALPHA)
+        assert acc.ok, (sc, acc)
+    # a threshold that only scene 1 passes: scenes 0 and 2 walk every tile
+    # whole and scene 1 splits, each with its solo bits
+    costs = []
+    for sc in range(3):
+        fs = scene_frame(frame, sc)
+        spans, _ = compact.spans_of(fs, rows[sc, :, 0:3], r, True)
+        costs.append(int(compact.tile_cost(spans, fs.start, compact.occ_prefix(
+            fs.occ), r).max()))
+    slots = max(costs[0], costs[2])
+    assert costs[1] > slots
+    out, cs = compact.compact_substep_scenes_cuda(frame, rows, params, r, CAP,
+                                                  split=slots)
+    for sc in range(3):
+        fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+        o1, c1 = compact.compact_substep_cuda(fs, rows[sc], ph, r, CAP,
+                                              split=slots)
+        assert _same_bits(out[sc], o1) and int(cs[sc]) == int(c1)
+        if sc != 1:
+            whole, _ = compact.compact_substep_cuda(fs, rows[sc], ph, r, CAP,
+                                                    split=0)
+            assert _same_bits(out[sc], whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [0, SPLIT16])
+def test_tile_clock_records_each_chunk_on_card(cuda_device, slots):
+    # the clock instance (-DSPH_TILE_CLOCK=1) gives the default instance's
+    # bits and one entry per chunk that ran: each tile's chunks, their
+    # cells those of chunk_cells, their spans positive
+    tf, _, rows, tp, r = _split_rows(cuda_device, "tiny")
+    clock = compact.clock_buffer(rows.shape[0], cuda_device)
+    out, c = compact.compact_substep_cuda(tf, rows, tp, r, CAP, split=slots,
+                                          clock=clock)
+    ref, c_ref = compact.compact_substep_cuda(tf, rows, tp, r, CAP,
+                                              split=slots)
+    assert _same_bits(out, ref) and int(c) == int(c_ref)
+    spans, _ = compact.spans_of(tf, rows[:, 0:3], r, True)
+    occ_cum = compact.occ_prefix(tf.occ)
+    cost = compact.tile_cost(spans, tf.start, occ_cum, r)
+    ran = clock[0, ..., 1] > 0
+    k = ran.sum(1)
+    if slots == 0:
+        assert bool((k == 1).all() and ran[:, 0].all())
+    else:
+        want = compact.n_chunks(cost, slots).to(k.dtype)
+        assert torch.equal(k, want) and int((want > 1).sum()) > 0
+        bounds = compact.chunk_cells(spans, tf.start, occ_cum, r, slots)
+        split_tiles = (want > 1).nonzero()[:, 0]
+        for t in split_tiles.tolist():
+            got = [(v & 0xffffffff, v >> 32)
+                   for v in clock[0, t, :int(want[t]), 3].tolist()]
+            assert got == [(int(bounds[t, q]), int(bounds[t, q + 1]))
+                           for q in range(int(want[t]))]
+    used = clock[0][ran]
+    assert bool((used[:, 1] >= used[:, 0]).all() and (used[:, 2] > 0).all())
+    stats = compact.clock_stats([clock])
+    assert stats["tiles"] == cost.shape[0]
+    assert stats["makespan_us"] >= stats["max_us"] >= stats["p99_us"] > 0
+
+
 # the batched steps BatchedScenes records, each on the scene axis: (options,
 # extension coefficients, scene-axis launches a frame)
 _EXT = dict(xsph=XSPH, artificial_viscosity=ALPHA)
