@@ -101,8 +101,11 @@ every phase passed; each prints its seconds):
    held against their banded plain versions on each shard's frame
    (``slab_pallas.shard_frames``) at frame 0 and after 3 slab frames, at
    262k and config 3, with K2-band with viscosity 0 as the planted control;
-   the slab path at 262k and at config 3, 3 frames each, with exactly 4 K1
-   and 20 K2 launches a frame; frame 1 at 262k equal to the single-device
+   on the same frames the launched K2-band and K2-ext-band (a group of
+   lanes a live row, ``csrc/window_walk.cuh``) bit-equal to the one-thread
+   walk (``lanes=1``) in every variant library (default, facc0, kahan,
+   bf16); the slab path at 262k and at config 3, 3 frames each, with
+   exactly 4 K1 and 20 K2 launches a frame; frame 1 at 262k equal to the single-device
    window route bit for bit wherever ``exact_cert`` is 0, and the overflow
    equal to its; the calm 1k scene on 2 and 4 slabs for 3 frames, with
    ``exact_cert`` 0 and within 2e-5 of the single-device route; the
@@ -117,7 +120,9 @@ every phase passed; each prints its seconds):
    profiler's kernels, copies and memsets) and idle share; the slab
    step's rate at 262k and 1M in both modes (H G G H, 3 frames after one)
    beside the single-device graph rollout's; and the banded kernels'
-   times (one launch on each shard), plain versions and bounds. The slab runs use the row slack of the JAX tests (4.0), since
+   times (one launch on each shard), plain versions and bounds, K2's
+   beside the one-thread walk's on the same inputs. The slab runs use the
+   row slack of the JAX tests (4.0), since
    the golden and config-3 spawns are not spread evenly over z, and a halo
    slack of 8.0;
 9. the tuning variants (``SortedTuning``, the JAX ``PallasTuning``'s
@@ -2543,11 +2548,42 @@ def main() -> None:
                                               cap, xs, al, band=band),
                           f"{name} with viscosity 0", lab)
 
+    def lanes_slab(cfg, spec, sst, label):
+        """The launched K2-band (K2-ext-band with extensions), a group of
+        lanes a live row, bit-equal to the one-thread walk (lanes=1) on
+        each shard's frame of ``sst``, in every variant library."""
+        phys = PhysParams.from_config(cfg, dev)
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        ext = sk.uses_extensions(xs, al)
+        widths = {}
+        for sf in shard_frames(cfg, spec, ring, sst):
+            rows = sk.pack_rows(sf.pos_s, sf.vel_s, sk.density_cuda(
+                sf.frame, sf.pos_s, phys, r, cap, band=sf.band))
+            for vname, vt in (("default", None), ("facc0", FACC0),
+                              ("kahan", KAHAN), ("bf16", BF16)):
+                widths[vname] = sk.band_walk(ext, vt)
+                out = sk.fused_substep_cuda(sf.frame, rows, phys, r, cap, xs,
+                                            al, band=sf.band, tune=vt)
+                one = sk.fused_substep_cuda(sf.frame, rows, phys, r, cap, xs,
+                                            al, band=sf.band, tune=vt,
+                                            lanes=1)
+                if not same_bits(out, one):
+                    fail(f"{label}, band {sf.band}, {vname}: the launched "
+                         f"banded K2 ((lanes, slots) {widths[vname]}) "
+                         f"leaves the one-thread walk's bits")
+        print(f"lanes {label}: the launched banded K2{'-ext' if ext else ''} "
+              f"((lanes a row, slots a lane) {widths}) bit-equal to the "
+              f"one-thread walk on each of {SLAB_D} shards [{ident}]",
+              flush=True)
+
     with Phase("slab compare frame 0"):
         for key, (cfg, st0) in slab_cfgs.items():
             _, spec, _ = slab_setup(cfg)
             compare_slab(cfg, spec, distribute(st0, cfg, spec),
                          f"{key} slab frame 0")
+            lanes_slab(cfg, spec, distribute(st0, cfg, spec),
+                       f"{key} slab frame 0")
 
     slab_after = {}
     for key, (cfg, st0) in slab_cfgs.items():
@@ -2605,6 +2641,7 @@ def main() -> None:
             spec, sst = slab_after[key]
             compare_slab(cfg, spec, sst, f"{key} slab frame {SLAB_FRAMES}",
                          planted=key == "262k")
+            lanes_slab(cfg, spec, sst, f"{key} slab frame {SLAB_FRAMES}")
 
     with Phase("slab calm 1k"):
         calm = SimConfig(particle_number=1024, bucket_resolution=11,
@@ -2682,6 +2719,14 @@ def main() -> None:
                                                   cap, xs, al, band=sf.band)
                            for sf, mid, _ in ins],
                   s_cells=cells, n_dead=n_dead)
+            # the one-thread walk on the same inputs, the reference instance
+            one = time_ms(lambda: [sk.fused_substep_cuda(
+                sf.frame, mid, phys, r, cap, xs, al, pj, scal_f, sf.band,
+                lanes=1) for sf, mid, pj in ins], 20)
+            km = times[name][shape][0]
+            print(f"time {shape} {name} one lane a row (lanes=1): {one:.4f} "
+                  f"ms; launched, (lanes, slots) {sk.band_walk(ext)}: "
+                  f"{km:.4f} ms = {km / one:.4f} x [{ident}]", flush=True)
 
     # ---- 9. the tuning variants and the banded K5
     vtunes = (FACC0, KAHAN, BF16)

@@ -11,7 +11,9 @@ golden particles (R = 47) and at BASELINE config 3 (524,176 particles, XSPH
 metrics (K1 and K2, or K2-ext), a 2-frame corrected rollout's at config 3
 (K1 and K3 with extensions), and, on the frame built from the rollout's
 final state, K1's density, K2's (K2-ext's) substep and K3's sums, each
-launched through the tree's own wrapper without a band. The rollouts and,
+launched through the tree's own wrapper without a band, and the slab
+step's state after 3 frames on ``LocalRing(4)`` (row slack 4, halo slack
+8; K1-band and K2-band, or K2-ext-band), collected. The rollouts and,
 in a tree whose wrappers take a tuning, the kernels run in the variant of
 the ``SPH_PALLAS_*`` variables (``sph_kernels.default_tuning``). The second
 form
@@ -63,6 +65,9 @@ def save(root: pathlib.Path, out: str) -> None:
     from sphfluidsimulation_torch.ops import cuda_build, sph_kernels as sk
     from sphfluidsimulation_torch.ops.frame import build_frame
     from sphfluidsimulation_torch.params import PhysParams
+    from sphfluidsimulation_torch.parallel import (LocalRing, collect,
+                                                   distribute,
+                                                   make_pallas_slab_step)
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                       make_rollout)
 
@@ -96,6 +101,14 @@ def save(root: pathlib.Path, out: str) -> None:
             frame, rows, phys, r, cap, xs, al, **kw)
         res[f"{label} K3"] = sk.forces_cuda(frame, rows, phys, r, cap,
                                             sk.uses_extensions(xs, al), **kw)
+        step, spec = make_pallas_slab_step(cfg, LocalRing(4), row_slack=4.0,
+                                           halo_slack=8.0, **kw)
+        sst = distribute(s0, cfg, spec)
+        for _ in range(3):
+            sst, _ = step(sst, phys)
+        slab, _ = collect(sst, cfg.n_particles)
+        for name, t in slab._asdict().items():
+            res[f"{label} slab rollout {name}"] = t
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in res.items()}, out)
     print(f"{root}: {len(res)} tensors to {out}")

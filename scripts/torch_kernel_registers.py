@@ -7,10 +7,12 @@ port, as ptxas reports them, on a machine with nvcc:
 Compiles each source under ``sphfluidsimulation_torch/csrc`` with the port's
 nvcc flags (``ops/cuda_build.py``), once with no switch and once with each
 tuning variant's switches that the source reads (``cuda_build.defines``),
-adding ``-Xptxas -v``, and prints one line per kernel instance: the source,
-the switches, the kernel and its template arguments (for K1-K3 ``<kExt,
-kBand>`` or ``<kBand>``, for K5 ``<mode, kExt, kBand>``), its registers and
-its stack frame, spill store and spill load bytes.
+adding ``-Xptxas -v`` (and K2's once more with ``cuda_build.LANE_SWEEP``,
+every lane-group width), and prints one line per kernel instance: the
+source, the switches, the kernel and its template arguments (for K1 and K3
+``<kExt, kBand>`` or ``<kBand>``, for K2 ``<kExt, kBand, kLanes>``, for K5
+``<mode, kExt, kBand>``), its registers and its stack frame, spill store
+and spill load bytes.
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ def report(source: str, switches: tuple[str, ...]) -> list[str]:
 def main() -> None:
     for source in cuda_build.KERNELS:
         sets = [()] + [cuda_build.defines(source, t) for t in VARIANTS]
+        if source == "fused_substep.cu":
+            sets.append((cuda_build.LANE_SWEEP,))
         for switches in dict.fromkeys(sets):
             print("\n".join(report(source, switches)), flush=True)
 

@@ -155,7 +155,10 @@ def main() -> None:
     takes_pj = len(sigs["sph_forces"]) >= 12
     takes_band = len(sigs["sph_density"]) == 12
     k5_takes_pj = len(sigs["sph_compact"]) >= 15
-    k5_takes_band = len(sigs["sph_compact"]) == 17
+    k5_takes_band = len(sigs["sph_compact"]) >= 17
+    # a tree with K5's tile clock takes its buffer after the drift count
+    # (None: no clock)
+    k5_clock = (None,) if len(sigs["sph_compact"]) == 18 else ()
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
@@ -195,8 +198,8 @@ def main() -> None:
                 return lib.sph_compact(
                     mode, int(use_ext), ptr(inp),
                     None if mode == compact._DENSITY else ptr(pj),
-                    ptr(frame.cid), *tail, ptr(sc), ptr(dst), ptr(cert), n,
-                    r, -1 if cap is None else cap,
+                    ptr(frame.cid), *tail, ptr(sc), ptr(dst), ptr(cert),
+                    *k5_clock, n, r, -1 if cap is None else cap,
                     *((0, r) if k5_takes_band else ()), stream)
             return lib.sph_compact(mode, int(use_ext), ptr(inp),
                                    ptr(frame.cid), *tail, ptr(sc), ptr(dst),

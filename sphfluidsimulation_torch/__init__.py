@@ -12,7 +12,7 @@ card and plain PyTorch on the CPU. Public API:
 """
 
 from .config import GOLDEN_CONFIG, TINY_CONFIG, SimConfig  # noqa: F401
-from .params import PhysParams  # noqa: F401
+from .params import PhysParams, stack_params  # noqa: F401
 from .state import (FrameAux, ParticleState, StepMetrics,  # noqa: F401
                     make_state)
 from .models.scene import Scene  # noqa: F401
@@ -24,5 +24,6 @@ from .sim.stepper import (  # noqa: F401
     make_param_step,
     make_rollout,
 )
+from . import parallel, render, utils  # noqa: F401
 
 __version__ = "0.1.0"

@@ -53,14 +53,38 @@
 // extensions. Staging a tile's window union in shared memory was measured slower on
 // the H100 at every shape (it costs occupancy; PERF.md), so the walk reads
 // global memory through L1.
+//
+// The banded instances walk each live row with a group of kBandLanes lanes,
+// kBandSlots slots a lane a step (window_walk.cuh's lane groups): a slab's
+// shard holds a quarter of the particles, too few rows at one thread a row
+// to keep the card's warps busy. The result is the one-thread walk's, bit
+// for bit; that walk (one lane a row, two slots a step without the
+// extensions, one with them) stays built as the reference instance,
+// launched through sph_fused_substep_lanes with lanes = 1, slots = 0.
+// -DSPH_LANE_SWEEP=1 builds every shape of 1, 2, 4 or 8 lanes a row and 1,
+// 2 or 4 slots a lane, for the band and the whole grid: the measurement that
+// chose kBandLanes and kBandSlots (scripts/torch_k2band_ab.py).
 #include "window_walk.cuh"
+
+#ifndef SPH_LANE_SWEEP
+#define SPH_LANE_SWEEP 0
+#endif
 
 namespace {
 
-template <bool kExt, bool kBand>
+// the banded instances' lanes a row and slots a lane a step, without and
+// with the extensions (scripts/torch_k2band_ab.py --sweep on an H100 80GB
+// HBM3 at 700 W; PERF.md): without them 4 lanes of one slot take 0.315 ms on
+// 4 slabs at 262k against the one-thread walk's 0.400; with them every
+// group lost (2 lanes 1.53 ms against 1.26 at config 3: each slot hands on
+// 11 values, not 3), so the one-thread walk stays launched there
+constexpr int kBandLanes[2] = {4, 1};
+constexpr int kBandSlots[2] = {1, 1};
+
+template <bool kExt, bool kBand, int kLanes, int kSlots>
 __global__ void __launch_bounds__(sph::kBlock)
 fused_substep_kernel(sph::WalkArgs a, float4* __restrict__ out) {
-  sph::walk_row<kExt, kBand>(
+  sph::walk_row<kExt, kBand, kLanes, kSlots>(
       a,
       [&](const sph::Scalars& s, const sph::Particle& p, int i,
           const sph::PairSums& acc) {
@@ -88,24 +112,89 @@ fused_substep_scenes_kernel(sph::WalkArgs a, float4* __restrict__ out) {
       [](int) {});   // no dead rows without a band
 }
 
+// Sets k to the instance of kSlots slots a lane and `lanes` lanes a row if
+// `lanes` is one of kLanes and `slots` is kSlots.
+template <bool kExt, bool kBand, int kSlots, int... kLanes>
+void find(int lanes, int slots, sph::WalkKernel& k) {
+  ((k = lanes == kLanes && slots == kSlots
+            ? fused_substep_kernel<kExt, kBand, kLanes, kSlots>
+            : k),
+   ...);
+}
+
+// The instance of K2 with `lanes` lanes a row and `slots` slots a lane a
+// step, or nullptr where this library has none: the one-thread walk (lanes
+// 1, slots 0) everywhere, the band's kBandLanes and kBandSlots, and with
+// SPH_LANE_SWEEP every shape of 1, 2, 4, 8 lanes and 1, 2, 4 slots.
+template <bool kExt, bool kBand>
+sph::WalkKernel instance(int lanes, int slots) {
+  if (lanes == 1 && slots == 0)
+    return fused_substep_kernel<kExt, kBand, 1, kExt ? 1 : 2>;
+  sph::WalkKernel k = nullptr;
+  if constexpr (SPH_LANE_SWEEP != 0) {
+    find<kExt, kBand, 1, 1, 2, 4, 8>(lanes, slots, k);
+    find<kExt, kBand, 2, 1, 2, 4, 8>(lanes, slots, k);
+    find<kExt, kBand, 4, 1, 2, 4, 8>(lanes, slots, k);
+  } else if constexpr (kBand) {
+    find<kExt, kBand, kBandSlots[kExt ? 1 : 0], kBandLanes[kExt ? 1 : 0]>(
+        lanes, slots, k);
+  }
+  return k;
+}
+
+int launch(const sph::WalkArgs& a, bool ext, int lanes, int slots,
+           float* out, void* stream) {
+  const bool band = sph::banded(a.zbase, a.z_span, a.r);
+  const sph::WalkKernel kernel =
+      ext ? (band ? instance<true, true>(lanes, slots)
+                  : instance<true, false>(lanes, slots))
+          : (band ? instance<false, true>(lanes, slots)
+                  : instance<false, false>(lanes, slots));
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return sph::launch_walk(kernel, lanes, a, reinterpret_cast<float4*>(out),
+                          (cudaStream_t)stream);
+}
+
+sph::WalkArgs walk_args(const float* rows, const float* pj, const int* start,
+                        const int* raw, const uint8_t* occ, const float* scal,
+                        int n, int r, int cap, int zbase, int z_span) {
+  return sph::WalkArgs{reinterpret_cast<const float4*>(rows),
+                       reinterpret_cast<const float2*>(pj),
+                       start, raw, occ, scal, n, r, cap, zbase, z_span};
+}
+
 }  // namespace
 
 // (zbase, z_span) is the frame's band of z-planes, (0, r) for the whole
-// grid; ext != 0 selects the instance with the extension sums.
+// grid; ext != 0 selects the instance with the extension sums. A band
+// launches the instance of kBandLanes lanes a row and kBandSlots slots a
+// lane, the whole grid the one-thread walk.
 extern "C" int sph_fused_substep(const float* rows, const float* pj,
                                  const int* start, const int* raw,
                                  const uint8_t* occ, const float* scal,
                                  float* out, int n, int r, int cap, int zbase,
                                  int z_span, int ext, void* stream) {
-  const sph::WalkArgs a{reinterpret_cast<const float4*>(rows),
-                        reinterpret_cast<const float2*>(pj),
-                        start, raw, occ, scal, n, r, cap, zbase, z_span};
-  static const sph::WalkKernel instances[2][2] = {
-      {fused_substep_kernel<false, false>, fused_substep_kernel<false, true>},
-      {fused_substep_kernel<true, false>, fused_substep_kernel<true, true>}};
-  return sph::launch_walk(instances, ext != 0, a,
-                          reinterpret_cast<float4*>(out),
-                          (cudaStream_t)stream);
+  const int e = ext != 0 ? 1 : 0;
+  const bool band = sph::banded(zbase, z_span, r);
+  return launch(walk_args(rows, pj, start, raw, occ, scal, n, r, cap, zbase,
+                          z_span),
+                ext != 0, band ? kBandLanes[e] : 1, band ? kBandSlots[e] : 0,
+                out, stream);
+}
+
+// sph_fused_substep with `lanes` lanes a row and `slots` slots a lane a
+// step: (1, 0) the one-thread walk, the reference instance; the band's
+// (kBandLanes, kBandSlots); with SPH_LANE_SWEEP any of 1, 2, 4, 8 lanes and
+// 1, 2, 4 slots. Another shape returns cudaErrorInvalidValue.
+extern "C" int sph_fused_substep_lanes(const float* rows, const float* pj,
+                                       const int* start, const int* raw,
+                                       const uint8_t* occ, const float* scal,
+                                       float* out, int n, int r, int cap,
+                                       int zbase, int z_span, int ext,
+                                       int lanes, int slots, void* stream) {
+  return launch(walk_args(rows, pj, start, raw, occ, scal, n, r, cap, zbase,
+                          z_span),
+                ext != 0, lanes, slots, out, stream);
 }
 
 // K2 over `scenes` scenes of n rows each, every input stacked scene after
@@ -124,4 +213,12 @@ extern "C" int sph_fused_substep_scenes(const float* rows, const float* pj,
   return sph::launch_walk_scenes(instances, ext != 0, a, scenes,
                                  reinterpret_cast<float4*>(out),
                                  (cudaStream_t)stream);
+}
+
+// The shape of sph_fused_substep's banded instance, with ext != 0 the one
+// with the extension sums: its lanes a row (slots = 0) or its slots a lane
+// a step (slots != 0).
+extern "C" int sph_fused_substep_band_walk(int ext, int slots) {
+  const int e = ext != 0 ? 1 : 0;
+  return slots != 0 ? kBandSlots[e] : kBandLanes[e];
 }

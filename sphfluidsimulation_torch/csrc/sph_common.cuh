@@ -188,7 +188,7 @@ __device__ __forceinline__ void candidate(const Scalars& s, float4& qa,
   }
 }
 
-// Adds the pair terms of candidate q = (qa, qb) to particle p's sums
+// The pair terms of candidate q = (qa, qb) for particle p
 // (VelPos.compute:64-99; the extension sums of pallas_sph.py:1255-1283),
 // with no IEEE division: press_j and the guarded reciprocal inv_j =
 // [rho_j > eps] / rho_j come precomputed (the formulas of
@@ -203,20 +203,41 @@ __device__ __forceinline__ void candidate(const Scalars& s, float4& qa,
 // Every gate is a whole-term select, as in the JAX kernel, never a product
 // with a 0/1 mask: `use` (the pair is a candidate, j != i) keeps or drops
 // all the terms, the rho_j > eps guard (on rho_j itself) the pressure and
-// viscosity terms only. With no branch, the compiler can overlap two calls.
+// viscosity terms only (`pv`). With no branch, the compiler can overlap two
+// calls.
 //
 // With kFacc (fuse_acc) each pair adds pc gradW r + lapW inv_j vmu (v_j -
 // v_i) to the one triple, vmu the row's viscosity factor (mu where rho_i >
 // eps, else 1: pallas_sph.py:1106-1115, :1234-1245), and the extension sums
 // are the triples after it.
+//
+// PairTerms holds what add_terms adds: a term that is one product, x * y,
+// is held as its two factors, so that the running sum's add contracts with
+// the product into one fused multiply-add (s + x * y) wherever the term is
+// added, in the lane that computed it or in another (the lane-group walk,
+// window_walk.cuh); the combined fuse_acc term is a sum of two products and
+// is held whole.
+struct PairTerms {
+  float fx, fy, fz;      // kFacc: pc (g dx) + vc vmu dvx, ...
+  float pc, gx, gy, gz;  // !kFacc: pc * gx, ...
+  float vc;              // !kFacc: vc * dvx, ...
+  float dvx, dvy, dvz;   // !kFacc or kExt
+  float dx, dy, dz;      // kExt: ac * dx, ...
+  float xc, ac;          // kExt: xc * dvx, ...
+  bool use, pv;
+};
+
 template <bool kExt, bool kFacc>
-__device__ __forceinline__ void add_pair_pj(const Scalars& s,
-                                            const Particle& p, float press_i,
-                                            float vmu, float4 qa, float4 qb,
-                                            float press_j, float inv_j,
-                                            bool use, PairSums& acc) {
+__device__ __forceinline__ PairTerms pair_terms(const Scalars& s,
+                                                const Particle& p,
+                                                float press_i, float vmu,
+                                                float4 qa, float4 qb,
+                                                float press_j, float inv_j,
+                                                bool use) {
   // qa = (x, y, z, vx), qb = (vy, vz, rho, -)
-  const bool pv = use && qb.z > kEps;
+  PairTerms t;
+  t.use = use;
+  t.pv = use && qb.z > kEps;
   const float dx = p.px - qa.x, dy = p.py - qa.y, dz = p.pz - qa.z;
   const float r2 = dx * dx + dy * dy + dz * dz;
   const float abs_r = sqrtf(r2);
@@ -229,36 +250,67 @@ __device__ __forceinline__ void add_pair_pj(const Scalars& s,
   const float gwv = abs_r < s.h ? s.c_grad * diff_r : 0.f;
   const float pc = (press_i + press_j) * 0.5f * inv_j;
   const float vc = gwv * inv_j;
+  t.dvx = dvx, t.dvy = dvy, t.dvz = dvz;
   if constexpr (kFacc) {
     const float vcm = vc * vmu;
-    accum(acc.px, pc * (g * dx) + vcm * dvx, pv);
-    accum(acc.py, pc * (g * dy) + vcm * dvy, pv);
-    accum(acc.pz, pc * (g * dz) + vcm * dvz, pv);
+    t.fx = pc * (g * dx) + vcm * dvx;
+    t.fy = pc * (g * dy) + vcm * dvy;
+    t.fz = pc * (g * dz) + vcm * dvz;
   } else {
-    accum(acc.px, pc * (g * dx), pv);
-    accum(acc.py, pc * (g * dy), pv);
-    accum(acc.pz, pc * (g * dz), pv);
-    accum(acc.vx, vc * dvx, pv);
-    accum(acc.vy, vc * dvy, pv);
-    accum(acc.vz, vc * dvz, pv);
+    t.pc = pc, t.gx = g * dx, t.gy = g * dy, t.gz = g * dz, t.vc = vc;
   }
   if constexpr (kExt) {
     const float d2 = s.h2 - r2;
     const float w6 = d2 > 0.f ? s.c_poly6 * d2 * d2 * d2 : 0.f;
     const float denom = p.rho + qb.z;
     const float two_over = 2.f * __frcp_rn(denom);   // 2 / denom = 1 / rho_bar
-    const float xc = denom > kEps ? two_over * w6 : 0.f;
-    accum(acc.xx, xc * dvx, use);
-    accum(acc.xy, xc * dvy, use);
-    accum(acc.xz, xc * dvz, use);
+    t.xc = denom > kEps ? two_over * w6 : 0.f;
     const float vr = -(dvx * dx) - dvy * dy - dvz * dz;
     const float mu = s.h * vr * __frcp_rn(r2 + 0.01f * s.h2);
     const bool pi_ok = vr < 0.f && 0.5f * denom > kEps;
-    const float ac = (pi_ok ? -s.cs * mu * two_over : 0.f) * g;
-    accum(acc.ax, ac * dx, use);
-    accum(acc.ay, ac * dy, use);
-    accum(acc.az, ac * dz, use);
+    t.ac = (pi_ok ? -s.cs * mu * two_over : 0.f) * g;
+    t.dx = dx, t.dy = dy, t.dz = dz;
   }
+  return t;
+}
+
+// Adds one pair's terms to the sums, in the order of the JAX kernel's
+// accumulates.
+template <bool kExt, bool kFacc>
+__device__ __forceinline__ void add_terms(const PairTerms& t, PairSums& acc) {
+  if constexpr (kFacc) {
+    accum(acc.px, t.fx, t.pv);
+    accum(acc.py, t.fy, t.pv);
+    accum(acc.pz, t.fz, t.pv);
+  } else {
+    accum(acc.px, t.pc * t.gx, t.pv);
+    accum(acc.py, t.pc * t.gy, t.pv);
+    accum(acc.pz, t.pc * t.gz, t.pv);
+    accum(acc.vx, t.vc * t.dvx, t.pv);
+    accum(acc.vy, t.vc * t.dvy, t.pv);
+    accum(acc.vz, t.vc * t.dvz, t.pv);
+  }
+  if constexpr (kExt) {
+    accum(acc.xx, t.xc * t.dvx, t.use);
+    accum(acc.xy, t.xc * t.dvy, t.use);
+    accum(acc.xz, t.xc * t.dvz, t.use);
+    accum(acc.ax, t.ac * t.dx, t.use);
+    accum(acc.ay, t.ac * t.dy, t.use);
+    accum(acc.az, t.ac * t.dz, t.use);
+  }
+}
+
+// Adds the pair terms of candidate q = (qa, qb) to particle p's sums.
+template <bool kExt, bool kFacc>
+__device__ __forceinline__ void add_pair_pj(const Scalars& s,
+                                            const Particle& p, float press_i,
+                                            float vmu, float4 qa, float4 qb,
+                                            float press_j, float inv_j,
+                                            bool use, PairSums& acc) {
+  add_terms<kExt, kFacc>(
+      pair_terms<kExt, kFacc>(s, p, press_i, vmu, qa, qb, press_j, inv_j,
+                              use),
+      acc);
 }
 
 // Stores particle i's raw sums in the f32[N, 12] layout of K3, three float4

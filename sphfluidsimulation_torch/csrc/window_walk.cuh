@@ -25,6 +25,22 @@
 // (0, r), launches the instance without it, which compiles to the walk of
 // the unbanded kernels (reading the band at run time made K2-ext and K3
 // 7-8% slower on the H100: PERF.md).
+//
+// Lane groups (kLanes > 1, K2's banded instance without the extensions): a
+// slab's quarter of the particles fills only part of the card at one
+// thread a row (about 18 of 64 warps an SM at 262k on 4 slabs), and each
+// launch waits for its slowest warps, those whose rows walk the deepest
+// windows. There a group of kLanes consecutive lanes of one warp walks one
+// live row: the group takes the row's ranges as the one-thread walk does,
+// kLanes * kSlots consecutive slots a step, kSlots a lane, each lane
+// evaluating its slots' gates and pair terms (so a deep window's walk is
+// shared by the group, and the group's loads of occ, raw and the rows are
+// adjacent). The lanes hand the
+// terms round the group by __shfl_sync, and every lane adds them in
+// ascending slot order with the one-thread walk's operations
+// (add_group_terms): each row's sums, and K2's output, are bit for bit the
+// one-thread walk's, with no atomics and no tree of partial sums. kLanes =
+// 1 compiles to the one-thread walk.
 #pragma once
 
 #include "sph_common.cuh"
@@ -47,16 +63,22 @@ namespace sph {
 // own, so the lanes of a warp meet again at each line's end; within a line,
 // whose cells are consecutive in sorted order, a cell whose run the
 // capacity does not cut continues into the next one, and a line without a
-// cut cell is one range of consecutive slots. kStep slots a step (1 or 2):
-// the second call of a step may repeat the first slot with use = false.
-template <int kStep, bool kSkipSelf, bool kBand, typename Pair>
+// cut cell is one range of consecutive slots. kStep slots a step (1, 2 or
+// 4): a later call of a step may repeat the range's last slot with use =
+// false. With kLanes > 1 the calling thread is lane `lane` of a group of
+// kLanes that walk one row: each step the group takes kLanes * kStep
+// consecutive slots from q, this lane the kStep from j0 = q + lane * kStep,
+// and pair(j0, e, member) evaluates them (the slots from e on are past the
+// range; member(j) is the gate above).
+template <int kStep, bool kSkipSelf, bool kBand, int kLanes = 1,
+          typename Pair>
 __device__ __forceinline__ void range_walk(int cx, int cy, int cz, int i,
                                            int r, int cap, int zbase,
                                            int z_span,
                                            const int* __restrict__ start,
                                            const int* __restrict__ raw,
                                            const uint8_t* __restrict__ occ,
-                                           Pair&& pair) {
+                                           Pair&& pair, int lane = 0) {
   const int x0 = max(cx - 1, 0), x1 = min(cx + 1, r - 1);
   const int y0 = max(cy - 1, 0), y1 = min(cy + 1, r - 1);
   const int z0 = kBand ? max(max(cz - 1, 0), zbase) : max(cz - 1, 0);
@@ -84,11 +106,17 @@ __device__ __forceinline__ void range_walk(int cx, int cy, int cz, int i,
           end = __ldg(sl + x + 1);
           e = cap >= 0 ? min(end, e + cap) : end;
         }
-        for (; q < e; q += kStep) {
-          pair(q, member(q));
-          if constexpr (kStep == 2) {
-            const int q2 = min(q + 1, e - 1);
-            pair(q2, q2 > q && member(q2));
+        if constexpr (kLanes > 1) {
+          for (; q < e; q += kLanes * kStep)
+            pair(q + lane * kStep, e, member);
+        } else {
+          for (; q < e; q += kStep) {
+            pair(q, member(q));
+#pragma unroll
+            for (int k = 1; k < kStep; ++k) {
+              const int qk = min(q + k, e - 1);
+              pair(qk, qk > q + k - 1 && member(qk));
+            }
           }
         }
       }
@@ -141,50 +169,152 @@ __device__ __forceinline__ WalkArgs scene_args(const WalkArgs& a, int s) {
                   a.n, a.r, a.cap, 0, a.r};
 }
 
+// The lane-group fold: the terms of the group's step, kSlots slots a lane
+// (t), added by every lane of the group in lane order, each lane's slots in
+// order, which is ascending slot order, with the one-thread walk's
+// operations. Each value the variant adds travels as one __shfl_sync from
+// its lane; a term that is one product, x * y, travels as its two factors,
+// so the add contracts with it as it does in the one-thread walk. Without
+// Kahan's sums a failed gate is applied by the lane that evaluated the
+// slot: it zeroes the values (both factors of a product, since a factor
+// the gate drops may be inf and 0 * inf is NaN), and the sums add them
+// unselected. That is the same sum bit for bit: a sum starts at +0 and is
+// never -0, so s + 0 and fma(0, 0, s) are s, and a NaN sum stays the one
+// NaN the card's arithmetic gives. The two-accumulator form with the
+// extensions adds v_j - v_i under both gates (pv: viscosity, use: XSPH), so
+// there the gates travel as the group's ballots and each add is the
+// one-thread walk's select, as with Kahan's sums.
+template <bool kExt, bool kFacc, int kLanes, int kSlots>
+__device__ __forceinline__ void add_group_terms(const PairTerms (&t)[kSlots],
+                                                PairSums& acc) {
+  constexpr bool kZero = !kKahan && (kFacc || !kExt);
+  const int base = (threadIdx.x & 31) & ~(kLanes - 1);
+  const unsigned group = ((1u << kLanes) - 1u) << base;
+  PairTerms z[kSlots];
+  unsigned use[kSlots], pv[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    z[k] = t[k];
+    if constexpr (kZero) {
+      if (!t[k].pv) {
+        z[k].fx = z[k].fy = z[k].fz = 0.f;
+        z[k].pc = z[k].gx = z[k].gy = z[k].gz = z[k].vc = 0.f;
+        if (!kFacc) z[k].dvx = z[k].dvy = z[k].dvz = 0.f;
+      }
+      if (kExt && !t[k].use)
+        z[k].xc = z[k].ac = z[k].dx = z[k].dy = z[k].dz = z[k].dvx =
+            z[k].dvy = z[k].dvz = 0.f;
+    } else {
+      use[k] = __ballot_sync(group, t[k].use) >> base;
+      pv[k] = __ballot_sync(group, t[k].pv) >> base;
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const auto from = [&](float v) {
+        return __shfl_sync(group, v, l, kLanes);
+      };
+      PairTerms u;
+      u.use = kZero || ((use[k] >> l) & 1u);
+      u.pv = kZero || ((pv[k] >> l) & 1u);
+      if constexpr (kFacc) {
+        u.fx = from(z[k].fx), u.fy = from(z[k].fy), u.fz = from(z[k].fz);
+      } else {
+        u.pc = from(z[k].pc), u.gx = from(z[k].gx), u.gy = from(z[k].gy);
+        u.gz = from(z[k].gz), u.vc = from(z[k].vc);
+      }
+      if constexpr (!kFacc || kExt) {
+        u.dvx = from(z[k].dvx), u.dvy = from(z[k].dvy);
+        u.dvz = from(z[k].dvz);
+      }
+      if constexpr (kExt) {
+        u.dx = from(z[k].dx), u.dy = from(z[k].dy), u.dz = from(z[k].dz);
+        u.xc = from(z[k].xc), u.ac = from(z[k].ac);
+      }
+      add_terms<kExt, kFacc>(u, acc);
+    }
+  }
+}
+
 // Row i's pair sums (j == i skipped) in walk order (ascending sorted
-// index), two slots a step without the extensions (with them, the second
-// pair's registers cost more occupancy than the overlap gains), in the
-// library's variant (sph_common.cuh: kFacc, kKahan, kBf16). The bf16
+// index), kSlots slots a step: two without the extensions, one with them
+// (the second pair's registers cost more occupancy than the overlap gains),
+// in the library's variant (sph_common.cuh: kFacc, kKahan, kBf16). The bf16
 // instance with extensions reads rho_j from the rows and not from pj, as
-// JAX's window kernel does there (pallas_sph.py:1191-1203).
-template <bool kExt, bool kBand>
+// JAX's window kernel does there (pallas_sph.py:1191-1203). With kLanes > 1
+// the thread is lane `lane` of the row's group, which walks kSlots slots a
+// lane a step and adds the group's terms in slot order (add_group_terms):
+// every lane ends with the row's sums, bit for bit those of kLanes = 1.
+template <bool kExt, bool kBand, int kLanes = 1, int kSlots = kExt ? 1 : 2>
 __device__ __forceinline__ void window_pair_sums(const Scalars& s,
                                                  const Particle& p, int i,
                                                  const WalkArgs& a,
-                                                 PairSums& acc) {
+                                                 PairSums& acc,
+                                                 int lane = 0) {
   const int r = a.r;
   const float press_i = s.gas_k * (p.rho - s.rho0);
   const float vmu = p.rho > kEps ? s.visc : 1.f;   // fuse_acc's row factor
-  range_walk<kExt ? 1 : 2, true, kBand>(
-      fresh_coord(p.px, r), fresh_coord(p.py, r), fresh_coord(p.pz, r), i, r,
-      a.cap, a.zbase, a.z_span, a.start, a.raw, a.occ,
-      [&](int q, bool use) {
-        float4 qa = __ldg(a.rows + 2 * q), qb = __ldg(a.rows + 2 * q + 1);
-        float press_j, inv_j;
-        candidate<kExt>(s, qa, qb, press_j, inv_j,
-                        [&] { return __ldg(a.pj + q); });
-        add_pair_pj<kExt, kFacc>(s, p, press_i, vmu, qa, qb, press_j, inv_j,
-                                 use, acc);
-      });
+  const int cx = fresh_coord(p.px, r), cy = fresh_coord(p.py, r),
+            cz = fresh_coord(p.pz, r);
+  if constexpr (kLanes == 1) {
+    range_walk<kSlots, true, kBand>(
+        cx, cy, cz, i, r, a.cap, a.zbase, a.z_span, a.start, a.raw, a.occ,
+        [&](int q, bool use) {
+          float4 qa = __ldg(a.rows + 2 * q), qb = __ldg(a.rows + 2 * q + 1);
+          float press_j, inv_j;
+          candidate<kExt>(s, qa, qb, press_j, inv_j,
+                          [&] { return __ldg(a.pj + q); });
+          add_pair_pj<kExt, kFacc>(s, p, press_i, vmu, qa, qb, press_j,
+                                   inv_j, use, acc);
+        });
+  } else {
+    range_walk<kSlots, true, kBand, kLanes>(
+        cx, cy, cz, i, r, a.cap, a.zbase, a.z_span, a.start, a.raw, a.occ,
+        [&](int j0, int e, const auto& member) {
+          PairTerms t[kSlots];
+#pragma unroll
+          for (int k = 0; k < kSlots; ++k) {
+            const int q = min(j0 + k, e - 1);
+            const bool use = j0 + k < e && member(q);
+            float4 qa = __ldg(a.rows + 2 * q), qb = __ldg(a.rows + 2 * q + 1);
+            float press_j, inv_j;
+            candidate<kExt>(s, qa, qb, press_j, inv_j,
+                            [&] { return __ldg(a.pj + q); });
+            t[k] = pair_terms<kExt, kFacc>(s, p, press_i, vmu, qa, qb,
+                                           press_j, inv_j, use);
+          }
+          add_group_terms<kExt, kFacc, kLanes, kSlots>(t, acc);
+        },
+        lane);
+  }
 }
 
 // The body of K2 and K3: the pair sums of row blockIdx.x * blockDim.x +
 // threadIdx.x, passed to done(s, p, i, acc); with kBand a dead row is
-// passed to dead(i) instead, and walks nothing.
-template <bool kExt, bool kBand, typename Done, typename Dead>
+// passed to dead(i) instead, and walks nothing. With kLanes > 1 each row
+// takes a group of kLanes consecutive threads (a launch of n * kLanes
+// threads), whose first lane calls done or dead; kSlots is
+// window_pair_sums'.
+template <bool kExt, bool kBand, int kLanes = 1, int kSlots = kExt ? 1 : 2,
+          typename Done, typename Dead>
 __device__ __forceinline__ void walk_row(const WalkArgs& a, Done&& done,
                                          Dead&& dead) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  static_assert(kLanes >= 1 && kLanes <= 32 && !(kLanes & (kLanes - 1)),
+                "a lane group is a power of two within a warp");
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = t / kLanes, lane = t % kLanes;
   if (i >= a.n) return;
   if (kBand && dead_row(i, a.start, a.r, a.z_span)) {
-    dead(i);
+    if (lane == 0) dead(i);
     return;
   }
   const Scalars s = load_scalars(a.scal);
   const Particle p = load_particle(a.rows, i);
   PairSums acc;
-  window_pair_sums<kExt, kBand>(s, p, i, a, acc);
-  done(s, p, i, acc);
+  window_pair_sums<kExt, kBand, kLanes, kSlots>(s, p, i, a, acc, lane);
+  if (lane == 0) done(s, p, i, acc);
 }
 
 // Whether a launch over band (zbase, z_span) takes the kBand instance: any
@@ -193,17 +323,23 @@ inline bool banded(int zbase, int z_span, int r) {
   return zbase != 0 || z_span != r;
 }
 
-// Launches the instance of K2 or K3 for the extension switch and the band,
-// one thread per row in blocks of kBlock, on stream st. Kernel<kExt, kBand>
-// is given as its four instances.
+// Launches a walk kernel whose rows take `lanes` threads each, in blocks of
+// kBlock, on stream st.
 using WalkKernel = void (*)(WalkArgs, float4*);
+inline int launch_walk(WalkKernel kernel, int lanes, const WalkArgs& a,
+                       float4* out, cudaStream_t st) {
+  if (a.n > 0)
+    kernel<<<(a.n * lanes + kBlock - 1) / kBlock, kBlock, 0, st>>>(a, out);
+  return (int)cudaGetLastError();
+}
+
+// Launches the instance of K2 or K3 for the extension switch and the band,
+// one thread per row. Kernel<kExt, kBand> is given as its four instances.
 inline int launch_walk(const WalkKernel (&instances)[2][2], bool ext,
                        const WalkArgs& a, float4* out, cudaStream_t st) {
-  const WalkKernel kernel =
-      instances[ext ? 1 : 0][banded(a.zbase, a.z_span, a.r) ? 1 : 0];
-  if (a.n > 0)
-    kernel<<<(a.n + kBlock - 1) / kBlock, kBlock, 0, st>>>(a, out);
-  return (int)cudaGetLastError();
+  return launch_walk(
+      instances[ext ? 1 : 0][banded(a.zbase, a.z_span, a.r) ? 1 : 0], 1, a,
+      out, st);
 }
 
 // Launches the scene-axis instance of K2 or K3 for the extension switch

@@ -41,7 +41,9 @@ _I = ctypes.c_int
 # source → its C functions (name, argtypes): pointers and the stream as
 # c_void_p, ints as c_int (K1-K3 and K5 take n, r, cap, then the band's
 # zbase and z_span, and K2/K3 the extension switch; the scene-axis
-# instances of K1, K2, K3 and K5 take n, r, cap, then the scene count)
+# instances of K1, K2, K3 and K5 take n, r, cap, then the scene count; K2's
+# sph_fused_substep_lanes takes the lanes a row and the slots a lane a step
+# after the extension switch)
 KERNELS = {
     "density.cu": (("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _P)),
@@ -50,6 +52,9 @@ KERNELS = {
     "fused_substep.cu": (("sph_fused_substep", (_P, _P, _P, _P, _P, _P, _P,
                                                  _I, _I, _I, _I, _I, _I,
                                                  _P)),
+                         ("sph_fused_substep_lanes", (*(_P,) * 7, *(_I,) * 8,
+                                                      _P)),
+                         ("sph_fused_substep_band_walk", (_I, _I)),
                          ("sph_fused_substep_scenes", (_P, _P, _P, _P, _P,
                                                        _P, _P, _I, _I, _I,
                                                        _I, _I, _P))),
@@ -85,6 +90,9 @@ SWITCHES = (("fuse_acc", "SPH_FACC", True, "facc0"),
             ("bf16", "SPH_BF16", False, "bf16"))
 # K5's tile-clock instance (not a tuning: on no path), library tag "clock"
 CLOCK = "-DSPH_TILE_CLOCK=1"
+# K2's every lane-group shape (not a tuning: on no path; the measurement of
+# the band's shape, scripts/torch_k2band_ab.py), library tag "lanesweep"
+LANE_SWEEP = "-DSPH_LANE_SWEEP=1"
 # the switches each source reads (K5 has neither kahan nor fuse_acc, K1 no
 # candidate values to round, as in JAX)
 SOURCE_SWITCHES = {"density.cu": ("kahan",),
@@ -135,6 +143,7 @@ def library_path(source: str, switches: tuple[str, ...] = ()) -> Path:
     tags = "".join(f"_{tag}" for _, macro, _, tag in SWITCHES
                    if any(d.startswith(f"-D{macro}=") for d in switches))
     tags += "_clock" if CLOCK in switches else ""
+    tags += "_lanesweep" if LANE_SWEEP in switches else ""
     return BUILD_DIR / f"libsph_{stem}{tags}_{digest.hexdigest()[:16]}.so"
 
 
@@ -208,13 +217,15 @@ def load() -> types.SimpleNamespace:
     return _lib
 
 
-def function(source: str, name: str, tune=None, clock: bool = False):
+def function(source: str, name: str, tune=None, clock: bool = False,
+             sweep: bool = False):
     """C function ``name`` of ``source`` in ``tune``'s variant (None: the
     default instance, from :func:`load`), with ``clock`` its tile-clock
-    instance (``-DSPH_TILE_CLOCK=1``, K5 only); a variant's library is
-    built on first call, and a failed build raises."""
+    instance (``-DSPH_TILE_CLOCK=1``, K5 only), with ``sweep`` its library
+    of every lane-group shape (``-DSPH_LANE_SWEEP=1``, K2 only); a
+    variant's library is built on first call, and a failed build raises."""
     switches = (() if tune is None else defines(source, tune)) + \
-        ((CLOCK,) if clock else ())
+        ((CLOCK,) if clock else ()) + ((LANE_SWEEP,) if sweep else ())
     if not switches:
         return getattr(load(), name)
     key = (source, switches)

@@ -936,8 +936,10 @@ def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
 def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
                  pj: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
                  r: int, capacity: int | None, ext: bool,
-                 band: tuple[int, int] | None = None) -> None:
-    """Checks the inputs of K2 or K3 and launches it into ``out``."""
+                 band: tuple[int, int] | None = None,
+                 lanes: tuple[int, ...] = ()) -> None:
+    """Checks the inputs of K2 or K3 and launches it into ``out``
+    (``lanes``: the shape of ``sph_fused_substep_lanes``)."""
     n = rows.shape[0]
     dev = rows.device
     _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
@@ -946,7 +948,7 @@ def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
     _check("pj", pj, torch.float32, (n, 2), dev)
     err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
              _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
-             _cap_arg(capacity), *_band_args(band, r), int(ext),
+             _cap_arg(capacity), *_band_args(band, r), int(ext), *lanes,
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error(name, err)
 
@@ -976,19 +978,41 @@ def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
     return out
 
 
+def band_walk(ext: bool, tune: SortedTuning | None = None
+              ) -> tuple[int, int]:
+    """(lanes a row, slots a lane a step) of K2's banded instance, without
+    or with the extension sums, in ``tune``'s library: the group of lanes
+    that walks each live row of a slab's frame (``csrc/window_walk.cuh``)."""
+    fn = cuda_build.function("fused_substep.cu", "sph_fused_substep_band_walk",
+                             _tuned(tune))
+    return fn(int(ext), 0), fn(int(ext), 1)
+
+
 def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
                        phys: PhysParams, r: int, capacity: int | None,
                        xsph: float = 0.0, alpha_visc: float = 0.0,
                        pj: torch.Tensor | None = None,
                        scal: torch.Tensor | None = None,
                        band: tuple[int, int] | None = None,
-                       tune: SortedTuning | None = None) -> torch.Tensor:
+                       tune: SortedTuning | None = None,
+                       lanes: int | None = None,
+                       slots: int = 0) -> torch.Tensor:
     """K2 (``csrc/fused_substep.cu``) on the card, banded with ``band``, in
     ``tune``'s variant (None: the default instance). Reads the state as it
     was before the substep and writes a new rows tensor. Nonzero
     coefficients select the instance with the extension sums. ``pj`` is
     :func:`pj_cols` of the rows' ρ and ``scal`` :func:`scal_block` of
-    ``phys`` and the coefficients; each is built here when None."""
+    ``phys`` and the coefficients; each is built here when None.
+
+    ``lanes`` and ``slots`` pick the walk's shape, lanes a row and slots a
+    lane a step (``lanes`` None: the launched instance, a band's
+    :func:`band_walk`, the one-thread walk without a band). ``lanes=1``
+    with ``slots=0`` is the one-thread walk, the reference instance the
+    banded one is held to bit for bit; a shape that is neither that nor the
+    band's comes from the library of every shape
+    (``cuda_build.LANE_SWEEP``, built at its first use), for measurements.
+    Such a launch counts under the instance's name with ``+lanes<l>``
+    (``+lanes<l>x<s>`` with ``slots``)."""
     tune = _tuned(tune)
     if pj is None:
         pj = pj_cols(rows[:, 6], phys)
@@ -996,13 +1020,22 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
         scal = scal_block(phys, xsph, alpha_visc)
     ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
-    _walk_launch(cuda_build.function("fused_substep.cu", "sph_fused_substep",
-                                     tune),
-                 "fused_substep", frame, rows, pj, scal, out, r, capacity,
-                 ext, band)
+    if lanes is None:
+        fn, extra = cuda_build.function("fused_substep.cu",
+                                        "sph_fused_substep", tune), ()
+    else:
+        extra = (int(lanes), int(slots))
+        sweep = extra != (1, 0) and (band is None
+                                     or extra != band_walk(ext, tune))
+        fn = cuda_build.function("fused_substep.cu",
+                                 "sph_fused_substep_lanes", tune, sweep=sweep)
+    _walk_launch(fn, "fused_substep", frame, rows, pj, scal, out, r,
+                 capacity, ext, band, extra)
     name = "fused_substep_ext" if ext else "fused_substep"
     _count((name if band is None else name + "_band")
-           + variant_tag("fused_substep.cu", tune))
+           + variant_tag("fused_substep.cu", tune)
+           + ("" if lanes is None
+              else f"+lanes{lanes}" + (f"x{slots}" if slots else "")))
     return out
 
 

@@ -100,7 +100,12 @@ class BatchedScenes:
     (``P(axis)``): the scene count must divide by the device count. Each
     block steps on its own device. ``states`` and ``last_metrics`` are the
     whole batch on the first device (a copy when there are several, or
-    when the frames replay a graph).
+    when the frames replay a graph). ``states`` and ``params`` may be set
+    between frames, as JAX's attributes are (a stacked ``ParticleState``
+    and ``PhysParams`` of the batch's shapes and dtypes, else
+    ``ValueError``): the next frame steps from them. The host loop takes
+    each device's block of them; under the graph they are copied into each
+    block's carry, which the next replay reads.
 
     ``host_loop`` has ``make_rollout``'s meaning, and the ``.host_loop``
     attribute says which mode runs:
@@ -172,9 +177,42 @@ class BatchedScenes:
             parts = [type(p)(*(x.clone() for x in p)) for p in parts]
         return self._gather(parts, self.devices[0])
 
+    @states.setter
+    def states(self, states: ParticleState) -> None:
+        self._load(0, states)
+
     @property
     def params(self) -> PhysParams:
         return self._gather([b[1] for b in self.blocks], self.devices[0])
+
+    @params.setter
+    def params(self, params: PhysParams) -> None:
+        self._load(1, params)
+
+    def _load(self, k: int, value) -> None:
+        """Field ``k`` of every block (0 the states, 1 the params) from the
+        whole batch's ``value``, split into the devices' blocks."""
+        ref = self.blocks[0][k]
+        n_scenes, per = len(self.configs), len(self.configs) // len(
+            self.devices)
+        if len(value) != len(ref):
+            raise ValueError(f"{type(ref).__name__} of {len(ref)} fields; "
+                             f"got {len(value)}")
+        for name, x, r in zip(ref._fields, value, ref):
+            want = (n_scenes, *r.shape[1:])
+            if tuple(x.shape) != want or x.dtype != r.dtype:
+                raise ValueError(f"{name}: the batch holds {r.dtype} "
+                                 f"{want}; got {x.dtype} {tuple(x.shape)}")
+        for b, dev in enumerate(self.devices):
+            part = type(ref)(*(x[b * per:(b + 1) * per].to(dev)
+                               for x in value))
+            if self._graphs:
+                for dst, src in zip(self.blocks[b][k], part):
+                    dst.copy_(src)
+            else:
+                block = list(self.blocks[b])
+                block[k] = part
+                self.blocks[b] = tuple(block)
 
     def step(self, n: int = 1) -> ParticleState:
         for _ in range(n):

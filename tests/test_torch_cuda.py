@@ -546,6 +546,96 @@ def test_whole_grid_band_is_the_unbanded_launch_on_card(cuda_device):
         sk.density_cuda(tf, ps, tp, r, CAP, band=(0, r + 1))
 
 
+# the variant libraries K2's banded instance comes in (None: the default)
+LANE_TUNES = {"default": None, "facc0": SortedTuning(fuse_acc=False),
+              "kahan": SortedTuning(kahan=True),
+              "bf16": SortedTuning(bf16=True)}
+
+
+def _lane_rows(cap, device, ext):
+    """_banded_inputs' shard frame and rows (some moved 1.5 cells up in z),
+    with two live rows' velocities set to inf, so that their neighbours'
+    forces are NaN and the NaN trap counts."""
+    band = (1, 6)
+    tf, ps, vs, tp, r, n_live = _banded_inputs(cap, device, band)
+    rows = sk.pack_rows(ps, vs, sk.density_plain(tf, ps, tp, r, cap, band))
+    rows[100:400:3, 2] = (rows[100:400:3, 2] + 1.5 / (r - 1)).clamp(max=1.0)
+    rows[[7, n_live // 2], 3] = float("inf")
+    xs, al = (XSPH, ALPHA) if ext else (0.0, 0.0)
+    return tf, rows, tp, r, n_live, band, xs, al
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("cap", [4, CAP, None])
+@pytest.mark.parametrize("variant", sorted(LANE_TUNES))
+def test_banded_lane_groups_are_the_one_thread_walk_on_card(cuda_device,
+                                                            variant, cap,
+                                                            ext):
+    # the launched banded K2 (without the extensions a group of lanes a live
+    # row) gives the bits of the one-thread walk (lanes=1), NaN-trap lane
+    # included; it copies the dead rows through, and two launches give the
+    # same bits
+    tune = LANE_TUNES[variant]
+    tf, rows, tp, r, n_live, band, xs, al = _lane_rows(cap, cuda_device, ext)
+    name = ("fused_substep_ext_band" if ext else "fused_substep_band") + \
+        sk.variant_tag("fused_substep.cu", sk._tuned(tune))
+    sk.reset_launch_counts()
+    out = sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al, band=band,
+                                tune=tune)
+    one = sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al, band=band,
+                                tune=tune, lanes=1)
+    assert _same_bits(out, one)
+    trapped = out[:n_live, 7] > rows[:n_live, 7]
+    assert 0 < int(trapped.sum()) < n_live
+    assert torch.equal(out[n_live:], rows[n_live:])
+    assert _same_bits(out, sk.fused_substep_cuda(tf, rows, tp, r, cap, xs,
+                                                 al, band=band, tune=tune))
+    assert sk.launch_counts[name] == 2
+    assert sk.launch_counts[f"{name}+lanes1"] == 1
+
+
+# every shape of the library of all shapes (cuda_build.LANE_SWEEP): lanes
+# a row and slots a lane a step
+LANE_SHAPES = [(lanes, slots) for lanes in (1, 2, 4, 8)
+               for slots in (1, 2, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LANE_SHAPES, ids=lambda s: "%dx%d" % s)
+def test_every_lane_group_shape_is_the_one_thread_walk_on_card(cuda_device,
+                                                               shape):
+    # the library of every shape, which chose the band's: each shape,
+    # banded and over the whole grid, gives the one-thread walk's bits
+    lanes, slots = shape
+    for ext in (False, True):
+        tf, rows, tp, r, n_live, band, xs, al = _lane_rows(CAP, cuda_device,
+                                                           ext)
+        one = sk.fused_substep_cuda(tf, rows, tp, r, CAP, xs, al, band=band,
+                                    lanes=1)
+        assert _same_bits(sk.fused_substep_cuda(
+            tf, rows, tp, r, CAP, xs, al, band=band, lanes=lanes,
+            slots=slots), one)
+    tf, ps, vs, tp, r = _card_inputs("goldenish", cuda_device, frames=2)
+    rows = sk.pack_rows(ps, vs, sk.density_cuda(tf, ps, tp, r, CAP))
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        assert _same_bits(
+            sk.fused_substep_cuda(tf, rows, tp, r, CAP, xs, al, lanes=lanes,
+                                  slots=slots),
+            sk.fused_substep_cuda(tf, rows, tp, r, CAP, xs, al))
+
+
+@pytest.mark.cuda
+def test_lanes_wrapper_rejects_a_shape_it_has_not_built_on_card(cuda_device):
+    tf, rows, tp, r, n_live, band, xs, al = _lane_rows(CAP, cuda_device,
+                                                       False)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sk.fused_substep_cuda(tf, rows, tp, r, CAP, band=band, lanes=3)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sk.fused_substep_cuda(tf, rows, tp, r, CAP, band=band, lanes=2,
+                              slots=3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [2, 4])
 def test_slab_step_on_card_equals_single_device(cuda_device, d):
@@ -1542,6 +1632,29 @@ def test_batched_scenes_graph_is_bit_equal_to_the_host_loop_on_card(
             initial_state(c, cuda_device))
         for a, b in zip(bss["graph"].states, solo):
             assert _same_bits(a[i], b)
+
+
+@pytest.mark.cuda
+def test_batched_states_and_params_set_between_replays_on_card(cuda_device):
+    # states and params set between frames of the recorded batch are
+    # copied into its carry: the next replays give the frames of the host
+    # loop's batched step from them, bit for bit; a wrong shape raises
+    from sphfluidsimulation_torch.parallel import make_batched_step
+    bss = _batches("scene-axis", cuda_device)
+    bs, other = bss["graph"], bss["host"]
+    bs.step(2)
+    other.step(1)
+    states = other.states
+    params = other.params._replace(viscosity=other.params.viscosity * 3)
+    bs.states, bs.params = states, params
+    want, step = states, make_batched_step(SimConfig(**_GOLDENISH))
+    for _ in range(2):
+        want, m = step(want, params)
+        got = bs.step()
+        for a, b in zip((*got, *bs.last_metrics), (*want, *m)):
+            assert _same_bits(a, b)
+    with pytest.raises(ValueError, match="pos"):
+        bs.states = states._replace(pos=states.pos[:1])
 
 
 @pytest.mark.cuda

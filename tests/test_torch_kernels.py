@@ -7,6 +7,8 @@ CUDA kernels themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py.
 """
 
+import ctypes
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -204,6 +206,25 @@ def test_cuda_build_flags_and_cache_key():
     sigs = {n: a for v in cuda_build.KERNELS.values() for n, a in v}
     assert len(sigs["sph_forces"]) == len(sigs["sph_fused_substep"]) == 14
     assert len(sigs["sph_density"]) == 12
+
+
+def test_lane_group_bindings_and_the_library_of_every_shape():
+    # K2's launch with a given shape (lanes a row, slots a lane a step)
+    # takes it after the extension switch; the library of every shape (the
+    # measurement's, on no path) is a library of its own, tagged, and so is
+    # not the default
+    from sphfluidsimulation_torch.ops import cuda_build
+    sigs = {n: a for v in cuda_build.KERNELS.values() for n, a in v}
+    assert sigs["sph_fused_substep_lanes"] == \
+        sigs["sph_fused_substep"][:13] + (ctypes.c_int,) * 2 + (
+            ctypes.c_void_p,)
+    assert sigs["sph_fused_substep_band_walk"] == (ctypes.c_int,) * 2
+    sweep = cuda_build.library_path("fused_substep.cu",
+                                    (cuda_build.LANE_SWEEP,))
+    assert sweep != cuda_build.library_path("fused_substep.cu")
+    assert "_lanesweep_" in sweep.name
+    assert "SPH_LANE_SWEEP" in (cuda_build.CSRC
+                                / "fused_substep.cu").read_text()
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

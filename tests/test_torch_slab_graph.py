@@ -11,7 +11,10 @@ bit for bit: on two and four slabs, with the extension sums, on the compact
 route, on the violent scene whose certificate fires every frame, and
 ``Scene`` in faithful, corrected and compact modes. They also pin the choice
 of host loop or graph, that the carry takes each call's state and physics,
-and that ``Scene.state`` and ``last_metrics`` are copies. The body against
+that ``Scene.state`` and ``last_metrics`` are copies, and that
+``BatchedScenes.states`` and ``.params`` set between frames give the frames
+of a fresh batched step from them, on the host loop and on the recorded
+frame. The body against
 JAX's jitted ``Scene`` (its pallas tier in interpret mode) is ``slow``; the
 host loops themselves are held to JAX in ``tests/test_torch_slab.py`` and
 ``tests/test_torch_rollout.py``. The card's side is in
@@ -27,8 +30,9 @@ from sphfluidsimulation_tpu.models.scene import Scene as JScene
 from sphfluidsimulation_torch import Scene, SimConfig
 from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning
 from sphfluidsimulation_torch.params import PhysParams
-from sphfluidsimulation_torch.parallel import (DistRing, LocalRing,
-                                               distribute,
+from sphfluidsimulation_torch.parallel import (BatchedScenes, DistRing,
+                                               LocalRing, distribute,
+                                               make_batched_step,
                                                make_pallas_slab_step,
                                                slab_pallas)
 from sphfluidsimulation_torch.sim import graph
@@ -246,6 +250,61 @@ def test_scene_state_and_metrics_are_copies(eager_replay):
     _same_bits(scene.state, eager.state)
     with pytest.raises(ValueError, match="shape"):
         scene.state = type(s0)(*(x[:8] for x in s0))
+
+
+# ------------------------------------------------ BatchedScenes setters --
+
+# the golden spawn at a small size, 3 scenes whose rest density and seed
+# vary, as in the CLI's sweep
+BATCH = SimConfig(particle_number=512, bucket_resolution=9)
+BATCH_OVERRIDES = [{"rest_density": 1.0 + 0.4 * i, "seed": i}
+                   for i in range(3)]
+
+
+@pytest.mark.parametrize("host_loop", [True, None])
+def test_batched_states_and_params_set_between_frames(eager_replay,
+                                                      host_loop):
+    # JAX's BatchedScenes.states and .params are attributes that step reads
+    # each frame: set between frames, on the host loop and (None, with the
+    # replay run eagerly) on the recorded frame, the next frames are those
+    # of a fresh batched step from the states and params that were set
+    bs = BatchedScenes(BATCH, BATCH_OVERRIDES, devices="cpu",
+                       host_loop=host_loop)
+    assert bs.host_loop is bool(host_loop)
+    bs.step(2)
+    other = BatchedScenes(BATCH, BATCH_OVERRIDES[::-1], devices="cpu",
+                          host_loop=True)
+    other.step(1)
+    states = other.states
+    params = other.params._replace(viscosity=other.params.viscosity * 3)
+    bs.states, bs.params = states, params
+    _same_bits(bs.states, states)
+    _same_bits(bs.params, params)
+    fresh = make_batched_step(BATCH)
+    want = states
+    for _ in range(2):
+        want, m = fresh(want, params)
+        _same_bits(bs.step(), want)
+        _same_bits(bs.last_metrics, m)
+
+
+@pytest.mark.parametrize("host_loop", [True, None])
+def test_batched_setters_reject_another_shape(eager_replay, host_loop):
+    bs = BatchedScenes(BATCH, BATCH_OVERRIDES, devices="cpu",
+                       host_loop=host_loop)
+    states, params = bs.states, bs.params
+    with pytest.raises(ValueError, match="pos"):
+        bs.states = states._replace(pos=states.pos[:2])
+    with pytest.raises(ValueError, match="vel"):
+        bs.states = states._replace(vel=states.vel.double())
+    with pytest.raises(ValueError, match="fields"):
+        bs.states = tuple(states)[:-1]
+    with pytest.raises(ValueError, match="viscosity"):
+        bs.params = params._replace(viscosity=params.viscosity[:1])
+    # nothing was loaded: the batch steps on from its spawn
+    eager = BatchedScenes(BATCH, BATCH_OVERRIDES, devices="cpu",
+                          host_loop=True)
+    _same_bits(bs.step(), eager.step())
 
 
 @pytest.mark.parametrize("jit", [True, False])

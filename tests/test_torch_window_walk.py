@@ -6,7 +6,10 @@
   every row, exactly that row's member set from ``sph_kernels._candidates``
   in walk order, j == i skipped (K2, K3) or kept (K1): the kernels sum the
   same terms in the same order as the plain versions; on a slab's banded
-  frame too, where dead rows walk nothing.
+  frame too, where dead rows walk nothing; and K2's lane-group walk (a
+  group of lanes a row, some slots a lane a step) must add the one-thread
+  walk's slots in its order, as must the one-thread walk four slots a
+  step.
 - The kernels' division-free pair terms, evaluated in float32 over the
   plain candidates, must pass the per-particle rule of
   ``sph_kernels.forces_accuracy``.
@@ -102,12 +105,16 @@ def _raw_near(raw, cx, cy, cz, r):
 
 
 def _range_walk(start, raw, occ, c, i, r, cap, skip_self=True, step=2,
-                band=None):
+                band=None, lanes=1):
     """range_walk of csrc/window_walk.cuh, line for line, ``step`` slots a
     step: the slots row i sums, in order (``skip_self``: K2's and K3's walk,
     two slots a step; K1's keeps j == i, one slot a step), over the frame's
     ``band`` of z-planes (None: the whole grid, (0, r)); a dead row (past
-    ``start[-1]``, walk_row's and K1's dead_row) walks nothing."""
+    ``start[-1]``, walk_row's and K1's dead_row) walks nothing. With
+    ``lanes`` > 1, K2's lane-group walk: each step the group's lane l takes
+    the ``step`` slots from j0 = q + l * step, each min(j0 + k, e - 1),
+    gated off past the range's end, and the group adds the lanes' terms in
+    lane order, each lane's in slot order (add_group_terms)."""
     zbase, z_span = (0, r) if band is None else band
     if i >= start[z_span * r * r]:
         return []
@@ -139,10 +146,16 @@ def _range_walk(start, raw, occ, c, i, r, cap, skip_self=True, step=2,
                     end = start[sl + x + 1]
                     e = min(end, e + cap) if cap >= 0 else end
                 while q < e:
-                    q2 = min(q + step - 1, e - 1)
-                    out += [j for j in ((q, q2) if q2 > q else (q,))
-                            if member(j)]
-                    q += step
+                    if lanes > 1:
+                        slots = [(min(j0 + k, e - 1), j0 + k < e)
+                                 for j0 in range(q, q + lanes * step, step)
+                                 for k in range(step)]
+                    else:
+                        slots = [(q, True)] + [
+                            (min(q + k, e - 1), min(q + k, e - 1) > q + k - 1)
+                            for k in range(1, step)]
+                    out += [j for j, ok in slots if ok and member(j)]
+                    q += lanes * step
                 x += 1
     return out
 
@@ -248,6 +261,42 @@ def test_banded_range_walk_visits_each_rows_band_members(band, cap):
                     if i < n_live else [])
             assert got == want, (i, skip_self)
             pairs += len(got)
+    assert pairs > 0
+
+
+# K2's banded walk with a group of lanes a row, some slots a lane a step
+# (csrc/window_walk.cuh, lane groups; and the one-thread walk four slots a
+# step): each live row adds exactly the one-thread walk's slots in the
+# one-thread walk's order, a dead row nothing; on the whole grid too
+@pytest.mark.parametrize("shape", [(2, 1), (4, 2), (1, 4)],
+                         ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("cap", [4, CAP, None])
+@pytest.mark.parametrize("band", [(3, 5), None])
+def test_lane_group_walk_adds_the_one_thread_walks_slots_in_order(band, cap,
+                                                                  shape):
+    cfg, st = _state("goldenish", 3)
+    r = cfg.bucket_resolution
+    rng = np.random.default_rng(9)
+    valid = torch.from_numpy(rng.random(st.pos.shape[0]) < 0.8)
+    if band is not None:
+        az = sph_math.cell_index(st.pos[:, 2], r).clamp(0, r - 1)
+        valid &= (az >= band[0]) & (az < band[0] + band[1])
+    tf, (ps,) = build_frame(st.pos, r, cap, extras=(st.pos,),
+                            gid=torch.arange(st.pos.shape[0],
+                                             dtype=torch.int32),
+                            band=band, valid=valid)
+    ps = ps.clone()
+    ps[::7, 2] = (ps[::7, 2] + 1.5 / (r - 1)).clamp(max=1.0)
+    cells = sk.fresh_cell(ps, r).tolist()
+    start, raw, occ = tf.start.tolist(), tf.raw.tolist(), tf.occ.tolist()
+    capw = -1 if cap is None else cap
+    pairs = 0
+    for i in range(ps.shape[0]):
+        want = _range_walk(start, raw, occ, cells[i], i, r, capw, band=band)
+        got = _range_walk(start, raw, occ, cells[i], i, r, capw,
+                          step=shape[1], band=band, lanes=shape[0])
+        assert got == want, i
+        pairs += len(got)
     assert pairs > 0
 
 
