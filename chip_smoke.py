@@ -1747,12 +1747,14 @@ def main() -> None:
 
     def compare_scenes(cfg, overrides, states, label, planted=False):
         """K1-scenes, then K2-scenes (K2-ext-scenes with extensions) on the
-        rows two substeps into the frame, against each scene's plain
-        version (phase 3's rules) and bit-equal to each scene's solo
-        launch; with ``planted`` K2-scenes with viscosity 0 (the
-        artificial viscosity 0 with extensions) must fail scene 0's rule.
-        Returns the frame, the positions, the frame-start rows, the rows
-        two substeps in, the params, r and the capacity."""
+        rows two substeps into the frame, given the frame record as the
+        stepper gives it, against each scene's plain version (phase 3's
+        rules) and bit-equal to each scene's solo launch and to the
+        reference walk (``reference=True``), which is held to
+        the plain version too; with ``planted`` K2-scenes with viscosity 0
+        (the artificial viscosity 0 with extensions) must fail scene 0's
+        rule. Returns the frame, the positions, the frame-start rows, the
+        rows two substeps in, the params, r and the capacity."""
         frame, pos_s, vel_s, params, r, cap = scene_inputs(cfg, overrides,
                                                            states)
         xs, al = cfg.xsph, cfg.artificial_viscosity
@@ -1761,12 +1763,16 @@ def main() -> None:
         scal = sk.scal_blocks(params, xs, al)
         rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap, scal)
         rows = rows0 = sk.pack_rows_scenes(pos_s, vel_s, rho)
-        pj = sk.pj_cols_scenes(rho, params)
+        rec = sk.frame_record_scenes(frame, rho, params)
         for _ in range(2):
             rows = sk.fused_substep_scenes_cuda(frame, rows, params, r, cap,
-                                                xs, al, pj, scal)
+                                                xs, al, scal=scal, rec=rec)
         out = sk.fused_substep_scenes_cuda(frame, rows, params, r, cap, xs,
-                                           al, pj, scal)
+                                           al, scal=scal, rec=rec)
+        walk0 = sk.fused_substep_scenes_cuda(frame, rows, params, r, cap, xs,
+                                             al, scal=scal, reference=True)
+        if not same_bits(out, walk0):
+            fail(f"{label}: {name} leaves the reference walk")
         refs = []
         for sc in range(pos_s.shape[0]):
             fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
@@ -1776,6 +1782,7 @@ def main() -> None:
                          "density_scenes", lab)
             refs.append(sk.substep_reference(fs, rows[sc], ph, r, cap, xs,
                                              al))
+            hold_out(name, walk0[sc], refs[-1], f"{lab}, reference walk")
             e, line = hold_out(name, out[sc], refs[-1], lab)
             solo = (same_bits(rho[sc], sk.density_cuda(
                         fs, pos_s[sc], ph, r, cap))
@@ -1783,19 +1790,20 @@ def main() -> None:
                         fs, rows[sc], ph, r, cap, xs, al)))
             print(f"compare {lab}: {name} on substep 3 max|k-p| {e:.3e}, "
                   f"{line}; K1 and K2 bit-equal to the scene's solo "
-                  f"launches {solo}", flush=True)
+                  f"launches {solo}, K2's record walk to the reference "
+                  f"walk", flush=True)
             if not solo:
                 fail(f"{lab}: a scene-axis kernel leaves the solo kernel")
         if planted:
             if ext:
                 bad = sk.fused_substep_scenes_cuda(frame, rows, params, r,
-                                                   cap, xs, 0.0, pj)
+                                                   cap, xs, 0.0, rec=rec)
                 what = f"{name} with the artificial viscosity 0"
             else:
                 bad = sk.fused_substep_scenes_cuda(
                     frame, rows, params._replace(
                         viscosity=torch.zeros_like(params.viscosity)),
-                    r, cap, xs, al, pj)
+                    r, cap, xs, al, rec=rec)
                 what = f"{name} with viscosity 0"
             must_fail(sk.hold(bad[0], refs[0]), what, f"{label} scene 0")
         return frame, pos_s, rows0, rows, params, r, cap
@@ -1809,8 +1817,9 @@ def main() -> None:
     def compare_scenes_forces(cfg, overrides, states, label, planted=False):
         """K3-scenes (K3-ext-scenes with extensions) on the rows two
         substeps into the frame, as the unfused route launches it (a
-        spawn's velocities are 0): each scene's sums bit-equal to its solo
-        launch, and the ends of the sweep held to their plain versions
+        spawn's velocities are 0), given the frame record: each scene's
+        sums bit-equal to its solo launch and all of them to the reference
+        walk's, and the ends of the sweep held to their plain versions
         (the solo rule); with ``planted`` the viscosity zeroed (XSPH 0 in
         the fold with extensions) must fail scene 0's rule."""
         frame, pos_s, vel_s, params, r, cap = scene_inputs(cfg, overrides,
@@ -1821,13 +1830,17 @@ def main() -> None:
         scal = sk.scal_blocks(params)
         rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap, scal)
         rows = sk.pack_rows_scenes(pos_s, vel_s, rho)
-        pj = sk.pj_cols_scenes(rho, params)
+        rec = sk.frame_record_scenes(frame, rho, params)
         for _ in range(2):
             rows = sk.fused_substep_scenes_cuda(
-                frame, rows, params, r, cap, xs, al, pj,
-                sk.scal_blocks(params, xs, al))
-        sums = sk.forces_scenes_cuda(frame, rows, params, r, cap, ext, pj,
-                                     scal)
+                frame, rows, params, r, cap, xs, al,
+                scal=sk.scal_blocks(params, xs, al), rec=rec)
+        sums = sk.forces_scenes_cuda(frame, rows, params, r, cap, ext,
+                                     scal=scal, rec=rec)
+        if not same_bits(sums, sk.forces_scenes_cuda(
+                frame, rows, params, r, cap, ext, scal=scal,
+                reference=True)):
+            fail(f"{label}: {name} leaves the reference walk")
         view = sk.scene_view(params)
         f, dv = sk.fold_forces(sums, rho, view, xs, al)
         n_sc = pos_s.shape[0]
@@ -1846,7 +1859,8 @@ def main() -> None:
             print(f"compare {lab}: {name} max|k-p| {e:.3e}, {line}",
                   flush=True)
         print(f"compare {label}: {name}, each of the {n_sc} scenes "
-              f"bit-equal to its solo K3 launch", flush=True)
+              f"bit-equal to its solo K3 launch, the record walk to the "
+              f"reference walk", flush=True)
         if planted:
             ph = sk.scene_params(params, 0)
             if ext:
@@ -1855,9 +1869,9 @@ def main() -> None:
             else:
                 no_visc = params._replace(
                     viscosity=torch.zeros_like(params.viscosity))
-                bad = sk.forces_scenes_cuda(frame, rows, no_visc, r, cap,
-                                            False, pj,
-                                            sk.scal_blocks(no_visc))
+                bad = sk.forces_scenes_cuda(
+                    frame, rows, no_visc, r, cap, False,
+                    scal=sk.scal_blocks(no_visc), rec=rec)
                 f0, dv0 = sk.fold_forces(bad[0], rho[0], ph)
                 what = f"{name} with viscosity 0"
             must_fail(sk.hold(sk.forces_out(f0, dv0, xs), refs[0]), what,
@@ -2204,8 +2218,10 @@ def main() -> None:
     def timed(name, shape, n, r, pairs, ext, fn, plain, **band):
         """Times fn beside its plain version and bound; a K5 substep's fn
         is a function of the split threshold (called with its default),
-        also timed with every tile whole."""
-        km, pm = time_ms(fn, 20), plain_ms(plain)
+        also timed with every tile whole. ``plain`` is the plain version,
+        or its time in ms where it was timed already."""
+        km = time_ms(fn, 20)
+        pm = plain if isinstance(plain, float) else plain_ms(plain)
         b_ms, b_by = bound(name, n, r, pairs, ext, **band)
         times.setdefault(name, {})[shape] = (km, pm, b_ms, b_by)
         whole = ""
@@ -2373,6 +2389,7 @@ def main() -> None:
             ext = sk.uses_extensions(xs, al)
             scal = sk.scal_blocks(params, xs, al)
             pj = sk.pj_cols_scenes(mid[..., 6], params)
+            rec = sk.frame_record_scenes(frame, mid[..., 6], params)
             win0 = [sk.member_pairs(scene_frame(frame, sc), pos_s[sc], r,
                                     cap) for sc in range(n_sc)]
             tot, f0 = sum(t for t, _ in win0), sum(t - o for t, o in win0)
@@ -2389,14 +2406,22 @@ def main() -> None:
                       lambda: sk.density_scenes_plain(frame, pos_s, params,
                                                       r, cap),
                       scenes=n_sc)
-            timed("fused_substep_ext_scenes" if ext
-                  else "fused_substep_scenes", shape, n_sc * n, r, m_tot,
-                  ext,
+            k2_name = ("fused_substep_ext_scenes" if ext
+                       else "fused_substep_scenes")
+            timed(k2_name, shape, n_sc * n, r, m_tot, ext,
                   lambda: sk.fused_substep_scenes_cuda(
-                      frame, mid, params, r, cap, xs, al, pj, scal),
+                      frame, mid, params, r, cap, xs, al, scal=scal,
+                      rec=rec),
                   lambda: sk.fused_substep_scenes_plain(
                       frame, mid, params, r, cap, xs, al),
                   scenes=n_sc)
+            # the reference walk (occ, raw and pj) on the same inputs, as
+            # "<shape>_reference"
+            timed(k2_name, f"{shape}_reference", n_sc * n, r, m_tot, ext,
+                  lambda: sk.fused_substep_scenes_cuda(
+                      frame, mid, params, r, cap, xs, al, scal=scal,
+                      reference=True, pj=pj),
+                  times[k2_name][shape][1], scenes=n_sc)
             # the solo kernels on the same inputs, one launch a scene, as
             # the batch ran before the scene axis (not a main path's count)
             solo = [(scene_frame(frame, sc), sk.scene_params(params, sc))
@@ -2426,13 +2451,18 @@ def main() -> None:
                 for sc, (fs, _) in enumerate(solo)))
             print(f"K5 member pairs {shape}, {n_sc} scenes: substep 3 "
                   f"{k5_mid} without the self pairs", flush=True)
-            timed("forces_ext_scenes" if ext else "forces_scenes", shape,
-                  n_sc * n, r, f0, ext,
+            k3_name = "forces_ext_scenes" if ext else "forces_scenes"
+            timed(k3_name, shape, n_sc * n, r, f0, ext,
                   lambda: sk.forces_scenes_cuda(frame, rows0, params, r, cap,
-                                                ext, pj, scal_f),
+                                                ext, scal=scal_f, rec=rec),
                   lambda: sk.forces_scenes_plain(frame, rows0, params, r,
                                                  cap, ext),
                   scenes=n_sc)
+            timed(k3_name, f"{shape}_reference", n_sc * n, r, f0, ext,
+                  lambda: sk.forces_scenes_cuda(frame, rows0, params, r, cap,
+                                                ext, scal=scal_f,
+                                                reference=True, pj=pj),
+                  times[k3_name][shape][1], scenes=n_sc)
             occ = compact.occ_prefix(frame.occ)
             occ_prefix_ms(f"{shape}, {n_sc} scenes", frame.occ)
             timed("compact_substep_ext_scenes" if ext
@@ -2899,6 +2929,7 @@ def main() -> None:
             frame, pos_s, params, r, cap))
         pj, scal = sk.pj_cols_scenes(rows[..., 6], params), \
             sk.scal_blocks(params)
+        rec = sk.frame_record_scenes(frame, rows[..., 6], params)
         win = [sk.member_pairs(fs, pos_s[sc], r, cap)
                for sc, (fs, _) in enumerate(solo)]
         k5_win = [compact.member_pairs(fs, pos_s[sc], r, True)
@@ -2946,26 +2977,40 @@ def main() -> None:
                 name = "fused_substep_scenes" + sk.variant_tag(
                     "fused_substep.cu", tune)
                 out = sk.fused_substep_scenes_cuda(frame, rows, params, r, cap,
-                                                   pj=pj, scal=scal, tune=tune)
-                solo_ok = all(same_bits(out[sc], sk.fused_substep_cuda(
-                    fs, rows[sc], ph, r, cap, tune=tune))
+                                                   scal=scal, tune=tune,
+                                                   rec=rec)
+                walk0 = sk.fused_substep_scenes_cuda(
+                    frame, rows, params, r, cap, scal=scal, tune=tune,
+                    reference=True, pj=pj)
+                solo_ok = same_bits(out, walk0) and all(
+                    same_bits(out[sc], sk.fused_substep_cuda(
+                        fs, rows[sc], ph, r, cap, tune=tune))
                     for sc, (fs, ph) in enumerate(solo))
                 ref = sk.substep_reference(fs0, rows[0], ph0, r, cap,
                                            tune=tune)
                 kernel = (lambda: sk.fused_substep_scenes_cuda(
-                    frame, rows, params, r, cap, pj=pj, scal=scal,
-                    tune=tune))
+                    frame, rows, params, r, cap, scal=scal, tune=tune,
+                    rec=rec))
                 plain = (lambda: sk.fused_substep_scenes_plain(
                     frame, rows, params, r, cap, tune=tune))
                 pairs = f_pairs
             e, line = hold_out(name, out[0], ref, "262k x 2 frame 0 scene 0")
             print(f"compare 262k x 2 frame 0: {name} scene 0 max|k-p| "
                   f"{e:.3e}, {line}; each scene bit-equal to its solo "
-                  f"launch {solo_ok}", flush=True)
+                  f"launch{'' if tune.compact else ' and the reference walk'}"
+                  f" {solo_ok}", flush=True)
             if not solo_ok:
                 fail(f"{name} leaves the solo launch of its variant")
             timed(name, "262kx2", n_sc * n, r, pairs, False, kernel, plain,
                   scenes=n_sc)
+            if not tune.compact:
+                hold_out(name, walk0[0], ref,
+                         "262k x 2 frame 0 scene 0, reference walk")
+                timed(name, "262kx2_reference", n_sc * n, r, pairs, False,
+                      lambda: sk.fused_substep_scenes_cuda(
+                          frame, rows, params, r, cap, scal=scal, tune=tune,
+                          reference=True, pj=pj),
+                      times[name]["262kx2"][1], scenes=n_sc)
             if tune.compact:
                 # the default instance on the same spawn inputs
                 timed("compact_substep_scenes", "262kx2", n_sc * n, r, pairs,

@@ -13,7 +13,14 @@ metrics (K1 and K2, or K2-ext), a 2-frame corrected rollout's at config 3
 final state, K1's density, K2's (K2-ext's) substep and K3's sums, each
 launched through the tree's own wrapper without a band, and the slab
 step's state after 3 frames on ``LocalRing(4)`` (row slack 4, halo slack
-8; K1-band and K2-band, or K2-ext-band), collected. The rollouts and,
+8; K1-band and K2-band, or K2-ext-band), collected; then config 5 over the
+scene axis (``sweep --particles 524288 --scenes 8``; and 2 scenes of
+config 3's physics, rest density 1.2 and 1.8): ``BatchedScenes``' state
+and metrics after 3 faithful frames (K1-scenes and K2-scenes, or
+K2-ext-scenes) and 2 corrected ones (K1-scenes and K3-scenes), and, on the
+frame built from the faithful batch's state, K1-scenes' density,
+K2-scenes' substep and K3-scenes' sums, each launched through the tree's
+own wrapper. The rollouts and,
 in a tree whose wrappers take a tuning, the kernels run in the variant of
 the ``SPH_PALLAS_*`` variables (``sph_kernels.default_tuning``). The second
 form
@@ -61,12 +68,13 @@ def save(root: pathlib.Path, out: str) -> None:
     sys.path.insert(0, str(root))
     import torch
 
-    from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig
+    from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig, cli
     from sphfluidsimulation_torch.ops import cuda_build, sph_kernels as sk
-    from sphfluidsimulation_torch.ops.frame import build_frame
-    from sphfluidsimulation_torch.params import PhysParams
-    from sphfluidsimulation_torch.parallel import (LocalRing, collect,
-                                                   distribute,
+    from sphfluidsimulation_torch.ops.frame import (build_frame,
+                                                    build_frame_scenes)
+    from sphfluidsimulation_torch.params import PhysParams, stack_params
+    from sphfluidsimulation_torch.parallel import (BatchedScenes, LocalRing,
+                                                   collect, distribute,
                                                    make_pallas_slab_step)
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                       make_rollout)
@@ -109,6 +117,34 @@ def save(root: pathlib.Path, out: str) -> None:
         slab, _ = collect(sst, cfg.n_particles)
         for name, t in slab._asdict().items():
             res[f"{label} slab rollout {name}"] = t
+    c5 = SimConfig(particle_number=524288)
+    for label, cfg, ov in (("c5", c5, cli.sweep_overrides(1.0, 2.0, 8)),
+                           ("c3x2", c3, cli.sweep_overrides(1.2, 1.8, 2))):
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+        for mode, faithful, frames in (("faithful", True, 3),
+                                       ("corrected", False, 2)):
+            bs = BatchedScenes(cfg, ov, faithful=faithful, devices=dev, **kw)
+            bs.step(frames)
+            for name, t in (*bs.states._asdict().items(),
+                            *bs.last_metrics._asdict().items()):
+                res[f"{label} {mode} batch {name}"] = t
+            if faithful:
+                states = bs.states
+            del bs
+        params = stack_params([PhysParams.from_config(cfg.replace(**o), dev)
+                               for o in ov])
+        frame, (pos_s, vel_s) = build_frame_scenes(
+            states.pos, r, cap, extras=(states.pos, states.vel))
+        rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap, **kw)
+        rows = sk.pack_rows_scenes(pos_s, vel_s, rho)
+        ext = sk.uses_extensions(xs, al)
+        res[f"{label} K1-scenes"] = rho
+        res[f"{label} K2{'-ext' if ext else ''}-scenes"] = \
+            sk.fused_substep_scenes_cuda(frame, rows, params, r, cap, xs, al,
+                                         **kw)
+        res[f"{label} K3{'-ext' if ext else ''}-scenes"] = \
+            sk.forces_scenes_cuda(frame, rows, params, r, cap, ext, **kw)
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in res.items()}, out)
     print(f"{root}: {len(res)} tensors to {out}")

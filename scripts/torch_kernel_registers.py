@@ -10,9 +10,10 @@ tuning variant's switches that the source reads (``cuda_build.defines``),
 adding ``-Xptxas -v`` (and K2's once more with ``cuda_build.LANE_SWEEP``,
 every lane-group width), and prints one line per kernel instance: the
 source, the switches, the kernel and its template arguments (for K1 and K3
-``<kExt, kBand>`` or ``<kBand>``, for K2 ``<kExt, kBand, kLanes>``, for K5
-``<mode, kExt, kBand>``), its registers and its stack frame, spill store
-and spill load bytes.
+``<kExt, kBand>`` or ``<kBand>``, for K2 ``<kExt, kBand, kLanes>``, for
+the scene-axis K2 and K3 ``<kExt, kRec>``, for K5 ``<mode, kExt,
+kBand>``), its registers and its stack frame, spill store and spill load
+bytes.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning  # noqa: E402
 VARIANTS = (SortedTuning(fuse_acc=False), SortedTuning(kahan=True),
             SortedTuning(bf16=True))
 _ENTRY = re.compile(r"Compiling entry function '\w*?(density_kernel|"
-                    r"fused_substep_kernel|forces_kernel|compact_kernel)"
+                    r"fused_substep_kernel|forces_kernel|compact_kernel|"
+                    r"fused_substep_scenes_kernel|forces_scenes_kernel)"
                     r"I(\w*?)EE")
 _USED = re.compile(r"Used (\d+) registers")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

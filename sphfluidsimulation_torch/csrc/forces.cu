@@ -34,7 +34,9 @@
 // add_pair_pj) and window walk (window_walk.cuh): no IEEE division in the
 // pair terms without the extensions, whole-term selects, ranges of
 // consecutive slots. The two kernels share every line of the walk, so they
-// cannot drift apart.
+// cannot drift apart. The scene-axis instances read the frame record, as
+// K2's do (fused_substep.cu); the walk that reads occ, raw and pj stays
+// built as the reference instance.
 #include "window_walk.cuh"
 
 namespace {
@@ -52,12 +54,13 @@ forces_kernel(sph::WalkArgs a, float4* __restrict__ out) {
 }
 
 // The scene-axis instance (window_walk.cuh::scene_args): blockIdx.y is the
-// scene, and each thread is the unbanded kernel's thread of that scene.
-template <bool kExt>
+// scene, and each thread is the unbanded kernel's thread of that scene;
+// kRec as in K2's (fused_substep.cu).
+template <bool kExt, bool kRec>
 __global__ void __launch_bounds__(sph::kBlock)
-forces_scenes_kernel(sph::WalkArgs a, float4* __restrict__ out) {
+forces_scenes_kernel(sph::SceneArgs a, float4* __restrict__ out) {
   float4* const out_s = out + 3 * (size_t)blockIdx.y * a.n;
-  sph::walk_row<kExt, false>(
+  sph::walk_row<kExt, false, 1, kRec || kExt ? 1 : 2, kRec>(
       sph::scene_args(a, blockIdx.y),
       [&](const sph::Scalars&, const sph::Particle&, int i,
           const sph::PairSums& acc) {
@@ -89,19 +92,25 @@ extern "C" int sph_forces(const float* rows, const float* pj,
 
 // K3 over `scenes` scenes of n rows each, every input stacked scene after
 // scene (window_walk.cuh::scene_args), the sums f32[S, N, 12]: one launch,
-// grid (row blocks, scenes); ext != 0 selects the instance with the
-// extension sums.
+// grid (row blocks, scenes), reading the frame records rec or, with
+// reference != 0, pj, raw and occ, as sph_fused_substep_scenes
+// (fused_substep.cu); ext != 0 selects the instance with the extension
+// sums.
 extern "C" int sph_forces_scenes(const float* rows, const float* pj,
                                  const int* start, const int* raw,
-                                 const uint8_t* occ, const float* scal,
-                                 float* out, int n, int r, int cap,
-                                 int scenes, int ext, void* stream) {
-  const sph::WalkArgs a{reinterpret_cast<const float4*>(rows),
-                        reinterpret_cast<const float2*>(pj),
-                        start, raw, occ, scal, n, r, cap, 0, r};
-  static const sph::WalkKernel instances[2] = {forces_scenes_kernel<false>,
-                                               forces_scenes_kernel<true>};
-  return sph::launch_walk_scenes(instances, ext != 0, a, scenes,
+                                 const uint8_t* occ, const float* rec,
+                                 const float* scal, float* out, int n, int r,
+                                 int cap, int scenes, int ext, int reference,
+                                 void* stream) {
+  const sph::SceneArgs a{{reinterpret_cast<const float4*>(rows),
+                          reinterpret_cast<const float2*>(pj), start, raw,
+                          occ, scal, n, r, cap, 0, r},
+                         reinterpret_cast<const float4*>(rec)};
+  static const sph::SceneKernel instances[2][2] = {
+      {forces_scenes_kernel<false, true>, forces_scenes_kernel<true, true>},
+      {forces_scenes_kernel<false, false>, forces_scenes_kernel<true, false>}};
+  return sph::launch_walk_scenes(instances[reference != 0 ? 1 : 0],
+                                 ext != 0, a, scenes,
                                  reinterpret_cast<float4*>(out),
                                  (cudaStream_t)stream);
 }

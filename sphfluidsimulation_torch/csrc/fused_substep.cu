@@ -64,6 +64,15 @@
 // -DSPH_LANE_SWEEP=1 builds every shape of 1, 2, 4 or 8 lanes a row and 1,
 // 2 or 4 slots a lane, for the band and the whole grid: the measurement that
 // chose kBandLanes and kBandSlots (scripts/torch_k2band_ab.py).
+//
+// The scene-axis instances (config 5's sweep: the grid is full and the walk
+// is bound by issued instructions) read each slot's gate and j-side values
+// from one 16-byte frame record (window_walk.cuh's kRec), one slot a step;
+// the sums are those of the walk that reads occ, raw and pj, bit for bit.
+// That walk stays built as the reference instance (reference != 0).
+// Taking two or four rows a thread, with each loaded candidate evaluated
+// for every row of a shared window, measured slower in every instance
+// (PERF.md).
 #include "window_walk.cuh"
 
 #ifndef SPH_LANE_SWEEP
@@ -97,13 +106,15 @@ fused_substep_kernel(sph::WalkArgs a, float4* __restrict__ out) {
 }
 
 // The scene-axis instance (window_walk.cuh::scene_args): blockIdx.y is the
-// scene, and each thread is the unbanded kernel's thread of that scene.
-template <bool kExt>
+// scene, and each thread is the unbanded kernel's thread of that scene;
+// with kRec it reads the frame record, one slot a step, else (the
+// reference) occ, raw and pj as the unbanded kernel does.
+template <bool kExt, bool kRec>
 __global__ void __launch_bounds__(sph::kBlock)
-fused_substep_scenes_kernel(sph::WalkArgs a, float4* __restrict__ out) {
+fused_substep_scenes_kernel(sph::SceneArgs a, float4* __restrict__ out) {
   const int scene = blockIdx.y;
   float4* const out_s = out + 2 * (size_t)scene * a.n;
-  sph::walk_row<kExt, false>(
+  sph::walk_row<kExt, false, 1, kRec || kExt ? 1 : 2, kRec>(
       sph::scene_args(a, scene),
       [&](const sph::Scalars& s, const sph::Particle& p, int i,
           const sph::PairSums& acc) {
@@ -199,18 +210,27 @@ extern "C" int sph_fused_substep_lanes(const float* rows, const float* pj,
 
 // K2 over `scenes` scenes of n rows each, every input stacked scene after
 // scene (window_walk.cuh::scene_args): one launch, grid (row blocks,
-// scenes); ext != 0 selects the instance with the extension sums.
+// scenes), reading the frame records rec f32[S, N, 4]
+// (sph_kernels.frame_record_scenes) in place of pj, raw and occ, or with
+// reference != 0 the reference walk, which reads pj, raw and occ; ext != 0
+// selects the instance with the extension sums.
 extern "C" int sph_fused_substep_scenes(const float* rows, const float* pj,
                                         const int* start, const int* raw,
-                                        const uint8_t* occ, const float* scal,
-                                        float* out, int n, int r, int cap,
-                                        int scenes, int ext, void* stream) {
-  const sph::WalkArgs a{reinterpret_cast<const float4*>(rows),
-                        reinterpret_cast<const float2*>(pj),
-                        start, raw, occ, scal, n, r, cap, 0, r};
-  static const sph::WalkKernel instances[2] = {
-      fused_substep_scenes_kernel<false>, fused_substep_scenes_kernel<true>};
-  return sph::launch_walk_scenes(instances, ext != 0, a, scenes,
+                                        const uint8_t* occ, const float* rec,
+                                        const float* scal, float* out, int n,
+                                        int r, int cap, int scenes, int ext,
+                                        int reference, void* stream) {
+  const sph::SceneArgs a{{reinterpret_cast<const float4*>(rows),
+                          reinterpret_cast<const float2*>(pj), start, raw,
+                          occ, scal, n, r, cap, 0, r},
+                         reinterpret_cast<const float4*>(rec)};
+  static const sph::SceneKernel instances[2][2] = {
+      {fused_substep_scenes_kernel<false, true>,
+       fused_substep_scenes_kernel<true, true>},
+      {fused_substep_scenes_kernel<false, false>,
+       fused_substep_scenes_kernel<true, false>}};
+  return sph::launch_walk_scenes(instances[reference != 0 ? 1 : 0],
+                                 ext != 0, a, scenes,
                                  reinterpret_cast<float4*>(out),
                                  (cudaStream_t)stream);
 }

@@ -26,6 +26,15 @@
 // the unbanded kernels (reading the band at run time made K2-ext and K3
 // 7-8% slower on the H100: PERF.md).
 //
+// The frame record (kRec, K2's and K3's scene-axis instances): there the
+// grid is full and the walk is bound by issued instructions (PERF.md: the
+// L1 wavefronts of a warp's scattered loads cost under a fifth of it), so
+// each slot reads one 16-byte record (press_j, inv_j, raw, occ:
+// sph_kernels.frame_record_scenes) in place of the three loads of occ, raw
+// and pj, one slot a step. The gate and the pair are the range walk's, so
+// the sums are bit for bit those of the walk that reads occ, raw and pj,
+// which stays built as the reference instance.
+//
 // Lane groups (kLanes > 1, K2's banded instance without the extensions): a
 // slab's quarter of the particles fills only part of the card at one
 // thread a row (about 18 of 64 warps an SM at 262k on 4 slabs), and each
@@ -69,16 +78,23 @@ namespace sph {
 // kLanes that walk one row: each step the group takes kLanes * kStep
 // consecutive slots from q, this lane the kStep from j0 = q + lane * kStep,
 // and pair(j0, e, member) evaluates them (the slots from e on are past the
-// range; member(j) is the gate above).
+// range; member(j) is the gate above). With kRec (one lane, one slot a
+// step) the gate reads occ and raw from the frame record rec[j] = (press_j,
+// inv_j, raw, occ as int bits) in place of occ[] and raw[]: pair(j, gate,
+// pj) gets it as a callable (gate_of) and the record's (press_j, inv_j).
 template <int kStep, bool kSkipSelf, bool kBand, int kLanes = 1,
-          typename Pair>
+          bool kRec = false, typename Pair>
 __device__ __forceinline__ void range_walk(int cx, int cy, int cz, int i,
                                            int r, int cap, int zbase,
                                            int z_span,
                                            const int* __restrict__ start,
                                            const int* __restrict__ raw,
                                            const uint8_t* __restrict__ occ,
-                                           Pair&& pair, int lane = 0) {
+                                           Pair&& pair, int lane = 0,
+                                           const float4* __restrict__ rec =
+                                               nullptr) {
+  static_assert(!kRec || (kLanes == 1 && kStep == 1),
+                "the record walk takes one lane a row, one slot a step");
   const int x0 = max(cx - 1, 0), x1 = min(cx + 1, r - 1);
   const int y0 = max(cy - 1, 0), y1 = min(cy + 1, r - 1);
   const int z0 = kBand ? max(max(cz - 1, 0), zbase) : max(cz - 1, 0);
@@ -109,6 +125,21 @@ __device__ __forceinline__ void range_walk(int cx, int cy, int cz, int i,
         if constexpr (kLanes > 1) {
           for (; q < e; q += kLanes * kStep)
             pair(q + lane * kStep, e, member);
+        } else if constexpr (kRec) {
+          // the gate goes to pair as a callable, which it evaluates after
+          // issuing the candidate's loads: the record's load and the
+          // candidate's are then in flight together, not one after the
+          // other (gating first made K2-scenes 8% slower on the H100)
+          for (; q < e; ++q) {
+            const float4 g = __ldg(rec + q);
+            const auto gate = [&] {
+              const int rj = __float_as_int(g.z);
+              return __float_as_int(g.w) != 0 && !(kSkipSelf && q == i)
+                     && ((unsigned)(rj - line - x0) <= (unsigned)(x1 - x0)
+                         || raw_near(rj, cx, cy, cz, r));
+            };
+            pair(q, gate, make_float2(g.x, g.y));
+          }
         } else {
           for (; q < e; q += kStep) {
             pair(q, member(q));
@@ -146,6 +177,23 @@ struct WalkArgs {
   int n, r, cap, zbase, z_span;
 };
 
+// The inputs of K2's and K3's scene-axis instances: WalkArgs and the frame
+// records f32[S, N, 4] (pj, raw, occ; read in place of pj, raw and occ by
+// the kRec instances, null for the reference). The record rides in the one
+// kernel parameter: as a parameter of its own, the record walk measured
+// 1-4% slower on the H100 (PERF.md).
+struct SceneArgs : WalkArgs {
+  const float4* __restrict__ rec;
+};
+
+// The frame record of a walk's inputs: none for WalkArgs.
+__device__ __forceinline__ const float4* record_of(const WalkArgs&) {
+  return nullptr;
+}
+__device__ __forceinline__ const float4* record_of(const SceneArgs& a) {
+  return a.rec;
+}
+
 // The scene axis (the batched step of parallel/batch.py, the counterpart
 // of JAX's vmap of the frame step, whose batching rule prepends the scene
 // to the Pallas grid): S scenes of n rows each, every input stacked scene
@@ -163,10 +211,15 @@ struct WalkArgs {
 __device__ __forceinline__ WalkArgs scene_args(const WalkArgs& a, int s) {
   const size_t rows = (size_t)s * a.n;
   const size_t cells = (size_t)s * ((size_t)a.r * a.r * a.r + 1);
-  return WalkArgs{a.rows + 2 * rows, a.pj + rows, a.start + cells,
+  return WalkArgs{a.rows + 2 * rows,
+                  a.pj != nullptr ? a.pj + rows : nullptr, a.start + cells,
                   a.raw + rows, a.occ + rows,
                   a.scal + (size_t)s * kScalLanes,
                   a.n, a.r, a.cap, 0, a.r};
+}
+__device__ __forceinline__ SceneArgs scene_args(const SceneArgs& a, int s) {
+  return SceneArgs{scene_args(static_cast<const WalkArgs&>(a), s),
+                   a.rec != nullptr ? a.rec + (size_t)s * a.n : nullptr};
 }
 
 // The lane-group fold: the terms of the group's step, kSlots slots a lane
@@ -238,6 +291,24 @@ __device__ __forceinline__ void add_group_terms(const PairTerms (&t)[kSlots],
   }
 }
 
+// A pair's gate as range_walk passes it: a bool, or (the record walk) a
+// callable.
+__device__ __forceinline__ bool gate_of(bool use) { return use; }
+template <typename Gate>
+__device__ __forceinline__ bool gate_of(const Gate& use) {
+  return use();
+}
+
+// The (press_j, inv_j) of slot q: pj[q], or the frame record's where the
+// walk loaded it.
+__device__ __forceinline__ float2 pj_of(const float2* __restrict__ pj,
+                                        int q) {
+  return __ldg(pj + q);
+}
+__device__ __forceinline__ float2 pj_of(const float2*, int, float2 rec_pj) {
+  return rec_pj;
+}
+
 // Row i's pair sums (j == i skipped) in walk order (ascending sorted
 // index), kSlots slots a step: two without the extensions, one with them
 // (the second pair's registers cost more occupancy than the overlap gains),
@@ -247,10 +318,13 @@ __device__ __forceinline__ void add_group_terms(const PairTerms (&t)[kSlots],
 // the thread is lane `lane` of the row's group, which walks kSlots slots a
 // lane a step and adds the group's terms in slot order (add_group_terms):
 // every lane ends with the row's sums, bit for bit those of kLanes = 1.
-template <bool kExt, bool kBand, int kLanes = 1, int kSlots = kExt ? 1 : 2>
+// With kRec each slot's gate and (press_j, inv_j) come from the frame
+// record (SceneArgs; range_walk), bit for bit the same sums.
+template <bool kExt, bool kBand, int kLanes = 1, int kSlots = kExt ? 1 : 2,
+          bool kRec = false, typename Args>
 __device__ __forceinline__ void window_pair_sums(const Scalars& s,
                                                  const Particle& p, int i,
-                                                 const WalkArgs& a,
+                                                 const Args& a,
                                                  PairSums& acc,
                                                  int lane = 0) {
   const int r = a.r;
@@ -259,16 +333,17 @@ __device__ __forceinline__ void window_pair_sums(const Scalars& s,
   const int cx = fresh_coord(p.px, r), cy = fresh_coord(p.py, r),
             cz = fresh_coord(p.pz, r);
   if constexpr (kLanes == 1) {
-    range_walk<kSlots, true, kBand>(
+    range_walk<kSlots, true, kBand, 1, kRec>(
         cx, cy, cz, i, r, a.cap, a.zbase, a.z_span, a.start, a.raw, a.occ,
-        [&](int q, bool use) {
+        [&](int q, const auto& use, auto... rec_pj) {   // rec_pj: kRec's
           float4 qa = __ldg(a.rows + 2 * q), qb = __ldg(a.rows + 2 * q + 1);
           float press_j, inv_j;
           candidate<kExt>(s, qa, qb, press_j, inv_j,
-                          [&] { return __ldg(a.pj + q); });
+                          [&] { return pj_of(a.pj, q, rec_pj...); });
           add_pair_pj<kExt, kFacc>(s, p, press_i, vmu, qa, qb, press_j,
-                                   inv_j, use, acc);
-        });
+                                   inv_j, gate_of(use), acc);
+        },
+        0, record_of(a));
   } else {
     range_walk<kSlots, true, kBand, kLanes>(
         cx, cy, cz, i, r, a.cap, a.zbase, a.z_span, a.start, a.raw, a.occ,
@@ -295,11 +370,11 @@ __device__ __forceinline__ void window_pair_sums(const Scalars& s,
 // threadIdx.x, passed to done(s, p, i, acc); with kBand a dead row is
 // passed to dead(i) instead, and walks nothing. With kLanes > 1 each row
 // takes a group of kLanes consecutive threads (a launch of n * kLanes
-// threads), whose first lane calls done or dead; kSlots is
-// window_pair_sums'.
+// threads), whose first lane calls done or dead; kSlots and kRec are
+// window_pair_sums', and `a` is WalkArgs or (kRec) SceneArgs.
 template <bool kExt, bool kBand, int kLanes = 1, int kSlots = kExt ? 1 : 2,
-          typename Done, typename Dead>
-__device__ __forceinline__ void walk_row(const WalkArgs& a, Done&& done,
+          bool kRec = false, typename Args, typename Done, typename Dead>
+__device__ __forceinline__ void walk_row(const Args& a, Done&& done,
                                          Dead&& dead) {
   static_assert(kLanes >= 1 && kLanes <= 32 && !(kLanes & (kLanes - 1)),
                 "a lane group is a power of two within a warp");
@@ -313,7 +388,7 @@ __device__ __forceinline__ void walk_row(const WalkArgs& a, Done&& done,
   const Scalars s = load_scalars(a.scal);
   const Particle p = load_particle(a.rows, i);
   PairSums acc;
-  window_pair_sums<kExt, kBand, kLanes, kSlots>(s, p, i, a, acc, lane);
+  window_pair_sums<kExt, kBand, kLanes, kSlots, kRec>(s, p, i, a, acc, lane);
   if (lane == 0) done(s, p, i, acc);
 }
 
@@ -342,11 +417,14 @@ inline int launch_walk(const WalkKernel (&instances)[2][2], bool ext,
       out, st);
 }
 
+// A scene-axis kernel of K2 or K3: (inputs over every scene, the output).
+using SceneKernel = void (*)(SceneArgs, float4*);
+
 // Launches the scene-axis instance of K2 or K3 for the extension switch
 // over `scenes` scenes of a.n rows (scene_args), grid (row blocks, scenes),
 // on stream st; `instances` is the kernel without and with kExt.
-inline int launch_walk_scenes(const WalkKernel (&instances)[2], bool ext,
-                              const WalkArgs& a, int scenes, float4* out,
+inline int launch_walk_scenes(const SceneKernel (&instances)[2], bool ext,
+                              const SceneArgs& a, int scenes, float4* out,
                               cudaStream_t st) {
   if (a.n > 0 && scenes > 0)
     instances[ext ? 1 : 0]<<<dim3((a.n + kBlock - 1) / kBlock, scenes),

@@ -43,7 +43,8 @@ _I = ctypes.c_int
 # zbase and z_span, and K2/K3 the extension switch; the scene-axis
 # instances of K1, K2, K3 and K5 take n, r, cap, then the scene count; K2's
 # sph_fused_substep_lanes takes the lanes a row and the slots a lane a step
-# after the extension switch)
+# after the extension switch; the scene-axis K2 and K3 take the frame
+# records after occ and the reference switch after the extension switch)
 KERNELS = {
     "density.cu": (("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _P)),
@@ -55,13 +56,11 @@ KERNELS = {
                          ("sph_fused_substep_lanes", (*(_P,) * 7, *(_I,) * 8,
                                                       _P)),
                          ("sph_fused_substep_band_walk", (_I, _I)),
-                         ("sph_fused_substep_scenes", (_P, _P, _P, _P, _P,
-                                                       _P, _P, _I, _I, _I,
-                                                       _I, _I, _P))),
+                         ("sph_fused_substep_scenes", (*(_P,) * 8,
+                                                       *(_I,) * 6, _P))),
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _P)),
-                  ("sph_forces_scenes", (_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                         _I, _I, _I, _P))),
+                  ("sph_forces_scenes", (*(_P,) * 8, *(_I,) * 6, _P))),
     "compact.cu": (("sph_compact", (_I, _I, *(_P,) * 10, *(_I,) * 5, _P)),
                    ("sph_compact_scenes", (_I, _I, *(_P,) * 10, *(_I,) * 4,
                                            _P)),

@@ -52,7 +52,10 @@ leading scene axis (``frame.build_frame_scenes``) and a stacked
 ``PhysParams``, and launch K1, K2 and K3 once over all scenes
 (``sph_density_scenes``, ``sph_fused_substep_scenes``,
 ``sph_forces_scenes``), in every variant; each scene's result is its solo
-pass's, bit for bit.
+pass's, bit for bit. K2's and K3's scene-axis instances read each
+candidate's gate and j-side values from one 16-byte frame record
+(:func:`frame_record_scenes`) in place of occ, raw and pj; the walk that
+reads those stays built as the reference (``reference=True``).
 """
 
 from __future__ import annotations
@@ -1154,16 +1157,39 @@ def unpack_rows_scenes(rows: torch.Tensor) -> tuple[torch.Tensor, ...]:
             rows[..., 7].to(torch.int32))
 
 
+def _pj_scenes_into(out: torch.Tensor, rho: torch.Tensor,
+                    params: PhysParams) -> None:
+    """Writes :func:`pj_cols` of ρ f32[S, N] over S·N rows into lanes 0 and
+    1 of ``out`` [S, N, ≥2], each row with its own scene's k and ρ₀."""
+    out[..., 0] = params.gas_constant[:, None] * (
+        rho - params.rest_density[:, None])
+    ok = rho > EPSILON
+    out[..., 1] = torch.where(ok, 1.0, 0.0) / torch.where(ok, rho, 1.0)
+
+
 def pj_cols_scenes(rho: torch.Tensor, params: PhysParams) -> torch.Tensor:
     """:func:`pj_cols` over S·N rows: f32[S, N, 2] from ρ f32[S, N], each
     row with its own scene's k and ρ₀ (the columns copied in, as
     :func:`pack_rows_scenes` packs)."""
     pj = rho.new_empty(rho.shape + (2,))
-    pj[..., 0] = params.gas_constant[:, None] * (
-        rho - params.rest_density[:, None])
-    ok = rho > EPSILON
-    pj[..., 1] = torch.where(ok, 1.0, 0.0) / torch.where(ok, rho, 1.0)
+    _pj_scenes_into(pj, rho, params)
     return pj
+
+
+def frame_record_scenes(frame: SortedFrame, rho: torch.Tensor,
+                        params: PhysParams) -> torch.Tensor:
+    """The frame record of K2's and K3's scene-axis walk: f32[S, N, 4], one
+    16-byte load a candidate slot in place of three: lanes 0-1
+    :func:`pj_cols_scenes` of ρ f32[S, N] (the same values, bit for bit),
+    lane 2 ``frame.raw`` and lane 3 ``frame.occ`` (0 or 1), both as int32
+    bits. The stepper builds it where it built pj: once a frame in
+    faithful mode, once a substep in corrected mode."""
+    rec = rho.new_empty(rho.shape + (4,))
+    _pj_scenes_into(rec, rho, params)
+    bits = rec.view(torch.int32)
+    bits[..., 2] = frame.raw
+    bits[..., 3] = frame.occ
+    return rec
 
 
 def density_scenes_plain(frame: SortedFrame, pos_s: torch.Tensor,
@@ -1242,75 +1268,95 @@ def density_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
     return rho
 
 
-def _walk_scenes_launch(source: str, entry: str, name: str,
-                        frame: SortedFrame, rows: torch.Tensor,
-                        params: PhysParams, r: int, capacity: int | None,
-                        ext: bool, pj: torch.Tensor | None,
+def _walk_scenes_launch(source: str, name: str, frame: SortedFrame,
+                        rows: torch.Tensor, params: PhysParams, r: int,
+                        capacity: int | None, ext: bool,
+                        rec: torch.Tensor | None, pj: torch.Tensor | None,
                         scal: torch.Tensor | None, out: torch.Tensor,
                         tune: SortedTuning, xsph: float = 0.0,
-                        alpha_visc: float = 0.0) -> None:
-    """Checks the inputs of K2's or K3's scene-axis instance (``entry`` of
-    ``source``), launches it into ``out`` and counts it under ``name`` and
-    the variant's tag; ``pj`` and ``scal`` are built when None."""
+                        alpha_visc: float = 0.0,
+                        reference: bool = False) -> None:
+    """Checks the inputs of K2's or K3's scene-axis instance (``source``),
+    launches it into ``out`` and counts it under ``name`` and the variant's
+    tag. It reads the frame record ``rec`` (:func:`frame_record_scenes`);
+    with ``reference`` it is the reference walk, which reads ``pj``
+    (:func:`pj_cols_scenes`) and the frame's raw and occ in its place, and
+    counts under ``+reference`` too. The one it reads, and ``scal``, is
+    built when None."""
     n_scenes, n = rows.shape[:2]
     dev = rows.device
-    if pj is None:
-        pj = pj_cols_scenes(rows[..., 6], params)
+    if reference:
+        if pj is None:
+            pj = pj_cols_scenes(rows[..., 6], params)
+        _check("pj", pj, torch.float32, (n_scenes, n, 2), dev)
+    else:
+        if rec is None:
+            rec = frame_record_scenes(frame, rows[..., 6], params)
+        _check("rec", rec, torch.float32, (n_scenes, n, 4), dev)
     if scal is None:
         scal = scal_blocks(params, xsph, alpha_visc)
     _check("rows", rows, torch.float32, (n_scenes, n, N_FIELDS), dev)
-    _check("pj", pj, torch.float32, (n_scenes, n, 2), dev)
     _check_scenes(frame, n_scenes, n, r, scal, dev)
-    fn = cuda_build.function(source, entry, tune)
-    err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
-             _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
-             _cap_arg(capacity), n_scenes, int(ext),
+    null = ctypes.c_void_p(None)
+    fn = cuda_build.function(source, f"sph_{source[:-3]}_scenes", tune)
+    err = fn(_ptr(rows), _ptr(pj) if reference else null, _ptr(frame.start),
+             _ptr(frame.raw), _ptr(frame.occ),
+             null if reference else _ptr(rec), _ptr(scal), _ptr(out), n, r,
+             _cap_arg(capacity), n_scenes, int(ext), int(reference),
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error(name, err)
-    _count(name + variant_tag(source, tune))
+    _count(name + variant_tag(source, tune)
+           + ("+reference" if reference else ""))
 
 
 def fused_substep_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
                               params: PhysParams, r: int,
                               capacity: int | None, xsph: float = 0.0,
                               alpha_visc: float = 0.0,
-                              pj: torch.Tensor | None = None,
+                              rec: torch.Tensor | None = None,
                               scal: torch.Tensor | None = None,
-                              tune: SortedTuning | None = None
+                              tune: SortedTuning | None = None,
+                              reference: bool = False,
+                              pj: torch.Tensor | None = None
                               ) -> torch.Tensor:
     """K2's scene-axis instances (``csrc/fused_substep.cu``
     ``sph_fused_substep_scenes``) in ``tune``'s variant: new rows
     f32[S, N, 8] in one launch, the instance with the extension sums for
-    nonzero coefficients. ``pj`` is :func:`pj_cols_scenes` of the rows' ρ
-    and ``scal`` :func:`scal_blocks` of ``params`` and the coefficients;
-    each is built here when None."""
+    nonzero coefficients. ``rec`` is :func:`frame_record_scenes` of the
+    frame and the rows' ρ and ``scal`` :func:`scal_blocks` of ``params``
+    and the coefficients; each is built here when None. ``reference``
+    launches the reference walk, which reads ``pj`` (:func:`pj_cols_scenes`
+    of the rows' ρ, built when None) in place of the record: the same rows,
+    bit for bit."""
     ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
     _walk_scenes_launch(
-        "fused_substep.cu", "sph_fused_substep_scenes",
+        "fused_substep.cu",
         "fused_substep_ext_scenes" if ext else "fused_substep_scenes",
-        frame, rows, params, r, capacity, ext, pj, scal, out,
-        _tuned(tune), xsph, alpha_visc)
+        frame, rows, params, r, capacity, ext, rec, pj, scal, out,
+        _tuned(tune), xsph, alpha_visc, reference)
     return out
 
 
 def forces_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
                        params: PhysParams, r: int, capacity: int | None,
-                       ext: bool = False, pj: torch.Tensor | None = None,
+                       ext: bool = False, rec: torch.Tensor | None = None,
                        scal: torch.Tensor | None = None,
-                       tune: SortedTuning | None = None) -> torch.Tensor:
+                       tune: SortedTuning | None = None,
+                       reference: bool = False,
+                       pj: torch.Tensor | None = None) -> torch.Tensor:
     """K3's scene-axis instances (``csrc/forces.cu`` ``sph_forces_scenes``)
     in ``tune``'s variant: raw sums f32[S, N, 12] in one launch, in the
     layout of :func:`forces_cuda`; ``ext`` selects the instance with the
-    extension sums. ``pj`` and ``scal`` as in
+    extension sums. ``rec``, ``scal``, ``reference`` and ``pj`` as in
     :func:`fused_substep_scenes_cuda` (``scal`` without the coefficients:
     K3 does not read them)."""
     out = torch.empty(rows.shape[:2] + (N_SUMS,), dtype=torch.float32,
                       device=rows.device)
-    _walk_scenes_launch("forces.cu", "sph_forces_scenes",
+    _walk_scenes_launch("forces.cu",
                         "forces_ext_scenes" if ext else "forces_scenes",
-                        frame, rows, params, r, capacity, ext, pj, scal,
-                        out, _tuned(tune))
+                        frame, rows, params, r, capacity, ext, rec, pj, scal,
+                        out, _tuned(tune), reference=reference)
     return out
 
 
@@ -1331,36 +1377,36 @@ def density_scenes(frame: SortedFrame, pos_s: torch.Tensor,
 def fused_substep_scenes(frame: SortedFrame, rows: torch.Tensor,
                          params: PhysParams, r: int, capacity: int | None,
                          xsph: float = 0.0, alpha_visc: float = 0.0,
-                         pj: torch.Tensor | None = None,
+                         rec: torch.Tensor | None = None,
                          scal: torch.Tensor | None = None,
                          tune: SortedTuning | None = None) -> torch.Tensor:
     """One substep of every scene's rows f32[S, N, 8] in ``tune``'s
     variant: K2's scene-axis instance for a CUDA tensor, the plain version
-    for a CPU tensor. ``pj`` and ``scal`` (as in
+    for a CPU tensor. ``rec`` and ``scal`` (as in
     :func:`fused_substep_scenes_cuda`) are read by the kernel only."""
     if rows.is_cuda:
         return fused_substep_scenes_cuda(frame, rows, params, r, capacity,
-                                         xsph, alpha_visc, pj, scal, tune)
+                                         xsph, alpha_visc, rec, scal, tune)
     return fused_substep_scenes_plain(frame, rows, params, r, capacity,
                                       xsph, alpha_visc, tune)
 
 
 def forces_scenes(frame: SortedFrame, rows: torch.Tensor, params: PhysParams,
                   r: int, capacity: int | None, xsph: float = 0.0,
-                  alpha_visc: float = 0.0, pj: torch.Tensor | None = None,
+                  alpha_visc: float = 0.0, rec: torch.Tensor | None = None,
                   scal: torch.Tensor | None = None,
                   tune: SortedTuning | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """:func:`forces_pass` of every scene: (force f[S, N, 3], XSPH
     correction dv f[S, N, 3] or None), the raw sums from K3's scene-axis
     instance for a CUDA tensor or from the plain version for a CPU one, in
-    ``tune``'s variant, folded over the scenes (:func:`scene_view`). ``pj``
-    and ``scal`` (as in :func:`forces_scenes_cuda`) are read by the kernel
-    only."""
+    ``tune``'s variant, folded over the scenes (:func:`scene_view`).
+    ``rec`` and ``scal`` (as in :func:`forces_scenes_cuda`) are read by
+    the kernel only."""
     tune = _tuned(tune)
     ext = uses_extensions(xsph, alpha_visc)
     if rows.is_cuda:
-        sums = forces_scenes_cuda(frame, rows, params, r, capacity, ext, pj,
+        sums = forces_scenes_cuda(frame, rows, params, r, capacity, ext, rec,
                                   scal, tune)
     else:
         sums = forces_scenes_plain(frame, rows, params, r, capacity, ext,

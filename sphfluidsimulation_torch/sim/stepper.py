@@ -345,12 +345,26 @@ def _density_scenes(frame: SortedFrame, pos_s: torch.Tensor,
                                       tune=tune)
 
 
+def _scene_cols(frame: SortedFrame, rho_s: torch.Tensor, params: PhysParams,
+                cfg: SimConfig, tune: SortedTuning, fused: bool):
+    """(pj, frame record) of a scene-axis force pass from its ρ, one of
+    them None: K5 (the compact route's substep, and its forces without
+    extensions) reads ``pj_cols_scenes``, K2's and K3's scene walk reads
+    ``frame_record_scenes`` in its place."""
+    ext = sph_kernels.uses_extensions(cfg.xsph, cfg.artificial_viscosity)
+    if tune.compact and (fused or not ext):
+        return sph_kernels.pj_cols_scenes(rho_s, params), None
+    return None, sph_kernels.frame_record_scenes(frame, rho_s, params)
+
+
 def _forces_scenes(frame: SortedFrame, rows: torch.Tensor,
                    params: PhysParams, cfg: SimConfig, tune: SortedTuning,
-                   pj: torch.Tensor, scal: torch.Tensor):
+                   pj: torch.Tensor | None, scal: torch.Tensor,
+                   rec: torch.Tensor | None = None):
     """:func:`_forces` of every scene: (force [S, N, 3], XSPH dv or None,
     drift counts i32[S] or None), K5's forces mode without extensions on
-    the compact route, else K3, each over the scene axis."""
+    the compact route (reading ``pj``), else K3 (reading the frame record
+    ``rec``), each over the scene axis."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     xsph, alpha = cfg.xsph, cfg.artificial_viscosity
     if tune.compact and not sph_kernels.uses_extensions(xsph, alpha):
@@ -358,7 +372,7 @@ def _forces_scenes(frame: SortedFrame, rows: torch.Tensor,
                                              scal, tune)
         return f, None, c
     f, dv = sph_kernels.forces_scenes(frame, rows, params, r, cap, xsph,
-                                      alpha, pj, scal, tune)
+                                      alpha, rec, scal, tune)
     return f, dv, None
 
 
@@ -392,7 +406,7 @@ def _scenes_frame(frame: SortedFrame, pos_s: torch.Tensor,
     cert = None
     with span("pack_rows"):
         rows = sph_kernels.pack_rows_scenes(pos_s, vel_s, rho_s)
-        pj = sph_kernels.pj_cols_scenes(rho_s, params)
+        pj, rec = _scene_cols(frame, rho_s, params, cfg, tune, tune.fused)
         occ_cum = (compact.occ_prefix(frame.occ)
                    if tune.compact and tune.fused else None)
     if not tune.fused:
@@ -405,7 +419,7 @@ def _scenes_frame(frame: SortedFrame, pos_s: torch.Tensor,
                     rows = sph_kernels.pack_rows_scenes(pos_s, vel_s, rho_s)
             with span("forces"):
                 f, dv, c = _forces_scenes(frame, rows, params, cfg, tune, pj,
-                                          scal)
+                                          scal, rec)
                 if c is not None:
                     cert = _add_cert(cert, c)
             with span("integrate"):
@@ -422,7 +436,7 @@ def _scenes_frame(frame: SortedFrame, pos_s: torch.Tensor,
                     cert = _add_cert(cert, c)
                 else:
                     rows = sph_kernels.fused_substep_scenes(
-                        frame, rows, params, r, cap, xsph, alpha, pj, scal,
+                        frame, rows, params, r, cap, xsph, alpha, rec, scal,
                         tune=tune)
     with span("unpack+metrics"):
         if tune.fused:
@@ -443,12 +457,14 @@ def make_scenes_step(cfg: SimConfig, faithful: bool = True,
     a grid axis. Faithful:
 
         build_frame_scenes → K1 (K5) over the scenes → pack rows and pj
-        → 5 × K2 (K5) over the scenes, or unfused 5 × (K3 (K5 forces)
-        → integrate) → unpack, each scene's metrics → each scene's unsort
+        (K5) or the frame record (K2, K3) → 5 × K2 (K5) over the scenes,
+        or unfused 5 × (K3 (K5 forces) → integrate) → unpack, each scene's
+        metrics → each scene's unsort
 
     Corrected (:func:`_corrected_step` of each scene): one frame-start
     build and density, then 5 × (build_frame_scenes → K1 (K5) → pack rows
-    and pj → K3 (K5 forces without extensions) → integrate → unsort).
+    and the frame record (pj) → K3 (K5 forces without extensions) →
+    integrate → unsort).
 
     Every kernel launches once a phase over all scenes
     (``sph_kernels.density_scenes``, ``fused_substep_scenes``,
@@ -494,10 +510,10 @@ def make_scenes_step(cfg: SimConfig, faithful: bool = True,
                                         scal)
             with span("pack_rows"):
                 rows = sph_kernels.pack_rows_scenes(pos_s, vel_s, rho_s)
-                pj = sph_kernels.pj_cols_scenes(rho_s, params)
+                pj, rec = _scene_cols(frame, rho_s, params, cfg, tune, False)
             with span("forces"):
                 f, dv, c = _forces_scenes(frame, rows, params, cfg, tune, pj,
-                                          scal)
+                                          scal, rec)
                 if c is not None:
                     cert = _add_cert(cert, c)
             with span("integrate+unsort"):

@@ -9,8 +9,10 @@ the recorded slab frame and ``Scene(jit=True)`` against their host
 loops, the exact tiers, the dt replay,
 the snapshots of the sorted rollout, the render properties, the scene
 batch (the scene-axis K1, K2 and K3 at config 5's shape and K5 over three
-small scenes, each scene bit-equal to its solo launch; the batch's graph
-against its host loop on every route), the sites tier, its slab step, the
+small scenes, each scene bit-equal to its solo launch; the scene-axis K2
+and K3, which read the frame record, bit-equal to the reference walk, and
+planted frame records; the batch's graph against its host loop on every
+route), the sites tier, its slab step, the
 domain step
 and the CLI's
 ``sweep`` and ``run --shards``. They
@@ -1294,6 +1296,118 @@ def test_forces_scenes_kernel_matches_plain_at_config5_on_card(cuda_device,
         f0, dv0 = sk.fold_forces(bad[0], rho[0], ph)
     assert not sk.forces_accuracy(fs, rows[0], f0, dv0, ph, r, cap, xs,
                                   al).ok
+
+
+# The scene-axis K2 and K3 read the frame record (csrc/window_walk.cuh's
+# kRec); the reference walk reads occ, raw and pj
+_SCENE_WALK_INPUTS = {}
+
+
+def _scene_walk_inputs(case, device):
+    """(frame, frame-start rows, rows two substeps in, params, r, cap, pj,
+    frame record) of config 5 after 11 frames of its batch, or of 2 scenes
+    of the golden 262k at the spawn; built once a case."""
+    if case not in _SCENE_WALK_INPUTS:
+        from sphfluidsimulation_torch import GOLDEN_CONFIG, cli
+        from sphfluidsimulation_torch.ops.frame import build_frame_scenes
+        from sphfluidsimulation_torch.parallel import BatchedScenes
+        from sphfluidsimulation_torch.params import stack_params
+        from sphfluidsimulation_torch.state import stack_states
+        if case == "config5_f11":
+            base = SimConfig(particle_number=524288)
+            overrides = cli.sweep_overrides(1.0, 2.0, 8)
+            bs = BatchedScenes(base, overrides, devices=device)
+            bs.step(11)
+            states = bs.states
+        else:
+            base = GOLDEN_CONFIG
+            overrides = cli.sweep_overrides(1.0, 2.0, 2)
+            states = stack_states([initial_state(base.replace(**ov), device)
+                                   for ov in overrides])
+        params = stack_params([PhysParams.from_config(base.replace(**ov),
+                                                      device)
+                               for ov in overrides])
+        r, cap = base.bucket_resolution, base.voxel_capacity
+        frame, (ps, vs) = build_frame_scenes(states.pos, r, cap,
+                                             extras=(states.pos, states.vel))
+        rho = sk.density_scenes(frame, ps, params, r, cap)
+        rows = mid = sk.pack_rows_scenes(ps, vs, rho)
+        for _ in range(2):
+            mid = sk.fused_substep_scenes(frame, mid, params, r, cap)
+        _SCENE_WALK_INPUTS[case] = (frame, rows, mid, params, r, cap,
+                                    sk.pj_cols_scenes(rho, params),
+                                    sk.frame_record_scenes(frame, rho,
+                                                           params))
+    return _SCENE_WALK_INPUTS[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(LANE_TUNES))
+@pytest.mark.parametrize("case", ["config5_f11", "262k_x2_f0"])
+def test_scene_record_walk_is_the_reference_walk_on_card(cuda_device, case,
+                                                         variant):
+    # K2-scenes and K3-scenes, without and with the extensions, in each
+    # variant library: the record walk gives the reference walk's bits, and
+    # each scene's solo launch's
+    from sphfluidsimulation_torch.ops.frame import scene_frame
+    tune = LANE_TUNES[variant]
+    frame, rows, mid, params, r, cap, pj, rec = _scene_walk_inputs(
+        case, cuda_device)
+    for xs, al in ((0.0, 0.0), (XSPH, ALPHA)):
+        ext = sk.uses_extensions(xs, al)
+
+        def k2(**kw):
+            return sk.fused_substep_scenes_cuda(frame, mid, params, r, cap,
+                                                xs, al, tune=tune, **kw)
+
+        def k3(**kw):
+            return sk.forces_scenes_cuda(frame, rows, params, r, cap, ext,
+                                         tune=tune, **kw)
+
+        ref2 = k2(reference=True, pj=pj)
+        ref3 = k3(reference=True, pj=pj)
+        assert _same_bits(k2(rec=rec), ref2), ext
+        assert _same_bits(k3(rec=rec), ref3), ext
+        # the record and pj built in the wrapper
+        assert _same_bits(k2(), ref2) and _same_bits(k3(), ref3)
+        assert _same_bits(k2(reference=True), ref2)
+        for sc in range(mid.shape[0]):
+            fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+            assert _same_bits(ref2[sc], sk.fused_substep_cuda(
+                fs, mid[sc], ph, r, cap, xs, al, tune=tune)), sc
+            assert _same_bits(ref3[sc], sk.forces_cuda(
+                fs, rows[sc], ph, r, cap, ext, tune=tune)), sc
+
+
+@pytest.mark.cuda
+def test_scene_walk_reads_its_gate_from_the_record_on_card(cuda_device):
+    # planted controls: the walk given a record with one occupied slot's
+    # occ cleared, or with one raw id moved next to its row's window, must
+    # leave the reference walk's bits
+    frame, rows, mid, params, r, cap, pj, rec = _scene_walk_inputs(
+        "262k_x2_f0", cuda_device)
+    ref = sk.fused_substep_scenes_cuda(frame, mid, params, r, cap,
+                                       reference=True, pj=pj)
+    assert _same_bits(sk.fused_substep_scenes_cuda(
+        frame, mid, params, r, cap, rec=rec), ref)
+    # slot j: an occupied neighbour of row i in its own cell
+    occ = frame.occ[0]
+    i = int(torch.nonzero(occ[:-1] & occ[1:]
+                          & (frame.raw[0, :-1] == frame.raw[0, 1:]))[1000])
+    j = i + 1
+    no_occ = rec.clone()
+    no_occ.view(torch.int32)[0, j, 3] = 0
+    assert not _same_bits(sk.fused_substep_scenes_cuda(
+        frame, mid, params, r, cap, rec=no_occ), ref)
+    c = sk.fresh_cell(mid[0, i, 0:3], r)
+    x = int(c[0]) + 2 if int(c[0]) + 2 < r else int(c[0]) - 2
+    moved = rec.clone()
+    moved.view(torch.int32)[0, j, 2] = x + (int(c[1]) + int(c[2]) * r) * r
+    assert not _same_bits(sk.fused_substep_scenes_cuda(
+        frame, mid, params, r, cap, rec=moved), ref)
+    # the reference walk reads no record
+    assert _same_bits(sk.fused_substep_scenes_cuda(
+        frame, mid, params, r, cap, rec=no_occ, reference=True, pj=pj), ref)
 
 
 @pytest.mark.cuda

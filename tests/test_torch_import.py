@@ -79,6 +79,17 @@ def test_every_module_imports_with_jax_blocked():
     assert "imported" in out.stdout
 
 
+def test_jax_check_covers_the_scene_walk_files():
+    # the scene-axis walk's script and the kernel sources' Python side are
+    # among the files the AST check below reads
+    scanned = set(PKG.rglob("*.py")) | set(PORT_SCRIPTS)
+    for path in (ROOT / "scripts" / "torch_scenes_ab.py",
+                 ROOT / "scripts" / "torch_kernel_bits.py",
+                 PKG / "ops" / "sph_kernels.py", PKG / "ops" / "cuda_build.py",
+                 PKG / "sim" / "stepper.py"):
+        assert path in scanned, path
+
+
 def test_no_source_file_imports_jax():
     offenders = []
     for path in sorted(PKG.rglob("*.py")) + PORT_SCRIPTS:
