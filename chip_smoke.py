@@ -27,9 +27,11 @@ every phase passed; each prints its seconds):
    the plain version's; every kernel with the frame's voxel capacity; the
    scene-axis instances (one launch over all scenes of a batch) at
    BASELINE config 5 (8 scenes of 524,288 requested particles, rest
-   density 1.0-2.0): K1-scenes, and K2-scenes on the rows two substeps
-   into the frame, each scene held to its plain version and bit-equal to
-   its solo launch, and K2-ext-scenes likewise on 2 scenes of config 3's
+   density 1.0-2.0): K1-scenes, given the density record as the stepper
+   builds it and bit-equal to its reference walk (occ, raw and pos), and
+   K2-scenes on the rows two substeps into the frame, each scene held to
+   its plain version and bit-equal to its solo launch, and K2-ext-scenes
+   likewise on 2 scenes of config 3's
    physics, whose artificial viscosity zeroed is a planted control that
    must fail; K3-scenes (config 5) and K3-ext-scenes (the config-3 batch)
    on the rows two substeps into the frame, and the K5-scenes instances,
@@ -85,8 +87,10 @@ every phase passed; each prints its seconds):
    K2, K3 and K5 (density, substep, forces; with extensions K2-ext, K3-ext
    and K5-ext on the config-3 batch; the forces on the frame-start rows,
    the substeps on the rows two substeps in), their plain versions scene
-   by scene, and beside them the solo kernels on the same inputs, one
-   launch a scene; every K5 substep instance also timed walking each tile
+   by scene, K1's, K2's and K3's reference walks on the same inputs (the
+   "_reference" shapes) and K1's density record build, and beside them
+   the solo kernels on the same inputs, one launch a scene; every K5
+   substep instance also timed walking each tile
    whole on one warp (``split=0``, the body before wide tiles were split:
    the "_whole" shapes), given the frame's ``occ_prefix`` as the stepper
    gives it once a frame (its own time printed beside), and at 262k,
@@ -1746,22 +1750,28 @@ def main() -> None:
         return frame, pos_s, vel_s, params, r, cap
 
     def compare_scenes(cfg, overrides, states, label, planted=False):
-        """K1-scenes, then K2-scenes (K2-ext-scenes with extensions) on the
-        rows two substeps into the frame, given the frame record as the
-        stepper gives it, against each scene's plain version (phase 3's
-        rules) and bit-equal to each scene's solo launch and to the
-        reference walk (``reference=True``), which is held to
-        the plain version too; with ``planted`` K2-scenes with viscosity 0
-        (the artificial viscosity 0 with extensions) must fail scene 0's
-        rule. Returns the frame, the positions, the frame-start rows, the
-        rows two substeps in, the params, r and the capacity."""
+        """K1-scenes, given the density record as the stepper gives it,
+        then K2-scenes (K2-ext-scenes with extensions) on the rows two
+        substeps into the frame, given the frame record, against each
+        scene's plain version (phase 3's rules) and bit-equal to each
+        scene's solo launch and to the reference walk
+        (``reference=True``), which is held to the plain version too;
+        with ``planted`` K2-scenes with viscosity 0 (the artificial
+        viscosity 0 with extensions) must fail scene 0's rule. Returns the
+        frame, the positions, the frame-start rows, the rows two substeps
+        in, the params, r and the capacity."""
         frame, pos_s, vel_s, params, r, cap = scene_inputs(cfg, overrides,
                                                            states)
         xs, al = cfg.xsph, cfg.artificial_viscosity
         ext = sk.uses_extensions(xs, al)
         name = "fused_substep_ext_scenes" if ext else "fused_substep_scenes"
         scal = sk.scal_blocks(params, xs, al)
-        rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap, scal)
+        drec = sk.density_record_scenes(frame, pos_s)
+        rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap, scal,
+                                     rec=drec)
+        if not same_bits(rho, sk.density_scenes_cuda(
+                frame, pos_s, params, r, cap, scal, reference=True)):
+            fail(f"{label}: density_scenes leaves the reference walk")
         rows = rows0 = sk.pack_rows_scenes(pos_s, vel_s, rho)
         rec = sk.frame_record_scenes(frame, rho, params)
         for _ in range(2):
@@ -1790,8 +1800,8 @@ def main() -> None:
                         fs, rows[sc], ph, r, cap, xs, al)))
             print(f"compare {lab}: {name} on substep 3 max|k-p| {e:.3e}, "
                   f"{line}; K1 and K2 bit-equal to the scene's solo "
-                  f"launches {solo}, K2's record walk to the reference "
-                  f"walk", flush=True)
+                  f"launches {solo}, K1's and K2's record walks to their "
+                  f"reference walks", flush=True)
             if not solo:
                 fail(f"{lab}: a scene-axis kernel leaves the solo kernel")
         if planted:
@@ -2400,12 +2410,27 @@ def main() -> None:
                   f"{tot} ({tot / (n_sc * n):.2f} a particle), substep 3 "
                   f"{m_tot} without the self pairs", flush=True)
             if not ext:
+                # K1-scenes given the density record as the stepper builds
+                # it, then the reference walk (occ, raw and pos) on the same
+                # inputs, as "<shape>_reference"; the record's build
+                drec = sk.density_record_scenes(frame, pos_s)
                 timed("density_scenes", shape, n_sc * n, r, tot, False,
                       lambda: sk.density_scenes_cuda(frame, pos_s, params,
-                                                     r, cap, scal),
+                                                     r, cap, scal, rec=drec),
                       lambda: sk.density_scenes_plain(frame, pos_s, params,
                                                       r, cap),
                       scenes=n_sc)
+                timed("density_scenes", f"{shape}_reference", n_sc * n, r,
+                      tot, False,
+                      lambda: sk.density_scenes_cuda(frame, pos_s, params,
+                                                     r, cap, scal,
+                                                     reference=True),
+                      times["density_scenes"][shape][1], scenes=n_sc)
+                build = time_ms(lambda: sk.density_record_scenes(frame,
+                                                                 pos_s), 20)
+                print(f"time {shape}: the density record's build "
+                      f"{build:.4f} ms, once a K1-scenes launch [{ident}]",
+                      flush=True)
             k2_name = ("fused_substep_ext_scenes" if ext
                        else "fused_substep_scenes")
             timed(k2_name, shape, n_sc * n, r, m_tot, ext,
@@ -3022,11 +3047,18 @@ def main() -> None:
                       lambda: compact.compact_substep_scenes_plain(
                           frame, rows, params, r), scenes=n_sc)
             if tune.kahan:
+                # the density record walk, given the record as the stepper
+                # builds it, against the reference walk and the solo K1
+                drec = sk.density_record_scenes(frame, pos_s)
                 rho = sk.density_scenes_cuda(frame, pos_s, params, r, cap,
-                                             scal, tune)
+                                             scal, tune, rec=drec)
                 hold_density(rho[0], sk.density_plain(fs0, pos_s[0], ph0, r,
                                                       cap, tune=tune),
                              "density_scenes+kahan", "262k x 2 frame 0")
+                if not same_bits(rho, sk.density_scenes_cuda(
+                        frame, pos_s, params, r, cap, scal, tune,
+                        reference=True)):
+                    fail("density_scenes+kahan leaves the reference walk")
                 if not all(same_bits(rho[sc], sk.density_cuda(
                         fs, pos_s[sc], ph, r, cap, tune=tune))
                         for sc, (fs, ph) in enumerate(solo)):
@@ -3034,9 +3066,17 @@ def main() -> None:
                 timed("density_scenes+kahan", "262kx2", n_sc * n, r, tot,
                       False,
                       lambda: sk.density_scenes_cuda(frame, pos_s, params, r,
-                                                     cap, scal, tune),
+                                                     cap, scal, tune,
+                                                     rec=drec),
                       lambda: sk.density_scenes_plain(frame, pos_s, params,
                                                       r, cap, tune),
+                      scenes=n_sc)
+                timed("density_scenes+kahan", "262kx2_reference", n_sc * n,
+                      r, tot, False,
+                      lambda: sk.density_scenes_cuda(frame, pos_s, params, r,
+                                                     cap, scal, tune,
+                                                     reference=True),
+                      times["density_scenes+kahan"]["262kx2"][1],
                       scenes=n_sc)
 
     # the slab step on the compact route: the banded K5

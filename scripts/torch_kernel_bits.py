@@ -13,7 +13,8 @@ metrics (K1 and K2, or K2-ext), a 2-frame corrected rollout's at config 3
 final state, K1's density, K2's (K2-ext's) substep and K3's sums, each
 launched through the tree's own wrapper without a band, and the slab
 step's state after 3 frames on ``LocalRing(4)`` (row slack 4, halo slack
-8; K1-band and K2-band, or K2-ext-band), collected; then config 5 over the
+8; K1-band and K2-band, or K2-ext-band), collected, and K1-band's density
+launched on each shard's frame of that state; then config 5 over the
 scene axis (``sweep --particles 524288 --scenes 8``; and 2 scenes of
 config 3's physics, rest density 1.2 and 1.8): ``BatchedScenes``' state
 and metrics after 3 faithful frames (K1-scenes and K2-scenes, or
@@ -76,6 +77,7 @@ def save(root: pathlib.Path, out: str) -> None:
     from sphfluidsimulation_torch.parallel import (BatchedScenes, LocalRing,
                                                    collect, distribute,
                                                    make_pallas_slab_step)
+    from sphfluidsimulation_torch.parallel.slab_pallas import shard_frames
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                       make_rollout)
 
@@ -109,7 +111,8 @@ def save(root: pathlib.Path, out: str) -> None:
             frame, rows, phys, r, cap, xs, al, **kw)
         res[f"{label} K3"] = sk.forces_cuda(frame, rows, phys, r, cap,
                                             sk.uses_extensions(xs, al), **kw)
-        step, spec = make_pallas_slab_step(cfg, LocalRing(4), row_slack=4.0,
+        ring = LocalRing(4)
+        step, spec = make_pallas_slab_step(cfg, ring, row_slack=4.0,
                                            halo_slack=8.0, **kw)
         sst = distribute(s0, cfg, spec)
         for _ in range(3):
@@ -117,6 +120,9 @@ def save(root: pathlib.Path, out: str) -> None:
         slab, _ = collect(sst, cfg.n_particles)
         for name, t in slab._asdict().items():
             res[f"{label} slab rollout {name}"] = t
+        for k, sf in enumerate(shard_frames(cfg, spec, ring, sst)):
+            res[f"{label} K1-band shard {k}"] = sk.density_cuda(
+                sf.frame, sf.pos_s, phys, r, cap, band=sf.band, **kw)
     c5 = SimConfig(particle_number=524288)
     for label, cfg, ov in (("c5", c5, cli.sweep_overrides(1.0, 2.0, 8)),
                            ("c3x2", c3, cli.sweep_overrides(1.2, 1.8, 2))):

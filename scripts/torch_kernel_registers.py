@@ -12,7 +12,8 @@ every lane-group width), and prints one line per kernel instance: the
 source, the switches, the kernel and its template arguments (for K1 and K3
 ``<kExt, kBand>`` or ``<kBand>``, for K2 ``<kExt, kBand, kLanes>``, for
 the scene-axis K2 and K3 ``<kExt, kRec>``, for K5 ``<mode, kExt,
-kBand>``), its registers and its stack frame, spill store and spill load
+kBand>``; none for the scene-axis K1, its reference walk and its record
+walk), its registers and its stack frame, spill store and spill load
 bytes.
 """
 
@@ -33,9 +34,11 @@ from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning  # noqa: E402
 VARIANTS = (SortedTuning(fuse_acc=False), SortedTuning(kahan=True),
             SortedTuning(bf16=True))
 _ENTRY = re.compile(r"Compiling entry function '\w*?(density_kernel|"
+                    r"density_scenes_kernel|"
+                    r"density_record_scenes_kernel|"
                     r"fused_substep_kernel|forces_kernel|compact_kernel|"
                     r"fused_substep_scenes_kernel|forces_scenes_kernel)"
-                    r"I(\w*?)EE")
+                    r"(?:I(\w*?)EE)?")
 _USED = re.compile(r"Used (\d+) registers")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
@@ -53,7 +56,8 @@ def report(source: str, switches: tuple[str, ...]) -> list[str]:
     lines, name = [], None
     for line in proc.stderr.splitlines():
         if m := _ENTRY.search(line):
-            args = ",".join(re.findall(r"L[bi](\d+)E", m.group(2) + "E"))
+            args = ",".join(re.findall(r"L[bi](\d+)E",
+                                       (m.group(2) or "") + "E"))
             name = f"{m.group(1)}<{args}>"
             frame = None
         elif (f := _FRAME.search(line)) and name:

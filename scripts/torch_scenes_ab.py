@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K2's and K3's scene-axis instances (K2-scenes, K3-scenes, their ``kExt``
-instances) in one source tree: the A/B comparison of two commits on one
-card, the measurement before the design, the solo frames, and config 5's
-breakdown.
+"""The scene-axis instances of K1, K2 and K3 (K1-scenes, K2-scenes,
+K3-scenes, their ``kExt`` instances) in one source tree: the A/B
+comparison of two commits on one card, the measurement before the design,
+the solo frames, and config 5's breakdown.
 
     python3 scripts/torch_scenes_ab.py ROOT              # launched instances
     python3 scripts/torch_scenes_ab.py ROOT --solo       # one-scene batches
@@ -13,31 +13,36 @@ ROOT is a source tree (default: the checkout that holds this script); each
 builds its own kernels under its own ``build/``. The inputs are those of
 chip_smoke.py's scene timing: config 5 (``sweep --particles 524288
 --scenes 8``: 8 scenes of 524,176 particles, rest density 1.0-2.0) after
-11 frames of ``BatchedScenes``, K2-scenes on the rows two substeps into
-the frame and K3-scenes on the frame-start rows; the ``kExt`` instances on
+11 frames of ``BatchedScenes``, K1-scenes on its frame, K2-scenes on the
+rows two substeps into the frame and K3-scenes on the frame-start rows;
+the ``kExt`` instances on
 a 2-scene batch of BASELINE config 3's physics (XSPH 0.3, artificial
 viscosity 0.5, rest density 1.2 and 1.8) at the spawn, likewise. A time is
 the median of 5 CUDA-event timings of 20 launches behind a spin of the
 card (device time); each launch gets its inputs (the frame record, or pj,
-and the scalar blocks) built beforehand.
+the density record, and the scalar blocks) built beforehand.
 
 - The first form times each instance through its wrapper in each variant
-  library (default, ``facc0``, ``kahan``, ``bf16``) and, in a tree whose
-  scene wrappers take ``reference``, the reference walk (occ, raw and pj)
-  on the same inputs; then config 5's graph rate (the ``BatchedScenes``
-  default on the card) in both modes, 10 frames on the host clock after a
-  first frame.
+  library (default, ``facc0``, ``kahan``, ``bf16``; K1 has only the
+  default and ``kahan``) and, in a tree whose scene wrappers take
+  ``reference``, the reference walk (occ, raw and pj; K1's: occ, raw and
+  pos) on the same inputs, the build of K1's density record, and K1's
+  record walk compiled (from a patched copy, into
+  ``build/scenes_placement``) with the record beside the reference walk's
+  parameters, the other place its pointer could ride; then
+  config 5's graph rate (the ``BatchedScenes`` default on the card) in
+  both modes, 10 frames on the host clock after a first frame.
 - ``--solo`` times the launched walk beside the reference walk on the
   solo frames of the golden 262k and of 1M, 10 frames from the spawn, as
   one-scene batches (the solo launch does not read the record).
 - ``--step1`` counts the instructions and loads of each loop of the scene
   kernels in the built library (``cuobjdump -sass``), times the wavefront
   control beside the reference walk on the same inputs, and prints the
-  slots a row walks. The control is a copy of ROOT's sources, compiled
-  into ``build/scenes_step1``, in which every lane of a warp walks the
-  window of the warp's first row with its own row's particle, so that the
-  lanes load the same candidate at each step (its sums are not the
-  kernel's).
+  slots a row walks (K1's also on config 5's corrected frame 11). The
+  control is a copy of ROOT's sources, compiled into
+  ``build/scenes_step1``, in which every lane of a warp walks the window
+  of the warp's first row with its own row's particle, so that the lanes
+  load the same candidate at each step (its sums are not the kernel's).
 - ``--breakdown`` runs ROOT's ``scripts/torch_frame_breakdown.py --cells
   config5 config5-corrected --route window``, its tables to ``--out``
   (default ``build/profile``).
@@ -95,12 +100,16 @@ LEAD_CYCLES = 50_000_000
 # reference walk), or the parent's, which read pj
 REC = "reference" in inspect.signature(
     sk.fused_substep_scenes_cuda).parameters
+# a tree whose K1-scenes reads the density record (and keeps the reference
+# walk)
+DREC = "reference" in inspect.signature(sk.density_scenes_cuda).parameters
 C5 = SimConfig(particle_number=524288)
 C3B = SimConfig(particle_number=524288, preset=2, xsph=0.3,
                 artificial_viscosity=0.5)
 VARIANTS = {"": None, " facc0": SortedTuning(fuse_acc=False),
             " kahan": SortedTuning(kahan=True),
             " bf16": SortedTuning(bf16=True)}
+K1_VARIANTS = ("", " kahan")
 # the fresh cell of window_pair_sums, and the control's: the warp's first
 # row's cell for every lane
 FRESH = """  const int cx = fresh_coord(p.px, r), cy = fresh_coord(p.py, r),
@@ -109,6 +118,13 @@ WARP_CELL = """  const unsigned warp = __activemask();
   const int cx = __shfl_sync(warp, fresh_coord(p.px, r), 0),
             cy = __shfl_sync(warp, fresh_coord(p.py, r), 0),
             cz = __shfl_sync(warp, fresh_coord(p.pz, r), 0);"""
+# K1's fresh cell (density.cu's density_row), and the control's
+K1_FRESH = """      sph::fresh_coord(px, r), sph::fresh_coord(py, r),
+      sph::fresh_coord(pz, r), i, r, cap, zbase, z_span, start, raw, occ,"""
+K1_WARP_CELL = """      __shfl_sync(__activemask(), sph::fresh_coord(px, r), 0),
+      __shfl_sync(__activemask(), sph::fresh_coord(py, r), 0),
+      __shfl_sync(__activemask(), sph::fresh_coord(pz, r), 0), i, r, cap,
+      zbase, z_span, start, raw, occ,"""
 
 
 def ms(fn, reps: int = 20, runs: int = 5) -> float:
@@ -124,9 +140,9 @@ def ms(fn, reps: int = 20, runs: int = 5) -> float:
 
 
 class Batch:
-    """A batch's frame, its frame-start rows, the rows two substeps in,
-    params, pj, the frame record (in a tree that has one) and the scalar
-    blocks."""
+    """A batch's frame, its sorted positions, its frame-start rows, the rows
+    two substeps in, params, pj, the frame record and the density record
+    (in a tree that has them) and the scalar blocks."""
 
     def __init__(self, cfg, states, params):
         self.cfg, self.params = cfg, params
@@ -135,6 +151,9 @@ class Batch:
         self.ext = sk.uses_extensions(self.xs, self.al)
         self.frame, (pos_s, vel_s) = build_frame_scenes(
             states.pos, self.r, self.cap, extras=(states.pos, states.vel))
+        self.pos_s = pos_s
+        self.drec = (sk.density_record_scenes(self.frame, pos_s) if DREC
+                     else None)
         rho = sk.density_scenes_cuda(self.frame, pos_s, params, self.r,
                                      self.cap)
         self.rows0 = sk.pack_rows_scenes(pos_s, vel_s, rho)
@@ -154,6 +173,13 @@ class Batch:
             return {"pj": self.pj}
         return ({"pj": self.pj, "reference": True} if reference
                 else {"rec": self.rec})
+
+    def k1(self, tune=None, reference=False):
+        kw = ({} if not DREC else {"reference": True} if reference
+              else {"rec": self.drec})
+        return sk.density_scenes_cuda(self.frame, self.pos_s, self.params,
+                                      self.r, self.cap, self.scal_f,
+                                      tune=tune, **kw)
 
     def k2(self, rows, tune=None, reference=False):
         return sk.fused_substep_scenes_cuda(
@@ -192,9 +218,9 @@ class Batch:
         return float(tot.sum()) / (n_sc * n)
 
 
-def c5_batch(dev) -> Batch:
+def c5_batch(dev, faithful: bool = True) -> Batch:
     ov = cli.sweep_overrides(1.0, 2.0, 8)
-    bs = BatchedScenes(C5, ov, devices=dev)
+    bs = BatchedScenes(C5, ov, faithful=faithful, devices=dev)
     bs.step(11)
     states = bs.states
     del bs
@@ -264,19 +290,22 @@ def sass_loops(lib: str, pattern: str) -> dict:
     return out
 
 
-def control(source: str) -> dict:
-    """The wavefront control of ``source``: a copy of it and of
-    window_walk.cuh with every lane walking its warp's first row's window,
-    compiled into build/scenes_step1 and bound."""
-    out = cuda_build.BUILD_DIR / "scenes_step1"
+def patched(source: str, name: str, edits) -> dict:
+    """A copy of ``source`` and window_walk.cuh with each edit (file, old
+    text, new text; the old text must appear once) made, compiled into
+    build/scenes_<name>/<source> and bound."""
+    out = cuda_build.BUILD_DIR / f"scenes_{name}" / source[:-3]
     out.mkdir(parents=True, exist_ok=True)
-    walk = (cuda_build.CSRC / "window_walk.cuh").read_text()
-    if walk.count(FRESH) != 1:
-        raise RuntimeError("the fresh cell is not in window_walk.cuh once")
-    (out / "window_walk.cuh").write_text(walk.replace(FRESH, WARP_CELL))
+    texts = {f: (cuda_build.CSRC / f).read_text()
+             for f in ("window_walk.cuh", source)}
+    for f, old, new in edits:
+        if texts[f].count(old) != 1:
+            raise RuntimeError(f"the text to patch is not in {f} once")
+        texts[f] = texts[f].replace(old, new)
+    for f, text in texts.items():
+        (out / f).write_text(text)
     cu = out / source
-    cu.write_text((cuda_build.CSRC / source).read_text())
-    so = out / f"libsph_{source[:-3]}_control.so"
+    so = out / f"libsph_{source[:-3]}_{name}.so"
     subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I",
                     str(cuda_build.CSRC), "-o", str(so), str(cu)],
                    check=True, capture_output=True, text=True)
@@ -285,12 +314,73 @@ def control(source: str) -> dict:
     return fns
 
 
+def control(source: str) -> dict:
+    """The wavefront control of ``source``: every lane walks its warp's
+    first row's window (K1's fresh cell is in density.cu, K2's and K3's
+    in window_walk.cuh), compiled into build/scenes_step1/<source>."""
+    edit = (("density.cu", K1_FRESH, K1_WARP_CELL) if source == "density.cu"
+            else ("window_walk.cuh", FRESH, WARP_CELL))
+    return patched(source, "step1", [edit])
+
+
+# K1's record walk with the record beside the reference walk's parameters
+# (pos, start, raw, occ, rec, scal, ...) in place of its own short list:
+# the other place its pointer could ride
+K1_REC_PARAMS = """density_record_scenes_kernel(const float4* __restrict__ rec,
+                             const int* __restrict__ start,
+                             const float* __restrict__ scal,"""
+K1_WIDE_PARAMS = """density_record_scenes_kernel(const float* __restrict__ pos,
+                             const int* __restrict__ start,
+                             const int* __restrict__ raw,
+                             const uint8_t* __restrict__ occ,
+                             const float4* __restrict__ rec,
+                             const float* __restrict__ scal,"""
+K1_REC_LAUNCH = ("          reinterpret_cast<const float4*>(rec), start, "
+                 "scal, rho, n, r, cap);")
+K1_WIDE_LAUNCH = ("          pos, start, raw, occ, "
+                  "reinterpret_cast<const float4*>(rec), scal,\n"
+                  "          rho, n, r, cap);")
+
+
+def placement_ms(b: Batch) -> float:
+    """K1-scenes' record walk built with the record beside the reference
+    walk's parameters (K1_WIDE_PARAMS), on ``b``'s inputs."""
+    fn = patched("density.cu", "placement",
+                 [("density.cu", K1_REC_PARAMS, K1_WIDE_PARAMS),
+                  ("density.cu", K1_REC_LAUNCH, K1_WIDE_LAUNCH)])[
+                      "sph_density_scenes"]
+    n_sc, n = b.pos_s.shape[:2]
+    rho = torch.empty((n_sc, n), device=b.pos_s.device)
+    args = (sk._ptr(b.pos_s), sk._ptr(b.frame.start), sk._ptr(b.frame.raw),
+            sk._ptr(b.frame.occ), sk._ptr(b.drec), sk._ptr(b.scal_f),
+            sk._ptr(rho), n, b.r, sk._cap_arg(b.cap), n_sc, 0,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    fn(*args)
+    if not torch.equal(rho, b.k1()):
+        raise RuntimeError("the placement copy leaves K1-scenes' bits")
+    return ms(lambda: fn(*args))
+
+
 def step1(batches, dev) -> dict:
     res: dict = {}
-    for src in ("fused_substep.cu", "forces.cu"):
+    for src in ("density.cu", "fused_substep.cu", "forces.cu"):
         res[f"sass {src}"] = sass_loops(str(cuda_build.library_path(src)),
                                         r"scenes_kernel")
     b = batches["c5_f11"]
+    # K1-scenes: the reference walk (occ, raw and pos) beside its control
+    n_sc, n = b.pos_s.shape[:2]
+    rho = torch.empty((n_sc, n), device=dev)
+    ctl = control("density.cu")["sph_density_scenes"]
+    args = (sk._ptr(b.pos_s), sk._ptr(b.frame.start), sk._ptr(b.frame.raw),
+            sk._ptr(b.frame.occ), ctypes.c_void_p(None), sk._ptr(b.scal_f),
+            sk._ptr(rho), n, b.r, sk._cap_arg(b.cap), n_sc, 1,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    res["K1-scenes reference"] = ms(lambda: b.k1(reference=True))
+    res["K1-scenes warp-cell control"] = ms(lambda: ctl(*args))
+    res["K1-scenes slots a row"] = b.slots_a_row(b.rows0)
+    res["K1-scenes slots a row, corrected frame 11"] = \
+        batches["c5_f11_corrected"].slots_a_row(
+            batches["c5_f11_corrected"].rows0)
     for label, src in (("K2-scenes", "fused_substep.cu"),
                        ("K3-scenes", "forces.cu")):
         forces = label == "K3-scenes"
@@ -335,6 +425,9 @@ def main() -> None:
             b = solo_batch(cfg, dev)
             for ref in (False, True):
                 tag = " reference walk" if ref else ""
+                if DREC:
+                    res[f"{label} solo K1{tag}"] = ms(
+                        lambda: b.k1(reference=ref))
                 res[f"{label} solo K2{tag}"] = ms(
                     lambda: b.k2(b.mid, reference=ref))
                 res[f"{label} solo K3{tag}"] = ms(
@@ -343,10 +436,22 @@ def main() -> None:
     else:
         batches = {"c5_f11": c5_batch(dev), "c3x2_f0": c3b_batch(dev)}
         if ARGS.step1:
+            batches["c5_f11_corrected"] = c5_batch(dev, faithful=False)
             res = step1(batches, dev)
         else:
             for label, b in batches.items():
                 ext = " ext" if b.ext else ""
+                for tag in K1_VARIANTS:
+                    tune = VARIANTS[tag]
+                    res[f"{label} K1{tag}"] = ms(lambda: b.k1(tune))
+                    if DREC:
+                        res[f"{label} K1{tag} reference walk"] = ms(
+                            lambda: b.k1(tune, reference=True))
+                if DREC:
+                    res[f"{label} density record build"] = ms(
+                        lambda: sk.density_record_scenes(b.frame, b.pos_s))
+                    res[f"{label} K1 record beside the reference's "
+                        f"parameters"] = placement_ms(b)
                 for tag, tune in VARIANTS.items():
                     res[f"{label} K2{ext}{tag}"] = ms(
                         lambda: b.k2(b.mid, tune))
@@ -363,7 +468,8 @@ def main() -> None:
                 res[f"config5 {mode} graph host ms a frame"] = host
                 res[f"config5 {mode} graph particle-substeps/s"] = rate
     print(json.dumps({"root": ROOT, "solo": ARGS.solo, "step1": ARGS.step1,
-                      "record": REC, "ident": ident, "ms": res}),
+                      "record": REC, "density_record": DREC,
+                      "ident": ident, "ms": res}),
           flush=True)
 
 

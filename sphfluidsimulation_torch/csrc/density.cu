@@ -33,6 +33,21 @@
 // step, gated by a whole-term select, so the step has no branch (two slots
 // a step, as K2 takes them, measured slower for K1's 13-operation pair:
 // PERF.md).
+//
+// The scene-axis instance (config 5's sweep: the grid is full and the walk
+// is bound by issued instructions) reads each slot from one 16-byte density
+// record (x, y, z, and a gate word that is raw where occ, else -1;
+// sph_kernels.density_record_scenes; window_walk.cuh's kDensityRecord) in
+// place of the five loads of occ, raw and the position, one slot a step;
+// the sums are those of the walk that reads occ, raw and pos, bit for bit.
+// That walk stays built as the reference instance (reference != 0).
+//
+// The banded instance keeps the one-thread walk: lane groups (several
+// lanes of a warp walking one live row, as K2's banded instance does) were
+// measured slower in both libraries (PERF.md; scripts/torch_k1band_ab.py
+// --sweep builds them from a patched copy): each lane of a group still adds
+// every term of its row and hands on two factors a slot, so K1's cheap slot
+// costs about half as many instructions again.
 #include "window_walk.cuh"
 
 namespace {
@@ -76,9 +91,9 @@ density_kernel(const float* __restrict__ pos, const int* __restrict__ start,
                      z_span);
 }
 
-// The scene-axis instance (window_walk.cuh::scene_args): blockIdx.y is the
-// scene, whose inputs are the scene's blocks of the stacked arrays; each
-// thread is the unbanded kernel's thread of that scene.
+// The scene-axis reference walk (window_walk.cuh::scene_args): blockIdx.y
+// is the scene, whose inputs are the scene's blocks of the stacked arrays;
+// each thread is the unbanded kernel's thread of that scene.
 __global__ void __launch_bounds__(sph::kBlock)
 density_scenes_kernel(const float* __restrict__ pos,
                       const int* __restrict__ start,
@@ -93,6 +108,36 @@ density_scenes_kernel(const float* __restrict__ pos,
   density_row<false>(i, pos + 3 * rows, start + cells, raw + rows,
                      occ + rows, scal + (size_t)blockIdx.y * sph::kScalLanes,
                      rho + rows, r, cap, 0, r);
+}
+
+// The scene-axis record walk: the thread of density_scenes_kernel, reading
+// its own position and each slot's from the scene's density records rec
+// f32[S, N, 4], one slot a step: the same sums, bit for bit.
+__global__ void __launch_bounds__(sph::kBlock)
+density_record_scenes_kernel(const float4* __restrict__ rec,
+                             const int* __restrict__ start,
+                             const float* __restrict__ scal,
+                             float* __restrict__ rho, int n, int r,
+                             int cap) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t rows = (size_t)blockIdx.y * n;
+  const size_t cells = (size_t)blockIdx.y * ((size_t)r * r * r + 1);
+  const float4* const rs = rec + rows;
+  const sph::Scalars s =
+      sph::load_scalars(scal + (size_t)blockIdx.y * sph::kScalLanes);
+  const float4 p = __ldg(rs + i);
+  sph::Acc acc;
+  sph::range_walk<1, false, false, 1, sph::kDensityRecord>(
+      sph::fresh_coord(p.x, r), sph::fresh_coord(p.y, r),
+      sph::fresh_coord(p.z, r), i, r, cap, 0, r, start + cells, nullptr,
+      nullptr,
+      [&](int, const auto& use, float4 g) {
+        sph::add_density(s, p.x, p.y, p.z, g.x, g.y, g.z, sph::gate_of(use),
+                         acc);
+      },
+      0, rs);
+  rho[rows + i] = s.mass * sph::total(acc);
 }
 
 }  // namespace
@@ -115,15 +160,23 @@ extern "C" int sph_density(const float* pos, const int* start, const int* raw,
 
 // K1 over `scenes` scenes of n rows each, every input stacked scene after
 // scene (window_walk.cuh::scene_args): one launch, grid (row blocks,
-// scenes).
+// scenes), reading the density records rec f32[S, N, 4]
+// (sph_kernels.density_record_scenes) in place of pos, raw and occ, or with
+// reference != 0 the reference walk, which reads pos, raw and occ.
 extern "C" int sph_density_scenes(const float* pos, const int* start,
                                   const int* raw, const uint8_t* occ,
-                                  const float* scal, float* rho, int n, int r,
-                                  int cap, int scenes, void* stream) {
-  if (n > 0 && scenes > 0)
-    density_scenes_kernel<<<dim3((n + sph::kBlock - 1) / sph::kBlock,
-                                 scenes),
-                            sph::kBlock, 0, (cudaStream_t)stream>>>(
-        pos, start, raw, occ, scal, rho, n, r, cap);
+                                  const float* rec, const float* scal,
+                                  float* rho, int n, int r, int cap,
+                                  int scenes, int reference, void* stream) {
+  if (n > 0 && scenes > 0) {
+    const dim3 grid((n + sph::kBlock - 1) / sph::kBlock, scenes);
+    if (reference != 0)
+      density_scenes_kernel<<<grid, sph::kBlock, 0, (cudaStream_t)stream>>>(
+          pos, start, raw, occ, scal, rho, n, r, cap);
+    else
+      density_record_scenes_kernel<<<grid, sph::kBlock, 0,
+                                     (cudaStream_t)stream>>>(
+          reinterpret_cast<const float4*>(rec), start, scal, rho, n, r, cap);
+  }
   return (int)cudaGetLastError();
 }

@@ -26,14 +26,18 @@
 // the unbanded kernels (reading the band at run time made K2-ext and K3
 // 7-8% slower on the H100: PERF.md).
 //
-// The frame record (kRec, K2's and K3's scene-axis instances): there the
+// The records (kRec, the scene-axis instances of K1, K2 and K3): there the
 // grid is full and the walk is bound by issued instructions (PERF.md: the
 // L1 wavefronts of a warp's scattered loads cost under a fifth of it), so
-// each slot reads one 16-byte record (press_j, inv_j, raw, occ:
-// sph_kernels.frame_record_scenes) in place of the three loads of occ, raw
-// and pj, one slot a step. The gate and the pair are the range walk's, so
-// the sums are bit for bit those of the walk that reads occ, raw and pj,
-// which stays built as the reference instance.
+// each slot reads one 16-byte record in place of several loads, one slot a
+// step. K2's and K3's frame record (kFrameRecord: press_j, inv_j, raw, occ;
+// sph_kernels.frame_record_scenes) replaces the three loads of occ, raw and
+// pj; K1's density record (kDensityRecord: x, y, z, and one gate word that
+// is raw where occ, else -1; sph_kernels.density_record_scenes) replaces
+// five, occ, raw and the three position floats. The gate and the pair are
+// the range walk's, so the sums are bit for bit those of the walk that
+// reads occ, raw, pj and the positions, which stays built as the reference
+// instance.
 //
 // Lane groups (kLanes > 1, K2's banded instance without the extensions): a
 // slab's quarter of the particles fills only part of the card at one
@@ -55,6 +59,13 @@
 #include "sph_common.cuh"
 
 namespace sph {
+
+// The record a range walk reads in place of occ and raw (kRec): none, K2's
+// and K3's frame record (press_j, inv_j, raw, occ as int bits) or K1's
+// density record (x, y, z, and the gate word as int bits: raw where occ,
+// else -1; occ implies 0 <= raw < r^3, ops/frame.py, so a gate word below
+// 0 is exactly an unoccupied slot).
+constexpr int kNoRecord = 0, kFrameRecord = 1, kDensityRecord = 2;
 
 // Calls pair(j, use) for every slot j of the window of a row whose fresh
 // cell is (cx, cy, cz): the anchor cells of the 3x3x3 window that lie in
@@ -79,11 +90,12 @@ namespace sph {
 // consecutive slots from q, this lane the kStep from j0 = q + lane * kStep,
 // and pair(j0, e, member) evaluates them (the slots from e on are past the
 // range; member(j) is the gate above). With kRec (one lane, one slot a
-// step) the gate reads occ and raw from the frame record rec[j] = (press_j,
-// inv_j, raw, occ as int bits) in place of occ[] and raw[]: pair(j, gate,
-// pj) gets it as a callable (gate_of) and the record's (press_j, inv_j).
+// step) the gate reads occ and raw from the record rec[j] in place of
+// occ[] and raw[]: pair(j, gate, v) gets it as a callable (gate_of) and,
+// from the frame record, v = (press_j, inv_j), from the density record the
+// record itself (its x, y, z).
 template <int kStep, bool kSkipSelf, bool kBand, int kLanes = 1,
-          bool kRec = false, typename Pair>
+          int kRec = kNoRecord, typename Pair>
 __device__ __forceinline__ void range_walk(int cx, int cy, int cz, int i,
                                            int r, int cap, int zbase,
                                            int z_span,
@@ -93,7 +105,7 @@ __device__ __forceinline__ void range_walk(int cx, int cy, int cz, int i,
                                            Pair&& pair, int lane = 0,
                                            const float4* __restrict__ rec =
                                                nullptr) {
-  static_assert(!kRec || (kLanes == 1 && kStep == 1),
+  static_assert(kRec == kNoRecord || (kLanes == 1 && kStep == 1),
                 "the record walk takes one lane a row, one slot a step");
   const int x0 = max(cx - 1, 0), x1 = min(cx + 1, r - 1);
   const int y0 = max(cy - 1, 0), y1 = min(cy + 1, r - 1);
@@ -125,20 +137,27 @@ __device__ __forceinline__ void range_walk(int cx, int cy, int cz, int i,
         if constexpr (kLanes > 1) {
           for (; q < e; q += kLanes * kStep)
             pair(q + lane * kStep, e, member);
-        } else if constexpr (kRec) {
+        } else if constexpr (kRec != kNoRecord) {
           // the gate goes to pair as a callable, which it evaluates after
           // issuing the candidate's loads: the record's load and the
           // candidate's are then in flight together, not one after the
           // other (gating first made K2-scenes 8% slower on the H100)
+          constexpr bool kFrame = kRec == kFrameRecord;
           for (; q < e; ++q) {
             const float4 g = __ldg(rec + q);
             const auto gate = [&] {
-              const int rj = __float_as_int(g.z);
-              return __float_as_int(g.w) != 0 && !(kSkipSelf && q == i)
+              const int rj = __float_as_int(kFrame ? g.z : g.w);
+              const bool occupied =
+                  kFrame ? __float_as_int(g.w) != 0 : rj >= 0;
+              return occupied && !(kSkipSelf && q == i)
                      && ((unsigned)(rj - line - x0) <= (unsigned)(x1 - x0)
                          || raw_near(rj, cx, cy, cz, r));
             };
-            pair(q, gate, make_float2(g.x, g.y));
+            if constexpr (kFrame) {
+              pair(q, gate, make_float2(g.x, g.y));
+            } else {
+              pair(q, gate, g);     // the density record is the candidate
+            }
           }
         } else {
           for (; q < e; q += kStep) {
@@ -333,7 +352,7 @@ __device__ __forceinline__ void window_pair_sums(const Scalars& s,
   const int cx = fresh_coord(p.px, r), cy = fresh_coord(p.py, r),
             cz = fresh_coord(p.pz, r);
   if constexpr (kLanes == 1) {
-    range_walk<kSlots, true, kBand, 1, kRec>(
+    range_walk<kSlots, true, kBand, 1, kRec ? kFrameRecord : kNoRecord>(
         cx, cy, cz, i, r, a.cap, a.zbase, a.z_span, a.start, a.raw, a.occ,
         [&](int q, const auto& use, auto... rec_pj) {   // rec_pj: kRec's
           float4 qa = __ldg(a.rows + 2 * q), qb = __ldg(a.rows + 2 * q + 1);

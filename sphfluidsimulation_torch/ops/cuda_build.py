@@ -43,13 +43,13 @@ _I = ctypes.c_int
 # zbase and z_span, and K2/K3 the extension switch; the scene-axis
 # instances of K1, K2, K3 and K5 take n, r, cap, then the scene count; K2's
 # sph_fused_substep_lanes takes the lanes a row and the slots a lane a step
-# after the extension switch; the scene-axis K2 and K3 take the frame
-# records after occ and the reference switch after the extension switch)
+# after the extension switch; the scene-axis K1 takes its density records
+# after occ and the reference switch after the scene count, the scene-axis
+# K2 and K3 their frame records after occ and the reference switch after the extension switch)
 KERNELS = {
     "density.cu": (("sph_density", (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _P)),
-                   ("sph_density_scenes", (_P, _P, _P, _P, _P, _P, _I, _I,
-                                           _I, _I, _P))),
+                   ("sph_density_scenes", (*(_P,) * 7, *(_I,) * 5, _P))),
     "fused_substep.cu": (("sph_fused_substep", (_P, _P, _P, _P, _P, _P, _P,
                                                  _I, _I, _I, _I, _I, _I,
                                                  _P)),

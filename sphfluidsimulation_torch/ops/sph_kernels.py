@@ -54,8 +54,10 @@ leading scene axis (``frame.build_frame_scenes``) and a stacked
 ``sph_forces_scenes``), in every variant; each scene's result is its solo
 pass's, bit for bit. K2's and K3's scene-axis instances read each
 candidate's gate and j-side values from one 16-byte frame record
-(:func:`frame_record_scenes`) in place of occ, raw and pj; the walk that
-reads those stays built as the reference (``reference=True``).
+(:func:`frame_record_scenes`) in place of occ, raw and pj, K1's its gate
+and position from one 16-byte density record
+(:func:`density_record_scenes`) in place of occ, raw and pos; the walk
+that reads those stays built as the reference (``reference=True``).
 """
 
 from __future__ import annotations
@@ -1192,6 +1194,25 @@ def frame_record_scenes(frame: SortedFrame, rho: torch.Tensor,
     return rec
 
 
+def density_record_scenes(frame: SortedFrame,
+                          pos_s: torch.Tensor) -> torch.Tensor:
+    """The density record of K1's scene-axis walk: f32[S, N, 4], one 16-byte
+    load a candidate slot in place of five: lanes 0-2 the sorted positions
+    ``pos_s`` f32[S, N, 3] (the same values, bit for bit), lane 3 one gate
+    word as int32 bits, ``frame.raw`` where ``frame.occ``, else -1. The
+    encoding is exact because an occupied slot's raw id lies in
+    [0, R³) (``frame.build_frame_scenes``: occ implies the raw id in range),
+    so a word below 0 is exactly an unoccupied slot, whatever its raw id;
+    an aliased raw id (the spawn's out-of-cube rows) is kept as it is. The
+    stepper builds it where it launches K1 over the scenes: once a frame in
+    faithful mode, six times in corrected mode."""
+    rec = pos_s.new_empty(pos_s.shape[:2] + (4,))
+    rec[..., 0:3] = pos_s
+    torch.where(frame.occ, frame.raw, frame.raw.new_full((), -1),
+                out=rec.view(torch.int32)[..., 3])
+    return rec
+
+
 def density_scenes_plain(frame: SortedFrame, pos_s: torch.Tensor,
                          params: PhysParams, r: int, capacity: int | None,
                          tune: SortedTuning | None = None) -> torch.Tensor:
@@ -1245,11 +1266,16 @@ def _check_scenes(frame: SortedFrame, n_scenes: int, n: int, r: int,
 def density_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
                         params: PhysParams, r: int, capacity: int | None,
                         scal: torch.Tensor | None = None,
-                        tune: SortedTuning | None = None) -> torch.Tensor:
+                        tune: SortedTuning | None = None,
+                        rec: torch.Tensor | None = None,
+                        reference: bool = False) -> torch.Tensor:
     """K1's scene-axis instance (``csrc/density.cu``
     ``sph_density_scenes``) in ``tune``'s variant: ρ f32[S, N] in one
-    launch. ``scal`` is :func:`scal_blocks` of ``params`` (built here when
-    None)."""
+    launch. ``rec`` is :func:`density_record_scenes` of the frame and
+    ``pos_s`` and ``scal`` :func:`scal_blocks` of ``params``; each is built
+    here when None. ``reference`` launches the reference walk, which reads
+    ``pos_s`` and the frame's raw and occ in place of the record: the same
+    ρ, bit for bit; it counts under ``density_scenes+reference`` too."""
     tune = _tuned(tune)
     n_scenes, n = pos_s.shape[:2]
     dev = pos_s.device
@@ -1257,14 +1283,20 @@ def density_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
         scal = scal_blocks(params)
     _check("pos_s", pos_s, torch.float32, (n_scenes, n, 3), dev)
     _check_scenes(frame, n_scenes, n, r, scal, dev)
+    if not reference:
+        if rec is None:
+            rec = density_record_scenes(frame, pos_s)
+        _check("rec", rec, torch.float32, (n_scenes, n, 4), dev)
     rho = torch.empty((n_scenes, n), dtype=torch.float32, device=dev)
     fn = cuda_build.function("density.cu", "sph_density_scenes", tune)
     err = fn(_ptr(pos_s), _ptr(frame.start), _ptr(frame.raw),
-             _ptr(frame.occ), _ptr(scal), _ptr(rho), n, r,
-             _cap_arg(capacity), n_scenes,
+             _ptr(frame.occ),
+             ctypes.c_void_p(None) if reference else _ptr(rec), _ptr(scal),
+             _ptr(rho), n, r, _cap_arg(capacity), n_scenes, int(reference),
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error("density_scenes", err)
-    _count("density_scenes" + variant_tag("density.cu", tune))
+    _count("density_scenes" + variant_tag("density.cu", tune)
+           + ("+reference" if reference else ""))
     return rho
 
 
@@ -1363,14 +1395,15 @@ def forces_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
 def density_scenes(frame: SortedFrame, pos_s: torch.Tensor,
                    params: PhysParams, r: int, capacity: int | None,
                    scal: torch.Tensor | None = None,
-                   tune: SortedTuning | None = None) -> torch.Tensor:
+                   tune: SortedTuning | None = None,
+                   rec: torch.Tensor | None = None) -> torch.Tensor:
     """ρ f32[S, N] of every scene in ``tune``'s variant: K1's scene-axis
     instance for a CUDA tensor, the plain version for a CPU tensor.
-    ``scal`` (as in :func:`density_scenes_cuda`) is read by the kernel
-    only."""
+    ``scal`` and ``rec`` (as in :func:`density_scenes_cuda`) are read by
+    the kernel only."""
     if pos_s.is_cuda:
         return density_scenes_cuda(frame, pos_s, params, r, capacity, scal,
-                                   tune)
+                                   tune, rec)
     return density_scenes_plain(frame, pos_s, params, r, capacity, tune)
 
 

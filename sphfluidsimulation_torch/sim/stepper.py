@@ -336,13 +336,16 @@ def _density_scenes(frame: SortedFrame, pos_s: torch.Tensor,
                     params: PhysParams, cfg: SimConfig, tune: SortedTuning,
                     scal: torch.Tensor) -> torch.Tensor:
     """:func:`_density` of every scene: ρ f32[S, N] from K5's or K1's
-    scene-axis instance."""
+    scene-axis instance; K1 on the card reads the density record, built
+    here (K5, and K1's plain version on the CPU, none)."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     if tune.compact:
         return compact.density_compact_scenes(frame, pos_s, params, r, cap,
                                               scal)[0]
+    rec = (sph_kernels.density_record_scenes(frame, pos_s) if pos_s.is_cuda
+           else None)
     return sph_kernels.density_scenes(frame, pos_s, params, r, cap, scal,
-                                      tune=tune)
+                                      tune=tune, rec=rec)
 
 
 def _scene_cols(frame: SortedFrame, rho_s: torch.Tensor, params: PhysParams,
@@ -456,15 +459,15 @@ def make_scenes_step(cfg: SimConfig, faithful: bool = True,
     variables): JAX's ``vmap`` of the step, whose kernels take the scene as
     a grid axis. Faithful:
 
-        build_frame_scenes → K1 (K5) over the scenes → pack rows and pj
-        (K5) or the frame record (K2, K3) → 5 × K2 (K5) over the scenes,
-        or unfused 5 × (K3 (K5 forces) → integrate) → unpack, each scene's
-        metrics → each scene's unsort
+        build_frame_scenes → the density record and K1 (K5) over the
+        scenes → pack rows and pj (K5) or the frame record (K2, K3) →
+        5 × K2 (K5) over the scenes, or unfused 5 × (K3 (K5 forces) →
+        integrate) → unpack, each scene's metrics → each scene's unsort
 
     Corrected (:func:`_corrected_step` of each scene): one frame-start
-    build and density, then 5 × (build_frame_scenes → K1 (K5) → pack rows
-    and the frame record (pj) → K3 (K5 forces without extensions) →
-    integrate → unsort).
+    build and density, then 5 × (build_frame_scenes → the density record
+    and K1 (K5) → pack rows and the frame record (pj) → K3 (K5 forces
+    without extensions) → integrate → unsort).
 
     Every kernel launches once a phase over all scenes
     (``sph_kernels.density_scenes``, ``fused_substep_scenes``,

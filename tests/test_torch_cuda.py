@@ -11,8 +11,10 @@ the snapshots of the sorted rollout, the render properties, the scene
 batch (the scene-axis K1, K2 and K3 at config 5's shape and K5 over three
 small scenes, each scene bit-equal to its solo launch; the scene-axis K2
 and K3, which read the frame record, bit-equal to the reference walk, and
-planted frame records; the batch's graph against its host loop on every
-route), the sites tier, its slab step, the
+planted frame records; K1-scenes, which reads the density record,
+bit-equal to its reference walk and to each scene's solo K1; the batch's
+graph against its host loop on every route; the density record the
+batched step passes to K1-scenes), the sites tier, its slab step, the
 domain step
 and the CLI's
 ``sweep`` and ``run --shards``. They
@@ -1408,6 +1410,125 @@ def test_scene_walk_reads_its_gate_from_the_record_on_card(cuda_device):
     # the reference walk reads no record
     assert _same_bits(sk.fused_substep_scenes_cuda(
         frame, mid, params, r, cap, rec=no_occ, reference=True, pj=pj), ref)
+
+
+# K1's scene axis reads the density record (csrc/window_walk.cuh's
+# kDensityRecord); the reference walk reads occ, raw and pos
+DENSITY_TUNES = {"default": None, "kahan": SortedTuning(kahan=True)}
+
+
+def _density_scene_frames(case, device):
+    """(frame, sorted positions, params, r) of _scene_walk_inputs' batch,
+    its frame built with the config's capacity, 4 and uncut (None)."""
+    from sphfluidsimulation_torch.ops.frame import build_frame_scenes
+    frame, rows, _, params, r, cap, _, _ = _scene_walk_inputs(case, device)
+    pos = rows[..., 0:3].contiguous()
+    out = {cap: (frame, pos)}
+    for c in (4, None):
+        f, (ps,) = build_frame_scenes(pos, r, c, extras=(pos,))
+        out[c] = (f, ps)
+    return out, params, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(DENSITY_TUNES))
+@pytest.mark.parametrize("case", ["config5_f11", "262k_x2_f0"])
+def test_density_record_walk_is_the_reference_walk_on_card(cuda_device, case,
+                                                           variant):
+    # K1-scenes in each library, capacity 4, 32 and uncut: the record walk
+    # gives the reference walk's bits (the record given, and built in the
+    # wrapper) and each scene's solo K1 launch's; each launch counts once,
+    # the reference's under +reference too
+    from sphfluidsimulation_torch.ops.frame import scene_frame
+    tune = DENSITY_TUNES[variant]
+    tag = sk.variant_tag("density.cu", sk._tuned(tune))
+    frames, params, r = _density_scene_frames(case, cuda_device)
+    for cap, (frame, pos) in frames.items():
+        rec = sk.density_record_scenes(frame, pos)
+        sk.reset_launch_counts()
+        ref = sk.density_scenes_cuda(frame, pos, params, r, cap, tune=tune,
+                                     reference=True)
+        got = sk.density_scenes_cuda(frame, pos, params, r, cap, tune=tune,
+                                     rec=rec)
+        assert _same_bits(got, ref), cap
+        assert _same_bits(sk.density_scenes_cuda(frame, pos, params, r, cap,
+                                                 tune=tune), ref), cap
+        assert sk.launch_counts[f"density_scenes{tag}"] == 2
+        assert sk.launch_counts[f"density_scenes{tag}+reference"] == 1
+        for sc in range(pos.shape[0]):
+            fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+            assert _same_bits(got[sc], sk.density_cuda(
+                fs, pos[sc], ph, r, cap, tune=tune)), (cap, sc)
+
+
+@pytest.mark.cuda
+def test_density_walk_reads_its_gate_from_the_record_on_card(cuda_device):
+    # planted controls: a record with one occupied slot's gate word
+    # cleared, or one slot's position moved, must leave the reference
+    # walk's bits; the reference walk reads no record
+    frames, params, r = _density_scene_frames("262k_x2_f0", cuda_device)
+    frame, pos = frames[32]
+    ref = sk.density_scenes_cuda(frame, pos, params, r, 32, reference=True)
+    rec = sk.density_record_scenes(frame, pos)
+    occ = frame.occ[0]
+    j = int(torch.nonzero(occ[:-1] & occ[1:]
+                          & (frame.raw[0, :-1] == frame.raw[0, 1:]))[1000])
+    cleared = rec.clone()
+    cleared.view(torch.int32)[0, j, 3] = -1
+    bad = sk.density_scenes_cuda(frame, pos, params, r, 32, rec=cleared)
+    assert not _same_bits(bad, ref)
+    assert _same_bits(bad[1], ref[1])          # scene 1 reads its own
+    moved = rec.clone()
+    moved[0, j, 0] += 0.25 / (r - 1)
+    assert not _same_bits(sk.density_scenes_cuda(
+        frame, pos, params, r, 32, rec=moved), ref)
+    assert _same_bits(sk.density_scenes_cuda(
+        frame, pos, params, r, 32, rec=cleared, reference=True), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faithful", [True, False],
+                         ids=["faithful", "corrected"])
+def test_scenes_step_passes_the_density_record_to_k1_on_card(
+        cuda_device, monkeypatch, faithful):
+    # on the card the batched step builds the density record of each
+    # K1-scenes launch's own frame and positions and passes it: once a
+    # faithful frame, 1 + 5 times a corrected frame; each launch counts once
+    from sphfluidsimulation_torch.params import stack_params
+    from sphfluidsimulation_torch.sim import stepper
+    from sphfluidsimulation_torch.state import stack_states
+    built, given = [], []
+    real_rec, real_k1 = sk.density_record_scenes, sk.density_scenes
+
+    def record(frame, pos_s):
+        rec = real_rec(frame, pos_s)
+        built.append((rec, pos_s, frame))
+        return rec
+
+    def k1(frame, pos_s, *a, **k):
+        given.append(k.get("rec"))
+        return real_k1(frame, pos_s, *a, **k)
+
+    monkeypatch.setattr(sk, "density_record_scenes", record)
+    monkeypatch.setattr(sk, "density_scenes", k1)
+    cfgs = [SimConfig(**_GOLDENISH).replace(rest_density=1.0 + 0.25 * i,
+                                            seed=i) for i in range(3)]
+    states = stack_states([initial_state(c, cuda_device) for c in cfgs])
+    params = stack_params([PhysParams.from_config(c, cuda_device)
+                           for c in cfgs])
+    step = stepper.make_scenes_step(cfgs[0], faithful, SortedTuning())
+    sk.reset_launch_counts()
+    frames = 2
+    for _ in range(frames):
+        states, _ = step(states, params)
+    per = 1 if faithful else 1 + cfgs[0].substeps
+    assert len(built) == len(given) == frames * per
+    assert sk.launch_counts["density_scenes"] == frames * per
+    for (rec, pos_s, frame), got in zip(built, given):
+        assert got is rec
+        assert torch.equal(rec[..., 0:3], pos_s)
+        assert torch.equal(rec.view(torch.int32)[..., 3],
+                           torch.where(frame.occ, frame.raw, -1))
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""The frame record of K2's and K3's scene-axis walk on the CPU.
+"""The frame record of K2's and K3's scene-axis walk, and the density
+record of K1's, on the CPU.
 
 - The frame record (``sph_kernels.frame_record_scenes``), which the walk
   reads in place of occ, raw and pj, is integer-equal to ``frame.occ`` and
@@ -15,6 +16,15 @@
   gate's occ and raw from the record's bits) sums, for every row, exactly
   that row's members of ``sph_kernels._candidates`` in walk order, j == i
   skipped; a record with one occ cleared drops that slot.
+- K1's density record (``sph_kernels.density_record_scenes``) is the
+  sorted positions bit for bit and the gate word where(occ, raw, -1),
+  integer-equal to JAX's vmapped ``build_frame`` with the golden spawn's
+  aliased raw ids and a capacity drop; a dropped slot's word fails every
+  row's gate. A line-for-line mirror of the density record walk (the self
+  pair kept) sums each row's ``_candidates`` members in walk order, and a
+  cleared gate word drops its slot. ``make_scenes_step`` launches
+  K1-scenes once a faithful frame, 1 + 5 times a corrected frame, and on
+  the CPU (K1's plain version) and the compact route builds no record.
 - The scene plain versions still hold against JAX's vmapped
   ``fused_substep`` and ``forces_pallas`` at the tolerances of
   tests/test_torch_batch.py and tests/test_torch_scene_routes.py (the
@@ -285,6 +295,196 @@ def test_record_walk_sums_each_rows_members_in_walk_order(name, cap):
         got = _record_walk(start, bits, cells[i], i, r, capv)
         assert q not in got and len(got) == len(
             [v for v in j[i][member[i]] if int(v) != i]) - 1
+
+
+# ------------------------------------------------ K1's density record --
+
+def _jax_frames(base, cap):
+    """JAX's vmapped build_frame of ``_batch``'s 2-scene spawn: (sorted
+    positions, raw, occ) [2, N, ...]."""
+    cfgs = [SimConfig(**base).replace(**ov) for ov in OVERRIDES]
+    pos = jnp.asarray(stack_states([initial_state(c, "cpu")
+                                    for c in cfgs]).pos.numpy())
+    r = base["bucket_resolution"]
+
+    def frame(p):
+        jf, (ps,) = pallas_sph.build_frame(p, r, cap, extras=(p,),
+                                           tune=PallasTuning(**JFAST))
+        return ps, jf.raw, jf.occ
+
+    return tuple(np.asarray(x) for x in jax.vmap(frame)(pos))
+
+
+@pytest.mark.parametrize("cap", [4, CAP, None])
+@pytest.mark.parametrize("base", ["golden", "calm"])
+def test_density_record_is_pos_and_the_gate_word(base, cap):
+    # lanes 0-2 the sorted positions bit for bit, lane 3 the int32 word
+    # where(occ, raw, -1): integer-equal to JAX's vmapped build_frame,
+    # whose spawn (the golden one's out-of-cube rows) aliases raw ids
+    kw = _GOLDEN if base == "golden" else _CALM
+    _, _, _, frame, pos_s, _, _, r = _batch(kw, cap)
+    rec = sk.density_record_scenes(frame, pos_s)
+    assert rec.shape == pos_s.shape[:2] + (4,) and rec.dtype == torch.float32
+    assert torch.equal(_bits(rec[..., 0:3]), _bits(pos_s))
+    word = _bits(rec)[..., 3]
+    assert torch.equal(word, torch.where(frame.occ, frame.raw, -1))
+    # occ implies a raw id in [0, R³): the word is below 0 exactly where
+    # the slot is unoccupied
+    assert bool(((frame.raw >= 0) & (frame.raw < r ** 3))[frame.occ].all())
+    assert torch.equal(word < 0, ~frame.occ)
+    jps, jraw, jocc = _jax_frames(kw, cap)
+    np.testing.assert_array_equal(rec[..., 0:3].numpy().view(np.uint32),
+                                  jps.view(np.uint32))
+    np.testing.assert_array_equal(word.numpy(), np.where(jocc, jraw, -1))
+    if base == "golden":
+        # the spawn aliases: some raw ids are not their anchor cell (here
+        # out of range, so their word is -1)
+        alias = frame.raw != frame.cid
+        assert bool(alias.any()) and bool((word[alias] == -1).any())
+    if cap == 4:
+        assert not bool(frame.occ.all())          # the capacity drops rows
+
+
+def _gate(word, c, line, r):
+    """The density record walk's gate on one slot of line ``line``
+    (window_walk.cuh, kDensityRecord) for a row of fresh cell ``c``."""
+    cx, cy, cz = c
+    x0, x1 = max(cx - 1, 0), min(cx + 1, r - 1)
+    return word >= 0 and (0 <= word - line - x0 <= x1 - x0
+                          or _raw_near(word, cx, cy, cz, r))
+
+
+def test_dropped_slots_gate_word_fails_every_row():
+    # a slot past the voxel capacity (rank >= 4) whose raw id lies in range
+    # holds the word -1, and no row's gate passes it, whereas its raw id
+    # would pass the gate of a row of its own cell
+    _, _, _, frame, pos_s, _, _, r = _batch(_CALM, 4)
+    rec = sk.density_record_scenes(frame, pos_s)
+    word = _bits(rec)[..., 3]
+    dropped = ~frame.occ & (frame.raw >= 0) & (frame.raw < r ** 3)
+    assert int(dropped.sum()) > 0
+    for s, j in torch.nonzero(dropped).tolist()[:50]:
+        raw = int(frame.raw[s, j])
+        z, y = divmod(raw // r, r)
+        own = (raw % r, y, z)
+        assert int(word[s, j]) == -1
+        assert _gate(raw, own, (z * r + y) * r, r)
+        for dz in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                c = (own[0], own[1] + dy, own[2] + dz)
+                assert not _gate(int(word[s, j]), c, (z * r + y) * r, r)
+
+
+def _density_record_walk(start, words, c, i, r, cap):
+    """range_walk of csrc/window_walk.cuh with kDensityRecord, line for
+    line, for row i of fresh cell ``c``: one slot a step, each slot's gate
+    from its record's gate word ``words[q]`` (raw where occ, else -1); the
+    slots row i sums, in order (the self pair kept)."""
+    cx, cy, cz = c
+    x0, x1 = max(cx - 1, 0), min(cx + 1, r - 1)
+    out = []
+    for z in range(max(cz - 1, 0), min(cz + 1, r - 1) + 1):
+        for y in range(max(cy - 1, 0), min(cy + 1, r - 1) + 1):
+            line = (z * r + y) * r
+            end = start[line + x0]
+            x = x0
+            while x <= x1:
+                q = end
+                end = start[line + x + 1]
+                e = min(end, q + cap) if cap >= 0 else end
+                while e == end and x < x1:
+                    x += 1
+                    end = start[line + x + 1]
+                    e = min(end, e + cap) if cap >= 0 else end
+                out += [q for q in range(q, e)
+                        if _gate(words[q], c, line, r)]
+                x += 1
+    return out
+
+
+@pytest.mark.parametrize("cap", [4, None])
+@pytest.mark.parametrize("name", ["golden", "calm moved", "random"])
+def test_density_record_walk_sums_each_rows_members_in_walk_order(name,
+                                                                   cap):
+    from sphfluidsimulation_torch.ops.frame import scene_frame
+    frame, ps, _, _, r = _mirror_scene(name, cap)
+    rec = sk.density_record_scenes(frame, ps)
+    capv = -1 if cap is None else cap
+    for sc in range(2):
+        fs = scene_frame(frame, sc)
+        c = sk.fresh_cell(ps[sc], r)
+        j, member = sk._candidates(fs, c, r, sk._window_width(fs, cap))
+        start, cells = fs.start.tolist(), c.tolist()
+        words = _bits(rec[sc])[:, 3].tolist()
+        pairs = own = 0
+        for i in range(ps.shape[1]):
+            got = _density_record_walk(start, words, cells[i], i, r, capv)
+            assert got == [int(v) for v in j[i][member[i]]], (sc, i)
+            pairs += len(got)
+            own += got.count(i)
+        assert 0 < own < pairs
+        # planted: a record with one occupied slot's gate word cleared
+        # drops that slot from the rows that summed it
+        i = next(i for i in range(ps.shape[1])
+                 if _density_record_walk(start, words, cells[i], i, r, capv))
+        q = _density_record_walk(start, words, cells[i], i, r, capv)[0]
+        words[q] = -1
+        got = _density_record_walk(start, words, cells[i], i, r, capv)
+        assert q not in got and len(got) == int(member[i].sum()) - 1
+
+
+def _density_spy(monkeypatch):
+    """Records each density record the stepper builds and the record each
+    K1 scene-axis launch receives, with its positions."""
+    seen = {"records": [], "k1": []}
+    real_rec, real_k1 = sk.density_record_scenes, sk.density_scenes
+
+    def record(frame, pos_s):
+        seen["records"].append(real_rec(frame, pos_s))
+        return seen["records"][-1]
+
+    def k1(frame, pos_s, *a, **k):
+        seen["k1"].append((k.get("rec"), pos_s))
+        return real_k1(frame, pos_s, *a, **k)
+
+    monkeypatch.setattr(sk, "density_record_scenes", record)
+    monkeypatch.setattr(sk, "density_scenes", k1)
+    return seen
+
+
+DENSITY_MODES = {"faithful": (True, SortedTuning()),
+                 "unfused": (True, SortedTuning(fused=False)),
+                 "corrected": (False, SortedTuning()),
+                 "compact": (True, SortedTuning(compact=True)),
+                 "compact corrected": (False, SortedTuning(compact=True))}
+
+
+@pytest.mark.parametrize("mode", sorted(DENSITY_MODES))
+def test_scenes_step_passes_the_density_record_to_k1(monkeypatch, mode):
+    # the batched step launches K1 over the scenes once a faithful frame,
+    # 1 + 5 times a corrected frame, each time on its own frame's sorted
+    # positions; on the CPU, where K1's plain version reads no record, it
+    # builds none and passes none (the card test
+    # test_scenes_step_passes_the_density_record_to_k1_on_card holds the
+    # records passed there); the compact route launches K5 and builds none
+    faithful, tune = DENSITY_MODES[mode]
+    seen = _density_spy(monkeypatch)
+    cfg = SimConfig(**_GOLDEN)
+    cfgs = [cfg.replace(**ov) for ov in OVERRIDES]
+    states = stack_states([initial_state(c, "cpu") for c in cfgs])
+    params = stack_params([PhysParams.from_config(c) for c in cfgs])
+    step = stepper.make_scenes_step(cfg, faithful, tune)
+    frames = 2
+    for _ in range(frames):
+        states, _ = step(states, params)
+    assert seen["records"] == []
+    if tune.compact:
+        assert seen["k1"] == []
+        return
+    per = 1 if faithful else 1 + cfg.substeps
+    assert len(seen["k1"]) == frames * per
+    assert all(rec is None and pos_s.shape == states.pos.shape
+               for rec, pos_s in seen["k1"])
 
 
 # ----------------------------------------------------- against JAX's vmap --

@@ -10,6 +10,8 @@
   group of lanes a row, some slots a lane a step) must add the one-thread
   walk's slots in its order, as must the one-thread walk four slots a
   step.
+- K1-band's plain version matches JAX's banded ``density_pass`` (rtol
+  1e-5).
 - The kernels' division-free pair terms, evaluated in float32 over the
   plain candidates, must pass the per-particle rule of
   ``sph_kernels.forces_accuracy``.
@@ -298,6 +300,46 @@ def test_lane_group_walk_adds_the_one_thread_walks_slots_in_order(band, cap,
         assert got == want, i
         pairs += len(got)
     assert pairs > 0
+
+
+# the JAX kernels' tile geometry (tests/test_torch_batch.py)
+JFAST = dict(tiles_per_group=2, unroll=1)
+
+
+@pytest.mark.parametrize("cap", [4, CAP, None])
+def test_banded_density_plain_matches_jax_banded_density_pass(cap):
+    # K1-band's plain version against JAX's density_pass(band=) on the
+    # banded frame JAX's build_frame(band=, valid=) builds (Pallas in
+    # interpret mode), the slab step's K1 (slab_pallas.py:177): its live
+    # rows within rtol 1e-5 (the same candidates, summed in another
+    # order), its dead rows 0
+    cfg, st = _state("goldenish", 3)
+    r, band = cfg.bucket_resolution, (3, 5)
+    n = st.pos.shape[0]
+    rng = np.random.default_rng(10)
+    az = sph_math.cell_index(st.pos[:, 2], r).clamp(0, r - 1)
+    valid = (torch.from_numpy(rng.random(n) < 0.8)
+             & (az >= band[0]) & (az < band[0] + band[1]))
+    gid = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    tf, (ps,) = build_frame(st.pos, r, cap, extras=(st.pos,), gid=gid,
+                            band=band, valid=valid)
+    jt = pallas_sph.PallasTuning(**JFAST)
+    pos = jnp.asarray(st.pos.numpy())
+    jf, (jps,) = pallas_sph.build_frame(
+        pos, r, cap, extras=(pos,), gid=jnp.asarray(gid.numpy()), tune=jt,
+        band=(jnp.int32(band[0]), band[1]), valid=jnp.asarray(valid.numpy()))
+    n_live = int(tf.start[-1])
+    # the live rows sort alike (the dead ones by gid in JAX, by row here)
+    np.testing.assert_array_equal(np.asarray(jps)[:n_live],
+                                  ps[:n_live].numpy())
+    jp = JPhys.from_config(JConfig(**CONFIGS["goldenish"]))
+    want, cert = pallas_sph.density_pass(jf, jps, jp, r, n, jt,
+                                         band=(jnp.int32(band[0]), band[1]))
+    assert int(cert) == 0
+    got = sk.density_plain(tf, ps, PhysParams.from_config(cfg), r, cap, band)
+    assert 0 < n_live < n and not got[n_live:].any()
+    np.testing.assert_allclose(got[:n_live].numpy(),
+                               np.asarray(want)[:n_live], rtol=1e-5, atol=0)
 
 
 # ------------------------------------------------------------ pair terms --
