@@ -90,14 +90,16 @@ every phase passed; each prints its seconds):
    by scene, K1's, K2's and K3's reference walks on the same inputs (the
    "_reference" shapes) and K1's density record build, and beside them
    the solo kernels on the same inputs, one launch a scene; every K5
-   substep instance also timed walking each tile
+   substep instance and K5-band density also timed walking each tile
    whole on one warp (``split=0``, the body before wide tiles were split:
    the "_whole" shapes), given the frame's ``occ_prefix`` as the stepper
-   gives it once a frame (its own time printed beside), and at 262k,
-   config 5 and (phase 9) the 262k slab frames the K5 substep's tile-time
-   distribution (the ``-DSPH_TILE_CLOCK=1`` instance, both bodies: p50,
-   p99, max, the launches' makespan, its ratio to the mean tile, the warps
-   busy on average); and the K5 substep at the 262k spawn (frame-start
+   and the slab step give it once a frame (its own time printed beside),
+   and at 262k, config 5 and (phase 9) the 262k slab frames the K5
+   substep's tile-time distribution (the ``-DSPH_TILE_CLOCK=1`` instance,
+   both bodies: p50, p99, max, the launches' makespan, its ratio to the
+   mean tile, the warps busy on average), K5-band density's on the 262k
+   slab frames (both bodies) and K5-scenes density's at config 5 (every
+   tile whole); and the K5 substep at the 262k spawn (frame-start
    rows, where no tile may pass the split threshold) beside its whole-tile
    body (the "262k_f0" shape);
 8. the slab step (``parallel.make_pallas_slab_step``) on ``LocalRing(4)``,
@@ -2235,8 +2237,10 @@ def main() -> None:
         b_ms, b_by = bound(name, n, r, pairs, ext, **band)
         times.setdefault(name, {})[shape] = (km, pm, b_ms, b_by)
         whole = ""
-        if name.startswith("compact_substep"):
-            # K5's substep beside its body before the split ("_whole")
+        if name.startswith("compact_substep") or \
+                name == "compact_density_band":
+            # K5's substep and banded density beside their body before the
+            # split ("_whole")
             wm = time_ms(lambda: fn(0), 20)
             times[name][f"{shape}_whole"] = (wm, pm, b_ms, b_by)
             whole = (f"; one warp a tile {wm:.4f} ms = {100 * b_ms / wm:.2f}%"
@@ -2253,13 +2257,14 @@ def main() -> None:
         print(f"occ_prefix {label}: {ms:.4f} ms once a frame [{ident}]",
               flush=True)
 
-    def tile_clock(label, launch):
-        """K5's tile-time distribution (its SPH_TILE_CLOCK instance) with
-        every tile walked whole on one warp and with wide tiles split, on
-        the same inputs: ``launch(split)`` runs the launches and returns
-        their clock buffers, one a launch."""
-        for body, split in (("one warp a tile", 0),
-                            ("split", compact.SPLIT_SLOTS)):
+    def tile_clock(label, launch, bodies=(("one warp a tile", 0),
+                                          ("split", compact.SPLIT_SLOTS))):
+        """K5's tile-time distribution (its SPH_TILE_CLOCK instance) in
+        each body on the same inputs, by default every tile walked whole on
+        one warp and wide tiles split: ``launch(arg)`` runs the launches of
+        the body (label, arg) and returns their clock buffers, one a
+        launch."""
+        for body, split in bodies:
             clocks = launch(split)
             torch.cuda.synchronize()
             st = compact.clock_stats(clocks)
@@ -2527,6 +2532,15 @@ def main() -> None:
                       lambda: compact.density_compact_scenes_plain(
                           frame, pos_s, params, r),
                       scenes=n_sc)
+                if shape == "c5":
+                    # its tile clock (every tile whole)
+                    def density_clock(_):
+                        clock = compact.clock_buffer(n, dev, n_sc)
+                        compact.density_compact_scenes_cuda(
+                            frame, pos_s, params, r, cap, scal, clock)
+                        return [clock]
+                    tile_clock(f"{shape} ({n_sc} scenes) density",
+                               density_clock, (("one warp a tile", 0),))
                 timed("compact_forces_scenes", shape, n_sc * n, r, f0,
                       False,
                       lambda: compact.forces_compact_scenes_cuda(
@@ -3264,9 +3278,11 @@ def main() -> None:
             if not ext:
                 timed("compact_density_band", shape, n_live, r, d_pairs,
                       False,
-                      lambda: [compact.density_compact_cuda(
-                          sf.frame, sf.pos_s, phys, r, cap, scal, sf.band)
-                          for sf, _, _, _ in ins],
+                      lambda sp=compact.DENSITY_SPLIT_SLOTS: [
+                          compact.density_compact_cuda(
+                              sf.frame, sf.pos_s, phys, r, cap, scal,
+                              sf.band, occ, sp)
+                          for sf, _, _, occ in ins],
                       lambda: [compact.density_compact_plain(
                           sf.frame, sf.pos_s, phys, r, sf.band)
                           for sf, _, _, _ in ins],
@@ -3284,6 +3300,19 @@ def main() -> None:
                       for sf, mid, _, _ in ins],
                   s_cells=cells, n_dead=n_dead)
             if key == "262k":
+                def density_clock(split):
+                    clocks = []
+                    for sf, _, _, occ in ins:
+                        clocks.append(compact.clock_buffer(
+                            sf.pos_s.shape[0], dev))
+                        compact.density_compact_cuda(
+                            sf.frame, sf.pos_s, phys, r, cap, scal, sf.band,
+                            occ, split, clocks[-1])
+                    return clocks
+                tile_clock(f"{shape} density", density_clock,
+                           (("one warp a tile", 0),
+                            ("split", compact.DENSITY_SPLIT_SLOTS)))
+
                 def slab_clock(split):
                     clocks = []
                     for sf, mid, pj, occ in ins:

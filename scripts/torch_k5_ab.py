@@ -22,6 +22,21 @@ route (K1, K2; the same bits in either tree):
 - ``c5_f11``: config 5, 8 scenes of 524,176 (rest density 1.0 to 2.0)
   after 11 frames, the scene-axis substep two substeps in.
 
+Density (``--density`` times only these): solo K5 density at the spawn
+(``262k_f0_density``), at 262k and 1M after 10 frames; the banded density
+of the slab frames above (``..._slab4_density``: on a tree whose density
+wrapper splits, given ``occ_prefix`` as the slab step does, and with every
+tile whole, ``_whole``); the scene-axis density at ``c5_f11``. On such a
+tree, the other forms of the scene-axis stream (``WALKS``: the raw id
+decoded by multiply-highs, and the density record walk with three decodes
+of its gate word), each compiled from a patched copy of
+compact.cu into build/k5_walks, its ρ held to the launched kernel's bits
+(``_bits``), timed alone (``_kernel``) and, for the record walks, with
+the record's build as the stepper would run it (no suffix; the builds
+alone ``c5_f11_density_record_build``, ``_packed_build``), with the
+registers of each scene density kernel and, with ``--density``, the SASS
+loops of the density kernels.
+
 Each time is the median of 5 CUDA-event timings of 20 launches behind a
 spin of the card (device time). A tree whose substep wrappers split wide
 tiles (a ``split`` argument) is timed as the path runs it, given the
@@ -36,14 +51,22 @@ call, from the root of a checkout:
         python3 scripts/torch_k5_ab.py $root; done
 """
 
+import argparse
 import inspect
 import json
 import os
+import re
 import statistics
+import subprocess
 import sys
 
-ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                       os.path.join(os.path.dirname(__file__), ".."))
+ap = argparse.ArgumentParser()
+ap.add_argument("root", nargs="?",
+                default=os.path.join(os.path.dirname(__file__), ".."))
+ap.add_argument("--step1", action="store_true")
+ap.add_argument("--density", action="store_true")
+ARGS = ap.parse_args()
+ROOT = os.path.abspath(ARGS.root)
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
@@ -52,7 +75,7 @@ from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig, cli  # noqa: E402
 from sphfluidsimulation_torch.ops import compact, cuda_build  # noqa: E402
 from sphfluidsimulation_torch.ops import sph_kernels as sk  # noqa: E402
 from sphfluidsimulation_torch.ops.frame import (  # noqa: E402
-    build_frame, build_frame_scenes)
+    build_frame, build_frame_scenes, scene_frame)
 from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning  # noqa: E402
 from sphfluidsimulation_torch.params import (PhysParams,  # noqa: E402
                                              stack_params)
@@ -70,6 +93,153 @@ LEAD_CYCLES = 50_000_000
 BF16 = SortedTuning(bf16=True)
 SPLITS = "split" in inspect.signature(
     compact.compact_substep_cuda).parameters
+DENSITY_SPLITS = "split" in inspect.signature(
+    compact.density_compact_cuda).parameters
+# a tree whose banded density splits: the other forms of the slot stream
+# (WALKS) are compiled from its compact.cu
+WALK_VARIANTS = DENSITY_SPLITS
+# Other forms of K5 density's slot stream, compiled from copies of
+# compact.cu with edits (old text, which must appear once, and its
+# replacement) and launched over the scene axis: "multiply", the raw id
+# decoded by two multiply-highs (RawCells: Granlund and Montgomery 1994,
+# Theorem 4.2 with N = 30, exact for a dividend below 2^30 and a divisor
+# up to 2^l) in place of two divisions by R; the density record walk (one
+# 16-byte load a slot of ``sph_kernels.density_record_scenes``: x, y, z
+# and the gate word, raw where occ, else -1; a 16-byte shared slot), its
+# gate word decoded by divisions ("record"), by RawCells
+# ("record_multiply"), or packed as x | y << 10 | z << 20 by
+# ``packed_record`` and unpacked ("packed"). In a record library, density
+# reads the record in place of the positions.
+RAW_CELLS = """// raw / R^2 and its remainder / R by multiply-highs
+struct RawCells {
+  int r, s1, s2;
+  unsigned m1, m2;
+  __device__ explicit RawCells(int rr) : r(rr) {
+    const unsigned d1 = rr, d2 = d1 * d1;
+    s1 = 62 - __clz(d1 - 1);             // 30 + ceil(log2 d), d >= 1
+    s2 = 62 - __clz(d2 - 1);
+    m1 = (unsigned)(((1ull << s1) + d1 - 1) / d1);
+    m2 = (unsigned)(((1ull << s2) + d2 - 1) / d2);
+  }
+  __device__ void operator()(int raw, int& x, int& y, int& z) const {
+    z = (int)(((unsigned long long)(unsigned)raw * m2) >> s2);
+    const int rem = raw - z * r * r;
+    y = (int)(((unsigned long long)(unsigned)rem * m1) >> s1);
+    x = rem - y * r;
+  }
+};
+
+"""
+CHUNKS_OF = ("// the chunks of a tile of `cost` occupied slots past the "
+             "threshold\n")
+MULTIPLY = [(CHUNKS_OF, RAW_CELLS + CHUNKS_OF),
+            ("""    const int r = g.r;
+    for (int k = 0; k < kLines; ++k) {
+""", """    const int r = g.r;
+    const RawCells cells(r);
+    for (int k = 0; k < kLines; ++k) {
+"""), ("""            const int z = rj / (r * r);
+            const int rem = rj - z * r * r;
+            const int y = rem / r;
+            const int x = rem - y * r;
+""", """            int x, y, z;
+            if constexpr (kMode == kDensity) {
+              cells(rj, x, y, z);
+            } else {
+              z = rj / (r * r);
+              const int rem = rj - z * r * r;
+              y = rem / r;
+              x = rem - y * r;
+            }
+""")]
+RECORD_WALK = """  // the density record walk (scripts/torch_k5_ab.py)
+  __device__ void walk_record(int a, int b) {
+    __shared__ float4 rs[kWarps][32];
+    float4* slots = rs[threadIdx.x >> 5];
+    s = sph::load_scalars(f.scal);
+    const float4* __restrict__ rec = reinterpret_cast<const float4*>(f.in);
+    const int r = g.r;
+    const RawCells cells(r);
+    for (int k = 0; k < kLines; ++k) {
+      int base = __shfl_sync(kAll, a, k);
+      const int seg_end = __shfl_sync(kAll, b, k);
+      while (base < seg_end) {
+        const int j = base + lane;
+        bool keep = false, over = false;
+        int packed = 0, skip_to = 0;
+        float4 e = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (j < seg_end) {
+          e = __ldg(rec + j);
+          const int w = __float_as_int(e.w);
+          if (w >= 0) {
+            int x, y, z;
+            DECODE
+            keep = x >= x0 && x <= x1 && y >= y0 && y <= y1 && z >= z0 &&
+                   z <= z1;
+            packed = x | y << 10 | z << 20;
+          } else if (g.cap >= 0) {
+            const int cj = __ldg(f.cid + j);
+            over = j - __ldg(f.start + cj) >= g.cap;
+            skip_to = __ldg(f.start + cj + 1);
+          }
+        }
+        const unsigned overs = __ballot_sync(kAll, over);
+        const int stop = overs ? __ffs(overs) - 1 : 32;
+        base = overs ? __shfl_sync(kAll, skip_to, stop) : base + 32;
+        const unsigned mask = __ballot_sync(kAll, keep && lane < stop);
+        if (keep && lane < stop)
+          slots[__popc(mask & ((1u << lane) - 1u))] =
+              make_float4(e.x, e.y, e.z, __int_as_float(packed));
+        __syncwarp();
+        const int count = __popc(mask);
+        if (live) {
+          for (int t = 0; t < count; ++t) {
+            const float4 q = slots[t];
+            if (!cell_near(__float_as_int(q.w), cx, cy, cz)) continue;
+            sph::add_density(s, p.px, p.py, p.pz, q.x, q.y, q.z, true, dens);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+"""
+DECODES = {"record": "z = w / (r * r); const int rem = w - z * r * r; "
+                     "y = rem / r; x = rem - y * r;",
+           "record_multiply": "cells(w, x, y, z);",
+           "packed": "x = w & 1023; y = (w >> 10) & 1023; z = w >> 20;"}
+
+
+def record_edits(decode: str) -> list:
+    """The edits of a record library: density's rows read from the record
+    (4 floats a row) and walked by walk_record with ``decode``."""
+    anchor = ("  // Streams the union's slots in [a, b) of lane k's line "
+              "(k < 9) and adds\n")
+    return [(CHUNKS_OF, RAW_CELLS + CHUNKS_OF),
+            ("  constexpr int kIn = kMode == kDensity ? 3 : 8;",
+             "  constexpr int kIn = kMode == kDensity ? 4 : 8;"),
+            ("""        p.px = __ldg(f.in + 3 * i);
+        p.py = __ldg(f.in + 3 * i + 1);
+        p.pz = __ldg(f.in + 3 * i + 2);
+""", """        p.px = __ldg(f.in + 4 * i);
+        p.py = __ldg(f.in + 4 * i + 1);
+        p.pz = __ldg(f.in + 4 * i + 2);
+"""),
+            (anchor, RECORD_WALK.replace("DECODE", decode) + anchor),
+            ("""  __device__ void walk(int a, int b, Slot* slots) {
+    s = sph::load_scalars(f.scal);
+""", """  __device__ void walk(int a, int b, Slot* slots) {
+    if constexpr (kMode == kDensity) {
+      walk_record(a, b);
+      return;
+    }
+    s = sph::load_scalars(f.scal);
+""")]
+
+
+WALKS = {"multiply": MULTIPLY,
+         **{k: record_edits(v) for k, v in DECODES.items()}}
 
 
 def ms(fn, reps: int = 20, runs: int = 5) -> float:
@@ -84,10 +254,301 @@ def ms(fn, reps: int = 20, runs: int = 5) -> float:
     return statistics.median(out)
 
 
+def sass_loops(lib: str, pattern: str) -> dict:
+    """Each loop (a branch back to an earlier address) of the functions of
+    ``lib`` whose name matches ``pattern``: its instructions and loads."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
+                             "cuobjdump")
+    dump = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in dump.split("Function : ")[1:]:
+        name = block.splitlines()[0].strip()
+        if not re.search(pattern, name):
+            continue
+        ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        loops = []
+        for addr, text in ins:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                loops.append({"from": hex(int(m.group(1), 16)),
+                              "to": hex(addr), "instructions": len(body),
+                              "loads": sum(bool(re.match(
+                                  r"(@\S+\s+)?LD[GS]", t)) for t in body)})
+        out[name] = loops
+    return out
+
+
+def quantiles(x: torch.Tensor) -> dict:
+    x = x.double().cpu()
+    return {"median": float(x.quantile(0.5)), "p90": float(x.quantile(0.9)),
+            "max": float(x.max()), "mean": float(x.mean()),
+            "tiles": int(x.numel())}
+
+
+def step1(dev) -> dict:
+    """K5 density's tile clock, its tiles' cost and its SASS slot loop, in
+    the banded instance (4 slabs of 262k, slab frames 1-3) and on the scene
+    axis (config 5 frame 11), every tile walked whole."""
+    cuda_build.build(clock=True)
+    res: dict = {}
+    cfg = GOLDEN_CONFIG
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    phys = PhysParams.from_config(cfg, dev)
+    scal = sk.scal_block(phys)
+
+    def clocked(frame, pos_s, band):
+        clock = compact.clock_buffer(pos_s.shape[0], dev)
+        compact.density_compact_cuda(frame, pos_s, phys, r, cap, scal, band,
+                                     split=0, clock=clock)
+        return clock
+
+    ring = LocalRing(4)
+    step, spec = make_pallas_slab_step(cfg, ring, row_slack=4.0,
+                                       halo_slack=8.0,
+                                       tune=SortedTuning(compact=True))
+    s = distribute(initial_state(cfg, dev), cfg, spec)
+    clocks, lives, costs, streamed, times = [], [], [], [], []
+    for _ in range(3):
+        s, _ = step(s, phys)
+        sfs = shard_frames(cfg, spec, ring, s)
+        for sf in sfs:
+            clocks.append(clocked(sf.frame, sf.pos_s, sf.band))
+            spans = compact.stale_spans(sf.frame, sf.band, r)
+            live = compact._tiled(compact.live_rows(sf.frame), False).any(1)
+            lives.append(clocks[-1][:, live])
+            cost = compact.tile_cost(spans, sf.frame.start,
+                                     compact.occ_prefix(sf.frame.occ), r,
+                                     sf.band)
+            costs.append(cost[live])
+            streamed.append(compact.stream_slots(spans, sf.frame.start, r,
+                                                 cap, sf.band)[live])
+        times.append(ms(lambda: [compact.density_compact_cuda(
+            sf.frame, sf.pos_s, phys, r, cap, scal, sf.band, split=0)
+            for sf in sfs]))
+    torch.cuda.synchronize()
+    # the dead tiles' warps leave at once: the live tiles' clock alone
+    res["band_clock_all_tiles"] = compact.clock_stats(clocks)
+    res["band_clock"] = compact.clock_stats(lives)
+    per_frame = [compact.clock_stats(lives[4 * k:4 * k + 4])
+                 for k in range(3)]
+    res["band_clock_frames"] = [{k: st[k] for k in (
+        "makespan_us", "makespan_over_mean", "mean_us", "p99_us", "max_us",
+        "busy_warps")} for st in per_frame]
+    res["band_cost"] = quantiles(torch.cat(costs))
+    res["band_streamed"] = quantiles(torch.cat(streamed))
+    res["band_ms_frames"] = times
+    del step, s, sfs
+
+    c5 = SimConfig(particle_number=524288)
+    ov5 = cli.sweep_overrides(1.0, 2.0, 8)
+    bs = BatchedScenes(c5, ov5, devices=dev)
+    bs.step(11)
+    states = bs.states
+    del bs
+    params5 = stack_params([PhysParams.from_config(c5.replace(**o), dev)
+                            for o in ov5])
+    scal_s = sk.scal_blocks(params5)
+    r5 = c5.bucket_resolution
+    f5, (ps5,) = build_frame_scenes(states.pos, r5, cap,
+                                    extras=(states.pos,))
+    clock = compact.clock_buffer(ps5.shape[1], dev, 8)
+    compact.density_compact_scenes_cuda(f5, ps5, params5, r5, cap, scal_s,
+                                        clock)
+    torch.cuda.synchronize()
+    res["c5_clock"] = compact.clock_stats([clock])
+    occ5 = compact.occ_prefix(f5.occ)
+    costs, streamed = [], []
+    for sc in range(8):
+        fs = scene_frame(f5, sc)
+        spans = compact.stale_spans(fs)
+        costs.append(compact.tile_cost(spans, fs.start, occ5[sc], r5))
+        streamed.append(compact.stream_slots(spans, fs.start, r5, cap))
+    res["c5_cost"] = quantiles(torch.cat(costs))
+    res["c5_streamed"] = quantiles(torch.cat(streamed))
+    res["c5_ms"] = ms(lambda: compact.density_compact_scenes_cuda(
+        f5, ps5, params5, r5, cap, scal_s))
+    res["sass"] = sass_loops(str(cuda_build.library_path("compact.cu")),
+                             r"compact_(scenes_)?kernelILi0E")
+    return res
+
+
+def packed_record(frame, pos_s: torch.Tensor, r: int) -> torch.Tensor:
+    """The density record with the gate word packed: x | y << 10 | z << 20
+    of the raw cell where occ, else -1."""
+    rec = pos_s.new_empty(pos_s.shape[:2] + (4,))
+    rec[..., 0:3] = pos_s
+    raw = frame.raw
+    z = torch.div(raw, r * r, rounding_mode="floor")
+    rem = raw - z * (r * r)
+    y = torch.div(rem, r, rounding_mode="floor")
+    word = (rem - y * r) | (y << 10) | (z << 20)
+    torch.where(frame.occ, word, word.new_full((), -1),
+                out=rec.view(torch.int32)[..., 3])
+    return rec
+
+
+def walk_library(label: str, edits):
+    """compact.cu with ``edits`` made, compiled into build/k5_walks/<label>
+    and bound; and its library's path."""
+    import types
+    src = (cuda_build.CSRC / "compact.cu").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{label}: {old!r} is not in compact.cu once")
+        src = src.replace(old, new)
+    out = cuda_build.BUILD_DIR / "k5_walks"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"compact_{label}.cu", out / f"libsph_compact_{label}.so"
+    cu.write_text(src)
+    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I",
+                    str(cuda_build.CSRC), "-o", str(so), str(cu)],
+                   check=True, capture_output=True, text=True)
+    fns: dict = {}
+    cuda_build._bind(so, cuda_build.KERNELS["compact.cu"], fns)
+    return types.SimpleNamespace(**fns), so
+
+
+def registers(lib: str, pattern: str) -> dict:
+    """``cuobjdump -res-usage``'s line (registers, stack, shared memory) of
+    each function of ``lib`` whose name matches ``pattern``."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
+                             "cuobjdump")
+    lines = subprocess.run([cuobjdump, "-res-usage", lib],
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return {name.split()[-1][-60:]: usage.strip()
+            for name, usage in zip(lines, lines[1:])
+            if re.search(pattern, name) and "REG" in usage}
+
+
+def density_ab(dev, res: dict) -> None:
+    """The density readings (module docstring) into ``res``."""
+    cfg = GOLDEN_CONFIG
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    phys = PhysParams.from_config(cfg, dev)
+    scal = sk.scal_block(phys)
+    st0 = initial_state(cfg, dev)
+    for label, c, frames in (("262k_f0", cfg, 0), ("262k_f10", cfg, 10),
+                             ("1m_f10", SimConfig(particle_number=1 << 20),
+                              10)):
+        st = initial_state(c, dev) if c is not cfg else st0
+        if frames:
+            st, _ = make_rollout(c, frames, device=dev)(st)
+        p, rr = PhysParams.from_config(c, dev), c.bucket_resolution
+        f, (ps,) = build_frame(st.pos, rr, cap, extras=(st.pos,))
+        sc = sk.scal_block(p)
+        res[f"{label}_density"] = ms(lambda: compact.density_compact_cuda(
+            f, ps, p, rr, cap, sc))
+        del st, f, ps
+
+    c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+                   artificial_viscosity=0.5)
+    ring = LocalRing(4)
+    for label, c in (("262k_slab4", cfg), ("c3_slab4", c3)):
+        p, rr = PhysParams.from_config(c, dev), c.bucket_resolution
+        sc = sk.scal_block(p, c.xsph, c.artificial_viscosity)
+        step, spec = make_pallas_slab_step(
+            c, ring, row_slack=4.0, halo_slack=8.0,
+            tune=SortedTuning(compact=True))
+        s = distribute(initial_state(c, dev), c, spec)
+        for _ in range(3):
+            s, _ = step(s, p)
+        sfs = shard_frames(c, spec, ring, s)
+        if DENSITY_SPLITS:
+            occs = [compact.occ_prefix(sf.frame.occ) for sf in sfs]
+            res[f"{label}_density"] = ms(lambda: [
+                compact.density_compact_cuda(sf.frame, sf.pos_s, p, rr, cap,
+                                             sc, sf.band, occ_cum=o)
+                for sf, o in zip(sfs, occs)])
+            res[f"{label}_density_whole"] = ms(lambda: [
+                compact.density_compact_cuda(sf.frame, sf.pos_s, p, rr, cap,
+                                             sc, sf.band, split=0)
+                for sf in sfs])
+        else:
+            res[f"{label}_density"] = ms(lambda: [
+                compact.density_compact_cuda(sf.frame, sf.pos_s, p, rr, cap,
+                                             sc, sf.band) for sf in sfs])
+        del step, s, sfs
+
+    c5 = SimConfig(particle_number=524288)
+    ov5 = cli.sweep_overrides(1.0, 2.0, 8)
+    bs = BatchedScenes(c5, ov5, devices=dev)
+    bs.step(11)
+    states = bs.states
+    del bs
+    params5 = stack_params([PhysParams.from_config(c5.replace(**o), dev)
+                            for o in ov5])
+    r5 = c5.bucket_resolution
+    scal5 = sk.scal_blocks(params5)
+    f5, (ps5,) = build_frame_scenes(states.pos, r5, cap,
+                                    extras=(states.pos,))
+    res["c5_f11_density"] = ms(lambda: compact.density_compact_scenes_cuda(
+        f5, ps5, params5, r5, cap, scal5))
+    if not WALK_VARIANTS:
+        return
+    want = compact.density_compact_scenes_cuda(f5, ps5, params5, r5, cap,
+                                               scal5)[0]
+    pattern = r"compact_scenes_kernelILi0E"
+    res["registers"] = registers(str(cuda_build.library_path("compact.cu")),
+                                 pattern)
+    builds = {"record": lambda: sk.density_record_scenes(f5, ps5),
+              "packed": lambda: packed_record(f5, ps5, r5)}
+    builds["record_multiply"] = builds["record"]
+    for label, build in builds.items():
+        if label != "record_multiply":
+            res[f"c5_f11_density_{label}_build"] = ms(build)
+    k5 = SortedTuning().k5()
+    real = cuda_build.function
+    for label, edits in WALKS.items():
+        lib, so = walk_library(label, edits)
+        build = builds.get(label, lambda: ps5)
+
+        def function(source, name, tune=None, clock=False, lib=lib):
+            if source == "compact.cu" and not clock:
+                return getattr(lib, name)
+            return real(source, name, tune, clock=clock)
+
+        def launch(inp):
+            rho = torch.empty(ps5.shape[:2], device=dev)
+            compact._launch(compact._DENSITY, False, inp, None, f5, scal5,
+                            rho, r5, cap, None, k5, ps5.shape[0])
+            return rho
+        compact.cuda_build.function = function
+        try:
+            given = build()
+            res[f"c5_f11_density_{label}_bits"] = float(torch.equal(
+                launch(given).view(torch.int32), want.view(torch.int32)))
+            res[f"c5_f11_density_{label}_kernel"] = ms(lambda: launch(given))
+            if label in builds:
+                res[f"c5_f11_density_{label}"] = ms(lambda: launch(build()))
+            res["registers"].update({f"{label} {k}": v for k, v in
+                                     registers(str(so), pattern).items()})
+        finally:
+            compact.cuda_build.function = real
+
+
 def main() -> None:
     dev = torch.device("cuda")
-    cuda_build.build((BF16,))
+    if ARGS.step1:
+        print(json.dumps({"root": ROOT, "step1": step1(dev),
+                          "ident": gpu_identity().splitlines()[0]}),
+              flush=True)
+        return
+    cuda_build.build(() if ARGS.density else (BF16,))
     res: dict[str, float] = {}
+    density_ab(dev, res)
+    if ARGS.density:
+        # the density instances' loops (the record walk's mode is 3; the
+        # chunk kernel's are left out, their dump is long)
+        sass = sass_loops(str(cuda_build.library_path("compact.cu")),
+                          r"compact_(scenes_)?kernelILi[03]E")
+        print(json.dumps({"root": ROOT, "density": True,
+                          "ident": gpu_identity().splitlines()[0],
+                          "ms": res, "sass": sass}), flush=True)
+        return
 
     def substep(label, frame, launch):
         """launch(**kw) of a K5 substep wrapper over ``frame`` (or a list
@@ -127,8 +588,6 @@ def main() -> None:
         f10, mid10, phys, r, cap, **kw))
     substep("262k_f10_bf16", f10, lambda **kw: compact.compact_substep_cuda(
         f10, mid10, phys, r, cap, tune=BF16, **kw))
-    res["262k_f10_density"] = ms(lambda: compact.density_compact_cuda(
-        f10, ps10, phys, r, cap))
     res["262k_f10_forces"] = ms(lambda: compact.forces_compact_cuda(
         f10, rows10, phys, r, cap))
     del st10, f10, ps10, rows10, mid10

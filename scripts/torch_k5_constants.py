@@ -19,11 +19,20 @@ config 3 at the spawn (``c3_f0``, with extensions), the slab step's frames
 on ``LocalRing(4)`` after 3 frames (``262k_slab4``, ``c3_slab4``) and config
 5's 8 scenes two substeps into frame 11 (``c5_f11``); each given the
 frame's ``occ_prefix``. It also prints, at ``262k_f10``, how many tiles
-pass the default threshold and the chunks they queue. Each time is the
-median of 3 CUDA-event timings of 20 launches behind a spin of the card.
-Prints one JSON line a library, each with the card's name and power limit:
+pass the default threshold and the chunks they queue.
 
-    python3 scripts/torch_k5_constants.py
+Banded density's threshold (``compact.DENSITY_SPLIT_SLOTS``): K5-band
+density through ``compact.density_compact_cuda`` on the same slab frames
+(``262k_slab4_density``, ``c3_slab4_density``, the four shards' launches
+summed) at the thresholds DENSITY_THRESHOLDS (0 to 4096) occupied union slots,
+with the cost quantiles of their live tiles. ``--density`` times only
+these, in the default library.
+
+Each time is the median of 3 CUDA-event timings of 20 launches behind a
+spin of the card. Prints one JSON line a library, each with the card's
+name and power limit:
+
+    python3 scripts/torch_k5_constants.py [--density]
 """
 
 import json
@@ -57,6 +66,9 @@ from sphfluidsimulation_torch.utils.profiling import (  # noqa: E402
 
 LEAD_CYCLES = 50_000_000
 THRESHOLDS = (0, 512, 1024, 2048, 4096)
+DENSITY_THRESHOLDS = (0, 128, 192, 256, 384, 512, 640, 768, 1024, 2048,
+                      4096)
+DENSITY = "--density" in sys.argv[1:]
 # library → (constant's line in compact.cu, its replacement)
 VARIANTS = {
     "uncapped": ("constexpr int kChunkBlocks = 9;",
@@ -114,30 +126,32 @@ def cases(dev) -> dict:
                                          c.artificial_viscosity)
         return f, rows, compact.occ_prefix(f.occ)
 
-    st0 = initial_state(cfg, dev)
-    for label, st in (("262k_f0", st0),
-                      ("262k_f10", make_rollout(cfg, 10, device=dev)(st0)[0])):
-        f, rows, occ = solo(cfg, st, phys, 0 if label == "262k_f0" else 2)
-        out[label] = (lambda f=f, rows=rows, occ=occ, sp=0:
-                      compact.compact_substep_cuda(f, rows, phys, r, cap,
-                                                   occ_cum=occ, split=sp))
-    spans, _ = compact.spans_of(f, rows[:, 0:3], r, True)
-    cost = compact.tile_cost(spans, f.start, occ, r)
-    heavy = cost > compact.SPLIT_SLOTS
-    print(json.dumps({"262k_f10_tiles": cost.shape[0],
-                      "past_threshold": int(heavy.sum()),
-                      "chunks_queued": int(compact.n_chunks(cost)[heavy]
-                                           .sum()),
-                      "cost_quantiles": [
-                          float(cost.float().quantile(q))
-                          for q in (0.5, 0.9, 0.99, 1.0)]}), flush=True)
     c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
                    artificial_viscosity=0.5)
-    p3 = PhysParams.from_config(c3, dev)
-    f3, rows3, occ3 = solo(c3, initial_state(c3, dev), p3, 0)
-    out["c3_f0"] = lambda sp=0: compact.compact_substep_cuda(
-        f3, rows3, p3, c3.bucket_resolution, cap, 0.3, 0.5, occ_cum=occ3,
-        split=sp)
+    if not DENSITY:
+        st0 = initial_state(cfg, dev)
+        st10 = make_rollout(cfg, 10, device=dev)(st0)[0]
+        for label, st in (("262k_f0", st0), ("262k_f10", st10)):
+            f, rows, occ = solo(cfg, st, phys,
+                                0 if label == "262k_f0" else 2)
+            out[label] = (lambda f=f, rows=rows, occ=occ, sp=0:
+                          compact.compact_substep_cuda(f, rows, phys, r, cap,
+                                                       occ_cum=occ, split=sp))
+        spans, _ = compact.spans_of(f, rows[:, 0:3], r, True)
+        cost = compact.tile_cost(spans, f.start, occ, r)
+        heavy = cost > compact.SPLIT_SLOTS
+        print(json.dumps({"262k_f10_tiles": cost.shape[0],
+                          "past_threshold": int(heavy.sum()),
+                          "chunks_queued": int(compact.n_chunks(cost)[heavy]
+                                               .sum()),
+                          "cost_quantiles": [
+                              float(cost.float().quantile(q))
+                              for q in (0.5, 0.9, 0.99, 1.0)]}), flush=True)
+        p3 = PhysParams.from_config(c3, dev)
+        f3, rows3, occ3 = solo(c3, initial_state(c3, dev), p3, 0)
+        out["c3_f0"] = lambda sp=0: compact.compact_substep_cuda(
+            f3, rows3, p3, c3.bucket_resolution, cap, 0.3, 0.5, occ_cum=occ3,
+            split=sp)
     ring = LocalRing(4)
     for label, c in (("262k_slab4", cfg), ("c3_slab4", c3)):
         p = PhysParams.from_config(c, dev)
@@ -148,8 +162,28 @@ def cases(dev) -> dict:
         s = distribute(initial_state(c, dev), c, spec)
         for _ in range(3):
             s, _ = step(s, p)
-        shards = []
-        for sf in shard_frames(c, spec, ring, s):
+        shards, costs = [], []
+        sfs = shard_frames(c, spec, ring, s)
+        occs = [compact.occ_prefix(sf.frame.occ) for sf in sfs]
+        for sf, occ in zip(sfs, occs):
+            live = compact._tiled(compact.live_rows(sf.frame), False).any(1)
+            costs.append(compact.tile_cost(compact.stale_spans(
+                sf.frame, sf.band, rr), sf.frame.start, occ, rr,
+                sf.band)[live].float())
+        cost = torch.cat(costs)
+        print(json.dumps({f"{label}_density_cost_quantiles": [
+            float(cost.quantile(q)) for q in (0.5, 0.9, 0.99, 1.0)]}),
+            flush=True)
+        sc = sk.scal_block(p, xs, al)
+        out[f"{label}_density"] = (
+            lambda sfs=sfs, occs=occs, p=p, rr=rr, sc=sc, sp=0: [
+                compact.density_compact_cuda(sf.frame, sf.pos_s, p, rr, cap,
+                                             sc, sf.band, occ_cum=o,
+                                             split=sp)
+                for sf, o in zip(sfs, occs)])
+        if DENSITY:
+            continue
+        for sf in sfs:
             rows = sk.pack_rows(sf.pos_s, sf.vel_s,
                                 compact.density_compact_cuda(
                                     sf.frame, sf.pos_s, p, rr, cap,
@@ -162,6 +196,8 @@ def cases(dev) -> dict:
             compact.compact_substep_cuda(sf.frame, rows, p, rr, cap, xs, al,
                                          band=sf.band, occ_cum=occ, split=sp)
             for sf, rows, occ in shards])
+    if DENSITY:
+        return out
     c5 = SimConfig(particle_number=524288)
     ov5 = cli.sweep_overrides(1.0, 2.0, 8)
     bs = BatchedScenes(c5, ov5, devices=dev)
@@ -187,10 +223,10 @@ def main() -> None:
     ident = gpu_identity().splitlines()[0]
     with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:
         default = pool.submit(cuda_build.build)
-        libs = dict(zip(VARIANTS, pool.map(lambda kv: variant(kv[0], *kv[1]),
-                                           VARIANTS.items())))
+        libs = {} if DENSITY else dict(zip(VARIANTS, pool.map(
+            lambda kv: variant(kv[0], *kv[1]), VARIANTS.items())))
         default.result()
-    libs = {"default": None, **libs}
+    libs = {"default": None, **({} if DENSITY else libs)}
     runs = cases(dev)
     real = cuda_build.function
     for label, lib in libs.items():
@@ -199,7 +235,8 @@ def main() -> None:
                 return getattr(lib, name)
             return real(source, name, tune, clock=clock)
         compact.cuda_build.function = function
-        res = {case: {sp: ms(lambda: go(sp=sp)) for sp in THRESHOLDS}
+        res = {case: {sp: ms(lambda: go(sp=sp)) for sp in (
+            DENSITY_THRESHOLDS if case.endswith("_density") else THRESHOLDS)}
                for case, go in runs.items()}
         compact.cuda_build.function = real
         print(json.dumps({"library": label, "ident": ident, "ms": res}),

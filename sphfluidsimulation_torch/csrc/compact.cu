@@ -25,7 +25,12 @@
 // Scene-axis instances (compact_scenes_kernel, sph_compact_scenes): the
 // three modes under JAX's vmap of the frame step (parallel/batch.py:42-46,
 // the SPH_PALLAS_COMPACT=1 sweep), one launch over S stacked frames,
-// blockIdx.y the scene, each scene with its own drift count.
+// blockIdx.y the scene, each scene with its own drift count. Density there
+// reads occ, raw and the positions as the solo launch does: a 16-byte
+// density record a slot (K1's scene walk's) measured slower with its build
+// counted, and decoding raw ids by multiply-highs in place of the two
+// divisions gained 1.4% there and cost solo density up to 2% (PERF.md;
+// scripts/torch_k5_ab.py compiles both from patched copies).
 //
 // Banded instances (kBand; density_compact(band=) :622-629 and
 // compact_substep(band=) :648-665, for the slab step's frame): the cells
@@ -70,29 +75,32 @@
 // prefix sum of their capped lengths, the other way to the same stream,
 // measured slower: most cells of a wide union are empty.
 //
-// Splitting a wide tile (the fused substep's split launch, sph_compact_split;
-// ops/compact.py): one warp walking a wide union alone makes a launch wait on
-// its slowest tile. In the split launch each warp first counts its tile's
-// cost, the occupied slots of its union, from occ_cum (the frame's prefix
-// count of occupied slots, so the cost and the cuts do not depend on the
-// capacity argument). A tile at or below the threshold `split` is walked
-// whole, as above. A heavier one is cut into k = min(16, ceil(cost / split))
-// chunks of about equal cost, each a range of cells, so that each starts at
-// a cell's first slot and the capacity stop works unchanged; the warp queues
-// the k chunks and leaves. The second kernel (compact_chunk_kernel), a wave
-// of resident warps, starts beside the first one's last blocks
-// (programmatic dependent launch) once every tile is seen: each warp takes
-// the next queued chunk, walks it with the stream above, and stores its
-// rows' partial sums; the last of a tile's chunks to finish (a per-tile
-// counter) adds the k partials in ascending chunk order (no float atomics)
-// and runs the tail. A tile past the queue's end (4 chunks a tile on
-// average) is walked by one warp, chunk after chunk, its sums added in the
-// same order. A tile's result is then the same bits
-// whichever warps walk its chunks, in every instance of the same frame
-// (solo, scenes, a replayed graph). The drift count stays a per-tile fact,
-// added once, by the first kernel. SPH_TILE_CLOCK=1 builds an instance that
-// writes each chunk's (each whole tile's) %globaltimer span and clock64
-// cycles.
+// Splitting a wide tile (the split launch, sph_compact_split, of the fused
+// substep and of density over one frame, which the slab step's banded
+// density takes; ops/compact.py): one warp walking a wide union alone makes
+// a launch wait on its slowest tile; a slab's launch is less than one wave
+// of warps, so it lasts as long as its widest union. In the split launch
+// each warp first counts its tile's cost, the occupied slots of its union,
+// from occ_cum (the frame's prefix count of occupied slots, so the cost and
+// the cuts do not depend on the capacity argument). A tile at or below the
+// threshold `split` is walked whole, as above. A heavier one is cut into
+// k = min(16, ceil(cost / split)) chunks of about equal cost, each a range
+// of cells, so that each starts at a cell's first slot and the capacity
+// stop works unchanged; the warp queues the k chunks and leaves. The second
+// kernel (compact_chunk_kernel; compact_density_chunk_kernel), a wave of
+// resident warps, starts beside the first one's last blocks (programmatic
+// dependent launch) once every tile is seen: each warp takes the next
+// queued chunk, walks it with the stream above, and stores its rows'
+// partial sums; the last of a tile's chunks to finish (a per-tile counter)
+// adds the k partials in ascending chunk order (no float atomics) and runs
+// the tail (density: one partial sum a row, then rho). A tile past the
+// queue's end (4 chunks a tile on average) is walked by one warp, chunk
+// after chunk, its sums added in the same order. A tile's result is then
+// the same bits whichever warps walk its chunks, in every instance of the
+// same frame (solo, scenes, a replayed graph). The drift count stays a
+// per-tile fact, added once, by the first kernel. SPH_TILE_CLOCK=1 builds
+// an instance that writes each chunk's (each whole tile's) %globaltimer
+// span and clock64 cycles.
 #include <climits>
 
 #include "sph_common.cuh"
@@ -565,8 +573,9 @@ __device__ __forceinline__ void enqueue(const Queue& q, int owner, int k) {
 }
 
 // Tile `tile` of scene `scene` walked whole by its warp: the body of the
-// whole-tile kernels. With kSplit (the fused substep's split launch) a tile
-// whose cost passes q.split is queued in chunks instead.
+// whole-tile kernels. With kSplit (the split launch of the fused substep
+// and of banded density) a tile whose cost passes q.split is queued in
+// chunks instead.
 template <int kMode, bool kExt, bool kBand, bool kSplit>
 __device__ __forceinline__ void whole_tile(const Frame& f, const Geom& g,
                                            const Queue& q, int scene,
@@ -635,8 +644,8 @@ compact_scenes_kernel(Frame f, Geom g, Queue q) {
 
 // Chunk m of tile `tile` of a split launch's frame: its cells [c0, c1),
 // walked into t's sums; returns the tile's chunk count.
-template <bool kExt, bool kBand>
-__device__ __forceinline__ int walk_chunk(Tile<kFused, kExt, kBand>& t,
+template <int kMode, bool kExt, bool kBand>
+__device__ __forceinline__ int walk_chunk(Tile<kMode, kExt, kBand>& t,
                                           int split, int tile, int m,
                                           int& c0, int& c1) {
   t.begin(tile, false);
@@ -649,18 +658,17 @@ __device__ __forceinline__ int walk_chunk(Tile<kFused, kExt, kBand>& t,
   return k;
 }
 
-// The split launch's second kernel, one wave of resident warps, launched to
-// start beside the first kernel's last tiles (programmatic dependent
-// launch) once every tile is seen, so the queue is whole: each warp takes
-// the next queued chunk, walks its cells and stores its partial sums; the
-// last of a tile's chunks to finish adds the tile's partials in chunk order
-// and runs the tail. Then the tiles past the queue's end, a warp each,
-// chunk after chunk. It ends after the first kernel. Scene 0 of
-// scene_block is the solo frame.
-template <bool kExt, bool kBand>
-__global__ void __launch_bounds__(kWarps * 32, kExt ? 1 : kChunkBlocks)
-compact_chunk_kernel(Frame fr, Geom g, Queue q) {
-  using T = Tile<kFused, kExt, kBand>;
+// The split launch's second kernel's body, one wave of resident warps,
+// launched to start beside the first kernel's last tiles (programmatic
+// dependent launch) once every tile is seen, so the queue is whole: each
+// warp takes the next queued chunk, walks its cells and stores its partial
+// sums; the last of a tile's chunks to finish adds the tile's partials in
+// chunk order and runs the tail (density: rho). Then the tiles past the
+// queue's end, a warp each, chunk after chunk. It ends after the first
+// kernel. Scene 0 of scene_block is the solo frame.
+template <int kMode, bool kExt, bool kBand>
+__device__ __forceinline__ void chunk_body(Frame fr, Geom g, Queue q) {
+  using T = Tile<kMode, kExt, kBand>;
   constexpr int kPart = T::kFields * 32;
   const int lane = threadIdx.x & 31;
   const int tiles = (g.n + 31) >> 5;
@@ -683,7 +691,7 @@ compact_chunk_kernel(Frame fr, Geom g, Queue q) {
     const int slot = item / kChunks, m = item - slot * kChunks;
     const int owner = __ldcg(q.owner + slot);
     const int scene = owner / tiles, tile = owner - scene * tiles;
-    const Frame f = scene_block<kFused>(fr, scene, g.n, g.r);
+    const Frame f = scene_block<kMode>(fr, scene, g.n, g.r);
     T t(f, g);
     int c0, c1;
     const int k = walk_chunk(t, q.split, tile, m, c0, c1);
@@ -710,7 +718,7 @@ compact_chunk_kernel(Frame fr, Geom g, Queue q) {
     if (h >= rest) break;
     const int owner = __ldcg(q.rest + h);
     const int scene = owner / tiles, tile = owner - scene * tiles;
-    const Frame f = scene_block<kFused>(fr, scene, g.n, g.r);
+    const Frame f = scene_block<kMode>(fr, scene, g.n, g.r);
     for (int m = 0, k = 1; m < k; ++m) {
       Clock clk;
       clk.start();
@@ -729,6 +737,20 @@ compact_chunk_kernel(Frame fr, Geom g, Queue q) {
   }
   // the stream's next work waits on this kernel: it ends after the first
   asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The fused substep's chunk kernel.
+template <bool kExt, bool kBand>
+__global__ void __launch_bounds__(kWarps * 32, kExt ? 1 : kChunkBlocks)
+compact_chunk_kernel(Frame fr, Geom g, Queue q) {
+  chunk_body<kFused, kExt, kBand>(fr, g, q);
+}
+
+// Density's chunk kernel (one partial sum a row a chunk).
+template <bool kBand>
+__global__ void __launch_bounds__(kWarps * 32, kChunkBlocks)
+compact_density_chunk_kernel(Frame fr, Geom g, Queue q) {
+  chunk_body<kDensity, false, kBand>(fr, g, q);
 }
 
 template <bool kSplit>
@@ -750,10 +772,17 @@ int resident_blocks(Kernel kernel) {
   return sms * max(per_sm, 1);
 }
 
+template <bool kSplit>
+auto density_kernel(bool band) {
+  return band ? compact_kernel<kDensity, false, true, kSplit>
+              : compact_kernel<kDensity, false, false, kSplit>;
+}
+
 // K5 over `scenes` frames: compact_kernel (banded or not) for one frame,
 // compact_scenes_kernel for more, or for -scenes (the scene-axis entry
-// point, whatever the count); with q.split > 0 (the fused substep) the
-// split launch, its whole-tile kernel then compact_chunk_kernel.
+// point, whatever the count); with q.split > 0 (the fused substep; density
+// over one frame) the split launch, its whole-tile kernel then the chunk
+// kernel.
 int launch(int mode, int ext, const Frame& f, const Geom& g, const Queue& q,
            int scenes, cudaStream_t stream) {
   if (g.n <= 0) return (int)cudaGetLastError();
@@ -763,8 +792,8 @@ int launch(int mode, int ext, const Frame& f, const Geom& g, const Queue& q,
   const dim3 grid((tiles + kWarps - 1) / kWarps, scenes < 0 ? -scenes : 1);
   if (scenes == 1) {
     auto kernel =
-        mode == kDensity ? (band ? compact_kernel<kDensity, false, true, false>
-                                 : compact_kernel<kDensity, false, false, false>)
+        mode == kDensity ? (split ? density_kernel<true>(band)
+                                  : density_kernel<false>(band))
         : mode == kForces ? compact_kernel<kForces, false, false, false>
         : split           ? fused_kernel<true>(ext, band)
                           : fused_kernel<false>(ext, band);
@@ -780,10 +809,13 @@ int launch(int mode, int ext, const Frame& f, const Geom& g, const Queue& q,
     kernel<<<grid, kWarps * 32, 0, stream>>>(f, g, q);
   }
   if (split) {
-    auto chunks = ext ? (band ? compact_chunk_kernel<true, true>
-                              : compact_chunk_kernel<true, false>)
-                      : (band ? compact_chunk_kernel<false, true>
-                              : compact_chunk_kernel<false, false>);
+    auto chunks = mode == kDensity
+                      ? (band ? compact_density_chunk_kernel<true>
+                              : compact_density_chunk_kernel<false>)
+                  : ext ? (band ? compact_chunk_kernel<true, true>
+                                : compact_chunk_kernel<true, false>)
+                        : (band ? compact_chunk_kernel<false, true>
+                                : compact_chunk_kernel<false, false>);
     cudaLaunchAttribute early;
     early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
     early.val.programmaticStreamSerializationAllowed = 1;
@@ -866,31 +898,32 @@ extern "C" int sph_compact_scenes(int mode, int ext, const float* in,
                 -scenes, (cudaStream_t)stream);
 }
 
-// The fused substep with wide tiles split, over `scenes` stacked scenes (1:
-// the solo frame, banded with (zbase, z_span) as in sph_compact; more: the
-// whole grid as in sph_compact_scenes): a tile whose union holds more than
-// `split` (> 0) occupied slots is walked in min(16, ceil(cost / split))
-// chunks, a warp each. occ_cum i32[scenes, n + 1]: each scene's occupied
-// slots before each sorted index. cert i32[scenes + 6]: each scene's drift
-// count, then the queue's counters, all zero; queue i32[8 * scenes * T] (T
-// = ceil(n / 32)), part f32[4 * scenes * T,
-// 6 (12 with ext), 32]. clock (the SPH_TILE_CLOCK=1 build;
-// else ignored, may be null) receives i64[scenes, T, 16, 4]: each chunk's
-// (each whole tile's) globaltimer start and end, clock64 cycles and cells
-// (c0 | c1 << 32).
+// Mode 2, the fused substep, with wide tiles split, over `scenes` stacked
+// scenes (1: the solo frame, banded with (zbase, z_span) as in sph_compact;
+// more: the whole grid as in sph_compact_scenes), or mode 0, density, over
+// one frame (banded or not): a tile whose union holds more than `split`
+// (> 0) occupied slots is walked in min(16, ceil(cost / split)) chunks, a
+// warp each. occ_cum i32[scenes, n + 1]: each scene's occupied slots before
+// each sorted index. cert i32[scenes + 6]: each scene's drift count, then
+// the queue's counters, all zero; queue i32[8 * scenes * T] (T = ceil(n /
+// 32)), part f32[4 * scenes * T, fields, 32], fields 6 (12 with ext; 1 in
+// density). clock (the SPH_TILE_CLOCK=1 build; else ignored, may be null)
+// receives i64[scenes, T, 16, 4]: each chunk's (each whole tile's)
+// globaltimer start and end, clock64 cycles and cells (c0 | c1 << 32).
 extern "C" int sph_compact_split(
-    int ext, const float* in, const float* pj, const int* cid,
+    int mode, int ext, const float* in, const float* pj, const int* cid,
     const int* start, const int* raw, const uint8_t* occ, const int* occ_cum,
     const float* scal, float* out, int* cert, int* queue, float* part,
     long long* clock, int n, int r, int cap, int zbase, int z_span,
     int scenes, int split, void* stream) {
   const bool band = zbase != 0 || z_span != r;
-  if (bad_args(kFused, ext, pj, r, band) || split <= 0 || scenes < 1 ||
-      scenes > 65535 || (band && scenes != 1) || occ_cum == nullptr ||
-      queue == nullptr || part == nullptr)
+  if ((mode != kFused && mode != kDensity) ||
+      bad_args(mode, ext, pj, r, band) || split <= 0 || scenes < 1 ||
+      scenes > 65535 || ((band || mode == kDensity) && scenes != 1) ||
+      occ_cum == nullptr || queue == nullptr || part == nullptr)
     return (int)cudaErrorInvalidValue;
   const int slots = scenes * ((n + 31) / 32);
-  return launch(kFused, ext,
+  return launch(mode, ext,
                 frame_of(in, pj, cid, start, raw, occ, occ_cum, scal, out,
                          cert),
                 Geom{n, r, cap, zbase, z_span},

@@ -64,18 +64,19 @@ stacked ``PhysParams`` and launch K5 once over all scenes (grid (tile
 blocks, scenes)); each scene's result and drift count, i32[S], are its
 solo pass's, bit for bit.
 
-Wide tiles (the fused substep's split launch): a tile's cost is the
-occupied slots of its union (:func:`tile_cost`, from :func:`occ_prefix`,
-which the stepper computes once a frame and passes as ``occ_cum``; it does
-not depend on the capacity argument). A tile whose cost passes
-:data:`SPLIT_SLOTS` is cut into at most :data:`CHUNKS` chunks of about
-equal cost, each a range of the union's cells (:func:`n_chunks`,
-:func:`chunk_cells`), walked by a warp each, and the rows' sums are added
-in chunk order before the tail, so every instance of a frame gives the
-same bits. The kernel decides and queues on the device, with no plan
-launch and no host sync. The plain versions do not split: they sum each
-row's candidates in one tree. Density and the forces walk every tile
-whole.
+Wide tiles (the split launch of the fused substep and of banded density):
+a tile's cost is the occupied slots of its union (:func:`tile_cost`, from
+:func:`occ_prefix`, which the stepper and the slab step compute once a
+frame and pass as ``occ_cum``; it does not depend on the capacity
+argument). A tile whose cost passes :data:`SPLIT_SLOTS` (the substep) or
+:data:`DENSITY_SPLIT_SLOTS` (banded density) is cut into at most
+:data:`CHUNKS` chunks of about equal cost, each a range of the union's
+cells (:func:`n_chunks`, :func:`chunk_cells`), walked by a warp each, and
+the rows' sums are added in chunk order before the tail, so every instance
+of a frame gives the same bits. The kernel decides and queues on the
+device, with no plan launch and no host sync. The plain versions do not
+split: they sum each row's candidates in one tree. Density over the whole
+grid (solo and on the scene axis) and the forces walk every tile whole.
 
 Routing: a CPU tensor goes to the plain version; a CUDA tensor launches
 ``csrc/compact.cu`` or raises. Each entry point returns ``(out, cert)``.
@@ -103,6 +104,8 @@ N_LINES = 9              # (dz, dy) ∈ [−1, 1]² candidate lines per tile
 CHUNKS = 16              # the most chunks of a split tile (compact.cu kChunks)
 # occupied union slots past which the fused substep splits a tile (PERF.md)
 SPLIT_SLOTS = 1024
+# occupied union slots past which banded density splits a tile (PERF.md)
+DENSITY_SPLIT_SLOTS = 640
 CLOCK_LANES = 4          # a chunk's tile-clock entry (compact.cu kClockLanes)
 _BIG = 1 << 30
 # the kernel's mode argument (csrc/compact.cu)
@@ -489,15 +492,16 @@ def forces_compact_plain(frame: SortedFrame, rows: torch.Tensor,
 _MAX_R = 1024            # the kernel packs a raw cell in 10 bits an axis
 
 
-def _split_scratch(n_scenes: int, tiles: int, ext: bool,
+def _split_scratch(n_scenes: int, tiles: int, fields: int,
                    dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The split launch's queue, i32[8·S·T], and its chunks' partial sums,
-    f32[4·S·T, 6 (12 with extensions), CROWS] (``compact.cu`` Queue: the
-    queue holds 4 chunks a tile; its 6 counters follow the drift counts)."""
+    f32[4·S·T, fields, CROWS], ``fields`` the sums a row hands on (density
+    1, the substep 6, 12 with extensions) (``compact.cu`` Queue: the queue
+    holds 4 chunks a tile; its 6 counters follow the drift counts)."""
     slots = n_scenes * tiles
     queue = torch.empty(8 * slots, dtype=torch.int32, device=dev)
-    part = torch.empty((4 * slots, 12 if ext else 6, CROWS),
-                       dtype=torch.float32, device=dev)
+    part = torch.empty((4 * slots, fields, CROWS), dtype=torch.float32,
+                       device=dev)
     return queue, part
 
 
@@ -509,12 +513,13 @@ def _launch(mode: int, ext: bool, inp: torch.Tensor, pj: torch.Tensor | None,
             clock: torch.Tensor | None = None) -> torch.Tensor:
     """Launches the K5 instance ``mode`` over ``band`` in ``tune``'s
     variant, over one frame or (``n_scenes``) a scene axis, every tile
-    walked whole, or with ``split`` > 0 (the fused substep) the tiles past
-    ``split`` occupied union slots split (``occ_cum``: :func:`occ_prefix`
-    of ``frame.occ``, built here when None); returns the drift count, i32[]
-    or i32[S] (accumulated by the kernel for the force modes, 0 for
-    density). ``clock`` (:func:`clock_buffer`) launches the tile-clock
-    instance, which writes it."""
+    walked whole, or with ``split`` > 0 (the fused substep; density over
+    one frame) the tiles past ``split`` occupied union slots split
+    (``occ_cum``: :func:`occ_prefix` of ``frame.occ``, built here when
+    None); returns the drift count, i32[] or i32[S] (accumulated by the
+    kernel for the force modes, 0 for density). ``clock``
+    (:func:`clock_buffer`) launches the tile-clock instance, which writes
+    it."""
     stacked = n_scenes is not None
     n_scenes = n_scenes or 1
     n = inp.shape[1] if stacked else inp.shape[0]
@@ -557,11 +562,12 @@ def _launch(mode: int, ext: bool, inp: torch.Tensor, pj: torch.Tensor | None,
             occ_cum = occ_prefix(frame.occ)
         _check("occ_cum", occ_cum, torch.int32,
                (n_scenes, n + 1) if stacked else (n + 1,), dev)
-        queue, part = _split_scratch(n_scenes, n_tiles(n), ext, dev)
+        fields = 1 if mode == _DENSITY else 12 if ext else 6
+        queue, part = _split_scratch(n_scenes, n_tiles(n), fields, dev)
         err = lib("sph_compact_split")(
-            int(ext), *args, _ptr(occ_cum), *tail, _ptr(queue), _ptr(part),
-            clk, n, r, _cap_arg(capacity), *_band_args(band, r), n_scenes,
-            split, stream)
+            mode, int(ext), *args, _ptr(occ_cum), *tail, _ptr(queue),
+            _ptr(part), clk, n, r, _cap_arg(capacity), *_band_args(band, r),
+            n_scenes, split, stream)
     elif stacked:
         err = lib("sph_compact_scenes")(mode, int(ext), *args, *tail, clk, n,
                                         r, _cap_arg(capacity), n_scenes,
@@ -584,21 +590,31 @@ def _name(base: str, band: tuple[int, int] | None,
 def density_compact_cuda(frame: SortedFrame, pos_s: torch.Tensor,
                          phys: PhysParams, r: int, capacity: int | None,
                          scal: torch.Tensor | None = None,
-                         band: tuple[int, int] | None = None
+                         band: tuple[int, int] | None = None,
+                         occ_cum: torch.Tensor | None = None,
+                         split: int | None = None,
+                         clock: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5 density (``csrc/compact.cu``) on the card, banded with ``band``,
-    every tile walked whole. ``capacity`` is the frame's voxel capacity
-    (None: each union cell streamed uncut); ``scal`` is
-    ``scal_block(phys)`` (built here when None). Density reads no variant
-    switch: the default instance."""
+    """K5 density (``csrc/compact.cu``) on the card, banded with ``band``.
+    ``capacity`` is the frame's voxel capacity (None: each union cell
+    streamed uncut); ``scal`` is ``scal_block(phys)`` (built here when
+    None). A tile whose union holds more than ``split`` occupied slots is
+    split (None: :data:`DENSITY_SPLIT_SLOTS` over a band, and 0 over the
+    whole grid, where the solo launch keeps the scene axis's bits; 0: every
+    tile walked whole), given ``occ_cum`` as :func:`compact_substep_cuda`;
+    ``clock`` (:func:`clock_buffer`) runs the tile-clock instance. Density
+    reads no variant switch: the default instance."""
     n = pos_s.shape[0]
     _check("pos_s", pos_s, torch.float32, (n, 3), pos_s.device)
     rho = torch.empty(n, dtype=torch.float32, device=pos_s.device)
     if scal is None:
         scal = scal_block(phys)
+    if split is None:
+        split = 0 if band is None else DENSITY_SPLIT_SLOTS
     k5 = SortedTuning().k5()
     cert = _launch(_DENSITY, False, pos_s, None, frame, scal, rho, r,
-                   capacity, band, k5)
+                   capacity, band, k5, split=split, occ_cum=occ_cum,
+                   clock=clock)
     _count(_name("compact_density", band, k5))
     return rho, cert
 
@@ -672,13 +688,14 @@ def forces_compact_cuda(frame: SortedFrame, rows: torch.Tensor,
 def density_compact(frame: SortedFrame, pos_s: torch.Tensor,
                     phys: PhysParams, r: int, capacity: int | None,
                     scal: torch.Tensor | None = None,
-                    band: tuple[int, int] | None = None
+                    band: tuple[int, int] | None = None,
+                    occ_cum: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(ρ, cert) per sorted particle over ``band``: K5 for a CUDA tensor,
     the plain version for a CPU one. The certificate is 0."""
     if pos_s.is_cuda:
         return density_compact_cuda(frame, pos_s, phys, r, capacity, scal,
-                                    band)
+                                    band, occ_cum)
     return density_compact_plain(frame, pos_s, phys, r, band)
 
 
@@ -771,11 +788,14 @@ def forces_compact_scenes_plain(frame: SortedFrame, rows: torch.Tensor,
 def density_compact_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
                                 params: PhysParams, r: int,
                                 capacity: int | None,
-                                scal: torch.Tensor | None = None
+                                scal: torch.Tensor | None = None,
+                                clock: torch.Tensor | None = None
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 density over the scene axis on the card: (ρ f32[S, N], cert
-    i32[S]) in one launch. ``scal`` is ``scal_blocks(params)`` (built here
-    when None); the default instance, as :func:`density_compact_cuda`."""
+    i32[S]) in one launch, every tile walked whole. ``scal`` is
+    ``scal_blocks(params)`` (built here when None); ``clock``
+    (``clock_buffer(N, dev, S)``) runs the tile-clock instance. The default
+    instance, as :func:`density_compact_cuda`."""
     n_scenes, n = pos_s.shape[:2]
     _check("pos_s", pos_s, torch.float32, (n_scenes, n, 3), pos_s.device)
     rho = torch.empty((n_scenes, n), dtype=torch.float32,
@@ -784,7 +804,7 @@ def density_compact_scenes_cuda(frame: SortedFrame, pos_s: torch.Tensor,
         scal = scal_blocks(params)
     k5 = SortedTuning().k5()
     cert = _launch(_DENSITY, False, pos_s, None, frame, scal, rho, r,
-                   capacity, None, k5, n_scenes)
+                   capacity, None, k5, n_scenes, clock=clock)
     _count("compact_density_scenes")
     return rho, cert
 

@@ -64,9 +64,10 @@ KERNELS = {
     "compact.cu": (("sph_compact", (_I, _I, *(_P,) * 10, *(_I,) * 5, _P)),
                    ("sph_compact_scenes", (_I, _I, *(_P,) * 10, *(_I,) * 4,
                                            _P)),
-                   # the fused substep's split launch (ext, 13 pointers, then
-                   # n, r, cap, zbase, z_span, scenes, split)
-                   ("sph_compact_split", (_I, *(_P,) * 13, *(_I,) * 7, _P))),
+                   # the split launch (mode, ext, 13 pointers, then n, r,
+                   # cap, zbase, z_span, scenes, split)
+                   ("sph_compact_split", (_I, _I, *(_P,) * 13, *(_I,) * 7,
+                                          _P))),
 }
 # the probe group: source (relative to csrc/) → its C functions, as KERNELS
 PROBE_KERNELS = {

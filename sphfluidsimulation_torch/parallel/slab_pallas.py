@@ -245,8 +245,11 @@ def _local_step(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring,
         with span("density"):
             scal = sk.scal_block(phys, xsph, alpha)
             if tune.compact:
+                # K5's split of wide tiles counts occupied slots, once a
+                # frame: banded density's and the substeps' split
+                occ_cum = compact.occ_prefix(frame.occ)
                 rho_s, _ = compact.density_compact(frame, sf.pos_s, phys, r,
-                                                   cap, scal, band)
+                                                   cap, scal, band, occ_cum)
             else:
                 rho_s = sk.density_pass(frame, sf.pos_s, phys, r, cap, scal,
                                         band, tune)
@@ -263,8 +266,6 @@ def _local_step(cfg: SimConfig, spec: PallasSlabSpec, ring: Ring,
             rows = sk.pack_rows(sf.pos_s, sf.vel_s, rho_s,
                                 sf.nan_s.to(torch.float32))
             pj = sk.pj_cols(rho_s, phys)
-            # K5's split of wide tiles counts occupied slots, once a frame
-            occ_cum = compact.occ_prefix(frame.occ) if tune.compact else None
             # frame-constant sorted slots of the exchanged rows
             dn_spos, up_spos = inv[sf.dn_idx], inv[sf.up_idx]
             hb_spos, ht_spos = inv[c0:c0 + hc], inv[c0 + hc:]

@@ -392,26 +392,97 @@ def test_chunked_fold_matches_plain_and_jax_substep(xsph, alpha):
     assert int(cert) == wcert == 11
 
 
+def _chunked_density(tf, pos_s, tp, r, slots, band=None):
+    """(ρ, chunk bounds): density_compact_plain cut as the kernel cuts it
+    at ``slots`` (the split launch of banded density): each row's
+    candidates split by the chunks of ``chunk_cells`` (the candidate's
+    cell), each chunk's partial sum summed alone, the partials added in
+    chunk order."""
+    spans = compact.stale_spans(tf, band, r)
+    bounds = compact.chunk_cells(spans, tf.start, compact.occ_prefix(tf.occ),
+                                 r, slots, band)
+    w = pos_s.new_zeros(pos_s.shape[0])
+    for ids, j, member in compact._tile_candidates(tf, spans, pos_s, r,
+                                                   band):
+        b = bounds[ids // compact.CROWS].long()
+        chunk = (tf.cid[j][..., None] >= b[:, None, 1:]).sum(-1)
+        total = None
+        for q in range(compact.CHUNKS):
+            part = sk.density_sums_plain(pos_s, tp, ids, j,
+                                         member & (chunk == q))
+            total = part if total is None else total + part
+        w[ids] = total
+    return tp.mass * w, bounds
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_band_density():
+    """(port frame, sorted positions, port physics, R, band, JAX's
+    density_compact(band=) ρ and certificate) on a slab shard's banded frame
+    of the calm dam in both packages: shard 1 of 4's planes with two below
+    and four above, then 40 dead rows (tests/test_torch_variants.py's
+    shard; JAX's tiles in groups of two, no unroll)."""
+    name = "calm"
+    jp, tp = _phys(name)
+    pos = torch.from_numpy(_positions(name))
+    r, n = CONFIGS[name]["bucket_resolution"], pos.shape[0]
+    spec_z = -(-r // 4)
+    band = (spec_z - 2, spec_z + 4)
+    az = (pos[:, 2] * (r - 1)).to(torch.int32).clamp(0, r - 1)
+    live = (az >= band[0]) & (az < band[0] + band[1])
+    n_live = int(live.sum())
+    # dead rows' ids ascend with their row index, so both sorts agree
+    bpos = torch.cat([pos[live], pos[:40]])
+    valid = torch.arange(n_live + 40) < n_live
+    gid = torch.cat([torch.arange(n, dtype=torch.int32)[live],
+                     torch.arange(40, dtype=torch.int32)])
+    tf, (tps,) = build_frame(bpos, r, CAP, extras=(bpos,), gid=gid,
+                             n_ids=n, band=band, valid=valid)
+    jt = PallasTuning(fused=True, compact=True, tiles_per_group=2, unroll=1)
+    jband = (jnp.int32(band[0]), band[1])
+    jf, (jps,) = pallas_sph.build_frame(
+        jnp.asarray(bpos.numpy()), r, CAP,
+        extras=(jnp.asarray(bpos.numpy()),), gid=jnp.asarray(gid.numpy()),
+        tune=jt, band=jband, valid=jnp.asarray(valid.numpy()))
+    np.testing.assert_array_equal(tps.numpy(), np.asarray(jps))
+    want, wcert = pallas_compact.density_compact(jf, jps, jp, r,
+                                                 tps.shape[0], jt,
+                                                 band=jband)
+    return tf, tps, tp, r, band, np.asarray(want), int(wcert)
+
+
 def test_chunked_density_fold_matches_plain_and_jax():
     # density's chunks on the stale spans, folded in chunk order
     tf, pos_s, tp, r, want, wcert = _jax_density("calm")
-    spans = compact.stale_spans(tf)
-    bounds = compact.chunk_cells(spans, tf.start, compact.occ_prefix(tf.occ),
-                                 r, 16)
+    got, bounds = _chunked_density(tf, pos_s, tp, r, 16)
     assert int((bounds[:, 2] < r ** 3).sum()) > 0          # split tiles
-    w = pos_s.new_zeros(pos_s.shape[0])
-    for ids, j, member in compact._tile_candidates(tf, spans, pos_s, r):
-        b = bounds[ids // compact.CROWS].long()
-        chunk = (tf.cid[j][..., None] >= b[:, None, 1:]).sum(-1)
-        w[ids] = sum(sk.density_sums_plain(pos_s, tp, ids, j,
-                                           member & (chunk == q))
-                     for q in range(compact.CHUNKS))
-    got = tp.mass * w
     torch.testing.assert_close(
         got, compact.density_compact_plain(tf, pos_s, tp, r)[0], rtol=1e-5,
         atol=0)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
     assert wcert == 0
+
+
+@pytest.mark.parametrize("slots", [8, 16])
+def test_chunked_band_density_fold_matches_plain_and_jax(slots):
+    # the split launch of banded density on a slab shard's frame: the live
+    # tiles cut at `slots` occupied slots, each
+    # row's chunk partials folded in chunk order, within 1e-5 of the banded
+    # plain version and of JAX's density_compact(band=); dead rows 0, dead
+    # tiles one chunk (every live tile but the ragged last splits)
+    tf, pos_s, tp, r, band, want, wcert = _jax_band_density()
+    n_live = int(tf.start[-1])
+    assert 0 < n_live < pos_s.shape[0]
+    got, bounds = _chunked_density(tf, pos_s, tp, r, slots, band)
+    s_cells = compact.s_cells_of(r, band)
+    live = compact._tiled(compact.live_rows(tf), False).any(1)
+    assert int((bounds[live, 2] < s_cells).sum()) >= int(live.sum()) - 1
+    assert bool((bounds[~live, 1] == s_cells).all())      # one chunk
+    plain, _ = compact.density_compact_plain(tf, pos_s, tp, r, band)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got[:n_live].numpy(), want[:n_live],
+                               rtol=1e-5, atol=0)
+    assert not got[n_live:].any() and wcert == 0
 
 
 @functools.lru_cache(maxsize=None)

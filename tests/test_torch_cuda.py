@@ -1765,6 +1765,116 @@ def test_split_scenes_are_bit_equal_to_solo_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cap", [4, CAP, None])
+@pytest.mark.parametrize("slots", [2, 8, SPLIT16, None])
+def test_split_band_density_matches_plain_on_card(cuda_device, slots, cap):
+    # K5-band density split at `slots` occupied union slots (None: the
+    # default, compact.DENSITY_SPLIT_SLOTS) on a slab shard's frame built
+    # with capacity `cap`: held to the banded plain version, dead rows 0,
+    # the bits those of a second launch, of the uncut stream and of a launch
+    # given occ_cum, one launch counted a call; at 2, 8 and 16 slots most
+    # live tiles split (at 2 into more chunks than the queue holds, so the
+    # chunk kernel also walks tiles past its end); the whole-tile body held
+    # alike; and planted: the split launch with a smoothing length 5%
+    # longer fails the tolerance
+    band = (1, 6)
+    tf, ps, _, tp, r, n_live = _banded_inputs(cap, cuda_device, band)
+    occ_cum = compact.occ_prefix(tf.occ)
+    spans = compact.stale_spans(tf, band, r)
+    k = compact.n_chunks(compact.tile_cost(spans, tf.start, occ_cum, r, band),
+                         slots or compact.DENSITY_SPLIT_SLOTS)
+    if slots is not None:
+        live = compact._tiled(compact.live_rows(tf), False).any(1)
+        assert 2 * int((k[live] > 1).sum()) > int(live.sum())
+    if slots == 2:
+        assert int(k[k > 1].sum()) > 4 * k.shape[0]
+    want, _ = compact.density_compact_plain(tf, ps, tp, r, band)
+    before = sk.launch_counts["compact_density_band"]
+    rho, c = compact.density_compact_cuda(tf, ps, tp, r, cap, band=band,
+                                          split=slots)
+    assert sk.launch_counts["compact_density_band"] == before + 1
+    torch.testing.assert_close(rho, want, rtol=1e-5, atol=1e-6)
+    assert not rho[n_live:].any() and int(c) == 0
+    for again in (compact.density_compact_cuda(tf, ps, tp, r, cap, band=band,
+                                               split=slots),
+                  compact.density_compact_cuda(tf, ps, tp, r, None,
+                                               band=band, split=slots),
+                  compact.density_compact_cuda(tf, ps, tp, r, cap, band=band,
+                                               occ_cum=occ_cum,
+                                               split=slots)):
+        assert _same_bits(again[0], rho) and int(again[1]) == 0
+    assert sk.launch_counts["compact_density_band"] == before + 4
+    whole, _ = compact.density_compact_cuda(tf, ps, tp, r, cap, band=band,
+                                            split=0)
+    torch.testing.assert_close(whole, want, rtol=1e-5, atol=1e-6)
+    if int(k.max()) == 1:                   # nothing split: the same walk
+        assert _same_bits(whole, rho)
+    longer = sk.scal_block(tp._replace(h=1.05 * tp.h))
+    bad, _ = compact.density_compact_cuda(tf, ps, tp, r, cap, longer, band,
+                                          split=slots)
+    assert not torch.allclose(bad, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [0, 3])
+@pytest.mark.parametrize("cap", [4, CAP, None])
+def test_compact_density_scenes_keep_each_scenes_bits_on_card(cuda_device,
+                                                              cap, frames):
+    # K5-scenes density over 3 goldenish scenes, at the spawn (aliased raw
+    # ids) and 3 frames on, with the frame built at capacity 4 (dropped
+    # rows), 32 and uncut: each scene bit-equal to its solo K5 density, to
+    # the uncut stream's and to a second launch, and held to the plain
+    # version; one launch counted a call; planted: a frame with one of
+    # scene 1's occupied slots marked unoccupied changes scene 1's bits and
+    # no other scene's
+    from sphfluidsimulation_torch.ops.frame import (build_frame_scenes,
+                                                    scene_frame)
+    from sphfluidsimulation_torch.params import stack_params
+    from sphfluidsimulation_torch.state import stack_states
+    cfgs = [SimConfig(**_GOLDENISH).replace(rest_density=1.0 + 0.25 * i,
+                                            seed=i) for i in range(3)]
+    states = []
+    for c in cfgs:
+        st = initial_state(c, cuda_device)
+        if frames:
+            st, _ = make_rollout(c, frames, device=cuda_device)(st)
+        states.append(st)
+    states = stack_states(states)
+    params = stack_params([PhysParams.from_config(c, cuda_device)
+                           for c in cfgs])
+    r = cfgs[0].bucket_resolution
+    frame, (ps,) = build_frame_scenes(states.pos, r, cap,
+                                      extras=(states.pos,))
+    before = sk.launch_counts["compact_density_scenes"]
+    rho, c = compact.density_compact_scenes(frame, ps, params, r, cap)
+    assert sk.launch_counts["compact_density_scenes"] == before + 1
+    assert c.tolist() == [0, 0, 0]
+    for again in (compact.density_compact_scenes_cuda(frame, ps, params, r,
+                                                      None)[0],
+                  compact.density_compact_scenes_cuda(frame, ps, params, r,
+                                                      cap)[0]):
+        assert _same_bits(again, rho)
+    for sc in range(3):
+        fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+        assert _same_bits(rho[sc],
+                          compact.density_compact_cuda(fs, ps[sc], ph, r,
+                                                       cap)[0])
+        torch.testing.assert_close(rho[sc], compact.density_compact_plain(
+            fs, ps[sc], ph, r)[0], rtol=1e-5, atol=1e-6)
+    if frames == 0:
+        assert bool((frame.raw != frame.cid).any())      # aliased raw ids
+    if cap == 4:
+        assert not bool(frame.occ.all())
+    occ = frame.occ.clone()
+    occupied = occ[1].nonzero()[:, 0]
+    occ[1, occupied[occupied.shape[0] // 2]] = False
+    bad, _ = compact.density_compact_scenes_cuda(frame._replace(occ=occ), ps,
+                                                 params, r, cap)
+    assert not _same_bits(bad[1], rho[1])
+    assert _same_bits(bad[0], rho[0]) and _same_bits(bad[2], rho[2])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("slots", [0, SPLIT16])
 def test_tile_clock_records_each_chunk_on_card(cuda_device, slots):
     # the clock instance (-DSPH_TILE_CLOCK=1) gives the default instance's
