@@ -101,7 +101,13 @@ every phase passed; each prints its seconds):
    slab frames (both bodies) and K5-scenes density's at config 5 (every
    tile whole); and the K5 substep at the 262k spawn (frame-start
    rows, where no tile may pass the split threshold) beside its whole-tile
-   body (the "262k_f0" shape);
+   body (the "262k_f0" shape); K5 forces in the walk it chooses by rows a
+   cell (``compact.own_lists``) beside the other, which gives the same
+   bits (held so in phases 3, 4b and 9): solo at 262k, each lane walking
+   its own slots of a round, beside every lane stepping through the
+   round's list ("_list"), and over config 5's scenes the other way round
+   ("_own"), with the forces' tile clock and scene 0's row-loop steps a
+   tile in both walks (``compact.walk_counts``);
 8. the slab step (``parallel.make_pallas_slab_step``) on ``LocalRing(4)``,
    four z-slabs on the one card: the banded K1 and K2 (K2-ext at config 3)
    held against their banded plain versions on each shard's frame
@@ -155,7 +161,13 @@ every phase passed; each prints its seconds):
    ``fuse_acc=False``, ``bf16`` on the compact route) through
    ``BatchedScenes`` for 3 frames with its exact launches, then each
    instance on the spawn's frame bit-equal to its solo launch scene by
-   scene, scene 0 held to its variant's plain version, and timed;
+   scene, scene 0 held to its variant's plain version, and timed; the
+   bf16 K2-ext, which reads its candidates rounded once a substep by
+   ``bf16_candidates`` (held bit-equal to its plain version), bit-equal to
+   the walk that rounds them in its registers, its reference, and timed
+   with its pass beside that walk ("c3_reference"), the pass alone (on
+   copies of the rows cycled past the card's L2) and the default K2-ext
+   on the same inputs;
 10. the paths of the JAX package's default backend and its export path,
    each with the launch counters reset before it: the exact tiers
    (``neighbor="slotted"`` and ``"gather"``, plain PyTorch, which launch no
@@ -359,6 +371,10 @@ ROW_BYTES = {"density": 12 + 4 + 1 + 4, "fused": 32 + 4 + 1 + 32,
              "forces": 32 + 4 + 1 + 48}
 # a dead row of a slab's buffer: K1 writes its ρ 0, K2 copies its row
 DEAD_ROW_BYTES = {"density": 4, "fused": 64}
+# the bf16 candidates' pass reads the rows f32[8] and writes their
+# half-width copy f32[6] a row; its FP32 operation a row is the reciprocal
+# (the roundings are integer operations)
+CAND_ROW_BYTES, CAND_ROW_OPS = 32 + 24, 1
 # every kernel of the port: (kind, source, the TPU kernel it replaces)
 KERNELS = {
     "density": ("density", "density.cu", "pallas_sph.py:961"),
@@ -393,6 +409,10 @@ KERNELS = {
                                    "pallas_compact.py:237"),
     "compact_forces_scenes": ("forces", "compact.cu",
                               "pallas_compact.py:237"),
+    # the bf16 K2-ext's candidates, rounded once a substep (a pass of the
+    # bf16 library beside its walk)
+    "bf16_candidates": ("candidates", "fused_substep.cu",
+                        "pallas_sph.py:961"),
 }
 # the variants' instances: the kernel's entry with the variant's tag
 # (sph_kernels.variant_tag)
@@ -419,6 +439,11 @@ def bound(name: str, n: int, r: int, pairs: int, ext: bool,
     own start table and scalars). A variant's instance (``name`` with its
     tags) adds its own operations."""
     kind = KERNELS[name][0]
+    if kind == "candidates":
+        t_bytes = n * CAND_ROW_BYTES / HBM_BYTES_PER_S
+        t_ops = n * CAND_ROW_OPS / FP32_OPS_PER_S
+        return 1e3 * max(t_bytes, t_ops), \
+            "bytes" if t_bytes >= t_ops else "operations"
     tags = name.split("+")[1:]
     k5 = name.startswith("compact")
     rho_j = "bf16" in tags and (ext or k5)        # pj not read
@@ -1491,6 +1516,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is false")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    from itertools import cycle
+
     import numpy as np
 
     from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig, cli
@@ -1503,6 +1530,7 @@ def main() -> None:
                                                     scene_frame)
     from sphfluidsimulation_torch.parallel import BatchedScenes
     from sphfluidsimulation_torch.params import PhysParams, stack_params
+    from sphfluidsimulation_torch.probes.common import past_l2
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                       integrate_substep,
                                                       make_rollout)
@@ -1631,6 +1659,12 @@ def main() -> None:
               f"{line}; drift count {drift} (plain {int(cp)})", flush=True)
         if forces:
             s_k, ck = compact.forces_compact_cuda(frame, rows, phys, r, cap)
+            # the walk it does not choose, the same bits
+            s_o, co = compact.forces_compact_cuda(
+                frame, rows, phys, r, cap,
+                own=not compact.own_lists(rows.shape[0], r))
+            if not (same_bits(s_k, s_o) and int(ck) == int(co)):
+                fail(f"{label}: K5 forces' two walks differ")
             f_k = sk.fold_forces(s_k, rows[:, 6], phys, fuse_acc=False)[0]
             ref_f = sk.forces_reference(frame, rows, phys, r, None,
                                         sums_fn=compact.compact_sums_plain)
@@ -2393,6 +2427,13 @@ def main() -> None:
                                                           r, cap, pj, scal),
                       lambda: compact.forces_compact_plain(frame, rows,
                                                            phys, r))
+                # the walk it does not choose on the same inputs (every
+                # lane through the round's list, "_list")
+                timed("compact_forces", f"{shape}_list", n, r,
+                      ftot - fown, False,
+                      lambda: compact.forces_compact_cuda(
+                          frame, rows, phys, r, cap, pj, scal, own=False),
+                      times["compact_forces"][shape][1])
         # the scene-axis instances: K1-scenes on config 5's frame-11
         # frame, K2-scenes on its rows two substeps in; K2-ext-scenes on
         # the config-3 batch's, frame 0 (compare_scenes' inputs); each
@@ -2548,6 +2589,39 @@ def main() -> None:
                       lambda: compact.forces_compact_scenes_plain(
                           frame, rows0, params, r),
                       scenes=n_sc)
+                if shape == "c5":
+                    # the walk it does not choose at about 5 rows a cell
+                    # (each lane its own slots, "_own"), and scene 0's row
+                    # loop steps a tile: the round's kept slots (every lane
+                    # in the list walk), those it runs the pair for, and
+                    # the largest of the lanes' own counts
+                    timed("compact_forces_scenes", f"{shape}_own",
+                          n_sc * n, r, f0, False,
+                          lambda: compact.forces_compact_scenes_cuda(
+                              frame, rows0, params, r, cap, pj, scal,
+                              own=True),
+                          times["compact_forces_scenes"][shape][1],
+                          scenes=n_sc)
+                    kept, paired, owned = (int(c.sum()) for c in
+                                         compact.walk_counts(
+                                             scene_frame(frame, 0),
+                                             rows0[0, :, 0:3], r, cap))
+                    tiles = compact.n_tiles(n)
+                    print(f"row-loop steps {shape} scene 0 (frame-start "
+                          f"rows, {n / r ** 3:.2f} a cell): the list walk "
+                          f"{kept} ({kept / tiles:.2f} a tile), its pairs "
+                          f"{paired} ({paired / tiles:.2f}), the lanes' own "
+                          f"lists {owned} ({owned / tiles:.2f}; "
+                          f"{owned / paired:.4f} of the pairs)", flush=True)
+
+                    def forces_clock(_):
+                        clock = compact.clock_buffer(n, dev, n_sc)
+                        compact.forces_compact_scenes_cuda(
+                            frame, rows0, params, r, cap, pj, scal,
+                            clock=clock)
+                        return [clock]
+                    tile_clock(f"{shape} ({n_sc} scenes) forces",
+                               forces_clock, (("one warp a tile", 0),))
                 solo_ms["K5 density"] = time_ms(lambda: [
                     compact.density_compact_cuda(fs, pos_s[sc], ph, r, cap,
                                                  blocks[sc])
@@ -2825,6 +2899,11 @@ def main() -> None:
                                         tune=BF16)
             sums, ck = compact.forces_compact_cuda(frame, rows, phys, r, cap,
                                                    tune=BF16)
+            s_o, co = compact.forces_compact_cuda(
+                frame, rows, phys, r, cap, tune=BF16,
+                own=not compact.own_lists(rows.shape[0], r))
+            if not (same_bits(sums, s_o) and int(ck) == int(co)):
+                fail(f"{label}: K5 bf16 forces' two walks differ")
             f = sk.fold_forces(sums, rows[:, 6], phys, fuse_acc=False)[0]
             e, line = hold_out("compact_forces+bf16", f, ref_f, label)
             same_cert(ck, cp, "compact_forces+bf16", label)
@@ -2874,6 +2953,22 @@ def main() -> None:
               f"{errs_k[DEFAULT][1]:.6e} (each against the float64 "
               f"evaluation of its own variant)", flush=True)
         compare_k5_bf16(c3, st_k5_c3, lab)
+        # the bf16 K2-ext reads its candidates rounded once (the pass's
+        # copy, held to its plain version bit for bit): its output is the
+        # in-register walk's, the reference, bit for bit
+        cand_k = sk.bf16_candidates_cuda(rows)
+        cand_p = sk.bf16_candidates_plain(rows)
+        errs["bf16_candidates"] = max(errs["bf16_candidates"],
+                                      max_err(cand_k, cand_p))
+        if not same_bits(cand_k, cand_p):
+            fail(f"{lab}: bf16_candidates leaves its plain version")
+        k2_ref = sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH, ALPHA,
+                                       tune=BF16, reference=True)
+        if not same_bits(outs[BF16][0], k2_ref):
+            fail(f"{lab}: the bf16 K2-ext leaves its in-register walk")
+        print(f"compare {lab}: bf16_candidates bit-equal to its plain "
+              f"version; fused_substep_ext+bf16 bit-equal to the "
+              f"in-register walk", flush=True)
         if planted:
             k2_bf16, ref_def = outs[BF16][0], outs[DEFAULT][1]
             must_fail(sk.hold(k2_bf16, ref_def),
@@ -2917,7 +3012,8 @@ def main() -> None:
         ("bf16 262k", {"SPH_PALLAS_BF16": "1"}, "262k",
          {"density": vf, "fused_substep+bf16": 5 * vf}),
         ("bf16 config 3", {"SPH_PALLAS_BF16": "1"}, "c3",
-         {"density": vf, "fused_substep_ext+bf16": 5 * vf}),
+         {"density": vf, "fused_substep_ext+bf16": 5 * vf,
+          "bf16_candidates": 5 * vf}),
         ("bf16 unfused 262k", {"SPH_PALLAS_BF16": "1",
                                "SPH_PALLAS_FUSED": "0"}, "262k",
          {"density": vf, "forces+bf16": 5 * vf}),
@@ -3219,6 +3315,31 @@ def main() -> None:
                                                     tune=tune),
                       lambda: sk.fused_substep_plain(frame, mid, phys, r,
                                                      cap, xs, al, tune=tune))
+                if ext and tune is BF16:
+                    # with its candidates' pass (above), the in-register
+                    # walk on the same inputs ("<shape>_reference"), the
+                    # pass alone, and the default K2-ext's time beside it
+                    timed(name, f"{shape}_reference", n, r, m_tot - m_own,
+                          ext,
+                          lambda: sk.fused_substep_cuda(
+                              frame, mid, phys, r, cap, xs, al, pj, scal_f,
+                              tune=BF16, reference=True),
+                          times[name][shape][1])
+                    # the pass cycles through copies of the rows past the
+                    # card's L2, so that it reads them from device memory,
+                    # as its bound counts them
+                    copies = cycle(past_l2(mid, n * CAND_ROW_BYTES))
+                    timed("bf16_candidates", shape, n, r, 0, False,
+                          lambda: sk.bf16_candidates_cuda(next(copies)),
+                          lambda: sk.bf16_candidates_plain(mid))
+                    del copies
+                    k2_ms = time_ms(lambda: sk.fused_substep_cuda(
+                        frame, mid, phys, r, cap, xs, al, pj, scal_f), 20)
+                    print(f"time {shape}: fused_substep_ext+bf16 with its "
+                          f"candidates' pass {times[name][shape][0]:.4f} ms, "
+                          f"the default K2-ext {k2_ms:.4f} ms on the same "
+                          f"inputs: {times[name][shape][0] / k2_ms:.4f} x "
+                          f"[{ident}]", flush=True)
                 name = "forces" + sk.variant_tag("forces.cu", tune)
                 timed(name, shape, n, r, tot - own, ext,
                       lambda: sk.forces_cuda(frame, rows, phys, r, cap, ext,
@@ -3241,6 +3362,12 @@ def main() -> None:
                                                           tune=BF16),
                       lambda: compact.forces_compact_plain(frame, rows, phys,
                                                            r, BF16))
+                timed("compact_forces+bf16", f"{shape}_list", n, r,
+                      ftot - fown, False,
+                      lambda: compact.forces_compact_cuda(
+                          frame, rows, phys, r, cap, pj, scal, tune=BF16,
+                          own=False),
+                      times["compact_forces+bf16"][shape][1])
         for key, (cfg, _) in slab_cfgs.items():
             spec, sst = slab_k5[key]
             phys = PhysParams.from_config(cfg, dev)
@@ -3599,7 +3726,7 @@ def main() -> None:
                   "compact_substep_scenes": "c5",
                   "compact_substep_ext_scenes": "c3x2",
                   "compact_forces_scenes": "c5",
-                  "density+kahan": "262k"}
+                  "density+kahan": "262k", "bf16_candidates": "c3"}
     main_shape.update({f"{name}+{tag}": "262kx2" for name, tags in (
         ("density_scenes", ("kahan",)),
         ("fused_substep_scenes", ("facc0", "kahan", "bf16")),

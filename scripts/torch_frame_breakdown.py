@@ -15,7 +15,9 @@ BASELINE config 5 (``sweep --particles 524288 --scenes 8``: 8 scenes of
 on, the next frames of one on the host clock and of the other under the
 profiler; its rate is the aggregate over the scenes. Its cells are the
 faithful window route (config5), ``sweep --corrected`` (config5-corrected)
-and the ``SPH_PALLAS_COMPACT=1`` sweep (config5-compact). Each
+and the ``SPH_PALLAS_COMPACT=1`` sweep, faithful (config5-compact) and
+corrected (config5-compact-corrected: K5-scenes density six times and K5-
+scenes forces five times a frame). Each
 phase's device time is that of the kernels launched inside the stepper's
 own profiler ranges
 (``stepper.FRAME_PHASES``: frame build, density kernel, rows pack, each
@@ -55,8 +57,8 @@ its launch(es) and its ratio to the mean tile time, beside the slots a
 tile streams (``tile_slots``'s measures, over those rows' fresh spans).
 
 ``--cells`` picks among 262k, 1m, config3, config3-corrected, config5,
-config5-corrected, config5-compact, slab-262k and slab-config3 (default:
-all).
+config5-corrected, config5-compact, config5-compact-corrected, slab-262k
+and slab-config3 (default: all).
 
 Writes the profiler tables to ``<out>/breakdown_<cell>.txt``.
 """
@@ -226,17 +228,23 @@ def k5_tail(label: str, ins, ident: str) -> None:
 
 
 CELLS = ("262k", "1m", "config3", "config3-corrected", "config5",
-         "config5-corrected", "config5-compact", "slab-262k", "slab-config3")
+         "config5-corrected", "config5-compact", "config5-compact-corrected",
+         "slab-262k", "slab-config3")
 # the hand-written kernels' symbols (csrc/*.cu) in a trace
 KERNEL_SYMBOLS = ("density_kernel", "fused_substep_kernel", "forces_kernel",
                   "compact_kernel", "compact_scenes_kernel",
-                  "compact_chunk_kernel")
+                  "compact_chunk_kernel", "compact_forces_own_kernel",
+                  "compact_forces_own_scenes_kernel",
+                  "fused_substep_cand_kernel", "bf16_candidates_kernel")
 # the config-5 cells: BatchedScenes' options and the stepper's ranges
 CONFIG5 = {"config5": ({}, stepper.FRAME_PHASES),
            "config5-corrected": (dict(faithful=False),
                                  stepper.CORRECTED_PHASES),
            "config5-compact": (dict(tune=SortedTuning(compact=True)),
-                               stepper.FRAME_PHASES)}
+                               stepper.FRAME_PHASES),
+           "config5-compact-corrected": (
+               dict(faithful=False, tune=SortedTuning(compact=True)),
+               stepper.CORRECTED_PHASES)}
 
 
 def print_phases(label: str, cfg, ms: dict, calls: dict, dev_ms: float,
@@ -305,7 +313,7 @@ def config5_cell(dev, frames: int, acts, out: str, ident: str,
                  frames, ident, scenes=len(overrides))
     print(f"  exact_cert {traced.last_metrics.exact_cert.tolist()}")
     write_table(prof, out, label, ident)
-    if kw.get("tune", SortedTuning()).compact:
+    if kw.get("tune", SortedTuning()).compact and kw.get("faithful", True):
         from sphfluidsimulation_torch.params import PhysParams, stack_params
         states = traced.states
         params = stack_params([PhysParams.from_config(cfg.replace(**ov), dev)

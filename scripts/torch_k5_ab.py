@@ -37,6 +37,31 @@ alone ``c5_f11_density_record_build``, ``_packed_build``), with the
 registers of each scene density kernel and, with ``--density``, the SASS
 loops of the density kernels.
 
+Forces (``--forces`` times only these): K5-scenes forces at ``c5_f11`` on
+the frame-start rows (as the corrected compact sweep runs it), and solo K5
+forces at 262k after 10 frames (``262k_f10_forces``, ``_bf16`` the bf16
+instance), each through its wrapper in the walk it chooses; on a tree
+whose forces walk each lane's own slots of a round below
+``compact.OWN_LISTS_ROWS_PER_CELL`` rows a cell (the wrappers take
+``own``), also the other walk on the same inputs (``262k_f10_forces_list``,
+every lane through the round's list; ``c5_f11_forces_own``) with its bits
+held to the chosen walk's (``..._bits``), K5-scenes forces' tile clock
+(``c5_f11_forces_clock``) and the row loop's steps a tile
+(``compact.walk_counts``: the kept slots, every lane's steps in the
+list walk; those it runs the pair for; and the largest own count,
+summed over a tile's rounds). ``--forces --sweep`` also times other forms
+of the own lists, each compiled from a patched copy of compact.cu into
+build/k5_forces and its bits held to the list walk's (``FORCE_WALKS``): a
+round's choice between the own lists and one list of the slots some lane
+owns, which the warp steps through together, taking the own lists where
+the most any lane owns is at most k eighths of that one list
+("hybrid<k>": 0 always the one list, 8 always the own lists).
+
+Cells (``--cells`` times only these): solo K5 forces through each walk,
+and the row loop's steps, on golden frames at 2.4 to 5.0 rows a cell and
+on scene 0 of config 5 (``cells_ab``): the readings that set
+``compact.OWN_LISTS_ROWS_PER_CELL``.
+
 Each time is the median of 5 CUDA-event timings of 20 launches behind a
 spin of the card (device time). A tree whose substep wrappers split wide
 tiles (a ``split`` argument) is timed as the path runs it, given the
@@ -65,6 +90,9 @@ ap.add_argument("root", nargs="?",
                 default=os.path.join(os.path.dirname(__file__), ".."))
 ap.add_argument("--step1", action="store_true")
 ap.add_argument("--density", action="store_true")
+ap.add_argument("--forces", action="store_true")
+ap.add_argument("--sweep", action="store_true")
+ap.add_argument("--cells", action="store_true")
 ARGS = ap.parse_args()
 ROOT = os.path.abspath(ARGS.root)
 sys.path.insert(0, ROOT)
@@ -530,8 +558,243 @@ def density_ab(dev, res: dict) -> None:
             compact.cuda_build.function = real
 
 
+# The other forms of the forces walk (--forces --sweep): edits of
+# compact.cu (old text, which must appear once, and its replacement)
+OWN_LISTS = """          unsigned own = 0;
+          if (live) {
+            for (int t = 0; t < count; ++t) {
+              const Slot& e = slots[t];
+              own |= (cell_near(e.cell, cx, cy, cz) && e.j != i ? 1u : 0u)
+                     << t;
+            }
+          }
+          while (own) {
+            const Slot& e = slots[__ffs(own) - 1];
+            own &= own - 1;
+            sph::add_pair_pj<kExt, false>(s, p, press_i, 1.f, e.a, e.b,
+                                          e.pj.x, e.pj.y, true, acc);
+          }
+"""
+HYBRID = """          unsigned own = 0;
+          if (live) {
+            for (int t = 0; t < count; ++t) {
+              const Slot& e = slots[t];
+              own |= (cell_near(e.cell, cx, cy, cz) && e.j != i ? 1u : 0u)
+                     << t;
+            }
+          }
+          const unsigned any = __reduce_or_sync(kAll, own);
+          const unsigned steps = __reduce_max_sync(kAll, __popc(own));
+          if (steps * 8 <= __popc(any) * EIGHTHS) {
+            while (own) {
+              const Slot& e = slots[__ffs(own) - 1];
+              own &= own - 1;
+              sph::add_pair_pj<kExt, false>(s, p, press_i, 1.f, e.a, e.b,
+                                            e.pj.x, e.pj.y, true, acc);
+            }
+          } else {
+            for (unsigned m = any; m; m &= m - 1) {
+              const int t = __ffs(m) - 1;
+              if (own >> t & 1u) {
+                const Slot& e = slots[t];
+                sph::add_pair_pj<kExt, false>(s, p, press_i, 1.f, e.a, e.b,
+                                              e.pj.x, e.pj.y, true, acc);
+              }
+            }
+          }
+"""
+FORCE_WALKS = {f"hybrid{k}": [(OWN_LISTS, HYBRID.replace("EIGHTHS", str(k)))]
+               for k in (0, 6, 7, 8)}
+
+
+def forces_library(label: str):
+    """compact.cu with FORCE_WALKS[label]'s edits, compiled into
+    build/k5_forces and bound."""
+    import types
+    src = (cuda_build.CSRC / "compact.cu").read_text()
+    for old, new in FORCE_WALKS[label]:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{label}: {old!r} is not in compact.cu once")
+        src = src.replace(old, new)
+    out = cuda_build.BUILD_DIR / "k5_forces"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"compact_{label}.cu", out / f"libsph_compact_{label}.so"
+    cu.write_text(src)
+    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I",
+                    str(cuda_build.CSRC), "-o", str(so), str(cu)],
+                   check=True, capture_output=True, text=True)
+    fns: dict = {}
+    cuda_build._bind(so, cuda_build.KERNELS["compact.cu"], fns)
+    return types.SimpleNamespace(**fns), so
+
+
+def forces_ab(dev, sweep: bool = False) -> dict:
+    """The forces readings (module docstring)."""
+    res: dict = {}
+    two_walks = "own" in inspect.signature(
+        compact.forces_compact_cuda).parameters
+    cfg = GOLDEN_CONFIG
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    phys = PhysParams.from_config(cfg, dev)
+    st10, _ = make_rollout(cfg, 10, device=dev)(initial_state(cfg, dev))
+    f10, (ps10, vs10) = build_frame(st10.pos, r, cap,
+                                    extras=(st10.pos, st10.vel))
+    rows10 = sk.pack_rows(ps10, vs10, sk.density_cuda(f10, ps10, phys, r,
+                                                      cap))
+    pj10, scal = sk.pj_cols(rows10[:, 6], phys), sk.scal_block(phys)
+    for tag, tune in (("", None), ("_bf16", BF16)):
+        def solo(**kw):
+            return compact.forces_compact_cuda(f10, rows10, phys, r, cap,
+                                               pj10, scal, tune=tune, **kw)
+        res[f"262k_f10_forces{tag}"] = ms(solo)
+        if two_walks:
+            res[f"262k_f10_forces{tag}_list"] = ms(lambda: solo(own=False))
+            res[f"262k_f10_forces{tag}_bits"] = float(torch.equal(
+                solo()[0].view(torch.int32),
+                solo(own=False)[0].view(torch.int32)))
+    del st10, ps10, vs10
+
+    c5 = SimConfig(particle_number=524288)
+    ov5 = cli.sweep_overrides(1.0, 2.0, 8)
+    bs = BatchedScenes(c5, ov5, devices=dev)
+    bs.step(11)
+    states = bs.states
+    del bs
+    params5 = stack_params([PhysParams.from_config(c5.replace(**o), dev)
+                            for o in ov5])
+    r5 = c5.bucket_resolution
+    f5, (ps5, vs5) = build_frame_scenes(states.pos, r5, cap,
+                                        extras=(states.pos, states.vel))
+    rows5 = sk.pack_rows_scenes(ps5, vs5, sk.density_scenes_cuda(
+        f5, ps5, params5, r5, cap))
+    pj5, scal5 = sk.pj_cols_scenes(rows5[..., 6], params5), \
+        sk.scal_blocks(params5)
+
+    def scenes(**kw):
+        return compact.forces_compact_scenes_cuda(f5, rows5, params5, r5,
+                                                  cap, pj5, scal5, **kw)
+    res["c5_f11_forces"] = ms(scenes)
+    if not two_walks:
+        return res
+    res["c5_f11_forces_own"] = ms(lambda: scenes(own=True))
+    res["c5_f11_forces_bits"] = float(torch.equal(
+        scenes()[0].view(torch.int32),
+        scenes(own=True)[0].view(torch.int32)))
+    if sweep:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(len(FORCE_WALKS)) as pool:
+            libs = dict(zip(FORCE_WALKS, pool.map(forces_library,
+                                                  FORCE_WALKS)))
+        pattern = r"compact_forces_own_(scenes_)?kernel"
+        res["registers"] = registers(
+            str(cuda_build.library_path("compact.cu")), pattern)
+        want5 = scenes()[0].view(torch.int32)
+        want10 = compact.forces_compact_cuda(
+            f10, rows10, phys, r, cap, pj10, scal)[0].view(torch.int32)
+        real = cuda_build.function
+        for k, (lib, so) in libs.items():
+            res["registers"].update({f"{k} {n}": v for n, v in registers(
+                str(so), pattern).items()})
+
+            def function(source, name, tune=None, clock=False, lib=lib):
+                if source == "compact.cu" and not clock and not (
+                        tune is not None and tune.bf16):
+                    return getattr(lib, name)
+                return real(source, name, tune, clock=clock)
+            compact.cuda_build.function = function
+            try:
+                res[f"c5_f11_forces_{k}"] = ms(lambda: scenes(own=True))
+                res[f"262k_f10_forces_{k}"] = ms(
+                    lambda: compact.forces_compact_cuda(
+                        f10, rows10, phys, r, cap, pj10, scal, own=True))
+                res[f"{k}_bits"] = float(
+                    torch.equal(scenes(own=True)[0].view(torch.int32), want5)
+                    and torch.equal(compact.forces_compact_cuda(
+                        f10, rows10, phys, r, cap, pj10, scal,
+                        own=True)[0].view(torch.int32), want10))
+            finally:
+                compact.cuda_build.function = real
+    n_sc, n = ps5.shape[:2]
+    clock = compact.clock_buffer(n, dev, n_sc)
+    scenes(clock=clock)
+    torch.cuda.synchronize()
+    res["c5_f11_forces_clock"] = compact.clock_stats([clock])
+    counts = [compact.walk_counts(scene_frame(f5, sc), rows5[sc, :, 0:3], r5,
+                                  cap) for sc in range(n_sc)]
+    kept, paired, own = (torch.cat(c) for c in zip(*counts))
+    res["c5_f11_steps_list"] = quantiles(kept)
+    res["c5_f11_steps_paired"] = quantiles(paired)
+    res["c5_f11_steps_own"] = quantiles(own)
+    res["c5_f11_steps_ratio"] = float(own.sum()) / float(kept.sum())
+    res["c5_f11_pairs_ratio"] = float(own.sum()) / float(paired.sum())
+    return res
+
+
+def cells_ab(dev) -> dict:
+    """Solo K5 forces through each walk, own lists and the round's list
+    (timed in the order own, list, list, own), with the row loop's steps
+    (``compact.walk_counts``), on frame-start rows at several rows a cell:
+    golden scenes of 262,144 rows at R = 40 and 47 and of 524,176 rows at
+    R = 47, 52, 56 and 60 after 10 frames, and scene 0 of config 5 after
+    11 frames (524,176 rows at R = 47)."""
+    res: dict = {}
+    cap = GOLDEN_CONFIG.voxel_capacity
+
+    def readings(label, frame, rows, phys, r):
+        n = rows.shape[0]
+        pj, scal = sk.pj_cols(rows[:, 6], phys), sk.scal_block(phys)
+        def solo(own):
+            return compact.forces_compact_cuda(frame, rows, phys, r, cap, pj,
+                                               scal, own=own)
+        t = [ms(lambda: solo(own)) for own in (True, False, False, True)]
+        kept, paired, owned = compact.walk_counts(frame, rows[:, 0:3], r,
+                                                  cap)
+        res[label] = {
+            "rows": n, "r": r, "rows_per_cell": n / r ** 3,
+            "own_ms": [t[0], t[3]], "list_ms": [t[1], t[2]],
+            "own_over_list": (t[0] + t[3]) / (t[1] + t[2]),
+            "bits": bool(torch.equal(solo(True)[0].view(torch.int32),
+                                     solo(False)[0].view(torch.int32))),
+            "steps": {"kept": int(kept.sum()), "paired": int(paired.sum()),
+                      "own": int(owned.sum()), "tiles": compact.n_tiles(n)},
+            "own_over_paired": float(owned.sum()) / float(paired.sum())}
+
+    for n, r in ((262144, 40), (262144, 47), (524288, 47), (524288, 52),
+                 (524288, 56), (524288, 60)):
+        cfg = GOLDEN_CONFIG.replace(particle_number=n, bucket_resolution=r)
+        phys = PhysParams.from_config(cfg, dev)
+        st, _ = make_rollout(cfg, 10, device=dev)(initial_state(cfg, dev))
+        f, (ps, vs) = build_frame(st.pos, r, cap, extras=(st.pos, st.vel))
+        readings(f"golden_{n}_r{r}_f10", f, sk.pack_rows(
+            ps, vs, sk.density_cuda(f, ps, phys, r, cap)), phys, r)
+    c5 = SimConfig(particle_number=524288)
+    ov5 = cli.sweep_overrides(1.0, 2.0, 8)
+    bs = BatchedScenes(c5, ov5, devices=dev)
+    bs.step(11)
+    pos, vel = bs.states.pos[0], bs.states.vel[0]
+    del bs
+    cfg = c5.replace(**ov5[0])
+    r, phys = cfg.bucket_resolution, PhysParams.from_config(cfg, dev)
+    f, (ps, vs) = build_frame(pos, r, cap, extras=(pos, vel))
+    readings("c5_scene0_f11", f, sk.pack_rows(
+        ps, vs, sk.density_cuda(f, ps, phys, r, cap)), phys, r)
+    return res
+
+
 def main() -> None:
     dev = torch.device("cuda")
+    if ARGS.cells:
+        cuda_build.build()
+        print(json.dumps({"root": ROOT, "cells": cells_ab(dev),
+                          "ident": gpu_identity().splitlines()[0]}),
+              flush=True)
+        return
+    if ARGS.forces:
+        cuda_build.build((BF16,), clock=True)
+        print(json.dumps({"root": ROOT, "forces": forces_ab(dev, ARGS.sweep),
+                          "ident": gpu_identity().splitlines()[0]}),
+              flush=True)
+        return
     if ARGS.step1:
         print(json.dumps({"root": ROOT, "step1": step1(dev),
                           "ident": gpu_identity().splitlines()[0]}),

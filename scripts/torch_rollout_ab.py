@@ -43,27 +43,231 @@ change's two-accumulator instances, the parent's default kernels, and
         python3 scripts/torch_rollout_ab.py . --loop $loop; done
 
 compares the two rollout modes of one tree.
+
+``--bf16`` runs only the bf16 K2-ext's readings at config 3: the faithful
+bf16 rollout's rate (host loop and, where the tree has it, the graph), and
+on the rows of its frame-10 state, each through its wrapper with pj and
+the scalar block built beforehand, the default K2-ext, the bf16 K2-ext (on
+a tree that rounds its candidates once a substep, with that pass, as the
+stepper runs it), its in-register walk
+(``reference=True``, where the tree has it) and the pass alone; and the
+loops of the K2-ext kernels' machine code (``cuobjdump -sass``: each
+branch back to an earlier address, its instructions and loads) in the
+default and the bf16 library. On a tree whose bf16 K2-ext
+reads a copy, also the copy at full width (``WIDE``: the rows with vx,
+vy, vz and ρ rounded and inv_j in lane 7, 32 bytes a row, in place of the
+24 of the launched half-width copy; compiled from patched copies of
+fused_substep.cu and window_walk.cuh into build/bf16_wide), its bits held
+to the in-register walk's:
+
+    for root in build/parent . . build/parent; do
+        python3 scripts/torch_rollout_ab.py $root --bf16; done
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
+import json
+import os
 import pathlib
+import re
 import statistics
+import subprocess
 import sys
 import time
 import types
+
+
+def sass_loops(lib: str, pattern: str) -> dict:
+    """Each loop (a branch back to an earlier address) of the functions of
+    ``lib`` whose name matches ``pattern``: its instructions and loads."""
+    from sphfluidsimulation_torch.ops import cuda_build
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
+                             "cuobjdump")
+    dump = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in dump.split("Function : ")[1:]:
+        name = block.splitlines()[0].strip()
+        if not re.search(pattern, name):
+            continue
+        ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        loops = []
+        for addr, text in ins:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                loops.append({"from": hex(int(m.group(1), 16)),
+                              "to": hex(addr), "instructions": len(body),
+                              "loads": sum(bool(re.match(
+                                  r"(@\S+\s+)?LD[GS]", t)) for t in body)})
+        out[name] = loops
+    return out
+
+
+# The full-width copy (--bf16): edits of (file, old text that must appear
+# once, its replacement) that make the copy f32[N, 8], the rows with vx,
+# vy, vz and rho rounded and inv_j in lane 7
+WIDE = [
+    ("window_walk.cuh", """  const float4 w = __ldg(a.cand + q);
+  const float2 v = __ldg(a.cand2 + q);
+  const unsigned pa = __float_as_uint(w.w), pb = __float_as_uint(v.x);
+  qa = make_float4(w.x, w.y, w.z, __uint_as_float(pa & 0xffff0000u));
+  qb = make_float4(__uint_as_float(pa << 16),
+                   __uint_as_float(pb & 0xffff0000u),
+                   __uint_as_float(pb << 16), v.y);""",
+     """  qa = __ldg(a.cand + 2 * q);
+  qb = __ldg(a.cand + 2 * q + 1);"""),
+    ("fused_substep.cu", """  cand[j] = make_float4(qa.x, qa.y, qa.z, pair(qa.w, qb.x));
+  cand2[j] = make_float2(pair(qb.y, qb.z), inv_j);""",
+     """  qb.w = inv_j;
+  cand[2 * j] = qa;
+  cand[2 * j + 1] = qb;"""),
+]
+
+
+def wide_library():
+    """The bf16 fused_substep.cu with the WIDE edits, compiled into
+    build/bf16_wide and bound."""
+    from sphfluidsimulation_torch.ops import cuda_build
+    out = cuda_build.BUILD_DIR / "bf16_wide"
+    out.mkdir(parents=True, exist_ok=True)
+    texts = {f: (cuda_build.CSRC / f).read_text()
+             for f in ("window_walk.cuh", "fused_substep.cu")}
+    for f, old, new in WIDE:
+        if texts[f].count(old) != 1:
+            raise RuntimeError(f"{f}: {old!r} is not there once")
+        texts[f] = texts[f].replace(old, new)
+    for f, text in texts.items():
+        (out / f).write_text(text)
+    so = out / "libsph_fused_substep_bf16_wide.so"
+    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+                    "-DSPH_BF16=1", "-I", str(cuda_build.CSRC), "-o",
+                    str(so), str(out / "fused_substep.cu")],
+                   check=True, capture_output=True, text=True)
+    fns: dict = {}
+    cuda_build._bind(so, cuda_build.KERNELS["fused_substep.cu"], fns)
+    return types.SimpleNamespace(**fns)
+
+
+def bf16_ab(root, dev) -> dict:
+    """The ``--bf16`` readings (module docstring)."""
+    import torch
+
+    from sphfluidsimulation_torch import SimConfig
+    from sphfluidsimulation_torch.ops import cuda_build, sph_kernels as sk
+    from sphfluidsimulation_torch.ops.frame import build_frame
+    from sphfluidsimulation_torch.params import PhysParams
+    from sphfluidsimulation_torch.sim.stepper import (initial_state,
+                                                      make_rollout)
+    from sphfluidsimulation_torch.utils.profiling import CudaTimer
+
+    bf = sk.SortedTuning(bf16=True)
+    cuda_build.build((bf,))
+    c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+                   artificial_viscosity=0.5)
+    res: dict = {}
+    modes = (("host", True), ("graph", False)) if "host_loop" in \
+        inspect.signature(make_rollout).parameters else (("host", None),)
+    st, _ = make_rollout(c3, 1, tune=bf, device=dev)(initial_state(c3, dev))
+    for label, host_loop in modes:
+        kw = {} if host_loop is None else {"host_loop": host_loop}
+        roll = make_rollout(c3, 10, tune=bf, device=dev, **kw)
+        roll(st)
+        rates = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            roll(st)
+            torch.cuda.synchronize()
+            rates.append(c3.n_particles * c3.substeps * 10 /
+                         (time.perf_counter() - t0))
+        res[f"c3_bf16_rate_{label}"] = statistics.median(rates)
+
+    st10, _ = make_rollout(c3, 10, device=dev)(initial_state(c3, dev))
+    r, cap = c3.bucket_resolution, c3.voxel_capacity
+    xs, al = c3.xsph, c3.artificial_viscosity
+    frame, (pos_s, vel_s) = build_frame(st10.pos, r, cap,
+                                        extras=(st10.pos, st10.vel))
+    phys = PhysParams.from_config(c3, dev)
+    rows = sk.pack_rows(pos_s, vel_s, sk.density_cuda(frame, pos_s, phys, r,
+                                                      cap))
+    pj, scal = sk.pj_cols(rows[:, 6], phys), sk.scal_block(phys, xs, al)
+    params = inspect.signature(sk.fused_substep_cuda).parameters
+    once = hasattr(sk, "bf16_candidates_cuda")
+
+    def ms(fn):
+        fn()
+        out = []
+        for _ in range(7):
+            with CudaTimer(50_000_000) as t:
+                for _ in range(20):
+                    fn()
+            out.append(t.ms / 20)
+        return statistics.median(out)
+
+    def k2(**kw):
+        return sk.fused_substep_cuda(frame, rows, phys, r, cap, xs, al, pj,
+                                     scal, **kw)
+    res["c3_f10_k2_ext"] = ms(k2)
+    res["c3_f10_k2_ext_bf16"] = ms(lambda: k2(tune=bf))
+    res["c3_f10_bf16_over_default"] = \
+        res["c3_f10_k2_ext_bf16"] / res["c3_f10_k2_ext"]
+    if "reference" in params:
+        res["c3_f10_k2_ext_bf16_reference"] = ms(
+            lambda: k2(tune=bf, reference=True))
+        res["c3_f10_k2_ext_bf16_bits"] = float(torch.equal(
+            k2(tune=bf).view(torch.int32),
+            k2(tune=bf, reference=True).view(torch.int32)))
+    if once:
+        res["c3_f10_bf16_candidates"] = ms(
+            lambda: sk.bf16_candidates_cuda(rows))
+        # the full-width copy, launched through its C entry points
+        lib, n = wide_library(), rows.shape[0]
+        wide, out = torch.empty(8 * n, device=dev), torch.empty_like(rows)
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+        def p(t):
+            return ctypes.c_void_p(t.data_ptr())
+
+        def wide_k2():
+            lib.sph_bf16_candidates(p(rows), p(wide), n, stream)
+            lib.sph_fused_substep_cand(
+                p(rows), p(wide), p(frame.start), p(frame.raw),
+                p(frame.occ), p(scal), p(out), n, r, cap, stream)
+            return out
+        res["c3_f10_k2_ext_bf16_wide"] = ms(wide_k2)
+        res["c3_f10_k2_ext_bf16_wide_bits"] = float(torch.equal(
+            wide_k2().view(torch.int32),
+            k2(tune=bf, reference=True).view(torch.int32)))
+        res["c3_f10_bf16_candidates_wide"] = ms(
+            lambda: lib.sph_bf16_candidates(p(rows), p(wide), n, stream))
+    pattern = r"fused_substep_(cand_)?kernelI(Lb1ELb0ELi1ELi1E|Lb1EE)"
+    res["sass"] = {tag: sass_loops(str(cuda_build.library_path(
+        "fused_substep.cu", cuda_build.defines("fused_substep.cu", t))),
+        pattern) for tag, t in (("default", sk.SortedTuning()), ("bf16", bf))}
+    return res
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root")
     ap.add_argument("--loop", choices=["host", "graph"], default=None)
+    ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
+
+    if args.bf16:
+        from sphfluidsimulation_torch.utils.profiling import gpu_identity
+        print(json.dumps({"root": args.root, "bf16": bf16_ab(
+            root, torch.device("cuda")),
+            "ident": gpu_identity().splitlines()[0]}), flush=True)
+        return
 
     from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig
     from sphfluidsimulation_torch.bench import scaled_config

@@ -75,6 +75,23 @@
 // prefix sum of their capped lengths, the other way to the same stream,
 // measured slower: most cells of a wide union are empty.
 //
+// The forces mode's two walks (Tile::walk): the tiles are frame-start tiles
+// (K5 forces runs on rows re-sorted just before it), and the warp runs the
+// pair for nearly every kept slot, with only the lanes whose rows are near
+// it. Mode kForcesOwn (the lanes' own lists): each live lane first sets a
+// bit for each of the round's slots near its own cell and not itself
+// (broadcast reads of the slots' cells and indices), then walks only its
+// set bits in ascending order, so that the warp's pair steps are the
+// largest of its lanes' counts, not the round's kept slots
+// (ops/compact.py::walk_counts counts both). Mode kForces steps every lane
+// through the round's list. Each row adds the same candidates in the same
+// order in both, so its sums are the same bits. The mask costs a loop over
+// the round's slots, which pays where lanes own few of them (2.5 rows a
+// cell: 0.69 of the round's pairs, −17%) and not where one lane owns
+// nearly all (5 rows a cell: 0.93, +1% solo, +8% over the scene axis), so
+// the wrappers take the own lists below compact.OWN_LISTS_ROWS_PER_CELL
+// rows a cell (PERF.md). Density and the fused substep walk the list.
+//
 // Splitting a wide tile (the split launch, sph_compact_split, of the fused
 // substep and of density over one frame, which the slab step's banded
 // density takes; ops/compact.py): one warp walking a wide union alone makes
@@ -123,7 +140,8 @@ constexpr int kMaxR = 1024;          // raw cells pack 10 bits a coordinate
 constexpr unsigned kAll = 0xffffffffu;
 constexpr bool kClock = SPH_TILE_CLOCK != 0;
 constexpr int kClockLanes = 4;       // start ns, end ns, cycles, cells
-enum Mode { kDensity = 0, kForces = 1, kFused = 2 };
+// kForcesOwn: the forces mode through the lanes' own lists
+enum Mode { kDensity = 0, kForces = 1, kFused = 2, kForcesOwn = 3 };
 
 // One compacted candidate: its rows entry (a.xyz only in density mode), its
 // pj entry (force modes), its sorted index and its decoded raw cell packed
@@ -273,8 +291,9 @@ __device__ __forceinline__ Frame scene_block(Frame f, int scene, int n,
 }
 
 // One warp's view of one tile: its row, the tile's span, lines and filter
-// box, and the row's sums over the cells this warp walks.
-template <int kMode, bool kExt, bool kBand>
+// box, and the row's sums over the cells this warp walks. kOwn: the forces
+// mode walks the lanes' own lists.
+template <int kMode, bool kExt, bool kBand, bool kOwn = false>
 struct Tile {
   // the sums one chunk hands on, per row
   static constexpr int kFields = kMode == kDensity ? 1 : kExt ? 12 : 6;
@@ -475,7 +494,23 @@ struct Tile {
         // many cells, most of what the box keeps is near none of them, and
         // the warp then skips the candidate whole
         const int count = __popc(mask);
-        if (live) {
+        if constexpr (kMode == kForces && kOwn) {
+          // the forces mode: the row's own slots as a mask, then only those
+          unsigned own = 0;
+          if (live) {
+            for (int t = 0; t < count; ++t) {
+              const Slot& e = slots[t];
+              own |= (cell_near(e.cell, cx, cy, cz) && e.j != i ? 1u : 0u)
+                     << t;
+            }
+          }
+          while (own) {
+            const Slot& e = slots[__ffs(own) - 1];
+            own &= own - 1;
+            sph::add_pair_pj<kExt, false>(s, p, press_i, 1.f, e.a, e.b,
+                                          e.pj.x, e.pj.y, true, acc);
+          }
+        } else if (live) {
           for (int t = 0; t < count; ++t) {
             const Slot& e = slots[t];
             if (!cell_near(e.cell, cx, cy, cz)) continue;
@@ -576,7 +611,7 @@ __device__ __forceinline__ void enqueue(const Queue& q, int owner, int k) {
 // whole-tile kernels. With kSplit (the split launch of the fused substep
 // and of banded density) a tile whose cost passes q.split is queued in
 // chunks instead.
-template <int kMode, bool kExt, bool kBand, bool kSplit>
+template <int kMode, bool kExt, bool kBand, bool kSplit, bool kOwn = false>
 __device__ __forceinline__ void whole_tile(const Frame& f, const Geom& g,
                                            const Queue& q, int scene,
                                            int tile) {
@@ -585,7 +620,7 @@ __device__ __forceinline__ void whole_tile(const Frame& f, const Geom& g,
   if (tile * 32 >= g.n) return;            // the whole warp leaves
   const int tiles = (g.n + 31) >> 5;
   long long* clock = tile_clock(q.clock, scene, tiles);
-  Tile<kMode, kExt, kBand> t(f, g);
+  Tile<kMode, kExt, kBand, kOwn> t(f, g);
   const bool live = t.begin(tile, true);
   if constexpr (kSplit) {
     // a tile whose union holds more than q.split occupied slots is queued
@@ -639,6 +674,22 @@ compact_scenes_kernel(Frame f, Geom g, Queue q) {
   const int scene = blockIdx.y;
   whole_tile<kMode, kExt, false, kSplit>(
       scene_block<kMode>(f, scene, g.n, g.r), g, q, scene,
+      blockIdx.x * kWarps + (threadIdx.x >> 5));
+}
+
+// The forces mode through the lanes' own lists (kForcesOwn), over one
+// frame and over the scene axis.
+__global__ void __launch_bounds__(kWarps * 32)
+compact_forces_own_kernel(Frame f, Geom g, Queue q) {
+  whole_tile<kForces, false, false, false, true>(
+      f, g, q, 0, blockIdx.x * kWarps + (threadIdx.x >> 5));
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+compact_forces_own_scenes_kernel(Frame f, Geom g, Queue q) {
+  const int scene = blockIdx.y;
+  whole_tile<kForces, false, false, false, true>(
+      scene_block<kForces>(f, scene, g.n, g.r), g, q, scene,
       blockIdx.x * kWarps + (threadIdx.x >> 5));
 }
 
@@ -795,6 +846,7 @@ int launch(int mode, int ext, const Frame& f, const Geom& g, const Queue& q,
         mode == kDensity ? (split ? density_kernel<true>(band)
                                   : density_kernel<false>(band))
         : mode == kForces ? compact_kernel<kForces, false, false, false>
+        : mode == kForcesOwn ? compact_forces_own_kernel
         : split           ? fused_kernel<true>(ext, band)
                           : fused_kernel<false>(ext, band);
     kernel<<<grid, kWarps * 32, 0, stream>>>(f, g, q);
@@ -802,6 +854,7 @@ int launch(int mode, int ext, const Frame& f, const Geom& g, const Queue& q,
     auto kernel =
         mode == kDensity  ? compact_scenes_kernel<kDensity, false, false>
         : mode == kForces ? compact_scenes_kernel<kForces, false, false>
+        : mode == kForcesOwn ? compact_forces_own_scenes_kernel
         : split ? (ext ? compact_scenes_kernel<kFused, true, true>
                        : compact_scenes_kernel<kFused, false, true>)
         : ext   ? compact_scenes_kernel<kFused, true, false>
@@ -832,9 +885,10 @@ int launch(int mode, int ext, const Frame& f, const Geom& g, const Queue& q,
 }
 
 bool bad_args(int mode, int ext, const float* pj, int r, bool band) {
-  return mode < kDensity || mode > kFused || (ext && mode != kFused) ||
-         r > kMaxR || (mode != kDensity && pj == nullptr) ||
-         (band && mode == kForces);
+  return mode < kDensity || mode > kForcesOwn ||
+         (ext && mode != kFused) || r > kMaxR ||
+         (mode != kDensity && pj == nullptr) ||
+         (band && (mode == kForces || mode == kForcesOwn));
 }
 
 Frame frame_of(const float* in, const float* pj, const int* cid,
@@ -850,8 +904,9 @@ Frame frame_of(const float* in, const float* pj, const int* cid,
 // mode: 0 density (in = pos f32[N, 3], out = rho f32[N]; pj unused, may be
 // null), 1 forces without extensions (in = rows f32[N, 8], pj f32[N, 2], out
 // = f32[N, 12]), 2 fused substep (in = rows, pj, out = rows; ext != 0 adds
-// the extension sums). *cert (zeroed by the caller) receives the drift count
-// of the force modes. cap is the voxel capacity of the frame (< 0: uncut);
+// the extension sums), 3 mode 1 through the lanes' own lists (the same
+// bits). *cert (zeroed by the caller) receives the drift count of the force
+// modes. cap is the voxel capacity of the frame (< 0: uncut);
 // r is at most 1024. (zbase, z_span) is the frame's band of z-planes, (0, r)
 // for the whole grid; density and the fused substep have banded instances
 // (the slab step's), the forces mode has none. Every tile is walked whole.

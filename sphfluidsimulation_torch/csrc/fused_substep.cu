@@ -65,6 +65,24 @@
 // 2 or 4 slots a lane, for the band and the whole grid: the measurement that
 // chose kBandLanes and kBandSlots (scripts/torch_k2band_ab.py).
 //
+// The bf16 instance with extensions, unbanded (config 3's bf16 rollout):
+// JAX rounds the candidates once, when it packs the window (pallas_sph.py:
+// 855-861), but rounding in the walk costs every slot of every row four
+// bf16_rounds, press_j and a reciprocal. Each substep, one pass
+// (bf16_candidates_kernel, sph_bf16_candidates) writes the rows' candidate
+// values with vx, vy, vz and rho rounded by candidate<true> itself, as
+// bfloat16 pairs in one word each (the packing of JAX's _pack_pair_bf16,
+// pallas_sph.py:293), and the rounded rho's guarded reciprocal inv_j: 24
+// bytes a row (window_walk.cuh CandArgs); the walk
+// (fused_substep_cand_kernel) reads row i from the rows and every candidate
+// from the copy, and computes press_j as candidate<true> does (a press_j
+// rounded ahead of the walk changed the sums where the compiler fuses its
+// product into press_i + press_j), so each pair sees the values the
+// in-register walk computes, and the result is its bits. The copy at full
+// width (32 bytes a row) measured 1.3% slower with its pass (PERF.md).
+// The in-register walk stays built as the reference instance
+// (sph_fused_substep in the bf16 library).
+//
 // The scene-axis instances (config 5's sweep: the grid is full and the walk
 // is bound by issued instructions) read each slot's gate and j-side values
 // from one 16-byte frame record (window_walk.cuh's kRec), one slot a step;
@@ -119,6 +137,45 @@ fused_substep_scenes_kernel(sph::SceneArgs a, float4* __restrict__ out) {
       [&](const sph::Scalars& s, const sph::Particle& p, int i,
           const sph::PairSums& acc) {
         sph::fused_tail<kExt, sph::kFacc>(s, p, acc, out_s, i);
+      },
+      [](int) {});   // no dead rows without a band
+}
+
+// The bf16 candidates of K2 with extensions, one thread a row, rounded by
+// sph_common.cuh::candidate<true> (its press_j is the walk's): cand[j] =
+// (x, y, z, vx | vy) and cand2[j] = (vz | rho, inv_j), a | b the high
+// halves of a and b's bits in one word, a's high (CandArgs).
+// (a template, so that only the bf16 library's sph_bf16_candidates
+// instantiates it)
+template <bool kOn>
+__global__ void __launch_bounds__(sph::kBlock)
+bf16_candidates_kernel(const float4* __restrict__ rows,
+                       float4* __restrict__ cand, float2* __restrict__ cand2,
+                       int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  float4 qa = __ldg(rows + 2 * j), qb = __ldg(rows + 2 * j + 1);
+  float press_j, inv_j;
+  sph::candidate<true>(sph::Scalars{}, qa, qb, press_j, inv_j,
+                       [] { return make_float2(0.f, 0.f); });
+  const auto pair = [](float hi, float lo) {
+    return __uint_as_float((__float_as_uint(hi) & 0xffff0000u)
+                           | __float_as_uint(lo) >> 16);
+  };
+  cand[j] = make_float4(qa.x, qa.y, qa.z, pair(qa.w, qb.x));
+  cand2[j] = make_float2(pair(qb.y, qb.z), inv_j);
+}
+
+// The bf16 K2 with extensions over the whole grid, reading its candidates
+// from the copy (CandArgs; a template, as bf16_candidates_kernel).
+template <bool kOn>
+__global__ void __launch_bounds__(sph::kBlock)
+fused_substep_cand_kernel(sph::CandArgs a, float4* __restrict__ out) {
+  sph::walk_row<true, false>(
+      a,
+      [&](const sph::Scalars& s, const sph::Particle& p, int i,
+          const sph::PairSums& acc) {
+        sph::fused_tail<true, sph::kFacc>(s, p, acc, out, i);
       },
       [](int) {});   // no dead rows without a band
 }
@@ -241,4 +298,50 @@ extern "C" int sph_fused_substep_scenes(const float* rows, const float* pj,
 extern "C" int sph_fused_substep_band_walk(int ext, int slots) {
   const int e = ext != 0 ? 1 : 0;
   return slots != 0 ? kBandSlots[e] : kBandLanes[e];
+}
+
+// The bf16 library's candidates of K2 with extensions, once a substep:
+// rows f32[N, 8] -> cand f32[6N], the float4[N] of (x, y, z, vx | vy) then
+// the float2[N] of (vz | rho, [rho > eps] / rho), vx, vy, vz and rho
+// rounded to bfloat16 and a | b their bits' halves in one word. Another
+// library returns cudaErrorInvalidValue.
+extern "C" int sph_bf16_candidates(const float* rows, float* cand, int n,
+                                   void* stream) {
+  if constexpr (!sph::kBf16) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (n > 0)
+      bf16_candidates_kernel<true>
+          <<<(n + sph::kBlock - 1) / sph::kBlock, sph::kBlock, 0,
+             (cudaStream_t)stream>>>(
+              reinterpret_cast<const float4*>(rows),
+              reinterpret_cast<float4*>(cand),
+              reinterpret_cast<float2*>(reinterpret_cast<float4*>(cand) + n),
+              n);
+    return (int)cudaGetLastError();
+  }
+}
+
+// The bf16 library's K2 with extensions over the whole grid, reading its
+// candidates from sph_bf16_candidates' copy cand; the rows, frame and
+// scalar block as in sph_fused_substep. Another library returns
+// cudaErrorInvalidValue.
+extern "C" int sph_fused_substep_cand(const float* rows, const float* cand,
+                                      const int* start, const int* raw,
+                                      const uint8_t* occ, const float* scal,
+                                      float* out, int n, int r, int cap,
+                                      void* stream) {
+  if constexpr (!sph::kBf16) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const float4* const c = reinterpret_cast<const float4*>(cand);
+    const sph::CandArgs a{walk_args(rows, nullptr, start, raw, occ, scal, n,
+                                    r, cap, 0, r),
+                          c, reinterpret_cast<const float2*>(c + n)};
+    if (n > 0)
+      fused_substep_cand_kernel<true>
+          <<<(n + sph::kBlock - 1) / sph::kBlock, sph::kBlock, 0,
+             (cudaStream_t)stream>>>(a, reinterpret_cast<float4*>(out));
+    return (int)cudaGetLastError();
+  }
 }

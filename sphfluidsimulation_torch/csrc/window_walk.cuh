@@ -194,7 +194,36 @@ struct WalkArgs {
   const uint8_t* __restrict__ occ;
   const float* __restrict__ scal;
   int n, r, cap, zbase, z_span;
+  // the candidates are read from the rows and rounded in the walk (bf16)
+  static constexpr bool kRounded = false;
 };
+
+// The inputs of the bf16 K2 with extensions that reads its candidates
+// rounded once a substep (fused_substep.cu, sph_bf16_candidates): WalkArgs
+// (pj not read) and the half-width copy of the rows' candidate values,
+// cand (x, y, z, and vx, vy rounded to bfloat16 as the two halves of one
+// word) and cand2 (vz, rho rounded as the two halves of one word, then the
+// rounded rho's guarded reciprocal inv_j), 24 bytes a row. Row i itself is
+// read from the rows, unrounded.
+struct CandArgs : WalkArgs {
+  const float4* __restrict__ cand;
+  const float2* __restrict__ cand2;
+  static constexpr bool kRounded = true;
+};
+
+// Candidate q of the half-width copy: qa = (x, y, z, vx), qb = (vy, vz, rho,
+// inv_j), each bfloat16 half widened to the float it was rounded to (its
+// bits shifted into the high half: exact).
+__device__ __forceinline__ void unpack_candidate(const CandArgs& a, int q,
+                                                 float4& qa, float4& qb) {
+  const float4 w = __ldg(a.cand + q);
+  const float2 v = __ldg(a.cand2 + q);
+  const unsigned pa = __float_as_uint(w.w), pb = __float_as_uint(v.x);
+  qa = make_float4(w.x, w.y, w.z, __uint_as_float(pa & 0xffff0000u));
+  qb = make_float4(__uint_as_float(pa << 16),
+                   __uint_as_float(pb & 0xffff0000u),
+                   __uint_as_float(pb << 16), v.y);
+}
 
 // The inputs of K2's and K3's scene-axis instances: WalkArgs and the frame
 // records f32[S, N, 4] (pj, raw, occ; read in place of pj, raw and occ by
@@ -338,7 +367,13 @@ __device__ __forceinline__ float2 pj_of(const float2*, int, float2 rec_pj) {
 // lane a step and adds the group's terms in slot order (add_group_terms):
 // every lane ends with the row's sums, bit for bit those of kLanes = 1.
 // With kRec each slot's gate and (press_j, inv_j) come from the frame
-// record (SceneArgs; range_walk), bit for bit the same sums.
+// record (SceneArgs; range_walk), bit for bit the same sums. With CandArgs
+// (Args::kRounded) each candidate comes from the rounded copy
+// (unpack_candidate), with its inv_j, and press_j is computed in the walk by
+// candidate<true>'s expression: the compiler fuses its product into the
+// pair's press_i + press_j, so a press_j rounded ahead of the walk would
+// change the sums (scenes whose rest density has a long mantissa: PERF.md);
+// the same sums, bit for bit.
 template <bool kExt, bool kBand, int kLanes = 1, int kSlots = kExt ? 1 : 2,
           bool kRec = false, typename Args>
 __device__ __forceinline__ void window_pair_sums(const Scalars& s,
@@ -355,10 +390,21 @@ __device__ __forceinline__ void window_pair_sums(const Scalars& s,
     range_walk<kSlots, true, kBand, 1, kRec ? kFrameRecord : kNoRecord>(
         cx, cy, cz, i, r, a.cap, a.zbase, a.z_span, a.start, a.raw, a.occ,
         [&](int q, const auto& use, auto... rec_pj) {   // rec_pj: kRec's
-          float4 qa = __ldg(a.rows + 2 * q), qb = __ldg(a.rows + 2 * q + 1);
+          float4 qa, qb;
+          if constexpr (Args::kRounded) {
+            unpack_candidate(a, q, qa, qb);
+          } else {
+            qa = __ldg(a.rows + 2 * q);
+            qb = __ldg(a.rows + 2 * q + 1);
+          }
           float press_j, inv_j;
-          candidate<kExt>(s, qa, qb, press_j, inv_j,
-                          [&] { return pj_of(a.pj, q, rec_pj...); });
+          if constexpr (Args::kRounded) {
+            press_j = s.gas_k * (qb.z - s.rho0);   // as candidate<true>
+            inv_j = qb.w;
+          } else {
+            candidate<kExt>(s, qa, qb, press_j, inv_j,
+                            [&] { return pj_of(a.pj, q, rec_pj...); });
+          }
           add_pair_pj<kExt, kFacc>(s, p, press_i, vmu, qa, qb, press_j,
                                    inv_j, gate_of(use), acc);
         },

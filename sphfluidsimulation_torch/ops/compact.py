@@ -108,8 +108,13 @@ SPLIT_SLOTS = 1024
 DENSITY_SPLIT_SLOTS = 640
 CLOCK_LANES = 4          # a chunk's tile-clock entry (compact.cu kClockLanes)
 _BIG = 1 << 30
-# the kernel's mode argument (csrc/compact.cu)
-_DENSITY, _FORCES, _FUSED = 0, 1, 2
+# the forces mode's lanes walk their own slots of a round (in place of the
+# round's list) below this many rows a cell, n / R³ (PERF.md: −17% at 2.5,
+# −5% at 4.1, even at 5.0 and +8% there over the scene axis)
+OWN_LISTS_ROWS_PER_CELL = 4.5
+# the kernel's mode argument (csrc/compact.cu; _FORCES_OWN: the forces
+# through the lanes' own lists)
+_DENSITY, _FORCES, _FUSED, _FORCES_OWN = 0, 1, 2, 3
 
 
 # ------------------------------------------------------- tile geometry --
@@ -360,17 +365,13 @@ def clock_stats(clocks: list[torch.Tensor]) -> dict:
 
 # ------------------------------------------------------ plain versions --
 
-def _tile_candidates(frame: SortedFrame, spans: torch.Tensor,
-                     pos_s: torch.Tensor, r: int,
-                     band: tuple[int, int] | None = None):
-    """Yields (ids i64[m], j i64[m, W], member bool[m, W]) over chunks of
-    live rows: each row's candidates are the occupied slots of its tile's
-    segments in sorted order (the gate drops every other slot, and wall
-    piles make a segment hold thousands of them), padded to W, the power
-    of two at or above the tile's count, so a row's tree sum does not
-    depend on the chunking. Dead rows (in a band) are not yielded."""
-    n = int(frame.start[-1])
-    dev = pos_s.device
+def _tile_slots(frame: SortedFrame, spans: torch.Tensor, r: int,
+                band: tuple[int, int] | None = None):
+    """Yields (tiles i64[t], j i64[t, W], valid bool[t, W]) over chunks of
+    tiles: each tile's occupied union slots in sorted order, padded to W,
+    the power of two at or above its count (``valid`` marks the real
+    slots)."""
+    dev = frame.start.device
     a, b = tile_segments(spans, frame.start, r, band)
     # occupied slots: the k-th occupied sorted index is occ_idx[k] (one
     # more entry, for the padding to index), and occ_cum[i] of them lie
@@ -386,7 +387,6 @@ def _tile_candidates(frame: SortedFrame, spans: torch.Tensor,
     width = torch.ones_like(total)
     while bool((width < total).any()):
         width = torch.where(width < total, width * 2, width)
-    lane = torch.arange(CROWS, device=dev)
     for w in torch.unique(width).tolist():
         tiles = (width == w).nonzero()[:, 0]
         per = max(1, _CHUNK_PAIRS // (CROWS * w))
@@ -398,14 +398,28 @@ def _tile_candidates(frame: SortedFrame, spans: torch.Tensor,
             valid = p < total[tl, None]
             rank = torch.where(valid, oa[tl].gather(1, k) + p
                                - first[tl].gather(1, k), 0)
-            j = occ_idx[rank]
-            ids = (tl[:, None] * CROWS + lane).reshape(-1)
-            live = ids < n
-            ids = ids[live]
-            j = j.repeat_interleave(CROWS, 0)[live]
-            valid = valid.repeat_interleave(CROWS, 0)[live]
-            yield ids, j, member_gate(frame, j, valid,
-                                      fresh_cell(pos_s[ids], r), r)
+            yield tl, occ_idx[rank], valid
+
+
+def _tile_candidates(frame: SortedFrame, spans: torch.Tensor,
+                     pos_s: torch.Tensor, r: int,
+                     band: tuple[int, int] | None = None):
+    """Yields (ids i64[m], j i64[m, W], member bool[m, W]) over chunks of
+    live rows: each row's candidates are the occupied slots of its tile's
+    segments in sorted order (the gate drops every other slot, and wall
+    piles make a segment hold thousands of them), padded to W, the power
+    of two at or above the tile's count, so a row's tree sum does not
+    depend on the chunking. Dead rows (in a band) are not yielded."""
+    n = int(frame.start[-1])
+    lane = torch.arange(CROWS, device=pos_s.device)
+    for tl, j, valid in _tile_slots(frame, spans, r, band):
+        ids = (tl[:, None] * CROWS + lane).reshape(-1)
+        live = ids < n
+        ids = ids[live]
+        j = j.repeat_interleave(CROWS, 0)[live]
+        valid = valid.repeat_interleave(CROWS, 0)[live]
+        yield ids, j, member_gate(frame, j, valid, fresh_cell(pos_s[ids], r),
+                                  r)
 
 
 def member_pairs(frame: SortedFrame, pos_s: torch.Tensor, r: int,
@@ -421,6 +435,83 @@ def member_pairs(frame: SortedFrame, pos_s: torch.Tensor, r: int,
         total += int(member.sum())
         own += int((member & (j == ids[:, None])).sum())
     return total, own
+
+
+def walk_counts(frame: SortedFrame, pos_s: torch.Tensor, r: int,
+                capacity: int | None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The row-loop steps of K5's forces mode for each tile over the fresh
+    spans of ``pos_s``, (kept, paired, own) i64[T] (``compact.cu``
+    Tile::walk):
+
+    - kept: the slots its rounds keep (occupied, raw cell within 1 of the
+      tile's fresh-cell box), each of which the walk of the round's list
+      steps through on every live lane;
+    - paired: those of them near some live row's fresh cell and not that
+      row, for which that walk's warp runs the pair;
+    - own: over its rounds, the sum of the largest count among the tile's
+      live rows of the round's slots near the row's fresh cell and not the
+      row itself: the steps of the lanes' own lists, each running the
+      pair.
+
+    A round is the kernel's 32 streamed slots: each union line's cells
+    read up to ``capacity`` slots (None: uncut), a round starting at the
+    line's first slot, 32 slots after the round before, or at the first
+    slot of the cell after one the capacity cut (:func:`stream_slots`). Over
+    the whole grid (the forces mode has no band); waits for the card."""
+    spans, _ = spans_of(frame, pos_s, r, True)
+    dev = pos_s.device
+    n = pos_s.shape[0]
+    cell = fresh_cell(pos_s, r)                     # the kernel's cx, cy, cz
+    tiled = [_tiled(cell[:, a], 0) for a in range(3)]
+    live = _tiled(torch.ones(n, dtype=torch.bool, device=dev), False)
+    box_lo = torch.stack([torch.where(live, c, _BIG).amin(1) - 1
+                          for c in tiled], 1)       # [T, 3]
+    box_hi = torch.stack([torch.where(live, c, -_BIG).amax(1) + 1
+                          for c in tiled], 1)
+    ca, _ = tile_cells(spans, r)
+    start = frame.start.long()
+    runs = start[1:] - start[:-1]
+    cells = torch.arange(runs.shape[0], device=dev)
+    if capacity is None:
+        reset = torch.zeros_like(cells)
+    else:
+        # the last cell at or before each whose cell before it was cut
+        after_cut = torch.nn.functional.pad(runs[:-1] > capacity, (1, 0))
+        reset = torch.cummax(torch.where(after_cut, cells, 0), 0).values
+    kept = torch.zeros(spans.shape[0], dtype=torch.long, device=dev)
+    paired, own = torch.zeros_like(kept), torch.zeros_like(kept)
+    lane = torch.arange(CROWS, device=dev)
+    rr = r * r
+    for tl, j, valid in _tile_slots(frame, spans, r):
+        raw = frame.raw[j]
+        z = torch.div(raw, rr, rounding_mode="floor")
+        y = torch.div(raw - z * rr, r, rounding_mode="floor")
+        xyz = torch.stack([raw - z * rr - y * r, y, z], -1)   # [t, W, 3]
+        in_box = valid & ((xyz >= box_lo[tl, None]) &
+                          (xyz <= box_hi[tl, None])).all(-1)
+        kept.index_add_(0, tl, in_box.sum(1))
+        # each slot's round: its line's first cell, or the cell after the
+        # last cut one, then 32 slots a round from that cell's first slot
+        c = frame.cid[j].long()
+        k = torch.searchsorted(ca[tl].contiguous(), c.int().contiguous(),
+                               right=True) - 1
+        first = torch.maximum(reset[c], ca[tl].long().gather(1, k.clamp(0)))
+        s0 = start[first]
+        base = s0 + torch.div(j - s0, CROWS, rounding_mode="floor") * CROWS
+        new = torch.ones_like(valid)
+        new[:, 1:] = base[:, 1:] != base[:, :-1]
+        rnd = new.long().cumsum(1) - 1                         # [t, W]
+        ids = tl[:, None] * CROWS + lane                       # [t, 32]
+        rows = ids.clamp(max=n - 1)
+        near = ((xyz[:, None] - cell[rows][:, :, None]).abs() <= 1).all(-1)
+        mine = (near & valid[:, None] & (j[:, None] != ids[..., None])
+                & (ids < n)[..., None])                        # [t, 32, W]
+        paired.index_add_(0, tl, mine.any(1).sum(1))
+        steps = torch.zeros(mine.shape, dtype=torch.long, device=dev)
+        steps.scatter_add_(2, rnd[:, None].expand(mine.shape), mine.long())
+        own.index_add_(0, tl, steps.amax(1).sum(1))
+    return kept, paired, own
 
 
 def density_compact_plain(frame: SortedFrame, pos_s: torch.Tensor,
@@ -660,12 +751,15 @@ def forces_compact_cuda(frame: SortedFrame, rows: torch.Tensor,
                         phys: PhysParams, r: int, capacity: int | None,
                         pj: torch.Tensor | None = None,
                         scal: torch.Tensor | None = None,
-                        tune: SortedTuning | None = None
+                        tune: SortedTuning | None = None,
+                        own: bool | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 forces without extensions on the card: (raw sums f32[N, 12] in
     the layout of K3's ``facc0`` instance, cert), in ``tune``'s variant,
     every tile walked whole. ``capacity``, ``pj`` and ``scal`` as in
-    :func:`compact_substep_cuda`.
+    :func:`compact_substep_cuda`. ``own`` chooses the walk, each lane
+    through its own slots of a round or every lane through the round's
+    list, the same bits; None: :func:`own_lists`.
     It walks the whole grid: the slab step never launches it."""
     n = rows.shape[0]
     _check("rows", rows, torch.float32, (n, N_FIELDS), rows.device)
@@ -675,10 +769,22 @@ def forces_compact_cuda(frame: SortedFrame, rows: torch.Tensor,
         pj = pj_cols(rows[:, 6], phys)
     if scal is None:
         scal = scal_block(phys)
-    cert = _launch(_FORCES, False, rows, pj, frame, scal, sums, r, capacity,
-                   None, k5)
+    cert = _launch(_forces_mode(own, n, r), False, rows, pj, frame, scal,
+                   sums, r, capacity, None, k5)
     _count(_name("compact_forces", None, k5))
     return sums, cert
+
+
+def own_lists(n: int, r: int) -> bool:
+    """Whether K5 forces over frames of ``n`` rows at ``r`` cells an axis
+    walks the lanes' own lists: below :data:`OWN_LISTS_ROWS_PER_CELL` rows
+    a cell."""
+    return n < OWN_LISTS_ROWS_PER_CELL * r ** 3
+
+
+def _forces_mode(own: bool | None, n: int, r: int) -> int:
+    return _FORCES_OWN if (own_lists(n, r) if own is None else own) \
+        else _FORCES
 
 
 # ------------------------------------------------------------- routing --
@@ -848,12 +954,15 @@ def forces_compact_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
                                capacity: int | None,
                                pj: torch.Tensor | None = None,
                                scal: torch.Tensor | None = None,
-                               tune: SortedTuning | None = None
+                               tune: SortedTuning | None = None,
+                               clock: torch.Tensor | None = None,
+                               own: bool | None = None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 forces without extensions over the scene axis on the card: (raw
     sums f32[S, N, 12] in K5's layout, cert i32[S]) in one launch, in
-    ``tune``'s variant; ``pj`` and ``scal`` as in
-    :func:`compact_substep_scenes_cuda`."""
+    ``tune``'s variant, each scene through the walk its solo launch takes;
+    ``pj``, ``scal`` and ``clock`` as in :func:`compact_substep_scenes_cuda`,
+    ``own`` as in :func:`forces_compact_cuda`."""
     n_scenes, n = rows.shape[:2]
     _check("rows", rows, torch.float32, (n_scenes, n, N_FIELDS),
            rows.device)
@@ -864,8 +973,8 @@ def forces_compact_scenes_cuda(frame: SortedFrame, rows: torch.Tensor,
         pj = pj_cols_scenes(rows[..., 6], params)
     if scal is None:
         scal = scal_blocks(params)
-    cert = _launch(_FORCES, False, rows, pj, frame, scal, sums, r, capacity,
-                   None, k5, n_scenes)
+    cert = _launch(_forces_mode(own, n, r), False, rows, pj, frame, scal,
+                   sums, r, capacity, None, k5, n_scenes, clock=clock)
     _count("compact_forces_scenes" + variant_tag("compact.cu", k5))
     return sums, cert
 

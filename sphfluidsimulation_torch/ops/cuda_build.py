@@ -57,7 +57,14 @@ KERNELS = {
                                                       _P)),
                          ("sph_fused_substep_band_walk", (_I, _I)),
                          ("sph_fused_substep_scenes", (*(_P,) * 8,
-                                                       *(_I,) * 6, _P))),
+                                                       *(_I,) * 6, _P)),
+                         # the bf16 library's candidates of K2 with the
+                         # extensions (rows, cand, n) and the walk that
+                         # reads them (rows, cand, start, raw, occ, scal,
+                         # out, n, r, cap)
+                         ("sph_bf16_candidates", (_P, _P, _I, _P)),
+                         ("sph_fused_substep_cand", (*(_P,) * 7,
+                                                     *(_I,) * 3, _P))),
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _P)),
                   ("sph_forces_scenes", (*(_P,) * 8, *(_I,) * 6, _P))),

@@ -264,6 +264,51 @@ def pj_cols(rho: torch.Tensor, phys: PhysParams) -> torch.Tensor:
     return torch.stack([press, inv], 1)
 
 
+def pack_bf16_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two float32 columns rounded to bfloat16 (:func:`bf16_round`) in one
+    float32 word, ``hi``'s bits in the high half and ``lo``'s in the low:
+    JAX's ``pallas_sph._pack_pair_bf16``."""
+    h = bf16_round(hi).view(torch.int32)
+    lo_bits = bf16_round(lo).view(torch.int32)
+    return (h | ((lo_bits >> 16) & 0xFFFF)).view(torch.float32)
+
+
+def unpack_bf16_pair(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of :func:`pack_bf16_pair`'s word, each half widened to the
+    float32 it was rounded to (JAX's ``unpack_pair_bf16``)."""
+    u = w.view(torch.int32)
+    return (u & -0x10000).view(torch.float32), (u << 16).view(torch.float32)
+
+
+def candidate_halves(cand: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two arrays of a bf16 candidate copy f32[6N]
+    (:func:`bf16_candidates_plain`): f32[N, 4] (x, y, z, vx | vy) and
+    f32[N, 2] (vz | ρ, inv_j), views."""
+    n = cand.shape[0] // 6
+    return cand[:4 * n].view(n, 4), cand[4 * n:].view(n, 2)
+
+
+def bf16_candidates_plain(rows: torch.Tensor) -> torch.Tensor:
+    """The bf16 candidates of K2 with extensions, rounded once a substep,
+    as the kernel reads them: f32[6N], N rows of (x, y, z, vx | vy), then N
+    of (vz | ρ, inv_j), a | b the word :func:`pack_bf16_pair` makes of a and
+    b rounded to bfloat16 and inv_j the rounded ρ's guarded reciprocal
+    [ρ > ε]/ρ (:func:`pj_cols`' inv_j); :func:`candidate_halves` splits it.
+    These are the values the bf16 instance rounds in its walk, for every
+    slot (``sph_common.cuh`` ``candidate<true>``), and JAX once, when it
+    packs the window (pallas_sph.py:855-861); press_j is the walk's."""
+    cand = rows.new_empty(6 * rows.shape[0])
+    head, tail = candidate_halves(cand)
+    head[:, 0:3] = rows[:, 0:3]
+    head[:, 3] = pack_bf16_pair(rows[:, 3], rows[:, 4])
+    tail[:, 0] = pack_bf16_pair(rows[:, 5], rows[:, 6])
+    rho = bf16_round(rows[:, 6])
+    ok = rho > EPSILON
+    tail[:, 1] = torch.where(ok, 1.0, 0.0) / torch.where(ok, rho, 1.0)
+    return cand
+
+
 # --------------------------------------------------------- plain versions --
 
 # the 27 window offsets (dx, dy, dz) in the kernels' walk order: z outer,
@@ -939,22 +984,31 @@ def density_cuda(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
 
 
 def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
-                 pj: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
-                 r: int, capacity: int | None, ext: bool,
+                 pj: torch.Tensor | None, scal: torch.Tensor,
+                 out: torch.Tensor, r: int, capacity: int | None, ext: bool,
                  band: tuple[int, int] | None = None,
-                 lanes: tuple[int, ...] = ()) -> None:
+                 lanes: tuple[int, ...] = (),
+                 cand: torch.Tensor | None = None) -> None:
     """Checks the inputs of K2 or K3 and launches it into ``out``
-    (``lanes``: the shape of ``sph_fused_substep_lanes``)."""
+    (``lanes``: the shape of ``sph_fused_substep_lanes``; ``cand``: the
+    bf16 candidates of ``sph_fused_substep_cand``, which reads no pj)."""
     n = rows.shape[0]
     dev = rows.device
     _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
     _check_frame(frame, n, r, dev, band)
     _check("phys", scal, torch.float32, (N_SCAL,), dev)
-    _check("pj", pj, torch.float32, (n, 2), dev)
-    err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
-             _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
-             _cap_arg(capacity), *_band_args(band, r), int(ext), *lanes,
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if cand is not None:
+        _check("cand", cand, torch.float32, (6 * n,), dev)
+        err = fn(_ptr(rows), _ptr(cand), _ptr(frame.start), _ptr(frame.raw),
+                 _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
+                 _cap_arg(capacity), stream)
+    else:
+        _check("pj", pj, torch.float32, (n, 2), dev)
+        err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
+                 _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
+                 _cap_arg(capacity), *_band_args(band, r), int(ext), *lanes,
+                 stream)
     _raise_on_error(name, err)
 
 
@@ -983,6 +1037,22 @@ def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
     return out
 
 
+def bf16_candidates_cuda(rows: torch.Tensor) -> torch.Tensor:
+    """:func:`bf16_candidates_plain` on the card (``sph_bf16_candidates``
+    of the bf16 library)."""
+    n = rows.shape[0]
+    dev = rows.device
+    _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
+    cand = rows.new_empty(6 * n)
+    fn = cuda_build.function("fused_substep.cu", "sph_bf16_candidates",
+                             SortedTuning(bf16=True))
+    err = fn(_ptr(rows), _ptr(cand), n,
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on_error("bf16_candidates", err)
+    _count("bf16_candidates")
+    return cand
+
+
 def band_walk(ext: bool, tune: SortedTuning | None = None
               ) -> tuple[int, int]:
     """(lanes a row, slots a lane a step) of K2's banded instance, without
@@ -1001,7 +1071,8 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
                        band: tuple[int, int] | None = None,
                        tune: SortedTuning | None = None,
                        lanes: int | None = None,
-                       slots: int = 0) -> torch.Tensor:
+                       slots: int = 0,
+                       reference: bool = False) -> torch.Tensor:
     """K2 (``csrc/fused_substep.cu``) on the card, banded with ``band``, in
     ``tune``'s variant (None: the default instance). Reads the state as it
     was before the substep and writes a new rows tensor. Nonzero
@@ -1017,14 +1088,30 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
     band's comes from the library of every shape
     (``cuda_build.LANE_SWEEP``, built at its first use), for measurements.
     Such a launch counts under the instance's name with ``+lanes<l>``
-    (``+lanes<l>x<s>`` with ``slots``)."""
+    (``+lanes<l>x<s>`` with ``slots``).
+
+    The bf16 instance with extensions over the whole grid first rounds the
+    candidates once (:func:`bf16_candidates_cuda`, a copy allocated beside
+    the output), then walks them
+    (``sph_fused_substep_cand``; ``pj`` is not read); ``reference``
+    launches the walk that rounds every slot in its registers instead, the
+    same bits (counted with ``+reference``)."""
     tune = _tuned(tune)
-    if pj is None:
-        pj = pj_cols(rows[:, 6], phys)
     if scal is None:
         scal = scal_block(phys, xsph, alpha_visc)
     ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
+    if (tune.bf16 and ext and band is None and lanes is None
+            and not reference):
+        cand = bf16_candidates_cuda(rows)
+        _walk_launch(cuda_build.function("fused_substep.cu",
+                                         "sph_fused_substep_cand", tune),
+                     "fused_substep", frame, rows, None, scal, out, r,
+                     capacity, ext, cand=cand)
+        _count("fused_substep_ext" + variant_tag("fused_substep.cu", tune))
+        return out
+    if pj is None:
+        pj = pj_cols(rows[:, 6], phys)
     if lanes is None:
         fn, extra = cuda_build.function("fused_substep.cu",
                                         "sph_fused_substep", tune), ()
@@ -1040,7 +1127,8 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
     _count((name if band is None else name + "_band")
            + variant_tag("fused_substep.cu", tune)
            + ("" if lanes is None
-              else f"+lanes{lanes}" + (f"x{slots}" if slots else "")))
+              else f"+lanes{lanes}" + (f"x{slots}" if slots else ""))
+           + ("+reference" if reference else ""))
     return out
 
 

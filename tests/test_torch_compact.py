@@ -50,6 +50,7 @@ _CALM = dict(particle_number=1024, bucket_resolution=11, preset=0,
 _GOLDENISH = dict(particle_number=1024, bucket_resolution=11)
 CONFIGS = {"calm": _CALM, "goldenish": _GOLDENISH}
 CAP = 32
+CROWS = compact.CROWS
 JTUNE = PallasTuning(fused=True, compact=True)
 # sorted rows moved 2.5 cells up in z after the frame build: eleven rows of
 # the calm dam, each past its tile's band
@@ -140,6 +141,14 @@ def _k5_stream(start, cid, occ, lo, hi, r, cap, cells=None, s_cells=None):
     (the slots its lanes process, in order; the union's cells). ``cap`` < 0
     streams each cell uncut; ``cells`` = (c0, c1) streams one chunk, the
     union's cells in [c0, c1) (``Tile::walk_cells``)."""
+    rounds, union = _k5_rounds(start, cid, occ, lo, hi, r, cap, cells,
+                               s_cells)
+    return [j for rd in rounds for j in rd], union
+
+
+def _k5_rounds(start, cid, occ, lo, hi, r, cap, cells=None, s_cells=None):
+    """:func:`_k5_stream` round by round: (each round's processed slots,
+    the union's cells)."""
     s_cells = r ** 3 if s_cells is None else s_cells
     c0, c1 = (0, s_cells) if cells is None else cells
     segs, union, cb_run = [], [], 0
@@ -161,7 +170,7 @@ def _k5_stream(start, cid, occ, lo, hi, r, cap, cells=None, s_cells=None):
                         and j - start[cid[j]] >= cap):
                     stop, skip_to = lane, start[cid[j] + 1]
                     break
-            out += [j for j in range(base, base + stop) if j < seg_end]
+            out.append([j for j in range(base, base + stop) if j < seg_end])
             base = skip_to
     return out, union
 
@@ -219,6 +228,109 @@ def test_kernel_stream_reads_each_tiles_occupied_union_slots(scene, cap,
     if cap is not None and bool((tf.start[1:] - tf.start[:-1] > cap).any()):
         assert shorter > 0
     assert cap != 4 or scene == "calm@3" or shorter > 0
+
+
+# ------------------------------------- the forces mode's own lists --
+
+def _ffs_order(mask):
+    """The set bits of ``mask`` (numpy uint32) in the order the kernel's
+    ``t = __ffs(own) - 1; own &= own - 1`` loop takes them."""
+    out = []
+    while mask:
+        low = mask & (~mask + np.uint32(1))       # the lowest set bit
+        out.append(int(low).bit_length() - 1)
+        mask = np.uint32(mask & (mask - np.uint32(1)))
+    return out
+
+
+@pytest.mark.parametrize("cap", [4, CAP, None])
+@pytest.mark.parametrize("scene", ["goldenish@3", "goldenish@0"])
+def test_forces_lanes_walk_their_own_slots_in_the_parents_order(scene, cap):
+    # a model of compact.cu's forces walk over each round's compacted list:
+    # the parent's (every live lane steps through the list, `continue` where
+    # the slot is not near its cell or is its own row) and the launched
+    # one's two loops (each lane a mask of its own slots, walked lowest bit
+    # first; or the warp through the union of the masks, each lane adding
+    # its own) give each row the same candidates in the same order, its
+    # members of the tile's union; walk_counts' steps are the model's (the
+    # slots kept, those the parent's warp runs the pair for, and the own
+    # lists' steps)
+    tf, ps, r = _stream_scene(scene, cap)
+    n = ps.shape[0]
+    spans, _ = compact.spans_of(tf, ps, r, True)
+    start, cid, occ = tf.start.tolist(), tf.cid.tolist(), tf.occ.tolist()
+    raw = tf.raw.numpy()
+    xyz = np.stack([raw % r, raw // r % r, raw // (r * r)], 1)
+    cell = sk.fresh_cell(ps, r).numpy()
+    kept_n, paired_n, own_n = compact.walk_counts(tf, ps, r, cap)
+    kcap = -1 if cap is None else cap
+    differ = 0
+    for t, (lo, hi) in enumerate(spans.tolist()):
+        rows = range(CROWS * t, min(CROWS * (t + 1), n))
+        box_lo, box_hi = cell[rows].min(0) - 1, cell[rows].max(0) + 1
+        rounds, union = _k5_rounds(start, cid, occ, lo, hi, r, kcap)
+        parent = {i: [] for i in rows}
+        lanes = {i: [] for i in rows}
+        shared = {i: [] for i in rows}
+        steps_parent = steps_paired = steps_own = 0
+        for rd in rounds:
+            kept = [j for j in rd if occ[j]
+                    and (xyz[j] >= box_lo).all() and (xyz[j] <= box_hi).all()]
+            assert len(kept) <= CROWS
+            steps_parent += len(kept)
+            counts, masks = [], []
+            for i in rows:
+                near = [bool((np.abs(xyz[j] - cell[i]) <= 1).all())
+                        for j in kept]
+                for t_, j in enumerate(kept):         # the parent's loop
+                    if not near[t_]:
+                        continue
+                    if j == i:
+                        continue
+                    parent[i].append(j)
+                mask = np.uint32(0)
+                for t_, j in enumerate(kept):
+                    if near[t_] and j != i:
+                        mask |= np.uint32(1 << t_)
+                lanes[i] += [kept[t_] for t_ in _ffs_order(mask)]
+                masks.append(mask)
+                counts.append(bin(int(mask)).count("1"))
+            steps_own += max(counts)
+            union_mask = np.bitwise_or.reduce(np.array(masks, np.uint32))
+            for i, m in zip(rows, masks):
+                shared[i] += [kept[t_] for t_ in _ffs_order(union_mask)
+                              if int(m) >> t_ & 1]
+            steps_paired += bin(int(union_mask)).count("1")
+        assert lanes == parent and shared == parent
+        for i in rows:
+            members = [j for c in union for j in range(start[c], start[c + 1])
+                       if occ[j] and j != i
+                       and (np.abs(xyz[j] - cell[i]) <= 1).all()]
+            assert parent[i] == members
+        assert (int(kept_n[t]), int(paired_n[t]), int(own_n[t])) == \
+            (steps_parent, steps_paired, steps_own)
+        differ += steps_own < steps_paired
+    assert differ > 0
+    assert int(own_n.sum()) < int(paired_n.sum()) <= int(kept_n.sum())
+
+
+@pytest.mark.parametrize("n, r, own", [
+    (262144, 47, True),          # golden 262k: 2.5 rows a cell
+    (262144, 40, True),          # 4.1
+    (1048576, 75, True),         # golden 1M: 2.5
+    (524176, 47, False),         # a config-5 scene: 5.0
+    (1024, 11, True)])
+def test_forces_take_the_own_lists_below_the_rows_per_cell_threshold(n, r,
+                                                                     own):
+    # the forces wrappers' walk, solo and over the scene axis alike (one
+    # rule of n / R³, so that each scene keeps its solo launch's walk):
+    # the lanes' own lists (mode 3) below OWN_LISTS_ROWS_PER_CELL rows a
+    # cell, else the round's list (mode 1); own= forces either
+    assert compact.own_lists(n, r) is own
+    assert (n < compact.OWN_LISTS_ROWS_PER_CELL * r ** 3) is own
+    assert compact._forces_mode(None, n, r) == (3 if own else 1)
+    assert compact._forces_mode(True, n, r) == 3
+    assert compact._forces_mode(False, n, r) == 1
 
 
 # ------------------------------------------------ the wide-tile split --

@@ -267,6 +267,9 @@ GRAPH_CASES = {
     "unfused": dict(tune=SortedTuning(fused=False)),
     "snapshots": dict(snapshot_every=2),
     "dt": dict(dts=[1 / 240, 1 / 120, 1 / 360, 1 / 180]),
+    # the bf16 K2-ext: its candidates' pass and its walk in the graph
+    "bf16-ext": dict(tune=SortedTuning(bf16=True), xsph=XSPH,
+                     artificial_viscosity=ALPHA),
 }
 
 
@@ -1909,6 +1912,246 @@ def test_tile_clock_records_each_chunk_on_card(cuda_device, slots):
     stats = compact.clock_stats([clock])
     assert stats["tiles"] == cost.shape[0]
     assert stats["makespan_us"] >= stats["max_us"] >= stats["p99_us"] > 0
+
+
+# ------------------------- K5 forces: each lane walks its own slots --
+
+BF16 = SortedTuning(bf16=True)
+K5_FORCES_TUNES = {"default": None, "bf16": BF16}
+
+
+def _forces_scenes(frames, cap, device):
+    """3 goldenish scenes (rest density 1.0-1.5) from the spawn (aliased
+    raw ids) or ``frames`` frames on, random velocities, the frame built at
+    capacity ``cap``: (frame, rows, params, r)."""
+    from sphfluidsimulation_torch.ops.frame import build_frame_scenes
+    from sphfluidsimulation_torch.params import stack_params
+    from sphfluidsimulation_torch.state import stack_states
+    cfgs = [SimConfig(**_GOLDENISH).replace(rest_density=1.0 + 0.25 * i,
+                                            seed=i) for i in range(3)]
+    states = []
+    for c in cfgs:
+        st = initial_state(c, device)
+        if frames:
+            st, _ = make_rollout(c, frames, device=device)(st)
+        states.append(st)
+    states = stack_states(states)
+    params = stack_params([PhysParams.from_config(c, device) for c in cfgs])
+    r = cfgs[0].bucket_resolution
+    vel = 0.2 * torch.randn(states.vel.shape, device=device,
+                            generator=torch.Generator(device).manual_seed(1))
+    frame, (ps, vs) = build_frame_scenes(states.pos, r, cap,
+                                         extras=(states.pos, vel))
+    rho = compact.density_compact_scenes(frame, ps, params, r, cap)[0]
+    return frame, sk.pack_rows_scenes(ps, vs, rho), params, r
+
+
+def _forces_hold_the_reference(frame, rows, params, r, cap, tune):
+    """K5-scenes forces against solo K5 forces, scene by scene, each in the
+    walk it chooses and in both walks (each lane's own slots, and every
+    lane through the round's list): every sum and drift count bit-equal;
+    the launches counted."""
+    from sphfluidsimulation_torch.ops.frame import scene_frame
+    tag = sk.variant_tag("compact.cu", (tune or SortedTuning()).k5())
+    before = dict(sk.launch_counts)
+    sums, c = compact.forces_compact_scenes_cuda(frame, rows, params, r, cap,
+                                                 tune=tune)
+    for own in (False, True):
+        s_all, c_all = compact.forces_compact_scenes_cuda(
+            frame, rows, params, r, cap, tune=tune, own=own)
+        assert _same_bits(s_all, sums) and torch.equal(c_all, c)
+    key = "compact_forces_scenes" + tag
+    assert sk.launch_counts[key] == before.get(key, 0) + 3
+    for sc in range(rows.shape[0]):
+        fs, ph = scene_frame(frame, sc), sk.scene_params(params, sc)
+        for own in (None, False, True):
+            s1, c1 = compact.forces_compact_cuda(fs, rows[sc], ph, r, cap,
+                                                 tune=tune, own=own)
+            assert _same_bits(sums[sc], s1) and int(c[sc]) == int(c1)
+    solo = "compact_forces" + tag
+    assert sk.launch_counts[solo] == before.get(solo, 0) + 3 * rows.shape[0]
+    return sums, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(K5_FORCES_TUNES))
+@pytest.mark.parametrize("frames", [0, 3])
+@pytest.mark.parametrize("cap", [4, CAP, None])
+def test_compact_forces_own_lists_are_the_reference_walk_on_card(
+        cuda_device, cap, frames, variant):
+    # K5 forces with each lane walking its own slots of a round, which
+    # these scenes (under one row a cell) take, is bit for bit the walk in
+    # which every lane steps through the round's whole list, solo and over
+    # the scene axis, each scene its solo launch, in both libraries, at
+    # capacity 4 (dropped rows), 32 and uncut; and held to its plain version
+    from sphfluidsimulation_torch.ops.frame import scene_frame
+    tune = K5_FORCES_TUNES[variant]
+    frame, rows, params, r = _forces_scenes(frames, cap, cuda_device)
+    assert compact.own_lists(rows.shape[1], r)
+    rows[1, 100:111, 2] += 2.5 / (r - 1)           # past their tile's band
+    sums, c = _forces_hold_the_reference(frame, rows, params, r, cap, tune)
+    assert int(c[1]) > 0
+    fs, ph = scene_frame(frame, 1), sk.scene_params(params, 1)
+    f = sk.fold_forces(sums[1], rows[1, :, 6], ph, fuse_acc=False)[0]
+    assert sk.forces_accuracy(fs, rows[1], f, None, ph, r, None,
+                              sums_fn=compact.compact_sums_plain,
+                              tune=tune).ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [CAP, None])
+def test_compact_forces_own_lists_at_config5_on_card(cuda_device, cap):
+    # config 5 after 11 frames of its batch, the forces on the frame-start
+    # rows as the corrected compact sweep runs them: K5-scenes forces, which
+    # takes the round's list at about 5 rows a cell, bit-equal to the own
+    # lists and each scene to its solo launches in both walks
+    frame, rows, _, params, r, _, _, _ = _scene_walk_inputs("config5_f11",
+                                                            cuda_device)
+    assert not compact.own_lists(rows.shape[1], r)
+    _forces_hold_the_reference(frame, rows, params, r, cap, None)
+    # the own lists' steps are fewer than the list's pair steps
+    from sphfluidsimulation_torch.ops.frame import scene_frame
+    _, paired, own = compact.walk_counts(scene_frame(frame, 0),
+                                         rows[0, :, 0:3], r, cap)
+    assert int(own.sum()) < int(paired.sum())
+
+
+def _planted_library(source, edits, label, defines=()):
+    """``source`` (csrc/) with ``edits`` (old text, which must appear once,
+    and its replacement) made, compiled with ``defines`` into
+    build/planted/<label> and bound: a planted control's kernels."""
+    import subprocess
+    import types
+    from sphfluidsimulation_torch.ops import cuda_build
+    src = (cuda_build.CSRC / source).read_text()
+    for old, new in edits:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    out = cuda_build.BUILD_DIR / "planted"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{label}.cu", out / f"lib{label}.so"
+    cu.write_text(src)
+    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+                    *defines, "-I", str(cuda_build.CSRC), "-o", str(so),
+                    str(cu)], check=True, capture_output=True, text=True)
+    fns: dict = {}
+    cuda_build._bind(so, cuda_build.KERNELS[source], fns)
+    return types.SimpleNamespace(**fns)
+
+
+@pytest.mark.cuda
+def test_forces_lane_mask_without_the_self_skip_fails_on_card(cuda_device,
+                                                              monkeypatch):
+    # planted: a lane mask that keeps the row's own slot adds the self pair,
+    # which the bf16 library makes nonzero (bf16(v_i) is not v_i): the solo
+    # launch through the own lists leaves the list walk's bits
+    from sphfluidsimulation_torch.ops import cuda_build
+    from sphfluidsimulation_torch.ops.frame import scene_frame
+    lib = _planted_library(
+        "compact.cu", [("cell_near(e.cell, cx, cy, cz) && e.j != i ? 1u",
+                        "cell_near(e.cell, cx, cy, cz) ? 1u")],
+        "compact_self_pair", ("-DSPH_BF16=1",))
+    frame, rows, params, r = _forces_scenes(0, CAP, cuda_device)
+    fs, ph, rows = scene_frame(frame, 0), sk.scene_params(params, 0), rows[0]
+    ref, c_ref = compact.forces_compact_cuda(fs, rows, ph, r, CAP, tune=BF16,
+                                             own=False)
+    real = cuda_build.function
+
+    def planted(source, name, tune=None, clock=False, sweep=False):
+        if source == "compact.cu" and tune is not None and tune.bf16:
+            return getattr(lib, name)
+        return real(source, name, tune, clock=clock, sweep=sweep)
+
+    monkeypatch.setattr(cuda_build, "function", planted)
+    bad, c_bad = compact.forces_compact_cuda(fs, rows, ph, r, CAP, tune=BF16,
+                                             own=True)
+    assert int(c_bad) == int(c_ref) and not _same_bits(bad, ref)
+    # the planted library's list walk is the unplanted one's
+    again, _ = compact.forces_compact_cuda(fs, rows, ph, r, CAP, tune=BF16,
+                                           own=False)
+    assert _same_bits(again, ref)
+
+
+# ------------------- the bf16 K2-ext: candidates rounded once a substep --
+
+def _bf16_ext_rows(case, device):
+    """Config 3's frame at the spawn (aliased raw ids) and its rows with
+    random velocities (the spawn's are 0, which bf16 keeps), and (``case``
+    "inf") ±inf velocities planted in some rows."""
+    cfg = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+                    artificial_viscosity=0.5)
+    st = initial_state(cfg, device)
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    vel = 0.2 * torch.randn(st.vel.shape, device=device,
+                            generator=torch.Generator(device).manual_seed(2))
+    tf, (ps, vs) = build_frame(st.pos, r, cap, extras=(st.pos, vel))
+    tp = PhysParams.from_config(cfg, device)
+    rows = sk.pack_rows(ps, vs, sk.density_cuda(tf, ps, tp, r, cap))
+    if case == "inf":
+        rows[::1001, 3] = float("inf")
+        rows[7::997, 4] = -float("inf")
+        rows[3::991, 5] = float("inf")
+    return tf, rows, tp, r, cap, cfg.xsph, cfg.artificial_viscosity
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spawn", "inf"])
+def test_bf16_ext_reads_candidates_rounded_once_on_card(cuda_device, case):
+    # the pass's copy bit-equal to its plain version; the bf16 K2-ext, which
+    # makes it, bit-equal to the walk that rounds every slot in its
+    # registers, the reference; one pass and one
+    # walk counted a call; planted: a copy whose vz is truncated to its
+    # high half, not rounded, leaves the reference's bits
+    tf, rows, tp, r, cap, xs, al = _bf16_ext_rows(case, cuda_device)
+    scal = sk.scal_block(tp, xs, al)
+    cand = sk.bf16_candidates_cuda(rows)
+    want = sk.bf16_candidates_plain(rows)
+    assert _same_bits(cand, want)
+    before = dict(sk.launch_counts)
+    out = sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al, tune=BF16)
+    assert sk.launch_counts["fused_substep_ext+bf16"] == \
+        before.get("fused_substep_ext+bf16", 0) + 1
+    assert sk.launch_counts["bf16_candidates"] == \
+        before["bf16_candidates"] + 1
+    ref = sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al, tune=BF16,
+                                reference=True)
+    assert sk.launch_counts["fused_substep_ext+bf16+reference"] >= 1
+    assert _same_bits(out, ref)
+    again = sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al, scal=scal,
+                                  tune=BF16)
+    assert _same_bits(again, ref)
+    if case == "inf":
+        assert not bool(torch.isfinite(ref).all())
+    planted = cand.clone()
+    tail = sk.candidate_halves(planted)[1]
+    vz = rows[:, 5].view(torch.int32) & -0x10000
+    rho = sk.bf16_round(rows[:, 6]).view(torch.int32)
+    tail[:, 0] = (vz | ((rho >> 16) & 0xFFFF)).view(torch.float32)
+    bad = torch.empty_like(rows)
+    from sphfluidsimulation_torch.ops import cuda_build
+    sk._walk_launch(cuda_build.function("fused_substep.cu",
+                                        "sph_fused_substep_cand", BF16),
+                    "fused_substep", tf, rows, None, scal, bad, r, cap, True,
+                    cand=planted)
+    assert not _same_bits(bad, ref)
+
+
+@pytest.mark.cuda
+def test_stepper_rounds_the_bf16_candidates_once_a_substep_on_card(
+        cuda_device):
+    # the host loop of the bf16 rollout with extensions runs the pass
+    # before each of the five substeps; the other libraries' entry points
+    # refuse the pass
+    from sphfluidsimulation_torch.ops import cuda_build
+    cfg = SimConfig(**_GOLDENISH, xsph=XSPH, artificial_viscosity=ALPHA)
+    sk.reset_launch_counts()
+    make_rollout(cfg, 2, tune=BF16, device=cuda_device, host_loop=True)(
+        initial_state(cfg, cuda_device))
+    assert sk.launch_counts["bf16_candidates"] == 10
+    assert sk.launch_counts["fused_substep_ext+bf16"] == 10
+    x = torch.zeros((4, 8), device=cuda_device)
+    fn = cuda_build.function("fused_substep.cu", "sph_bf16_candidates")
+    assert fn(sk._ptr(x), sk._ptr(x), 4, None) != 0
 
 
 # the batched steps BatchedScenes records, each on the scene axis: (options,

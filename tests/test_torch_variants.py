@@ -120,6 +120,129 @@ def test_bf16_round_matches_jax_round_trip():
                                   got.view(np.float32)[fin])
 
 
+# ------------------------------------- bf16 candidates, once a substep --
+
+_SPECIAL = np.array(
+    [0x00000000, 0x80000000,                          # ±0
+     0x00000001, 0x00008000, 0x00018000, 0x00028000,  # subnormals, ties
+     0x007FFFFF, 0x807F8000, 0x80010001,
+     0x3F808000, 0x3F818000, 0x3F80C000, 0xBF818000,  # ties to even
+     0x7F7FFFFF, 0xFF7FFFFF,                          # round to ±inf
+     0x7F800000, 0xFF800000,                          # ±inf
+     0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF812345,
+     0x7FFFFFFF],                                     # NaNs
+    np.uint32)
+
+
+def _special_rows(seed=3):
+    """rows f32[N, 8] of random bits, each of lanes 3-6 holding every
+    special value of ``_SPECIAL`` (in a different order a lane)."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2 ** 32, (2048, 8), dtype=np.uint32)
+    for lane in range(3, 7):
+        bits[:_SPECIAL.size, lane] = np.roll(_SPECIAL, lane)
+    return torch.from_numpy(bits.view(np.float32))
+
+
+def test_bf16_candidates_pack_vx_vy_vz_rho_as_jax_packs_them():
+    # x, y, z are the rows' bits; the words vx | vy and vz | ρ are JAX's
+    # _pack_pair_bf16 of them, bit for bit, on ±0, ±inf, NaNs, subnormals
+    # and ties, and their halves widened are bf16_round's values and JAX's
+    # unpack_pair_bf16's
+    rows = _special_rows()
+    cand = sk.bf16_candidates_plain(rows)
+    n = rows.shape[0]
+    assert cand.shape == (6 * n,) and cand.dtype == torch.float32
+    head, tail = sk.candidate_halves(cand)
+    assert head.shape == (n, 4) and tail.shape == (n, 2)
+    np.testing.assert_array_equal(head[:, 0:3].numpy().view(np.uint32),
+                                  rows[:, 0:3].numpy().view(np.uint32))
+    for word, (a, b) in ((head[:, 3], (3, 4)), (tail[:, 0], (5, 6))):
+        packed = pallas_sph._pack_pair_bf16(jnp.asarray(rows[:, a].numpy()),
+                                            jnp.asarray(rows[:, b].numpy()))
+        np.testing.assert_array_equal(word.numpy().view(np.uint32),
+                                      np.asarray(packed).view(np.uint32))
+        hi, lo = sk.unpack_bf16_pair(word)
+        jhi, jlo = pallas_sph.unpack_pair_bf16(packed)
+        for got, lane, want in ((hi, a, jhi), (lo, b, jlo)):
+            np.testing.assert_array_equal(
+                got.numpy().view(np.uint32),
+                sk.bf16_round(rows[:, lane]).numpy().view(np.uint32))
+            np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                          np.asarray(want).view(np.uint32))
+
+
+@pytest.mark.parametrize("rows_of", ["calm", "special"])
+def test_bf16_candidates_inv_j_is_the_walks_per_candidate_inv_j(rows_of):
+    # inv_j is [ρ̃ > ε]/ρ̃ of the ρ̃ that candidate_values gives each
+    # candidate of the bf16 instance with extensions, pj_cols' inv_j of it
+    # (press_j stays the walk's: the kernel may fuse its product into the
+    # pair's press_i + press_j)
+    tp = PhysParams.from_config(CALM)
+    if rows_of == "calm":
+        _, tp, _, _, pos, vel, rho, _, n = _rows("calm")
+        rows = sk.pack_rows(torch.from_numpy(pos), torch.from_numpy(vel),
+                            torch.from_numpy(rho))
+    else:
+        rows = _special_rows()
+    j = torch.arange(rows.shape[0])[:, None]
+    _, rj = sk.candidate_values(rows, j, True, SortedTuning(bf16=True))
+    inv = torch.where(rj[:, 0] > sk.EPSILON, 1.0 / rj[:, 0], 0.0)
+    got = sk.candidate_halves(sk.bf16_candidates_plain(rows))[1][:, 1]
+    assert torch.equal(got.view(torch.int32), inv.view(torch.int32))
+    assert torch.equal(got.view(torch.int32),
+                       sk.pj_cols(rj[:, 0], tp)[:, 1].view(torch.int32))
+    assert bool((got == 0).any()) == (rows_of == "special")
+
+
+def _read_copy(cand):
+    """A ``candidate_values`` that reads candidate j's values from the
+    copy ``cand`` as the kernel does, rounded once (for the bf16 instance
+    with extensions)."""
+    head, tail = sk.candidate_halves(cand)
+
+    def values(rows, j, ext, tune):
+        assert ext and tune.bf16
+        vx, vy = sk.unpack_bf16_pair(head[j, 3])
+        vz, rho_j = sk.unpack_bf16_pair(tail[j, 0])
+        return torch.stack([vx, vy, vz], -1), rho_j
+    return values
+
+
+@pytest.mark.parametrize("inf_rows", [False, True])
+def test_bf16_substep_fed_from_the_candidate_copy_is_the_plain_route(
+        inf_rows, monkeypatch):
+    # the plain bf16 K2 with extensions reading its candidates from the
+    # copy, rounded once, is bit for bit the route that rounds them per
+    # candidate; with ±inf velocities planted in some rows too
+    _, tp, _, tf, pos, vel, rho, r, n = _rows("calm", seed=2)
+    rows = sk.pack_rows(torch.from_numpy(pos), torch.from_numpy(vel),
+                        torch.from_numpy(rho))
+    if inf_rows:
+        rows[::97, 3] = float("inf")
+        rows[5::89, 5] = -float("inf")
+    bf = SortedTuning(bf16=True)
+    cand = sk.bf16_candidates_plain(rows)
+    want = sk.fused_substep_plain(tf, rows, tp, r, CAP, XSPH, ALPHA,
+                                  tune=bf)
+    with monkeypatch.context() as m:
+        m.setattr(sk, "candidate_values", _read_copy(cand))
+        got = sk.fused_substep_plain(tf, rows, tp, r, CAP, XSPH, ALPHA,
+                                     tune=bf)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the copy is read as it is: a copy whose vz is truncated to its high
+    # half, not rounded, differs
+    planted = cand.clone()
+    tail = sk.candidate_halves(planted)[1]
+    vz = rows[:, 5].view(torch.int32) & -0x10000
+    rho = sk.bf16_round(rows[:, 6]).view(torch.int32)
+    tail[:, 0] = (vz | ((rho >> 16) & 0xFFFF)).view(torch.float32)
+    monkeypatch.setattr(sk, "candidate_values", _read_copy(planted))
+    other = sk.fused_substep_plain(tf, rows, tp, r, CAP, XSPH, ALPHA,
+                                   tune=bf)
+    assert not torch.equal(other.view(torch.int32), want.view(torch.int32))
+
+
 # ------------------------------------------------------ Kahan fold sign --
 
 def _f32(x):
