@@ -72,9 +72,10 @@ every phase passed; each prints its seconds):
    modes (the machine with the card has no JAX);
 6. the CLI in-process: ``run`` at config 3 for 3 frames, faithful and
    ``--corrected``, through the kernels, and faithful with
-   ``SPH_PALLAS_COMPACT=1`` through K5;
+   ``SPH_PALLAS_COMPACT=1`` through K5 (phase 9 lists the variants');
 7. timing: each kernel's launch (its scalar block and the force modes' pj
-   built beforehand) and its plain version, with CUDA events, the card kept
+   built beforehand) and its plain version (not at 1M, no kernel's main
+   shape), with CUDA events, the card kept
    busy while the host queues the launches, so the times are device times,
    at the shapes of its path, K5 beside K1/K2/K3 at the same states (the
    fused substeps on rows two substeps into the frame, the rest at the
@@ -87,27 +88,21 @@ every phase passed; each prints its seconds):
    K2, K3 and K5 (density, substep, forces; with extensions K2-ext, K3-ext
    and K5-ext on the config-3 batch; the forces on the frame-start rows,
    the substeps on the rows two substeps in), their plain versions scene
-   by scene, K1's, K2's and K3's reference walks on the same inputs (the
-   "_reference" shapes) and K1's density record build, and beside them
-   the solo kernels on the same inputs, one launch a scene; every K5
-   substep instance and K5-band density also timed walking each tile
-   whole on one warp (``split=0``, the body before wide tiles were split:
-   the "_whole" shapes), given the frame's ``occ_prefix`` as the stepper
-   and the slab step give it once a frame (its own time printed beside),
-   and at 262k, config 5 and (phase 9) the 262k slab frames the K5
-   substep's tile-time distribution (the ``-DSPH_TILE_CLOCK=1`` instance,
-   both bodies: p50, p99, max, the launches' makespan, its ratio to the
-   mean tile, the warps busy on average), K5-band density's on the 262k
-   slab frames (both bodies) and K5-scenes density's at config 5 (every
-   tile whole); and the K5 substep at the 262k spawn (frame-start
-   rows, where no tile may pass the split threshold) beside its whole-tile
-   body (the "262k_f0" shape); K5 forces in the walk it chooses by rows a
-   cell (``compact.own_lists``) beside the other, which gives the same
-   bits (held so in phases 3, 4b and 9): solo at 262k, each lane walking
-   its own slots of a round, beside every lane stepping through the
-   round's list ("_list"), and over config 5's scenes the other way round
-   ("_own"), with the forces' tile clock and scene 0's row-loop steps a
-   tile in both walks (``compact.walk_counts``);
+   by scene, and K1's density record build, and beside them the solo
+   kernels on the same inputs, one launch a scene (the reference walks'
+   times, the tile clocks and the row-loop counts are the
+   ``scripts/torch_*_ab.py`` tools'); every K5 substep instance and
+   K5-band density also timed walking each tile whole on one warp
+   (``split=0``, the body before wide tiles were split: the "_whole"
+   shapes), given the frame's ``occ_prefix`` as the stepper and the slab
+   step give it once a frame (its own time printed beside); and the K5
+   substep at the 262k spawn (frame-start rows, where no tile may pass the
+   split threshold) beside its whole-tile body (the "262k_f0" shape); K5
+   forces in the walk it chooses by rows a cell (``compact.own_lists``)
+   beside the other, which gives the same bits (held so in phases 3, 4b
+   and 9): solo at 262k, each lane walking its own slots of a round,
+   beside every lane stepping through the round's list ("_list"), and
+   over config 5's scenes the other way round ("_own");
 8. the slab step (``parallel.make_pallas_slab_step``) on ``LocalRing(4)``,
    four z-slabs on the one card: the banded K1 and K2 (K2-ext at config 3)
    held against their banded plain versions on each shard's frame
@@ -154,20 +149,28 @@ every phase passed; each prints its seconds):
    and 20 K5-band substep launches a frame), its kernels held to their
    banded plain versions on each shard's frame, and the calm 1k scene on
    2 and 4 slabs (``exact_cert`` 0, within 2e-5 of the single-device
-   compact route); the CLI at config 3 with ``SPH_PALLAS_FUSED=0`` and
-   with ``SPH_PALLAS_KAHAN=1``; and each new instance's time, plain time
-   and bound, as in phase 7; the variants' scene-axis instances on 2
+   compact route); the CLI at config 3 with ``SPH_PALLAS_FUSED=0``, with
+   ``SPH_PALLAS_KAHAN=1`` (the Kahan K2-ext, which walks the frame
+   record the stepper builds once a frame) and ``--corrected`` with
+   ``SPH_PALLAS_BF16=1`` (a candidates' pass before each bf16 K3-ext);
+   and each new instance's time, plain time and bound, as in phase 7; the
+   variants' scene-axis instances on 2
    scenes of 262k: each variant's batch (``kahan``, ``bf16``,
    ``fuse_acc=False``, ``bf16`` on the compact route) through
    ``BatchedScenes`` for 3 frames with its exact launches, then each
    instance on the spawn's frame bit-equal to its solo launch scene by
    scene, scene 0 held to its variant's plain version, and timed; the
    bf16 K2-ext, which reads its candidates rounded once a substep by
-   ``bf16_candidates`` (held bit-equal to its plain version), bit-equal to
-   the walk that rounds them in its registers, its reference, and timed
-   with its pass beside that walk ("c3_reference"), the pass alone (on
-   copies of the rows cycled past the card's L2) and the default K2-ext
-   on the same inputs;
+   ``bf16_candidates`` (held bit-equal to its plain version), and the
+   bf16 K3-ext, which reads the same copy, each bit-equal to the walk that
+   rounds in its registers, its reference, and timed with its pass, beside
+   the pass alone (on copies of the rows cycled past the card's L2) and
+   the default K2-ext and K3-ext on the same inputs; the Kahan K2-ext,
+   which walks the one-scene frame record (``sph_kernels.frame_record``),
+   bit-equal to the walk that reads occ, raw and pj, and timed given the
+   record, beside the record's build; at frame 10 two planted controls
+   that must leave the reference's bits: a copy whose vz is truncated, not
+   rounded, and a record whose occ lane is cleared on one occupied row;
 10. the paths of the JAX package's default backend and its export path,
    each with the launch counters reset before it: the exact tiers
    (``neighbor="slotted"`` and ``"gather"``, plain PyTorch, which launch no
@@ -1548,8 +1551,7 @@ def main() -> None:
     FACC0, KAHAN, BF16 = (SortedTuning(fuse_acc=False),
                           SortedTuning(kahan=True), SortedTuning(bf16=True))
     with Phase("build"):
-        libs = cuda_build.build((FACC0, KAHAN, BF16), probes=True,
-                                clock=True)
+        libs = cuda_build.build((FACC0, KAHAN, BF16), probes=True)
         cuda_build.load()
         for lib in libs:
             secs = cuda_build.build_seconds.get(lib.name)
@@ -2229,7 +2231,10 @@ def main() -> None:
                  dict(compact_density=3, compact_substep_ext=15)),
                 ([], {"SPH_PALLAS_FUSED": "0"}, dict(density=3, forces=15)),
                 ([], {"SPH_PALLAS_KAHAN": "1"},
-                 {"density+kahan": 3, "fused_substep_ext+kahan": 15})):
+                 {"density+kahan": 3, "fused_substep_ext+kahan": 15}),
+                (["--corrected"], {"SPH_PALLAS_BF16": "1"},
+                 {"density": 18, "forces+bf16": 15,
+                  "bf16_candidates": 15})):
             os.environ.update(env)
             sk.reset_launch_counts()
             rc = cli.main(argv + extra)
@@ -2265,9 +2270,12 @@ def main() -> None:
         """Times fn beside its plain version and bound; a K5 substep's fn
         is a function of the split threshold (called with its default),
         also timed with every tile whole. ``plain`` is the plain version,
-        or its time in ms where it was timed already."""
+        or its time in ms where it was timed already. At 1M, no kernel's
+        main shape, the plain versions are not timed (None): the 1M K5
+        substep's alone takes 13-21 s a run (PERF.md)."""
         km = time_ms(fn, 20)
-        pm = plain if isinstance(plain, float) else plain_ms(plain)
+        pm = (None if shape == "1m" else plain if isinstance(plain, float)
+              else plain_ms(plain))
         b_ms, b_by = bound(name, n, r, pairs, ext, **band)
         times.setdefault(name, {})[shape] = (km, pm, b_ms, b_by)
         whole = ""
@@ -2279,7 +2287,8 @@ def main() -> None:
             times[name][f"{shape}_whole"] = (wm, pm, b_ms, b_by)
             whole = (f"; one warp a tile {wm:.4f} ms = {100 * b_ms / wm:.2f}%"
                      f", split/whole {km / wm:.4f}")
-        print(f"time {shape} {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
+        plain_text = "not timed" if pm is None else f"{pm:.4f} ms"
+        print(f"time {shape} {name}: kernel {km:.4f} ms, plain {plain_text}, "
               f"bound {b_ms:.5f} ms ({b_by}, {pairs} member pairs) = "
               f"{100 * b_ms / km:.2f}% of the bound{whole} [{ident}]",
               flush=True)
@@ -2290,26 +2299,6 @@ def main() -> None:
         ms = time_ms(lambda: compact.occ_prefix(occ), 20)
         print(f"occ_prefix {label}: {ms:.4f} ms once a frame [{ident}]",
               flush=True)
-
-    def tile_clock(label, launch, bodies=(("one warp a tile", 0),
-                                          ("split", compact.SPLIT_SLOTS))):
-        """K5's tile-time distribution (its SPH_TILE_CLOCK instance) in
-        each body on the same inputs, by default every tile walked whole on
-        one warp and wide tiles split: ``launch(arg)`` runs the launches of
-        the body (label, arg) and returns their clock buffers, one a
-        launch."""
-        for body, split in bodies:
-            clocks = launch(split)
-            torch.cuda.synchronize()
-            st = compact.clock_stats(clocks)
-            print(f"tile clock {label}, {body}: {st['tiles']} tiles, p50 "
-                  f"{st['p50_us']:.2f} us, p99 {st['p99_us']:.2f}, max "
-                  f"{st['max_us']:.2f}, mean {st['mean_us']:.2f}; makespan "
-                  f"{st['makespan_us']:.2f} us over {len(clocks)} "
-                  f"launch(es), {st['makespan_over_mean']:.2f} x the mean "
-                  f"tile, {st['busy_warps']:.0f} warps busy on average; "
-                  f"{st['split_tiles']} tiles split into "
-                  f"{st['split_chunks']} chunks [{ident}]", flush=True)
 
     with Phase("timing"):
         shapes = {"262k": (sizes["262k"], states["262k"]),
@@ -2386,14 +2375,6 @@ def main() -> None:
                   lambda: compact.compact_substep_plain(frame, mid, phys, r,
                                                         xs, al))
             if shape == "262k":
-                def solo_clock(split):
-                    clock = compact.clock_buffer(n, dev)
-                    compact.compact_substep_cuda(frame, mid, phys, r, cap,
-                                                 xs, al, pj, scal_f,
-                                                 occ_cum=occ, split=split,
-                                                 clock=clock)
-                    return [clock]
-                tile_clock(f"{shape} substep 3", solo_clock)
                 # the spawn's first substep, where no tile may pass the
                 # threshold: the split's check beside the whole-tile body
                 f0, p0, v0, _, _, _ = frame_inputs(cfg, initial_state(cfg,
@@ -2457,8 +2438,7 @@ def main() -> None:
                   f"{m_tot} without the self pairs", flush=True)
             if not ext:
                 # K1-scenes given the density record as the stepper builds
-                # it, then the reference walk (occ, raw and pos) on the same
-                # inputs, as "<shape>_reference"; the record's build
+                # it; the record's build
                 drec = sk.density_record_scenes(frame, pos_s)
                 timed("density_scenes", shape, n_sc * n, r, tot, False,
                       lambda: sk.density_scenes_cuda(frame, pos_s, params,
@@ -2466,12 +2446,6 @@ def main() -> None:
                       lambda: sk.density_scenes_plain(frame, pos_s, params,
                                                       r, cap),
                       scenes=n_sc)
-                timed("density_scenes", f"{shape}_reference", n_sc * n, r,
-                      tot, False,
-                      lambda: sk.density_scenes_cuda(frame, pos_s, params,
-                                                     r, cap, scal,
-                                                     reference=True),
-                      times["density_scenes"][shape][1], scenes=n_sc)
                 build = time_ms(lambda: sk.density_record_scenes(frame,
                                                                  pos_s), 20)
                 print(f"time {shape}: the density record's build "
@@ -2486,13 +2460,6 @@ def main() -> None:
                   lambda: sk.fused_substep_scenes_plain(
                       frame, mid, params, r, cap, xs, al),
                   scenes=n_sc)
-            # the reference walk (occ, raw and pj) on the same inputs, as
-            # "<shape>_reference"
-            timed(k2_name, f"{shape}_reference", n_sc * n, r, m_tot, ext,
-                  lambda: sk.fused_substep_scenes_cuda(
-                      frame, mid, params, r, cap, xs, al, scal=scal,
-                      reference=True, pj=pj),
-                  times[k2_name][shape][1], scenes=n_sc)
             # the solo kernels on the same inputs, one launch a scene, as
             # the batch ran before the scene axis (not a main path's count)
             solo = [(scene_frame(frame, sc), sk.scene_params(params, sc))
@@ -2529,11 +2496,6 @@ def main() -> None:
                   lambda: sk.forces_scenes_plain(frame, rows0, params, r,
                                                  cap, ext),
                   scenes=n_sc)
-            timed(k3_name, f"{shape}_reference", n_sc * n, r, f0, ext,
-                  lambda: sk.forces_scenes_cuda(frame, rows0, params, r, cap,
-                                                ext, scal=scal_f,
-                                                reference=True, pj=pj),
-                  times[k3_name][shape][1], scenes=n_sc)
             occ = compact.occ_prefix(frame.occ)
             occ_prefix_ms(f"{shape}, {n_sc} scenes", frame.occ)
             timed("compact_substep_ext_scenes" if ext
@@ -2546,15 +2508,6 @@ def main() -> None:
                   lambda: compact.compact_substep_scenes_plain(
                       frame, mid, params, r, xs, al),
                   scenes=n_sc)
-            if shape == "c5":
-                def scenes_clock(split):
-                    clock = compact.clock_buffer(n, dev, n_sc)
-                    compact.compact_substep_scenes_cuda(
-                        frame, mid, params, r, cap, xs, al, pj, scal,
-                        occ_cum=occ, split=split, clock=clock)
-                    return [clock]
-                tile_clock(f"{shape} ({n_sc} scenes) substep 3",
-                           scenes_clock)
             occ_solo = [compact.occ_prefix(fs.occ) for fs, _ in solo]
             solo_ms = {"K3": time_ms(lambda: [
                 sk.forces_cuda(fs, rows0[sc], ph, r, cap, ext, pj[sc],
@@ -2573,15 +2526,6 @@ def main() -> None:
                       lambda: compact.density_compact_scenes_plain(
                           frame, pos_s, params, r),
                       scenes=n_sc)
-                if shape == "c5":
-                    # its tile clock (every tile whole)
-                    def density_clock(_):
-                        clock = compact.clock_buffer(n, dev, n_sc)
-                        compact.density_compact_scenes_cuda(
-                            frame, pos_s, params, r, cap, scal, clock)
-                        return [clock]
-                    tile_clock(f"{shape} ({n_sc} scenes) density",
-                               density_clock, (("one warp a tile", 0),))
                 timed("compact_forces_scenes", shape, n_sc * n, r, f0,
                       False,
                       lambda: compact.forces_compact_scenes_cuda(
@@ -2591,10 +2535,7 @@ def main() -> None:
                       scenes=n_sc)
                 if shape == "c5":
                     # the walk it does not choose at about 5 rows a cell
-                    # (each lane its own slots, "_own"), and scene 0's row
-                    # loop steps a tile: the round's kept slots (every lane
-                    # in the list walk), those it runs the pair for, and
-                    # the largest of the lanes' own counts
+                    # (each lane its own slots, "_own")
                     timed("compact_forces_scenes", f"{shape}_own",
                           n_sc * n, r, f0, False,
                           lambda: compact.forces_compact_scenes_cuda(
@@ -2602,26 +2543,6 @@ def main() -> None:
                               own=True),
                           times["compact_forces_scenes"][shape][1],
                           scenes=n_sc)
-                    kept, paired, owned = (int(c.sum()) for c in
-                                         compact.walk_counts(
-                                             scene_frame(frame, 0),
-                                             rows0[0, :, 0:3], r, cap))
-                    tiles = compact.n_tiles(n)
-                    print(f"row-loop steps {shape} scene 0 (frame-start "
-                          f"rows, {n / r ** 3:.2f} a cell): the list walk "
-                          f"{kept} ({kept / tiles:.2f} a tile), its pairs "
-                          f"{paired} ({paired / tiles:.2f}), the lanes' own "
-                          f"lists {owned} ({owned / tiles:.2f}; "
-                          f"{owned / paired:.4f} of the pairs)", flush=True)
-
-                    def forces_clock(_):
-                        clock = compact.clock_buffer(n, dev, n_sc)
-                        compact.forces_compact_scenes_cuda(
-                            frame, rows0, params, r, cap, pj, scal,
-                            clock=clock)
-                        return [clock]
-                    tile_clock(f"{shape} ({n_sc} scenes) forces",
-                               forces_clock, (("one warp a tile", 0),))
                 solo_ms["K5 density"] = time_ms(lambda: [
                     compact.density_compact_cuda(fs, pos_s[sc], ph, r, cap,
                                                  blocks[sc])
@@ -2966,9 +2887,56 @@ def main() -> None:
                                        tune=BF16, reference=True)
         if not same_bits(outs[BF16][0], k2_ref):
             fail(f"{lab}: the bf16 K2-ext leaves its in-register walk")
+        # the bf16 K3-ext reads the same copy: its sums are those of the
+        # walk that rounds in its registers; the Kahan K2-ext walks the
+        # one-scene frame record: its rows are those of the walk that reads
+        # occ, raw and pj. Planted (on the frame-10 rows: the spawn's
+        # velocities are 0, whose truncation is their rounding): a copy
+        # whose vz is truncated to its high half, not rounded, and a record
+        # whose occ lane is cleared on one occupied row, must each leave
+        # the reference's bits
+        k3_ref = sk.forces_cuda(frame, rows, phys, r, cap, True, tune=BF16,
+                                reference=True)
+        if not same_bits(sk.forces_cuda(frame, rows, phys, r, cap, True,
+                                        tune=BF16), k3_ref):
+            fail(f"{lab}: the bf16 K3-ext leaves its in-register walk")
+        rec = sk.frame_record(frame, rows[:, 6], phys)
+        k2_walk = sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH,
+                                        ALPHA, tune=KAHAN, reference=True)
+        if not (same_bits(outs[KAHAN][0], k2_walk) and same_bits(
+                sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH, ALPHA,
+                                      tune=KAHAN, rec=rec), k2_walk)):
+            fail(f"{lab}: the Kahan K2-ext's record walk leaves the walk "
+                 f"of occ, raw and pj")
+        if planted:
+            planted_cand = cand_k.clone()
+            tail = sk.candidate_halves(planted_cand)[1]
+            vz = rows[:, 5].view(torch.int32) & -0x10000
+            rho_b = sk.bf16_round(rows[:, 6]).view(torch.int32)
+            tail[:, 0] = (vz | ((rho_b >> 16) & 0xFFFF)).view(torch.float32)
+            bad = torch.empty_like(k3_ref)
+            sk._walk_launch(cuda_build.function("forces.cu",
+                                                "sph_forces_cand", BF16),
+                            "forces", frame, rows, None, sk.scal_block(phys),
+                            bad, r, cap, True, cand=planted_cand)
+            if same_bits(bad, k3_ref):
+                fail(f"{lab}: the planted copy (vz truncated) passes")
+            bad_rec = rec.clone()
+            occupied = torch.nonzero(frame.occ)
+            j = int(occupied[occupied.shape[0] // 2])
+            bad_rec.view(torch.int32)[0, j, 3] = 0
+            if same_bits(sk.fused_substep_cuda(
+                    frame, rows, phys, r, cap, XSPH, ALPHA, tune=KAHAN,
+                    rec=bad_rec), k2_walk):
+                fail(f"{lab}: the planted record (occ cleared on row {j}) "
+                     f"passes")
         print(f"compare {lab}: bf16_candidates bit-equal to its plain "
-              f"version; fused_substep_ext+bf16 bit-equal to the "
-              f"in-register walk", flush=True)
+              f"version; fused_substep_ext+bf16 and forces+bf16 (with "
+              f"extensions) bit-equal to their in-register walks; "
+              f"fused_substep_ext+kahan's record walk bit-equal to the walk "
+              f"of occ, raw and pj"
+              f"{'; the planted copy and record fail' if planted else ''}",
+              flush=True)
         if planted:
             k2_bf16, ref_def = outs[BF16][0], outs[DEFAULT][1]
             must_fail(sk.hold(k2_bf16, ref_def),
@@ -3141,11 +3109,6 @@ def main() -> None:
             if not tune.compact:
                 hold_out(name, walk0[0], ref,
                          "262k x 2 frame 0 scene 0, reference walk")
-                timed(name, "262kx2_reference", n_sc * n, r, pairs, False,
-                      lambda: sk.fused_substep_scenes_cuda(
-                          frame, rows, params, r, cap, scal=scal, tune=tune,
-                          reference=True, pj=pj),
-                      times[name]["262kx2"][1], scenes=n_sc)
             if tune.compact:
                 # the default instance on the same spawn inputs
                 timed("compact_substep_scenes", "262kx2", n_sc * n, r, pairs,
@@ -3180,13 +3143,6 @@ def main() -> None:
                                                      rec=drec),
                       lambda: sk.density_scenes_plain(frame, pos_s, params,
                                                       r, cap, tune),
-                      scenes=n_sc)
-                timed("density_scenes+kahan", "262kx2_reference", n_sc * n,
-                      r, tot, False,
-                      lambda: sk.density_scenes_cuda(frame, pos_s, params, r,
-                                                     cap, scal, tune,
-                                                     reference=True),
-                      times["density_scenes+kahan"]["262kx2"][1],
                       scenes=n_sc)
 
     # the slab step on the compact route: the banded K5
@@ -3295,6 +3251,9 @@ def main() -> None:
                 mid = sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al)
             scal, scal_f = sk.scal_block(phys), sk.scal_block(phys, xs, al)
             pj = sk.pj_cols(rows[:, 6], phys)
+            # the Kahan K2-ext's frame record, which the stepper builds
+            # once a frame (the frame-start ρ, which mid keeps)
+            rec = sk.frame_record(frame, rows[:, 6], phys)
             tot, own = sk.member_pairs(frame, pos_s, r, cap)
             m_tot, m_own = sk.member_pairs(frame, mid[:, 0:3], r, cap)
             k_tot, k_own = compact.member_pairs(frame, mid[:, 0:3], r,
@@ -3312,19 +3271,20 @@ def main() -> None:
                 timed(name, shape, n, r, m_tot - m_own, ext,
                       lambda: sk.fused_substep_cuda(frame, mid, phys, r, cap,
                                                     xs, al, pj, scal_f,
-                                                    tune=tune),
+                                                    tune=tune, rec=rec),
                       lambda: sk.fused_substep_plain(frame, mid, phys, r,
                                                      cap, xs, al, tune=tune))
+                if ext and tune is KAHAN:
+                    # given the record (above); its build, once a frame
+                    build = time_ms(lambda: sk.frame_record(
+                        frame, rows[:, 6], phys), 20)
+                    print(f"time {shape}: {name} walking the frame record "
+                          f"{times[name][shape][0]:.4f} ms, the record's "
+                          f"build {build:.4f} ms once a frame [{ident}]",
+                          flush=True)
                 if ext and tune is BF16:
-                    # with its candidates' pass (above), the in-register
-                    # walk on the same inputs ("<shape>_reference"), the
-                    # pass alone, and the default K2-ext's time beside it
-                    timed(name, f"{shape}_reference", n, r, m_tot - m_own,
-                          ext,
-                          lambda: sk.fused_substep_cuda(
-                              frame, mid, phys, r, cap, xs, al, pj, scal_f,
-                              tune=BF16, reference=True),
-                          times[name][shape][1])
+                    # with its candidates' pass (above), the pass alone,
+                    # and the default K2-ext's time beside it
                     # the pass cycles through copies of the rows past the
                     # card's L2, so that it reads them from device memory,
                     # as its bound counts them
@@ -3346,6 +3306,15 @@ def main() -> None:
                                              pj, scal, tune=tune),
                       lambda: sk.forces_plain(frame, rows, phys, r, cap, ext,
                                               tune=tune))
+                if ext and tune is BF16:
+                    # with its candidates' pass, beside the default K3-ext
+                    k3_ms = time_ms(lambda: sk.forces_cuda(
+                        frame, rows, phys, r, cap, ext, pj, scal), 20)
+                    print(f"time {shape}: forces+bf16 with its candidates' "
+                          f"pass {times[name][shape][0]:.4f} ms, the default "
+                          f"K3-ext {k3_ms:.4f} ms on the same inputs: "
+                          f"{times[name][shape][0] / k3_ms:.4f} x "
+                          f"[{ident}]", flush=True)
             name = ("compact_substep_ext" if ext else "compact_substep") \
                 + "+bf16"
             occ = compact.occ_prefix(frame.occ)
@@ -3426,30 +3395,6 @@ def main() -> None:
                       sf.frame, mid, phys, r, xs, al, sf.band)
                       for sf, mid, _, _ in ins],
                   s_cells=cells, n_dead=n_dead)
-            if key == "262k":
-                def density_clock(split):
-                    clocks = []
-                    for sf, _, _, occ in ins:
-                        clocks.append(compact.clock_buffer(
-                            sf.pos_s.shape[0], dev))
-                        compact.density_compact_cuda(
-                            sf.frame, sf.pos_s, phys, r, cap, scal, sf.band,
-                            occ, split, clocks[-1])
-                    return clocks
-                tile_clock(f"{shape} density", density_clock,
-                           (("one warp a tile", 0),
-                            ("split", compact.DENSITY_SPLIT_SLOTS)))
-
-                def slab_clock(split):
-                    clocks = []
-                    for sf, mid, pj, occ in ins:
-                        clocks.append(compact.clock_buffer(mid.shape[0], dev))
-                        compact.compact_substep_cuda(
-                            sf.frame, mid, phys, r, cap, xs, al, pj, scal_f,
-                            sf.band, occ_cum=occ, split=split,
-                            clock=clocks[-1])
-                    return clocks
-                tile_clock(f"{shape} substep 3", slab_clock)
 
     # ---- 10. the JAX package's default backend and its export path
     from sphfluidsimulation_torch import make_dt_rollout, make_param_step
@@ -3763,9 +3708,10 @@ def main() -> None:
                "library_ms": None, "shape": shape_text[main]}
         for other, (ms, pm, b_ms, b_by) in times[name].items():
             if other != main:
-                rec.update({f"ms_{other}": ms, f"plain_ms_{other}": pm,
-                            f"bound_ms_{other}": b_ms,
+                rec.update({f"ms_{other}": ms, f"bound_ms_{other}": b_ms,
                             f"bound_by_{other}": b_by})
+                if pm is not None:
+                    rec[f"plain_ms_{other}"] = pm
         record["kernels"].append(rec)
     for res in probe_runs.values():
         for name, k in res["kernels"].items():

@@ -12,8 +12,9 @@ every lane-group width), and prints one line per kernel instance: the
 source, the switches, the kernel and its template arguments (for K1 and K3
 ``<kExt, kBand>`` or ``<kBand>``, for K2 ``<kExt, kBand, kLanes>``, for
 the scene-axis K2 and K3 ``<kExt, kRec>``, for K5 ``<mode, kExt,
-kBand>``; none for the scene-axis K1, its reference walk and its record
-walk), its registers and its stack frame, spill store and spill load
+kBand>``, for the bf16 library's walks of the candidate copy ``<1>``; none
+for the scene-axis K1, its reference walk and its record walk), its
+registers and its stack frame, spill store and spill load
 bytes.
 """
 
@@ -37,7 +38,8 @@ _ENTRY = re.compile(r"Compiling entry function '\w*?(density_kernel|"
                     r"density_scenes_kernel|"
                     r"density_record_scenes_kernel|"
                     r"fused_substep_kernel|forces_kernel|compact_kernel|"
-                    r"fused_substep_scenes_kernel|forces_scenes_kernel)"
+                    r"fused_substep_scenes_kernel|forces_scenes_kernel|"
+                    r"fused_substep_cand_kernel|forces_cand_kernel)"
                     r"(?:I(\w*?)EE)?")
 _USED = re.compile(r"Used (\d+) registers")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

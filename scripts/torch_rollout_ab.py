@@ -58,10 +58,27 @@ reads a copy, also the copy at full width (``WIDE``: the rows with vx,
 vy, vz and ρ rounded and inv_j in lane 7, 32 bytes a row, in place of the
 24 of the launched half-width copy; compiled from patched copies of
 fused_substep.cu and window_walk.cuh into build/bf16_wide), its bits held
-to the in-register walk's:
+to the in-register walk's. Then the bf16 K3 with extensions at config 3
+corrected, on the corrected rollout's frame-10 rows: the default K3, the
+bf16 K3 as launched (on a tree whose K3 reads the copy, with its pass),
+its in-register walk where the tree has it, the pass alone; the corrected
+bf16 rollout's rate in both loop modes; and the K3-ext kernels' loops in
+the default and the bf16 library:
 
     for root in build/parent . . build/parent; do
         python3 scripts/torch_rollout_ab.py $root --bf16; done
+
+``--kahan`` runs only the Kahan readings: the faithful config-3 Kahan
+rollout's rate (host loop and graph); at config 3, on the rows two
+substeps into the faithful frame 10, the default K2-ext, the Kahan K2-ext
+as launched (on a tree whose Kahan K2-ext walks the frame record, the
+record built in each call; then given built, as the stepper gives it once
+a frame, and the record's build alone, with its bits held to the walk of
+occ, raw and pj) and that reference walk (``reference=True``); the Kahan
+K3-ext and the default K3-ext at config 3 corrected (frame 10); K1 and K2
+Kahan at 262k (frame 10); and the loops of K1, K2, K2-ext, the scene-axis
+record walk with extensions and K3-ext in the default and the Kahan
+library. Run it for ``build/parent . . build/parent`` in one call.
 """
 
 from __future__ import annotations
@@ -105,6 +122,51 @@ def sass_loops(lib: str, pattern: str) -> dict:
                               "loads": sum(bool(re.match(
                                   r"(@\S+\s+)?LD[GS]", t)) for t in body)})
         out[name] = loops
+    return out
+
+
+def ms(fn) -> float:
+    """The median of 7 CUDA-event timings of 20 calls of ``fn``, each
+    behind a spin of the card (device time)."""
+    from sphfluidsimulation_torch.utils.profiling import CudaTimer
+    fn()
+    out = []
+    for _ in range(7):
+        with CudaTimer(50_000_000) as t:
+            for _ in range(20):
+                fn()
+        out.append(t.ms / 20)
+    return statistics.median(out)
+
+
+def rollout_rates(cfg, tune, dev, faithful: bool = True) -> dict:
+    """The median particle-substeps/s of five timed calls of the 10-frame
+    rollout from the 1-frame state, after an untimed call (which records
+    the graph), in each loop mode of the tree ("host", and "graph" where
+    the tree has the choice)."""
+    import torch
+
+    from sphfluidsimulation_torch.sim.stepper import (initial_state,
+                                                      make_rollout)
+    modes = (("host", True), ("graph", False)) if "host_loop" in \
+        inspect.signature(make_rollout).parameters else (("host", None),)
+    st, _ = make_rollout(cfg, 1, faithful=faithful, tune=tune, device=dev)(
+        initial_state(cfg, dev))
+    out = {}
+    for label, host_loop in modes:
+        kw = {} if host_loop is None else {"host_loop": host_loop}
+        roll = make_rollout(cfg, 10, faithful=faithful, tune=tune,
+                            device=dev, **kw)
+        roll(st)
+        rates = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            roll(st)
+            torch.cuda.synchronize()
+            rates.append(cfg.n_particles * cfg.substeps * 10 /
+                         (time.perf_counter() - t0))
+        out[label] = statistics.median(rates)
     return out
 
 
@@ -163,29 +225,13 @@ def bf16_ab(root, dev) -> dict:
     from sphfluidsimulation_torch.params import PhysParams
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                       make_rollout)
-    from sphfluidsimulation_torch.utils.profiling import CudaTimer
 
     bf = sk.SortedTuning(bf16=True)
     cuda_build.build((bf,))
     c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
                    artificial_viscosity=0.5)
-    res: dict = {}
-    modes = (("host", True), ("graph", False)) if "host_loop" in \
-        inspect.signature(make_rollout).parameters else (("host", None),)
-    st, _ = make_rollout(c3, 1, tune=bf, device=dev)(initial_state(c3, dev))
-    for label, host_loop in modes:
-        kw = {} if host_loop is None else {"host_loop": host_loop}
-        roll = make_rollout(c3, 10, tune=bf, device=dev, **kw)
-        roll(st)
-        rates = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            roll(st)
-            torch.cuda.synchronize()
-            rates.append(c3.n_particles * c3.substeps * 10 /
-                         (time.perf_counter() - t0))
-        res[f"c3_bf16_rate_{label}"] = statistics.median(rates)
+    res: dict = {f"c3_bf16_rate_{k}": v
+                 for k, v in rollout_rates(c3, bf, dev).items()}
 
     st10, _ = make_rollout(c3, 10, device=dev)(initial_state(c3, dev))
     r, cap = c3.bucket_resolution, c3.voxel_capacity
@@ -199,15 +245,6 @@ def bf16_ab(root, dev) -> dict:
     params = inspect.signature(sk.fused_substep_cuda).parameters
     once = hasattr(sk, "bf16_candidates_cuda")
 
-    def ms(fn):
-        fn()
-        out = []
-        for _ in range(7):
-            with CudaTimer(50_000_000) as t:
-                for _ in range(20):
-                    fn()
-            out.append(t.ms / 20)
-        return statistics.median(out)
 
     def k2(**kw):
         return sk.fused_substep_cuda(frame, rows, phys, r, cap, xs, al, pj,
@@ -245,10 +282,148 @@ def bf16_ab(root, dev) -> dict:
             k2(tune=bf, reference=True).view(torch.int32)))
         res["c3_f10_bf16_candidates_wide"] = ms(
             lambda: lib.sph_bf16_candidates(p(rows), p(wide), n, stream))
+    res.update(k3_bf16_ab(dev, c3, bf))
     pattern = r"fused_substep_(cand_)?kernelI(Lb1ELb0ELi1ELi1E|Lb1EE)"
     res["sass"] = {tag: sass_loops(str(cuda_build.library_path(
         "fused_substep.cu", cuda_build.defines("fused_substep.cu", t))),
         pattern) for tag, t in (("default", sk.SortedTuning()), ("bf16", bf))}
+    res["sass_k3"] = {tag: sass_loops(str(cuda_build.library_path(
+        "forces.cu", cuda_build.defines("forces.cu", t))),
+        r"forces_(cand_)?kernelI(Lb1ELb0E|Lb1EE)")
+        for tag, t in (("default", sk.SortedTuning()), ("bf16", bf))}
+    return res
+
+
+def corrected_rows(dev, cfg):
+    """(frame, rows, phys, r, cap) of the corrected rollout's frame-10
+    state at ``cfg``: the rows K3 reads at a substep's start."""
+    from sphfluidsimulation_torch.ops import sph_kernels as sk
+    from sphfluidsimulation_torch.ops.frame import build_frame
+    from sphfluidsimulation_torch.params import PhysParams
+    from sphfluidsimulation_torch.sim.stepper import (initial_state,
+                                                      make_rollout)
+
+    st, _ = make_rollout(cfg, 10, faithful=False, device=dev)(
+        initial_state(cfg, dev))
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    frame, (pos_s, vel_s) = build_frame(st.pos, r, cap,
+                                        extras=(st.pos, st.vel))
+    phys = PhysParams.from_config(cfg, dev)
+    rows = sk.pack_rows(pos_s, vel_s, sk.density_cuda(frame, pos_s, phys, r,
+                                                      cap))
+    return frame, rows, phys, r, cap
+
+
+def k3_bf16_ab(dev, c3, bf) -> dict:
+    """The ``--bf16`` readings of K3 with extensions at config 3 corrected:
+    the default K3, the bf16 K3 as launched (on a tree that rounds its
+    candidates once, with that pass), its in-register walk where the tree
+    has it, the pass alone, and the corrected bf16 rollout's rate."""
+    import torch
+
+    from sphfluidsimulation_torch.ops import sph_kernels as sk
+
+    res: dict = {f"c3c_bf16_rate_{k}": v for k, v in
+                 rollout_rates(c3, bf, dev, faithful=False).items()}
+    frame, rows, phys, r, cap = corrected_rows(dev, c3)
+    pj, scal = sk.pj_cols(rows[:, 6], phys), sk.scal_block(phys)
+
+    def k3(**kw):
+        return sk.forces_cuda(frame, rows, phys, r, cap, True, pj, scal, **kw)
+    res["c3c_f10_k3_ext"] = ms(k3)
+    res["c3c_f10_k3_ext_bf16"] = ms(lambda: k3(tune=bf))
+    res["c3c_f10_k3_bf16_over_default"] = \
+        res["c3c_f10_k3_ext_bf16"] / res["c3c_f10_k3_ext"]
+    if "reference" in inspect.signature(sk.forces_cuda).parameters:
+        res["c3c_f10_k3_ext_bf16_reference"] = ms(
+            lambda: k3(tune=bf, reference=True))
+        res["c3c_f10_k3_ext_bf16_bits"] = float(torch.equal(
+            k3(tune=bf).view(torch.int32),
+            k3(tune=bf, reference=True).view(torch.int32)))
+        res["c3c_f10_bf16_candidates"] = ms(
+            lambda: sk.bf16_candidates_cuda(rows))
+    return res
+
+
+def kahan_ab(dev) -> dict:
+    """The ``--kahan`` readings (module docstring)."""
+    import torch
+
+    from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig
+    from sphfluidsimulation_torch.ops import cuda_build, sph_kernels as sk
+    from sphfluidsimulation_torch.ops.frame import build_frame
+    from sphfluidsimulation_torch.params import PhysParams
+    from sphfluidsimulation_torch.sim.stepper import (initial_state,
+                                                      make_rollout)
+
+    ka = sk.SortedTuning(kahan=True)
+    cuda_build.build((ka,))
+    c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+                   artificial_viscosity=0.5)
+    res: dict = {f"c3_kahan_rate_{k}": v
+                 for k, v in rollout_rates(c3, ka, dev).items()}
+
+
+    def faithful_rows(cfg):
+        st, _ = make_rollout(cfg, 10, device=dev)(initial_state(cfg, dev))
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        frame, (pos_s, vel_s) = build_frame(st.pos, r, cap,
+                                            extras=(st.pos, st.vel))
+        phys = PhysParams.from_config(cfg, dev)
+        rho = sk.density_cuda(frame, pos_s, phys, r, cap)
+        return frame, pos_s, sk.pack_rows(pos_s, vel_s, rho), phys, r, cap
+
+    # K2-ext at config 3, frame 10, on rows two substeps into the frame
+    frame, _, rows, phys, r, cap = faithful_rows(c3)
+    xs, al = c3.xsph, c3.artificial_viscosity
+    pj, scal_f = sk.pj_cols(rows[:, 6], phys), sk.scal_block(phys, xs, al)
+    mid = rows
+    for _ in range(2):
+        mid = sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al)
+    params = inspect.signature(sk.fused_substep_cuda).parameters
+
+    def k2(**kw):
+        return sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al, pj,
+                                     scal_f, **kw)
+    res["c3_f10_k2_ext"] = ms(k2)
+    # as launched; on a tree with the record walk the record built in each
+    # call, then given built (the stepper builds it once a frame)
+    res["c3_f10_k2_ext_kahan"] = ms(lambda: k2(tune=ka))
+    res["c3_f10_k2_ext_kahan_reference"] = ms(
+        lambda: k2(tune=ka, reference=True))
+    if "rec" in params:
+        rec = sk.frame_record(frame, rows[:, 6], phys)
+        res["c3_f10_k2_ext_kahan_rec_given"] = ms(lambda: k2(tune=ka,
+                                                             rec=rec))
+        res["c3_f10_frame_record"] = ms(
+            lambda: sk.frame_record(frame, rows[:, 6], phys))
+        res["c3_f10_k2_ext_kahan_bits"] = float(torch.equal(
+            k2(tune=ka, rec=rec).view(torch.int32),
+            k2(tune=ka, reference=True).view(torch.int32)))
+    res["c3_f10_kahan_over_default"] = \
+        res["c3_f10_k2_ext_kahan"] / res["c3_f10_k2_ext"]
+    # K3 with extensions at config 3 corrected, frame 10
+    frame_c, rows_c, phys_c, _, _ = corrected_rows(dev, c3)
+    pj_c, scal_c = sk.pj_cols(rows_c[:, 6], phys_c), sk.scal_block(phys_c)
+    res["c3c_f10_k3_ext_kahan"] = ms(lambda: sk.forces_cuda(
+        frame_c, rows_c, phys_c, r, cap, True, pj_c, scal_c, tune=ka))
+    res["c3c_f10_k3_ext"] = ms(lambda: sk.forces_cuda(
+        frame_c, rows_c, phys_c, r, cap, True, pj_c, scal_c))
+    # K1 and K2 kahan at 262k, frame 10
+    g = GOLDEN_CONFIG
+    frame, pos_s, rows, phys, r, cap = faithful_rows(g)
+    pj, scal = sk.pj_cols(rows[:, 6], phys), sk.scal_block(phys)
+    res["262k_f10_k1_kahan"] = ms(lambda: sk.density_cuda(
+        frame, pos_s, phys, r, cap, scal, tune=ka))
+    res["262k_f10_k2_kahan"] = ms(lambda: sk.fused_substep_cuda(
+        frame, rows, phys, r, cap, pj=pj, scal=scal, tune=ka))
+    pattern = (r"(fused_substep_kernelILb1ELb0ELi1ELi1E|"
+               r"fused_substep_scenes_kernelILb1ELb1E|forces_kernelILb1ELb0E"
+               r"|fused_substep_kernelILb0ELb0ELi1ELi2E|density_kernelILb0E)")
+    res["sass"] = {tag: {src: sass_loops(str(cuda_build.library_path(
+        src, cuda_build.defines(src, t))), pattern)
+        for src in ("density.cu", "fused_substep.cu", "forces.cu")}
+        for tag, t in (("default", sk.SortedTuning()), ("kahan", ka))}
     return res
 
 
@@ -257,16 +432,20 @@ def main() -> None:
     ap.add_argument("root")
     ap.add_argument("--loop", choices=["host", "graph"], default=None)
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--kahan", action="store_true")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
 
-    if args.bf16:
+    if args.bf16 or args.kahan:
         from sphfluidsimulation_torch.utils.profiling import gpu_identity
-        print(json.dumps({"root": args.root, "bf16": bf16_ab(
-            root, torch.device("cuda")),
-            "ident": gpu_identity().splitlines()[0]}), flush=True)
+        dev = torch.device("cuda")
+        res = bf16_ab(root, dev) if args.bf16 else kahan_ab(dev)
+        print(json.dumps({"root": args.root,
+                          "bf16" if args.bf16 else "kahan": res,
+                          "ident": gpu_identity().splitlines()[0]}),
+              flush=True)
         return
 
     from sphfluidsimulation_torch import GOLDEN_CONFIG, SimConfig

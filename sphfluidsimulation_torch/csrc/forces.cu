@@ -37,6 +37,16 @@
 // cannot drift apart. The scene-axis instances read the frame record, as
 // K2's do (fused_substep.cu); the walk that reads occ, raw and pj stays
 // built as the reference instance.
+//
+// The bf16 instance with extensions, unbanded (config 3's corrected and
+// unfused bf16 rollouts): as K2's (fused_substep.cu), the candidates are
+// rounded once, by the pass sph_bf16_candidates of the bf16 library of
+// fused_substep.cu, into the half-width copy (24 bytes a row, window_walk.cuh
+// CandArgs), and the walk (forces_cand_kernel) reads row i from the rows and
+// every candidate from the copy, with press_j computed in the walk as
+// candidate<true> computes it: the sums of the walk that rounds every slot
+// in its registers, bit for bit. That walk (forces_kernel in the bf16
+// library) stays built as the reference instance.
 #include "window_walk.cuh"
 
 namespace {
@@ -65,6 +75,23 @@ forces_scenes_kernel(sph::SceneArgs a, float4* __restrict__ out) {
       [&](const sph::Scalars&, const sph::Particle&, int i,
           const sph::PairSums& acc) {
         sph::store_sums<sph::kFacc>(out_s, i, acc);
+      },
+      [](int) {});   // no dead rows without a band
+}
+
+// The bf16 K3 with extensions over the whole grid, reading its candidates
+// from the copy of sph_bf16_candidates (fused_substep.cu; CandArgs), as
+// fused_substep_cand_kernel does: the same pair sums as forces_kernel<true,
+// false> in the bf16 library, bit for bit. (A template, so that only the
+// bf16 library's sph_forces_cand instantiates it.)
+template <bool kOn>
+__global__ void __launch_bounds__(sph::kBlock)
+forces_cand_kernel(sph::CandArgs a, float4* __restrict__ out) {
+  sph::walk_row<true, false>(
+      a,
+      [&](const sph::Scalars&, const sph::Particle&, int i,
+          const sph::PairSums& acc) {
+        sph::store_sums<sph::kFacc>(out, i, acc);
       },
       [](int) {});   // no dead rows without a band
 }
@@ -113,4 +140,28 @@ extern "C" int sph_forces_scenes(const float* rows, const float* pj,
                                  ext != 0, a, scenes,
                                  reinterpret_cast<float4*>(out),
                                  (cudaStream_t)stream);
+}
+
+// The bf16 library's K3 with extensions over the whole grid, reading its
+// candidates from sph_bf16_candidates' copy cand (fused_substep.cu: f32[6N],
+// rounded once a substep); the rows, frame and scalar block as in
+// sph_forces. Another library returns cudaErrorInvalidValue.
+extern "C" int sph_forces_cand(const float* rows, const float* cand,
+                               const int* start, const int* raw,
+                               const uint8_t* occ, const float* scal,
+                               float* out, int n, int r, int cap,
+                               void* stream) {
+  if constexpr (!sph::kBf16) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const float4* const c = reinterpret_cast<const float4*>(cand);
+    const sph::CandArgs a{{reinterpret_cast<const float4*>(rows), nullptr,
+                           start, raw, occ, scal, n, r, cap, 0, r},
+                          c, reinterpret_cast<const float2*>(c + n)};
+    if (n > 0)
+      forces_cand_kernel<true>
+          <<<(n + sph::kBlock - 1) / sph::kBlock, sph::kBlock, 0,
+             (cudaStream_t)stream>>>(a, reinterpret_cast<float4*>(out));
+    return (int)cudaGetLastError();
+  }
 }

@@ -88,6 +88,17 @@
 // from one 16-byte frame record (window_walk.cuh's kRec), one slot a step;
 // the sums are those of the walk that reads occ, raw and pj, bit for bit.
 // That walk stays built as the reference instance (reference != 0).
+// The Kahan library's K2-ext over the whole grid (config 3's Kahan rollout)
+// runs the same record walk: its launch is sph_fused_substep_scenes over
+// one scene, whose thread is the unbanded kernel's thread with the record's
+// one load a slot in place of occ, raw and pj (a solo record instance would
+// be the same machine code again); the stepper builds the record where it
+// builds pj, once a frame. The walk that reads occ, raw and pj
+// (sph_fused_substep) stays built as its reference instance. Measured and
+// not built (PERF.md): the Kahan sums of each gate updated under one
+// predicate in place of a select a sum (2 more instructions a slot here,
+// +6.7%), and a launch bound of 7 blocks an SM (72 registers, 16 bytes
+// spilled: −1.7%, short of a bound without spills).
 // Taking two or four rows a thread, with each loaded candidate evaluated
 // for every row of a shared window, measured slower in every instance
 // (PERF.md).

@@ -67,7 +67,11 @@ KERNELS = {
                                                      *(_I,) * 3, _P))),
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _P)),
-                  ("sph_forces_scenes", (*(_P,) * 8, *(_I,) * 6, _P))),
+                  ("sph_forces_scenes", (*(_P,) * 8, *(_I,) * 6, _P)),
+                  # the bf16 library's K3 with the extensions that reads
+                  # sph_bf16_candidates' copy (rows, cand, start, raw, occ,
+                  # scal, out, n, r, cap)
+                  ("sph_forces_cand", (*(_P,) * 7, *(_I,) * 3, _P))),
     "compact.cu": (("sph_compact", (_I, _I, *(_P,) * 10, *(_I,) * 5, _P)),
                    ("sph_compact_scenes", (_I, _I, *(_P,) * 10, *(_I,) * 4,
                                            _P)),

@@ -988,10 +988,13 @@ def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
                  out: torch.Tensor, r: int, capacity: int | None, ext: bool,
                  band: tuple[int, int] | None = None,
                  lanes: tuple[int, ...] = (),
-                 cand: torch.Tensor | None = None) -> None:
+                 cand: torch.Tensor | None = None,
+                 rec: torch.Tensor | None = None) -> None:
     """Checks the inputs of K2 or K3 and launches it into ``out``
     (``lanes``: the shape of ``sph_fused_substep_lanes``; ``cand``: the
-    bf16 candidates of ``sph_fused_substep_cand``, which reads no pj)."""
+    bf16 candidates of ``sph_fused_substep_cand`` or ``sph_forces_cand``,
+    which read no pj; ``rec``: the one-scene frame record of
+    ``sph_fused_substep_scenes``, which reads no pj)."""
     n = rows.shape[0]
     dev = rows.device
     _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
@@ -1003,6 +1006,12 @@ def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
         err = fn(_ptr(rows), _ptr(cand), _ptr(frame.start), _ptr(frame.raw),
                  _ptr(frame.occ), _ptr(scal), _ptr(out), n, r,
                  _cap_arg(capacity), stream)
+    elif rec is not None:
+        # the scene-axis record walk over one scene: no pj, no reference
+        _check("rec", rec, torch.float32, (1, n, 4), dev)
+        err = fn(_ptr(rows), ctypes.c_void_p(None), _ptr(frame.start),
+                 _ptr(frame.raw), _ptr(frame.occ), _ptr(rec), _ptr(scal),
+                 _ptr(out), n, r, _cap_arg(capacity), 1, int(ext), 0, stream)
     else:
         _check("pj", pj, torch.float32, (n, 2), dev)
         err = fn(_ptr(rows), _ptr(pj), _ptr(frame.start), _ptr(frame.raw),
@@ -1012,28 +1021,75 @@ def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
     _raise_on_error(name, err)
 
 
+def walk_instance(kernel: str, tune: SortedTuning, ext: bool,
+                  band: tuple[int, int] | None = None,
+                  lanes: int | None = None, reference: bool = False) -> str:
+    """The C entry point that K2 (``kernel`` "fused_substep",
+    :func:`fused_substep_cuda`) or K3 ("forces", :func:`forces_cuda`)
+    launches in ``tune``'s library, with or without the extension sums
+    (``ext``), over ``band`` (None: the whole grid), with ``lanes`` (K2's
+    walk shape; None: the launched one) and ``reference``. Over the whole
+    grid with the extensions, at the launched shape and without
+    ``reference``: the bf16 library's walks of the candidates rounded once a
+    substep (``sph_fused_substep_cand``, ``sph_forces_cand``, each after
+    the pass ``sph_bf16_candidates``), and the Kahan library's K2 the frame
+    record walk over one scene (``sph_fused_substep_scenes``, reading
+    :func:`frame_record`). Else ``sph_forces``, ``sph_fused_substep`` or,
+    with ``lanes``, ``sph_fused_substep_lanes``: the reference walks of
+    those instances."""
+    whole = ext and band is None and lanes is None and not reference
+    if kernel == "forces":
+        return "sph_forces_cand" if whole and tune.bf16 else "sph_forces"
+    if whole and tune.bf16:
+        return "sph_fused_substep_cand"
+    if whole and tune.kahan:
+        return "sph_fused_substep_scenes"
+    return "sph_fused_substep" if lanes is None else "sph_fused_substep_lanes"
+
+
+def reads_frame_record(tune: SortedTuning, ext: bool) -> bool:
+    """Whether K2 over the whole grid reads :func:`frame_record` in
+    ``tune``'s library, with or without the extension sums."""
+    return walk_instance("fused_substep", tune, ext) \
+        == "sph_fused_substep_scenes"
+
+
 def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                 r: int, capacity: int | None, ext: bool = False,
                 pj: torch.Tensor | None = None,
                 scal: torch.Tensor | None = None,
-                tune: SortedTuning | None = None) -> torch.Tensor:
+                tune: SortedTuning | None = None,
+                reference: bool = False) -> torch.Tensor:
     """K3 (``csrc/forces.cu``) on the card: raw sums f32[N, 12] from the
     rows state, in the layout of ``tune``'s instance (:func:`fold_forces`;
     None: the default instance); ``ext`` selects the instance with the
     extension sums. ``pj`` is :func:`pj_cols` of the rows' ρ and ``scal``
-    :func:`scal_block` of ``phys``; each is built here when None (the
-    ``bf16`` instance with extensions reads ρⱼ from the rows instead). It
-    walks the whole grid: the slab step never launches K3."""
+    :func:`scal_block` of ``phys``; each is built here when None. It walks
+    the whole grid: the slab step never launches K3.
+
+    The ``bf16`` instance with extensions reads ρⱼ from the rows, not pj:
+    it first rounds the candidates once (:func:`bf16_candidates_cuda`, a
+    copy allocated beside the output), then walks them
+    (``sph_forces_cand``);
+    ``reference`` launches the walk that rounds every slot in its registers
+    instead, the same bits (counted with ``+reference``)."""
     tune = _tuned(tune)
-    if pj is None:
-        pj = pj_cols(rows[:, 6], phys)
+    entry = walk_instance("forces", tune, ext, reference=reference)
     if scal is None:
         scal = scal_block(phys)
     out = torch.empty((rows.shape[0], N_SUMS), dtype=torch.float32,
                       device=rows.device)
-    _walk_launch(cuda_build.function("forces.cu", "sph_forces", tune),
-                 "forces", frame, rows, pj, scal, out, r, capacity, ext)
-    _count("forces" + variant_tag("forces.cu", tune))
+    fn = cuda_build.function("forces.cu", entry, tune)
+    if entry == "sph_forces_cand":
+        _walk_launch(fn, "forces", frame, rows, None, scal, out, r, capacity,
+                     ext, cand=bf16_candidates_cuda(rows))
+    else:
+        if pj is None:
+            pj = pj_cols(rows[:, 6], phys)
+        _walk_launch(fn, "forces", frame, rows, pj, scal, out, r, capacity,
+                     ext)
+    _count("forces" + variant_tag("forces.cu", tune)
+           + ("+reference" if reference else ""))
     return out
 
 
@@ -1072,7 +1128,8 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
                        tune: SortedTuning | None = None,
                        lanes: int | None = None,
                        slots: int = 0,
-                       reference: bool = False) -> torch.Tensor:
+                       reference: bool = False,
+                       rec: torch.Tensor | None = None) -> torch.Tensor:
     """K2 (``csrc/fused_substep.cu``) on the card, banded with ``band``, in
     ``tune``'s variant (None: the default instance). Reads the state as it
     was before the substep and writes a new rows tensor. Nonzero
@@ -1093,34 +1150,37 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
     The bf16 instance with extensions over the whole grid first rounds the
     candidates once (:func:`bf16_candidates_cuda`, a copy allocated beside
     the output), then walks them
-    (``sph_fused_substep_cand``; ``pj`` is not read); ``reference``
-    launches the walk that rounds every slot in its registers instead, the
-    same bits (counted with ``+reference``)."""
+    (``sph_fused_substep_cand``; ``pj`` is not read); the Kahan instance
+    with extensions over the whole grid walks the frame record ``rec``
+    (:func:`frame_record` of the frame and the rows' ρ, built here when
+    None; ``pj`` is not read), launched over one scene
+    (:func:`walk_instance`). ``reference`` launches, for either, the walk
+    that reads the rows' candidates and pj, the same bits (counted with
+    ``+reference``)."""
     tune = _tuned(tune)
     if scal is None:
         scal = scal_block(phys, xsph, alpha_visc)
     ext = uses_extensions(xsph, alpha_visc)
     out = torch.empty_like(rows)
-    if (tune.bf16 and ext and band is None and lanes is None
-            and not reference):
-        cand = bf16_candidates_cuda(rows)
-        _walk_launch(cuda_build.function("fused_substep.cu",
-                                         "sph_fused_substep_cand", tune),
-                     "fused_substep", frame, rows, None, scal, out, r,
-                     capacity, ext, cand=cand)
+    entry = walk_instance("fused_substep", tune, ext, band, lanes, reference)
+    if entry in ("sph_fused_substep_cand", "sph_fused_substep_scenes"):
+        fn = cuda_build.function("fused_substep.cu", entry, tune)
+        if entry == "sph_fused_substep_cand":
+            _walk_launch(fn, "fused_substep", frame, rows, None, scal, out, r,
+                         capacity, ext, cand=bf16_candidates_cuda(rows))
+        else:
+            if rec is None:
+                rec = frame_record(frame, rows[:, 6], phys)
+            _walk_launch(fn, "fused_substep", frame, rows, None, scal, out, r,
+                         capacity, ext, rec=rec)
         _count("fused_substep_ext" + variant_tag("fused_substep.cu", tune))
         return out
     if pj is None:
         pj = pj_cols(rows[:, 6], phys)
-    if lanes is None:
-        fn, extra = cuda_build.function("fused_substep.cu",
-                                        "sph_fused_substep", tune), ()
-    else:
-        extra = (int(lanes), int(slots))
-        sweep = extra != (1, 0) and (band is None
-                                     or extra != band_walk(ext, tune))
-        fn = cuda_build.function("fused_substep.cu",
-                                 "sph_fused_substep_lanes", tune, sweep=sweep)
+    extra = () if lanes is None else (int(lanes), int(slots))
+    sweep = extra not in ((), (1, 0)) and (band is None
+                                           or extra != band_walk(ext, tune))
+    fn = cuda_build.function("fused_substep.cu", entry, tune, sweep=sweep)
     _walk_launch(fn, "fused_substep", frame, rows, pj, scal, out, r,
                  capacity, ext, band, extra)
     name = "fused_substep_ext" if ext else "fused_substep"
@@ -1179,16 +1239,17 @@ def fused_substep(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                   alpha_visc: float = 0.0, pj: torch.Tensor | None = None,
                   scal: torch.Tensor | None = None,
                   band: tuple[int, int] | None = None,
-                  tune: SortedTuning | None = None) -> torch.Tensor:
+                  tune: SortedTuning | None = None,
+                  rec: torch.Tensor | None = None) -> torch.Tensor:
     """One whole integration substep over the rows state (pair forces, m²/ρ
     scaling, extension sums, wall penalty, gravity, NaN trap, semi-implicit
     Euler, clamp): the CUDA kernel K2 for a CUDA tensor, the plain version
     for a CPU one, over the frame's ``band``, in ``tune``'s variant.
-    ``pj`` and ``scal`` (as in :func:`fused_substep_cuda`) are read by the
-    kernel only."""
+    ``pj``, ``scal`` and ``rec`` (as in :func:`fused_substep_cuda`) are read
+    by the kernel only."""
     if rows.is_cuda:
         return fused_substep_cuda(frame, rows, phys, r, capacity, xsph,
-                                  alpha_visc, pj, scal, band, tune)
+                                  alpha_visc, pj, scal, band, tune, rec=rec)
     return fused_substep_plain(frame, rows, phys, r, capacity, xsph,
                                alpha_visc, band=band, tune=tune)
 
@@ -1280,6 +1341,18 @@ def frame_record_scenes(frame: SortedFrame, rho: torch.Tensor,
     bits[..., 2] = frame.raw
     bits[..., 3] = frame.occ
     return rec
+
+
+def frame_record(frame: SortedFrame, rho: torch.Tensor,
+                 phys: PhysParams) -> torch.Tensor:
+    """:func:`frame_record_scenes` of a solo frame as one scene: f32[1, N,
+    4] from ρ f32[N], lanes 0-1 :func:`pj_cols` of ρ, lanes 2-3 the frame's
+    raw and occ as int32 bits. The Kahan K2-ext over the whole grid reads it
+    (:func:`walk_instance`); the stepper builds it where it builds pj, once
+    a frame."""
+    return frame_record_scenes(
+        frame._replace(raw=frame.raw[None], occ=frame.occ[None]), rho[None],
+        PhysParams(*(x.reshape(1) for x in phys)))
 
 
 def density_record_scenes(frame: SortedFrame,

@@ -35,8 +35,10 @@ plus one frame-start build and density for the overflow and density
 metrics. ``cfg.xsph`` and ``cfg.artificial_viscosity`` turn on the extension
 sums in K2 and K3 (and the XSPH correction of the position update).
 K2, K3 and K5's force modes read pj (the j-side pressure and guarded
-1/ρ), built once a frame (corrected mode: every substep); the kernels'
-scalar block is built once a frame.
+1/ρ), built once a frame (corrected mode: every substep); the Kahan K2-ext
+on the card reads it in the frame record (``sph_kernels.frame_record``:
+pj, raw and occ, 16 bytes a row), built in its place; the kernels' scalar
+block is built once a frame.
 
 ``tune=SortedTuning(compact=True)`` (the JAX ``pallas_tune``; by default
 read from ``SPH_PALLAS_COMPACT``) takes the compact-lane route, K5
@@ -230,8 +232,14 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
     with span("pack_rows"):
         rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
         # the substeps' j-side columns, once a frame: rho is the
-        # frame-start density of every substep
-        pj = sph_kernels.pj_cols(rho_s, phys)
+        # frame-start density of every substep; the Kahan K2-ext reads them
+        # in the frame record
+        rec = (sph_kernels.frame_record(frame, rho_s, phys)
+               if rows.is_cuda and tune.fused and not tune.compact
+               and sph_kernels.reads_frame_record(
+                   tune, sph_kernels.uses_extensions(xsph, alpha))
+               else None)
+        pj = None if rec is not None else sph_kernels.pj_cols(rho_s, phys)
         # K5's split of wide tiles counts occupied slots, once a frame
         occ_cum = (compact.occ_prefix(frame.occ)
                    if tune.compact and tune.fused else None)
@@ -261,7 +269,7 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
                 else:
                     rows = sph_kernels.fused_substep(
                         frame, rows, phys, r, cap, xsph, alpha, pj, scal,
-                        tune=tune)
+                        tune=tune, rec=rec)
     with span("unpack+metrics"):
         if tune.fused:
             pos_s, vel_s, _, nan_hits = sph_kernels.unpack_rows(rows)

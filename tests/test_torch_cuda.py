@@ -2095,31 +2095,38 @@ def _bf16_ext_rows(case, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_substep", "forces"])
 @pytest.mark.parametrize("case", ["spawn", "inf"])
-def test_bf16_ext_reads_candidates_rounded_once_on_card(cuda_device, case):
-    # the pass's copy bit-equal to its plain version; the bf16 K2-ext, which
-    # makes it, bit-equal to the walk that rounds every slot in its
-    # registers, the reference; one pass and one
-    # walk counted a call; planted: a copy whose vz is truncated to its
-    # high half, not rounded, leaves the reference's bits
+def test_bf16_ext_reads_candidates_rounded_once_on_card(cuda_device, case,
+                                                        kernel):
+    # the pass's copy bit-equal to its plain version; the bf16 K2-ext
+    # (``kernel`` "fused_substep") or K3-ext ("forces"), which makes it,
+    # bit-equal to the walk that rounds every slot in its registers, the
+    # reference; one pass and one walk counted a call; planted: a copy
+    # whose vz is truncated to its high half, not rounded, leaves the
+    # reference's bits
     tf, rows, tp, r, cap, xs, al = _bf16_ext_rows(case, cuda_device)
     scal = sk.scal_block(tp, xs, al)
     cand = sk.bf16_candidates_cuda(rows)
     want = sk.bf16_candidates_plain(rows)
     assert _same_bits(cand, want)
+
+    def walk(**kw):
+        if kernel == "forces":
+            return sk.forces_cuda(tf, rows, tp, r, cap, True, tune=BF16, **kw)
+        return sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al, tune=BF16,
+                                     **kw)
+    name = ("forces" if kernel == "forces" else "fused_substep_ext") + "+bf16"
     before = dict(sk.launch_counts)
-    out = sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al, tune=BF16)
-    assert sk.launch_counts["fused_substep_ext+bf16"] == \
-        before.get("fused_substep_ext+bf16", 0) + 1
+    out = walk()
+    assert sk.launch_counts[name] == before.get(name, 0) + 1
     assert sk.launch_counts["bf16_candidates"] == \
         before["bf16_candidates"] + 1
-    ref = sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al, tune=BF16,
-                                reference=True)
-    assert sk.launch_counts["fused_substep_ext+bf16+reference"] >= 1
+    ref = walk(reference=True)
+    assert sk.launch_counts[name + "+reference"] >= 1
     assert _same_bits(out, ref)
-    again = sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al, scal=scal,
-                                  tune=BF16)
-    assert _same_bits(again, ref)
+    assert _same_bits(walk(scal=scal if kernel != "forces"
+                           else sk.scal_block(tp)), ref)
     if case == "inf":
         assert not bool(torch.isfinite(ref).all())
     planted = cand.clone()
@@ -2127,31 +2134,106 @@ def test_bf16_ext_reads_candidates_rounded_once_on_card(cuda_device, case):
     vz = rows[:, 5].view(torch.int32) & -0x10000
     rho = sk.bf16_round(rows[:, 6]).view(torch.int32)
     tail[:, 0] = (vz | ((rho >> 16) & 0xFFFF)).view(torch.float32)
-    bad = torch.empty_like(rows)
     from sphfluidsimulation_torch.ops import cuda_build
-    sk._walk_launch(cuda_build.function("fused_substep.cu",
-                                        "sph_fused_substep_cand", BF16),
-                    "fused_substep", tf, rows, None, scal, bad, r, cap, True,
-                    cand=planted)
+    bad = torch.empty_like(ref)
+    source = "forces.cu" if kernel == "forces" else "fused_substep.cu"
+    sk._walk_launch(cuda_build.function(source, f"sph_{source[:-3]}_cand",
+                                        BF16),
+                    kernel, tf, rows, None,
+                    sk.scal_block(tp) if kernel == "forces" else scal, bad,
+                    r, cap, True, cand=planted)
     assert not _same_bits(bad, ref)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spawn", "inf", "frame10"])
+def test_kahan_ext_walks_the_frame_record_on_card(cuda_device, case):
+    # the Kahan K2-ext over the whole grid walks the one-scene frame record
+    # (built in the wrapper, or given): bit-equal to the walk that reads
+    # occ, raw and pj, the reference, on config 3's aliased spawn, with
+    # ±inf velocities and ten frames on; one launch counted a call;
+    # planted: a record whose occ lane is cleared on one member leaves the
+    # reference's bits
+    if case == "frame10":
+        cfg = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+                        artificial_viscosity=0.5)
+        st, _ = make_rollout(cfg, 10, device=cuda_device)(
+            initial_state(cfg, cuda_device))
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        tf, (ps, vs) = build_frame(st.pos, r, cap, extras=(st.pos, st.vel))
+        tp = PhysParams.from_config(cfg, cuda_device)
+        rows = sk.pack_rows(ps, vs, sk.density_cuda(tf, ps, tp, r, cap))
+        xs, al = cfg.xsph, cfg.artificial_viscosity
+    else:
+        tf, rows, tp, r, cap, xs, al = _bf16_ext_rows(case, cuda_device)
+    kahan = SortedTuning(kahan=True)
+
+    def k2(**kw):
+        return sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al,
+                                     tune=kahan, **kw)
+    name = "fused_substep_ext+kahan"
+    before = sk.launch_counts.get(name, 0)
+    out = k2()
+    assert sk.launch_counts[name] == before + 1
+    ref = k2(reference=True)
+    assert _same_bits(out, ref)
+    rec = sk.frame_record(tf, rows[:, 6], tp)
+    assert _same_bits(k2(rec=rec), ref)
+    # the record's occ lane cleared on one occupied row, a member of its
+    # neighbours' windows
+    occupied = torch.nonzero(tf.occ)
+    j = int(occupied[occupied.shape[0] // 2])
+    bad = rec.clone()
+    bad.view(torch.int32)[0, j, 3] = 0
+    assert not _same_bits(k2(rec=bad), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["faithful", "corrected", "kahan"])
 def test_stepper_rounds_the_bf16_candidates_once_a_substep_on_card(
-        cuda_device):
+        cuda_device, mode, monkeypatch):
     # the host loop of the bf16 rollout with extensions runs the pass
-    # before each of the five substeps; the other libraries' entry points
-    # refuse the pass
-    from sphfluidsimulation_torch.ops import cuda_build
+    # before each of the five substeps, faithful (K2-ext) or corrected
+    # (K3-ext); the Kahan rollout with extensions walks the frame record,
+    # which the stepper builds once a frame
     cfg = SimConfig(**_GOLDENISH, xsph=XSPH, artificial_viscosity=ALPHA)
+    tune = SortedTuning(kahan=True) if mode == "kahan" else BF16
     sk.reset_launch_counts()
-    make_rollout(cfg, 2, tune=BF16, device=cuda_device, host_loop=True)(
+    made, real = [], sk.frame_record
+
+    def record(*a):
+        made.append(1)
+        return real(*a)
+    monkeypatch.setattr(sk, "frame_record", record)
+    make_rollout(cfg, 2, faithful=mode != "corrected", tune=tune,
+                 device=cuda_device, host_loop=True)(
         initial_state(cfg, cuda_device))
-    assert sk.launch_counts["bf16_candidates"] == 10
-    assert sk.launch_counts["fused_substep_ext+bf16"] == 10
+    counts = {k: v for k, v in sk.launch_counts.items() if v}
+    want = {"faithful": {"density": 2, "bf16_candidates": 10,
+                         "fused_substep_ext+bf16": 10},
+            "corrected": {"density": 12, "bf16_candidates": 10,
+                          "forces+bf16": 10},
+            "kahan": {"density+kahan": 2,
+                      "fused_substep_ext+kahan": 10}}[mode]
+    assert counts == want
+    assert len(made) == (2 if mode == "kahan" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", [SortedTuning(), SortedTuning(kahan=True),
+                                  SortedTuning(fuse_acc=False)],
+                         ids=["default", "kahan", "facc0"])
+def test_only_the_bf16_library_walks_the_candidate_copy_on_card(cuda_device,
+                                                                tune):
+    # the pass and the two walks of the copy refuse outside the bf16 library
+    from sphfluidsimulation_torch.ops import cuda_build
     x = torch.zeros((4, 8), device=cuda_device)
-    fn = cuda_build.function("fused_substep.cu", "sph_bf16_candidates")
-    assert fn(sk._ptr(x), sk._ptr(x), 4, None) != 0
+    p, i = sk._ptr(x), (4, 3, 32)
+    assert cuda_build.function("fused_substep.cu", "sph_bf16_candidates",
+                               tune)(p, p, 4, None) != 0
+    for src in ("fused_substep.cu", "forces.cu"):
+        fn = cuda_build.function(src, f"sph_{src[:-3]}_cand", tune)
+        assert fn(p, p, p, p, p, p, p, *i, None) != 0, src
 
 
 # the batched steps BatchedScenes records, each on the scene axis: (options,
@@ -2174,6 +2256,9 @@ BATCH_CASES = {
                 dict(density_scenes=1, forces_scenes=5)),
     "kahan": (dict(tune=SortedTuning(kahan=True)), {},
               {"density_scenes+kahan": 1, "fused_substep_scenes+kahan": 5}),
+    "kahan-ext": (dict(tune=SortedTuning(kahan=True)), _EXT,
+                  {"density_scenes+kahan": 1,
+                   "fused_substep_ext_scenes+kahan": 5}),
     "bf16-ext": (dict(tune=SortedTuning(bf16=True)), _EXT,
                  {"density_scenes": 1, "fused_substep_ext_scenes+bf16": 5}),
 }

@@ -209,12 +209,14 @@ def _read_copy(cand):
     return values
 
 
+@pytest.mark.parametrize("kernel", ["substep", "forces"])
 @pytest.mark.parametrize("inf_rows", [False, True])
 def test_bf16_substep_fed_from_the_candidate_copy_is_the_plain_route(
-        inf_rows, monkeypatch):
-    # the plain bf16 K2 with extensions reading its candidates from the
-    # copy, rounded once, is bit for bit the route that rounds them per
-    # candidate; with ±inf velocities planted in some rows too
+        inf_rows, kernel, monkeypatch):
+    # the plain bf16 K2 (``kernel`` "substep") or K3 ("forces") with
+    # extensions reading its candidates from the copy, rounded once, is bit
+    # for bit the route that rounds them per candidate; with ±inf
+    # velocities planted in some rows too
     _, tp, _, tf, pos, vel, rho, r, n = _rows("calm", seed=2)
     rows = sk.pack_rows(torch.from_numpy(pos), torch.from_numpy(vel),
                         torch.from_numpy(rho))
@@ -222,13 +224,17 @@ def test_bf16_substep_fed_from_the_candidate_copy_is_the_plain_route(
         rows[::97, 3] = float("inf")
         rows[5::89, 5] = -float("inf")
     bf = SortedTuning(bf16=True)
+
+    def plain():
+        if kernel == "forces":
+            return sk.forces_plain(tf, rows, tp, r, CAP, True, tune=bf)
+        return sk.fused_substep_plain(tf, rows, tp, r, CAP, XSPH, ALPHA,
+                                      tune=bf)
     cand = sk.bf16_candidates_plain(rows)
-    want = sk.fused_substep_plain(tf, rows, tp, r, CAP, XSPH, ALPHA,
-                                  tune=bf)
+    want = plain()
     with monkeypatch.context() as m:
         m.setattr(sk, "candidate_values", _read_copy(cand))
-        got = sk.fused_substep_plain(tf, rows, tp, r, CAP, XSPH, ALPHA,
-                                     tune=bf)
+        got = plain()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     # the copy is read as it is: a copy whose vz is truncated to its high
     # half, not rounded, differs
@@ -238,9 +244,70 @@ def test_bf16_substep_fed_from_the_candidate_copy_is_the_plain_route(
     rho = sk.bf16_round(rows[:, 6]).view(torch.int32)
     tail[:, 0] = (vz | ((rho >> 16) & 0xFFFF)).view(torch.float32)
     monkeypatch.setattr(sk, "candidate_values", _read_copy(planted))
-    other = sk.fused_substep_plain(tf, rows, tp, r, CAP, XSPH, ALPHA,
-                                   tune=bf)
+    other = plain()
     assert not torch.equal(other.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------- the instances the wrappers launch, and the record --
+
+_K, _B, _F = (SortedTuning(kahan=True), SortedTuning(bf16=True),
+              SortedTuning(fuse_acc=False))
+# (kernel, tuning, extensions, band, lanes, reference) → the C entry point
+WALKS = {
+    ("forces", SortedTuning(), True, None, None, False): "sph_forces",
+    ("forces", _B, True, None, None, False): "sph_forces_cand",
+    ("forces", _B, False, None, None, False): "sph_forces",
+    ("forces", _B, True, None, None, True): "sph_forces",
+    ("forces", _K, True, None, None, False): "sph_forces",
+    ("forces", _F, True, None, None, False): "sph_forces",
+    ("fused_substep", SortedTuning(), True, None, None, False):
+        "sph_fused_substep",
+    ("fused_substep", _B, True, None, None, False): "sph_fused_substep_cand",
+    ("fused_substep", _B, True, (1, 6), None, False): "sph_fused_substep",
+    ("fused_substep", _B, True, None, None, True): "sph_fused_substep",
+    ("fused_substep", _K, True, None, None, False):
+        "sph_fused_substep_scenes",
+    ("fused_substep", _K, False, None, None, False): "sph_fused_substep",
+    ("fused_substep", _K, True, (1, 6), None, False): "sph_fused_substep",
+    ("fused_substep", _K, True, None, None, True): "sph_fused_substep",
+    ("fused_substep", _K, True, None, 1, False): "sph_fused_substep_lanes",
+    ("fused_substep", _F, True, None, None, False): "sph_fused_substep",
+}
+
+
+@pytest.mark.parametrize("case", list(WALKS), ids=lambda c: "-".join(
+    str(x) for x in (c[0], *(f for f in ("kahan", "bf16") if getattr(c[1], f)),
+                     "facc0" * (not c[1].fuse_acc), "ext" * c[2],
+                     "band" * (c[3] is not None), f"lanes{c[4]}" * bool(c[4]),
+                     "reference" * c[5]) if x))
+def test_wrappers_launch_the_instance_their_arguments_call_for(case):
+    # the bf16 K2-ext and K3-ext over the whole grid walk the copy rounded
+    # once, the Kahan K2-ext the frame record over one scene; a band, a
+    # walk shape or reference launches the walk that reads the rows and pj
+    kernel, tune, ext, band, lanes, reference = case
+    entry = sk.walk_instance(kernel, tune, ext, band, lanes, reference)
+    assert entry == WALKS[case]
+    assert entry in dict(cuda_build.KERNELS[f"{kernel}.cu"])
+    if kernel == "fused_substep" and (band, lanes, reference) == (
+            None, None, False):
+        # the stepper builds the record for the launched K2 that reads it
+        assert sk.reads_frame_record(tune, ext) == (
+            entry == "sph_fused_substep_scenes")
+
+
+@pytest.mark.parametrize("name", ["calm", "goldenish"])
+def test_one_scene_frame_record_of_a_solo_frame(name):
+    # the record the Kahan K2-ext reads: pj_cols of ρ, the frame's raw and
+    # occ, bit for bit, as one scene (the goldenish spawn aliases raw ids)
+    _, tp, _, tf, _, _, rho, r, n = _rows(name)
+    rho = torch.from_numpy(rho)
+    rec = sk.frame_record(tf, rho, tp)
+    assert rec.shape == (1, n, 4) and rec.dtype == torch.float32
+    bits = rec[0].view(torch.int32)
+    assert torch.equal(bits[:, 0:2],
+                       sk.pj_cols(rho, tp).view(torch.int32))
+    assert torch.equal(bits[:, 2], tf.raw)
+    assert torch.equal(bits[:, 3], tf.occ.to(torch.int32))
 
 
 # ------------------------------------------------------ Kahan fold sign --
