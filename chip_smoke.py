@@ -54,7 +54,8 @@ every phase passed; each prints its seconds):
    density + 5 K5 substeps a frame), config 3 faithful (1 + 5 K5-ext) and
    262k corrected (6 K5 density + 5 K5 forces); config 5 through
    ``parallel.BatchedScenes`` (its default on the card, a replayed graph a
-   frame: 1 K1-scenes + 5 K2-scenes), its finite positions in [0, 1] and
+   frame: 1 K1-scenes, 1 frame record + 5 K2-scenes), its finite
+   positions in [0, 1] and
    its non-finite rows counted (phase 12 replays their first frames
    through the plain versions); positions must be in
    [0, 1], and finite with ``exact_cert`` 0 on the K1-K3 route (on K5's
@@ -165,12 +166,18 @@ every phase passed; each prints its seconds):
    bf16 K3-ext, which reads the same copy, each bit-equal to the walk that
    rounds in its registers, its reference, and timed with its pass, beside
    the pass alone (on copies of the rows cycled past the card's L2) and
-   the default K2-ext and K3-ext on the same inputs; the Kahan K2-ext,
-   which walks the one-scene frame record (``sph_kernels.frame_record``),
-   bit-equal to the walk that reads occ, raw and pj, and timed given the
-   record, beside the record's build; at frame 10 two planted controls
+   the default K2-ext and K3-ext on the same inputs; the frame record
+   (``sph_kernels.frame_record``), built by its pass ``sph_frame_record``
+   and held bit-equal to its plain version, and its three one-scene
+   record walks, the Kahan K2-ext and K3-ext and the facc0 K2-ext, each
+   bit-equal to the walk that reads occ, raw and pj, as launched and given
+   the record, and timed given it; the pass timed on copies of its inputs
+   cycled past the L2 (at config 3 here, over config 5's scenes in phase
+   7); the paths count its launches (one a frame, five a corrected frame:
+   the Kahan corrected config-3 path); at frame 10 two planted controls
    that must leave the reference's bits: a copy whose vz is truncated, not
-   rounded, and a record whose occ lane is cleared on one occupied row;
+   rounded, and a record whose occ lane is cleared on one occupied row
+   (for each record walk);
 10. the paths of the JAX package's default backend and its export path,
    each with the launch counters reset before it: the exact tiers
    (``neighbor="slotted"`` and ``"gather"``, plain PyTorch, which launch no
@@ -215,7 +222,8 @@ every phase passed; each prints its seconds):
    each with the launch counters reset before it and read after it:
    BASELINE config 5 through the CLI's ``sweep`` (8 scenes of 524,288
    requested particles, rest density 1.0-2.0, 3 frames, the sorted tier,
-   a PNG a scene): exactly 1 K1-scenes and 5 K2-scenes launches a frame,
+   a PNG a scene): exactly 1 K1-scenes, 1 frame record and 5 K2-scenes
+   launches a frame,
    8 PNGs; the same sweep through ``parallel.BatchedScenes`` in both
    modes, the host loop (``host_loop=True``) and the graph (the default),
    each after a first frame, run host, graph, graph, host over 3 frames
@@ -378,6 +386,10 @@ DEAD_ROW_BYTES = {"density": 4, "fused": 64}
 # half-width copy f32[6] a row; its FP32 operation a row is the reciprocal
 # (the roundings are integer operations)
 CAND_ROW_BYTES, CAND_ROW_OPS = 32 + 24, 1
+# the frame record's pass reads ρ f32, raw i32 and occ u8 and writes the
+# record f32[4] a row; its FP32 operations a row: ρ − ρ₀, k·(…) and the
+# reciprocal
+RECORD_ROW_BYTES, RECORD_ROW_OPS = 4 + 4 + 1 + 16, 3
 # every kernel of the port: (kind, source, the TPU kernel it replaces)
 KERNELS = {
     "density": ("density", "density.cu", "pallas_sph.py:961"),
@@ -416,6 +428,9 @@ KERNELS = {
     # bf16 library beside its walk)
     "bf16_candidates": ("candidates", "fused_substep.cu",
                         "pallas_sph.py:961"),
+    # the frame record of K2's and K3's record walks (every library's pass,
+    # once a frame, once a corrected substep)
+    "frame_record": ("record", "fused_substep.cu", "pallas_sph.py:961"),
 }
 # the variants' instances: the kernel's entry with the variant's tag
 # (sph_kernels.variant_tag)
@@ -442,9 +457,12 @@ def bound(name: str, n: int, r: int, pairs: int, ext: bool,
     own start table and scalars). A variant's instance (``name`` with its
     tags) adds its own operations."""
     kind = KERNELS[name][0]
-    if kind == "candidates":
-        t_bytes = n * CAND_ROW_BYTES / HBM_BYTES_PER_S
-        t_ops = n * CAND_ROW_OPS / FP32_OPS_PER_S
+    if kind in ("candidates", "record"):
+        row_bytes, row_ops = ((CAND_ROW_BYTES, CAND_ROW_OPS)
+                              if kind == "candidates"
+                              else (RECORD_ROW_BYTES, RECORD_ROW_OPS))
+        t_bytes = n * row_bytes / HBM_BYTES_PER_S
+        t_ops = n * row_ops / FP32_OPS_PER_S
         return 1e3 * max(t_bytes, t_ops), \
             "bytes" if t_bytes >= t_ops else "operations"
     tags = name.split("+")[1:]
@@ -804,6 +822,7 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
     c5_argv = ["sweep", "--device", dev.type, "--particles",
                str(c5_particles), "--scenes", str(c5_scenes)]
     scenes_want = dict(zero, density_scenes=C5_FRAMES,
+                       frame_record=C5_FRAMES,
                        fused_substep_scenes=C5_FRAMES * 5)
     with Phase("config 5 sweep"):
         dt = run_cli(f"cli {' '.join(c5_argv)} --frames {C5_FRAMES} "
@@ -962,7 +981,8 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
         bs.step()
         sync()
         read_launches("config 3 BatchedScenes", dict(
-            zero, density_scenes=1, fused_substep_ext_scenes=5))
+            zero, density_scenes=1, frame_record=1,
+            fused_substep_ext_scenes=5))
         for sc in range(2):
             cs = c3b.replace(**ov3[sc])
             sk.reset_launch_counts()
@@ -986,6 +1006,7 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
     with Phase("config 5 corrected and compact sweeps"):
         for env, extra, per_frame in (
                 ({}, ["--corrected"], dict(density_scenes=6,
+                                           frame_record=5,
                                            forces_scenes=5)),
                 ({"SPH_PALLAS_COMPACT": "1"}, [],
                  dict(compact_density_scenes=1,
@@ -1003,6 +1024,7 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
         ends = (0, c5_scenes - 1)
         sweep_modes("config 5 corrected", c5, overrides,
                     dict(faithful=False), dict(density_scenes=6,
+                                               frame_record=5,
                                                forces_scenes=5), ends)
         sweep_modes("config 5 compact", c5, overrides,
                     dict(tune=compact_tune),
@@ -1014,7 +1036,8 @@ def phase12(dev, ident: str, read_launches, hold_density, hold_out,
                  dict(compact_density_scenes=6, compact_forces_scenes=5)),
                 ("config 3 batch corrected", c3b, ov3,
                  dict(faithful=False),
-                 dict(density_scenes=6, forces_ext_scenes=5)),
+                 dict(density_scenes=6, frame_record=5,
+                      forces_ext_scenes=5)),
                 ("config 3 batch compact", c3b, ov3, dict(tune=compact_tune),
                  dict(compact_density_scenes=1,
                       compact_substep_ext_scenes=5))):
@@ -2112,7 +2135,8 @@ def main() -> None:
                                       {k: c3_state}, want, {k: c3}))
 
     # config 5 over the scene axis: BatchedScenes, a replayed graph a frame
-    # (1 K1-scenes + 5 K2-scenes), after a first frame that records it.
+    # (1 K1-scenes, 1 frame record + 5 K2-scenes), after a first frame
+    # that records it.
     # The golden EOS may leave a row non-finite at exact_cert 0 (the
     # reference's own inf - inf, which phase 12 replays through the plain
     # versions over frames 1-4): counted here; a finite position must lie
@@ -2127,7 +2151,8 @@ def main() -> None:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         read_launches("the config 5 batch path", dict(
-            zero, density_scenes=FRAMES, fused_substep_scenes=5 * FRAMES))
+            zero, density_scenes=FRAMES, frame_record=FRAMES,
+            fused_substep_scenes=5 * FRAMES))
         c5_states, m = bs.states, bs.last_metrics
         del bs
         pos = c5_states.pos
@@ -2231,7 +2256,8 @@ def main() -> None:
                  dict(compact_density=3, compact_substep_ext=15)),
                 ([], {"SPH_PALLAS_FUSED": "0"}, dict(density=3, forces=15)),
                 ([], {"SPH_PALLAS_KAHAN": "1"},
-                 {"density+kahan": 3, "fused_substep_ext+kahan": 15}),
+                 {"density+kahan": 3, "frame_record": 3,
+                  "fused_substep_ext+kahan": 15}),
                 (["--corrected"], {"SPH_PALLAS_BF16": "1"},
                  {"density": 18, "forces+bf16": 15,
                   "bf16_candidates": 15})):
@@ -2265,6 +2291,17 @@ def main() -> None:
         return t.ms if t.ms > 1000.0 else time_ms(plain, 1)
 
     times = {}      # name → {shape: (ms, plain ms, bound ms, bound by)}
+
+    def record_copies(frame, rho, n_rows):
+        """(frame, ρ) and copies of its raw, occ and ρ, cycled: a timed
+        loop of the frame record's pass over them moves twice the card's
+        L2 between two reads of one copy, so its reads come from device
+        memory, as its bound counts them."""
+        l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+        k = -(-2 * l2 // (n_rows * RECORD_ROW_BYTES))
+        return cycle([(frame, rho)] + [
+            (frame._replace(raw=frame.raw.clone(), occ=frame.occ.clone()),
+             rho.clone()) for _ in range(k)])
 
     def timed(name, shape, n, r, pairs, ext, fn, plain, **band):
         """Times fn beside its plain version and bound; a K5 substep's fn
@@ -2451,6 +2488,15 @@ def main() -> None:
                 print(f"time {shape}: the density record's build "
                       f"{build:.4f} ms, once a K1-scenes launch [{ident}]",
                       flush=True)
+                # the frame record's pass over the scenes, on copies of its
+                # inputs cycled past the L2
+                copies = record_copies(frame, mid[..., 6].contiguous(),
+                                       n_sc * n)
+                timed("frame_record", shape, n_sc * n, r, 0, False,
+                      lambda: sk.frame_record_scenes(*next(copies), params),
+                      lambda: sk.frame_record_scenes_plain(
+                          frame, mid[..., 6], params), scenes=n_sc)
+                del copies
             k2_name = ("fused_substep_ext_scenes" if ext
                        else "fused_substep_scenes")
             timed(k2_name, shape, n_sc * n, r, m_tot, ext,
@@ -2900,14 +2946,33 @@ def main() -> None:
         if not same_bits(sk.forces_cuda(frame, rows, phys, r, cap, True,
                                         tune=BF16), k3_ref):
             fail(f"{lab}: the bf16 K3-ext leaves its in-register walk")
+        # the frame record, built by its pass, is its plain version's
         rec = sk.frame_record(frame, rows[:, 6], phys)
-        k2_walk = sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH,
-                                        ALPHA, tune=KAHAN, reference=True)
-        if not (same_bits(outs[KAHAN][0], k2_walk) and same_bits(
-                sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH, ALPHA,
-                                      tune=KAHAN, rec=rec), k2_walk)):
-            fail(f"{lab}: the Kahan K2-ext's record walk leaves the walk "
-                 f"of occ, raw and pj")
+        rec_p = sk.frame_record_scenes_plain(*sk.one_scene(frame, rows[:, 6],
+                                                           phys))
+        errs["frame_record"] = max(errs["frame_record"], max_err(rec, rec_p))
+        if not same_bits(rec, rec_p):
+            fail(f"{lab}: frame_record leaves its plain version")
+        # the record walks: the Kahan K2-ext and K3-ext and the facc0
+        # K2-ext, as launched (the record built by the pass in the
+        # wrapper) and given the record, each bit-equal to its walk of occ,
+        # raw and pj
+        walks = {}
+        for wname, call in (
+                ("fused_substep_ext+kahan", lambda **kw:
+                 sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH,
+                                       ALPHA, tune=KAHAN, **kw)),
+                ("forces+kahan", lambda **kw: sk.forces_cuda(
+                    frame, rows, phys, r, cap, True, tune=KAHAN, **kw)),
+                ("fused_substep_ext+facc0", lambda **kw:
+                 sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH,
+                                       ALPHA, tune=FACC0, **kw))):
+            ref = call(reference=True)
+            walks[wname] = (call, ref)
+            if not (same_bits(call(), ref) and same_bits(call(rec=rec),
+                                                          ref)):
+                fail(f"{lab}: the {wname} record walk leaves the walk of "
+                     f"occ, raw and pj")
         if planted:
             planted_cand = cand_k.clone()
             tail = sk.candidate_halves(planted_cand)[1]
@@ -2925,16 +2990,16 @@ def main() -> None:
             occupied = torch.nonzero(frame.occ)
             j = int(occupied[occupied.shape[0] // 2])
             bad_rec.view(torch.int32)[0, j, 3] = 0
-            if same_bits(sk.fused_substep_cuda(
-                    frame, rows, phys, r, cap, XSPH, ALPHA, tune=KAHAN,
-                    rec=bad_rec), k2_walk):
-                fail(f"{lab}: the planted record (occ cleared on row {j}) "
-                     f"passes")
-        print(f"compare {lab}: bf16_candidates bit-equal to its plain "
-              f"version; fused_substep_ext+bf16 and forces+bf16 (with "
-              f"extensions) bit-equal to their in-register walks; "
-              f"fused_substep_ext+kahan's record walk bit-equal to the walk "
-              f"of occ, raw and pj"
+            for wname, (call, ref) in walks.items():
+                if same_bits(call(rec=bad_rec), ref):
+                    fail(f"{lab}: the planted record (occ cleared on row "
+                         f"{j}) passes {wname}")
+        print(f"compare {lab}: bf16_candidates and frame_record bit-equal "
+              f"to their plain versions; fused_substep_ext+bf16 and "
+              f"forces+bf16 (with extensions) bit-equal to their "
+              f"in-register walks; the record walks of "
+              f"{', '.join(walks)} bit-equal to the walks of occ, raw and "
+              f"pj"
               f"{'; the planted copy and record fail' if planted else ''}",
               flush=True)
         if planted:
@@ -2968,7 +3033,8 @@ def main() -> None:
         ("facc0 262k", {"SPH_PALLAS_FACC": "0"}, "262k",
          {"density": vf, "fused_substep+facc0": 5 * vf}),
         ("facc0 config 3", {"SPH_PALLAS_FACC": "0"}, "c3",
-         {"density": vf, "fused_substep_ext+facc0": 5 * vf}),
+         {"density": vf, "frame_record": vf,
+          "fused_substep_ext+facc0": 5 * vf}),
         ("facc0 unfused 262k", {"SPH_PALLAS_FACC": "0",
                                 "SPH_PALLAS_FUSED": "0"}, "262k",
          {"density": vf, "forces+facc0": 5 * vf}),
@@ -2976,7 +3042,11 @@ def main() -> None:
          {"density+kahan": vf, "fused_substep+kahan": 5 * vf}),
         ("kahan unfused config 3", {"SPH_PALLAS_KAHAN": "1",
                                     "SPH_PALLAS_FUSED": "0"}, "c3",
-         {"density+kahan": vf, "forces+kahan": 5 * vf}),
+         {"density+kahan": vf, "frame_record": vf, "forces+kahan": 5 * vf}),
+        # the Kahan K3-ext's record, built by its pass every substep
+        ("kahan corrected config 3", {"SPH_PALLAS_KAHAN": "1"}, "c3",
+         {"density+kahan": 6 * vf, "frame_record": 5 * vf,
+          "forces+kahan": 5 * vf}),
         ("bf16 262k", {"SPH_PALLAS_BF16": "1"}, "262k",
          {"density": vf, "fused_substep+bf16": 5 * vf}),
         ("bf16 config 3", {"SPH_PALLAS_BF16": "1"}, "c3",
@@ -3001,7 +3071,8 @@ def main() -> None:
                         else (sizes[key], states0[key]))
             os.environ.update(env)
             try:
-                roll = make_rollout(cfg, vf, device=dev)
+                roll = make_rollout(cfg, vf, device=dev,
+                                    faithful="corrected" not in label)
             finally:
                 for var in env:
                     del os.environ[var]
@@ -3017,9 +3088,12 @@ def main() -> None:
     # variant, and its time, plain time and bound
     vb_cfg, vb_ov = sizes["262k"], cli.sweep_overrides(1.0, 2.0, 2)
     variant_batches = (
-        (KAHAN, {"density_scenes+kahan": 1, "fused_substep_scenes+kahan": 5}),
-        (BF16, {"density_scenes": 1, "fused_substep_scenes+bf16": 5}),
-        (FACC0, {"density_scenes": 1, "fused_substep_scenes+facc0": 5}),
+        (KAHAN, {"density_scenes+kahan": 1, "frame_record": 1,
+                 "fused_substep_scenes+kahan": 5}),
+        (BF16, {"density_scenes": 1, "frame_record": 1,
+                "fused_substep_scenes+bf16": 5}),
+        (FACC0, {"density_scenes": 1, "frame_record": 1,
+                 "fused_substep_scenes+facc0": 5}),
         (SortedTuning(compact=True, bf16=True),
          {"compact_density_scenes": 1, "compact_substep_scenes+bf16": 5}))
     with Phase("tuning variants: scene axis"):
@@ -3251,7 +3325,7 @@ def main() -> None:
                 mid = sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al)
             scal, scal_f = sk.scal_block(phys), sk.scal_block(phys, xs, al)
             pj = sk.pj_cols(rows[:, 6], phys)
-            # the Kahan K2-ext's frame record, which the stepper builds
+            # the record walks' frame record, which the stepper builds
             # once a frame (the frame-start ρ, which mid keeps)
             rec = sk.frame_record(frame, rows[:, 6], phys)
             tot, own = sk.member_pairs(frame, pos_s, r, cap)
@@ -3275,13 +3349,15 @@ def main() -> None:
                       lambda: sk.fused_substep_plain(frame, mid, phys, r,
                                                      cap, xs, al, tune=tune))
                 if ext and tune is KAHAN:
-                    # given the record (above); its build, once a frame
-                    build = time_ms(lambda: sk.frame_record(
-                        frame, rows[:, 6], phys), 20)
-                    print(f"time {shape}: {name} walking the frame record "
-                          f"{times[name][shape][0]:.4f} ms, the record's "
-                          f"build {build:.4f} ms once a frame [{ident}]",
-                          flush=True)
+                    # the record's pass, once a frame (once a corrected
+                    # substep), on copies of its inputs cycled past the L2
+                    copies = record_copies(frame, rows[:, 6].contiguous(),
+                                           n)
+                    timed("frame_record", shape, n, r, 0, False,
+                          lambda: sk.frame_record(*next(copies), phys),
+                          lambda: sk.frame_record_scenes_plain(
+                              *sk.one_scene(frame, rows[:, 6], phys)))
+                    del copies
                 if ext and tune is BF16:
                     # with its candidates' pass (above), the pass alone,
                     # and the default K2-ext's time beside it
@@ -3303,7 +3379,7 @@ def main() -> None:
                 name = "forces" + sk.variant_tag("forces.cu", tune)
                 timed(name, shape, n, r, tot - own, ext,
                       lambda: sk.forces_cuda(frame, rows, phys, r, cap, ext,
-                                             pj, scal, tune=tune),
+                                             pj, scal, tune=tune, rec=rec),
                       lambda: sk.forces_plain(frame, rows, phys, r, cap, ext,
                                               tune=tune))
                 if ext and tune is BF16:
@@ -3671,7 +3747,8 @@ def main() -> None:
                   "compact_substep_scenes": "c5",
                   "compact_substep_ext_scenes": "c3x2",
                   "compact_forces_scenes": "c5",
-                  "density+kahan": "262k", "bf16_candidates": "c3"}
+                  "density+kahan": "262k", "bf16_candidates": "c3",
+                  "frame_record": "c3"}
     main_shape.update({f"{name}+{tag}": "262kx2" for name, tags in (
         ("density_scenes", ("kahan",)),
         ("fused_substep_scenes", ("facc0", "kahan", "bf16")),

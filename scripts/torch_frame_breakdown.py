@@ -235,7 +235,11 @@ KERNEL_SYMBOLS = ("density_kernel", "fused_substep_kernel", "forces_kernel",
                   "compact_kernel", "compact_scenes_kernel",
                   "compact_chunk_kernel", "compact_forces_own_kernel",
                   "compact_forces_own_scenes_kernel",
-                  "fused_substep_cand_kernel", "bf16_candidates_kernel")
+                  "fused_substep_cand_kernel", "bf16_candidates_kernel",
+                  "forces_cand_kernel", "density_scenes_kernel",
+                  "density_record_scenes_kernel",
+                  "fused_substep_scenes_kernel", "forces_scenes_kernel",
+                  "forces_scenes_kahan_kernel", "frame_record_kernel")
 # the config-5 cells: BatchedScenes' options and the stepper's ranges
 CONFIG5 = {"config5": ({}, stepper.FRAME_PHASES),
            "config5-corrected": (dict(faithful=False),

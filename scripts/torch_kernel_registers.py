@@ -13,9 +13,11 @@ source, the switches, the kernel and its template arguments (for K1 and K3
 ``<kExt, kBand>`` or ``<kBand>``, for K2 ``<kExt, kBand, kLanes>``, for
 the scene-axis K2 and K3 ``<kExt, kRec>``, for K5 ``<mode, kExt,
 kBand>``, for the bf16 library's walks of the candidate copy ``<1>``; none
-for the scene-axis K1, its reference walk and its record walk), its
-registers and its stack frame, spill store and spill load
-bytes.
+for the scene-axis K1, its reference walk and its record walk, and for the
+frame record's pass ``frame_record_kernel``), its registers and its stack
+frame, spill store and spill load bytes. The Kahan K2-ext and K3-ext and
+the facc0 K2-ext over the whole grid launch the scene-axis record walks
+``<1,1>`` of their libraries.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ _ENTRY = re.compile(r"Compiling entry function '\w*?(density_kernel|"
                     r"density_record_scenes_kernel|"
                     r"fused_substep_kernel|forces_kernel|compact_kernel|"
                     r"fused_substep_scenes_kernel|forces_scenes_kernel|"
-                    r"fused_substep_cand_kernel|forces_cand_kernel)"
+                    r"forces_scenes_kahan_kernel|"
+                    r"fused_substep_cand_kernel|forces_cand_kernel|"
+                    r"frame_record_kernel)"
                     r"(?:I(\w*?)EE)?")
 _USED = re.compile(r"Used (\d+) registers")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

@@ -68,8 +68,8 @@ the default and the bf16 library:
     for root in build/parent . . build/parent; do
         python3 scripts/torch_rollout_ab.py $root --bf16; done
 
-``--kahan`` runs only the Kahan readings: the faithful config-3 Kahan
-rollout's rate (host loop and graph); at config 3, on the rows two
+``--kahan`` runs only the Kahan readings: the faithful and the corrected
+config-3 Kahan rollout's rate (host loop and graph); at config 3, on the rows two
 substeps into the faithful frame 10, the default K2-ext, the Kahan K2-ext
 as launched (on a tree whose Kahan K2-ext walks the frame record, the
 record built in each call; then given built, as the stepper gives it once
@@ -77,8 +77,27 @@ a frame, and the record's build alone, with its bits held to the walk of
 occ, raw and pj) and that reference walk (``reference=True``); the Kahan
 K3-ext and the default K3-ext at config 3 corrected (frame 10); K1 and K2
 Kahan at 262k (frame 10); and the loops of K1, K2, K2-ext, the scene-axis
-record walk with extensions and K3-ext in the default and the Kahan
-library. Run it for ``build/parent . . build/parent`` in one call.
+record walks with extensions and K3-ext in the default and the Kahan
+library. On the corrected rows it also times the Kahan K3-ext given pj and,
+on a tree whose Kahan K3-ext walks the frame record, given the record and
+as launched (the record built by its pass in each call, as a corrected
+substep builds it), its reference walk and the bits; and, each on copies
+of its inputs cycled past the card's L2, ``pj_cols`` and the frame
+record's build as the tree builds it (``frame_record``: torch, or the pass
+``sph_frame_record``; on a tree with the pass also the torch build,
+``frame_record_scenes_plain``) at config 3, and over config 5's 8 scenes
+(``pj_cols_scenes``, ``frame_record_scenes``). Run it for ``build/parent .
+. build/parent`` in one call.
+
+``--facc0`` runs only the two-accumulator readings at config 3: the
+faithful facc0 rollout's rate (host loop and graph); on the rows two
+substeps into the faithful frame 10, the default K2-ext and the facc0
+K2-ext given pj, as launched (on a tree whose facc0 K2-ext walks the frame
+record, the record built by its pass in each call), given the record, its
+reference walk and the bits; the facc0 K3-ext and the default K3-ext at
+config 3 corrected (frame 10), given pj; and the loops of K2-ext, the
+scene-axis record walk with extensions and K3-ext in the default and the
+facc0 library.
 """
 
 from __future__ import annotations
@@ -362,6 +381,8 @@ def kahan_ab(dev) -> dict:
                    artificial_viscosity=0.5)
     res: dict = {f"c3_kahan_rate_{k}": v
                  for k, v in rollout_rates(c3, ka, dev).items()}
+    res.update({f"c3c_kahan_rate_{k}": v for k, v in
+                rollout_rates(c3, ka, dev, faithful=False).items()})
 
 
     def faithful_rows(cfg):
@@ -409,6 +430,24 @@ def kahan_ab(dev) -> dict:
         frame_c, rows_c, phys_c, r, cap, True, pj_c, scal_c, tune=ka))
     res["c3c_f10_k3_ext"] = ms(lambda: sk.forces_cuda(
         frame_c, rows_c, phys_c, r, cap, True, pj_c, scal_c))
+    k3_params = inspect.signature(sk.forces_cuda).parameters
+    if "reference" in k3_params:
+        res["c3c_f10_k3_ext_kahan_reference"] = ms(lambda: sk.forces_cuda(
+            frame_c, rows_c, phys_c, r, cap, True, pj_c, scal_c, tune=ka,
+            reference=True))
+    if "rec" in k3_params:
+        # given the record; as launched the record above is the pass's
+        rec_c = sk.frame_record(frame_c, rows_c[:, 6], phys_c)
+        res["c3c_f10_k3_ext_kahan_rec_given"] = ms(lambda: sk.forces_cuda(
+            frame_c, rows_c, phys_c, r, cap, True, None, scal_c, tune=ka,
+            rec=rec_c))
+        res["c3c_f10_k3_ext_kahan_bits"] = float(torch.equal(
+            sk.forces_cuda(frame_c, rows_c, phys_c, r, cap, True, None,
+                           scal_c, tune=ka).view(torch.int32),
+            sk.forces_cuda(frame_c, rows_c, phys_c, r, cap, True, pj_c,
+                           scal_c, tune=ka, reference=True)
+            .view(torch.int32)))
+    res.update(record_ab(dev, frame_c, rows_c[:, 6].contiguous(), phys_c))
     # K1 and K2 kahan at 262k, frame 10
     g = GOLDEN_CONFIG
     frame, pos_s, rows, phys, r, cap = faithful_rows(g)
@@ -419,11 +458,151 @@ def kahan_ab(dev) -> dict:
         frame, rows, phys, r, cap, pj=pj, scal=scal, tune=ka))
     pattern = (r"(fused_substep_kernelILb1ELb0ELi1ELi1E|"
                r"fused_substep_scenes_kernelILb1ELb1E|forces_kernelILb1ELb0E"
+               r"|forces_scenes_kernelILb1ELb1E|forces_scenes_kahan_kernel"
                r"|fused_substep_kernelILb0ELb0ELi1ELi2E|density_kernelILb0E)")
     res["sass"] = {tag: {src: sass_loops(str(cuda_build.library_path(
         src, cuda_build.defines(src, t))), pattern)
         for src in ("density.cu", "fused_substep.cu", "forces.cu")}
         for tag, t in (("default", sk.SortedTuning()), ("kahan", ka))}
+    return res
+
+
+def cycled(inputs: list, call_bytes: int):
+    """``inputs`` (a tuple of tensors) and copies of them, cycled, so that
+    a timed loop moves twice the card's L2 between two reads of one copy:
+    its reads come from device memory."""
+    import itertools
+
+    import torch
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    k = -(-2 * l2 // call_bytes)
+    return itertools.cycle([inputs] + [tuple(t.clone() for t in inputs)
+                                       for _ in range(k)])
+
+
+def record_ab(dev, frame, rho, phys) -> dict:
+    """pj and the frame record's build at config 3 (``frame``, ``rho`` of
+    its corrected frame 10) and over config 5's 8 scenes at the spawn, each
+    on copies of its inputs cycled past the L2 (25 bytes a row for the
+    record: ρ, raw and occ read, 16 written; 12 for pj)."""
+    from sphfluidsimulation_torch import SimConfig, cli
+    from sphfluidsimulation_torch.ops import sph_kernels as sk
+    from sphfluidsimulation_torch.ops.frame import build_frame_scenes
+    from sphfluidsimulation_torch.params import PhysParams, stack_params
+    from sphfluidsimulation_torch.sim.stepper import initial_state
+    from sphfluidsimulation_torch.state import stack_states
+
+    res: dict = {}
+    n = rho.shape[0]
+    ins = cycled([rho], 12 * n)
+    res["c3c_f10_pj_cols"] = ms(lambda: sk.pj_cols(*next(ins), phys))
+    ins = cycled([rho, frame.raw, frame.occ], 25 * n)
+
+    def record(fn):
+        def call():
+            x, raw, occ = next(ins)
+            return fn(frame._replace(raw=raw, occ=occ), x, phys)
+        return call
+    res["c3c_f10_frame_record"] = ms(record(sk.frame_record))
+    if hasattr(sk, "frame_record_scenes_plain"):
+        res["c3c_f10_frame_record_torch"] = ms(record(
+            lambda f, x, p: sk.frame_record_scenes_plain(
+                *sk.one_scene(f, x, p))))
+    base = SimConfig(particle_number=524288)
+    cfgs = [base.replace(**ov) for ov in cli.sweep_overrides(1.0, 2.0, 8)]
+    states = stack_states([initial_state(c, dev) for c in cfgs])
+    params = stack_params([PhysParams.from_config(c, dev) for c in cfgs])
+    r, cap = base.bucket_resolution, base.voxel_capacity
+    fs, (ps,) = build_frame_scenes(states.pos, r, cap, extras=(states.pos,))
+    rho5 = sk.density_scenes(fs, ps, params, r, cap)
+    rows5 = rho5.numel()
+    ins = cycled([rho5], 12 * rows5)
+    res["c5_pj_cols_scenes"] = ms(lambda: sk.pj_cols_scenes(*next(ins),
+                                                            params))
+    ins = cycled([rho5, fs.raw, fs.occ], 25 * rows5)
+
+    def record5(fn):
+        def call():
+            x, raw, occ = next(ins)
+            return fn(fs._replace(raw=raw, occ=occ), x, params)
+        return call
+    res["c5_frame_record_scenes"] = ms(record5(sk.frame_record_scenes))
+    if hasattr(sk, "frame_record_scenes_plain"):
+        res["c5_frame_record_scenes_torch"] = ms(record5(
+            sk.frame_record_scenes_plain))
+        res["c5_frame_record_bits"] = float(torch_equal(
+            sk.frame_record_scenes(fs, rho5, params),
+            sk.frame_record_scenes_plain(fs, rho5, params)))
+    res["c3_bytes_bound_ms"] = 1e3 * 25 * n / 3.35e12
+    res["c5_bytes_bound_ms"] = 1e3 * 25 * rows5 / 3.35e12
+    return res
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def facc0_ab(dev) -> dict:
+    """The ``--facc0`` readings (module docstring)."""
+    from sphfluidsimulation_torch import SimConfig
+    from sphfluidsimulation_torch.ops import cuda_build, sph_kernels as sk
+    from sphfluidsimulation_torch.ops.frame import build_frame
+    from sphfluidsimulation_torch.params import PhysParams
+    from sphfluidsimulation_torch.sim.stepper import (initial_state,
+                                                      make_rollout)
+
+    fa = sk.SortedTuning(fuse_acc=False)
+    cuda_build.build((fa,))
+    c3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+                   artificial_viscosity=0.5)
+    res: dict = {f"c3_facc0_rate_{k}": v
+                 for k, v in rollout_rates(c3, fa, dev).items()}
+    st, _ = make_rollout(c3, 10, device=dev)(initial_state(c3, dev))
+    r, cap = c3.bucket_resolution, c3.voxel_capacity
+    xs, al = c3.xsph, c3.artificial_viscosity
+    frame, (pos_s, vel_s) = build_frame(st.pos, r, cap,
+                                        extras=(st.pos, st.vel))
+    phys = PhysParams.from_config(c3, dev)
+    rows = sk.pack_rows(pos_s, vel_s, sk.density_cuda(frame, pos_s, phys, r,
+                                                      cap))
+    pj, scal_f = sk.pj_cols(rows[:, 6], phys), sk.scal_block(phys, xs, al)
+    mid = rows
+    for _ in range(2):
+        mid = sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al)
+    params = inspect.signature(sk.fused_substep_cuda).parameters
+
+    def k2(p=pj, **kw):
+        return sk.fused_substep_cuda(frame, mid, phys, r, cap, xs, al, p,
+                                     scal_f, **kw)
+    res["c3_f10_k2_ext"] = ms(k2)
+    # as launched: on a tree whose facc0 K2-ext walks the frame record, the
+    # record built by its pass in each call (pj given is then not read)
+    res["c3_f10_k2_ext_facc0"] = ms(lambda: k2(tune=fa))
+    if "reference" in params:
+        res["c3_f10_k2_ext_facc0_reference"] = ms(
+            lambda: k2(tune=fa, reference=True))
+    if sk.reads_frame_record(fa, True):
+        rec = sk.frame_record(frame, rows[:, 6], phys)
+        res["c3_f10_k2_ext_facc0_rec_given"] = ms(
+            lambda: k2(None, tune=fa, rec=rec))
+        res["c3_f10_k2_ext_facc0_bits"] = float(torch_equal(
+            k2(None, tune=fa, rec=rec), k2(tune=fa, reference=True)))
+    res["c3_f10_facc0_over_default"] = \
+        res["c3_f10_k2_ext_facc0"] / res["c3_f10_k2_ext"]
+    frame_c, rows_c, phys_c, _, _ = corrected_rows(dev, c3)
+    pj_c, scal_c = sk.pj_cols(rows_c[:, 6], phys_c), sk.scal_block(phys_c)
+    res["c3c_f10_k3_ext_facc0"] = ms(lambda: sk.forces_cuda(
+        frame_c, rows_c, phys_c, r, cap, True, pj_c, scal_c, tune=fa))
+    res["c3c_f10_k3_ext"] = ms(lambda: sk.forces_cuda(
+        frame_c, rows_c, phys_c, r, cap, True, pj_c, scal_c))
+    pattern = (r"(fused_substep_kernelILb1ELb0ELi1ELi1E|"
+               r"fused_substep_scenes_kernelILb1ELb1E|forces_kernelILb1ELb0E"
+               r"|forces_scenes_kernelILb1ELb1E)")
+    res["sass"] = {tag: {src: sass_loops(str(cuda_build.library_path(
+        src, cuda_build.defines(src, t))), pattern)
+        for src in ("fused_substep.cu", "forces.cu")}
+        for tag, t in (("default", sk.SortedTuning()), ("facc0", fa))}
     return res
 
 
@@ -433,17 +612,19 @@ def main() -> None:
     ap.add_argument("--loop", choices=["host", "graph"], default=None)
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--kahan", action="store_true")
+    ap.add_argument("--facc0", action="store_true")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
 
-    if args.bf16 or args.kahan:
+    if args.bf16 or args.kahan or args.facc0:
         from sphfluidsimulation_torch.utils.profiling import gpu_identity
         dev = torch.device("cuda")
-        res = bf16_ab(root, dev) if args.bf16 else kahan_ab(dev)
-        print(json.dumps({"root": args.root,
-                          "bf16" if args.bf16 else "kahan": res,
+        mode = "bf16" if args.bf16 else "kahan" if args.kahan else "facc0"
+        res = {"bf16": lambda: bf16_ab(root, dev), "kahan":
+               lambda: kahan_ab(dev), "facc0": lambda: facc0_ab(dev)}[mode]()
+        print(json.dumps({"root": args.root, mode: res,
                           "ident": gpu_identity().splitlines()[0]}),
               flush=True)
         return

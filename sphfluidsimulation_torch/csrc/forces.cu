@@ -36,7 +36,12 @@
 // consecutive slots. The two kernels share every line of the walk, so they
 // cannot drift apart. The scene-axis instances read the frame record, as
 // K2's do (fused_substep.cu); the walk that reads occ, raw and pj stays
-// built as the reference instance.
+// built as the reference instance. The Kahan library's K3-ext over the
+// whole grid (config 3's corrected and unfused Kahan rollouts) runs the
+// same record walk over one scene, as the Kahan K2-ext does: the stepper
+// builds the record (sph_frame_record) in place of pj, once a corrected
+// substep; the walk that reads occ, raw and pj (sph_forces) stays built
+// as its reference.
 //
 // The bf16 instance with extensions, unbanded (config 3's corrected and
 // unfused bf16 rollouts): as K2's (fused_substep.cu), the candidates are
@@ -77,6 +82,36 @@ forces_scenes_kernel(sph::SceneArgs a, float4* __restrict__ out) {
         sph::store_sums<sph::kFacc>(out_s, i, acc);
       },
       [](int) {});   // no dead rows without a band
+}
+
+// The Kahan library's record walk with the extension sums (its K3-ext over
+// the whole grid, launched over one scene, and its K3-ext-scenes):
+// forces_scenes_kernel<true, true> bounded to 7 blocks an SM, which gives
+// 72 registers with 16 bytes spilled in place of 80 without, 28 warps an
+// SM in place of 24: 2% faster, and faster than the walk of occ, raw and
+// pj, which the unbounded record walk was not (PERF.md). (A
+// template, so that only the Kahan library's sph_forces_scenes
+// instantiates it.)
+template <bool kOn>
+__global__ void __launch_bounds__(sph::kBlock, 7)
+forces_scenes_kahan_kernel(sph::SceneArgs a, float4* __restrict__ out) {
+  float4* const out_s = out + 3 * (size_t)blockIdx.y * a.n;
+  sph::walk_row<true, false, 1, 1, true>(
+      sph::scene_args(a, blockIdx.y),
+      [&](const sph::Scalars&, const sph::Particle&, int i,
+          const sph::PairSums& acc) {
+        sph::store_sums<sph::kFacc>(out_s, i, acc);
+      },
+      [](int) {});   // no dead rows without a band
+}
+
+// The record walk with the extension sums of this library.
+sph::SceneKernel ext_record_walk() {
+  if constexpr (sph::kKahan) {
+    return forces_scenes_kahan_kernel<true>;
+  } else {
+    return forces_scenes_kernel<true, true>;
+  }
 }
 
 // The bf16 K3 with extensions over the whole grid, reading its candidates
@@ -134,7 +169,7 @@ extern "C" int sph_forces_scenes(const float* rows, const float* pj,
                           occ, scal, n, r, cap, 0, r},
                          reinterpret_cast<const float4*>(rec)};
   static const sph::SceneKernel instances[2][2] = {
-      {forces_scenes_kernel<false, true>, forces_scenes_kernel<true, true>},
+      {forces_scenes_kernel<false, true>, ext_record_walk()},
       {forces_scenes_kernel<false, false>, forces_scenes_kernel<true, false>}};
   return sph::launch_walk_scenes(instances[reference != 0 ? 1 : 0],
                                  ext != 0, a, scenes,

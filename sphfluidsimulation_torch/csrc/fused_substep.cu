@@ -99,9 +99,20 @@
 // predicate in place of a select a sum (2 more instructions a slot here,
 // +6.7%), and a launch bound of 7 blocks an SM (72 registers, 16 bytes
 // spilled: −1.7%, short of a bound without spills).
+// The facc0 library's K2-ext over the whole grid (config 3's
+// two-accumulator rollout) runs the same one-scene record walk.
 // Taking two or four rows a thread, with each loaded candidate evaluated
 // for every row of a shared window, measured slower in every instance
 // (PERF.md).
+//
+// The frame record itself (sph_frame_record, every library) is built in
+// one pass, one thread a row and one 16-byte store: the frame's raw and
+// occ and the pj of the row's density, computed as sph_kernels.pj_cols
+// computes them (press_j = k (rho - rho0), then [rho > eps] / rho with the
+// IEEE reciprocal), so the record is the torch build's, bit for bit. It
+// serves every reader: the scene-axis K2 and K3 and the one-scene walks of
+// the Kahan K2-ext and K3-ext and of the facc0 K2-ext, so that a
+// corrected substep, which builds it anew, pays one launch for it.
 #include "window_walk.cuh"
 
 #ifndef SPH_LANE_SWEEP
@@ -189,6 +200,27 @@ fused_substep_cand_kernel(sph::CandArgs a, float4* __restrict__ out) {
         sph::fused_tail<true, sph::kFacc>(s, p, acc, out, i);
       },
       [](int) {});   // no dead rows without a band
+}
+
+// The frame record rec[s, i] = (k_s (rho - rho0_s), [rho > eps] / rho,
+// raw as int bits, occ as int 0 or 1) of row i of scene s (blockIdx.y),
+// each scene's k and rho0 its own.
+__global__ void __launch_bounds__(sph::kBlock)
+frame_record_kernel(const float* __restrict__ rho,
+                    const int* __restrict__ raw,
+                    const uint8_t* __restrict__ occ,
+                    const float* __restrict__ gas_k,
+                    const float* __restrict__ rho0,
+                    float4* __restrict__ rec, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t q = (size_t)blockIdx.y * n + i;
+  const float p = __ldg(rho + q);
+  const float k = __ldg(gas_k + blockIdx.y), r0 = __ldg(rho0 + blockIdx.y);
+  const float press = k * (p - r0);
+  const float inv = p > sph::kEps ? __frcp_rn(p) : 0.f;   // = 1.f / p
+  rec[q] = make_float4(press, inv, __int_as_float(__ldg(raw + q)),
+                       __int_as_float(__ldg(occ + q) != 0 ? 1 : 0));
 }
 
 // Sets k to the instance of kSlots slots a lane and `lanes` lanes a row if
@@ -309,6 +341,21 @@ extern "C" int sph_fused_substep_scenes(const float* rows, const float* pj,
 extern "C" int sph_fused_substep_band_walk(int ext, int slots) {
   const int e = ext != 0 ? 1 : 0;
   return slots != 0 ? kBandSlots[e] : kBandLanes[e];
+}
+
+// The frame record of `scenes` scenes of n rows each, f32[S, N, 4]
+// (sph_kernels.frame_record_scenes): rho f32[S, N], raw i32[S, N], occ
+// u8[S, N] and each scene's k and rho0 (f32[S] each) -> rec; one launch,
+// grid (row blocks, scenes).
+extern "C" int sph_frame_record(const float* rho, const int* raw,
+                                const uint8_t* occ, const float* gas_k,
+                                const float* rho0, float* rec, int n,
+                                int scenes, void* stream) {
+  if (n > 0 && scenes > 0)
+    frame_record_kernel<<<dim3((n + sph::kBlock - 1) / sph::kBlock, scenes),
+                          sph::kBlock, 0, (cudaStream_t)stream>>>(
+        rho, raw, occ, gas_k, rho0, reinterpret_cast<float4*>(rec), n);
+  return (int)cudaGetLastError();
 }
 
 // The bf16 library's candidates of K2 with extensions, once a substep:

@@ -64,7 +64,11 @@ KERNELS = {
                          # out, n, r, cap)
                          ("sph_bf16_candidates", (_P, _P, _I, _P)),
                          ("sph_fused_substep_cand", (*(_P,) * 7,
-                                                     *(_I,) * 3, _P))),
+                                                     *(_I,) * 3, _P)),
+                         # every library's frame record of K2's and K3's
+                         # record walks (rho, raw, occ, gas_k, rho0, rec,
+                         # n, scenes)
+                         ("sph_frame_record", (*(_P,) * 6, _I, _I, _P))),
     "forces.cu": (("sph_forces", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _P)),
                   ("sph_forces_scenes", (*(_P,) * 8, *(_I,) * 6, _P)),

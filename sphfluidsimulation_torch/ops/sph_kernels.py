@@ -57,7 +57,9 @@ candidate's gate and j-side values from one 16-byte frame record
 (:func:`frame_record_scenes`) in place of occ, raw and pj, K1's its gate
 and position from one 16-byte density record
 (:func:`density_record_scenes`) in place of occ, raw and pos; the walk
-that reads those stays built as the reference (``reference=True``).
+that reads those stays built as the reference (``reference=True``). On
+the card the frame record is built by one CUDA pass
+(``sph_frame_record``), counted under "frame_record".
 """
 
 from __future__ import annotations
@@ -91,10 +93,11 @@ _KAHAN_CHUNK_PAIRS = 1 << 24
 # step, parallel/slab_pallas.py); the "*_scenes" entries the scene-axis
 # instances of K1, K2, K3 and K5 (the batched step, parallel/batch.py), one
 # a launch over all scenes; the "compact_*" entries count the K5
-# instances (ops/compact.py). A tuning variant's instance counts under its
-# instance's name with the variant's tag (:func:`variant_tag`), e.g.
-# "fused_substep_ext+bf16" or "density+kahan"; those keys appear at their
-# first launch.
+# instances (ops/compact.py); "frame_record" counts the pass that builds
+# the frame record (:func:`frame_record_scenes`). A tuning variant's
+# instance counts under its instance's name with the variant's tag
+# (:func:`variant_tag`), e.g. "fused_substep_ext+bf16" or "density+kahan";
+# those keys appear at their first launch.
 _COUNTERS = ("density", "fused_substep", "fused_substep_ext", "forces",
              "compact_density", "compact_substep", "compact_substep_ext",
              "compact_forces", "density_band", "fused_substep_band",
@@ -103,7 +106,8 @@ _COUNTERS = ("density", "fused_substep", "fused_substep_ext", "forces",
              "density_scenes", "fused_substep_scenes",
              "fused_substep_ext_scenes", "forces_scenes", "forces_ext_scenes",
              "compact_density_scenes", "compact_substep_scenes",
-             "compact_substep_ext_scenes", "compact_forces_scenes")
+             "compact_substep_ext_scenes", "compact_forces_scenes",
+             "frame_record")
 launch_counts = dict.fromkeys(_COUNTERS, 0)
 
 
@@ -994,7 +998,8 @@ def _walk_launch(fn, name: str, frame: SortedFrame, rows: torch.Tensor,
     (``lanes``: the shape of ``sph_fused_substep_lanes``; ``cand``: the
     bf16 candidates of ``sph_fused_substep_cand`` or ``sph_forces_cand``,
     which read no pj; ``rec``: the one-scene frame record of
-    ``sph_fused_substep_scenes``, which reads no pj)."""
+    ``sph_fused_substep_scenes`` or ``sph_forces_scenes``, which read no
+    pj)."""
     n = rows.shape[0]
     dev = rows.device
     _check("rows", rows, torch.float32, (n, N_FIELDS), dev)
@@ -1032,26 +1037,31 @@ def walk_instance(kernel: str, tune: SortedTuning, ext: bool,
     grid with the extensions, at the launched shape and without
     ``reference``: the bf16 library's walks of the candidates rounded once a
     substep (``sph_fused_substep_cand``, ``sph_forces_cand``, each after
-    the pass ``sph_bf16_candidates``), and the Kahan library's K2 the frame
-    record walk over one scene (``sph_fused_substep_scenes``, reading
+    the pass ``sph_bf16_candidates``); the Kahan library's K2 and K3 and
+    the facc0 library's K2 the frame record walk over one scene
+    (``sph_fused_substep_scenes``, ``sph_forces_scenes``, reading
     :func:`frame_record`). Else ``sph_forces``, ``sph_fused_substep`` or,
     with ``lanes``, ``sph_fused_substep_lanes``: the reference walks of
     those instances."""
     whole = ext and band is None and lanes is None and not reference
     if kernel == "forces":
-        return "sph_forces_cand" if whole and tune.bf16 else "sph_forces"
+        if whole and tune.bf16:
+            return "sph_forces_cand"
+        return "sph_forces_scenes" if whole and tune.kahan else "sph_forces"
     if whole and tune.bf16:
         return "sph_fused_substep_cand"
-    if whole and tune.kahan:
+    if whole and (tune.kahan or not tune.fuse_acc):
         return "sph_fused_substep_scenes"
     return "sph_fused_substep" if lanes is None else "sph_fused_substep_lanes"
 
 
-def reads_frame_record(tune: SortedTuning, ext: bool) -> bool:
-    """Whether K2 over the whole grid reads :func:`frame_record` in
-    ``tune``'s library, with or without the extension sums."""
-    return walk_instance("fused_substep", tune, ext) \
-        == "sph_fused_substep_scenes"
+def reads_frame_record(tune: SortedTuning, ext: bool,
+                       kernel: str = "fused_substep") -> bool:
+    """Whether K2 (``kernel`` "fused_substep") or K3 ("forces") over the
+    whole grid reads :func:`frame_record` in ``tune``'s library, with or
+    without the extension sums."""
+    return walk_instance(kernel, tune, ext) in ("sph_fused_substep_scenes",
+                                                "sph_forces_scenes")
 
 
 def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
@@ -1059,7 +1069,8 @@ def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                 pj: torch.Tensor | None = None,
                 scal: torch.Tensor | None = None,
                 tune: SortedTuning | None = None,
-                reference: bool = False) -> torch.Tensor:
+                reference: bool = False,
+                rec: torch.Tensor | None = None) -> torch.Tensor:
     """K3 (``csrc/forces.cu``) on the card: raw sums f32[N, 12] from the
     rows state, in the layout of ``tune``'s instance (:func:`fold_forces`;
     None: the default instance); ``ext`` selects the instance with the
@@ -1070,9 +1081,12 @@ def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
     The ``bf16`` instance with extensions reads ρⱼ from the rows, not pj:
     it first rounds the candidates once (:func:`bf16_candidates_cuda`, a
     copy allocated beside the output), then walks them
-    (``sph_forces_cand``);
-    ``reference`` launches the walk that rounds every slot in its registers
-    instead, the same bits (counted with ``+reference``)."""
+    (``sph_forces_cand``); the Kahan instance with extensions walks the
+    frame record ``rec`` (:func:`frame_record` of the frame and the rows'
+    ρ, built here when None; ``pj`` is not read), launched over one scene
+    (``sph_forces_scenes``, :func:`walk_instance`). ``reference`` launches,
+    for either, the walk that reads the rows' candidates and pj instead,
+    the same bits (counted with ``+reference``)."""
     tune = _tuned(tune)
     entry = walk_instance("forces", tune, ext, reference=reference)
     if scal is None:
@@ -1083,6 +1097,11 @@ def forces_cuda(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
     if entry == "sph_forces_cand":
         _walk_launch(fn, "forces", frame, rows, None, scal, out, r, capacity,
                      ext, cand=bf16_candidates_cuda(rows))
+    elif entry == "sph_forces_scenes":
+        if rec is None:
+            rec = frame_record(frame, rows[:, 6], phys)
+        _walk_launch(fn, "forces", frame, rows, None, scal, out, r, capacity,
+                     ext, rec=rec)
     else:
         if pj is None:
             pj = pj_cols(rows[:, 6], phys)
@@ -1150,10 +1169,10 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
     The bf16 instance with extensions over the whole grid first rounds the
     candidates once (:func:`bf16_candidates_cuda`, a copy allocated beside
     the output), then walks them
-    (``sph_fused_substep_cand``; ``pj`` is not read); the Kahan instance
-    with extensions over the whole grid walks the frame record ``rec``
-    (:func:`frame_record` of the frame and the rows' ρ, built here when
-    None; ``pj`` is not read), launched over one scene
+    (``sph_fused_substep_cand``; ``pj`` is not read); the Kahan and the
+    facc0 instance with extensions over the whole grid walk the frame
+    record ``rec`` (:func:`frame_record` of the frame and the rows' ρ,
+    built here when None; ``pj`` is not read), launched over one scene
     (:func:`walk_instance`). ``reference`` launches, for either, the walk
     that reads the rows' candidates and pj, the same bits (counted with
     ``+reference``)."""
@@ -1215,19 +1234,20 @@ def forces_pass(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                 r: int, capacity: int | None, xsph: float = 0.0,
                 alpha_visc: float = 0.0, pj: torch.Tensor | None = None,
                 scal: torch.Tensor | None = None,
-                tune: SortedTuning | None = None
+                tune: SortedTuning | None = None,
+                rec: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(force f[N, 3], XSPH correction dv f[N, 3] or None) per sorted
     particle (``forces_pallas``): the raw sums from the CUDA kernel K3 for a
     CUDA tensor or from the plain version for a CPU one, in ``tune``'s
     variant, then :func:`fold_forces`. Integration is the caller's
-    (``sim.stepper.integrate_substep``). ``pj`` and ``scal`` (as in
-    :func:`forces_cuda`) are read by the kernel only."""
+    (``sim.stepper.integrate_substep``). ``pj``, ``scal`` and ``rec`` (as
+    in :func:`forces_cuda`) are read by the kernel only."""
     tune = _tuned(tune)
     ext = uses_extensions(xsph, alpha_visc)
     if rows.is_cuda:
         sums = forces_cuda(frame, rows, phys, r, capacity, ext, pj, scal,
-                           tune)
+                           tune, rec=rec)
     else:
         sums = forces_plain(frame, rows, phys, r, capacity, ext, tune=tune)
     return fold_forces(sums, rows[:, 6], phys, xsph, alpha_visc,
@@ -1327,14 +1347,13 @@ def pj_cols_scenes(rho: torch.Tensor, params: PhysParams) -> torch.Tensor:
     return pj
 
 
-def frame_record_scenes(frame: SortedFrame, rho: torch.Tensor,
-                        params: PhysParams) -> torch.Tensor:
-    """The frame record of K2's and K3's scene-axis walk: f32[S, N, 4], one
+def frame_record_scenes_plain(frame: SortedFrame, rho: torch.Tensor,
+                              params: PhysParams) -> torch.Tensor:
+    """The frame record of K2's and K3's record walks: f32[S, N, 4], one
     16-byte load a candidate slot in place of three: lanes 0-1
     :func:`pj_cols_scenes` of ρ f32[S, N] (the same values, bit for bit),
     lane 2 ``frame.raw`` and lane 3 ``frame.occ`` (0 or 1), both as int32
-    bits. The stepper builds it where it built pj: once a frame in
-    faithful mode, once a substep in corrected mode."""
+    bits."""
     rec = rho.new_empty(rho.shape + (4,))
     _pj_scenes_into(rec, rho, params)
     bits = rec.view(torch.int32)
@@ -1343,16 +1362,58 @@ def frame_record_scenes(frame: SortedFrame, rho: torch.Tensor,
     return rec
 
 
+def frame_record_cuda(frame: SortedFrame, rho: torch.Tensor,
+                      params: PhysParams) -> torch.Tensor:
+    """:func:`frame_record_scenes_plain` on the card, bit for bit: one pass,
+    ``sph_frame_record`` (``csrc/fused_substep.cu``), one thread and one
+    16-byte store a row, each scene's k and ρ₀ read from ``params``."""
+    n_scenes, n = rho.shape
+    dev = rho.device
+    rho = rho.contiguous()
+    _check("rho", rho, torch.float32, (n_scenes, n), dev)
+    _check("frame.raw", frame.raw, torch.int32, (n_scenes, n), dev)
+    _check("frame.occ", frame.occ, torch.bool, (n_scenes, n), dev)
+    gas_k, rho0 = (x.reshape(n_scenes).to(dev, torch.float32).contiguous()
+                   for x in (params.gas_constant, params.rest_density))
+    rec = rho.new_empty((n_scenes, n, 4))
+    fn = cuda_build.function("fused_substep.cu", "sph_frame_record")
+    err = fn(_ptr(rho), _ptr(frame.raw), _ptr(frame.occ), _ptr(gas_k),
+             _ptr(rho0), _ptr(rec), n, n_scenes,
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on_error("frame_record", err)
+    _count("frame_record")
+    return rec
+
+
+def frame_record_scenes(frame: SortedFrame, rho: torch.Tensor,
+                        params: PhysParams) -> torch.Tensor:
+    """The frame record of K2's and K3's record walks (f32[S, N, 4],
+    :func:`frame_record_scenes_plain`): the pass ``sph_frame_record`` for a
+    CUDA tensor, the plain version for a CPU one. The stepper builds it
+    where it built pj: once a frame in faithful mode, once a substep in
+    corrected mode."""
+    if rho.is_cuda:
+        return frame_record_cuda(frame, rho, params)
+    return frame_record_scenes_plain(frame, rho, params)
+
+
 def frame_record(frame: SortedFrame, rho: torch.Tensor,
                  phys: PhysParams) -> torch.Tensor:
     """:func:`frame_record_scenes` of a solo frame as one scene: f32[1, N,
     4] from ρ f32[N], lanes 0-1 :func:`pj_cols` of ρ, lanes 2-3 the frame's
-    raw and occ as int32 bits. The Kahan K2-ext over the whole grid reads it
-    (:func:`walk_instance`); the stepper builds it where it builds pj, once
-    a frame."""
-    return frame_record_scenes(
-        frame._replace(raw=frame.raw[None], occ=frame.occ[None]), rho[None],
-        PhysParams(*(x.reshape(1) for x in phys)))
+    raw and occ as int32 bits. The Kahan K2-ext and K3-ext and the facc0
+    K2-ext over the whole grid read it (:func:`walk_instance`); the stepper
+    builds it where it builds pj, once a frame (once a substep in corrected
+    mode)."""
+    return frame_record_scenes(*one_scene(frame, rho, phys))
+
+
+def one_scene(frame: SortedFrame, rho: torch.Tensor, phys: PhysParams
+              ) -> tuple[SortedFrame, torch.Tensor, PhysParams]:
+    """A solo frame's raw and occ, its ρ f32[N] and its ``phys`` as one
+    scene (views): the arguments of :func:`frame_record_scenes`."""
+    return (frame._replace(raw=frame.raw[None], occ=frame.occ[None]),
+            rho[None], PhysParams(*(x.reshape(1) for x in phys)))
 
 
 def density_record_scenes(frame: SortedFrame,

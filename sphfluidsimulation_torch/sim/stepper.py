@@ -36,9 +36,10 @@ metrics. ``cfg.xsph`` and ``cfg.artificial_viscosity`` turn on the extension
 sums in K2 and K3 (and the XSPH correction of the position update).
 K2, K3 and K5's force modes read pj (the j-side pressure and guarded
 1/ρ), built once a frame (corrected mode: every substep); the Kahan K2-ext
-on the card reads it in the frame record (``sph_kernels.frame_record``:
-pj, raw and occ, 16 bytes a row), built in its place; the kernels' scalar
-block is built once a frame.
+and K3-ext and the facc0 K2-ext on the card read it in the frame record
+(``sph_kernels.frame_record``: pj, raw and occ, 16 bytes a row, built by
+one CUDA pass), built in its place; the kernels' scalar block is built
+once a frame.
 
 ``tune=SortedTuning(compact=True)`` (the JAX ``pallas_tune``; by default
 read from ``SPH_PALLAS_COMPACT``) takes the compact-lane route, K5
@@ -198,12 +199,13 @@ def _density(frame: SortedFrame, pos_s: torch.Tensor, phys: PhysParams,
 
 
 def _forces(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
-            cfg: SimConfig, tune: SortedTuning, pj: torch.Tensor,
-            scal: torch.Tensor):
+            cfg: SimConfig, tune: SortedTuning, pj: torch.Tensor | None,
+            scal: torch.Tensor, rec: torch.Tensor | None = None):
     """(force, XSPH dv or None, certificate or None) of the rows state:
     K5's forces mode on the compact route without extensions (its drift
     count the certificate), else K3 (``forces_pallas`` routes so,
-    pallas_sph.py:1720-1725)."""
+    pallas_sph.py:1720-1725), which reads the frame record ``rec`` in place
+    of ``pj`` where :func:`_reads_record` says so."""
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     xsph, alpha = cfg.xsph, cfg.artificial_viscosity
     if tune.compact and not sph_kernels.uses_extensions(xsph, alpha):
@@ -211,8 +213,19 @@ def _forces(frame: SortedFrame, rows: torch.Tensor, phys: PhysParams,
                                       tune)
         return f, None, c
     f, dv = sph_kernels.forces_pass(frame, rows, phys, r, cap, xsph, alpha,
-                                    pj, scal, tune)
+                                    pj, scal, tune, rec=rec)
     return f, dv, None
+
+
+def _reads_record(rows: torch.Tensor, cfg: SimConfig, tune: SortedTuning,
+                  fused: bool) -> bool:
+    """Whether the force kernel of a substep (K2 with ``fused``, else K3;
+    not K5) reads the frame record in place of pj: on the card, where
+    ``sph_kernels.reads_frame_record`` says its instance walks it."""
+    ext = sph_kernels.uses_extensions(cfg.xsph, cfg.artificial_viscosity)
+    return (rows.is_cuda and not (tune.compact and (fused or not ext))
+            and sph_kernels.reads_frame_record(
+                tune, ext, "fused_substep" if fused else "forces"))
 
 
 def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
@@ -232,13 +245,10 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
     with span("pack_rows"):
         rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
         # the substeps' j-side columns, once a frame: rho is the
-        # frame-start density of every substep; the Kahan K2-ext reads them
+        # frame-start density of every substep; the record walks read them
         # in the frame record
         rec = (sph_kernels.frame_record(frame, rho_s, phys)
-               if rows.is_cuda and tune.fused and not tune.compact
-               and sph_kernels.reads_frame_record(
-                   tune, sph_kernels.uses_extensions(xsph, alpha))
-               else None)
+               if _reads_record(rows, cfg, tune, tune.fused) else None)
         pj = None if rec is not None else sph_kernels.pj_cols(rho_s, phys)
         # K5's split of wide tiles counts occupied slots, once a frame
         occ_cum = (compact.occ_prefix(frame.occ)
@@ -251,7 +261,8 @@ def _sorted_frame(frame: SortedFrame, pos_s: torch.Tensor,
                 with span("pack_rows"):
                     rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
             with span("forces"):
-                f, dv, c = _forces(frame, rows, phys, cfg, tune, pj, scal)
+                f, dv, c = _forces(frame, rows, phys, cfg, tune, pj, scal,
+                                   rec)
                 if c is not None:
                     cert = _add_cert(cert, c)
             with span("integrate"):
@@ -575,9 +586,14 @@ def _corrected_step(cfg: SimConfig, tune: SortedTuning) -> ParamStepFn:
                 rho_s = _density(frame, pos_s, phys, cfg, tune, scal)
             with span("pack_rows"):
                 rows = sph_kernels.pack_rows(pos_s, vel_s, rho_s)
-                pj = sph_kernels.pj_cols(rho_s, phys)
+                # pj, or the frame record where K3 walks it, once a substep
+                rec = (sph_kernels.frame_record(frame, rho_s, phys)
+                       if _reads_record(rows, cfg, tune, False) else None)
+                pj = (None if rec is not None
+                      else sph_kernels.pj_cols(rho_s, phys))
             with span("forces"):
-                f, dv, c = _forces(frame, rows, phys, cfg, tune, pj, scal)
+                f, dv, c = _forces(frame, rows, phys, cfg, tune, pj, scal,
+                                   rec)
                 if c is not None:
                     cert = _add_cert(cert, c)
             with span("integrate+unsort"):

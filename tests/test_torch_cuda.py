@@ -270,6 +270,12 @@ GRAPH_CASES = {
     # the bf16 K2-ext: its candidates' pass and its walk in the graph
     "bf16-ext": dict(tune=SortedTuning(bf16=True), xsph=XSPH,
                      artificial_viscosity=ALPHA),
+    # the record walks: the Kahan K3-ext with its frame record's pass
+    # every substep, the facc0 K2-ext with it once a frame
+    "kahan-corrected-ext": dict(faithful=False, tune=SortedTuning(kahan=True),
+                                xsph=XSPH, artificial_viscosity=ALPHA),
+    "facc0-ext": dict(tune=SortedTuning(fuse_acc=False), xsph=XSPH,
+                      artificial_viscosity=ALPHA),
 }
 
 
@@ -1181,10 +1187,11 @@ def test_batched_scenes_launch_the_kernels_and_equal_each_scene_alone(
     bs = BatchedScenes(cfg, overrides, devices=cuda_device)
     sk.reset_launch_counts()
     bs.step(2)
-    # one K1 and five K2 a frame over the three scenes
+    # one K1, one frame record and five K2 a frame over the three scenes
     k2 = "fused_substep_ext_scenes" if ext else "fused_substep_scenes"
     assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
-                                    density_scenes=2, **{k2: 10})
+                                    density_scenes=2, frame_record=2,
+                                    **{k2: 10})
     for i, ov in enumerate(overrides):
         c = cfg.replace(**ov)
         solo, _ = make_rollout(c, 2, device=cuda_device)(
@@ -2145,47 +2152,218 @@ def test_bf16_ext_reads_candidates_rounded_once_on_card(cuda_device, case,
     assert not _same_bits(bad, ref)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["spawn", "inf", "frame10"])
-def test_kahan_ext_walks_the_frame_record_on_card(cuda_device, case):
-    # the Kahan K2-ext over the whole grid walks the one-scene frame record
-    # (built in the wrapper, or given): bit-equal to the walk that reads
-    # occ, raw and pj, the reference, on config 3's aliased spawn, with
-    # ±inf velocities and ten frames on; one launch counted a call;
-    # planted: a record whose occ lane is cleared on one member leaves the
-    # reference's bits
-    if case == "frame10":
-        cfg = SimConfig(particle_number=524288, preset=2, xsph=0.3,
-                        artificial_viscosity=0.5)
-        st, _ = make_rollout(cfg, 10, device=cuda_device)(
-            initial_state(cfg, cuda_device))
-        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
-        tf, (ps, vs) = build_frame(st.pos, r, cap, extras=(st.pos, st.vel))
-        tp = PhysParams.from_config(cfg, cuda_device)
-        rows = sk.pack_rows(ps, vs, sk.density_cuda(tf, ps, tp, r, cap))
-        xs, al = cfg.xsph, cfg.artificial_viscosity
-    else:
-        tf, rows, tp, r, cap, xs, al = _bf16_ext_rows(case, cuda_device)
-    kahan = SortedTuning(kahan=True)
+def _record_walk_rows(case, device):
+    """(frame, rows, phys, r, cap, xsph, alpha) of config 3 for the record
+    walks: the aliased spawn with random velocities (and, ``case`` "inf",
+    ±inf ones), the faithful rollout's frame 10 or (``case`` "corrected")
+    the corrected rollout's frame-10 substep frame, the rows K3 reads
+    there."""
+    if case not in ("frame10", "corrected"):
+        return _bf16_ext_rows(case, device)
+    cfg = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+                    artificial_viscosity=0.5)
+    st, _ = make_rollout(cfg, 10, faithful=case == "frame10",
+                         device=device)(initial_state(cfg, device))
+    r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+    tf, (ps, vs) = build_frame(st.pos, r, cap, extras=(st.pos, st.vel))
+    tp = PhysParams.from_config(cfg, device)
+    rows = sk.pack_rows(ps, vs, sk.density_cuda(tf, ps, tp, r, cap))
+    return tf, rows, tp, r, cap, cfg.xsph, cfg.artificial_viscosity
 
-    def k2(**kw):
+
+def _holds_the_record_walk(case, kernel, tune, device):
+    """The record walk of ``kernel`` ("fused_substep": K2-ext, "forces":
+    K3-ext) in ``tune``'s library on ``case``'s rows: the launched walk
+    (its record built in the wrapper, or given, built by the pass)
+    bit-equal to the walk that reads occ, raw and pj (``reference``); one
+    launch and one pass counted a call; a record whose occ lane is cleared
+    on one occupied row leaves the reference's bits."""
+    tf, rows, tp, r, cap, xs, al = _record_walk_rows(case, device)
+    assert sk.walk_instance(kernel, tune, True) == f"sph_{kernel}_scenes"
+
+    def walk(**kw):
+        if kernel == "forces":
+            return sk.forces_cuda(tf, rows, tp, r, cap, True, tune=tune, **kw)
         return sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al,
-                                     tune=kahan, **kw)
-    name = "fused_substep_ext+kahan"
-    before = sk.launch_counts.get(name, 0)
-    out = k2()
-    assert sk.launch_counts[name] == before + 1
-    ref = k2(reference=True)
+                                     tune=tune, **kw)
+    name = ("forces" if kernel == "forces" else "fused_substep_ext") + \
+        sk.variant_tag(f"{kernel}.cu", tune)
+    before = dict(sk.launch_counts)
+    out = walk()
+    assert sk.launch_counts[name] == before.get(name, 0) + 1
+    assert sk.launch_counts["frame_record"] == before["frame_record"] + 1
+    ref = walk(reference=True)
     assert _same_bits(out, ref)
+    if case == "inf":
+        assert not bool(torch.isfinite(ref).all())
     rec = sk.frame_record(tf, rows[:, 6], tp)
-    assert _same_bits(k2(rec=rec), ref)
+    assert _same_bits(rec, sk.frame_record_scenes_plain(
+        *sk.one_scene(tf, rows[:, 6], tp)))
+    assert _same_bits(walk(rec=rec), ref)
     # the record's occ lane cleared on one occupied row, a member of its
     # neighbours' windows
     occupied = torch.nonzero(tf.occ)
     j = int(occupied[occupied.shape[0] // 2])
     bad = rec.clone()
     bad.view(torch.int32)[0, j, 3] = 0
-    assert not _same_bits(k2(rec=bad), ref)
+    assert not _same_bits(walk(rec=bad), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_substep", "forces"])
+@pytest.mark.parametrize("case", ["spawn", "inf", "frame10", "corrected"])
+def test_kahan_ext_walks_the_frame_record_on_card(cuda_device, case, kernel):
+    # the Kahan K2-ext and K3-ext over the whole grid walk the one-scene
+    # frame record (built in the wrapper by the pass, or given): bit-equal
+    # to the walk that reads occ, raw and pj, the reference, on config 3's
+    # aliased spawn, with ±inf velocities, ten frames on and on a corrected
+    # substep's frame; planted: a record whose occ lane is cleared on one
+    # member leaves the reference's bits
+    _holds_the_record_walk(case, kernel, SortedTuning(kahan=True),
+                           cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spawn", "inf", "frame10"])
+def test_facc0_ext_walks_the_frame_record_on_card(cuda_device, case):
+    # the facc0 K2-ext over the whole grid walks the frame record as the
+    # Kahan walks do, with the same checks and planted control
+    _holds_the_record_walk(case, "fused_substep",
+                           SortedTuning(fuse_acc=False), cuda_device)
+
+
+# the frame record pass's edge densities: 0, ε, −1, NaN, ±inf
+_EDGE_RHO = (0.0, 1e-6, -1.0, float("nan"), float("inf"), -float("inf"))
+
+
+def _record_inputs(scenes, n, device, seed=0):
+    """(frame with raw and occ, ρ, params) of ``scenes`` scenes of ``n``
+    rows: random raw ids and occupancy, random ρ with the edge values in
+    every scene, each scene's own k and ρ₀."""
+    from sphfluidsimulation_torch.ops.frame import SortedFrame
+    g = torch.Generator(device).manual_seed(seed)
+    raw = torch.randint(-5, 1 << 20, (scenes, n), generator=g,
+                        device=device, dtype=torch.int32)
+    occ = torch.rand((scenes, n), generator=g, device=device) < 0.8
+    rho = 3.0 * torch.rand((scenes, n), generator=g, device=device) - 0.5
+    for sc in range(scenes):
+        rho[sc, 5 * sc:5 * sc + len(_EDGE_RHO)] = torch.tensor(
+            _EDGE_RHO, device=device)
+    params = PhysParams(*(torch.full((scenes,), 0.5, device=device)
+                             for _ in PhysParams._fields))
+    params = params._replace(
+        gas_constant=20.0 + torch.arange(scenes, device=device) * 3.5,
+        rest_density=1.0 + torch.arange(scenes, device=device) * 0.125)
+    frame = SortedFrame(*(None for _ in SortedFrame._fields))._replace(
+        raw=raw, occ=occ)
+    return frame, rho, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes", [1, 8])
+def test_frame_record_pass_is_its_plain_version_on_card(cuda_device, scenes):
+    # sph_frame_record bit-equal to frame_record_scenes_plain, N not a
+    # multiple of the block, with ρ at 0, ε, −1, NaN and ±inf; one launch
+    # counted; planted: a pass that leaves lane 3 at 0 differs
+    n = 1000 + 37 * scenes
+    frame, rho, params = _record_inputs(scenes, n, cuda_device)
+    before = sk.launch_counts["frame_record"]
+    rec = sk.frame_record_scenes(frame, rho, params)
+    assert sk.launch_counts["frame_record"] == before + 1
+    want = sk.frame_record_scenes_plain(frame, rho, params)
+    assert rec.shape == (scenes, n, 4)
+    assert _same_bits(rec, want)
+    assert not bool(rec[:, :, 1][~(rho > 1e-6)].any())
+    lib = _planted_library("fused_substep.cu", [(
+        "__int_as_float(__ldg(occ + q) != 0 ? 1 : 0)", "0.f")],
+        "frame_record_occ0")
+    bad = torch.empty_like(rec)
+    gas_k, rho0 = (x.contiguous() for x in (params.gas_constant,
+                                            params.rest_density))
+    assert lib.sph_frame_record(
+        sk._ptr(rho), sk._ptr(frame.raw), sk._ptr(frame.occ),
+        sk._ptr(gas_k), sk._ptr(rho0), sk._ptr(bad), n, scenes,
+        torch.cuda.current_stream(cuda_device).cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert _same_bits(bad[..., 0:3], want[..., 0:3])
+    assert not _same_bits(bad, want)
+
+
+@pytest.mark.cuda
+def test_scene_walks_read_the_pass_record_as_the_torch_build_on_card(
+        cuda_device):
+    # config 5's batch: the scene-axis record the pass builds is the torch
+    # build's, bit for bit, and K2-scenes and K3-scenes given either give
+    # the same bits, those of the walk that reads occ, raw and pj
+    frame, ps, vs, params, r, cap, _, _ = _config5_batch(cuda_device, False)
+    rho = sk.density_scenes(frame, ps, params, r, cap)
+    rows = sk.pack_rows_scenes(ps, vs, rho)
+    rows = sk.fused_substep_scenes(frame, rows, params, r, cap)
+    before = sk.launch_counts["frame_record"]
+    rec = sk.frame_record_scenes(frame, rows[..., 6], params)
+    assert sk.launch_counts["frame_record"] == before + 1
+    torch_rec = sk.frame_record_scenes_plain(frame, rows[..., 6], params)
+    assert _same_bits(rec, torch_rec)
+    k2 = [sk.fused_substep_scenes_cuda(frame, rows, params, r, cap, rec=x)
+          for x in (rec, torch_rec)]
+    k2.append(sk.fused_substep_scenes_cuda(frame, rows, params, r, cap,
+                                           reference=True))
+    k3 = [sk.forces_scenes_cuda(frame, rows, params, r, cap, rec=x)
+          for x in (rec, torch_rec)]
+    k3.append(sk.forces_scenes_cuda(frame, rows, params, r, cap,
+                                    reference=True))
+    for outs in (k2, k3):
+        assert _same_bits(outs[0], outs[1]) and _same_bits(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["kahan", "kahan-unfused",
+                                  "kahan-corrected", "facc0",
+                                  "facc0-corrected"])
+def test_stepper_builds_the_frame_record_by_its_pass_on_card(
+        cuda_device, mode, monkeypatch):
+    # the host loop with extensions builds the record for a record walk,
+    # by the pass, in place of pj: once a frame for the Kahan K2-ext, the
+    # unfused Kahan K3-ext and the facc0 K2-ext, once a substep (five a
+    # frame) for the corrected Kahan K3-ext; the corrected facc0 K3-ext
+    # still reads pj
+    cfg = SimConfig(**_GOLDENISH, xsph=XSPH, artificial_viscosity=ALPHA)
+    variant = mode.split("-")[0]
+    tune = SortedTuning(kahan=True) if variant == "kahan" else \
+        SortedTuning(fuse_acc=False)
+    tune = tune._replace(fused=not mode.endswith("unfused"))
+    faithful = not mode.endswith("corrected")
+    made = {"pj": 0, "rec": 0}
+    real_pj, real_rec = sk.pj_cols, sk.frame_record
+
+    def pj(*a):
+        made["pj"] += 1
+        return real_pj(*a)
+
+    def record(*a):
+        made["rec"] += 1
+        return real_rec(*a)
+    monkeypatch.setattr(sk, "pj_cols", pj)
+    monkeypatch.setattr(sk, "frame_record", record)
+    frames = 2
+    sk.reset_launch_counts()
+    make_rollout(cfg, frames, faithful=faithful, tune=tune,
+                 device=cuda_device, host_loop=True)(
+        initial_state(cfg, cuda_device))
+    counts = {k: v for k, v in sk.launch_counts.items() if v}
+    tag = sk.variant_tag("forces.cu", tune)
+    k1 = "density" + sk.variant_tag("density.cu", tune)
+    want = {"kahan": {k1: 2, "frame_record": 2,
+                      "fused_substep_ext" + tag: 10},
+            "kahan-unfused": {k1: 2, "frame_record": 2, "forces" + tag: 10},
+            "kahan-corrected": {k1: 12, "frame_record": 10,
+                                "forces" + tag: 10},
+            "facc0": {k1: 2, "frame_record": 2,
+                      "fused_substep_ext" + tag: 10},
+            "facc0-corrected": {k1: 12, "forces" + tag: 10}}[mode]
+    assert counts == want
+    assert made["rec"] == want.get("frame_record", 0)
+    assert made["pj"] == (10 if mode == "facc0-corrected" else 0)
 
 
 @pytest.mark.cuda
@@ -2213,7 +2391,7 @@ def test_stepper_rounds_the_bf16_candidates_once_a_substep_on_card(
                          "fused_substep_ext+bf16": 10},
             "corrected": {"density": 12, "bf16_candidates": 10,
                           "forces+bf16": 10},
-            "kahan": {"density+kahan": 2,
+            "kahan": {"density+kahan": 2, "frame_record": 2,
                       "fused_substep_ext+kahan": 10}}[mode]
     assert counts == want
     assert len(made) == (2 if mode == "kahan" else 0)
@@ -2240,27 +2418,32 @@ def test_only_the_bf16_library_walks_the_candidate_copy_on_card(cuda_device,
 # extension coefficients, scene-axis launches a frame)
 _EXT = dict(xsph=XSPH, artificial_viscosity=ALPHA)
 BATCH_CASES = {
-    "scene-axis": ({}, {}, dict(density_scenes=1, fused_substep_scenes=5)),
-    "scene-axis-ext": ({}, _EXT, dict(density_scenes=1,
+    "scene-axis": ({}, {}, dict(density_scenes=1, frame_record=1,
+                                fused_substep_scenes=5)),
+    "scene-axis-ext": ({}, _EXT, dict(density_scenes=1, frame_record=1,
                                       fused_substep_ext_scenes=5)),
     "corrected": (dict(faithful=False), {}, dict(density_scenes=6,
+                                                 frame_record=5,
                                                  forces_scenes=5)),
     "corrected-ext": (dict(faithful=False), _EXT,
-                      dict(density_scenes=6, forces_ext_scenes=5)),
+                      dict(density_scenes=6, frame_record=5,
+                           forces_ext_scenes=5)),
     "compact": (dict(tune=COMPACT), {}, dict(compact_density_scenes=1,
                                              compact_substep_scenes=5)),
     "compact-corrected": (dict(faithful=False, tune=COMPACT), {},
                           dict(compact_density_scenes=6,
                                compact_forces_scenes=5)),
     "unfused": (dict(tune=SortedTuning(fused=False)), {},
-                dict(density_scenes=1, forces_scenes=5)),
+                dict(density_scenes=1, frame_record=1, forces_scenes=5)),
     "kahan": (dict(tune=SortedTuning(kahan=True)), {},
-              {"density_scenes+kahan": 1, "fused_substep_scenes+kahan": 5}),
+              {"density_scenes+kahan": 1, "frame_record": 1,
+               "fused_substep_scenes+kahan": 5}),
     "kahan-ext": (dict(tune=SortedTuning(kahan=True)), _EXT,
-                  {"density_scenes+kahan": 1,
+                  {"density_scenes+kahan": 1, "frame_record": 1,
                    "fused_substep_ext_scenes+kahan": 5}),
     "bf16-ext": (dict(tune=SortedTuning(bf16=True)), _EXT,
-                 {"density_scenes": 1, "fused_substep_ext_scenes+bf16": 5}),
+                 {"density_scenes": 1, "frame_record": 1,
+                  "fused_substep_ext_scenes+bf16": 5}),
 }
 
 
@@ -2496,9 +2679,10 @@ def test_sweep_and_shards_cli_on_card(cuda_device, tmp_path, capsys):
     sk.reset_launch_counts()
     assert cli.main(["sweep", *argv, "--scenes", "2", "--frames", "2",
                      "--export-dir", str(tmp_path)]) == 0
-    # the scene axis: 1 K1 + 5 K2 a frame over both scenes
+    # the scene axis: 1 K1 + 1 frame record + 5 K2 a frame over both
+    # scenes
     assert sk.launch_counts == dict(dict.fromkeys(sk.launch_counts, 0),
-                                    density_scenes=2,
+                                    density_scenes=2, frame_record=2,
                                     fused_substep_scenes=10)
     assert len(list(tmp_path.glob("scene_*.png"))) == 2
     assert cli.main(["run", *argv, "--shards", "2", "--row-slack", "4",

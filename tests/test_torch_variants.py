@@ -36,7 +36,7 @@ from sphfluidsimulation_tpu.ops import pallas_compact, pallas_sph
 from sphfluidsimulation_tpu.ops.pallas_sph import PallasTuning
 from sphfluidsimulation_tpu.params import PhysParams as JPhys
 from sphfluidsimulation_torch.config import SimConfig
-from sphfluidsimulation_torch.ops import compact, cuda_build
+from sphfluidsimulation_torch.ops import compact, cuda_build, sph_math
 from sphfluidsimulation_torch.ops import sph_kernels as sk
 from sphfluidsimulation_torch.ops.frame import build_frame
 from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning
@@ -258,7 +258,10 @@ WALKS = {
     ("forces", _B, True, None, None, False): "sph_forces_cand",
     ("forces", _B, False, None, None, False): "sph_forces",
     ("forces", _B, True, None, None, True): "sph_forces",
-    ("forces", _K, True, None, None, False): "sph_forces",
+    ("forces", _K, True, None, None, False): "sph_forces_scenes",
+    ("forces", _K, False, None, None, False): "sph_forces",
+    ("forces", _K, True, (1, 6), None, False): "sph_forces",
+    ("forces", _K, True, None, None, True): "sph_forces",
     ("forces", _F, True, None, None, False): "sph_forces",
     ("fused_substep", SortedTuning(), True, None, None, False):
         "sph_fused_substep",
@@ -271,7 +274,12 @@ WALKS = {
     ("fused_substep", _K, True, (1, 6), None, False): "sph_fused_substep",
     ("fused_substep", _K, True, None, None, True): "sph_fused_substep",
     ("fused_substep", _K, True, None, 1, False): "sph_fused_substep_lanes",
-    ("fused_substep", _F, True, None, None, False): "sph_fused_substep",
+    ("fused_substep", _F, True, None, None, False):
+        "sph_fused_substep_scenes",
+    ("fused_substep", _F, False, None, None, False): "sph_fused_substep",
+    ("fused_substep", _F, True, (1, 6), None, False): "sph_fused_substep",
+    ("fused_substep", _F, True, None, None, True): "sph_fused_substep",
+    ("fused_substep", _F, True, None, 1, False): "sph_fused_substep_lanes",
 }
 
 
@@ -282,17 +290,18 @@ WALKS = {
                      "reference" * c[5]) if x))
 def test_wrappers_launch_the_instance_their_arguments_call_for(case):
     # the bf16 K2-ext and K3-ext over the whole grid walk the copy rounded
-    # once, the Kahan K2-ext the frame record over one scene; a band, a
-    # walk shape or reference launches the walk that reads the rows and pj
+    # once, the Kahan K2-ext and K3-ext and the facc0 K2-ext the frame
+    # record over one scene; a band, a walk shape or reference launches the
+    # walk that reads the rows and pj
     kernel, tune, ext, band, lanes, reference = case
     entry = sk.walk_instance(kernel, tune, ext, band, lanes, reference)
     assert entry == WALKS[case]
     assert entry in dict(cuda_build.KERNELS[f"{kernel}.cu"])
-    if kernel == "fused_substep" and (band, lanes, reference) == (
-            None, None, False):
-        # the stepper builds the record for the launched K2 that reads it
-        assert sk.reads_frame_record(tune, ext) == (
-            entry == "sph_fused_substep_scenes")
+    if (band, lanes, reference) == (None, None, False):
+        # the stepper builds the record for the launched K2 or K3 that
+        # reads it
+        assert sk.reads_frame_record(tune, ext, kernel) == (
+            entry in ("sph_fused_substep_scenes", "sph_forces_scenes"))
 
 
 @pytest.mark.parametrize("name", ["calm", "goldenish"])
@@ -308,6 +317,147 @@ def test_one_scene_frame_record_of_a_solo_frame(name):
                        sk.pj_cols(rho, tp).view(torch.int32))
     assert torch.equal(bits[:, 2], tf.raw)
     assert torch.equal(bits[:, 3], tf.occ.to(torch.int32))
+
+
+_EDGE_RHO = (0.0, 1e-6, -1.0, float("nan"), float("inf"), -float("inf"))
+
+
+@pytest.mark.parametrize("scenes", [1, 3])
+def test_frame_record_plain_is_pj_raw_and_occ_at_edge_densities(scenes):
+    # the record the CUDA pass writes (lanes 0-1 pj_cols of ρ with each
+    # scene's own k and ρ₀, lanes 2-3 raw and occ as int32 bits), bit for
+    # bit, with ρ at 0, ε, −1, NaN and ±inf in every scene; its lanes 0-1
+    # are also the pass's own arithmetic, k·(ρ − ρ₀) and [ρ > ε]/ρ, in
+    # numpy float32
+    from sphfluidsimulation_torch.ops.frame import build_frame_scenes
+    from sphfluidsimulation_torch.params import stack_params
+    from sphfluidsimulation_torch.state import stack_states
+    cfgs = [SimConfig(**_GOLDENISH).replace(
+        rest_density=1.0 + 0.5 * s, gas_constant=20.0 + 7.0 * s, seed=s)
+        for s in range(scenes)]
+    r = cfgs[0].bucket_resolution
+    pos = stack_states([initial_state(c, "cpu") for c in cfgs]).pos
+    params = stack_params([PhysParams.from_config(c) for c in cfgs])
+    frame, _ = build_frame_scenes(pos, r, 4, extras=(pos,))
+    assert not bool(frame.occ.all())              # the capacity drops rows
+    rng = np.random.default_rng(scenes)
+    rho = torch.from_numpy(rng.uniform(-0.5, 3.0, frame.raw.shape)
+                           .astype(np.float32))
+    for s in range(scenes):
+        rho[s, 7 * s:7 * s + len(_EDGE_RHO)] = torch.tensor(_EDGE_RHO)
+    rec = sk.frame_record_scenes_plain(frame, rho, params)
+    assert rec.shape == frame.raw.shape + (4,) and rec.dtype == torch.float32
+    assert torch.equal(sk.frame_record_scenes(frame, rho, params)
+                       .view(torch.int32), rec.view(torch.int32))
+    bits = rec.view(torch.int32)
+    assert torch.equal(bits[..., 0:2],
+                       sk.pj_cols_scenes(rho, params).view(torch.int32))
+    assert torch.equal(bits[..., 2], frame.raw)
+    assert torch.equal(bits[..., 3], frame.occ.to(torch.int32))
+    for s in range(scenes):
+        one = sk.scene_params(params, s)
+        assert torch.equal(bits[s, :, 0:2],
+                           sk.pj_cols(rho[s], one).view(torch.int32))
+        k = np.float32(one.gas_constant)
+        r0 = np.float32(one.rest_density)
+        x = rho[s].numpy()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            press = k * (x - r0)
+            inv = np.where(x > np.float32(sk.EPSILON), np.float32(1) / x,
+                           np.float32(0))
+        got = rec[s].numpy()
+        np.testing.assert_array_equal(np.isnan(got[:, 0]), np.isnan(press))
+        ok = ~np.isnan(press)
+        np.testing.assert_array_equal(got[ok, 0].view(np.uint32),
+                                      press[ok].view(np.uint32))
+        np.testing.assert_array_equal(got[:, 1].view(np.uint32),
+                                      inv.astype(np.float32).view(np.uint32))
+        edge = got[7 * s:7 * s + len(_EDGE_RHO), 1]
+        # 0, ε (not above it), −1, NaN, −inf: 0; +inf: 1/inf = 0 too
+        assert not edge.any()
+
+
+def _fed_from_record(rec):
+    """(candidate_values, eos_pressure) that read candidate j's press_j
+    from the record's lane 0, as the record walk reads it, and hold its
+    lane 1 to the guarded reciprocal the plain route divides by."""
+    seen = {}
+    real_values, real_eos = sk.candidate_values, sph_math.eos_pressure
+
+    def values(rows, j, ext, tune):
+        seen["j"] = j
+        return real_values(rows, j, ext, tune)
+
+    def eos(rho, k, rho0):
+        j = seen.get("j")
+        if j is None or rho.shape != j.shape:
+            return real_eos(rho, k, rho0)           # row i's pressure
+        ok = rho > sk.EPSILON
+        inv = torch.where(ok, 1.0, 0.0) / torch.where(ok, rho, 1.0)
+        assert torch.equal(rec[0, j, 1].view(torch.int32),
+                           inv.view(torch.int32))
+        return rec[0, j, 0]
+    return values, eos
+
+
+@pytest.mark.parametrize("kernel", ["forces+kahan", "substep+facc0"])
+def test_record_walks_fed_from_the_frame_record_are_the_pj_route(
+        kernel, monkeypatch):
+    # the plain Kahan K3-ext and facc0 K2-ext reading press_j (and the
+    # record's 1/ρⱼ held to the reciprocal they divide by) from the
+    # one-scene frame record are, bit for bit, the route that computes them
+    # from ρⱼ, the launched walk's pj; a record with one occupied row's
+    # press_j changed differs; and they hold to JAX's forces_pallas and
+    # fused_substep of the same variant at the variant tests' tolerances
+    jp, tp, jf, tf, pos, vel, rho, r, n = _rows("calm", seed=1)
+    rows = sk.pack_rows(torch.from_numpy(pos), torch.from_numpy(vel),
+                        torch.from_numpy(rho))
+    forces = kernel.startswith("forces")
+    tune, jt = _tunes("kahan" if forces else "facc0")
+    assert sk.reads_frame_record(tune, True,
+                                 "forces" if forces else "fused_substep")
+
+    def plain():
+        if forces:
+            return sk.forces_plain(tf, rows, tp, r, CAP, True, tune=tune)
+        return sk.fused_substep_plain(tf, rows, tp, r, CAP, XSPH, ALPHA,
+                                      tune=tune)
+    rec = sk.frame_record(tf, rows[:, 6], tp)
+    want = plain()
+    with monkeypatch.context() as m:
+        values, eos = _fed_from_record(rec)
+        m.setattr(sk, "candidate_values", values)
+        m.setattr(sph_math, "eos_pressure", eos)
+        got = plain()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    planted = rec.clone()
+    j = int(torch.nonzero(tf.occ)[n // 2])
+    planted[0, j, 0] += 1.0
+    with monkeypatch.context() as m:
+        values, eos = _fed_from_record(planted)
+        m.setattr(sk, "candidate_values", values)
+        m.setattr(sph_math, "eos_pressure", eos)
+        other = plain()
+    assert not torch.equal(other.view(torch.int32), want.view(torch.int32))
+    if forces:
+        f, dv, cert = pallas_sph.forces_pallas(
+            jf, jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(rho), jp, r,
+            n, xsph=XSPH, alpha_visc=ALPHA, tune=jt)
+        assert int(cert) == 0
+        tf_, tdv = sk.fold_forces(got, rows[:, 6], tp, XSPH, ALPHA,
+                                  fuse_acc=tune.fuse_acc)
+        _scaled_close(tf_.numpy(), np.asarray(f), 1e-6)
+        _scaled_close(tdv.numpy(), np.asarray(dv), 1e-6)
+        return
+    jrows = pallas_sph.pack_rows(jnp.asarray(pos), jnp.asarray(vel),
+                                 jnp.asarray(rho), None, n, jt)
+    out, cert = pallas_sph.fused_substep(jf, jrows, jp, r, n, xsph=XSPH,
+                                         alpha_visc=ALPHA, tune=jt)
+    assert int(cert) == 0
+    want_j = np.asarray(out).reshape(-1, sk.N_FIELDS)[:n]
+    np.testing.assert_allclose(got[:, 0:6].numpy(), want_j[:, 0:6], rtol=0,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got[:, 6:8].numpy(), want_j[:, 6:8])
 
 
 # ------------------------------------------------------ Kahan fold sign --
