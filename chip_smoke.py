@@ -139,15 +139,17 @@ every phase passed; each prints its seconds):
    the plain version of its own variant at frame 0 and on the frame-10
    states, at 262k and config 3 (K2/K3 with ``fuse_acc`` off, the
    ``kahan`` K1, K2 and K3, the ``bf16`` K2, K2-ext, K3 and K5 force
-   modes), with the Kahan kernels' max |k - p64| printed beside the
-   default kernels' on the config-3 state, and two planted controls that
-   must fail: the bf16 K2-ext held to the f32 plain version and the
+   modes), with the Kahan K2-ext's and K3's max |k - p64| printed beside
+   the default kernels' on the config-3 state, and two planted controls
+   that must fail: the bf16 K2-ext held to the f32 plain version and the
    fuse_acc K2-ext with viscosity 0; then, each with the counters reset
    before it, every variant's path selected through its ``SPH_PALLAS_*``
    variable, 3 frames each (among them the unfused route, 1 K1 + 5 K3 a
-   frame and no K2, at 262k and config 3); the compact-route slab step on
-   ``LocalRing(4)`` at 262k and config 3 for 3 frames (4 K5-band density
-   and 20 K5-band substep launches a frame), its kernels held to their
+   frame and no K2, at 262k and config 3, and the corrected Kahan and
+   facc0 routes at config 3, 6 K1 + 5 frame records + 5 K3-ext a frame);
+   the compact-route slab step on ``LocalRing(4)`` at 262k and config 3
+   for 3 frames (4 K5-band density and 20 K5-band substep launches a
+   frame), its kernels held to their
    banded plain versions on each shard's frame, and the calm 1k scene on
    2 and 4 slabs (``exact_cert`` 0, within 2e-5 of the single-device
    compact route); the CLI at config 3 with ``SPH_PALLAS_FUSED=0``, with
@@ -168,16 +170,17 @@ every phase passed; each prints its seconds):
    the pass alone (on copies of the rows cycled past the card's L2) and
    the default K2-ext and K3-ext on the same inputs; the frame record
    (``sph_kernels.frame_record``), built by its pass ``sph_frame_record``
-   and held bit-equal to its plain version, and its three one-scene
-   record walks, the Kahan K2-ext and K3-ext and the facc0 K2-ext, each
-   bit-equal to the walk that reads occ, raw and pj, as launched and given
-   the record, and timed given it; the pass timed on copies of its inputs
-   cycled past the L2 (at config 3 here, over config 5's scenes in phase
-   7); the paths count its launches (one a frame, five a corrected frame:
-   the Kahan corrected config-3 path); at frame 10 two planted controls
-   that must leave the reference's bits: a copy whose vz is truncated, not
-   rounded, and a record whose occ lane is cleared on one occupied row
-   (for each record walk);
+   and held bit-equal to its plain version, and its five one-scene
+   record walks, the Kahan and the facc0 K2-ext and K3-ext at config 3 and
+   the bf16 K2 without extensions at 262k, each bit-equal to the walk that
+   reads occ, raw and pj, as launched and given the record, and timed
+   given it; the pass timed on copies of its inputs cycled past the L2 (at
+   config 3 here, over config 5's scenes in phase 7); the paths count its
+   launches (one a frame, five a corrected frame: the Kahan and the facc0
+   corrected config-3 paths); at frame 10 two planted controls that must
+   leave the reference's bits: a copy whose vz is truncated, not rounded,
+   and a record whose occ lane is cleared on one occupied row (for each
+   record walk);
 10. the paths of the JAX package's default backend and its export path,
    each with the launch counters reset before it: the exact tiers
    (``neighbor="slotted"`` and ``"gather"``, plain PyTorch, which launch no
@@ -2877,6 +2880,31 @@ def main() -> None:
             print(f"compare {label}: compact_forces+bf16 max|k-p| {e:.3e}, "
                   f"{line}", flush=True)
 
+    def hold_record_walks(lab, frame, rows, phys, walks, planted):
+        """Each one-scene record walk of ``walks`` (name: its wrapper's
+        call), as launched (the record built by the pass in the wrapper)
+        and given the record, bit-equal to its walk of occ, raw and pj
+        (``reference``); with ``planted``, a record whose occ lane is
+        cleared on one occupied row must leave the reference's bits."""
+        rec = sk.frame_record(frame, rows[:, 6], phys)
+        refs = {}
+        for wname, call in walks.items():
+            ref = refs[wname] = call(reference=True)
+            if not (same_bits(call(), ref) and same_bits(call(rec=rec),
+                                                          ref)):
+                fail(f"{lab}: the {wname} record walk leaves the walk of "
+                     f"occ, raw and pj")
+        if planted:
+            bad_rec = rec.clone()
+            occupied = torch.nonzero(frame.occ)
+            j = int(occupied[occupied.shape[0] // 2])
+            bad_rec.view(torch.int32)[0, j, 3] = 0
+            for wname, call in walks.items():
+                if same_bits(call(rec=bad_rec), refs[wname]):
+                    fail(f"{lab}: the planted record (occ cleared on row "
+                         f"{j}) passes {wname}")
+        return rec
+
     def compare_variants(label, st262, st_c3, st_k5_262, st_k5_c3,
                          planted=False):
         """Each new instance against the plain version of its variant at
@@ -2899,6 +2927,14 @@ def main() -> None:
             e, line = hold_out(name, f, ref, lab)
             print(f"compare {lab}: {name} (no extensions) max|k-p| "
                   f"{e:.3e}, {line}", flush=True)
+        # the bf16 K2 without extensions walks the one-scene frame record
+        hold_record_walks(lab, frame, rows, phys, {
+            "fused_substep+bf16": lambda **kw: sk.fused_substep_cuda(
+                frame, rows, phys, r, cap, tune=BF16, **kw)}, planted)
+        print(f"compare {lab}: the fused_substep+bf16 record walk "
+              f"bit-equal to the walk of occ, raw and pj"
+              f"{'; the planted record fails' if planted else ''}",
+              flush=True)
         compare_k5_bf16(sizes["262k"], st_k5_262, lab, forces=True)
         lab = f"config 3 {label}"
         frame, rows, phys, r, cap, outs = compare_ext(
@@ -2908,14 +2944,10 @@ def main() -> None:
         hold_density(rho_kahan, sk.density_plain(frame, pos_s, phys, r, cap,
                                                  tune=KAHAN),
                      "density+kahan", lab)
-        p64 = sk.density_plain(frame, pos_s.double(), PhysParams(
-            *(t.double() for t in phys)), r, cap)
-        e_k1 = [float((x.double() - p64).abs().max()) for x in
-                (rho_kahan, sk.density_cuda(frame, pos_s, phys, r, cap))]
         errs_k = {t: (sk.hold(k2, ref2).err, sk.hold(k3, ref3).err)
                   for t, (k2, ref2, k3, ref3) in outs.items()}
-        print(f"kahan vs default, {lab}: max|k-p64| K1 {e_k1[0]:.6e} vs "
-              f"{e_k1[1]:.6e}; K2-ext {errs_k[KAHAN][0]:.6e} vs "
+        print(f"kahan vs default, {lab}: max|k-p64| K2-ext "
+              f"{errs_k[KAHAN][0]:.6e} vs "
               f"{errs_k[DEFAULT][0]:.6e}; K3 {errs_k[KAHAN][1]:.6e} vs "
               f"{errs_k[DEFAULT][1]:.6e} (each against the float64 "
               f"evaluation of its own variant)", flush=True)
@@ -2934,45 +2966,15 @@ def main() -> None:
         if not same_bits(outs[BF16][0], k2_ref):
             fail(f"{lab}: the bf16 K2-ext leaves its in-register walk")
         # the bf16 K3-ext reads the same copy: its sums are those of the
-        # walk that rounds in its registers; the Kahan K2-ext walks the
-        # one-scene frame record: its rows are those of the walk that reads
-        # occ, raw and pj. Planted (on the frame-10 rows: the spawn's
-        # velocities are 0, whose truncation is their rounding): a copy
-        # whose vz is truncated to its high half, not rounded, and a record
-        # whose occ lane is cleared on one occupied row, must each leave
-        # the reference's bits
+        # walk that rounds in its registers. Planted (on the frame-10 rows:
+        # the spawn's velocities are 0, whose truncation is their
+        # rounding): a copy whose vz is truncated to its high half, not
+        # rounded, must leave the reference's bits
         k3_ref = sk.forces_cuda(frame, rows, phys, r, cap, True, tune=BF16,
                                 reference=True)
         if not same_bits(sk.forces_cuda(frame, rows, phys, r, cap, True,
                                         tune=BF16), k3_ref):
             fail(f"{lab}: the bf16 K3-ext leaves its in-register walk")
-        # the frame record, built by its pass, is its plain version's
-        rec = sk.frame_record(frame, rows[:, 6], phys)
-        rec_p = sk.frame_record_scenes_plain(*sk.one_scene(frame, rows[:, 6],
-                                                           phys))
-        errs["frame_record"] = max(errs["frame_record"], max_err(rec, rec_p))
-        if not same_bits(rec, rec_p):
-            fail(f"{lab}: frame_record leaves its plain version")
-        # the record walks: the Kahan K2-ext and K3-ext and the facc0
-        # K2-ext, as launched (the record built by the pass in the
-        # wrapper) and given the record, each bit-equal to its walk of occ,
-        # raw and pj
-        walks = {}
-        for wname, call in (
-                ("fused_substep_ext+kahan", lambda **kw:
-                 sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH,
-                                       ALPHA, tune=KAHAN, **kw)),
-                ("forces+kahan", lambda **kw: sk.forces_cuda(
-                    frame, rows, phys, r, cap, True, tune=KAHAN, **kw)),
-                ("fused_substep_ext+facc0", lambda **kw:
-                 sk.fused_substep_cuda(frame, rows, phys, r, cap, XSPH,
-                                       ALPHA, tune=FACC0, **kw))):
-            ref = call(reference=True)
-            walks[wname] = (call, ref)
-            if not (same_bits(call(), ref) and same_bits(call(rec=rec),
-                                                          ref)):
-                fail(f"{lab}: the {wname} record walk leaves the walk of "
-                     f"occ, raw and pj")
         if planted:
             planted_cand = cand_k.clone()
             tail = sk.candidate_halves(planted_cand)[1]
@@ -2986,14 +2988,24 @@ def main() -> None:
                             bad, r, cap, True, cand=planted_cand)
             if same_bits(bad, k3_ref):
                 fail(f"{lab}: the planted copy (vz truncated) passes")
-            bad_rec = rec.clone()
-            occupied = torch.nonzero(frame.occ)
-            j = int(occupied[occupied.shape[0] // 2])
-            bad_rec.view(torch.int32)[0, j, 3] = 0
-            for wname, (call, ref) in walks.items():
-                if same_bits(call(rec=bad_rec), ref):
-                    fail(f"{lab}: the planted record (occ cleared on row "
-                         f"{j}) passes {wname}")
+        # the record walks with extensions: the Kahan and the facc0 K2-ext
+        # and K3-ext, each bit-equal to its walk of occ, raw and pj; the
+        # frame record, built by its pass, is its plain version's
+        walks = {}
+        for tune in (KAHAN, FACC0):
+            walks["fused_substep_ext" + sk.variant_tag("fused_substep.cu",
+                                                       tune)] = (
+                lambda t=tune, **kw: sk.fused_substep_cuda(
+                    frame, rows, phys, r, cap, XSPH, ALPHA, tune=t, **kw))
+            walks["forces" + sk.variant_tag("forces.cu", tune)] = (
+                lambda t=tune, **kw: sk.forces_cuda(
+                    frame, rows, phys, r, cap, True, tune=t, **kw))
+        rec = hold_record_walks(lab, frame, rows, phys, walks, planted)
+        rec_p = sk.frame_record_scenes_plain(*sk.one_scene(frame, rows[:, 6],
+                                                           phys))
+        errs["frame_record"] = max(errs["frame_record"], max_err(rec, rec_p))
+        if not same_bits(rec, rec_p):
+            fail(f"{lab}: frame_record leaves its plain version")
         print(f"compare {lab}: bf16_candidates and frame_record bit-equal "
               f"to their plain versions; fused_substep_ext+bf16 and "
               f"forces+bf16 (with extensions) bit-equal to their "
@@ -3038,6 +3050,10 @@ def main() -> None:
         ("facc0 unfused 262k", {"SPH_PALLAS_FACC": "0",
                                 "SPH_PALLAS_FUSED": "0"}, "262k",
          {"density": vf, "forces+facc0": 5 * vf}),
+        # the facc0 K3-ext's record, built by its pass every substep
+        ("facc0 corrected config 3", {"SPH_PALLAS_FACC": "0"}, "c3",
+         {"density": 6 * vf, "frame_record": 5 * vf,
+          "forces+facc0": 5 * vf}),
         ("kahan 262k", {"SPH_PALLAS_KAHAN": "1"}, "262k",
          {"density+kahan": vf, "fused_substep+kahan": 5 * vf}),
         ("kahan unfused config 3", {"SPH_PALLAS_KAHAN": "1",
@@ -3047,8 +3063,9 @@ def main() -> None:
         ("kahan corrected config 3", {"SPH_PALLAS_KAHAN": "1"}, "c3",
          {"density+kahan": 6 * vf, "frame_record": 5 * vf,
           "forces+kahan": 5 * vf}),
+        # the bf16 K2's record, built by its pass once a frame
         ("bf16 262k", {"SPH_PALLAS_BF16": "1"}, "262k",
-         {"density": vf, "fused_substep+bf16": 5 * vf}),
+         {"density": vf, "frame_record": vf, "fused_substep+bf16": 5 * vf}),
         ("bf16 config 3", {"SPH_PALLAS_BF16": "1"}, "c3",
          {"density": vf, "fused_substep_ext+bf16": 5 * vf,
           "bf16_candidates": 5 * vf}),

@@ -15,9 +15,9 @@ the scene-axis K2 and K3 ``<kExt, kRec>``, for K5 ``<mode, kExt,
 kBand>``, for the bf16 library's walks of the candidate copy ``<1>``; none
 for the scene-axis K1, its reference walk and its record walk, and for the
 frame record's pass ``frame_record_kernel``), its registers and its stack
-frame, spill store and spill load bytes. The Kahan K2-ext and K3-ext and
-the facc0 K2-ext over the whole grid launch the scene-axis record walks
-``<1,1>`` of their libraries.
+frame, spill store and spill load bytes. The Kahan and the facc0 K2-ext
+and K3-ext over the whole grid launch the scene-axis record walks
+``<1,1>`` of their libraries, the bf16 K2 without extensions ``<0,1>``.
 """
 
 from __future__ import annotations

@@ -63,7 +63,14 @@ corrected, on the corrected rollout's frame-10 rows: the default K3, the
 bf16 K3 as launched (on a tree whose K3 reads the copy, with its pass),
 its in-register walk where the tree has it, the pass alone; the corrected
 bf16 rollout's rate in both loop modes; and the K3-ext kernels' loops in
-the default and the bf16 library:
+the default and the bf16 library. Then K2 without extensions at 262k and
+1M, on the faithful rollout's frame-10 rows two substeps in: the default
+K2 and the bf16 K2 given pj (on a tree whose bf16 K2 walks the frame
+record: as launched, the record built by its pass in each call), given the
+record, its reference walk and the bits, ``pj_cols`` and the record's
+build on copies of their inputs cycled past the L2, the loops of K2 and its
+record walk in the bf16 library, and the 262k bf16 rollout's rate (host
+loop and graph):
 
     for root in build/parent . . build/parent; do
         python3 scripts/torch_rollout_ab.py $root --bf16; done
@@ -94,10 +101,14 @@ faithful facc0 rollout's rate (host loop and graph); on the rows two
 substeps into the faithful frame 10, the default K2-ext and the facc0
 K2-ext given pj, as launched (on a tree whose facc0 K2-ext walks the frame
 record, the record built by its pass in each call), given the record, its
-reference walk and the bits; the facc0 K3-ext and the default K3-ext at
-config 3 corrected (frame 10), given pj; and the loops of K2-ext, the
-scene-axis record walk with extensions and K3-ext in the default and the
-facc0 library.
+reference walk and the bits; at config 3 corrected (frame 10) the
+default K3-ext and the facc0 K3-ext given pj (on a tree whose facc0 K3-ext
+walks the frame record: as launched, the record built by its pass in each
+call, as a corrected substep builds it), given the record, its reference
+walk and the bits, ``pj_cols`` and the record's build as ``--kahan`` times
+them, and the corrected facc0 rollout's rate (host loop and graph); and the
+loops of K2-ext, the scene-axis record walks with extensions and K3-ext in
+the default and the facc0 library.
 """
 
 from __future__ import annotations
@@ -302,7 +313,9 @@ def bf16_ab(root, dev) -> dict:
         res["c3_f10_bf16_candidates_wide"] = ms(
             lambda: lib.sph_bf16_candidates(p(rows), p(wide), n, stream))
     res.update(k3_bf16_ab(dev, c3, bf))
-    pattern = r"fused_substep_(cand_)?kernelI(Lb1ELb0ELi1ELi1E|Lb1EE)"
+    res.update(k2_bf16_ab(dev, bf))
+    pattern = (r"fused_substep_(cand_)?kernelI(Lb1ELb0ELi1ELi1E|Lb1EE"
+               r"|Lb0ELb0ELi1ELi2E)|fused_substep_scenes_kernelILb0ELb1E")
     res["sass"] = {tag: sass_loops(str(cuda_build.library_path(
         "fused_substep.cu", cuda_build.defines("fused_substep.cu", t))),
         pattern) for tag, t in (("default", sk.SortedTuning()), ("bf16", bf))}
@@ -361,6 +374,70 @@ def k3_bf16_ab(dev, c3, bf) -> dict:
             k3(tune=bf, reference=True).view(torch.int32)))
         res["c3c_f10_bf16_candidates"] = ms(
             lambda: sk.bf16_candidates_cuda(rows))
+    return res
+
+
+def k2_bf16_ab(dev, bf) -> dict:
+    """The ``--bf16`` readings of K2 without extensions at 262k and 1M, on
+    the faithful rollout's frame-10 rows two substeps into the frame: the
+    default K2 and the bf16 K2 given pj (on a tree whose bf16 K2 walks the
+    frame record: as launched, the record built by its pass in each call),
+    given the record, its reference walk and the bits; ``pj_cols`` and the
+    record's build, each on copies of its inputs cycled past the L2; and the
+    262k bf16 rollout's rate."""
+    from sphfluidsimulation_torch import GOLDEN_CONFIG
+    from sphfluidsimulation_torch.bench import scaled_config
+    from sphfluidsimulation_torch.ops import sph_kernels as sk
+    from sphfluidsimulation_torch.ops.frame import build_frame
+    from sphfluidsimulation_torch.params import PhysParams
+    from sphfluidsimulation_torch.sim.stepper import (initial_state,
+                                                      make_rollout)
+
+    res: dict = {f"262k_bf16_rate_{k}": v for k, v in
+                 rollout_rates(GOLDEN_CONFIG, bf, dev).items()}
+    record = sk.reads_frame_record(bf, False)
+    reference = "reference" in inspect.signature(
+        sk.fused_substep_cuda).parameters
+    for label, cfg in (("262k", GOLDEN_CONFIG),
+                       ("1m", scaled_config(1 << 20))):
+        st, _ = make_rollout(cfg, 10, device=dev)(initial_state(cfg, dev))
+        r, cap = cfg.bucket_resolution, cfg.voxel_capacity
+        frame, (pos_s, vel_s) = build_frame(st.pos, r, cap,
+                                            extras=(st.pos, st.vel))
+        phys = PhysParams.from_config(cfg, dev)
+        rho = sk.density_cuda(frame, pos_s, phys, r, cap)
+        rows = sk.pack_rows(pos_s, vel_s, rho)
+        pj, scal = sk.pj_cols(rho, phys), sk.scal_block(phys)
+        mid = rows
+        for _ in range(2):
+            mid = sk.fused_substep_cuda(frame, mid, phys, r, cap)
+
+        def k2(p=pj, **kw):
+            return sk.fused_substep_cuda(frame, mid, phys, r, cap, 0.0, 0.0,
+                                         p, scal, **kw)
+        res[f"{label}_f10_k2"] = ms(k2)
+        res[f"{label}_f10_k2_bf16"] = ms(lambda: k2(tune=bf))
+        if reference:
+            res[f"{label}_f10_k2_bf16_reference"] = ms(
+                lambda: k2(tune=bf, reference=True))
+        if record:
+            rec = sk.frame_record(frame, rho, phys)
+            res[f"{label}_f10_k2_bf16_rec_given"] = ms(
+                lambda: k2(None, tune=bf, rec=rec))
+            res[f"{label}_f10_k2_bf16_bits"] = float(torch_equal(
+                k2(None, tune=bf, rec=rec), k2(tune=bf, reference=True)))
+        n = rho.shape[0]
+        ins = cycled([rho], 12 * n)
+        res[f"{label}_pj_cols"] = ms(lambda: sk.pj_cols(*next(ins), phys))
+        if hasattr(sk, "frame_record"):
+            ins = cycled([rho, frame.raw, frame.occ], 25 * n)
+
+            def build():
+                x, raw, occ = next(ins)
+                return sk.frame_record(frame._replace(raw=raw, occ=occ), x,
+                                       phys)
+            res[f"{label}_frame_record"] = ms(build)
+        res[f"{label}_bytes_bound_ms"] = 1e3 * 25 * n / 3.35e12
     return res
 
 
@@ -590,12 +667,31 @@ def facc0_ab(dev) -> dict:
             k2(None, tune=fa, rec=rec), k2(tune=fa, reference=True)))
     res["c3_f10_facc0_over_default"] = \
         res["c3_f10_k2_ext_facc0"] / res["c3_f10_k2_ext"]
+    # K3 with extensions at config 3 corrected, frame 10: the facc0 K3-ext
+    # given pj (on a tree whose facc0 K3-ext walks the frame record, given
+    # the record, and as launched, the record built by its pass in each
+    # call, as a corrected substep builds it), its reference walk and the
+    # bits; the default K3-ext; pj_cols and the record's build on copies
+    # of their inputs cycled past the L2; the corrected facc0 rollout
+    res.update({f"c3c_facc0_rate_{k}": v for k, v in
+                rollout_rates(c3, fa, dev, faithful=False).items()})
     frame_c, rows_c, phys_c, _, _ = corrected_rows(dev, c3)
     pj_c, scal_c = sk.pj_cols(rows_c[:, 6], phys_c), sk.scal_block(phys_c)
-    res["c3c_f10_k3_ext_facc0"] = ms(lambda: sk.forces_cuda(
-        frame_c, rows_c, phys_c, r, cap, True, pj_c, scal_c, tune=fa))
-    res["c3c_f10_k3_ext"] = ms(lambda: sk.forces_cuda(
-        frame_c, rows_c, phys_c, r, cap, True, pj_c, scal_c))
+
+    def k3(p=pj_c, **kw):
+        return sk.forces_cuda(frame_c, rows_c, phys_c, r, cap, True, p,
+                              scal_c, **kw)
+    res["c3c_f10_k3_ext_facc0"] = ms(lambda: k3(tune=fa))
+    res["c3c_f10_k3_ext"] = ms(k3)
+    if sk.reads_frame_record(fa, True, "forces"):
+        rec_c = sk.frame_record(frame_c, rows_c[:, 6], phys_c)
+        res["c3c_f10_k3_ext_facc0_rec_given"] = ms(
+            lambda: k3(None, tune=fa, rec=rec_c))
+        res["c3c_f10_k3_ext_facc0_reference"] = ms(
+            lambda: k3(tune=fa, reference=True))
+        res["c3c_f10_k3_ext_facc0_bits"] = float(torch_equal(
+            k3(None, tune=fa, rec=rec_c), k3(tune=fa, reference=True)))
+    res.update(record_ab(dev, frame_c, rows_c[:, 6].contiguous(), phys_c))
     pattern = (r"(fused_substep_kernelILb1ELb0ELi1ELi1E|"
                r"fused_substep_scenes_kernelILb1ELb1E|forces_kernelILb1ELb0E"
                r"|forces_scenes_kernelILb1ELb1E)")

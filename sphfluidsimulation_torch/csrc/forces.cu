@@ -36,12 +36,12 @@
 // consecutive slots. The two kernels share every line of the walk, so they
 // cannot drift apart. The scene-axis instances read the frame record, as
 // K2's do (fused_substep.cu); the walk that reads occ, raw and pj stays
-// built as the reference instance. The Kahan library's K3-ext over the
-// whole grid (config 3's corrected and unfused Kahan rollouts) runs the
-// same record walk over one scene, as the Kahan K2-ext does: the stepper
-// builds the record (sph_frame_record) in place of pj, once a corrected
-// substep; the walk that reads occ, raw and pj (sph_forces) stays built
-// as its reference.
+// built as the reference instance. The Kahan and the facc0 library's
+// K3-ext over the whole grid (config 3's corrected and unfused Kahan and
+// two-accumulator rollouts) run the same record walk over one scene, as
+// their K2-ext do: the stepper builds the record (sph_frame_record) in
+// place of pj, once a corrected substep, once an unfused frame; the walk
+// that reads occ, raw and pj (sph_forces) stays built as its reference.
 //
 // The bf16 instance with extensions, unbanded (config 3's corrected and
 // unfused bf16 rollouts): as K2's (fused_substep.cu), the candidates are

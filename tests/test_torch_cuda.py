@@ -276,6 +276,12 @@ GRAPH_CASES = {
                                 xsph=XSPH, artificial_viscosity=ALPHA),
     "facc0-ext": dict(tune=SortedTuning(fuse_acc=False), xsph=XSPH,
                       artificial_viscosity=ALPHA),
+    # the facc0 K3-ext with its record's pass every substep, the bf16 K2
+    # without extensions with it once a frame
+    "facc0-corrected-ext": dict(faithful=False,
+                                tune=SortedTuning(fuse_acc=False), xsph=XSPH,
+                                artificial_viscosity=ALPHA),
+    "bf16": dict(tune=SortedTuning(bf16=True)),
 }
 
 
@@ -2081,12 +2087,16 @@ def test_forces_lane_mask_without_the_self_skip_fails_on_card(cuda_device,
 
 # ------------------- the bf16 K2-ext: candidates rounded once a substep --
 
-def _bf16_ext_rows(case, device):
-    """Config 3's frame at the spawn (aliased raw ids) and its rows with
-    random velocities (the spawn's are 0, which bf16 keeps), and (``case``
-    "inf") ±inf velocities planted in some rows."""
-    cfg = SimConfig(particle_number=524288, preset=2, xsph=0.3,
-                    artificial_viscosity=0.5)
+# config 3 (BASELINE.json: the extension sums)
+C3 = SimConfig(particle_number=524288, preset=2, xsph=0.3,
+               artificial_viscosity=0.5)
+
+
+def _bf16_ext_rows(case, device, cfg=C3):
+    """``cfg``'s frame at the spawn (config 3's and the golden scene's
+    alias raw ids) and its rows with random velocities (the spawn's are 0,
+    which bf16 keeps), and (``case`` "inf") ±inf velocities planted in some
+    rows."""
     st = initial_state(cfg, device)
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
     vel = 0.2 * torch.randn(st.vel.shape, device=device,
@@ -2152,16 +2162,14 @@ def test_bf16_ext_reads_candidates_rounded_once_on_card(cuda_device, case,
     assert not _same_bits(bad, ref)
 
 
-def _record_walk_rows(case, device):
-    """(frame, rows, phys, r, cap, xsph, alpha) of config 3 for the record
-    walks: the aliased spawn with random velocities (and, ``case`` "inf",
-    ±inf ones), the faithful rollout's frame 10 or (``case`` "corrected")
-    the corrected rollout's frame-10 substep frame, the rows K3 reads
-    there."""
+def _record_walk_rows(case, device, cfg=C3):
+    """(frame, rows, phys, r, cap, xsph, alpha) of ``cfg`` (config 3, or
+    the golden 262k scene without extensions) for the record walks: the
+    aliased spawn with random velocities (and, ``case`` "inf", ±inf ones),
+    the faithful rollout's frame 10 or (``case`` "corrected") the corrected
+    rollout's frame-10 substep frame, the rows K3 reads there."""
     if case not in ("frame10", "corrected"):
-        return _bf16_ext_rows(case, device)
-    cfg = SimConfig(particle_number=524288, preset=2, xsph=0.3,
-                    artificial_viscosity=0.5)
+        return _bf16_ext_rows(case, device, cfg)
     st, _ = make_rollout(cfg, 10, faithful=case == "frame10",
                          device=device)(initial_state(cfg, device))
     r, cap = cfg.bucket_resolution, cfg.voxel_capacity
@@ -2171,22 +2179,26 @@ def _record_walk_rows(case, device):
     return tf, rows, tp, r, cap, cfg.xsph, cfg.artificial_viscosity
 
 
-def _holds_the_record_walk(case, kernel, tune, device):
-    """The record walk of ``kernel`` ("fused_substep": K2-ext, "forces":
-    K3-ext) in ``tune``'s library on ``case``'s rows: the launched walk
+def _holds_the_record_walk(case, kernel, tune, device, cfg=C3):
+    """The record walk of ``kernel`` ("fused_substep": K2, "forces": K3)
+    in ``tune``'s library on ``case``'s rows of ``cfg`` (config 3: with the
+    extension sums; without them where ``cfg`` has none): the launched walk
     (its record built in the wrapper, or given, built by the pass)
     bit-equal to the walk that reads occ, raw and pj (``reference``); one
     launch and one pass counted a call; a record whose occ lane is cleared
     on one occupied row leaves the reference's bits."""
-    tf, rows, tp, r, cap, xs, al = _record_walk_rows(case, device)
-    assert sk.walk_instance(kernel, tune, True) == f"sph_{kernel}_scenes"
+    tf, rows, tp, r, cap, xs, al = _record_walk_rows(case, device, cfg)
+    ext = sk.uses_extensions(xs, al)
+    assert sk.walk_instance(kernel, tune, ext) == f"sph_{kernel}_scenes"
 
     def walk(**kw):
         if kernel == "forces":
-            return sk.forces_cuda(tf, rows, tp, r, cap, True, tune=tune, **kw)
+            return sk.forces_cuda(tf, rows, tp, r, cap, ext, tune=tune,
+                                  **kw)
         return sk.fused_substep_cuda(tf, rows, tp, r, cap, xs, al,
                                      tune=tune, **kw)
-    name = ("forces" if kernel == "forces" else "fused_substep_ext") + \
+    name = ("forces" if kernel == "forces" else
+            "fused_substep_ext" if ext else "fused_substep") + \
         sk.variant_tag(f"{kernel}.cu", tune)
     before = dict(sk.launch_counts)
     out = walk()
@@ -2224,12 +2236,25 @@ def test_kahan_ext_walks_the_frame_record_on_card(cuda_device, case, kernel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_substep", "forces"])
+@pytest.mark.parametrize("case", ["spawn", "inf", "frame10", "corrected"])
+def test_facc0_ext_walks_the_frame_record_on_card(cuda_device, case, kernel):
+    # the facc0 K2-ext and K3-ext over the whole grid walk the frame record
+    # as the Kahan walks do, with the same checks and planted control
+    _holds_the_record_walk(case, kernel, SortedTuning(fuse_acc=False),
+                           cuda_device)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["spawn", "inf", "frame10"])
-def test_facc0_ext_walks_the_frame_record_on_card(cuda_device, case):
-    # the facc0 K2-ext over the whole grid walks the frame record as the
-    # Kahan walks do, with the same checks and planted control
-    _holds_the_record_walk(case, "fused_substep",
-                           SortedTuning(fuse_acc=False), cuda_device)
+def test_bf16_walks_the_frame_record_on_card(cuda_device, case):
+    # the bf16 K2 without extensions over the whole grid walks the frame
+    # record: on the golden 262k scene's aliased spawn, with ±inf
+    # velocities and ten frames on, bit-equal to the walk that reads occ,
+    # raw and pj, with the Kahan walks' checks and planted control
+    from sphfluidsimulation_torch import GOLDEN_CONFIG
+    _holds_the_record_walk(case, "fused_substep", BF16, cuda_device,
+                           GOLDEN_CONFIG)
 
 
 # the frame record pass's edge densities: 0, ε, −1, NaN, ±inf
@@ -2319,18 +2344,21 @@ def test_scene_walks_read_the_pass_record_as_the_torch_build_on_card(
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["kahan", "kahan-unfused",
                                   "kahan-corrected", "facc0",
-                                  "facc0-corrected"])
+                                  "facc0-unfused", "facc0-corrected",
+                                  "bf16"])
 def test_stepper_builds_the_frame_record_by_its_pass_on_card(
         cuda_device, mode, monkeypatch):
-    # the host loop with extensions builds the record for a record walk,
-    # by the pass, in place of pj: once a frame for the Kahan K2-ext, the
-    # unfused Kahan K3-ext and the facc0 K2-ext, once a substep (five a
-    # frame) for the corrected Kahan K3-ext; the corrected facc0 K3-ext
-    # still reads pj
-    cfg = SimConfig(**_GOLDENISH, xsph=XSPH, artificial_viscosity=ALPHA)
+    # the host loop builds the record for a record walk, by the pass, in
+    # place of pj: with extensions once a frame for the Kahan and the facc0
+    # K2-ext and the unfused Kahan and facc0 K3-ext, once a substep (five
+    # a frame) for the corrected Kahan and facc0 K3-ext; without them once
+    # a frame for the bf16 K2
     variant = mode.split("-")[0]
-    tune = SortedTuning(kahan=True) if variant == "kahan" else \
-        SortedTuning(fuse_acc=False)
+    ext = {} if variant == "bf16" else dict(xsph=XSPH,
+                                            artificial_viscosity=ALPHA)
+    cfg = SimConfig(**_GOLDENISH, **ext)
+    tune = {"kahan": SortedTuning(kahan=True), "bf16": BF16,
+            "facc0": SortedTuning(fuse_acc=False)}[variant]
     tune = tune._replace(fused=not mode.endswith("unfused"))
     faithful = not mode.endswith("corrected")
     made = {"pj": 0, "rec": 0}
@@ -2360,10 +2388,14 @@ def test_stepper_builds_the_frame_record_by_its_pass_on_card(
                                 "forces" + tag: 10},
             "facc0": {k1: 2, "frame_record": 2,
                       "fused_substep_ext" + tag: 10},
-            "facc0-corrected": {k1: 12, "forces" + tag: 10}}[mode]
+            "facc0-unfused": {k1: 2, "frame_record": 2, "forces" + tag: 10},
+            "facc0-corrected": {k1: 12, "frame_record": 10,
+                                "forces" + tag: 10},
+            "bf16": {k1: 2, "frame_record": 2,
+                     "fused_substep" + tag: 10}}[mode]
     assert counts == want
-    assert made["rec"] == want.get("frame_record", 0)
-    assert made["pj"] == (10 if mode == "facc0-corrected" else 0)
+    assert made["rec"] == want["frame_record"]
+    assert made["pj"] == 0
 
 
 @pytest.mark.cuda

@@ -262,12 +262,19 @@ WALKS = {
     ("forces", _K, False, None, None, False): "sph_forces",
     ("forces", _K, True, (1, 6), None, False): "sph_forces",
     ("forces", _K, True, None, None, True): "sph_forces",
-    ("forces", _F, True, None, None, False): "sph_forces",
+    ("forces", _F, True, None, None, False): "sph_forces_scenes",
+    ("forces", _F, False, None, None, False): "sph_forces",
+    ("forces", _F, True, None, None, True): "sph_forces",
     ("fused_substep", SortedTuning(), True, None, None, False):
         "sph_fused_substep",
     ("fused_substep", _B, True, None, None, False): "sph_fused_substep_cand",
     ("fused_substep", _B, True, (1, 6), None, False): "sph_fused_substep",
     ("fused_substep", _B, True, None, None, True): "sph_fused_substep",
+    ("fused_substep", _B, False, None, None, False):
+        "sph_fused_substep_scenes",
+    ("fused_substep", _B, False, (1, 6), None, False): "sph_fused_substep",
+    ("fused_substep", _B, False, None, 1, False): "sph_fused_substep_lanes",
+    ("fused_substep", _B, False, None, None, True): "sph_fused_substep",
     ("fused_substep", _K, True, None, None, False):
         "sph_fused_substep_scenes",
     ("fused_substep", _K, False, None, None, False): "sph_fused_substep",
@@ -290,9 +297,9 @@ WALKS = {
                      "reference" * c[5]) if x))
 def test_wrappers_launch_the_instance_their_arguments_call_for(case):
     # the bf16 K2-ext and K3-ext over the whole grid walk the copy rounded
-    # once, the Kahan K2-ext and K3-ext and the facc0 K2-ext the frame
-    # record over one scene; a band, a walk shape or reference launches the
-    # walk that reads the rows and pj
+    # once, the Kahan and the facc0 K2-ext and K3-ext and the bf16 K2
+    # without extensions the frame record over one scene; a band, a walk
+    # shape or reference launches the walk that reads the rows and pj
     kernel, tune, ext, band, lanes, reference = case
     entry = sk.walk_instance(kernel, tune, ext, band, lanes, reference)
     assert entry == WALKS[case]
@@ -400,27 +407,33 @@ def _fed_from_record(rec):
     return values, eos
 
 
-@pytest.mark.parametrize("kernel", ["forces+kahan", "substep+facc0"])
+@pytest.mark.parametrize("kernel", ["forces+kahan", "substep+facc0",
+                                    "forces+facc0", "substep+bf16"])
 def test_record_walks_fed_from_the_frame_record_are_the_pj_route(
         kernel, monkeypatch):
-    # the plain Kahan K3-ext and facc0 K2-ext reading press_j (and the
-    # record's 1/ρⱼ held to the reciprocal they divide by) from the
-    # one-scene frame record are, bit for bit, the route that computes them
-    # from ρⱼ, the launched walk's pj; a record with one occupied row's
-    # press_j changed differs; and they hold to JAX's forces_pallas and
-    # fused_substep of the same variant at the variant tests' tolerances
+    # the plain Kahan and facc0 K3-ext, the facc0 K2-ext and the bf16 K2
+    # without extensions reading press_j (and the record's 1/ρⱼ held to
+    # the reciprocal they divide by) from the one-scene frame record are,
+    # bit for bit, the route that computes them from ρⱼ, the launched
+    # walk's pj; a record with one occupied row's press_j changed differs;
+    # and they hold to JAX's forces_pallas and fused_substep of the same
+    # variant at the variant tests' tolerances
     jp, tp, jf, tf, pos, vel, rho, r, n = _rows("calm", seed=1)
     rows = sk.pack_rows(torch.from_numpy(pos), torch.from_numpy(vel),
                         torch.from_numpy(rho))
     forces = kernel.startswith("forces")
-    tune, jt = _tunes("kahan" if forces else "facc0")
-    assert sk.reads_frame_record(tune, True,
+    variant = kernel.split("+")[1]
+    tune, jt = _tunes(variant)
+    # the bf16 K2 walks the record without the extension sums
+    ext = variant != "bf16"
+    xs, al = (XSPH, ALPHA) if ext else (0.0, 0.0)
+    assert sk.reads_frame_record(tune, ext,
                                  "forces" if forces else "fused_substep")
 
     def plain():
         if forces:
             return sk.forces_plain(tf, rows, tp, r, CAP, True, tune=tune)
-        return sk.fused_substep_plain(tf, rows, tp, r, CAP, XSPH, ALPHA,
+        return sk.fused_substep_plain(tf, rows, tp, r, CAP, xs, al,
                                       tune=tune)
     rec = sk.frame_record(tf, rows[:, 6], tp)
     want = plain()
@@ -451,8 +464,8 @@ def test_record_walks_fed_from_the_frame_record_are_the_pj_route(
         return
     jrows = pallas_sph.pack_rows(jnp.asarray(pos), jnp.asarray(vel),
                                  jnp.asarray(rho), None, n, jt)
-    out, cert = pallas_sph.fused_substep(jf, jrows, jp, r, n, xsph=XSPH,
-                                         alpha_visc=ALPHA, tune=jt)
+    out, cert = pallas_sph.fused_substep(jf, jrows, jp, r, n, xsph=xs,
+                                         alpha_visc=al, tune=jt)
     assert int(cert) == 0
     want_j = np.asarray(out).reshape(-1, sk.N_FIELDS)[:n]
     np.testing.assert_allclose(got[:, 0:6].numpy(), want_j[:, 0:6], rtol=0,
