@@ -170,17 +170,17 @@ every phase passed; each prints its seconds):
    the pass alone (on copies of the rows cycled past the card's L2) and
    the default K2-ext and K3-ext on the same inputs; the frame record
    (``sph_kernels.frame_record``), built by its pass ``sph_frame_record``
-   and held bit-equal to its plain version, and its five one-scene
+   and held bit-equal to its plain version, and its seven one-scene
    record walks, the Kahan and the facc0 K2-ext and K3-ext at config 3 and
-   the bf16 K2 without extensions at 262k, each bit-equal to the walk that
-   reads occ, raw and pj, as launched and given the record, and timed
-   given it; the pass timed on copies of its inputs cycled past the L2 (at
-   config 3 here, over config 5's scenes in phase 7); the paths count its
-   launches (one a frame, five a corrected frame: the Kahan and the facc0
-   corrected config-3 paths); at frame 10 two planted controls that must
-   leave the reference's bits: a copy whose vz is truncated, not rounded,
-   and a record whose occ lane is cleared on one occupied row (for each
-   record walk);
+   the bf16, the Kahan and the facc0 K2 without extensions at 262k, each
+   bit-equal to the walk that reads occ, raw and pj, as launched and given
+   the record, and timed given it; the pass timed on copies of its inputs
+   cycled past the L2 (at config 3 here, over config 5's scenes in phase
+   7); the paths count its launches (one a frame, five a corrected frame:
+   the Kahan and the facc0 corrected config-3 paths); at frame 10 two
+   planted controls that must leave the reference's bits: a copy whose vz
+   is truncated, not rounded, and a record whose occ lane is cleared on
+   one occupied row (for each record walk);
 10. the paths of the JAX package's default backend and its export path,
    each with the launch counters reset before it: the exact tiers
    (``neighbor="slotted"`` and ``"gather"``, plain PyTorch, which launch no
@@ -2927,12 +2927,15 @@ def main() -> None:
             e, line = hold_out(name, f, ref, lab)
             print(f"compare {lab}: {name} (no extensions) max|k-p| "
                   f"{e:.3e}, {line}", flush=True)
-        # the bf16 K2 without extensions walks the one-scene frame record
-        hold_record_walks(lab, frame, rows, phys, {
-            "fused_substep+bf16": lambda **kw: sk.fused_substep_cuda(
-                frame, rows, phys, r, cap, tune=BF16, **kw)}, planted)
-        print(f"compare {lab}: the fused_substep+bf16 record walk "
-              f"bit-equal to the walk of occ, raw and pj"
+        # the bf16, the Kahan and the facc0 K2 without extensions walk the
+        # one-scene frame record
+        walks = {"fused_substep" + sk.variant_tag("fused_substep.cu", t):
+                 (lambda t=t, **kw: sk.fused_substep_cuda(
+                     frame, rows, phys, r, cap, tune=t, **kw))
+                 for t in (BF16, KAHAN, FACC0)}
+        hold_record_walks(lab, frame, rows, phys, walks, planted)
+        print(f"compare {lab}: the record walks of {', '.join(walks)} "
+              f"bit-equal to the walks of occ, raw and pj"
               f"{'; the planted record fails' if planted else ''}",
               flush=True)
         compare_k5_bf16(sizes["262k"], st_k5_262, lab, forces=True)
@@ -3042,8 +3045,10 @@ def main() -> None:
          {"density": vf, "forces": 5 * vf}),
         ("unfused config 3", {"SPH_PALLAS_FUSED": "0"}, "c3",
          {"density": vf, "forces": 5 * vf}),
+        # the facc0 and the Kahan K2's record, built by its pass once a
+        # frame
         ("facc0 262k", {"SPH_PALLAS_FACC": "0"}, "262k",
-         {"density": vf, "fused_substep+facc0": 5 * vf}),
+         {"density": vf, "frame_record": vf, "fused_substep+facc0": 5 * vf}),
         ("facc0 config 3", {"SPH_PALLAS_FACC": "0"}, "c3",
          {"density": vf, "frame_record": vf,
           "fused_substep_ext+facc0": 5 * vf}),
@@ -3055,7 +3060,8 @@ def main() -> None:
          {"density": 6 * vf, "frame_record": 5 * vf,
           "forces+facc0": 5 * vf}),
         ("kahan 262k", {"SPH_PALLAS_KAHAN": "1"}, "262k",
-         {"density+kahan": vf, "fused_substep+kahan": 5 * vf}),
+         {"density+kahan": vf, "frame_record": vf,
+          "fused_substep+kahan": 5 * vf}),
         ("kahan unfused config 3", {"SPH_PALLAS_KAHAN": "1",
                                     "SPH_PALLAS_FUSED": "0"}, "c3",
          {"density+kahan": vf, "frame_record": vf, "forces+kahan": 5 * vf}),

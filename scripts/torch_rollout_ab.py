@@ -70,7 +70,7 @@ record: as launched, the record built by its pass in each call), given the
 record, its reference walk and the bits, ``pj_cols`` and the record's
 build on copies of their inputs cycled past the L2, the loops of K2 and its
 record walk in the bf16 library, and the 262k bf16 rollout's rate (host
-loop and graph):
+loop and graph) (``k2_solo_ab``):
 
     for root in build/parent . . build/parent; do
         python3 scripts/torch_rollout_ab.py $root --bf16; done
@@ -109,6 +109,14 @@ walk and the bits, ``pj_cols`` and the record's build as ``--kahan`` times
 them, and the corrected facc0 rollout's rate (host loop and graph); and the
 loops of K2-ext, the scene-axis record walks with extensions and K3-ext in
 the default and the facc0 library.
+
+``--kahan`` and ``--facc0`` end with the readings of ``--bf16``'s K2
+without extensions in their own library (``k2_solo_ab``: at 262k and
+1M, given pj, as launched, the walk of occ, raw and pj, the record walk
+given its record, launched through its C entry point on a tree whose
+wrapper does not launch it, the bits, the 262k rollout in that variant
+and the two walks' SASS loops). ``--k2`` with ``--bf16``, ``--kahan`` or
+``--facc0`` runs those readings alone.
 """
 
 from __future__ import annotations
@@ -313,7 +321,7 @@ def bf16_ab(root, dev) -> dict:
         res["c3_f10_bf16_candidates_wide"] = ms(
             lambda: lib.sph_bf16_candidates(p(rows), p(wide), n, stream))
     res.update(k3_bf16_ab(dev, c3, bf))
-    res.update(k2_bf16_ab(dev, bf))
+    res.update(k2_solo_ab(dev, bf, "bf16"))
     pattern = (r"fused_substep_(cand_)?kernelI(Lb1ELb0ELi1ELi1E|Lb1EE"
                r"|Lb0ELb0ELi1ELi2E)|fused_substep_scenes_kernelILb0ELb1E")
     res["sass"] = {tag: sass_loops(str(cuda_build.library_path(
@@ -377,25 +385,31 @@ def k3_bf16_ab(dev, c3, bf) -> dict:
     return res
 
 
-def k2_bf16_ab(dev, bf) -> dict:
-    """The ``--bf16`` readings of K2 without extensions at 262k and 1M, on
-    the faithful rollout's frame-10 rows two substeps into the frame: the
-    default K2 and the bf16 K2 given pj (on a tree whose bf16 K2 walks the
-    frame record: as launched, the record built by its pass in each call),
-    given the record, its reference walk and the bits; ``pj_cols`` and the
-    record's build, each on copies of its inputs cycled past the L2; and the
-    262k bf16 rollout's rate."""
+def k2_solo_ab(dev, tune, tag: str) -> dict:
+    """The readings of K2 without extensions in ``tune``'s library (``tag``
+    in the keys) at 262k and 1M, on the faithful rollout's frame-10 rows two
+    substeps into the frame: the default K2 and the variant's K2 given pj
+    (on a tree whose variant K2 walks the frame record: as launched, the
+    record built by its pass in each call), its walk of occ, raw and pj
+    (``reference=True``), its record walk given the record (through the
+    wrapper where the tree launches it, else through its C entry point
+    ``sph_fused_substep_scenes``) and the bits of the two walks; ``pj_cols``
+    and the record's build, each on copies of its inputs cycled past the
+    L2; the 262k rollout's rate in that variant; and the loops of K2's two
+    walks (``sass_loops``) in the default and the variant library."""
+    import torch
+
     from sphfluidsimulation_torch import GOLDEN_CONFIG
     from sphfluidsimulation_torch.bench import scaled_config
-    from sphfluidsimulation_torch.ops import sph_kernels as sk
+    from sphfluidsimulation_torch.ops import cuda_build, sph_kernels as sk
     from sphfluidsimulation_torch.ops.frame import build_frame
     from sphfluidsimulation_torch.params import PhysParams
     from sphfluidsimulation_torch.sim.stepper import (initial_state,
                                                       make_rollout)
 
-    res: dict = {f"262k_bf16_rate_{k}": v for k, v in
-                 rollout_rates(GOLDEN_CONFIG, bf, dev).items()}
-    record = sk.reads_frame_record(bf, False)
+    res: dict = {f"262k_{tag}_rate_{k}": v for k, v in
+                 rollout_rates(GOLDEN_CONFIG, tune, dev).items()}
+    record = sk.reads_frame_record(tune, False)
     reference = "reference" in inspect.signature(
         sk.fused_substep_cuda).parameters
     for label, cfg in (("262k", GOLDEN_CONFIG),
@@ -416,16 +430,27 @@ def k2_bf16_ab(dev, bf) -> dict:
             return sk.fused_substep_cuda(frame, mid, phys, r, cap, 0.0, 0.0,
                                          p, scal, **kw)
         res[f"{label}_f10_k2"] = ms(k2)
-        res[f"{label}_f10_k2_bf16"] = ms(lambda: k2(tune=bf))
+        res[f"{label}_f10_k2_{tag}"] = ms(lambda: k2(tune=tune))
         if reference:
-            res[f"{label}_f10_k2_bf16_reference"] = ms(
-                lambda: k2(tune=bf, reference=True))
-        if record:
+            res[f"{label}_f10_k2_{tag}_reference"] = ms(
+                lambda: k2(tune=tune, reference=True))
+        if hasattr(sk, "frame_record"):
             rec = sk.frame_record(frame, rho, phys)
-            res[f"{label}_f10_k2_bf16_rec_given"] = ms(
-                lambda: k2(None, tune=bf, rec=rec))
-            res[f"{label}_f10_k2_bf16_bits"] = float(torch_equal(
-                k2(None, tune=bf, rec=rec), k2(tune=bf, reference=True)))
+            if record:
+                def walk():
+                    return k2(None, tune=tune, rec=rec)
+            else:
+                fn = cuda_build.function("fused_substep.cu",
+                                         "sph_fused_substep_scenes", tune)
+                out = torch.empty_like(mid)
+
+                def walk():
+                    sk._walk_launch(fn, "fused_substep", frame, mid, None,
+                                    scal, out, r, cap, False, rec=rec)
+                    return out
+            res[f"{label}_f10_k2_{tag}_rec_given"] = ms(walk)
+            res[f"{label}_f10_k2_{tag}_bits"] = float(torch_equal(
+                walk(), k2(tune=tune, reference=True)))
         n = rho.shape[0]
         ins = cycled([rho], 12 * n)
         res[f"{label}_pj_cols"] = ms(lambda: sk.pj_cols(*next(ins), phys))
@@ -438,6 +463,11 @@ def k2_bf16_ab(dev, bf) -> dict:
                                        phys)
             res[f"{label}_frame_record"] = ms(build)
         res[f"{label}_bytes_bound_ms"] = 1e3 * 25 * n / 3.35e12
+    pattern = r"fused_substep_kernelILb0ELb0ELi1ELi2E|" \
+        r"fused_substep_scenes_kernelILb0ELb1E"
+    res["sass_k2"] = {t: sass_loops(str(cuda_build.library_path(
+        "fused_substep.cu", cuda_build.defines("fused_substep.cu", x))),
+        pattern) for t, x in (("default", sk.SortedTuning()), (tag, tune))}
     return res
 
 
@@ -541,6 +571,7 @@ def kahan_ab(dev) -> dict:
         src, cuda_build.defines(src, t))), pattern)
         for src in ("density.cu", "fused_substep.cu", "forces.cu")}
         for tag, t in (("default", sk.SortedTuning()), ("kahan", ka))}
+    res.update(k2_solo_ab(dev, ka, "kahan"))
     return res
 
 
@@ -699,6 +730,7 @@ def facc0_ab(dev) -> dict:
         src, cuda_build.defines(src, t))), pattern)
         for src in ("fused_substep.cu", "forces.cu")}
         for tag, t in (("default", sk.SortedTuning()), ("facc0", fa))}
+    res.update(k2_solo_ab(dev, fa, "facc0"))
     return res
 
 
@@ -709,6 +741,7 @@ def main() -> None:
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--kahan", action="store_true")
     ap.add_argument("--facc0", action="store_true")
+    ap.add_argument("--k2", action="store_true")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -718,8 +751,15 @@ def main() -> None:
         from sphfluidsimulation_torch.utils.profiling import gpu_identity
         dev = torch.device("cuda")
         mode = "bf16" if args.bf16 else "kahan" if args.kahan else "facc0"
-        res = {"bf16": lambda: bf16_ab(root, dev), "kahan":
-               lambda: kahan_ab(dev), "facc0": lambda: facc0_ab(dev)}[mode]()
+        if args.k2:
+            from sphfluidsimulation_torch.ops.sph_kernels import SortedTuning
+            res = k2_solo_ab(dev, SortedTuning(**{
+                "bf16": {"bf16": True}, "kahan": {"kahan": True},
+                "facc0": {"fuse_acc": False}}[mode]), mode)
+        else:
+            res = {"bf16": lambda: bf16_ab(root, dev), "kahan":
+                   lambda: kahan_ab(dev),
+                   "facc0": lambda: facc0_ab(dev)}[mode]()
         print(json.dumps({"root": args.root, mode: res,
                           "ident": gpu_identity().splitlines()[0]}),
               flush=True)

@@ -100,9 +100,9 @@
 // +6.7%), and a launch bound of 7 blocks an SM (72 registers, 16 bytes
 // spilled: −1.7%, short of a bound without spills).
 // The facc0 library's K2-ext over the whole grid (config 3's
-// two-accumulator rollout) and the bf16 library's K2 without the
-// extensions (the faithful bf16 rollout at 262k and 1M) run the same
-// one-scene record walk.
+// two-accumulator rollout) and the Kahan, the facc0 and the bf16 library's
+// K2 without the extensions (their faithful rollouts at 262k and 1M) run
+// the same one-scene record walk.
 // Taking two or four rows a thread, with each loaded candidate evaluated
 // for every row of a shared window, measured slower in every instance
 // (PERF.md).
@@ -113,8 +113,8 @@
 // computes them (press_j = k (rho - rho0), then [rho > eps] / rho with the
 // IEEE reciprocal), so the record is the torch build's, bit for bit. It
 // serves every reader: the scene-axis K2 and K3 and the one-scene walks of
-// the Kahan and the facc0 K2-ext and K3-ext and of the bf16 K2, so that a
-// corrected substep, which builds it anew, pays one launch for it.
+// the Kahan and the facc0 K2, K2-ext and K3-ext and of the bf16 K2, so
+// that a corrected substep, which builds it anew, pays one launch for it.
 #include "window_walk.cuh"
 
 #ifndef SPH_LANE_SWEEP

@@ -1041,18 +1041,21 @@ def walk_instance(kernel: str, tune: SortedTuning, ext: bool,
     and K3 the frame record walk over one scene
     (``sph_fused_substep_scenes``, ``sph_forces_scenes``, reading
     :func:`frame_record`). Over the whole grid without the extensions the
-    bf16 library's K2 walks the record too. Else ``sph_forces``,
-    ``sph_fused_substep`` or, with ``lanes``, ``sph_fused_substep_lanes``:
-    the reference walks of those instances."""
+    Kahan, the facc0 and the bf16 library's K2 walk the record too. Else
+    ``sph_forces``, ``sph_fused_substep`` or, with ``lanes``,
+    ``sph_fused_substep_lanes``: the reference walks of those instances."""
     whole = band is None and lanes is None and not reference
-    record = whole and ext and (tune.kahan or not tune.fuse_acc)
+    # the Kahan and the facc0 library walk the record with and without the
+    # extensions, the bf16 library only without them
+    record = tune.kahan or not tune.fuse_acc
     if kernel == "forces":
         if whole and ext and tune.bf16:
             return "sph_forces_cand"
-        return "sph_forces_scenes" if record else "sph_forces"
+        return ("sph_forces_scenes" if whole and ext and record
+                else "sph_forces")
     if whole and ext and tune.bf16:
         return "sph_fused_substep_cand"
-    if record or (whole and not ext and tune.bf16):
+    if whole and (record or tune.bf16):
         return "sph_fused_substep_scenes"
     return "sph_fused_substep" if lanes is None else "sph_fused_substep_lanes"
 
@@ -1173,10 +1176,11 @@ def fused_substep_cuda(frame: SortedFrame, rows: torch.Tensor,
     candidates once (:func:`bf16_candidates_cuda`, a copy allocated beside
     the output), then walks them
     (``sph_fused_substep_cand``; ``pj`` is not read); the Kahan and the
-    facc0 instance with extensions and the bf16 instance without them over
-    the whole grid walk the frame record ``rec`` (:func:`frame_record` of
-    the frame and the rows' ρ, built here when None; ``pj`` is not read),
-    launched over one scene (:func:`walk_instance`). ``reference`` launches, for either, the walk
+    facc0 instance with or without extensions and the bf16 instance
+    without them over the whole grid walk the frame record ``rec``
+    (:func:`frame_record` of the frame and the rows' ρ, built here when
+    None; ``pj`` is not read), launched over one scene
+    (:func:`walk_instance`). ``reference`` launches, for either, the walk
     that reads the rows' candidates and pj, the same bits (counted with
     ``+reference``)."""
     tune = _tuned(tune)
@@ -1405,10 +1409,10 @@ def frame_record(frame: SortedFrame, rho: torch.Tensor,
                  phys: PhysParams) -> torch.Tensor:
     """:func:`frame_record_scenes` of a solo frame as one scene: f32[1, N,
     4] from ρ f32[N], lanes 0-1 :func:`pj_cols` of ρ, lanes 2-3 the frame's
-    raw and occ as int32 bits. The Kahan and the facc0 K2-ext and K3-ext
-    and the bf16 K2 over the whole grid read it (:func:`walk_instance`);
-    the stepper builds it where it builds pj, once a frame (once a substep
-    in corrected mode)."""
+    raw and occ as int32 bits. The Kahan and the facc0 K2, K2-ext and
+    K3-ext and the bf16 K2 over the whole grid read it
+    (:func:`walk_instance`); the stepper builds it where it builds pj, once
+    a frame (once a substep in corrected mode)."""
     return frame_record_scenes(*one_scene(frame, rho, phys))
 
 

@@ -36,7 +36,7 @@ metrics. ``cfg.xsph`` and ``cfg.artificial_viscosity`` turn on the extension
 sums in K2 and K3 (and the XSPH correction of the position update).
 K2, K3 and K5's force modes read pj (the j-side pressure and guarded
 1/ρ), built once a frame (corrected mode: every substep); the Kahan and
-the facc0 K2-ext and K3-ext and the bf16 K2 on the card read it in the
+the facc0 K2, K2-ext and K3-ext and the bf16 K2 on the card read it in the
 frame record (``sph_kernels.frame_record``: pj, raw and occ, 16 bytes a
 row, built by one CUDA pass), built in its place; the kernels' scalar
 block is built once a frame.

@@ -282,6 +282,9 @@ GRAPH_CASES = {
                                 tune=SortedTuning(fuse_acc=False), xsph=XSPH,
                                 artificial_viscosity=ALPHA),
     "bf16": dict(tune=SortedTuning(bf16=True)),
+    # the Kahan and the facc0 K2 without extensions with it once a frame
+    "kahan": dict(tune=SortedTuning(kahan=True)),
+    "facc0": dict(tune=SortedTuning(fuse_acc=False)),
 }
 
 
@@ -2246,14 +2249,18 @@ def test_facc0_ext_walks_the_frame_record_on_card(cuda_device, case, kernel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("library", ["bf16", "kahan", "facc0"])
 @pytest.mark.parametrize("case", ["spawn", "inf", "frame10"])
-def test_bf16_walks_the_frame_record_on_card(cuda_device, case):
-    # the bf16 K2 without extensions over the whole grid walks the frame
-    # record: on the golden 262k scene's aliased spawn, with ±inf
-    # velocities and ten frames on, bit-equal to the walk that reads occ,
-    # raw and pj, with the Kahan walks' checks and planted control
+def test_bf16_walks_the_frame_record_on_card(cuda_device, case, library):
+    # the bf16, the Kahan and the facc0 K2 without extensions over the
+    # whole grid walk the frame record: on the golden 262k scene's aliased
+    # spawn, with ±inf velocities and ten frames on, bit-equal to the walk
+    # that reads occ, raw and pj, with the K2-ext walks' checks and planted
+    # control
     from sphfluidsimulation_torch import GOLDEN_CONFIG
-    _holds_the_record_walk(case, "fused_substep", BF16, cuda_device,
+    tune = {"bf16": BF16, "kahan": SortedTuning(kahan=True),
+            "facc0": SortedTuning(fuse_acc=False)}[library]
+    _holds_the_record_walk(case, "fused_substep", tune, cuda_device,
                            GOLDEN_CONFIG)
 
 
@@ -2345,18 +2352,23 @@ def test_scene_walks_read_the_pass_record_as_the_torch_build_on_card(
 @pytest.mark.parametrize("mode", ["kahan", "kahan-unfused",
                                   "kahan-corrected", "facc0",
                                   "facc0-unfused", "facc0-corrected",
-                                  "bf16"])
+                                  "bf16", "kahan-262k", "facc0-262k"])
 def test_stepper_builds_the_frame_record_by_its_pass_on_card(
         cuda_device, mode, monkeypatch):
     # the host loop builds the record for a record walk, by the pass, in
     # place of pj: with extensions once a frame for the Kahan and the facc0
     # K2-ext and the unfused Kahan and facc0 K3-ext, once a substep (five
     # a frame) for the corrected Kahan and facc0 K3-ext; without them once
-    # a frame for the bf16 K2
+    # a frame for the bf16 K2 and for the Kahan and the facc0 K2 (the
+    # golden 262k scene's faithful rollout)
+    from sphfluidsimulation_torch import GOLDEN_CONFIG
     variant = mode.split("-")[0]
-    ext = {} if variant == "bf16" else dict(xsph=XSPH,
-                                            artificial_viscosity=ALPHA)
-    cfg = SimConfig(**_GOLDENISH, **ext)
+    if mode.endswith("262k"):
+        cfg = GOLDEN_CONFIG
+    elif variant == "bf16":
+        cfg = SimConfig(**_GOLDENISH)
+    else:
+        cfg = SimConfig(**_GOLDENISH, xsph=XSPH, artificial_viscosity=ALPHA)
     tune = {"kahan": SortedTuning(kahan=True), "bf16": BF16,
             "facc0": SortedTuning(fuse_acc=False)}[variant]
     tune = tune._replace(fused=not mode.endswith("unfused"))
@@ -2392,7 +2404,11 @@ def test_stepper_builds_the_frame_record_by_its_pass_on_card(
             "facc0-corrected": {k1: 12, "frame_record": 10,
                                 "forces" + tag: 10},
             "bf16": {k1: 2, "frame_record": 2,
-                     "fused_substep" + tag: 10}}[mode]
+                     "fused_substep" + tag: 10},
+            "kahan-262k": {k1: 2, "frame_record": 2,
+                           "fused_substep" + tag: 10},
+            "facc0-262k": {k1: 2, "frame_record": 2,
+                           "fused_substep" + tag: 10}}[mode]
     assert counts == want
     assert made["rec"] == want["frame_record"]
     assert made["pj"] == 0

@@ -277,13 +277,21 @@ WALKS = {
     ("fused_substep", _B, False, None, None, True): "sph_fused_substep",
     ("fused_substep", _K, True, None, None, False):
         "sph_fused_substep_scenes",
-    ("fused_substep", _K, False, None, None, False): "sph_fused_substep",
+    ("fused_substep", _K, False, None, None, False):
+        "sph_fused_substep_scenes",
+    ("fused_substep", _K, False, (1, 6), None, False): "sph_fused_substep",
+    ("fused_substep", _K, False, None, 1, False): "sph_fused_substep_lanes",
+    ("fused_substep", _K, False, None, None, True): "sph_fused_substep",
     ("fused_substep", _K, True, (1, 6), None, False): "sph_fused_substep",
     ("fused_substep", _K, True, None, None, True): "sph_fused_substep",
     ("fused_substep", _K, True, None, 1, False): "sph_fused_substep_lanes",
     ("fused_substep", _F, True, None, None, False):
         "sph_fused_substep_scenes",
-    ("fused_substep", _F, False, None, None, False): "sph_fused_substep",
+    ("fused_substep", _F, False, None, None, False):
+        "sph_fused_substep_scenes",
+    ("fused_substep", _F, False, (1, 6), None, False): "sph_fused_substep",
+    ("fused_substep", _F, False, None, 1, False): "sph_fused_substep_lanes",
+    ("fused_substep", _F, False, None, None, True): "sph_fused_substep",
     ("fused_substep", _F, True, (1, 6), None, False): "sph_fused_substep",
     ("fused_substep", _F, True, None, None, True): "sph_fused_substep",
     ("fused_substep", _F, True, None, 1, False): "sph_fused_substep_lanes",
@@ -297,7 +305,7 @@ WALKS = {
                      "reference" * c[5]) if x))
 def test_wrappers_launch_the_instance_their_arguments_call_for(case):
     # the bf16 K2-ext and K3-ext over the whole grid walk the copy rounded
-    # once, the Kahan and the facc0 K2-ext and K3-ext and the bf16 K2
+    # once, the Kahan and the facc0 K2, K2-ext and K3-ext and the bf16 K2
     # without extensions the frame record over one scene; a band, a walk
     # shape or reference launches the walk that reads the rows and pj
     kernel, tune, ext, band, lanes, reference = case
@@ -408,24 +416,27 @@ def _fed_from_record(rec):
 
 
 @pytest.mark.parametrize("kernel", ["forces+kahan", "substep+facc0",
-                                    "forces+facc0", "substep+bf16"])
+                                    "forces+facc0", "substep+bf16",
+                                    "substep+kahan-noext",
+                                    "substep+facc0-noext"])
 def test_record_walks_fed_from_the_frame_record_are_the_pj_route(
         kernel, monkeypatch):
-    # the plain Kahan and facc0 K3-ext, the facc0 K2-ext and the bf16 K2
-    # without extensions reading press_j (and the record's 1/ρⱼ held to
-    # the reciprocal they divide by) from the one-scene frame record are,
-    # bit for bit, the route that computes them from ρⱼ, the launched
-    # walk's pj; a record with one occupied row's press_j changed differs;
-    # and they hold to JAX's forces_pallas and fused_substep of the same
-    # variant at the variant tests' tolerances
+    # the plain Kahan and facc0 K3-ext, the facc0 K2-ext and the Kahan,
+    # facc0 and bf16 K2 without extensions reading press_j (and the
+    # record's 1/ρⱼ held to the reciprocal they divide by) from the
+    # one-scene frame record are, bit for bit, the route that computes them
+    # from ρⱼ, the launched walk's pj; a record with one occupied row's
+    # press_j changed differs; and they hold to JAX's forces_pallas and
+    # fused_substep of the same variant at the variant tests' tolerances
     jp, tp, jf, tf, pos, vel, rho, r, n = _rows("calm", seed=1)
     rows = sk.pack_rows(torch.from_numpy(pos), torch.from_numpy(vel),
                         torch.from_numpy(rho))
     forces = kernel.startswith("forces")
-    variant = kernel.split("+")[1]
+    variant, _, noext = kernel.split("+")[1].partition("-")
     tune, jt = _tunes(variant)
-    # the bf16 K2 walks the record without the extension sums
-    ext = variant != "bf16"
+    # the bf16 K2 walks the record without the extension sums only; the
+    # Kahan and the facc0 K2 walk it with and without them
+    ext = variant != "bf16" and not noext
     xs, al = (XSPH, ALPHA) if ext else (0.0, 0.0)
     assert sk.reads_frame_record(tune, ext,
                                  "forces" if forces else "fused_substep")
